@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's publish matcher on one NVIDIA card and check it.
+"""Drive the PyTorch port's publish path on one NVIDIA card and check it.
 
     python3 chip_smoke.py
 
@@ -29,8 +29,29 @@ Phases, each printed as it ends:
    per-publish latency. Every result must equal the port's
    ``TopicsIndex.subscribers`` for its topic.
 
+6. The predicate path (cfgP): cfg2's 1M subscriptions with cfg9's 100,000
+   distinct ``$GT`` rules on every 10th filter, 1,000 each of
+   ``$CONTAINS``, ``$EQS`` and ``$AND`` rules, and one hot topic whose 64
+   subscribers hold ``$MEAN``/``$MAX``/``$MIN`` windows of 32 and 64
+   samples: ``PredicateEngine`` (K4 ``rules_eval`` on every staged batch,
+   K5 ``agg_reduce`` when a fan-out completes >= 4 large windows) through
+   ``MatchStage`` and ``apply``, three waves of JSON publishes. Every
+   filtered subscriber set and emission must equal the trie walk filtered
+   by the host interpreter.
+7. The re-encryption path (cfgR, cfg10's shape): 4 tenants x 128 keys, an
+   encrypted namespace, fan-out 100, payloads of 256 and 4096 bytes:
+   ``RecryptEngine`` (K6 ``keystream`` on the staged decrypt leg and on
+   every ``seal_fanout``). Every decrypted publish must equal its
+   plaintext, and every sealed payload must open under its subscriber's
+   key (all through the plain PyTorch AES on the card, one per publish
+   through the numpy ``open_with_key``).
+
+Phase 4 also holds K4-K6 against their plain versions at the shapes these
+paths give them (K5's MEAN within ``1e-5 * max(1, |want|)``, the rest with
+tolerance 0).
+
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
-the main path, worst error, times and bound); the last line is
+the main paths, worst error, times and bound); the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Exits non-zero, printing no result, when CUDA is absent or the package is
 not beside this script.
@@ -51,18 +72,38 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # H100 SXM int32 rate outside the tensor cores: 132 SMs x 64 int32 lanes
-# x 1.98 GHz boost clock
+# x 1.98 GHz boost clock. A float32 compare runs at the same rate (the CUDA
+# C++ Programming Guide's throughput table, compute capability 9.0: 64
+# compare/min/max results per clock per SM).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 N_SUBS = 1_000_000
 WAVE = 24_576  # publishes per wave; three waves per configuration
 BATCHES = (4096, 65536)
 MAIN_BATCH = 4096  # MatchStage's max_batch: the kernel shape the main path runs
-SOURCE = "mqtt_tpu_torch/csrc/flat_match.cu"
 REPLACES = {
     "flat_probe_ranges": "mqtt_tpu/ops/flat.py:1007",
     "flat_match_compact": "mqtt_tpu/ops/flat.py:1052",
     "scatter_rows": "mqtt_tpu/ops/flat.py:1191",
+    "rules_eval": "mqtt_tpu/ops/predicates.py:58",
+    "agg_reduce": "mqtt_tpu/ops/predicates.py:99",
+    "keystream": "mqtt_tpu/ops/recrypt.py:214",
 }
+SOURCES = {
+    "flat_probe_ranges": "mqtt_tpu_torch/csrc/flat_match.cu",
+    "flat_match_compact": "mqtt_tpu_torch/csrc/flat_match.cu",
+    "scatter_rows": "mqtt_tpu_torch/csrc/flat_match.cu",
+    "rules_eval": "mqtt_tpu_torch/csrc/predicates.cu",
+    "agg_reduce": "mqtt_tpu_torch/csrc/predicates.cu",
+    "keystream": "mqtt_tpu_torch/csrc/recrypt.cu",
+}
+HOT_TOPIC = "hot/agg/v"  # cfgP's window topic
+HOT_PER_WAVE = 192  # hot-topic publishes per cfgP wave
+MEAN_TOL = 1e-5  # K5's MEAN against its plain version and the host: 1e-5 * max(1, |want|)
+N_RECRYPT = 4096  # cfgR: encrypted publishes per payload size (bench.py cfg10)
+RECRYPT_SIZES = (256, 4096)
+RECRYPT_FANOUT = 100
+N_TENANTS = 4
+KEYS_PER_TENANT = 128
 
 
 def log(msg: str) -> None:
@@ -195,7 +236,8 @@ def phase_build() -> float:
     t0 = time.perf_counter()
     logs = kernels.build_all(verbose=True)
     dt = time.perf_counter() - t0
-    kernels.library()
+    for source in kernels.SOURCES:
+        kernels.library(source)
     for source, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -562,7 +604,496 @@ def phase_main(cfg: dict, wave: int, n_churn: int = 150, paced_s: float = 2.0) -
     return launches
 
 
-def run(device, n_subs: int = N_SUBS, wave: int = WAVE) -> list:
+# -- the predicate path (cfgP) and the re-encryption path (cfgR) ---------------
+
+
+def build_cfgP(n_subs: int, rng: random.Random):
+    """cfg2's population (bench.py:172) with predicates: every 10th filter
+    carries a distinct ``$GT{v:t}``, t uniform in [0, 1) (bench.py cfg9,
+    849-870, at its full 100,000 rules for 1M filters); filters 1, 3 and 7
+    of every thousand carry a distinct ``$CONTAINS{x<k>y}``,
+    ``$EQS{s:w<k>}`` or ``$AND{$GT{v:a}$LT{v:b}}``; and HOT_TOPIC has 64
+    subscribers holding ``$MEAN{v:32}``, ``$MAX{v:32}`` or ``$MIN{v:64}``."""
+    from mqtt_tpu_torch import Subscription, TopicsIndex
+
+    v0 = [f"region{i}" for i in range(100)]
+    v1 = [f"device{i}" for i in range(100)]
+    v2 = [f"metric{i}" for i in range(100)]
+    n_gt = max(1, n_subs // 10)
+    entries = []
+    suffixes = []
+    for i in range(n_subs):
+        parts = [rng.choice(v0), rng.choice(v1), rng.choice(v2)]
+        if rng.random() < 0.10:
+            parts[rng.randrange(3)] = "+"
+        k = i // 1000
+        if i % 10 == 0:
+            pred = "$GT{v:%.9f}" % ((i // 10 + rng.random()) / n_gt)
+        elif i % 1000 == 1:
+            pred = "$CONTAINS{x%dy}" % k
+        elif i % 1000 == 3:
+            pred = "$EQS{s:w%d}" % k
+        elif i % 1000 == 7:
+            pred = "$AND{$GT{v:%.6f}$LT{v:%.6f}}" % ((k + 0.5) / 2000, 0.5 + (k + 0.5) / 2000)
+        else:
+            pred = ""
+        preds = (pred,) if pred else ()
+        suffixes.extend(preds)
+        entries.append((f"cl{i}", Subscription(filter="/".join(parts), qos=i % 3, predicates=preds)))
+    for k in range(64):
+        pred = ("$MEAN{v:32}", "$MAX{v:32}", "$MIN{v:64}")[k % 3]
+        suffixes.append(pred)
+        entries.append((f"agg{k}", Subscription(filter=HOT_TOPIC, qos=1, predicates=(pred,))))
+    index = TopicsIndex()
+    index.subscribe_bulk(entries)
+
+    def topic_gen():
+        return f"{rng.choice(v0)}/{rng.choice(v1)}/{rng.choice(v2)}"
+
+    return index, entries, topic_gen, suffixes
+
+
+def phase_setup_predicates(n_subs: int, seed: int, device) -> dict:
+    from mqtt_tpu_torch import DeltaMatcher, PredicateEngine
+
+    rng = random.Random(seed)
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        index, entries, topic_gen, suffixes = build_cfgP(n_subs, rng)
+        t1 = time.perf_counter()
+        eng = PredicateEngine(device=device)
+        for sfx in suffixes:
+            eng.register(sfx)
+        t2 = time.perf_counter()
+        dm = DeltaMatcher(index, max_levels=8, rebuild_interval=0.5, device=device)
+        t3 = time.perf_counter()
+    finally:
+        gc.freeze()
+        gc.enable()
+    g = eng.gauges()
+    log(f"phase setup cfgP: ok {len(entries)} subscriptions, trie {t1 - t0:.1f} s, rules {t2 - t1:.1f} s, "
+        f"index {t3 - t2:.1f} s; {g['rules']} rules, {g['device_rules']} on the card, "
+        f"{g['fields']} field slots, {g['contains']} substrings, {g['equals']} string equalities")
+    return {"name": "cfgP", "index": index, "topic_gen": topic_gen, "rng": rng, "dm": dm, "eng": eng}
+
+
+def cfgP_payload(rng: random.Random) -> bytes:
+    return json.dumps({"v": rng.random(), "s": f"w{rng.randrange(1200)}", "t": f"x{rng.randrange(1200)}y"}).encode()
+
+
+class PredicateReference:
+    """The independent reference of cfgP: the trie walk, filtered by the
+    host interpreter per predicate, and the windows kept in plain lists."""
+
+    def __init__(self, index):
+        from mqtt_tpu_torch.predicates import compile_suffix
+
+        self.index = index
+        self.compile = compile_suffix
+        self.specs: dict = {}
+        self.windows: dict = {}
+
+    def spec(self, sfx):
+        s = self.specs.get(sfx)
+        if s is None:
+            s = self.specs[sfx] = self.compile(sfx)
+        return s
+
+    def expect(self, topic: str, payload: bytes):
+        """``(subscribers, {cid: (op, values)})``: the filtered set and the
+        windows this publish completes."""
+        from mqtt_tpu_torch.predicates import eval_rule_host
+
+        ref = self.index.subscribers(topic)
+        done = {}
+        v = json.loads(payload)["v"]
+        for cid, sub in list(ref.subscriptions.items()):
+            if not sub.predicates:
+                continue
+            specs = [self.spec(p) for p in sub.predicates]
+            filters = [sp for sp in specs if not sp.is_agg]
+            for p, sp in zip(sub.predicates, specs):
+                if sp.is_agg:
+                    win = self.windows.setdefault((p, cid), [])
+                    win.append(v)
+                    if len(win) == sp.window:
+                        done[cid] = (sp.op, list(win))
+                        win.clear()
+            if not (filters and any(eval_rule_host(sp, payload) for sp in filters)):
+                del ref.subscriptions[cid]
+        return ref, done
+
+
+def _check_emissions(emits, done, what):
+    import numpy as np
+    from mqtt_tpu_torch.predicates import OP_MAX, OP_MEAN
+
+    got = {target: payload for _kind, target, _sub, payload in emits}
+    check(set(got) == set(done), f"{what}: emissions for {sorted(got)[:4]}, expected {sorted(done)[:4]}")
+    for cid, (op, values) in done.items():
+        if op == OP_MEAN:
+            want = sum(values) / len(values)
+            check(abs(float(got[cid]) - want) <= MEAN_TOL * max(1.0, abs(want)),
+                  f"{what}: MEAN emission {got[cid]!r} for {cid}, expected {want!r}")
+        else:
+            vals32 = [float(np.float32(x)) for x in values]
+            want = b"%.10g" % (max(vals32) if op == OP_MAX else min(vals32))
+            check(got[cid] == want, f"{what}: emission {got[cid]!r} for {cid}, expected {want!r}")
+
+
+def phase_predicates(cfg: dict, wave: int) -> dict:
+    """cfgP's main path (launch counts reset just before): three waves of
+    ``wave`` JSON publishes through ``MatchStage`` with the predicate
+    engine attached (fixed batch of 4096, no budget), then ``apply`` in
+    submission order; each result and emission held against the
+    reference."""
+    from mqtt_tpu_torch import MatchStage, subscribers_equal
+    from mqtt_tpu_torch.ops import kernels
+
+    index, dm, eng, rng, gen = cfg["index"], cfg["dm"], cfg["eng"], cfg["rng"], cfg["topic_gen"]
+    on_cuda = dm.snapshot.device.type == "cuda"
+    ref = PredicateReference(index)
+    waves = []
+    for _ in range(3):
+        topics = [gen() for _ in range(wave - HOT_PER_WAVE)] + [HOT_TOPIC] * HOT_PER_WAVE
+        rng.shuffle(topics)
+        waves.append((topics, [cfgP_payload(rng) for _ in topics]))
+    t = {"features": 0.0, "stage": 0.0, "apply": 0.0}
+    counts = {"emissions": 0, "delivered": 0}
+    g0 = dict(eng.gauges())
+
+    async def drive():
+        stage = MatchStage(dm, index.subscribers, max_batch=MAIN_BATCH, latency_budget_s=None,
+                           max_pending=1 << 20, predicates=eng)
+        stage.start()
+        try:
+            for w, (topics, payloads) in enumerate(waves):
+                t0 = time.perf_counter()
+                feats = [eng.features_for(p) for p in payloads]
+                t1 = time.perf_counter()
+                results = await asyncio.gather(*(stage.submit(tp, feats=f) for tp, f in zip(topics, feats)))
+                t2 = time.perf_counter()
+                applied = [eng.apply(r, p, f) for r, p, f in zip(results, payloads, feats)]
+                t3 = time.perf_counter()
+                t["features"] += t1 - t0
+                t["stage"] += t2 - t1
+                t["apply"] += t3 - t2
+                check(all(f.device_row is not None for f in feats) or not on_cuda,
+                      f"cfgP wave {w + 1}: a publish came back without its pass-bit row")
+                for tp, p, (subs, emits) in zip(topics, payloads, applied):
+                    want, done = ref.expect(tp, p)
+                    check(subscribers_equal(subs, want), f"cfgP wave {w + 1}: filtered set differs on {tp!r} {p!r}")
+                    _check_emissions(emits, done, f"cfgP wave {w + 1} {tp!r}")
+                    counts["emissions"] += len(emits)
+                    counts["delivered"] += len(subs.subscriptions)
+                del feats, results, applied
+            out["service"] = [dt for _, dt in stage.service_log]
+        finally:
+            await stage.stop()
+        check(stage.admission_fallbacks == 0 and not stage.fallbacks,
+              f"stage fell back to the host walk: {stage.fallbacks}")
+
+    out: dict = {}
+    kernels.reset_launches()
+    asyncio.run(drive())
+    launches = dict(kernels.LAUNCHES)
+    g = eng.gauges()
+    n = 3 * wave
+    d2h = list(eng._evaluator.d2h_log) if eng._evaluator is not None else []
+    delta = {k: g[k] - g0[k] for k in ("device_decisions", "host_evals", "filtered", "deliveries",
+                                        "agg_emits", "agg_device_reductions", "oracle_checks",
+                                        "oracle_mismatches", "device_batches")}
+    check(delta["oracle_mismatches"] == 0, f"cfgP: {delta['oracle_mismatches']} oracle mismatches")
+    check(counts["emissions"] > 0 and delta["agg_device_reductions"] > 0, "cfgP: no window reduced on the card")
+    check(delta["device_decisions"] > 0, "cfgP: no verdict came from the card")
+    if on_cuda:
+        check(launches["rules_eval"] > 0 and launches["agg_reduce"] > 0,
+              f"cfgP's main path did not launch K4 and K5: {launches}")
+    service = out["service"]
+    decided = delta["filtered"] + delta["deliveries"]
+    log(f"phase predicates cfgP: ok {n} publishes, every filtered set and emission equal to the "
+        f"host-interpreted trie walk; stage {n / t['stage']:.1f} matches/s (wall {t['stage']:.3f} s, "
+        f"fixed batch {MAIN_BATCH}), features_for {t['features']:.3f} s, apply {t['apply']:.3f} s, "
+        f"end to end {n / (t['features'] + t['stage'] + t['apply']):.1f} publishes/s; "
+        f"{len(service)} batches, resolve p50 {_pct(service, 0.5) * 1e3:.3f} ms max {max(service) * 1e3:.3f} ms")
+    log(f"  cfgP verdicts: device_decisions {delta['device_decisions']}, host_evals {delta['host_evals']} "
+        f"by reason {g['host_reasons']}, stale_rows {g['stale_rows']}, filtered ratio "
+        f"{delta['filtered'] / decided if decided else 0.0:.6f} ({delta['filtered']} of {decided}), "
+        f"delivered {counts['delivered']}, emissions {counts['emissions']} "
+        f"({delta['agg_device_reductions']} windows reduced on the card), oracle checks "
+        f"{delta['oracle_checks']} mismatches {delta['oracle_mismatches']}")
+    if d2h:
+        ms = [m for _b, m in d2h]
+        log(f"  cfgP verdict copies (D2H into pinned memory, CUDA events): {len(d2h)} of {d2h[0][0]} B, "
+            f"p50 {_pct(ms, 0.5):.3f} ms max {max(ms):.3f} ms, {d2h[0][0] / _pct(ms, 0.5) / 1e6:.2f} GB/s at p50")
+    log(f"  cfgP launches on the main path: {launches}")
+    return launches
+
+
+def phase_setup_recrypt(seed: int, device) -> dict:
+    """cfg10's non-fast shape (bench.py:974-1000): 4 tenants x 128 keys,
+    the encrypted namespace ``e/``; each tenant has four topic groups,
+    each subscribed by 100 keyed subscribers through ``e/g<j>/+``."""
+    from mqtt_tpu_torch import DeltaMatcher, KeyRegistry, RecryptEngine, Subscription, Tenant, TopicsIndex
+    from mqtt_tpu_torch.topics import ns_scope_filter
+
+    t0 = time.perf_counter()
+    reg = KeyRegistry()
+    tenants = []
+    keys = {}
+    index = TopicsIndex()
+    for t in range(N_TENANTS):
+        tenant = Tenant(f"bt{t}", encrypted=("e/",))
+        tenants.append(tenant)
+        for k in range(KEYS_PER_TENANT):
+            keys[(tenant.name, f"c{k}")] = bytes([t, k % 256]) * 8
+            reg.set_key(tenant.name, f"c{k}", keys[(tenant.name, f"c{k}")])
+        for g in range(4):
+            flt = ns_scope_filter(tenant.name, f"e/g{g}/+")
+            for i in range(RECRYPT_FANOUT):
+                index.subscribe(f"{tenant.name}:g{g}:c{i}", Subscription(filter=flt, qos=1))
+    rec = RecryptEngine(reg, oracle_sample=16, device=device)
+    rec.reseed_nonce(b"bnch")
+    dm = DeltaMatcher(index, max_levels=8, rebuild_interval=0.5, device=device)
+    log(f"phase setup cfgR: ok {N_TENANTS} tenants x {KEYS_PER_TENANT} keys, "
+        f"{N_TENANTS * 4 * RECRYPT_FANOUT} subscriptions, {time.perf_counter() - t0:.1f} s")
+    return {"name": "cfgR", "index": index, "dm": dm, "rec": rec, "tenants": tenants, "keys": keys,
+            "rng": random.Random(seed)}
+
+
+def _verify_sealed(torch, rec, chunk, device):
+    """Open every sealed payload of ``chunk`` (``(tenant, plaintext,
+    {cid: wire})`` per publish) under its subscriber's key through the
+    plain PyTorch AES on ``device``; returns the payloads checked."""
+    import numpy as np
+    from mqtt_tpu_torch.ops import recrypt as rops
+
+    table = rec.keys.table()
+    kidx, counters, cts, pts = [], [], [], []
+    for tenant, plain, sealed in chunk:
+        size = len(plain)
+        nb = (size + 15) // 16
+        for cid, wire in sealed.items():
+            kid = rec.keys.key_id(tenant.name, cid.rsplit(":", 1)[1])
+            kidx.append(np.full(nb, kid, np.int32))
+            counters.append(rops.ctr_counters(wire[:12], nb))
+            cts.append(np.frombuffer(wire[12:], np.uint8))
+            pts.append(np.frombuffer(plain, np.uint8))
+    if not kidx:
+        return 0
+    ks = rops.keystream_plain(
+        torch.from_numpy(table).to(device), torch.from_numpy(np.concatenate(kidx)).to(device),
+        torch.from_numpy(np.concatenate(counters)).to(device),
+    ).cpu().numpy().reshape(len(cts), -1)
+    got = np.stack(cts) ^ ks[:, : cts[0].shape[0]]
+    check(np.array_equal(got, np.stack(pts)), "cfgR: a sealed payload does not open under its subscriber's key")
+    return len(cts)
+
+
+def phase_recrypt(torch, cfg: dict, n_pub: int) -> dict:
+    """cfgR's main path (launch counts reset just before): per payload
+    size, ``n_pub`` encrypted publishes through ``MatchStage`` with the
+    re-encryption engine attached (K6 on the decrypt leg), then
+    ``open_publish`` and ``seal_fanout`` to the 100 subscribers (K6 per
+    publish)."""
+    import numpy as np
+    from mqtt_tpu_torch import MatchStage
+    from mqtt_tpu_torch.ops import kernels
+    from mqtt_tpu_torch.topics import ns_scope_topic
+
+    index, dm, rec, tenants, keys, rng = (cfg[k] for k in ("index", "dm", "rec", "tenants", "keys", "rng"))
+    on_cuda = dm.snapshot.device.type == "cuda"
+    g0 = dict(rec.gauges())
+    kernels.reset_launches()
+    for size in RECRYPT_SIZES:
+        plains = np.random.default_rng(size).integers(0, 256, (n_pub, size), dtype=np.uint8)
+        pubs = []
+        for i in range(n_pub):
+            tenant = tenants[i % N_TENANTS]
+            plain = plains[i].tobytes()
+            wire = rec.seal_with_key(keys[(tenant.name, "c0")], plain)
+            topic = ns_scope_topic(tenant.name, f"e/g{rng.randrange(4)}/d{rng.randrange(16)}")
+            pubs.append((tenant, topic, plain, wire, rec.decrypt_job(tenant, ("c0",), wire)))
+        stage_s = {}
+
+        async def drive():
+            stage = MatchStage(dm, index.subscribers, max_batch=MAIN_BATCH, latency_budget_s=None,
+                               max_pending=1 << 20, recrypt=rec)
+            stage.start()
+            try:
+                t0 = time.perf_counter()
+                res = await asyncio.gather(*(stage.submit(tp, rjob=job) for _t, tp, _p, _w, job in pubs))
+                stage_s["s"] = time.perf_counter() - t0
+                return res
+            finally:
+                await stage.stop()
+
+        results = asyncio.run(drive())
+        check(all(job.keystream is not None for *_x, job in pubs) or not on_cuda,
+              f"cfgR {size} B: a decrypt job came back without its keystream")
+        open_s = seal_s = 0.0
+        deliveries = 0
+        checked = 0
+        chunk = []
+        for k, ((tenant, _tp, plain, wire, job), subs) in enumerate(zip(pubs, results)):
+            t0 = time.perf_counter()
+            opened = rec.open_publish(tenant, ("c0",), wire, job)
+            t1 = time.perf_counter()
+            targets = [(cid, (cid.rsplit(":", 1)[1],)) for cid in subs.subscriptions]
+            sealed = rec.seal_fanout(tenant, opened, targets)
+            open_s += t1 - t0
+            seal_s += time.perf_counter() - t1
+            check(opened == plain, f"cfgR {size} B: publish {k} decrypted to other bytes")
+            check(len(sealed) == RECRYPT_FANOUT, f"cfgR {size} B: {len(sealed)} sealed for {len(targets)} targets")
+            deliveries += len(sealed)
+            cid = sorted(sealed)[k % len(sealed)]
+            check(rec.open_with_key(keys[(tenant.name, cid.rsplit(":", 1)[1])], sealed[cid]) == plain,
+                  f"cfgR {size} B: open_with_key failed for {cid}")
+            chunk.append((tenant, plain, sealed))
+            if len(chunk) == 32:
+                checked += _verify_sealed(torch, rec, chunk, dm.snapshot.device)
+                chunk = []
+        checked += _verify_sealed(torch, rec, chunk, dm.snapshot.device)
+        check(checked == deliveries, f"cfgR {size} B: checked {checked} of {deliveries}")
+        log(f"phase recrypt cfgR {size} B: ok {n_pub} publishes decrypted to their plaintext and "
+            f"{deliveries} sealed payloads open under their subscribers' keys; stage {n_pub / stage_s['s']:.1f} "
+            f"publishes/s (wall {stage_s['s']:.3f} s), fan-out {deliveries / (open_s + seal_s):.1f} deliveries/s "
+            f"(open_publish wall {open_s:.3f} s, seal_fanout wall {seal_s:.3f} s: "
+            f"{seal_s / n_pub * 1e3:.3f} ms per publish)")
+    launches = dict(kernels.LAUNCHES)
+    g = rec.gauges()
+    delta = {k: g[k] - g0[k] for k in ("device_batches", "device_blocks", "host_blocks", "oracle_checks",
+                                        "oracle_mismatches", "fanouts", "no_key_drops")}
+    check(delta["oracle_mismatches"] == 0, f"cfgR: {delta['oracle_mismatches']} oracle mismatches")
+    if on_cuda:
+        check(launches["keystream"] > 0, f"cfgR's main path did not launch K6: {launches}")
+    log(f"  cfgR keystream: device batches {delta['device_batches']}, device blocks {delta['device_blocks']}, "
+        f"host blocks {delta['host_blocks']} by reason {g['host_reasons']}, fanouts {delta['fanouts']}, "
+        f"keyless {delta['no_key_drops']}, oracle checks {delta['oracle_checks']} mismatches "
+        f"{delta['oracle_mismatches']}")
+    log(f"  cfgR launches on the main path: {launches}")
+    return launches
+
+
+def rules_ops(B: int, R: int) -> int:
+    """Operations the function needs for K4's B*R verdicts: one compare
+    per verdict (an unordered float compare folds in the NaN pass; a rule's
+    numeric-or-bit-op choice is fixed across the publishes), and per 32
+    verdicts one ballot and one store of the packed word."""
+    return B * R + 2 * (B * R // 32)
+
+
+def keystream_ops(N: int) -> int:
+    """Operations of K6: per block, 10 rounds x 16 bytes x 4 (byte
+    extract, table lookup, XOR into the column, round-key XOR)."""
+    return N * 10 * 16 * 4
+
+
+def phase_kernels_pr(torch, rec: dict, cfgP: dict, cfgR: dict, device, n_recrypt: int, iters: int = 20) -> None:
+    """K4-K6 against their plain versions on the same inputs on the card,
+    at the shapes cfgP and cfgR give them; fills ``rec``."""
+    import numpy as np
+    from mqtt_tpu_torch.ops import predicates as pops
+    from mqtt_tpu_torch.ops import recrypt as rops
+    from mqtt_tpu_torch.ops.flat import _bucket
+
+    on_cuda = device.type == "cuda"
+
+    def measure(fn, n):
+        return event_ms(torch, fn, n) if on_cuda else _host_ms(fn, n)
+
+    def timed(name, what, kernel, plain, n_bytes, n_ops, err, main, plain_iters=2):
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        row = {"bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+               "ms": measure(kernel, iters), "plain_ms": measure(plain, plain_iters)}
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+        log(f"  {name} {what}: err {err}, {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} B, {n_ops} ops)")
+        if main:
+            rec[name].update(row)
+
+    # K4: the engine's own rule table; feature rows of cfgP payloads
+    eng = cfgP["eng"]
+    with eng._lock:
+        if eng._table_gen != eng._gen:
+            eng._rebuild_evaluator()
+    table = eng._evaluator.table
+    R = table.arrays[0].shape[0]
+    prng = random.Random(7)
+    feats = [eng.features_for(cfgP_payload(prng)) for _ in range(MAIN_BATCH)]
+    F = np.stack([f.fvec for f in feats]).astype(np.float32)
+    M = np.stack([f.cmask for f in feats]).view(np.int32)
+    cases = [(MAIN_BATCH, F, M, True), (64, F[:64], M[:64], False)]
+    g = np.random.default_rng(8)
+    F2 = g.random((MAIN_BATCH, 2), dtype=np.float32)
+    F2[g.random(F2.shape) < 0.1] = np.nan
+    M2 = g.integers(0, 2**32, (MAIN_BATCH, 64), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    cases.append((MAIN_BATCH, F2, M2, False))
+    for B, f_np, m_np, main in cases:
+        f_t = torch.from_numpy(np.ascontiguousarray(f_np)).to(device)
+        m_t = torch.from_numpy(np.ascontiguousarray(m_np)).to(device)
+        got = pops.rules_eval(*table.arrays, f_t, m_t)
+        want = pops.rules_eval_plain(*table.arrays, f_t, m_t)
+        check(got.shape == want.shape and got.dtype == want.dtype, "rules_eval: shape/dtype differ")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(err == 0, f"rules_eval B={B}: kernel disagrees with its plain version (max abs err {err})")
+        del want
+        S, W = f_t.shape[1], m_t.shape[1]
+        timed("rules_eval", f"B={B} R={R} S={S} W={W}",
+              lambda: pops.rules_eval(*table.arrays, f_t, m_t),
+              lambda: pops.rules_eval_plain(*table.arrays, f_t, m_t),
+              R * 16 + B * (S + W) * 4 + B * R // 8, rules_ops(B, R), err, main)
+    if on_cuda:
+        torch.cuda.empty_cache()
+
+    # K5: the hot topic's tick, 64 windows of up to 64 samples
+    W, N = 64, 64
+    vals = g.random((W, N), dtype=np.float32)
+    counts = np.where(np.arange(W) % 3 == 2, 64, 32).astype(np.int32)
+    vals[np.arange(N)[None, :] >= counts[:, None]] = np.nan
+    ops = np.array([(pops.OP_MEAN, pops.OP_MAX, pops.OP_MIN)[k % 3] for k in range(W)], np.int32)
+    args = [torch.from_numpy(a).to(device) for a in (vals, ops, counts)]
+    got = pops.agg_reduce(*args).cpu().numpy()
+    want = pops.agg_reduce_plain(*args).cpu().numpy()
+    exact = ops != pops.OP_MEAN
+    check(np.array_equal(got[exact].view(np.uint32), want[exact].view(np.uint32)),
+          "agg_reduce: MAX/MIN differ from the plain version")
+    check((np.abs(got - want) <= MEAN_TOL * np.maximum(1.0, np.abs(want))).all(),
+          "agg_reduce: MEAN outside its tolerance")
+    timed("agg_reduce", f"W={W} N={N}", lambda: pops.agg_reduce(*args), lambda: pops.agg_reduce_plain(*args),
+          W * N * 4 + W * 12, 4 * W * N, float(np.abs(got - want).max()), True, plain_iters=iters)
+
+    # K6: cfgR's key table at every shape the path launches, padded as
+    # keystream_async pads them (key 0, zero counters): the decrypt leg's
+    # batches of 4096-B and 256-B payloads, and one seal_fanout of 100 per
+    # publish of each size. The row kept for the kernels line is the 4096-B
+    # fan-out: it takes half the path's launches and most of its blocks.
+    key_table = torch.from_numpy(cfgR["rec"].keys.table()).to(device)
+    T = key_table.shape[0]
+    shapes = (("decrypt 4096-B", n_recrypt * 256, False), ("decrypt 256-B", n_recrypt * 16, False),
+              ("fan-out 256-B", RECRYPT_FANOUT * 16, False), ("fan-out 4096-B", RECRYPT_FANOUT * 256, True))
+    for what, n_live, main in shapes:
+        N = _bucket(n_live, minimum=16)
+        k_np = np.zeros(N, np.int32)
+        c_np = np.zeros((N, 16), np.uint8)
+        k_np[:n_live] = g.integers(0, T, n_live)
+        c_np[:n_live] = g.integers(0, 256, (n_live, 16), dtype=np.uint8)
+        kidx = torch.from_numpy(k_np).to(device)
+        ctrs = torch.from_numpy(c_np).to(device)
+        got = rops.keystream(key_table, kidx, ctrs)
+        want = rops.keystream_plain(key_table, kidx, ctrs)
+        err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+        check(err == 0, f"keystream N={N}: kernel disagrees with its plain version (max abs err {err})")
+        timed("keystream", f"{what} N={N} ({n_live} live) T={T}", lambda: rops.keystream(key_table, kidx, ctrs),
+              lambda: rops.keystream_plain(key_table, kidx, ctrs),
+              N * 36 + T * 176, keystream_ops(N), err, main)
+    log("phase kernels K4-K6: ok every kernel equals its plain version (K5's MEAN within "
+        f"{MEAN_TOL} x max(1, |want|), the rest tolerance 0)")
+
+
+
+def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRYPT) -> list:
     import torch
 
     # off the card (a rehearsal) the wrappers are never called: no counts
@@ -580,13 +1111,23 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE) -> list:
     finally:
         for cfg in cfgs:
             cfg["dm"].close()
+    del cfgs
+    cfgP = phase_setup_predicates(n_subs, 9, device)
+    cfgR = phase_setup_recrypt(10, device)
+    try:
+        phase_kernels_pr(torch, rec, cfgP, cfgR, device, n_recrypt)
+        mainP = phase_predicates(cfgP, wave)
+        mainR = phase_recrypt(torch, cfgR, n_recrypt)
+    finally:
+        cfgP["dm"].close()
+        cfgR["dm"].close()
     kernels_line = []
     for name in REPLACES:
-        launches = main2[name] + main3[name]
-        check(launches > 0 or not counted, f"{name} was never launched on the main path")
+        launches = main2[name] + main3[name] + mainP[name] + mainR[name]
+        check(launches > 0 or not counted, f"{name} was never launched on the main paths")
         r = rec[name]
         kernels_line.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
@@ -612,12 +1153,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--subs", type=int, default=N_SUBS, help="subscriptions per configuration")
     ap.add_argument("--wave", type=int, default=WAVE, help="publishes per wave (three waves each)")
+    ap.add_argument("--recrypt", type=int, default=N_RECRYPT, help="encrypted publishes per payload size")
     args = ap.parse_args()
     t0 = time.perf_counter()
     try:
         phase_card(torch)
         phase_build()
-        kernels_line = run(torch.device("cuda"), args.subs, args.wave)
+        kernels_line = run(torch.device("cuda"), args.subs, args.wave, args.recrypt)
     except PhaseFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

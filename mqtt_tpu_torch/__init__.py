@@ -1,12 +1,16 @@
-"""mqtt_tpu_torch: the MQTT broker's publish matcher on PyTorch and CUDA.
+"""mqtt_tpu_torch: the MQTT broker's publish path on PyTorch and CUDA.
 
 The port of the ``mqtt_tpu`` device plane to an NVIDIA Hopper card. It
 runs the PUBLISH fan-out match — every topic against every wildcard
 subscription, with subscriber sets bit-identical to the host trie walk —
 through the same chain as the JAX package: ``MatchStage`` →
 ``DeltaMatcher`` → ``TorchMatcher`` → the flat-hash kernels, written by
-hand in CUDA C++ (``csrc/flat_match.cu``). It imports ``torch`` and numpy
-and keeps its own copies of the host code it needs.
+hand in CUDA C++ (``csrc/flat_match.cu``). On the same staged batch it
+evaluates MQTT+ payload predicates (``PredicateEngine``,
+``csrc/predicates.cu``) and decrypts tenant publishes
+(``RecryptEngine``, ``csrc/recrypt.cu``), and the fan-out applies both.
+It imports ``torch`` and numpy and keeps its own copies of the host code
+it needs.
 
 Entry points run on ``"cuda"`` unless given ``device="cpu"``, which runs
 the plain PyTorch version of every kernel.
@@ -14,18 +18,26 @@ the plain PyTorch version of every kernel.
 
 from .ops import DeltaMatcher, KernelError, MatcherStats, TorchMatcher, subscribers_equal
 from .packets import Subscription
+from .predicates import PredicateEngine, PublishFeatures
 from .staging import MatchStage
+from .tenancy import KeyRegistry, RecryptEngine, RecryptJob, Tenant
 from .topics import SHARE_PREFIX, InlineSubscription, Subscribers, TopicsIndex
 
 __all__ = [
     "DeltaMatcher",
     "InlineSubscription",
     "KernelError",
+    "KeyRegistry",
     "MatchStage",
     "MatcherStats",
+    "PredicateEngine",
+    "PublishFeatures",
+    "RecryptEngine",
+    "RecryptJob",
     "SHARE_PREFIX",
     "Subscribers",
     "Subscription",
+    "Tenant",
     "TopicsIndex",
     "TorchMatcher",
     "subscribers_equal",

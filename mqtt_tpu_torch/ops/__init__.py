@@ -1,10 +1,14 @@
-"""The device plane: the batched wildcard topic matcher on PyTorch + CUDA.
+"""The device plane on PyTorch + CUDA: the batched wildcard topic matcher,
+the payload-predicate rule table and the re-encryption keystream.
 
 - ``flat``     — compiles the host trie into a device-resident flat hash
                  table keyed by whole-path hashes; the match and fold entry
                  points, each beside its plain PyTorch version
 - ``kernels``  — builds and launches the hand-written CUDA kernels
-                 (``csrc/flat_match.cu``)
+                 (``csrc/flat_match.cu``, ``predicates.cu``, ``recrypt.cu``)
+- ``predicates`` — the predicate rule table (``rules_eval``) and the
+                 window reduction (``agg_reduce``)
+- ``recrypt``  — AES-128-CTR keystream (``keystream``) and its numpy oracle
 - ``hashing``  — host-side topic-level tokenization and dual u32 hashing
 - ``matcher``  — the broker-facing ``TorchMatcher`` (drop-in for
                  ``TopicsIndex.subscribers``)

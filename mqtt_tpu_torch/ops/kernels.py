@@ -1,21 +1,26 @@
-"""Build, load and launch the hand-written CUDA kernels of the matcher.
+"""Build, load and launch the hand-written CUDA kernels of the port.
 
-``csrc/flat_match.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface and loaded with ``ctypes``. The
-build runs at first use into ``mqtt_tpu_torch/build/`` (kept out of git),
-named by a hash of the source and flags so an edited source rebuilds.
-Nothing here runs when the module is imported: this module is imported
-on machines without a card or a compiler.
+Each source in ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface and loaded with
+``ctypes``: ``flat_match.cu`` (the topic matcher, K1-K3),
+``predicates.cu`` (payload predicates, K4-K5) and ``recrypt.cu`` (tenant
+re-encryption, K6). The build runs at first use into
+``mqtt_tpu_torch/build/`` (kept out of git), one ``nvcc`` per source, all
+started together, each library named by a hash of its source and flags
+so an edited source rebuilds. Nothing here runs when the module is
+imported: this module is imported on machines without a card or a
+compiler.
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 ``torch.cuda.current_stream()``, raises if the launch reports an error,
 and adds one to its entry in ``LAUNCHES``. The wrappers take CUDA tensors
-only; the plain PyTorch versions in ``ops/flat.py`` serve CPU tensors.
+only; the plain PyTorch versions in ``ops/flat.py``, ``ops/predicates.py``
+and ``ops/recrypt.py`` serve CPU tensors.
 
 A failed build, load or launch raises ``KernelError``. It does not derive
 from ``RuntimeError``, so no handler meant for a torn read of the live
 trie (``RuntimeError``/``KeyError``) can swallow it: it reaches the
-caller of the matcher.
+caller.
 """
 
 from __future__ import annotations
@@ -33,26 +38,45 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("flat_match.cu",)
+SOURCES = ("flat_match.cu", "predicates.cu", "recrypt.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
 # one count per kernel wrapper, bumped where the wrapper launches
-LAUNCHES = {"flat_probe_ranges": 0, "flat_match_compact": 0, "scatter_rows": 0}
+LAUNCHES = {
+    "flat_probe_ranges": 0, "flat_match_compact": 0, "scatter_rows": 0,
+    "rules_eval": 0, "agg_reduce": 0, "keystream": 0,
+}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
+# per source: its C entry points' argument types, then its error-string function
 _SIGNATURES = {
-    "fm_probe_ranges": [_c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_ptr,
-                        _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr],
-    "fm_match_compact": [_c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_ptr,
-                         _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr],
-    "fm_scatter_rows": [_c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr],
+    "flat_match.cu": {
+        "fm_probe_ranges": [_c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_ptr,
+                            _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr],
+        "fm_match_compact": [_c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_ptr,
+                             _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr],
+        "fm_scatter_rows": [_c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr],
+    },
+    "predicates.cu": {
+        "pk_rules_eval": [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int,
+                          _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr],
+        "pk_agg_reduce": [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr],
+    },
+    "recrypt.cu": {
+        "rc_keystream": [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr],
+    },
+}
+_ERROR_FNS = {
+    "flat_match.cu": "fm_error_string",
+    "predicates.cu": "pk_error_string",
+    "recrypt.cu": "rc_error_string",
 }
 _SCAN_TILE = 1024  # kScanThreads in flat_match.cu
 
@@ -119,33 +143,35 @@ def build_all(verbose: bool = False) -> dict:
     return logs
 
 
-def library():
-    """The loaded kernel library (built on first use)."""
-    global _lib
+def library(source: str = "flat_match.cu"):
+    """The loaded library of one source (every source is built on first
+    use)."""
     with _lock:
-        if _lib is None:
+        lib = _libs.get(source)
+        if lib is None:
             build_all()
             try:
-                lib = ctypes.CDLL(str(library_path("flat_match.cu")))
+                lib = ctypes.CDLL(str(library_path(source)))
             except OSError as e:
-                raise KernelError(f"cannot load the kernel library: {e}") from e
-            for name, args in _SIGNATURES.items():
+                raise KernelError(f"cannot load the kernel library {source}: {e}") from e
+            for name, args in _SIGNATURES[source].items():
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = _c_int
-            lib.fm_error_string.argtypes = [_c_int]
-            lib.fm_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+            err_fn = getattr(lib, _ERROR_FNS[source])
+            err_fn.argtypes = [_c_int]
+            err_fn.restype = ctypes.c_char_p
+            _libs[source] = lib
+        return lib
 
 
-def _check(t, name: str, device: torch.device, ndim: int) -> None:
+def _check(t, name: str, device: torch.device, ndim: int, dtype=torch.int32) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -183,10 +209,11 @@ def _cuda_device(t) -> torch.device:
     return t.device
 
 
-def _launched(lib, err: int, name: str) -> None:
+def _launched(source: str, err: int, name: str) -> None:
     """Raise if the launch reported an error, else count it."""
     if err:
-        raise KernelError(f"{name} launch failed: {lib.fm_error_string(err).decode()} ({err})")
+        text = getattr(_libs[source], _ERROR_FNS[source])(err).decode()
+        raise KernelError(f"{name} launch failed: {text} ({err})")
     with _count_lock:
         LAUNCHES[name] += 1
 
@@ -209,7 +236,7 @@ def flat_probe_ranges(table, pat_kind, pat_depth, pat_mask, tokens, max_levels: 
         pat_kind.data_ptr(), pat_depth.data_ptr(), pat_mask.data_ptr(), P,
         out.data_ptr(), _stream(device),
     )
-    _launched(lib, err, "flat_probe_ranges")
+    _launched("flat_match.cu", err, "flat_probe_ranges")
     return out
 
 
@@ -234,7 +261,7 @@ def flat_match_compact(table, pat_kind, pat_depth, pat_mask, tokens, max_levels:
         pat_kind.data_ptr(), pat_depth.data_ptr(), pat_mask.data_ptr(), P,
         capacity, out.data_ptr(), scratch.data_ptr(), _stream(device),
     )
-    _launched(lib, err, "flat_match_compact")
+    _launched("flat_match.cu", err, "flat_match_compact")
     return out
 
 
@@ -256,5 +283,87 @@ def scatter_rows(table, idx, rows):
         table.data_ptr(), S, idx.data_ptr(), k, rows.data_ptr(), out.data_ptr(),
         _stream(device),
     )
-    _launched(lib, err, "scatter_rows")
+    _launched("flat_match.cu", err, "scatter_rows")
+    return out
+
+
+def rules_eval(op, slot, thresh, cbit, feats, cmask):
+    """K4: every rule of the ``[R]`` table on every publish of ``feats``
+    ``[B, S]`` float32 and ``cmask`` ``[B, W]`` (u32 bits in int32) ->
+    ``[B, R/32]`` packed pass bits (u32 in int32). ``R`` is a multiple
+    of 32."""
+    device = _cuda_device(feats)
+    for name, t in (("op", op), ("slot", slot), ("cbit", cbit)):
+        _check(t, name, device, 1)
+    _check(thresh, "thresh", device, 1, torch.float32)
+    _check(feats, "feats", device, 2, torch.float32)
+    _check(cmask, "cmask", device, 2)
+    R = op.shape[0]
+    B, S = feats.shape
+    W = cmask.shape[1]
+    if slot.shape[0] != R or thresh.shape[0] != R or cbit.shape[0] != R:
+        raise ValueError("rule arrays must share one length")
+    if R < 32 or R % 32:
+        raise ValueError(f"the rule count must be a positive multiple of 32, got {R}")
+    if S < 1 or W < 1 or cmask.shape[0] != B:
+        raise ValueError(f"feats [B, S>=1] and cmask [B, W>=1] must agree, got {tuple(feats.shape)}, "
+                         f"{tuple(cmask.shape)}")
+    out = torch.empty((B, R // 32), dtype=torch.int32, device=device)
+    if B == 0:
+        return out
+    lib = library("predicates.cu")
+    err = lib.pk_rules_eval(
+        op.data_ptr(), slot.data_ptr(), thresh.data_ptr(), cbit.data_ptr(), R,
+        feats.data_ptr(), S, cmask.data_ptr(), W, B, out.data_ptr(), _stream(device),
+    )
+    _launched("predicates.cu", err, "rules_eval")
+    return out
+
+
+def agg_reduce(vals, ops, counts):
+    """K5: ``W`` NaN-padded windows ``vals [W, N]`` float32 with their
+    ``ops``/``counts`` ``[W]`` int32 -> the ``[W]`` float32 aggregates."""
+    device = _cuda_device(vals)
+    _check(vals, "vals", device, 2, torch.float32)
+    _check(ops, "ops", device, 1)
+    _check(counts, "counts", device, 1)
+    W, N = vals.shape
+    if ops.shape[0] != W or counts.shape[0] != W or N < 1:
+        raise ValueError(f"agg_reduce takes vals [W, N>=1], ops [W], counts [W], got {tuple(vals.shape)}")
+    out = torch.empty((W,), dtype=torch.float32, device=device)
+    if W == 0:
+        return out
+    lib = library("predicates.cu")
+    err = lib.pk_agg_reduce(
+        vals.data_ptr(), ops.data_ptr(), counts.data_ptr(), W, N, out.data_ptr(), _stream(device),
+    )
+    _launched("predicates.cu", err, "agg_reduce")
+    return out
+
+
+def keystream(key_table, kidx, counters):
+    """K6: AES-128 of ``counters [N, 16]`` uint8 under the round keys
+    ``key_table [T, 11, 16]`` uint8 picked by ``kidx [N]`` int32 ->
+    ``[N, 16]`` uint8 keystream."""
+    device = _cuda_device(counters)
+    _check(key_table, "key_table", device, 3, torch.uint8)
+    _check(kidx, "kidx", device, 1)
+    _check(counters, "counters", device, 2, torch.uint8)
+    T = key_table.shape[0]
+    N = kidx.shape[0]
+    if key_table.shape[1:] != (11, 16) or T < 1:
+        raise ValueError(f"key_table must be [T>=1, 11, 16], got {tuple(key_table.shape)}")
+    if counters.shape != (N, 16):
+        raise ValueError(f"counters must be [N, 16], got {tuple(counters.shape)}")
+    if key_table.data_ptr() % 16 or counters.data_ptr() % 16:
+        raise ValueError("key_table and counters must be 16-byte aligned")
+    out = torch.empty((N, 16), dtype=torch.uint8, device=device)
+    if N == 0:
+        return out
+    lib = library("recrypt.cu")
+    err = lib.rc_keystream(
+        key_table.data_ptr(), T, kidx.data_ptr(), counters.data_ptr(), N, out.data_ptr(),
+        _stream(device),
+    )
+    _launched("recrypt.cu", err, "keystream")
     return out

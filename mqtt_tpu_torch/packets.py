@@ -1,7 +1,8 @@
 """The subscription record the trie stores and the matcher returns.
 
 A copy of ``Subscription`` from the JAX package's packet codec, cut to the
-fields and methods the subscription trie and the match result need. The
+fields and methods the subscription trie, the match result and the
+predicate engine need. The
 wire codec (CONNECT/PUBLISH/SUBSCRIBE encoding) comes with the broker
 slice of the port.
 """
@@ -26,13 +27,22 @@ class Subscription:
     no_local: bool = False
     # True when this subscription forms part of a retained-publish response.
     fwd_retained_flag: bool = False
+    # MQTT+ payload predicates (``mqtt_tpu_torch.predicates``): the suffix
+    # texts (e.g. "$GT{temp:25.0}") split off the filter at SUBSCRIBE time.
+    # () = unpredicated: every payload is delivered.
+    predicates: tuple = ()
 
     def merge(self, n: "Subscription") -> "Subscription":
         """Fold ``n`` into this subscription: max QoS [MQTT-3.3.4-2], union of
         identifiers, sticky NoLocal [MQTT-3.8.3-3] (packets.go:254-274).
 
         Mirrors the reference's value-receiver semantics: the receiver is not
-        mutated, but an existing identifiers map is shared and extended."""
+        mutated, but an existing identifiers map is shared and extended.
+
+        Predicates merge with OR semantics: a client matched through an
+        unpredicated filter must receive every payload, so either side
+        being () clears the merge; otherwise the union is kept and delivery
+        needs any one predicate to pass."""
         s = Subscription(
             filter=self.filter,
             share_name=self.share_name,
@@ -43,6 +53,13 @@ class Subscription:
             retain_as_published=self.retain_as_published,
             no_local=self.no_local,
             fwd_retained_flag=self.fwd_retained_flag,
+            predicates=(
+                ()
+                if not self.predicates or not n.predicates
+                else self.predicates
+                if n.predicates == self.predicates
+                else tuple(dict.fromkeys(self.predicates + n.predicates))
+            ),
         )
         if s.identifiers is None:
             s.identifiers = {s.filter: s.identifier}

@@ -24,10 +24,18 @@ pipelined batch engine:
 - A drainer task resolves batches IN ORDER off the event loop and
   completes the futures in submission order — per-publish fan-out order is
   exactly submission order, as in the reference.
-- A matcher failure (a kernel that fails to build or launch included) is
-  set on the affected batch's futures, so it reaches each publisher: a
-  host walk would move the work off the card without a word. The stage
-  goes on with the next batch.
+- MQTT+ payload predicates and tenant decryption ride the SAME batch:
+  ``submit(topic, feats=..., rjob=...)`` parks the publish's feature
+  carrier (``predicates.PublishFeatures``) and decrypt job
+  (``tenancy.RecryptJob``); the issue leg launches the rule evaluation
+  (``PredicateEngine.eval_batch_async``) and the keystream
+  (``RecryptEngine.issue_batch``) beside the match, the drain leg waits
+  for all three in one executor call and stamps the pass-bit rows and
+  keystreams onto their carriers before the futures complete.
+- A failure on any leg (a kernel that fails to build or launch, a failed
+  copy) is set on the affected batch's futures, so it reaches each
+  publisher: a host path would move the work off the card without a
+  word. The stage goes on with the next batch.
 - Admission is BOUNDED (``max_pending``): under a publish storm the parked
   list never grows past its cap — overflow (and submissions whose
   projected pipeline wait already exceeds the deadline) resolves via the
@@ -58,6 +66,8 @@ class MatchStage:
         self,
         matcher,
         host_fallback: Callable[[str], Subscribers],
+        predicates=None,
+        recrypt=None,
         window_s: float = 0.002,
         max_batch: int = 4096,
         max_inflight: int = 4,
@@ -67,6 +77,10 @@ class MatchStage:
     ) -> None:
         self.matcher = matcher
         self.host_fallback = host_fallback
+        # the predicate plane (predicates.PredicateEngine) and the tenant
+        # re-encryption engine (tenancy.RecryptEngine), or None
+        self.predicates = predicates
+        self.recrypt = recrypt
         # overlapped-staging depth: how many batches may be in flight across
         # the issue / device / drain legs (0 falls back to max_inflight).
         # Depth 3 keeps one batch per leg.
@@ -83,7 +97,7 @@ class MatchStage:
         self.peak_pending = 0
         # host-walk resolutions by class (admission, stop)
         self.fallbacks: dict[str, int] = {}
-        # parked publishes: (topic, future). submit(), the collector and the
+        # parked publishes: (topic, future, feats, rjob). submit(), the collector and the
         # drainer all run on the stage's loop (start()'s), so no lock
         self._pending: list[tuple] = []
         self._wake: Optional[asyncio.Event] = None
@@ -176,7 +190,7 @@ class MatchStage:
         queue = self._queue
         if queue is not None:
             while not queue.empty():
-                _resolver, futs, topics = queue.get_nowait()
+                futs, topics = queue.get_nowait()[1:3]
                 self.inflight_batches -= 1
                 self._fallback_all(list(zip(topics, futs)), klass="stop")
         if self._executor is not None:
@@ -190,9 +204,13 @@ class MatchStage:
 
     # -- submission --------------------------------------------------------
 
-    def submit(self, topic: str) -> "asyncio.Future[Subscribers]":
+    def submit(self, topic: str, feats=None, rjob=None) -> "asyncio.Future[Subscribers]":
         """Park one publish; the future resolves with its Subscribers.
-        Call it on the stage's loop.
+        Call it on the stage's loop. ``feats`` is the publish's optional
+        payload-feature carrier and ``rjob`` its optional decrypt job:
+        their device results come back ON the carriers; a publish the host
+        walk resolves leaves them unstamped (the fan-out's host paths
+        decide).
 
         Admission is bounded: once ``max_pending`` publishes are parked,
         or the pipeline's projected wait already exceeds the deadline
@@ -205,7 +223,7 @@ class MatchStage:
             return fut
         admitted = not (len(self._pending) >= self.max_pending or self._past_deadline())
         if admitted:
-            self._pending.append((topic, fut))
+            self._pending.append((topic, fut, feats, rjob))
             self.peak_pending = max(self.peak_pending, len(self._pending))
         if not admitted:
             self.admission_fallbacks += 1
@@ -255,14 +273,21 @@ class MatchStage:
             batch = [item for item in batch if not item[1].cancelled()]
             if not batch:
                 continue
-            topics = [t for t, _ in batch]
-            futs = [f for _, f in batch]
-            matcher = self.matcher
+            topics = [item[0] for item in batch]
+            futs = [item[1] for item in batch]
+            feats = [item[2] for item in batch]
+            rjobs = [item[3] for item in batch]
+            matcher, predicates, recrypt = self.matcher, self.predicates, self.recrypt
+
+            def issue():
+                resolver = matcher.match_topics_async(topics)
+                pred_resolver = predicates.eval_batch_async(feats) if predicates is not None else None
+                rec_resolver = recrypt.issue_batch(rjobs) if recrypt is not None else None
+                return resolver, pred_resolver, rec_resolver
+
             loop = asyncio.get_running_loop()
             try:
-                resolver = await loop.run_in_executor(
-                    self._h2d_executor, matcher.match_topics_async, topics
-                )
+                resolvers = await loop.run_in_executor(self._h2d_executor, issue)
             except asyncio.CancelledError:
                 # stop() cancelled us with this batch in hand: resolve it
                 self._fallback_all(batch, klass="stop")
@@ -273,7 +298,7 @@ class MatchStage:
                 continue
             self.inflight_batches += 1
             try:
-                await queue.put((resolver, futs, topics))
+                await queue.put((resolvers, futs, topics, feats))
             except asyncio.CancelledError:
                 self.inflight_batches -= 1
                 self._fallback_all(batch, klass="stop")
@@ -284,14 +309,21 @@ class MatchStage:
         queue = self._queue
         assert queue is not None  # start() created us
         while True:
-            resolver, futs, topics = await queue.get()
+            resolvers, futs, topics, feats = await queue.get()
             try:
-                # the D2H wait blocks — run it off the loop. Queue depth is
-                # sampled at resolve time: batches still queued waited for
-                # this one, so the controller budgets depth x service.
+                # the D2H waits block — run them off the loop, all three
+                # legs in one executor call. Queue depth is sampled at
+                # resolve time: batches still queued waited for this one,
+                # so the controller budgets depth x service.
                 depth = queue.qsize() + 1
                 t0 = loop.time()
-                results = await loop.run_in_executor(self._executor, resolver)
+                results, pred_rows, rec_rows = await loop.run_in_executor(
+                    self._executor, lambda: tuple(r() if r is not None else None for r in resolvers)
+                )
+                if pred_rows is not None:
+                    self.predicates.attach_rows(feats, pred_rows)
+                if rec_rows is not None:
+                    self.recrypt.attach(rec_rows)
                 dt = loop.time() - t0
                 self.service_log.append((len(topics), dt))
                 self._observe_service(dt, len(topics), depth)

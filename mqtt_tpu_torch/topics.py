@@ -22,12 +22,17 @@ branch, the reference gathers the *parent* particle's inline subscriptions
 again instead of the wild child's — so an inline subscription on ``a/#``
 does not match topic ``a``.
 
+Also here: the tenant-namespace helpers (``ns_*``) and the MQTT+
+predicate-suffix split (``split_predicate_suffix``) that the predicate
+and tenancy planes use.
+
 Retained messages (``retain_message``/``messages``) come with the
 retained-engine slice of the port.
 """
 
 from __future__ import annotations
 
+import re
 import threading
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -55,6 +60,123 @@ def _ns_local0(key: str) -> str:
         return key[:1]
     i = key.find("/")
     return key[i + 1 : i + 2] if i >= 0 else ""
+
+
+def ns_scope_topic(tenant: str, topic: str) -> str:
+    """Prefix a tenant-local topic NAME into its namespace."""
+    return NS_CHAR + tenant + "/" + topic
+
+
+def ns_scope_filter(tenant: str, filter: str) -> str:
+    """Prefix a tenant-local FILTER into its namespace. A shared
+    subscription scopes its inner filter: ``$SHARE/g/f`` ->
+    ``$SHARE/g/<ns>/f`` (the trie roots shared subtrees at depth 2)."""
+    if is_shared_filter(filter):
+        parts = filter.split("/", 2)
+        inner = parts[2] if len(parts) > 2 else ""
+        return f"{parts[0]}/{parts[1]}/{NS_CHAR}{tenant}/{inner}"
+    return NS_CHAR + tenant + "/" + filter
+
+
+def ns_tenant(key: str) -> str:
+    """The tenant a scoped key belongs to ("" for global keys)."""
+    if key[:1] != NS_CHAR:
+        return ""
+    i = key.find("/")
+    return key[1:i] if i > 0 else key[1:]
+
+
+def ns_local(key: str) -> str:
+    """Strip the namespace level off a scoped key (identity for global
+    keys): the tenant-local topic or filter the client sees."""
+    if key[:1] != NS_CHAR:
+        return key
+    i = key.find("/")
+    return key[i + 1 :] if i >= 0 else ""
+
+
+# -- MQTT+ predicate suffixes (mqtt_tpu_torch.predicates) ------------------
+#
+# An MQTT+ subscription rides a standard SUBSCRIBE filter with a payload
+# predicate appended: ``sensors/+/temp$GT{25.0}``. The trie only ever sees
+# the BASE filter: the suffix is split off at SUBSCRIBE time.
+
+#: ops that compare a numeric payload feature against a threshold
+PREDICATE_NUMERIC_OPS = ("GT", "GTE", "LT", "LTE", "EQ", "NE")
+#: ops that aggregate a numeric payload feature over a message window
+PREDICATE_AGG_OPS = ("MEAN", "MAX", "MIN")
+#: every simple predicate op (compounds AND/OR are parsed separately)
+PREDICATE_OPS = PREDICATE_NUMERIC_OPS + ("CONTAINS", "EQS") + PREDICATE_AGG_OPS
+#: compound ops combining SIMPLE predicates: ``$AND{$GT{t:20}$LT{t:30}}``
+PREDICATE_COMPOUND_OPS = ("AND", "OR")
+
+_PREDICATE_RE = re.compile(
+    r"^(?P<base>.*?)\$(?P<op>" + "|".join(PREDICATE_OPS) + r")\{(?P<arg>[^{}]*)\}$",
+    re.DOTALL,
+)
+# one SIMPLE predicate token anchored at the string start: the unit the
+# compound-argument scanner consumes
+_PREDICATE_TOKEN_RE = re.compile(
+    r"^\$(?P<op>" + "|".join(PREDICATE_OPS) + r")\{(?P<arg>[^{}]*)\}",
+    re.DOTALL,
+)
+_COMPOUND_RE = re.compile(r"^(?P<base>.*?)\$(?P<op>AND|OR)\{(?P<arg>.*)\}$", re.DOTALL)
+
+
+def _predicate_arg_ok(op: str, arg: str) -> bool:
+    """Validate a predicate argument for ``op``. An invalid argument means
+    the token is NOT a predicate: the filter stays literal."""
+    if op == "CONTAINS":
+        return len(arg) > 0
+    if op == "EQS":
+        _field, sep, _literal = arg.partition(":")
+        return bool(sep)
+    _field, _, num = arg.rpartition(":")
+    if op in PREDICATE_AGG_OPS:
+        try:
+            return int(num) >= 1
+        except ValueError:
+            return False
+    try:
+        value = float(num)
+    except ValueError:
+        return False
+    return value == value  # an explicit nan threshold is no predicate
+
+
+def split_predicate_tokens(arg: str) -> tuple:
+    """Scan a compound argument into its simple ``$OP{...}`` member
+    tokens; () unless it is a well-formed run of >= 2 valid simple,
+    non-aggregation predicates."""
+    tokens = []
+    rest = arg
+    while rest:
+        m = _PREDICATE_TOKEN_RE.match(rest)
+        if m is None or not _predicate_arg_ok(m.group("op"), m.group("arg")):
+            return ()
+        if m.group("op") in PREDICATE_AGG_OPS:
+            return ()  # a window has no boolean verdict to combine
+        tokens.append(m.group(0))
+        rest = rest[len(m.group(0)) :]
+    return tuple(tokens) if len(tokens) >= 2 else ()
+
+
+def split_predicate_suffix(filter: str) -> tuple[str, str]:
+    """Split a trailing MQTT+ predicate off a subscription filter:
+    ``(base_filter, suffix)``, with suffix "" when the filter carries no
+    well-formed predicate (it stays a literal filter). A bare predicate
+    means every topic: the base widens to ``#``. Compounds match first:
+    their argument holds nested braces, which the simple grammar
+    excludes."""
+    m = _COMPOUND_RE.match(filter)
+    if m is not None and split_predicate_tokens(m.group("arg")):
+        base = m.group("base") or "#"
+        return base, filter[len(m.group("base")) :]
+    m = _PREDICATE_RE.match(filter)
+    if m is None or not _predicate_arg_ok(m.group("op"), m.group("arg")):
+        return filter, ""
+    base = m.group("base") or "#"
+    return base, filter[len(m.group("base")) :]
 
 
 @dataclass(frozen=True)
