@@ -28,8 +28,18 @@ Phases, each printed as it ends:
    batches) fed at half the measured rate on a fixed schedule, for the
    per-publish latency. Every result must equal the port's
    ``TopicsIndex.subscribers`` for its topic.
-
-6. The predicate path (cfgP): cfg2's 1M subscriptions with cfg9's 100,000
+6. The sharded path, on the same cfg2 and cfg3 tries: ``MatchStage`` →
+   ``DeltaMatcher(mesh=make_mesh(["cuda:0"] * 8))`` (4 subscription shards
+   x 2 batch tiles, every position on the one card) →
+   ``ShardedTorchMatcher``: the replica tries and the four shard indexes
+   built, then three waves of publishes with the launch counts set to 0
+   just before (150 unsubscribes and subscribes and a flush between the
+   first two), and a fourth wave under ``torch.profiler``; then K8 (the
+   step) and K9 (the tile compaction, at the capacity the path settled
+   at) held against their plain versions at the path's shapes. Every
+   result must equal the trie's (every client of cfg2 and cfg3 holds one
+   filter, where the sharded matcher is identical to the trie).
+7. The predicate path (cfgP): cfg2's 1M subscriptions with cfg9's 100,000
    distinct ``$GT`` rules on every 10th filter, 1,000 each of
    ``$CONTAINS``, ``$EQS`` and ``$AND`` rules, and one hot topic whose 64
    subscribers hold ``$MEAN``/``$MAX``/``$MIN`` windows of 32 and 64
@@ -38,7 +48,7 @@ Phases, each printed as it ends:
    ``MatchStage`` and ``apply``, three waves of JSON publishes. Every
    filtered subscriber set and emission must equal the trie walk filtered
    by the host interpreter.
-7. The re-encryption path (cfgR, cfg10's shape): 4 tenants x 128 keys, an
+8. The re-encryption path (cfgR, cfg10's shape): 4 tenants x 128 keys, an
    encrypted namespace, fan-out 100, payloads of 256 and 4096 bytes:
    ``RecryptEngine`` (K6 ``keystream`` on the staged decrypt leg and on
    every ``seal_fanout``). Every decrypted publish must equal its
@@ -46,12 +56,17 @@ Phases, each printed as it ends:
    key (all through the plain PyTorch AES on the card, one per publish
    through the numpy ``open_with_key``).
 
-Phase 4 also holds K4-K6 against their plain versions at the shapes these
+Phase 4 also holds K7 (``flat_match_core``, the single-index entry point
+of K8's kernel) and K4-K6 against their plain versions at the shapes these
 paths give them (K5's MEAN within ``1e-5 * max(1, |want|)``, the rest with
 tolerance 0).
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
-the main paths, worst error, times and bound); the last line is
+the main paths, worst error, times and bound). K7 and K8 are one CUDA
+kernel: the sharded path launches it through K8's wrapper, which counts
+its launches; K7's wrapper (S = 1) is on no main path, so its row shows 0
+launches and names the row whose launches it rides (``"inside"``). The
+last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Exits non-zero, printing no result, when CUDA is absent or the package is
 not beside this script.
@@ -80,6 +95,8 @@ N_SUBS = 1_000_000
 WAVE = 24_576  # publishes per wave; three waves per configuration
 BATCHES = (4096, 65536)
 MAIN_BATCH = 4096  # MatchStage's max_batch: the kernel shape the main path runs
+MESH_POSITIONS = 8  # the sharded path's mesh: 2 batch tiles x 4 subscription shards
+OUT_SLOTS = 64  # the sharded matcher's sid slots per (shard, topic)
 REPLACES = {
     "flat_probe_ranges": "mqtt_tpu/ops/flat.py:1007",
     "flat_match_compact": "mqtt_tpu/ops/flat.py:1052",
@@ -87,6 +104,9 @@ REPLACES = {
     "rules_eval": "mqtt_tpu/ops/predicates.py:58",
     "agg_reduce": "mqtt_tpu/ops/predicates.py:99",
     "keystream": "mqtt_tpu/ops/recrypt.py:214",
+    "flat_match_slots": "mqtt_tpu/ops/flat.py:858",
+    "sharded_step": "mqtt_tpu/parallel/sharded.py:631",
+    "tile_compact": "mqtt_tpu/parallel/sharded.py:93",
 }
 SOURCES = {
     "flat_probe_ranges": "mqtt_tpu_torch/csrc/flat_match.cu",
@@ -95,7 +115,12 @@ SOURCES = {
     "rules_eval": "mqtt_tpu_torch/csrc/predicates.cu",
     "agg_reduce": "mqtt_tpu_torch/csrc/predicates.cu",
     "keystream": "mqtt_tpu_torch/csrc/recrypt.cu",
+    "flat_match_slots": "mqtt_tpu_torch/csrc/sharded.cu",
+    "sharded_step": "mqtt_tpu_torch/csrc/sharded.cu",
+    "tile_compact": "mqtt_tpu_torch/csrc/sharded.cu",
 }
+# K7's wrapper is the S = 1 entry point of K8's kernel, on no main path
+INSIDE = {"flat_match_slots": "sharded_step"}
 HOT_TOPIC = "hot/agg/v"  # cfgP's window topic
 HOT_PER_WAVE = 192  # hot-topic publishes per cfgP wave
 MEAN_TOL = 1e-5  # K5's MEAN against its plain version and the host: 1e-5 * max(1, |want|)
@@ -277,6 +302,19 @@ def _tokens(torch, flat, topics, fl, device):
     return torch.from_numpy(flat.pack_tokens(tok1, tok2, lengths, is_dollar)).to(device)
 
 
+def _comparer(torch, rec: dict):
+    """``compare(name, got, want, what)``: fail unless the kernel's output
+    equals its plain version's (tolerance 0); keeps the worst error."""
+
+    def compare(name, got, want, what):
+        check(got.shape == want.shape and got.dtype == want.dtype, f"{name} {what}: shape/dtype differ")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+        check(err == 0, f"{name} {what}: kernel disagrees with its plain version (max abs err {err})")
+
+    return compare
+
+
 def phase_kernels(torch, cfgs: list, device, iters: int = 20) -> dict:
     """Each kernel against its plain version on the same inputs on the
     card; returns the per-kernel record at the main path's shape."""
@@ -290,11 +328,7 @@ def phase_kernels(torch, cfgs: list, device, iters: int = 20) -> dict:
 
     rec: dict = {k: {"max_abs_err": 0} for k in REPLACES}
 
-    def compare(name, got, want, what):
-        check(got.shape == want.shape and got.dtype == want.dtype, f"{name} {what}: shape/dtype differ")
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
-        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
-        check(err == 0, f"{name} {what}: kernel disagrees with its plain version (max abs err {err})")
+    compare = _comparer(torch, rec)
 
     def timed(name, cfg, B, what, kernel, plain, n_bytes, n_ops, library=None, plain_iters=3):
         bound_ms, bound_by = bound(n_bytes, n_ops)
@@ -308,7 +342,8 @@ def phase_kernels(torch, cfgs: list, device, iters: int = 20) -> dict:
             f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} B, {n_ops} int32 ops)")
         # the JSON line reports each kernel at the main path's batch shape on
         # the configuration whose main path leans on it
-        lead = {"flat_probe_ranges": "cfg2", "flat_match_compact": "cfg3", "scatter_rows": "cfg2"}
+        lead = {"flat_probe_ranges": "cfg2", "flat_match_compact": "cfg3", "scatter_rows": "cfg2",
+                "flat_match_slots": "cfg2"}
         if B == MAIN_BATCH and cfg == lead[name]:
             rec[name].update(row)
 
@@ -351,6 +386,19 @@ def phase_kernels(torch, cfgs: list, device, iters: int = 20) -> dict:
                 lambda: flat.flat_match_compact_plain(*arrays, tokens, L, capacity),
                 # the probes, then a scan and a write over the B·P counts
                 in_bytes + (2 + 2 * B + capacity) * 4, probe_ops(B, P, L) + 4 * B * P + 2 * n_hits,
+            )
+
+            # K7: flat_match_core on the single index (S = 1), K slots
+            got = flat.flat_match_core(*arrays, tokens, max_levels=L, out_slots=OUT_SLOTS)
+            want = flat.flat_match_core_plain(*arrays, tokens, L, OUT_SLOTS)
+            for g, w, part in zip(got, want, ("slots", "totals", "overflow")):
+                compare("flat_match_slots", g, w, f"{cfg['name']} B={B} {part}")
+            timed(
+                "flat_match_slots", cfg["name"], B, f"S=1 B={B} P={P} K={OUT_SLOTS} hits={n_hits}",
+                lambda: flat.flat_match_core(*arrays, tokens, max_levels=L, out_slots=OUT_SLOTS),
+                lambda: flat.flat_match_core_plain(*arrays, tokens, L, OUT_SLOTS),
+                # the probes' reads, then B·K slots, B totals and B flags
+                in_bytes + B * OUT_SLOTS * 4 + B * 5, probe_ops(B, P, L) + B * OUT_SLOTS,
             )
 
         # K3: a fold-sized row scatter (a few hundred touched buckets)
@@ -601,6 +649,211 @@ def phase_main(cfg: dict, wave: int, n_churn: int = 150, paced_s: float = 2.0) -
         f"final batch cap {paced._batch_cap}, host-walk fallbacks {paced.fallbacks or 0}, "
         f"{pauses.summary(*out['t_paced'])}")
     log(f"  {name} launches on the main path: {launches}")
+    return launches
+
+
+# -- the sharded path -----------------------------------------------------------
+
+
+def phase_setup_sharded(cfg: dict, device) -> dict:
+    """``DeltaMatcher(mesh=...)`` over the configuration's trie: 4 shards x
+    2 batch tiles, every position on ``device``. The replica tries are
+    built with the cyclic collector off, then frozen."""
+    from mqtt_tpu_torch import DeltaMatcher
+    from mqtt_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh([device] * MESH_POSITIONS)
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        dm = DeltaMatcher(cfg["index"], max_levels=8, background=False, mesh=mesh, out_slots=OUT_SLOTS)
+        dt = time.perf_counter() - t0
+    finally:
+        gc.freeze()
+        gc.enable()
+    snap = dm.snapshot
+    flats = snap._flats
+    log(f"phase setup sharded {cfg['name']}: ok mesh {mesh.shape} of {[str(d) for d in mesh.unique_devices()]}, "
+        f"partition + {snap.n_shards} shard builds {dt:.1f} s (per shard "
+        f"{[round(x, 3) for x in snap.shard_compile_seconds]} s), subscriptions {[f.n_subs for f in flats]}, "
+        f"entries {[f.n_entries for f in flats]}, P {[f.num_patterns for f in flats]}, "
+        f"NB {flats[0].table.shape[0]}, sat {[f.n_sat for f in flats]}, spill {[f.n_spill for f in flats]}")
+    return {"name": cfg["name"], "dm": dm, "mesh": mesh, "cfg": cfg, "setup_s": dt}
+
+
+def phase_kernels_sharded(torch, rec: dict, sh: dict, device, main: bool, iters: int = 20) -> None:
+    """K8 (the step over the 4 stacked shards, both batch tiles) and K9
+    (the tile compaction, at the capacity the path's batches of 4096 used)
+    against their plain versions on the same inputs, after the sharded
+    path ran; fills ``rec`` when ``main``."""
+    from mqtt_tpu_torch.ops import flat
+    from mqtt_tpu_torch.parallel import sharded
+
+    on_cuda = device.type == "cuda"
+    compare = _comparer(torch, rec)
+    snap = sh["dm"].snapshot
+    placed, _tables, salt = snap._compiled
+    (arrays,) = placed.values()  # every position on one device: one stack
+    S, T, K, L = snap.n_shards, snap.n_batch, snap.out_slots, snap.max_levels
+    bl = MAIN_BATCH // T
+    gen = sh["cfg"]["topic_gen"]
+    topics = [gen() for _ in range(MAIN_BATCH)]
+    tok1, tok2, lengths, is_dollar, _ = flat.tokenize_topics(topics, L, salt)
+    tokens = torch.from_numpy(flat.pack_tokens(tok1, tok2, lengths, is_dollar)).to(device)
+
+    def measure(fn, n):
+        return event_ms(torch, fn, n) if on_cuda else _host_ms(fn, n)
+
+    def row(name, what, kernel, plain, n_bytes, n_ops, plain_iters=3):
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        r = {"bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "ms": measure(kernel, iters), "plain_ms": measure(plain, plain_iters)}
+        log(f"  {name} {sh['name']} {what}: err 0, {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} B, {n_ops} int32 ops)")
+        if main:
+            rec[name].update(r)
+
+    # K8: the step, T launches of the kernel over the S stacked shards
+    def step(fn):
+        out = torch.empty((T, S, bl, K), dtype=torch.int32, device=device)
+        tot = torch.empty((T, S, bl), dtype=torch.int32, device=device)
+        ovf = torch.empty((T, S, bl), dtype=torch.bool, device=device)
+        for t in range(T):
+            fn(*arrays, tokens[t * bl : (t + 1) * bl], max_levels=L, out=out[t], totals=tot[t], overflow=ovf[t])
+        return out, tot, ovf
+
+    got = step(sharded.sharded_step)
+    want = step(sharded.sharded_step_plain)
+    for g, w, part in zip(got, want, ("slots", "totals", "overflow")):
+        compare("sharded_step", g, w, f"{sh['name']} S={S} B={MAIN_BATCH} {part}")
+    n_hits = int(want[1].clamp(max=K).sum())
+    rows = sum(
+        int(torch.unique(flat.probe_slots(*(a[s] for a in arrays), tokens, max_levels=L)).numel())
+        for s in range(S)
+    )
+    P = arrays[1].shape[1]
+    row("sharded_step", f"S={S} tiles={T} B={MAIN_BATCH} P={P} K={K} rows={rows} hits={n_hits}",
+        lambda: step(sharded.sharded_step), lambda: step(sharded.sharded_step_plain),
+        tokens.numel() * 4 + rows * 64 + 3 * S * P * 4 + S * MAIN_BATCH * (K * 4 + 5),
+        probe_ops(MAIN_BATCH, P, L) * S + MAIN_BATCH * K * S)
+
+    # K9: the capacity the path's batches of 4096 used (the sticky pick,
+    # split over the tiles as match_topics_async splits it), and one
+    # below the hits (the clip rule)
+    out, tot, ovf = got
+    check(MAIN_BATCH in snap._caps, f"the sharded path held no capacity for batches of {MAIN_BATCH}")
+    cap = max(16, snap._caps[MAIN_BATCH] // T)
+    tile_hits = [int(tot[t].clamp(max=K).sum()) for t in range(T)]
+    small = max(1, min(tile_hits) // 2)
+    for c in (cap, small):
+        g = sharded.tile_compact(out, tot, ovf, c)
+        w = sharded.tile_compact_plain(out, tot, ovf, c)
+        compare("tile_compact", g, w, f"{sh['name']} cap_local={c}")
+        check(g[:, 0].tolist() == tile_hits, "K9 header: hit counts wrong")
+    row_w = 2 + 2 * bl + 2 * cap
+    row("tile_compact", f"T={T} S={S} bl={bl} K={K} cap_local={cap} hits={n_hits} "
+        f"(also equal at cap_local {small} < hits)",
+        lambda: sharded.tile_compact(out, tot, ovf, cap), lambda: sharded.tile_compact_plain(out, tot, ovf, cap),
+        # what the function needs: the totals and flags, each gathered
+        # sid once, and the rows; a scan over the segments and the writes
+        T * S * bl * 5 + n_hits * 4 + T * row_w * 4, 4 * T * S * bl + 2 * T * cap)
+    log(f"phase kernels sharded {sh['name']}: ok K8 and K9 equal their plain versions (tolerance 0)")
+
+
+def phase_sharded(sh: dict, wave: int, n_waves: int = 3, n_churn: int = 150) -> dict:
+    """The sharded path on one configuration (launch counts reset just
+    before): ``n_waves`` waves through a stage with no latency budget and
+    a fixed batch of 4096, ``n_churn`` unsubscribes and subscribes and a
+    flush after the first, then a wave under the profiler."""
+    from mqtt_tpu_torch import MatchStage, Subscription
+    from mqtt_tpu_torch.ops import kernels
+    from mqtt_tpu_torch.parallel import shard_of
+
+    cfg, dm = sh["cfg"], sh["dm"]
+    index, rng, gen, entries = cfg["index"], cfg["rng"], cfg["topic_gen"], cfg["entries"]
+    name = cfg["name"]
+    snap = dm.snapshot
+    on_cuda = snap.mesh.devices[0][0].type == "cuda"
+    live = [entries[rng.randrange(len(entries))] for _ in range(n_churn)]
+    unsub = sorted({(c, s.filter) for c, s in live})
+    resub = [entries[rng.randrange(len(entries))][1].filter for _ in range(n_churn)]
+    hot = [topic_for(f, rng) for f in sorted({f for _, f in unsub} | set(resub))]
+    waves = [[gen() for _ in range(wave - len(hot))] + hot for _ in range(n_waves + 1)]
+    stats0 = dict(dm.stats.as_dict())
+    out: dict = {}
+
+    async def drive():
+        stage = MatchStage(dm, index.subscribers, max_batch=MAIN_BATCH, latency_budget_s=None,
+                           max_pending=1 << 20)
+        stage.start()
+        try:
+            seconds = 0.0
+            for w in range(n_waves):
+                res, dt = await _wave(stage, waves[w])
+                seconds += dt
+                _verify(index, waves[w], res, f"sharded {name} wave {w + 1}")
+                if w == 0:
+                    muts: list = []
+                    record = muts.append
+                    index.add_observer(record)
+                    try:
+                        for c, f in unsub:
+                            index.unsubscribe(f, c)
+                        for k, f in enumerate(resub):
+                            index.subscribe(f"shchurn{k}", Subscription(filter=f, qos=k % 3, identifier=k + 1))
+                    finally:
+                        index.remove_observer(record)
+                    out["touched"] = {shard_of(m.kind, m.client, m.filter, m.identifier, snap.n_shards)
+                                      for m in muts}
+                    out["dirty"] = [s for s in range(snap.n_shards) if snap._dirty[s]]
+                    before = list(snap._flats)
+                    t0 = time.perf_counter()
+                    dm.flush()
+                    out["flush_s"] = time.perf_counter() - t0
+                    out["recompiled"] = sum(a is not b for a, b in zip(snap._flats, before))
+                    out["nb_changed"] = snap._flats[0].table.shape[0] != before[0].table.shape[0]
+                    check(dm.pending_deltas == 0, "the flush left deltas pending")
+            out["seconds"] = seconds
+            out["service"] = [dt for _, dt in stage.service_log]
+            out["stats"] = dict(dm.stats.as_dict())
+            res, out["traced_s"], out["busy_us"], out["copy_us"] = await _traced_wave(stage, waves[-1], on_cuda)
+            _verify(index, waves[-1], res, f"sharded {name} traced wave")
+        finally:
+            await stage.stop()
+        check(stage.admission_fallbacks == 0 and not stage.fallbacks,
+              f"stage fell back to the host walk: {stage.fallbacks}")
+
+    kernels.reset_launches()
+    asyncio.run(drive())
+    launches = dict(kernels.LAUNCHES)
+    stats, service = out["stats"], out["service"]
+    n = n_waves * wave
+    touched = out["touched"]
+    check(set(out["dirty"]) == touched, f"the churn dirtied shards {out['dirty']}, not {sorted(touched)}")
+    check(out["recompiled"] <= len(touched) or out["nb_changed"],
+          f"the flush recompiled {out['recompiled']} shards for {len(touched)} touched")
+    for k in ("sharded_step", "tile_compact"):
+        check(launches[k] > 0 or not on_cuda, f"the sharded path never launched {k}")
+    log(f"phase sharded {name}: ok {n} publishes bit-identical to the trie, "
+        f"{n / out['seconds']:.1f} matches/s (stage wall {out['seconds']:.3f} s, fixed batch {MAIN_BATCH}, "
+        f"no budget), {len(service)} batches, batch resolve p50 {_pct(service, 0.5) * 1e3:.3f} ms "
+        f"max {max(service) * 1e3:.3f} ms, host_fallbacks {stats['host_fallbacks'] - stats0['host_fallbacks']}, "
+        f"compact_batches {stats['compact_batches'] - stats0['compact_batches']}, "
+        f"compact_overflows {stats['compact_overflows'] - stats0['compact_overflows']}, "
+        f"device_skew_ratio {snap.device_skew_ratio():.6f} (tile hits {snap.tile_hit_counts().tolist()})")
+    log(f"  sharded {name} flush: {len(unsub)} unsubscribes + {n_churn} subscribes touched shards "
+        f"{sorted(touched)}, dirtied {out['dirty']}; the flush recompiled {out['recompiled']} of "
+        f"{snap.n_shards} shards in {out['flush_s']:.3f} s (per shard "
+        f"{[round(x, 3) for x in snap.shard_compile_seconds]} s)")
+    wall_us = out["traced_s"] * 1e6
+    if out["busy_us"] is None:
+        log(f"  sharded {name} traced wave: {wave} publishes in {out['traced_s']:.3f} s; "
+            "idle share not measured (no device span in the trace)")
+    else:
+        log(f"  sharded {name} traced wave: {wave} publishes in {out['traced_s']:.3f} s under the profiler, "
+            f"device busy {out['busy_us']:.1f} us (copies {out['copy_us']:.1f} us), "
+            f"idle share {1 - out['busy_us'] / wall_us:.6f}")
+    log(f"  sharded {name} launches on the path: {launches}")
     return launches
 
 
@@ -1102,16 +1355,29 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
         phase_setup("cfg2", build_cfg2, n_subs, 2, device),
         phase_setup("cfg3", build_cfg3, n_subs, 3, device),
     ]
+    sharded = []
     try:
         rec = phase_kernels(torch, cfgs, device)
         main2 = phase_main(cfgs[0], wave)
         check(main2["flat_probe_ranges"] > 0 or not counted, "cfg2's main path never launched flat_probe_ranges")
         main3 = phase_main(cfgs[1], wave)
         check(main3["flat_match_compact"] > 0 or not counted, "cfg3's main path never launched flat_match_compact")
+        # the same tries, now served by the sharded matcher alone
+        for cfg in cfgs:
+            cfg["dm"].close()
+        main_sh = []
+        for cfg in cfgs:
+            sh = phase_setup_sharded(cfg, device)
+            sharded.append(sh)
+            main_sh.append(phase_sharded(sh, wave))
+            phase_kernels_sharded(torch, rec, sh, device, main=cfg is cfgs[0])
+            sh["dm"].close()
     finally:
         for cfg in cfgs:
             cfg["dm"].close()
-    del cfgs
+        for sh in sharded:
+            sh["dm"].close()
+    del cfgs, sharded
     cfgP = phase_setup_predicates(n_subs, 9, device)
     cfgR = phase_setup_recrypt(10, device)
     try:
@@ -1123,15 +1389,18 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
         cfgR["dm"].close()
     kernels_line = []
     for name in REPLACES:
-        launches = main2[name] + main3[name] + mainP[name] + mainR[name]
-        check(launches > 0 or not counted, f"{name} was never launched on the main paths")
+        launches = main2[name] + main3[name] + mainP[name] + mainR[name] + sum(m[name] for m in main_sh)
+        check(launches > 0 or name in INSIDE or not counted, f"{name} was never launched on the main paths")
         r = rec[name]
-        kernels_line.append({
+        entry = {
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-        })
+        }
+        if name in INSIDE:
+            entry["inside"] = INSIDE[name]
+        kernels_line.append(entry)
     return kernels_line
 
 

@@ -9,6 +9,8 @@ hand in CUDA C++ (``csrc/flat_match.cu``). On the same staged batch it
 evaluates MQTT+ payload predicates (``PredicateEngine``,
 ``csrc/predicates.cu``) and decrypts tenant publishes
 (``RecryptEngine``, ``csrc/recrypt.cu``), and the fan-out applies both.
+``parallel`` shards the subscriptions over a mesh of device positions
+(``DeltaMatcher(mesh=parallel.make_mesh(...))``, ``csrc/sharded.cu``).
 It imports ``torch`` and numpy and keeps its own copies of the host code
 it needs.
 

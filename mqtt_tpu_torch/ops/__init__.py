@@ -5,7 +5,8 @@ the payload-predicate rule table and the re-encryption keystream.
                  table keyed by whole-path hashes; the match and fold entry
                  points, each beside its plain PyTorch version
 - ``kernels``  — builds and launches the hand-written CUDA kernels
-                 (``csrc/flat_match.cu``, ``predicates.cu``, ``recrypt.cu``)
+                 (``csrc/flat_match.cu``, ``predicates.cu``, ``recrypt.cu``,
+                 ``sharded.cu``)
 - ``predicates`` — the predicate rule table (``rules_eval``) and the
                  window reduction (``agg_reduce``)
 - ``recrypt``  — AES-128-CTR keystream (``keystream``) and its numpy oracle
@@ -13,7 +14,8 @@ the payload-predicate rule table and the re-encryption keystream.
 - ``matcher``  — the broker-facing ``TorchMatcher`` (drop-in for
                  ``TopicsIndex.subscribers``)
 - ``delta``    — ``DeltaMatcher``: snapshot + host delta overlay +
-                 background fold/rebuild, for live brokers under churn
+                 background fold/rebuild, for live brokers under churn; with
+                 a mesh its snapshot is ``parallel.ShardedTorchMatcher``
 """
 
 from .delta import DeltaMatcher
@@ -26,6 +28,7 @@ from .flat import (
     build_flat_index,
     device_index_from_numpy,
     flat_match_compact,
+    flat_match_core,
     flat_match_packed,
     flat_match_ranges,
     pack_tokens,
@@ -49,6 +52,7 @@ __all__ = [
     "device_index_from_numpy",
     "expand_sids",
     "flat_match_compact",
+    "flat_match_core",
     "flat_match_packed",
     "flat_match_ranges",
     "hash_token",

@@ -18,7 +18,8 @@ afford on every SUBSCRIBE. So:
   live host trie. Results are therefore bit-identical to
   ``TopicsIndex.subscribers`` at every instant, at any rebuild cadence.
 - A background thread folds the overlay into the snapshot (an incremental
-  ``TorchMatcher.fold`` — one ``scatter_rows`` launch — or a full rebuild)
+  ``TorchMatcher.fold`` — one ``scatter_rows`` launch — or a full rebuild;
+  over a mesh, the sharded snapshot's rebuild of the dirty shards)
   when the overlay grows past ``rebuild_after`` filters, every
   ``rebuild_interval`` seconds while it is non-empty, or on demand via
   :meth:`flush`; the overlay generation swaps atomically and carries over
@@ -117,7 +118,18 @@ class DeltaMatcher:
         :meth:`flush` to fold synchronously (tests, benchmarks).
     device:
         Where the snapshot's index lives and its kernels run (``"cuda"`` by
-        default; ``"cpu"`` runs the plain PyTorch versions).
+        default; ``"cpu"`` runs the plain PyTorch versions). Unused with a
+        mesh: the mesh names the devices.
+    mesh:
+        When given (``parallel.make_mesh``), the snapshot is a
+        mesh-sharded matcher (``parallel.ShardedTorchMatcher``) whose
+        rebuild recompiles only the shards touched since the last fold.
+        Its results differ from the trie in one known way, kept from the
+        JAX package and to be fixed in both: a client whose matching
+        filters lie in different shards gets the first shard's
+        subscription fields (filter, MQTT 5 subscription identifier,
+        retain flags) where the trie keeps the walk's first. Who is
+        delivered, and at which QoS, is the trie's.
     """
 
     def __init__(
@@ -132,6 +144,8 @@ class DeltaMatcher:
         compact_capacity: int = 0,
         hits_estimate: float = 2.0,
         device="cuda",
+        mesh=None,
+        out_slots: int = 64,
     ) -> None:
         self.topics = topics
         self.max_levels = max_levels
@@ -146,21 +160,42 @@ class DeltaMatcher:
         self._thread: Optional[threading.Thread] = None
         # a kernel failure in a background fold; the next match raises it
         self._kernel_error: Optional[KernelError] = None
-        # ONE snapshot matcher reused across generations: it swaps its
-        # compiled state atomically
-        snap = _Snapshot(
-            topics,
-            max_levels,
-            window=window,
-            # background rebuilds must not starve the serving thread's
-            # match latency for the build duration
-            cooperative=background,
-            compact=compact,
-            compact_capacity=compact_capacity,
-            hits_estimate=hits_estimate,
-            device=device,
-        )
-        snap.rebuild()
+        # ONE snapshot matcher reused across generations: both kinds swap
+        # their compiled state atomically
+        self._sharded = mesh is not None
+        if self._sharded:
+            # imported here: ``parallel.sharded`` imports this package
+            from ..parallel.sharded import ShardedSnapshot
+
+            snap = ShardedSnapshot(
+                topics,
+                mesh=mesh,
+                max_levels=max_levels,
+                out_slots=out_slots,
+                window=window,
+                compact=compact,
+                compact_capacity=compact_capacity,
+                hits_estimate=hits_estimate,
+            )
+        else:
+            snap = _Snapshot(
+                topics,
+                max_levels,
+                window=window,
+                # background rebuilds must not starve the serving thread's
+                # match latency for the build duration
+                cooperative=background,
+                compact=compact,
+                compact_capacity=compact_capacity,
+                hits_estimate=hits_estimate,
+                device=device,
+            )
+        try:
+            snap.rebuild()
+        except BaseException:
+            if self._sharded:
+                snap.close()  # detach the sharded snapshot's observer
+            raise
         self._snap = snap
         self._gen = _Gen(snap, [])
         topics.add_observer(self._on_mutation)
@@ -176,9 +211,10 @@ class DeltaMatcher:
         return self._snap.stats
 
     @property
-    def snapshot(self) -> TorchMatcher:
-        """The snapshot matcher (its ``index`` and ``device_arrays`` are the
-        compiled index the device serves)."""
+    def snapshot(self):
+        """The snapshot matcher: a ``TorchMatcher`` (its ``index`` and
+        ``device_arrays`` are the compiled index the device serves) or,
+        over a mesh, a ``ShardedTorchMatcher``."""
         return self._snap
 
     # -- delta stream --------------------------------------------------------
@@ -207,7 +243,15 @@ class DeltaMatcher:
 
         When the pending mutations' filter set is known, the snapshot first
         attempts an incremental fold (TorchMatcher.fold): per-bucket edits
-        plus a device row scatter instead of a full rebuild + table upload."""
+        plus a device row scatter instead of a full rebuild + table upload.
+        The sharded snapshot has no fold: its rebuild recompiles the dirty
+        shards and retries torn walks itself."""
+        if self._sharded:
+            # its rebuild takes its rebuild mutex BEFORE the trie lock, so
+            # wrapping it in `with self.topics._lock` here would invert
+            # that order and deadlock against a concurrent rebuild
+            self._snap.rebuild()
+            return
         if filters is not None and self._snap.fold(filters):
             return
         for _ in range(8):
@@ -263,6 +307,8 @@ class DeltaMatcher:
 
     def close(self) -> None:
         self.topics.remove_observer(self._on_mutation)
+        if self._sharded:
+            self._snap.close()  # detach the sharded snapshot's own observer
         self._stop.set()
         self._wake.set()
         if self._thread is not None:

@@ -5,10 +5,11 @@ The host half (the build, the fold, the lazy sid table) is a copy of the
 JAX package's ``ops/flat.py``: both packages must build bit-identical
 tables from the same trie. The device half holds the PyTorch entry points
 with the JAX output layouts — ``flat_match_packed``, ``flat_match_ranges``,
-``flat_match_compact`` and ``scatter_rows`` — each with its plain PyTorch
-version beside it. A wrapper runs the plain version only for tensors that
-lie on the CPU; for CUDA tensors it launches the hand-written kernel of
-``csrc/flat_match.cu`` (``ops/kernels.py``) or raises.
+``flat_match_compact``, ``scatter_rows`` and ``flat_match_core`` — each with
+its plain PyTorch version beside it. A wrapper runs the plain version only
+for tensors that lie on the CPU; for CUDA tensors it launches the
+hand-written kernel of ``csrc/flat_match.cu`` or ``csrc/sharded.cu``
+(``ops/kernels.py``) or raises.
 
 Encoding (reference semantics: topics.go:583-628):
 
@@ -935,12 +936,70 @@ def flat_match_packed_plain(table, pat_kind, pat_depth, pat_mask, packed_tokens,
     )
 
 
+def _slots_constant(B: int, out_slots: int, device):
+    """The slot output of an index with no probes (P == 0): nothing
+    matches, nothing overflows."""
+    return (
+        torch.full((B, out_slots), -1, dtype=torch.int32, device=device),
+        torch.zeros((B,), dtype=torch.int32, device=device),
+        torch.zeros((B,), dtype=torch.bool, device=device),
+    )
+
+
+def flat_match_core_plain(
+    table, pat_kind, pat_depth, pat_mask, packed_tokens, max_levels, out_slots, overflow_slots=0
+):
+    """The probe, expanded to ``out_slots`` sid slots per topic: slot k is
+    ``start[p] + (k - prev[p])`` for the probe p whose range ``[prev[p],
+    prev[p] + cnt[p])`` of the topic's running count holds k, and -1 past
+    the total. One masked write per probe, the ranges' offsets from a
+    cumsum over the probes. ``totals`` is not clipped; ``overflow`` adds
+    ``totals > (overflow_slots or out_slots)`` to the probe's own flag."""
+    B = packed_tokens.shape[0]
+    P = pat_depth.shape[0]
+    dev = packed_tokens.device
+    if P == 0:
+        _unpack_tokens(packed_tokens, max_levels)
+        return _slots_constant(B, out_slots, dev)
+    start, cnt, overflow = probe_plain(
+        table, pat_kind, pat_depth, pat_mask, packed_tokens, max_levels
+    )
+    offs = torch.cumsum(cnt.to(torch.int64), dim=1)  # inclusive; int64 on the CPU
+    prev = offs - cnt
+    ks = torch.arange(out_slots, dtype=torch.int64, device=dev)[None, :]
+    out = torch.full((B, out_slots), -1, dtype=torch.int64, device=dev)
+    for p in range(P):
+        lo = prev[:, p : p + 1]
+        inside = (ks >= lo) & (ks < offs[:, p : p + 1])
+        out = torch.where(inside, start[:, p : p + 1].to(torch.int64) + (ks - lo), out)
+    totals = offs[:, -1]
+    overflow = overflow | (totals > (overflow_slots or out_slots))
+    return out.to(torch.int32), totals.to(torch.int32), overflow
+
+
 def _compact_constant(B: int, capacity: int, device) -> torch.Tensor:
     """The compact output of a batch with no probes (P == 0) or no topics:
     no hits, nothing overflows."""
     out = torch.full((2 + 2 * B + capacity,), -1, dtype=torch.int32, device=device)
     out[: 2 + 2 * B] = 0
     return out
+
+
+def segment_of_slot_plain(c_flat: torch.Tensor, offs: torch.Tensor, capacity: int) -> torch.Tensor:
+    """The JAX package's ``_segment_of_slot`` (int64): which segment
+    supplies each of ``capacity`` compacted slots. Every non-empty segment
+    marks ``id + 1`` at ``min(offset, capacity-1)``, a running max fills
+    the runs, so an overflowing stream's last slot reads the LAST
+    non-empty segment overall; slots past the hits read the last marked
+    segment (callers mask them)."""
+    n_segs = c_flat.shape[0]
+    nonzero = c_flat > 0
+    targets = torch.where(nonzero, offs.clamp(max=capacity - 1), capacity - 1)
+    ids = torch.arange(1, n_segs + 1, dtype=torch.int64, device=c_flat.device)
+    marks = torch.zeros(capacity, dtype=torch.int64, device=c_flat.device).scatter_reduce(
+        0, targets, torch.where(nonzero, ids, 0), reduce="amax"
+    )
+    return (torch.cummax(marks, dim=0).values - 1).clamp(0, n_segs - 1)
 
 
 def flat_match_compact_plain(
@@ -965,14 +1024,7 @@ def flat_match_compact_plain(
     cum = torch.cumsum(c_flat, dim=0)
     offs = cum - c_flat
     n_hits = cum[-1]
-    n_segs = c_flat.shape[0]
-    nonzero = c_flat > 0
-    targets = torch.where(nonzero, offs.clamp(max=capacity - 1), capacity - 1)
-    ids = torch.arange(1, n_segs + 1, dtype=torch.int64, device=dev)
-    marks = torch.zeros(capacity, dtype=torch.int64, device=dev).scatter_reduce(
-        0, targets, torch.where(nonzero, ids, 0), reduce="amax"
-    )
-    seg = (torch.cummax(marks, dim=0).values - 1).clamp(0, n_segs - 1)
+    seg = segment_of_slot_plain(c_flat, offs, capacity)
     k = torch.arange(capacity, dtype=torch.int64, device=dev)
     sid = start.reshape(-1).to(torch.int64)[seg] + (k - offs[seg])
     sid = torch.where(k < n_hits, sid, -1)
@@ -1028,6 +1080,32 @@ def flat_match_ranges(
     )
     P = pat_depth.shape[0]
     return out[:, :P], out[:, P : 2 * P], out[:, 2 * P], out[:, 2 * P + 1] != 0
+
+
+def flat_match_core(
+    table, pat_kind, pat_depth, pat_mask, packed_tokens, *, max_levels, out_slots,
+    overflow_slots=0,
+):
+    """Match ``B`` topics and expand every result to sid slots (the
+    mesh-sharded path's per-shard form): ``(sub_ids[B, out_slots] int32
+    -1-padded, totals[B] int32, overflow[B] bool)``. ``totals`` is the true
+    hit count; ``overflow`` marks topics the host must re-walk (saturated
+    probe, spilled hit, or more hits than ``overflow_slots or
+    out_slots``)."""
+    if out_slots < 1:
+        raise ValueError(f"out_slots must be >= 1, got {out_slots}")
+    if packed_tokens.device.type == "cpu":
+        return flat_match_core_plain(
+            table, pat_kind, pat_depth, pat_mask, packed_tokens, max_levels, out_slots,
+            overflow_slots,
+        )
+    if pat_depth.shape[0] == 0:  # the constant output, no launch
+        _unpack_tokens(packed_tokens, max_levels)
+        return _slots_constant(packed_tokens.shape[0], out_slots, packed_tokens.device)
+    return kernels.flat_match_slots(
+        table, pat_kind, pat_depth, pat_mask, packed_tokens, max_levels, out_slots,
+        overflow_slots,
+    )
 
 
 def flat_match_compact(

@@ -3,19 +3,21 @@
 Each source in ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library of its own with a plain C interface and loaded with
 ``ctypes``: ``flat_match.cu`` (the topic matcher, K1-K3),
-``predicates.cu`` (payload predicates, K4-K5) and ``recrypt.cu`` (tenant
-re-encryption, K6). The build runs at first use into
+``predicates.cu`` (payload predicates, K4-K5), ``recrypt.cu`` (tenant
+re-encryption, K6) and ``sharded.cu`` (the subscription-sharded matcher,
+K7-K9; it shares ``flat_probe.cuh`` with ``flat_match.cu``). The build
+runs at first use into
 ``mqtt_tpu_torch/build/`` (kept out of git), one ``nvcc`` per source, all
-started together, each library named by a hash of its source and flags
-so an edited source rebuilds. Nothing here runs when the module is
+started together, each library named by a hash of its source, the
+shared headers and the flags so an edited source or header rebuilds. Nothing here runs when the module is
 imported: this module is imported on machines without a card or a
 compiler.
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 ``torch.cuda.current_stream()``, raises if the launch reports an error,
 and adds one to its entry in ``LAUNCHES``. The wrappers take CUDA tensors
-only; the plain PyTorch versions in ``ops/flat.py``, ``ops/predicates.py``
-and ``ops/recrypt.py`` serve CPU tensors.
+only; the plain PyTorch versions in ``ops/flat.py``, ``ops/predicates.py``,
+``ops/recrypt.py`` and ``parallel/sharded.py`` serve CPU tensors.
 
 A failed build, load or launch raises ``KernelError``. It does not derive
 from ``RuntimeError``, so no handler meant for a torn read of the live
@@ -38,16 +40,19 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("flat_match.cu", "predicates.cu", "recrypt.cu")
+SOURCES = ("flat_match.cu", "predicates.cu", "recrypt.cu", "sharded.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# one count per kernel wrapper, bumped where the wrapper launches
+# one count per kernel wrapper, bumped where the wrapper launches. The
+# sharded step launches K7's kernel over its stacked shards, so each of
+# its launches counts for "sharded_step" and "flat_match_slots" both
 LAUNCHES = {
     "flat_probe_ranges": 0, "flat_match_compact": 0, "scatter_rows": 0,
     "rules_eval": 0, "agg_reduce": 0, "keystream": 0,
+    "flat_match_slots": 0, "sharded_step": 0, "tile_compact": 0,
 }
 
 _lock = threading.Lock()
@@ -72,11 +77,19 @@ _SIGNATURES = {
     "recrypt.cu": {
         "rc_keystream": [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr],
     },
+    "sharded.cu": {
+        "sh_match_slots": [_c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_int, _c_ptr,
+                           _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
+                           _c_ptr],
+        "sh_tile_compact": [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int,
+                            _c_ptr, _c_ptr, _c_ptr],
+    },
 }
 _ERROR_FNS = {
     "flat_match.cu": "fm_error_string",
     "predicates.cu": "pk_error_string",
     "recrypt.cu": "rc_error_string",
+    "sharded.cu": "sh_error_string",
 }
 _SCAN_TILE = 1024  # kScanThreads in flat_match.cu
 
@@ -104,9 +117,12 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> Path:
     """Where ``source``'s library lands: named by a hash of the source
-    text and the flags."""
+    text, the shared headers (``csrc/*.cuh``) and the flags."""
     src = SOURCE_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -209,13 +225,15 @@ def _cuda_device(t) -> torch.device:
     return t.device
 
 
-def _launched(source: str, err: int, name: str) -> None:
-    """Raise if the launch reported an error, else count it."""
+def _launched(source: str, err: int, *names: str) -> None:
+    """Raise if the launch reported an error, else count it under each
+    of ``names``."""
     if err:
         text = getattr(_libs[source], _ERROR_FNS[source])(err).decode()
-        raise KernelError(f"{name} launch failed: {text} ({err})")
+        raise KernelError(f"{names[0]} launch failed: {text} ({err})")
     with _count_lock:
-        LAUNCHES[name] += 1
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 def _stream(device) -> int:
@@ -367,3 +385,102 @@ def keystream(key_table, kidx, counters):
     )
     _launched("recrypt.cu", err, "keystream")
     return out
+
+
+def _match_slots(tables, pat_kind, pat_depth, pat_mask, tokens, max_levels: int,
+                 overflow_slots: int, out, totals, overflow, *names: str) -> None:
+    """Launch K7's kernel over the ``S`` shards of ``tables [S, NB, 16]``
+    (patterns ``[S, P]``) into ``out [S, B, K]``, ``totals [S, B]`` and
+    ``overflow [S, B]`` bool."""
+    device = _cuda_device(tokens)
+    _check(tables, "tables", device, 3)
+    S, NB = tables.shape[0], tables.shape[1]
+    if tables.shape[2] != 16 or S < 1 or NB < 1 or NB & (NB - 1) or NB >= 1 << 31:
+        raise ValueError(f"tables must be [S, NB, 16] with NB a power of two, got {tuple(tables.shape)}")
+    if tables.data_ptr() % 16:
+        raise ValueError("tables must be 16-byte aligned")
+    for name, t in (("pat_kind", pat_kind), ("pat_depth", pat_depth), ("pat_mask", pat_mask)):
+        _check(t, name, device, 2)
+    P = pat_depth.shape[1]
+    if any(t.shape != (S, P) for t in (pat_kind, pat_depth, pat_mask)):
+        raise ValueError("pattern arrays must be [S, P], one row per shard")
+    B, W = _check_tokens(tokens, device, max_levels)
+    _check(out, "out", device, 3)
+    _check(totals, "totals", device, 2)
+    _check(overflow, "overflow", device, 2, torch.bool)
+    K = out.shape[2]
+    if out.shape[:2] != (S, B) or totals.shape != (S, B) or overflow.shape != (S, B) or K < 1:
+        raise ValueError(f"outputs must be [S, B, K>=1], [S, B], [S, B] for S={S}, B={B}, "
+                         f"got {tuple(out.shape)}, {tuple(totals.shape)}, {tuple(overflow.shape)}")
+    if S * B * K >= 1 << 31:
+        raise ValueError("slot buffer too large for int32 offsets")
+    if B == 0:
+        return
+    lib = library("sharded.cu")
+    err = lib.sh_match_slots(
+        tokens.data_ptr(), B, W, max_levels, tables.data_ptr(), S, NB,
+        pat_kind.data_ptr(), pat_depth.data_ptr(), pat_mask.data_ptr(), P, K,
+        overflow_slots, out.data_ptr(), totals.data_ptr(), overflow.data_ptr(),
+        _stream(device),
+    )
+    _launched("sharded.cu", err, *names)
+
+
+def flat_match_slots(table, pat_kind, pat_depth, pat_mask, tokens, max_levels: int,
+                     out_slots: int, overflow_slots: int = 0):
+    """K7: ``[B, 2L+2]`` packed tokens against one index -> ``(sub_ids
+    [B, out_slots] int32 -1-padded, totals [B] int32, overflow [B] bool)``."""
+    device = _cuda_device(tokens)
+    _check_index(table, pat_kind, pat_depth, pat_mask, device)
+    B, _ = _check_tokens(tokens, device, max_levels)
+    out = torch.empty((1, B, out_slots), dtype=torch.int32, device=device)
+    totals = torch.empty((1, B), dtype=torch.int32, device=device)
+    overflow = torch.empty((1, B), dtype=torch.bool, device=device)
+    _match_slots(
+        table[None], pat_kind[None], pat_depth[None], pat_mask[None], tokens, max_levels,
+        overflow_slots, out, totals, overflow, "flat_match_slots",
+    )
+    return out[0], totals[0], overflow[0]
+
+
+def sharded_match_slots(tables, pat_kind, pat_depth, pat_mask, tokens, max_levels: int,
+                        out, totals, overflow) -> None:
+    """K8: one batch tile against every shard of a stacked index, written
+    straight into the gathered ``out [S, b, K]``, ``totals [S, b]`` and
+    ``overflow [S, b]`` (views the caller allocated). The same kernel as
+    K7 with the shard dimension in its grid; a launch counts for K8 only."""
+    _match_slots(
+        tables, pat_kind, pat_depth, pat_mask, tokens, max_levels, 0,
+        out, totals, overflow, "sharded_step",
+    )
+
+
+def tile_compact(out, totals, overflow, cap_local: int):
+    """K9: ``T`` gathered tiles ``out [T, S, bl, K]``, ``totals [T, S, bl]``
+    int32, ``overflow [T, S, bl]`` bool -> ``rows [T, 2 + 2*bl +
+    2*cap_local]`` int32, one compacted ``(shard, sid)`` pair stream per
+    tile."""
+    device = _cuda_device(out)
+    _check(out, "out", device, 4)
+    _check(totals, "totals", device, 3)
+    _check(overflow, "overflow", device, 3, torch.bool)
+    T, S, bl, K = out.shape
+    if totals.shape != (T, S, bl) or overflow.shape != (T, S, bl):
+        raise ValueError(f"totals and overflow must be [T, S, bl] = {(T, S, bl)}, "
+                         f"got {tuple(totals.shape)}, {tuple(overflow.shape)}")
+    if S < 1 or bl < 1 or K < 1 or cap_local < 1:
+        raise ValueError(f"tile_compact needs S, bl, K, cap_local >= 1 (got {S}, {bl}, {K}, {cap_local})")
+    row_w = 2 + 2 * bl + 2 * cap_local
+    if T * S * bl * K >= 1 << 31 or T * row_w >= 1 << 31:
+        raise ValueError("tiles too large for int32 offsets")
+    rows = torch.empty((T, row_w), dtype=torch.int32, device=device)
+    if T == 0:
+        return rows
+    scratch = torch.empty((T * S * bl,), dtype=torch.int32, device=device)
+    lib = library("sharded.cu")
+    err = lib.sh_tile_compact(
+        out.data_ptr(), totals.data_ptr(), overflow.data_ptr(), T, S, bl, K, cap_local,
+        rows.data_ptr(), scratch.data_ptr(), _stream(device),
+    )
+    _launched("sharded.cu", err, "tile_compact")
+    return rows

@@ -135,11 +135,15 @@ def resolve_compact_py(
     topics: list[str],
     subs_table: Any,
     n_hits: Optional[int] = None,
+    pair_shard: Optional[np.ndarray] = None,
+    tables: Optional[list] = None,
 ) -> tuple[list, list[int]]:
     """Expand a compacted pair stream. The stream is topic-major;
     ``totals`` drives the cursor, so each pair's topic index is implicit.
     Host-routed rows skip their pairs and land in the overflow index list
-    (the caller re-walks them).
+    (the caller re-walks them). In the sharded form ``pair_shard`` names
+    each pair's shard and ``tables`` holds the per-shard sub tables (sid
+    spaces are shard-local); ``subs_table`` is then unused.
 
     ``n_hits`` (when given) enforces the geometry invariant: the totals
     must account for exactly the pair stream — a mismatch means the caller
@@ -154,6 +158,7 @@ def resolve_compact_py(
                 f"stream {len(pair_sid)})"
             )
     sids = pair_sid.tolist()
+    shards = pair_shard.tolist() if pair_shard is not None else None
     tot = totals.tolist()
     route = host_route.tolist()
     results: list = []
@@ -168,7 +173,22 @@ def resolve_compact_py(
             results.append(None)
             cursor += t
             continue
-        results.append(expand_sids(subs_table, sids[cursor : cursor + t], Subscribers()))
+        subs = Subscribers()
+        if shards is None:
+            expand_sids(subs_table, sids[cursor : cursor + t], subs)
+        else:
+            # a topic's pairs come shard by shard (segments are topic-major,
+            # shard-minor): expand each shard's run against its own table
+            j = cursor
+            end = cursor + t
+            while j < end:
+                s = shards[j]
+                k = j
+                while k < end and shards[k] == s:
+                    k += 1
+                expand_sids(tables[s], sids[j:k], subs, seen=set())
+                j = k
+        results.append(subs)
         cursor += t
     return results, ovf_idx
 
@@ -183,13 +203,17 @@ def materialize_compact_pairs(
     topics: list[str],
     subs_table: Any,
     true_overflow: np.ndarray,
+    pair_shard: Optional[np.ndarray] = None,
+    tables: Optional[list] = None,
 ) -> list[Subscribers]:
     """Expand one device-compacted batch into Subscribers results.
     ``totals`` drives a cursor over the topic-major pair stream (padded
     rows included); host-routed topics skip their pairs and re-walk the
-    live trie."""
+    live trie. ``pair_shard``/``tables`` serve the sharded form
+    (``resolve_compact_py``)."""
     results, ovf_idx = resolve_compact_py(
-        pair_sid, totals, host_route, topics, subs_table, n_hits=int(n_hits)
+        pair_sid, totals, host_route, topics, subs_table, n_hits=int(n_hits),
+        pair_shard=pair_shard, tables=tables,
     )
     for i in ovf_idx:
         topic = topics[i]

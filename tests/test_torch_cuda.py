@@ -1,5 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the card.
 
+K1-K3 (the publish matcher), K4-K6 (predicates, re-encryption) and K7-K9
+(the subscription-sharded matcher over a mesh whose positions all lie on
+the one card: ``make_mesh(["cuda:0"] * 8)``, and ``dryrun_multichip(8)``).
+
 Every test here needs an NVIDIA card with ``sm_90a`` and ``nvcc``; where
 there is none it skips with that reason. The tolerance is 0 everywhere but
 K5's MEAN, which sums in another order than the plain version and is held
@@ -9,6 +13,7 @@ tests/test_torch_topics.py tests/test_torch_cuda.py``.
 """
 
 import asyncio
+import contextlib
 
 import numpy as np
 
@@ -327,3 +332,147 @@ def test_stage_legs_on_the_card_match_the_cpu(dev):
                 assert abs(float(x) - float(y)) <= 1e-5 * max(1.0, abs(float(y)))
         else:
             assert a == b
+
+
+# -- the sharded matcher: K7 flat_match_core, K8 the step, K9 tile_compact -------
+
+
+@pytest.mark.parametrize("b_min", [64, 4096])
+@pytest.mark.parametrize("out_slots,overflow_slots", [(64, 0), (8, 0), (8, 20)])
+def test_flat_match_core_kernel_matches_plain(dev, index_pair, b_min, out_slots, overflow_slots):
+    fl, arrays = index_pair
+    tokens = packed(corpus_topics(5), fl, dev, b_min)
+    before = kernels.LAUNCHES["flat_match_slots"]
+    got = flat.flat_match_core(*arrays, tokens, max_levels=fl.max_levels, out_slots=out_slots,
+                               overflow_slots=overflow_slots)
+    want = flat.flat_match_core_plain(*arrays, tokens, fl.max_levels, out_slots, overflow_slots)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flat_match_slots"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(want[2].any()) and int((want[0] >= 0).sum()) > 0
+    if out_slots == 8:
+        assert bool((want[1] > 8).any())
+
+
+@contextlib.contextmanager
+def _sharded(dev, n_positions, ops):
+    from mqtt_tpu_torch.parallel import ShardedTorchMatcher, make_mesh
+
+    index = apply_port_ops(ops, TopicsIndex())
+    m = ShardedTorchMatcher(index, mesh=make_mesh([dev] * n_positions), max_levels=MAX_LEVELS)
+    try:
+        m.rebuild()
+        (arrays,) = m._compiled[0].values()
+        yield m, arrays
+    finally:
+        m.close()
+
+
+@pytest.mark.parametrize("n_positions", [2, 8])  # S = 1 and S = 4 shards
+@pytest.mark.parametrize("b", [64, 4096])
+def test_sharded_step_kernel_matches_plain(dev, n_positions, b):
+    from mqtt_tpu_torch.parallel import sharded
+
+    with _sharded(dev, n_positions, corpus_ops(9, n_subs=300)) as (m, arrays):
+        S, K = m.n_shards, m.out_slots
+        tokens = packed(corpus_topics(6, n=b), m._flats[0], dev, b)[:b]
+        got = [torch.empty((S, b, K), dtype=torch.int32, device=dev),
+               torch.empty((S, b), dtype=torch.int32, device=dev), torch.empty((S, b), dtype=torch.bool, device=dev)]
+        want = [torch.empty_like(a) for a in got]
+        before = dict(kernels.LAUNCHES)
+        sharded.sharded_step(*arrays, tokens, max_levels=m.max_levels, out=got[0], totals=got[1], overflow=got[2])
+        sharded.sharded_step_plain(*arrays, tokens, max_levels=m.max_levels, out=want[0], totals=want[1],
+                                   overflow=want[2])
+        torch.cuda.synchronize()
+    # one launch of K7's kernel with a shard dimension, counted under K8 only
+    assert kernels.LAUNCHES["sharded_step"] == before["sharded_step"] + 1
+    assert kernels.LAUNCHES["flat_match_slots"] == before["flat_match_slots"]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((want[0] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("S,bl,K", [(1, 64, 64), (4, 2048, 64), (4, 16, 8)])
+@pytest.mark.parametrize("fit", ["slack", "below", "negative"])
+def test_tile_compact_kernel_matches_plain(dev, S, bl, K, fit):
+    from mqtt_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(S + bl + K)
+    T = 2
+    totals = np.where(rng.random((T, S, bl)) < 0.5, 0, rng.integers(0, 2 * K, (T, S, bl))).astype(np.int32)
+    out = rng.integers(0, 10_000, (T, S, bl, K)).astype(np.int32)
+    out[np.arange(K)[None, None, None, :] >= np.minimum(totals, K)[..., None]] = -1
+    overflow = rng.random((T, S, bl)) < 0.1
+    t_flat = np.minimum(totals[0].T.reshape(-1), K)
+    n_hits = int(t_flat.sum())
+    last = np.nonzero(t_flat)[0][-1]
+    cap = {"slack": n_hits + 29, "below": n_hits // 2, "negative": max(1, int(t_flat[:last].sum()) - K - 3)}[fit]
+    args = [torch.from_numpy(a).to(dev) for a in (out, totals, overflow)]
+    before = kernels.LAUNCHES["tile_compact"]
+    got = sharded.tile_compact(*args, cap)
+    want = sharded.tile_compact_plain(*args, cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tile_compact"] == before + 1
+    assert torch.equal(got, want)
+    assert int(want[0, 0]) == n_hits
+
+
+def test_sharded_matcher_on_the_card_matches_the_cpu_mesh_and_the_trie(dev):
+    from mqtt_tpu_torch.parallel import ShardedTorchMatcher, make_mesh
+
+    # clients with several filters: the card's results equal the CPU
+    # mesh's (a client whose filters lie in different shards merges in
+    # shard order, as the JAX package's sharded matcher does)
+    topics = corpus_topics(11, n=900)
+    with _sharded(dev, 8, corpus_ops(10, n_subs=300)) as (m, _):
+        cpu = ShardedTorchMatcher(m.topics, mesh=make_mesh(["cpu"] * 8), max_levels=MAX_LEVELS)
+        try:
+            for compact in (True, False):
+                m.compact = cpu.compact = compact
+                for got, want, t in zip(m.match_topics(topics), cpu.match_topics(topics), topics):
+                    assert subscribers_equal(got, want), t
+                    assert got.subscriptions.keys() == m.topics.subscribers(t).subscriptions.keys(), t
+        finally:
+            cpu.close()
+    # one filter per client: every result equals the trie's
+    ops = [("sub", f"c{i}", o[2], o[3], o[4], o[5]) for i, o in enumerate(corpus_ops(12, n_subs=300)) if o[0] == "sub"]
+    with _sharded(dev, 8, ops) as (m, _):
+        for compact in (True, False):
+            m.compact = compact
+            for got, t in zip(m.match_topics(topics), topics):
+                assert subscribers_equal(got, m.topics.subscribers(t)), t
+
+
+def test_dryrun_multichip_on_one_card(dev):
+    from mqtt_tpu_torch.parallel import dryrun_multichip
+
+    before = dict(kernels.LAUNCHES)
+    dryrun_multichip(8)
+    assert kernels.LAUNCHES["sharded_step"] > before["sharded_step"]
+    assert kernels.LAUNCHES["tile_compact"] > before["tile_compact"]
+
+
+@pytest.mark.parametrize("layout", ["4x1-per-row", "2x2"])
+def test_mesh_across_cards(dev, layout):
+    # the branch a one-card machine never takes: a tile's shards on other
+    # cards write there and are copied into the owner's gathered layout
+    from mqtt_tpu_torch.parallel import ShardedTorchMatcher, make_mesh
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip(f"needs 4 cards, found {n}")
+    cards = [f"cuda:{i}" for i in range(4)]
+    mesh = make_mesh(cards * 2 if layout == "4x1-per-row" else cards)
+    ops = [("sub", f"c{i}", o[2], o[3], o[4], o[5]) for i, o in enumerate(corpus_ops(12, n_subs=300)) if o[0] == "sub"]
+    index = apply_port_ops(ops, TopicsIndex())
+    m = ShardedTorchMatcher(index, mesh=mesh, max_levels=MAX_LEVELS)
+    try:
+        topics = corpus_topics(11, n=900)
+        for compact in (True, False):
+            m.compact = compact
+            for got, t in zip(m.match_topics(topics), topics):
+                assert subscribers_equal(got, index.subscribers(t)), t
+        assert m.stats.compact_batches + m.stats.compact_overflows >= 1
+    finally:
+        m.close()
