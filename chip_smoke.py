@@ -16,7 +16,8 @@ Phases, each printed as it ends:
    compact capacity below the batch's hits, a fold-sized row scatter), with
    tolerance 0 (all outputs are integers); each kernel's CUDA-event time,
    bound and plain time, and ``torch.index_copy``'s time beside the row
-   scatter.
+   scatter. After cfg3's main path, K2 again at the smallest batch bucket
+   its default-budget feed launched.
 5. The main path, once per configuration, with the launch counts set to 0
    just before it: ``MatchStage`` → ``DeltaMatcher`` → ``TorchMatcher`` on
    ``cuda``, >= 64K publishes in three waves through a stage with a fixed
@@ -39,7 +40,13 @@ Phases, each printed as it ends:
    at) held against their plain versions at the path's shapes. Every
    result must equal the trie's (every client of cfg2 and cfg3 holds one
    filter, where the sharded matcher is identical to the trie).
-7. The predicate path (cfgP): cfg2's 1M subscriptions with cfg9's 100,000
+7. Tenant namespaces (cfgN): 8 tenants x 2,500 scoped subscriptions
+   beside global top-level wildcards (client, ``$SHARE`` and inline),
+   8,192 publishes, two thirds scoped, through ``MatchStage`` over
+   ``DeltaMatcher`` and then over ``DeltaMatcher(mesh=...)``. Every result
+   must equal the trie's: the namespace guard keeps every global wildcard
+   off the scoped topics on the device routes too.
+8. The predicate path (cfgP): cfg2's 1M subscriptions with cfg9's 100,000
    distinct ``$GT`` rules on every 10th filter, 1,000 each of
    ``$CONTAINS``, ``$EQS`` and ``$AND`` rules, and one hot topic whose 64
    subscribers hold ``$MEAN``/``$MAX``/``$MIN`` windows of 32 and 64
@@ -48,7 +55,7 @@ Phases, each printed as it ends:
    ``MatchStage`` and ``apply``, three waves of JSON publishes. Every
    filtered subscriber set and emission must equal the trie walk filtered
    by the host interpreter.
-8. The re-encryption path (cfgR, cfg10's shape): 4 tenants x 128 keys, an
+9. The re-encryption path (cfgR, cfg10's shape): 4 tenants x 128 keys, an
    encrypted namespace, fan-out 100, payloads of 256 and 4096 bytes:
    ``RecryptEngine`` (K6 ``keystream`` on the staged decrypt leg and on
    every ``seal_fanout``). Every decrypted publish must equal its
@@ -91,6 +98,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # C++ Programming Guide's throughput table, compute capability 9.0: 64
 # compare/min/max results per clock per SM).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# conflict-free shared-memory lookups: 32 banks x 132 SMs x 1.98 GHz (a
+# ceiling K6 meets beside its bound, not the bound itself)
+SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
 N_SUBS = 1_000_000
 WAVE = 24_576  # publishes per wave; three waves per configuration
 BATCHES = (4096, 65536)
@@ -424,6 +434,38 @@ def phase_kernels(torch, cfgs: list, device, iters: int = 20) -> dict:
     return rec
 
 
+def phase_kernel_small_batch(torch, rec: dict, cfg: dict, device, iters: int = 20) -> None:
+    """K2 against its plain version at the smallest batch bucket that the
+    configuration's default-budget feed launched (``phase_main`` records
+    the buckets), at the capacity the matcher held for that bucket."""
+    from mqtt_tpu_torch.ops import flat
+    from mqtt_tpu_torch.ops.matcher import pick_compact_capacity
+
+    on_cuda = device.type == "cuda"
+    compare = _comparer(torch, rec)
+    snap = cfg["dm"].snapshot
+    fl, arrays = snap.index, snap.device_arrays
+    L, P = fl.max_levels, fl.num_patterns
+    B = cfg["paced_buckets"][0]
+    topics = [cfg["topic_gen"]() for _ in range(B)]
+    tokens = _tokens(torch, flat, topics, fl, device)
+    n_hits = int(flat.flat_match_packed_plain(*arrays, tokens, L)[:, 2 * P].sum())
+    capacity = snap._caps.get(B) or pick_compact_capacity(0, max(1.0, n_hits / B), B, B * P * fl.window, {})
+    for cap in (capacity, max(1, n_hits // 2)):
+        got = flat.flat_match_compact(*arrays, tokens, max_levels=L, capacity=cap)
+        want = flat.flat_match_compact_plain(*arrays, tokens, L, cap)
+        compare("flat_match_compact", got, want, f"{cfg['name']} B={B} cap={cap}")
+    rows = int(torch.unique(flat.probe_slots(*arrays, tokens, max_levels=L)).numel())
+    n_bytes = tokens.numel() * 4 + rows * 64 + 3 * P * 4 + (2 + 2 * B + capacity) * 4
+    bound_ms, bound_by = bound(n_bytes, probe_ops(B, P, L) + 4 * B * P + 2 * n_hits)
+    measure = (lambda fn, n: event_ms(torch, fn, n)) if on_cuda else _host_ms
+    ms = measure(lambda: flat.flat_match_compact(*arrays, tokens, max_levels=L, capacity=capacity), iters)
+    plain = measure(lambda: flat.flat_match_compact_plain(*arrays, tokens, L, capacity), 3)
+    log(f"  flat_match_compact {cfg['name']} smallest default-budget bucket B={B} (buckets "
+        f"{cfg['paced_buckets']}) P={P} cap={capacity} hits={n_hits}: err 0, {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} B)")
+
+
 def _host_ms(fn, n: int) -> float:
     fn()
     t0 = time.perf_counter()
@@ -541,6 +583,7 @@ def phase_main(cfg: dict, wave: int, n_churn: int = 150, paced_s: float = 2.0) -
     the measured rate for ``paced_s`` seconds."""
     from mqtt_tpu_torch import MatchStage, Subscription
     from mqtt_tpu_torch.ops import kernels
+    from mqtt_tpu_torch.ops.flat import _bucket
 
     index, dm, rng, gen = cfg["index"], cfg["dm"], cfg["rng"], cfg["topic_gen"]
     name = cfg["name"]
@@ -603,6 +646,7 @@ def phase_main(cfg: dict, wave: int, n_churn: int = 150, paced_s: float = 2.0) -
         out["t_paced"] = (t_paced, time.perf_counter())
         _verify(index, paced_topics, rp, f"{name} paced at the default budget")
         out.update(rate=rate, lat=lat, paced=stage, n_paced=len(paced_topics))
+        cfg["paced_buckets"] = sorted({_bucket(max(1, n), minimum=16) for n, _ in stage.service_log})
 
     pauses = GcPauses()
     gc.callbacks.append(pauses)
@@ -646,7 +690,8 @@ def phase_main(cfg: dict, wave: int, n_churn: int = 150, paced_s: float = 2.0) -
         f"p99 {_pct(lat, 0.99) * 1e3:.3f} ms max {max(lat) * 1e3:.3f} ms, "
         f"{len(late)} over the budget{late_at}, {len(service)} batches "
         f"(resolve p50 {_pct(service, 0.5) * 1e3:.3f} ms max {max(service) * 1e3:.3f} ms), "
-        f"final batch cap {paced._batch_cap}, host-walk fallbacks {paced.fallbacks or 0}, "
+        f"final batch cap {paced._batch_cap}, buckets {cfg['paced_buckets']}, "
+        f"host-walk fallbacks {paced.fallbacks or 0}, "
         f"{pauses.summary(*out['t_paced'])}")
     log(f"  {name} launches on the main path: {launches}")
     return launches
@@ -854,6 +899,118 @@ def phase_sharded(sh: dict, wave: int, n_waves: int = 3, n_churn: int = 150) -> 
             f"device busy {out['busy_us']:.1f} us (copies {out['copy_us']:.1f} us), "
             f"idle share {1 - out['busy_us'] / wall_us:.6f}")
     log(f"  sharded {name} launches on the path: {launches}")
+    return launches
+
+
+# -- tenant namespaces ------------------------------------------------------------
+
+NS_SEGS = ["e", "1", "a", "$x", "b"] + [f"s{i}" for i in range(75)]
+# global filters whose first level is a wildcard: the namespace guard keeps
+# them from every scoped topic
+NS_GLOBAL = ["#", "+/e/+", "+/#", "+/+/1", "+/a/#", "+/$x/#"]
+
+
+def build_cfgN(n_tenants: int, per_tenant: int, rng: random.Random):
+    """Tenant namespaces beside global wildcards (the repro of the
+    namespace-guard fault, grown to ``n_tenants`` x ``per_tenant`` scoped
+    subscriptions of one filter per client): scoped filters of 1-4 levels
+    with ``+`` and ``#`` levels and tenant-local ``$x`` first levels, a few
+    scoped local ``+``/``#`` first levels per tenant, scoped ``$SHARE``
+    groups, and the global ``NS_GLOBAL`` clients, a global ``$SHARE/g/#``
+    and an inline ``#``. Topics are two thirds scoped (a fifth of those
+    with a local ``$x`` first level)."""
+    from mqtt_tpu_torch import InlineSubscription, Subscription, TopicsIndex
+    from mqtt_tpu_torch.topics import ns_scope_filter, ns_scope_topic
+
+    index = TopicsIndex()
+    entries = [(f"gw{g}", Subscription(filter=f, qos=1)) for g, f in enumerate(NS_GLOBAL)]
+    entries.append(("gs", Subscription(filter="$SHARE/g/#", qos=1)))
+    tenants = [f"nt{t}" for t in range(n_tenants)]
+    for t in tenants:
+        for i in range(per_tenant):
+            depth = rng.randint(1, 4)
+            parts = [rng.choice(NS_SEGS) for _ in range(depth)]
+            roll = rng.random()
+            if roll < 0.2 and depth > 1:
+                parts[rng.randrange(1, depth)] = "+"
+            elif roll < 0.3:
+                parts = parts[: rng.randint(1, depth)] + ["#"]
+            if i < 6:
+                parts[0] = "+#"[i % 2]
+                parts = parts[:1] if parts[0] == "#" else parts
+            flt = "/".join(parts)
+            if i % 50 == 7:
+                flt = f"$SHARE/g{i % 3}/{flt}"
+            entries.append((f"{t}:c{i}", Subscription(filter=ns_scope_filter(t, flt), qos=i % 3)))
+    index.subscribe_bulk(entries)
+    index.inline_subscribe(InlineSubscription(filter="#", identifier=1, handler=lambda *a: None))
+
+    def topic_gen():
+        topic = "/".join(rng.choice(NS_SEGS) for _ in range(rng.randint(1, 4)))
+        if rng.random() < 0.67:
+            if rng.random() < 0.2:
+                topic = "$x/" + topic
+            return ns_scope_topic(rng.choice(tenants), topic)
+        return topic
+
+    return index, len(entries), topic_gen
+
+
+def phase_namespace(torch, device, n_tenants: int = 8, per_tenant: int = 2500, n_topics: int = 8192) -> dict:
+    """The namespace corpus on the card (launch counts reset just before):
+    ``n_topics`` publishes through ``MatchStage`` over ``DeltaMatcher``, then
+    through ``DeltaMatcher(mesh=make_mesh([device] * 8))``; every result
+    must equal the trie's, no global wildcard client may reach a scoped
+    topic, and the global ``#`` client must reach every global topic that
+    does not start with ``$``."""
+    from mqtt_tpu_torch import DeltaMatcher, MatchStage
+    from mqtt_tpu_torch.ops import kernels
+    from mqtt_tpu_torch.parallel import make_mesh
+    from mqtt_tpu_torch.topics import NS_CHAR
+
+    rng = random.Random(11)
+    index, n_subs, gen = build_cfgN(n_tenants, per_tenant, rng)
+    topics = [gen() for _ in range(n_topics)]
+    launches = dict.fromkeys(REPLACES, 0)
+    for mesh in (None, make_mesh([device] * MESH_POSITIONS)):
+        what = "mesh" if mesh is not None else "single-device"
+        dm = DeltaMatcher(index, max_levels=8, background=False, device=device, mesh=mesh,
+                          out_slots=OUT_SLOTS)
+
+        async def drive():
+            stage = MatchStage(dm, index.subscribers, max_batch=MAIN_BATCH, latency_budget_s=None,
+                               max_pending=1 << 20)
+            stage.start()
+            try:
+                return await asyncio.gather(*(stage.submit(t) for t in topics))
+            finally:
+                await stage.stop()
+
+        try:
+            kernels.reset_launches()
+            results = asyncio.run(drive())
+            for k, v in kernels.LAUNCHES.items():
+                launches[k] += v
+            stats = dm.stats.as_dict()
+        finally:
+            dm.close()
+        _verify(index, topics, results, f"namespace {what}")
+        scoped = 0
+        for t, r in zip(topics, results):
+            wild = {c for c in r.subscriptions if c.startswith("gw")}
+            if t[:1] == NS_CHAR:
+                scoped += 1
+                check(not wild and "$SHARE/g/#" not in r.shared and 1 not in r.inline_subscriptions,
+                      f"namespace {what}: a global wildcard reached the scoped topic {t!r}")
+            elif t[:1] != "$":
+                check("gw0" in wild, f"namespace {what}: the global # client missed {t!r}")
+        log(f"phase namespace {what}: ok {n_topics} publishes ({scoped} scoped) over {n_subs} subscriptions "
+            f"of {n_tenants} tenants bit-identical to the trie, no global wildcard on a scoped topic; "
+            f"host_fallbacks {stats['host_fallbacks']}, compact_batches {stats['compact_batches']}")
+    if device.type == "cuda":
+        check(launches["flat_probe_ranges"] + launches["flat_match_compact"] > 0
+              and launches["sharded_step"] > 0, f"the namespace phase ran no matcher kernel: {launches}")
+    log(f"  namespace launches: {launches}")
     return launches
 
 
@@ -1243,6 +1400,23 @@ def keystream_ops(N: int) -> int:
     return N * 10 * 16 * 4
 
 
+def _keystream_split(torch, key_table, kidx, counters, lanes: int):
+    """K6 with ``lanes`` threads per AES block (the wrapper picks by N),
+    launched through the library itself so the launch is not counted."""
+    import ctypes
+
+    from mqtt_tpu_torch.ops import kernels
+
+    N = kidx.shape[0]
+    out = torch.empty((N, 16), dtype=torch.uint8, device=counters.device)
+    err = kernels.library("recrypt.cu").rc_keystream(
+        key_table.data_ptr(), key_table.shape[0], kidx.data_ptr(), counters.data_ptr(), N, out.data_ptr(),
+        lanes, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+    )
+    check(err == 0, f"keystream with {lanes} lanes per block failed to launch ({err})")
+    return out
+
+
 def phase_kernels_pr(torch, rec: dict, cfgP: dict, cfgR: dict, device, n_recrypt: int, iters: int = 20) -> None:
     """K4-K6 against their plain versions on the same inputs on the card,
     at the shapes cfgP and cfgR give them; fills ``rec``."""
@@ -1324,9 +1498,9 @@ def phase_kernels_pr(torch, rec: dict, cfgP: dict, cfgR: dict, device, n_recrypt
     # fan-out: it takes half the path's launches and most of its blocks.
     key_table = torch.from_numpy(cfgR["rec"].keys.table()).to(device)
     T = key_table.shape[0]
-    shapes = (("decrypt 4096-B", n_recrypt * 256, False), ("decrypt 256-B", n_recrypt * 16, False),
-              ("fan-out 256-B", RECRYPT_FANOUT * 16, False), ("fan-out 4096-B", RECRYPT_FANOUT * 256, True))
-    for what, n_live, main in shapes:
+    shapes = (("decrypt 4096-B", n_recrypt * 256, 256, False), ("decrypt 256-B", n_recrypt * 16, 16, False),
+              ("fan-out 256-B", RECRYPT_FANOUT * 16, 16, False), ("fan-out 4096-B", RECRYPT_FANOUT * 256, 256, True))
+    for what, n_live, per_payload, main in shapes:
         N = _bucket(n_live, minimum=16)
         k_np = np.zeros(N, np.int32)
         c_np = np.zeros((N, 16), np.uint8)
@@ -1341,6 +1515,23 @@ def phase_kernels_pr(torch, rec: dict, cfgP: dict, cfgR: dict, device, n_recrypt
         timed("keystream", f"{what} N={N} ({n_live} live) T={T}", lambda: rops.keystream(key_table, kidx, ctrs),
               lambda: rops.keystream_plain(key_table, kidx, ctrs),
               N * 36 + T * 176, keystream_ops(N), err, main)
+        if on_cuda:
+            split_ms = {}
+            for lanes in (1, 4):
+                check(torch.equal(_keystream_split(torch, key_table, kidx, ctrs, lanes), want),
+                      f"keystream N={N} lanes={lanes}: disagrees with its plain version")
+                split_ms[lanes] = measure(lambda: _keystream_split(torch, key_table, kidx, ctrs, lanes), iters)
+            # the path's own key layout: one key per payload, not per block
+            runs = np.zeros(N, np.int32)
+            runs[:n_live] = np.repeat(g.integers(0, T, -(-n_live // per_payload)), per_payload)[:n_live]
+            k_runs = torch.from_numpy(runs).to(device)
+            check(torch.equal(rops.keystream(key_table, k_runs, ctrs), rops.keystream_plain(key_table, k_runs, ctrs)),
+                  f"keystream N={N} (a key per payload): disagrees with its plain version")
+            runs_ms = measure(lambda: rops.keystream(key_table, k_runs, ctrs), iters)
+            log(f"    keystream N={N}: one lane per AES block {split_ms[1]:.4f} ms, four lanes "
+                f"{split_ms[4]:.4f} ms (both equal to plain); with one key per {per_payload}-block payload, as "
+                f"the path keys it, {runs_ms:.4f} ms; shared-memory lookup ceiling "
+                f"{N * 160 / SMEM_LOOKUPS_PER_S * 1e3:.4f} ms ({N * 160} lookups)")
     log("phase kernels K4-K6: ok every kernel equals its plain version (K5's MEAN within "
         f"{MEAN_TOL} x max(1, |want|), the rest tolerance 0)")
 
@@ -1362,6 +1553,7 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
         check(main2["flat_probe_ranges"] > 0 or not counted, "cfg2's main path never launched flat_probe_ranges")
         main3 = phase_main(cfgs[1], wave)
         check(main3["flat_match_compact"] > 0 or not counted, "cfg3's main path never launched flat_match_compact")
+        phase_kernel_small_batch(torch, rec, cfgs[1], device)
         # the same tries, now served by the sharded matcher alone
         for cfg in cfgs:
             cfg["dm"].close()
@@ -1378,6 +1570,7 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
         for sh in sharded:
             sh["dm"].close()
     del cfgs, sharded
+    mainN = phase_namespace(torch, device)
     cfgP = phase_setup_predicates(n_subs, 9, device)
     cfgR = phase_setup_recrypt(10, device)
     try:
@@ -1389,7 +1582,8 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
         cfgR["dm"].close()
     kernels_line = []
     for name in REPLACES:
-        launches = main2[name] + main3[name] + mainP[name] + mainR[name] + sum(m[name] for m in main_sh)
+        launches = (main2[name] + main3[name] + mainN[name] + mainP[name] + mainR[name]
+                    + sum(m[name] for m in main_sh))
         check(launches > 0 or name in INSIDE or not counted, f"{name} was never launched on the main paths")
         r = rec[name]
         entry = {

@@ -18,13 +18,25 @@
 // each probe to exactly one row read as four 16-byte loads and keeps the
 // per-topic reduction (total, overflow) in a warp, so nothing but the
 // packed output row returns to device memory. K2 adds an exclusive scan
-// over the B*P counts (a tile scan, a scan of the tile sums, then a
-// segment-parallel write) whose scratch is four ints per probe. K3 copies
-// the whole table (the update is functional) and writes k rows. The probe
-// (probe_one) and the block scan live in flat_probe.cuh, shared with
-// sharded.cu.
+// over the B*P counts and the compacted write; at the path's batches it is
+// latency-bound (one dependent row gather per probe), so it runs as ONE
+// launch with no memset: each CUDA block probes a tile of topics with one
+// lane per (topic, pattern) probe (at P = 8 a warp takes four topics
+// where K1's leaves 24 lanes idle), keeps the tile's starts and counts in
+// shared memory, takes its exclusive offset by a decoupled look-back over
+// tiles numbered by an atomic ticket, writes its segments (a warp striding
+// over each range, so the stores coalesce), and the last block to finish
+// writes the header and the clip slot; the -1 tail is shared by the
+// blocks that finish after the last tile's prefix is known. A batch that
+// fits one block of 32 warps (128 topics at P = 8) skips the
+// ticket, the look-back and the done counter. Its scratch is four ints
+// per tile. K3 copies the whole table (the update is functional) and writes k
+// rows. The probe (probe_one) and the block scan live in flat_probe.cuh,
+// shared with sharded.cu.
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "flat_probe.cuh"
@@ -34,15 +46,14 @@ namespace {
 // One warp per topic; lane l takes shapes l, l+32, ... . start/cnt of
 // probe (b, p) land at start_out[b*row_stride + p] / cnt_out[...]; the
 // topic's total and overflow flag at total_out[b*tot_stride] and
-// ovf_out[b*tot_stride]. last_seg (nullable) collects the index b*P+p of
-// the last probe with a non-empty range.
+// ovf_out[b*tot_stride].
 __global__ void __launch_bounds__(kProbeThreads) probe_kernel(
     const int* __restrict__ tokens, int B, int W, int max_levels,
     const uint4* __restrict__ table, uint32_t slot_mask,
     const int* __restrict__ pat_kind, const int* __restrict__ pat_depth,
     const int* __restrict__ pat_mask, int P, int* __restrict__ start_out,
     int* __restrict__ cnt_out, long long row_stride, int* __restrict__ total_out,
-    int* __restrict__ ovf_out, long long tot_stride, int* __restrict__ last_seg) {
+    int* __restrict__ ovf_out, long long tot_stride) {
   const long long b =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
   const int lane = threadIdx.x % kWarp;
@@ -53,7 +64,6 @@ __global__ void __launch_bounds__(kProbeThreads) probe_kernel(
   const bool dollar = tok[2 * L + 1] != 0;
   int total = 0;
   bool ovf = false;
-  int last = -1;
   for (int p = lane; p < P; p += kWarp) {
     const ProbeOut r = probe_one(tok, L, max_levels, n, dollar, table, slot_mask,
                                  static_cast<uint32_t>(pat_kind[p]), pat_depth[p],
@@ -62,81 +72,310 @@ __global__ void __launch_bounds__(kProbeThreads) probe_kernel(
     cnt_out[b * row_stride + p] = r.cnt;
     total += r.cnt;
     ovf |= r.overflow;
-    if (r.cnt > 0) last = p;
   }
 #pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) {
-    total += __shfl_xor_sync(kFull, total, o);
-    last = max(last, __shfl_xor_sync(kFull, last, o));
-  }
+  for (int o = kWarp / 2; o > 0; o >>= 1) total += __shfl_xor_sync(kFull, total, o);
   ovf = __any_sync(kFull, ovf);
   if (lane == 0) {
     total_out[b * tot_stride] = total;
     ovf_out[b * tot_stride] = ovf ? 1 : 0;
-    if (last_seg != nullptr && last >= 0)
-      atomicMax(last_seg, static_cast<int>(b * P + last));
   }
 }
 
-// Pass 1: exclusive scan inside each tile of kScanThreads counts.
-__global__ void __launch_bounds__(kScanThreads) scan_tiles_kernel(
-    const int* __restrict__ cnt, long long N, int* __restrict__ offs,
-    int* __restrict__ tile_sums) {
-  const long long i = static_cast<long long>(blockIdx.x) * kScanThreads + threadIdx.x;
-  const int v = i < N ? cnt[i] : 0;
-  int tile_total;
-  const int incl = block_inclusive_scan(v, &tile_total);
-  if (i < N) offs[i] = incl - v;
-  if (threadIdx.x == 0) tile_sums[blockIdx.x] = tile_total;
+// K2 in one launch. Lanes map to (topic, pattern) probes: for P <= 32 a
+// warp takes G = 32 / P whole topics, lane l probing pattern l % P of topic
+// l / P, so all 32 lanes probe (P is a power of two); for P > 32 a warp
+// takes one topic and its lanes stride over the patterns. CUDA block t (by
+// ticket) takes topics [t*W*G, (t+1)*W*G), W = blockDim.x / 32; smem holds
+// their starts and counts. The decoupled look-back (Merrill and Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016) gives
+// the tile its exclusive offset. The scratch (see fm_match_compact) holds
+// the ticket, the done counter, the last non-empty tile (+1) and the tail
+// cursor, then per tile a 64-bit status word and a clip record. A launch of
+// one CUDA block needs none of it.
+constexpr unsigned long long kFlagInclusive = 1ull << 32;
+constexpr int kLookback = 8;       // statuses per lane per look-back round
+constexpr int kTailChunk = 4096;   // -1 slots per grab of the tail cursor
+constexpr int kMaxTileTopics = 1024;  // 32 warps x G = 32 (P = 1)
+
+__device__ __forceinline__ unsigned long long status_word(unsigned epoch, bool inclusive, int value) {
+  return (static_cast<unsigned long long>(epoch) << 33) | (inclusive ? kFlagInclusive : 0ull) |
+         static_cast<unsigned int>(value);
 }
 
-// Pass 2 (one block): exclusive scan of the tile sums, in chunks with a
-// running carry; the grand total is n_hits, written into the header.
-__global__ void __launch_bounds__(kScanThreads) scan_tile_sums_kernel(
-    int* __restrict__ tile_sums, int T, int* __restrict__ header, int capacity) {
-  int carry = 0;
-  for (int base = 0; base < T; base += kScanThreads) {
-    const int i = base + threadIdx.x;
-    const int v = i < T ? tile_sums[i] : 0;
-    int chunk_total;
-    const int incl = block_inclusive_scan(v, &chunk_total);
-    if (i < T) tile_sums[i] = carry + incl - v;
-    carry += chunk_total;
+__device__ __forceinline__ unsigned long long load_status(unsigned long long* s) {
+  return cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(*s).load(
+      cuda::memory_order_relaxed);
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* s, unsigned long long v) {
+  cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(*s).store(
+      v, cuda::memory_order_relaxed);
+}
+
+// Warp 0's look-back for tile > 0: lane l reads the statuses of tiles
+// j - 8l .. j - 8l - 7, all loads in flight together; the round ends once
+// every tile nearer than the nearest inclusive status has published (the
+// unpublished ones are re-read after a short sleep). Returns the sum of the
+// predecessors' counts.
+__device__ int look_back(unsigned long long* status, int tile, unsigned epoch, int lane) {
+  int excl = 0;
+  for (int j = tile - 1;; j -= kWarp * kLookback) {
+    unsigned long long st[kLookback];
+#pragma unroll
+    for (int m = 0; m < kLookback; ++m) {
+      const int idx = j - (lane * kLookback + m);
+      st[m] = idx >= 0 ? load_status(status + idx) : status_word(epoch, true, 0);
+    }
+    while (true) {
+      int first = INT_MAX;  // the lane's nearest published inclusive status
+#pragma unroll
+      for (int m = 0; m < kLookback; ++m)
+        if (first == INT_MAX && static_cast<unsigned>(st[m] >> 33) == epoch && (st[m] & kFlagInclusive))
+          first = lane * kLookback + m;
+#pragma unroll
+      for (int o = kWarp / 2; o > 0; o >>= 1) first = min(first, __shfl_xor_sync(kFull, first, o));
+      bool ready = true;
+#pragma unroll
+      for (int m = 0; m < kLookback; ++m)
+        if (lane * kLookback + m < first && static_cast<unsigned>(st[m] >> 33) != epoch) ready = false;
+      if (__all_sync(kFull, ready)) {
+        int v = 0;
+#pragma unroll
+        for (int m = 0; m < kLookback; ++m)
+          if (lane * kLookback + m <= first) v += static_cast<int>(static_cast<unsigned int>(st[m]));
+#pragma unroll
+        for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+        excl += v;
+        if (first != INT_MAX) return excl;
+        break;
+      }
+      __nanosleep(100);
+#pragma unroll
+      for (int m = 0; m < kLookback; ++m)
+        if (lane * kLookback + m < first && static_cast<unsigned>(st[m] >> 33) != epoch)
+          st[m] = load_status(status + (j - (lane * kLookback + m)));
+    }
   }
+}
+
+// -1 over the tail [n_hits, capacity) in chunks taken from *cursor, so the
+// blocks that finish after the last tile has its prefix share the work.
+__device__ void fill_tail(int* sids, int n_hits, int capacity, int* cursor) {
+  __shared__ int s_chunk;
+  while (true) {
+    __syncthreads();
+    if (threadIdx.x == 0) s_chunk = atomicAdd(cursor, 1);
+    __syncthreads();
+    const long long lo = n_hits + static_cast<long long>(s_chunk) * kTailChunk;
+    if (lo >= capacity) return;
+    const long long hi = min(static_cast<long long>(capacity), lo + kTailChunk);
+    for (long long k = lo + threadIdx.x; k < hi; k += blockDim.x) sids[k] = -1;
+  }
+}
+
+__global__ void __launch_bounds__(1024) match_compact_kernel(
+    const int* __restrict__ tokens, int B, int W_tok, int max_levels,
+    const uint4* __restrict__ table, uint32_t slot_mask,
+    const int* __restrict__ pat_kind, const int* __restrict__ pat_depth,
+    const int* __restrict__ pat_mask, int P, int capacity, int* __restrict__ out,
+    int* __restrict__ scratch, unsigned epoch) {
+  extern __shared__ int smem[];
+  __shared__ int s_tile, s_excl, s_n_hits;
+  __shared__ int2 s_record;
+  __shared__ int s_total[kMaxTileTopics], s_last_p[kMaxTileTopics];
+  __shared__ bool s_is_last;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int Pw = min(P, kWarp);  // lanes per topic
+  const int G = kWarp / Pw;      // topics per warp
+  const int n_topics = blockDim.x / kWarp * G;  // topics per tile
+  const int n_tiles = gridDim.x;
+  const bool single = n_tiles == 1;
+  int* s_start = smem;
+  int* s_cnt = smem + n_topics * P;
+  int* ticket = scratch;
+  int* done = scratch + 1;
+  int* last_tile = scratch + 2;
+  int* cursor = scratch + 3;
+  unsigned long long* status = reinterpret_cast<unsigned long long*>(scratch + 4);
+  int2* records = reinterpret_cast<int2*>(status + n_tiles);
+  int* header = out;
+  int* totals = out + 2;
+  int* ovf_out = out + 2 + B;
+  int* sids = out + 2 + 2LL * B;
+
+  // 1. a tile id in start order: a tile waits only on tiles that started
+  // before it, never on one that was not yet scheduled
+  if (threadIdx.x == 0) s_tile = single ? 0 : atomicAdd(ticket, 1);
+  __syncthreads();
+  const int tile = s_tile;
+
+  // 2. the probes, as probe_kernel runs them; lt is the topic in the tile
+  const int lt = warp * G + lane / Pw;
+  const int b = tile * n_topics + lt;
+  int total = 0;
+  int last = -1;
+  bool ovf = false;
+  if (b < B) {
+    const int L = (W_tok - 2) / 2;
+    const int* tok = tokens + static_cast<long long>(b) * W_tok;
+    const int n = tok[2 * L];
+    const bool dollar = tok[2 * L + 1] != 0;
+    for (int p = lane % Pw; p < P; p += kWarp) {
+      const ProbeOut r = probe_one(tok, L, max_levels, n, dollar, table, slot_mask,
+                                   static_cast<uint32_t>(pat_kind[p]), pat_depth[p],
+                                   static_cast<uint32_t>(pat_mask[p]));
+      s_start[lt * P + p] = r.start;
+      s_cnt[lt * P + p] = r.cnt;
+      total += r.cnt;
+      ovf |= r.overflow;
+      if (r.cnt > 0) last = p;
+    }
+  }
+  // reduce over the topic's lanes (an aligned group of Pw)
+  for (int o = Pw / 2; o > 0; o >>= 1) {
+    total += __shfl_xor_sync(kFull, total, o);
+    last = max(last, __shfl_xor_sync(kFull, last, o));
+    ovf |= __shfl_xor_sync(kFull, ovf, o);
+  }
+  if (lane % Pw == 0) {
+    if (b < B) {
+      totals[b] = total;
+      ovf_out[b] = ovf ? 1 : 0;
+    }
+    s_total[lt] = total;
+    s_last_p[lt] = last;
+  }
+  __syncthreads();
+
+  // 3. warp 0: the tile-local topic offsets (s_total becomes its exclusive
+  // scan), the tile's exclusive offset, and its last non-empty segment
+  if (warp == 0) {
+    int carry = 0, last_t = -1;
+    for (int base = 0; base < n_topics; base += kWarp) {
+      const int i = base + lane;
+      const int v = i < n_topics ? s_total[i] : 0;
+      int incl = v;
+#pragma unroll
+      for (int o = 1; o < kWarp; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (i < n_topics) s_total[i] = carry + incl - v;
+      int lt_nz = i < n_topics && s_last_p[i] >= 0 ? i : -1;
+#pragma unroll
+      for (int o = kWarp / 2; o > 0; o >>= 1) lt_nz = max(lt_nz, __shfl_xor_sync(kFull, lt_nz, o));
+      last_t = max(last_t, lt_nz);
+      carry += __shfl_sync(kFull, incl, kWarp - 1);
+    }
+    const int agg = carry;
+    int excl = 0;
+    if (tile > 0) {
+      if (lane == 0) store_status(status + tile, status_word(epoch, false, agg));
+      excl = look_back(status, tile, epoch, lane);
+    }
+    if (lane == 0) {
+      if (!single) store_status(status + tile, status_word(epoch, true, excl + agg));
+      s_excl = excl;
+      s_n_hits = excl + agg;  // the batch's n_hits where this is the last tile
+      if (last_t >= 0) {
+        // the last non-empty segment is the last one of its topic
+        const int p = s_last_p[last_t];
+        const int end = last_t + 1 < n_topics ? s_total[last_t + 1] : agg;
+        s_record = make_int2(s_start[last_t * P + p], excl + end - s_cnt[last_t * P + p]);
+        if (!single) {
+          records[tile] = s_record;
+          atomicMax(last_tile, tile + 1);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 4. the tile's segments, in (topic, pattern) order: a warp's lanes scan
+  // their counts, then the warp strides over each range, so stores coalesce
+  {
+    const int topic_base = s_excl + s_total[lt];  // b >= B: no counts
+    int carry = 0;
+    for (int p0 = 0; p0 < P; p0 += kWarp) {
+      const int p = p0 + lane % Pw;
+      const int c = b < B && p < P ? s_cnt[lt * P + p] : 0;
+      int incl = c;
+      for (int o = 1; o < Pw; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane % Pw >= o) incl += y;
+      }
+      const int off = topic_base + carry + incl - c;
+      const int s0 = c > 0 ? s_start[lt * P + p] : 0;
+      unsigned nz = __ballot_sync(kFull, c > 0 && off < capacity);
+      while (nz) {
+        const int src = __ffs(nz) - 1;
+        nz &= nz - 1;
+        const int o = __shfl_sync(kFull, off, src);
+        const int cc = min(__shfl_sync(kFull, c, src), capacity - o);
+        const int s = __shfl_sync(kFull, s0, src);
+        for (int k = lane; k < cc; k += kWarp) sids[o + k] = s + k;
+      }
+      carry += __shfl_sync(kFull, incl, (lane / Pw) * Pw + Pw - 1);
+    }
+  }
+
+  // 5. one block: it alone writes the header, the clip slot and the tail
+  if (single) {
+    __syncthreads();
+    const int n_hits = s_n_hits;
+    if (threadIdx.x == 0) {
+      header[0] = n_hits;
+      header[1] = n_hits > capacity ? 1 : 0;
+      // JAX's clip rule: the last slot belongs to the last non-empty
+      // segment overall (scatter-max + cummax)
+      if (n_hits > capacity) sids[capacity - 1] = s_record.x + (capacity - 1 - s_record.y);
+    }
+    for (int k = n_hits + threadIdx.x; k < capacity; k += blockDim.x) sids[k] = -1;
+    return;
+  }
+
+  // 6. many blocks. One that finds the last tile's prefix published helps
+  // with the -1 tail; the last block to finish writes the header and the
+  // clip slot, ends the tail, and resets the counters for the next launch.
+  // Every natural write to slot capacity-1 is made before its block's
+  // fence and done increment, so the last block's clip overwrite lands
+  // after it.
   if (threadIdx.x == 0) {
-    header[0] = carry;
-    header[1] = carry > capacity ? 1 : 0;
+    const unsigned long long fin = load_status(status + n_tiles - 1);
+    s_n_hits = (static_cast<unsigned>(fin >> 33) == epoch && (fin & kFlagInclusive))
+                   ? static_cast<int>(static_cast<unsigned int>(fin)) : -1;
   }
-}
-
-// Pass 3: each non-empty segment writes its sids into its slots below
-// capacity. JAX's clip rule: when n_hits > capacity the last slot belongs
-// to the LAST non-empty segment overall (scatter-max + cummax), whose
-// value there is start[L] + (capacity-1 - offs[L]); every other segment
-// leaves that slot alone.
-__global__ void write_segments_kernel(
-    const int* __restrict__ start, const int* __restrict__ cnt,
-    const int* __restrict__ offs, const int* __restrict__ tile_sums, long long N,
-    const int* __restrict__ header, const int* __restrict__ last_seg,
-    int capacity, int* __restrict__ sids) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  const int c = cnt[i];
-  if (c <= 0) return;
-  const int off = offs[i] + tile_sums[i / kScanThreads];
-  const int s = start[i];
-  const bool clipped = header[0] > capacity;
-  if (clipped && i == *last_seg) sids[capacity - 1] = s + (capacity - 1 - off);
-  if (off >= capacity) return;
-  const int end = min(off + c, clipped ? capacity - 1 : capacity);
-  for (int k = off; k < end; ++k) sids[k] = s + (k - off);
-}
-
-// Pass 4: slots at and past n_hits read -1.
-__global__ void fill_tail_kernel(const int* __restrict__ header, int capacity,
-                                 int* __restrict__ sids) {
-  const long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (k < capacity && k >= header[0]) sids[k] = -1;
+  __syncthreads();
+  if (s_n_hits >= 0) fill_tail(sids, s_n_hits, capacity, cursor);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_is_last = atomicAdd(done, 1) == n_tiles - 1;
+  __syncthreads();
+  if (!s_is_last) return;
+  __threadfence();
+  if (threadIdx.x == 0) {
+    const unsigned long long fin = load_status(status + n_tiles - 1);
+    s_n_hits = static_cast<int>(static_cast<unsigned int>(fin));
+  }
+  __syncthreads();
+  const int n_hits = s_n_hits;
+  fill_tail(sids, n_hits, capacity, cursor);
+  if (threadIdx.x == 0) {
+    header[0] = n_hits;
+    header[1] = n_hits > capacity ? 1 : 0;
+    if (n_hits > capacity) {
+      // JAX's clip rule: the last slot belongs to the last non-empty
+      // segment overall (scatter-max + cummax)
+      const int2 rec = __ldcg(records + (__ldcg(last_tile) - 1));
+      sids[capacity - 1] = rec.x + (capacity - 1 - rec.y);
+    }
+    *ticket = 0;
+    *done = 0;
+    *last_tile = 0;
+    *cursor = 0;
+  }
 }
 
 __global__ void copy_rows_kernel(const uint4* __restrict__ src,
@@ -184,44 +423,39 @@ int fm_probe_ranges(const int* tokens, int B, int W, int max_levels,
                  kProbeThreads, 0, st>>>(
       tokens, B, W, max_levels, reinterpret_cast<const uint4*>(table),
       static_cast<uint32_t>(S - 1), pat_kind, pat_depth, pat_mask, P, out,
-      out + P, ow, out + 2 * P, out + 2 * P + 1, ow, nullptr);
+      out + P, ow, out + 2 * P, out + 2 * P + 1, ow);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K2: out[2 + 2B + capacity] = n_hits, batch_overflow | totals[B] |
-// overflow[B] | sids[capacity]. scratch holds 3*B*P + ceil(B*P/1024) + 1
-// ints. P >= 1 and B >= 1 (the wrapper writes the constant output
-// otherwise).
+// overflow[B] | sids[capacity]. One launch of ceil(B / (warps * G)) CUDA
+// blocks of warps (1-32) warps, G = 32 / min(P, 32) topics per warp, with
+// warps * G * P * 8 bytes of dynamic shared memory; P is a power of two.
+// scratch holds 4 + 4 * (blocks) ints and is the wrapper's own for this
+// stream: zeroed once when allocated, then left zeroed by each launch (the
+// counters) or tagged with epoch (the status words), which must differ
+// from the previous launch's and not be 0. P >= 1 and B >= 1 (the wrapper
+// writes the constant output otherwise).
 int fm_match_compact(const int* tokens, int B, int W, int max_levels,
                      const int* table, int S, const int* pat_kind,
                      const int* pat_depth, const int* pat_mask, int P,
-                     int capacity, int* out, int* scratch, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long N = static_cast<long long>(B) * P;
-  const long long T = (N + kScanThreads - 1) / kScanThreads;
-  int* start = scratch;
-  int* cnt = start + N;
-  int* offs = cnt + N;
-  int* tile_sums = offs + N;
-  int* last_seg = tile_sums + T;
-  int* header = out;
-  int* totals = out + 2;
-  int* ovf = out + 2 + B;
-  int* sids = out + 2 + 2LL * B;
-  cudaError_t err = cudaMemsetAsync(last_seg, 0xFF, sizeof(int), st);  // -1
-  if (err != cudaSuccess) return static_cast<int>(err);
-  probe_kernel<<<blocks_for(static_cast<long long>(B) * kWarp, kProbeThreads),
-                 kProbeThreads, 0, st>>>(
+                     int capacity, int* out, int* scratch, int warps,
+                     unsigned epoch, void* stream) {
+  if (warps < 1 || warps > kWarp || P < 1 || (P & (P - 1)) || epoch == 0 || epoch >= (1u << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = kWarp / min(P, kWarp);
+  const size_t smem = static_cast<size_t>(warps) * G * P * 2 * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        match_compact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long per_block = static_cast<long long>(warps) * G;
+  const unsigned tiles = static_cast<unsigned>((B + per_block - 1) / per_block);
+  match_compact_kernel<<<tiles, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       tokens, B, W, max_levels, reinterpret_cast<const uint4*>(table),
-      static_cast<uint32_t>(S - 1), pat_kind, pat_depth, pat_mask, P, start,
-      cnt, P, totals, ovf, 1, last_seg);
-  scan_tiles_kernel<<<static_cast<unsigned>(T), kScanThreads, 0, st>>>(cnt, N, offs,
-                                                                      tile_sums);
-  scan_tile_sums_kernel<<<1, kScanThreads, 0, st>>>(tile_sums, static_cast<int>(T),
-                                                    header, capacity);
-  write_segments_kernel<<<blocks_for(N, 256), 256, 0, st>>>(
-      start, cnt, offs, tile_sums, N, header, last_seg, capacity, sids);
-  fill_tail_kernel<<<blocks_for(capacity, 256), 256, 0, st>>>(header, capacity, sids);
+      static_cast<uint32_t>(S - 1), pat_kind, pat_depth, pat_mask, P, capacity, out,
+      scratch, epoch);
   return static_cast<int>(cudaGetLastError());
 }
 

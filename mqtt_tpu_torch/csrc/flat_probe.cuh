@@ -4,7 +4,8 @@
 // probe_one is the device half of the JAX package's _probe_head
 // (mqtt_tpu/ops/flat.py:786-855): one (topic, shape) probe of the
 // flat-hash table, bit for bit. block_inclusive_scan is the block-wide
-// int32 prefix sum the compaction kernels build on.
+// int32 prefix sum K9's tile scan builds on (K2 scans across CUDA blocks by
+// decoupled look-back instead).
 
 #pragma once
 

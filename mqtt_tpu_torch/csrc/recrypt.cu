@@ -13,26 +13,52 @@
 // What bounds it on the card: every block is ten dependent rounds of table
 // lookups and XORs over 16 bytes against 48 bytes moved (a 16-byte counter
 // in, 16 bytes out, a 4-byte key index; the key table stays in L2), so it
-// is operation-bound. The design: one thread per block; the S-box (the
-// FIPS-197 table below, which the tests pin against the S-box that
-// mqtt_tpu_torch/ops/recrypt.py builds from the field definition) is turned
-// into the four fused SubBytes+ShiftRows+MixColumns tables in shared memory
-// by each CUDA block, so a round is 16 shared-memory lookups and 16 XORs on
-// four 32-bit column words; counters, round keys and output move as 16-byte
-// loads and stores. The state layout is the JAX kernel's (column-major,
-// state[4c+r]; a column word holds row r in byte r), so the result is the
-// same bytes.
+// is operation-bound, and on the path's small launches (2,048 and 32,768
+// blocks) latency-bound. The design:
+//
+// - The fused SubBytes+ShiftRows+MixColumns table T0 is built at compile
+//   time from the S-box below (a __device__ constant-initialised array in
+//   global memory, not rebuilt from __constant__ by every CUDA block). The
+//   other three tables are byte rotations of T0 (__funnelshift_l), and the
+//   S-box itself is byte 1 of T0, so a CUDA block stages one 1 KB table.
+// - The table is staged into shared memory once per bank (32 copies, 32
+//   KB: word 32*x + b holds T0[x]), and lane l reads copy l, so a warp's
+//   32 lookups never conflict (Tezcan, "Optimization of Advanced
+//   Encryption Standard on Graphics Processing Units", IEEE Access 2021).
+//   Each thread loads one word of T0 and writes its 32 copies as 8
+//   16-byte stores in a rotated order, so each quarter-warp store hits 8
+//   distinct bank groups: staging costs one global load and eight stores
+//   per thread, where a per-bank copy loaded from memory would cost eight
+//   16-byte loads; at the small shapes it is the same one prologue.
+// - Below kOneLaneBlocks blocks, four lanes share an AES block, one
+//   32-bit column each; a round takes the three other columns' bytes by
+//   __shfl_sync inside the quad, so the fan-out's 2,048 blocks run as 32
+//   CUDA blocks on 32 SMs instead of 8 on 8. From kOneLaneBlocks up one
+//   thread per AES block already spreads over most SMs, and the quad's
+//   shuffles and four times the key loads cost more than they hide (on an
+//   H100 80GB HBM3 at 700 W, chip_smoke.py: 32,768 blocks took 0.0058 ms
+//   on one lane against 0.0062 on four; 2,048 blocks 0.0036 on four
+//   against 0.0050 on one).
+// - Each lane loads its key index, its round-key words for all eleven
+//   rounds and its counter before the table is staged, so these dependent
+//   loads overlap the staging and nothing is loaded inside the rounds.
+//
+// The state layout is the JAX kernel's (column-major, state[4c+r]; a column
+// word holds row r in byte r), so the result is the same bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kAesThreads = 256;  // one AES block per thread; also the table size
+constexpr int kAesThreads = 256;  // threads per CUDA block; also T0's length
 constexpr int kRoundKeyRows = 11;
+constexpr int kCopies = 32;  // one copy of T0 per shared-memory bank
+constexpr int kOneLaneBlocks = 1 << 14;  // from 64 one-lane CUDA blocks up
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // the AES S-box (FIPS-197 figure 7)
-__constant__ uint8_t kSbox[256] = {
+constexpr uint8_t kSbox[256] = {
     0x63, 0x7c, 0x77, 0x7b, 0xf2, 0x6b, 0x6f, 0xc5, 0x30, 0x01, 0x67, 0x2b, 0xfe, 0xd7, 0xab, 0x76,
     0xca, 0x82, 0xc9, 0x7d, 0xfa, 0x59, 0x47, 0xf0, 0xad, 0xd4, 0xa2, 0xaf, 0x9c, 0xa4, 0x72, 0xc0,
     0xb7, 0xfd, 0x93, 0x26, 0x36, 0x3f, 0xf7, 0xcc, 0x34, 0xa5, 0xe5, 0xf1, 0x71, 0xd8, 0x31, 0x15,
@@ -51,59 +77,127 @@ __constant__ uint8_t kSbox[256] = {
     0x8c, 0xa1, 0x89, 0x0d, 0xbf, 0xe6, 0x42, 0x68, 0x41, 0x99, 0x2d, 0x0f, 0xb0, 0x54, 0xbb, 0x16,
 };
 
-__device__ __forceinline__ uint32_t b0(uint32_t w) { return w & 0xFFu; }
-__device__ __forceinline__ uint32_t b1(uint32_t w) { return (w >> 8) & 0xFFu; }
-__device__ __forceinline__ uint32_t b2(uint32_t w) { return (w >> 16) & 0xFFu; }
-__device__ __forceinline__ uint32_t b3(uint32_t w) { return w >> 24; }
+struct Table256 {
+  uint32_t w[256];
+};
 
-__global__ void keystream_kernel(const uint4* __restrict__ key_table, int T,
-                                 const int* __restrict__ kidx, const uint4* __restrict__ counters,
-                                 int N, uint4* __restrict__ out) {
-  __shared__ uint32_t t0[256], t1[256], t2[256], t3[256], sb[256];
-  {
-    const uint32_t s = kSbox[threadIdx.x];
-    const uint32_t s2 = ((s << 1) ^ (0x1Bu * (s >> 7))) & 0xFFu;  // xtime
-    const uint32_t s3 = s2 ^ s;
-    sb[threadIdx.x] = s;
-    t0[threadIdx.x] = s2 | (s << 8) | (s << 16) | (s3 << 24);
-    t1[threadIdx.x] = s3 | (s2 << 8) | (s << 16) | (s << 24);
-    t2[threadIdx.x] = s | (s3 << 8) | (s2 << 16) | (s << 24);
-    t3[threadIdx.x] = s | (s << 8) | (s3 << 16) | (s2 << 24);
+__host__ __device__ constexpr uint32_t xtime(uint32_t s) { return ((s << 1) ^ (0x1Bu * (s >> 7))) & 0xFFu; }
+
+// T0[x] = (2s, s, s, 3s) in bytes 0..3, s = S[x]
+__host__ __device__ constexpr Table256 make_t0() {
+  Table256 t{};
+  for (int i = 0; i < 256; ++i) {
+    const uint32_t s = kSbox[i];
+    t.w[i] = xtime(s) | (s << 8) | (s << 16) | ((xtime(s) ^ s) << 24);
   }
-  __syncthreads();
-  const int n = blockIdx.x * kAesThreads + threadIdx.x;
-  if (n >= N) return;
+  return t;
+}
+
+__device__ const Table256 kT0 = make_t0();
+
+__device__ __forceinline__ uint32_t rotl(uint32_t v, int k) { return __funnelshift_l(v, v, k); }
+
+// tab points at the lane's own copy: T0[x] is tab[x << 5]
+__device__ __forceinline__ uint32_t t0(const uint32_t* tab, uint32_t w, int byte) {
+  return tab[((w >> (8 * byte)) & 0xFFu) << 5];
+}
+
+// output column of a full round from the four input columns a = c, b = c+1,
+// c2 = c+2, d = c+3: T0[a.0] ^ T1[b.1] ^ T2[c.2] ^ T3[d.3]
+__device__ __forceinline__ uint32_t round_col(const uint32_t* tab, uint32_t a, uint32_t b,
+                                              uint32_t c, uint32_t d) {
+  return t0(tab, a, 0) ^ rotl(t0(tab, b, 1), 8) ^ rotl(t0(tab, c, 2), 16) ^ rotl(t0(tab, d, 3), 24);
+}
+
+// last round (SubBytes + ShiftRows): S[x] is byte 1 of T0[x]
+__device__ __forceinline__ uint32_t last_col(const uint32_t* tab, uint32_t a, uint32_t b,
+                                             uint32_t c, uint32_t d) {
+  return ((t0(tab, a, 0) >> 8) & 0xFFu) | (t0(tab, b, 1) & 0xFF00u) |
+         ((t0(tab, c, 2) << 8) & 0xFF0000u) | ((t0(tab, d, 3) << 16) & 0xFF000000u);
+}
+
+// LANES = 4: lane c of a quad holds column c; LANES = 1: a thread holds all
+// four. Words are little-endian column words of the [T, 11, 16] key table
+// and of the [N, 16] counters and output. The key index, the round keys and
+// the counter are loaded before the table is staged, so their latency
+// overlaps the staging.
+template <int LANES>
+__global__ void __launch_bounds__(kAesThreads) keystream_kernel(
+    const uint32_t* __restrict__ key_table, int T, const int* __restrict__ kidx,
+    const uint32_t* __restrict__ counters, int N, uint32_t* __restrict__ out) {
+  __shared__ uint4 tab4[256 * kCopies / 4];
+  const long long g = static_cast<long long>(blockIdx.x) * kAesThreads + threadIdx.x;
+  const long long n = g / LANES;
+  const bool live = n < N;  // LANES = 4: a whole quad is live or not
+  const int c = threadIdx.x % LANES;
   // jnp.take along the key axis: a negative index wraps once, and an index
   // still out of range reads the uint8 fill value 0xFF
-  int k = kidx[n];
+  int k = live ? kidx[n] : 0;
   if (k < 0) k += T;
   const bool valid = k >= 0 && k < T;
-  const uint4* rk = key_table + static_cast<size_t>(valid ? k : 0) * kRoundKeyRows;
-  const uint4 fill = make_uint4(0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu);
-  const uint4 c = counters[n];
-  uint4 kr = valid ? rk[0] : fill;
-  uint32_t w0 = c.x ^ kr.x, w1 = c.y ^ kr.y, w2 = c.z ^ kr.z, w3 = c.w ^ kr.w;
+  const uint32_t* rk = key_table + static_cast<size_t>(valid ? k : 0) * kRoundKeyRows * 4;
+  // lane c's column of every round key (LANES = 1: all four columns)
+  uint4 key[kRoundKeyRows];
+  uint4 ctr = make_uint4(0, 0, 0, 0);
+  if (live) {
 #pragma unroll
-  for (int rnd = 1; rnd < 10; ++rnd) {
-    kr = valid ? rk[rnd] : fill;
-    // output column c takes T_k[byte k of column (c+k) % 4]
-    const uint32_t n0 = t0[b0(w0)] ^ t1[b1(w1)] ^ t2[b2(w2)] ^ t3[b3(w3)] ^ kr.x;
-    const uint32_t n1 = t0[b0(w1)] ^ t1[b1(w2)] ^ t2[b2(w3)] ^ t3[b3(w0)] ^ kr.y;
-    const uint32_t n2 = t0[b0(w2)] ^ t1[b1(w3)] ^ t2[b2(w0)] ^ t3[b3(w1)] ^ kr.z;
-    const uint32_t n3 = t0[b0(w3)] ^ t1[b1(w0)] ^ t2[b2(w1)] ^ t3[b3(w2)] ^ kr.w;
-    w0 = n0;
-    w1 = n1;
-    w2 = n2;
-    w3 = n3;
+    for (int r = 0; r < kRoundKeyRows; ++r) {
+      if constexpr (LANES == 4) {
+        key[r].x = valid ? __ldg(rk + 4 * r + c) : kFull;
+      } else {
+        key[r] = valid ? __ldg(reinterpret_cast<const uint4*>(rk) + r)
+                       : make_uint4(kFull, kFull, kFull, kFull);
+      }
+    }
+    if constexpr (LANES == 4)
+      ctr.x = counters[n * 4 + c];
+    else
+      ctr = reinterpret_cast<const uint4*>(counters)[n];
   }
-  // last round: SubBytes + ShiftRows + AddRoundKey, no MixColumns
-  kr = valid ? rk[10] : fill;
-  uint4 o;
-  o.x = (sb[b0(w0)] | (sb[b1(w1)] << 8) | (sb[b2(w2)] << 16) | (sb[b3(w3)] << 24)) ^ kr.x;
-  o.y = (sb[b0(w1)] | (sb[b1(w2)] << 8) | (sb[b2(w3)] << 16) | (sb[b3(w0)] << 24)) ^ kr.y;
-  o.z = (sb[b0(w2)] | (sb[b1(w3)] << 8) | (sb[b2(w0)] << 16) | (sb[b3(w1)] << 24)) ^ kr.z;
-  o.w = (sb[b0(w3)] | (sb[b1(w0)] << 8) | (sb[b2(w1)] << 16) | (sb[b3(w2)] << 24)) ^ kr.w;
-  out[n] = o;
+  {
+    const uint32_t v = kT0.w[threadIdx.x];
+    const uint4 q = make_uint4(v, v, v, v);
+#pragma unroll
+    for (int j = 0; j < kCopies / 4; ++j)
+      tab4[threadIdx.x * (kCopies / 4) + ((j + threadIdx.x) & (kCopies / 4 - 1))] = q;
+  }
+  __syncthreads();
+  if (!live) return;
+  const uint32_t* tab = reinterpret_cast<const uint32_t*>(tab4) + (threadIdx.x & 31);
+  if constexpr (LANES == 4) {
+    const unsigned quad = 0xFu << ((threadIdx.x & 31) & ~3u);
+    uint32_t w = ctr.x ^ key[0].x;
+#pragma unroll
+    for (int rnd = 1; rnd < 10; ++rnd) {
+      const uint32_t w1 = __shfl_sync(quad, w, (c + 1) & 3, 4);
+      const uint32_t w2 = __shfl_sync(quad, w, (c + 2) & 3, 4);
+      const uint32_t w3 = __shfl_sync(quad, w, (c + 3) & 3, 4);
+      w = round_col(tab, w, w1, w2, w3) ^ key[rnd].x;
+    }
+    const uint32_t w1 = __shfl_sync(quad, w, (c + 1) & 3, 4);
+    const uint32_t w2 = __shfl_sync(quad, w, (c + 2) & 3, 4);
+    const uint32_t w3 = __shfl_sync(quad, w, (c + 3) & 3, 4);
+    out[n * 4 + c] = last_col(tab, w, w1, w2, w3) ^ key[10].x;
+  } else {
+    uint32_t w0 = ctr.x ^ key[0].x, w1 = ctr.y ^ key[0].y, w2 = ctr.z ^ key[0].z, w3 = ctr.w ^ key[0].w;
+#pragma unroll
+    for (int rnd = 1; rnd < 10; ++rnd) {
+      const uint32_t n0 = round_col(tab, w0, w1, w2, w3) ^ key[rnd].x;
+      const uint32_t n1 = round_col(tab, w1, w2, w3, w0) ^ key[rnd].y;
+      const uint32_t n2 = round_col(tab, w2, w3, w0, w1) ^ key[rnd].z;
+      const uint32_t n3 = round_col(tab, w3, w0, w1, w2) ^ key[rnd].w;
+      w0 = n0;
+      w1 = n1;
+      w2 = n2;
+      w3 = n3;
+    }
+    uint4 o;
+    o.x = last_col(tab, w0, w1, w2, w3) ^ key[10].x;
+    o.y = last_col(tab, w1, w2, w3, w0) ^ key[10].y;
+    o.z = last_col(tab, w2, w3, w0, w1) ^ key[10].z;
+    o.w = last_col(tab, w3, w0, w1, w2) ^ key[10].w;
+    reinterpret_cast<uint4*>(out)[n] = o;
+  }
 }
 
 }  // namespace
@@ -115,14 +209,22 @@ const char* rc_error_string(int err) {
 }
 
 // K6: out[N, 16] keystream. key_table [T, 11, 16], counters and out 16-byte
-// aligned.
+// aligned. lanes (1 or 4; 0 picks by N) is the threads per AES block.
 int rc_keystream(const uint8_t* key_table, int T, const int* kidx, const uint8_t* counters, int N,
-                 uint8_t* out, void* stream) {
+                 uint8_t* out, int lanes, void* stream) {
+  if (lanes == 0) lanes = N >= kOneLaneBlocks ? 1 : 4;
+  if (lanes != 1 && lanes != 4) return static_cast<int>(cudaErrorInvalidValue);
   if (N > 0) {
-    const int grid = (N + kAesThreads - 1) / kAesThreads;
-    keystream_kernel<<<grid, kAesThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const uint4*>(key_table), T, kidx,
-        reinterpret_cast<const uint4*>(counters), N, reinterpret_cast<uint4*>(out));
+    const long long threads = static_cast<long long>(N) * lanes;
+    const unsigned grid = static_cast<unsigned>((threads + kAesThreads - 1) / kAesThreads);
+    const uint32_t* kt = reinterpret_cast<const uint32_t*>(key_table);
+    const uint32_t* ct = reinterpret_cast<const uint32_t*>(counters);
+    uint32_t* o = reinterpret_cast<uint32_t*>(out);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (lanes == 4)
+      keystream_kernel<4><<<grid, kAesThreads, 0, st>>>(kt, T, kidx, ct, N, o);
+    else
+      keystream_kernel<1><<<grid, kAesThreads, 0, st>>>(kt, T, kidx, ct, N, o);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -50,7 +50,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..topics import SHARE_PREFIX, TopicsIndex
+from ..topics import SHARE_PREFIX, TopicsIndex, ns_guard_class, shared_inner
 from . import kernels
 from .hashing import hash_token, tokenize_topics
 
@@ -109,6 +109,11 @@ class SubEntry:
     client: str  # client id (CLIENT/SHARED) or "" (INLINE)
     group_filter: str  # full $SHARE filter (SHARED only)
     subscription: Any  # packets.Subscription or topics.InlineSubscription
+    # the namespace guard class of the filter (for SHARED, of the inner
+    # filter): the scoped topics whose match drops this entry
+    # (topics.ns_guard_class; the materializer applies it, the kernels
+    # cannot see it)
+    guard: int = 0
 
 
 @dataclass
@@ -434,12 +439,13 @@ class _LazySubTable:
         local = sid % self._window
         if local < len(cli):
             client, sub = cli[local]
-            entry = SubEntry(KIND_CLIENT, client, "", sub)
+            entry = SubEntry(KIND_CLIENT, client, "", sub, ns_guard_class(sub.filter))
         elif local < len(cli) + len(shr):
             client, sub = shr[local - len(cli)]
-            entry = SubEntry(KIND_SHARED, client, sub.filter, sub)
+            entry = SubEntry(KIND_SHARED, client, sub.filter, sub, ns_guard_class(shared_inner(sub.filter)))
         else:
-            entry = SubEntry(KIND_INLINE, "", "", inl[local - len(cli) - len(shr)])
+            isub = inl[local - len(cli) - len(shr)]
+            entry = SubEntry(KIND_INLINE, "", "", isub, ns_guard_class(isub.filter))
         self.memo[sid] = entry
         return entry
 

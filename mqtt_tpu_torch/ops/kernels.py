@@ -66,7 +66,8 @@ _SIGNATURES = {
         "fm_probe_ranges": [_c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_ptr,
                             _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr],
         "fm_match_compact": [_c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_ptr,
-                             _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr],
+                             _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_int,
+                             ctypes.c_uint, _c_ptr],
         "fm_scatter_rows": [_c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr],
     },
     "predicates.cu": {
@@ -75,7 +76,7 @@ _SIGNATURES = {
         "pk_agg_reduce": [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr],
     },
     "recrypt.cu": {
-        "rc_keystream": [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr],
+        "rc_keystream": [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr],
     },
     "sharded.cu": {
         "sh_match_slots": [_c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_int, _c_ptr,
@@ -91,7 +92,11 @@ _ERROR_FNS = {
     "recrypt.cu": "rc_error_string",
     "sharded.cu": "sh_error_string",
 }
-_SCAN_TILE = 1024  # kScanThreads in flat_match.cu
+# K2's scratch, one per (device, stream): zeroed once when allocated and
+# kept zeroed by the kernel's own protocol, with the epoch of its last
+# launch (see fm_match_compact in flat_match.cu)
+_compact_scratch: dict = {}
+_EPOCH_MASK = (1 << 31) - 1
 
 
 class KernelError(Exception):
@@ -267,20 +272,49 @@ def flat_match_compact(table, pat_kind, pat_depth, pat_mask, tokens, max_levels:
     B, W = _check_tokens(tokens, device, max_levels)
     if B < 1 or P < 1 or capacity < 1:
         raise ValueError(f"compact kernel needs B, P, capacity >= 1 (got {B}, {P}, {capacity})")
-    N = B * P
-    if N + 2 * B + capacity >= 1 << 31:
+    if B * P + 2 * B + capacity >= 1 << 31:
         raise ValueError("compact batch too large for int32 offsets")
-    tiles = -(-N // _SCAN_TILE)
+    warps = _compact_warps(P, B)
+    per_block = warps * (32 // min(P, 32))
     out = torch.empty((2 + 2 * B + capacity,), dtype=torch.int32, device=device)
-    scratch = torch.empty((3 * N + tiles + 1,), dtype=torch.int32, device=device)
+    stream = _stream(device)
+    scratch, epoch = _compact_scratch_for(device, stream, 4 + 4 * -(-B // per_block))
     lib = library()
     err = lib.fm_match_compact(
         tokens.data_ptr(), B, W, max_levels, table.data_ptr(), S,
         pat_kind.data_ptr(), pat_depth.data_ptr(), pat_mask.data_ptr(), P,
-        capacity, out.data_ptr(), scratch.data_ptr(), _stream(device),
+        capacity, out.data_ptr(), scratch.data_ptr(), warps, epoch, stream,
     )
     _launched("flat_match.cu", err, "flat_match_compact")
     return out
+
+
+def _compact_warps(P: int, B: int) -> int:
+    """K2's warps per CUDA block (a warp probes ``32 // P`` whole topics,
+    or one topic where ``P > 32``): the whole batch in one block where it
+    fits in 32 warps (no look-back, no done counter), else 8, or fewer
+    where ``P`` is so large that the block's starts and counts would pass
+    128 KB of shared memory. ``P`` is a power of two (``build_flat_index``
+    pads it so); raises otherwise and past 16,384 patterns."""
+    if P < 1 or P & (P - 1) or P > 16384:
+        raise ValueError(f"the compact kernel takes a power-of-two pattern count up to 16384, got {P}")
+    per_warp = 32 // min(P, 32)
+    fit = 16384 // max(P, 32)
+    need = -(-B // per_warp)
+    return need if need <= min(32, fit) else min(8, fit)
+
+
+def _compact_scratch_for(device, stream: int, n: int) -> tuple:
+    """K2's scratch for launches on ``stream`` (at least ``n`` ints) and the
+    next epoch. Launches on one stream run in order, so they can share it;
+    a larger batch replaces it with a larger zeroed one."""
+    key = (device.index, stream)
+    with _lock:
+        entry = _compact_scratch.get(key)
+        if entry is None or entry[0].numel() < n:
+            entry = _compact_scratch[key] = [torch.zeros((max(n, 1024),), dtype=torch.int32, device=device), 0]
+        entry[1] = entry[1] % _EPOCH_MASK + 1  # 1 .. 2^31 - 1, never 0
+        return entry[0], entry[1]
 
 
 def scatter_rows(table, idx, rows):
@@ -381,7 +415,7 @@ def keystream(key_table, kidx, counters):
     lib = library("recrypt.cu")
     err = lib.rc_keystream(
         key_table.data_ptr(), T, kidx.data_ptr(), counters.data_ptr(), N, out.data_ptr(),
-        _stream(device),
+        0, _stream(device),
     )
     _launched("recrypt.cu", err, "keystream")
     return out

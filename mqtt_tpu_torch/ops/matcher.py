@@ -22,7 +22,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from ..topics import Subscribers, TopicsIndex
+from ..topics import Subscribers, TopicsIndex, ns_guard_mode
 from .flat import (
     KIND_CLIENT,
     KIND_SHARED,
@@ -41,18 +41,27 @@ from .flat import (
 from .hashing import tokenize_topics
 
 
-def expand_sids(table: list, sids, subs: Subscribers, seen: Optional[set] = None) -> Subscribers:
+def expand_sids(
+    table: list, sids, subs: Subscribers, seen: Optional[set] = None, mode: int = 0
+) -> Subscribers:
     """Merge device sub ids (local to ``table``) into a Subscribers result,
     preserving host gather semantics: per-client merge, shared keyed on the
     group filter, inline keyed on identifier. A client's first sighting
     takes ``Subscription.self_merged_copy`` — value-identical to
     ``merge(self, self)`` including the shared-and-extended identifiers
-    map — and later sightings call the real ``merge``."""
+    map — and later sightings call the real ``merge``.
+
+    ``mode`` is the topic's ``ns_guard_mode``: for a scoped topic (mode >
+    0) the entries whose guard class the trie excludes
+    (``TopicsIndex._ns_excluded``) are dropped before any merge. The
+    kernels match filters without the guard, as the JAX package does."""
     if seen is None:
         seen = set()
     if not isinstance(sids, list):
         sids = sids.tolist() if hasattr(sids, "tolist") else list(sids)
     n = len(table)
+    if mode:
+        sids = [sid for sid in sids if not (0 <= sid < n and 0 < table[sid].guard <= mode)]
     seen_add = seen.add
     subscriptions = subs.subscriptions
     shared = subs.shared
@@ -174,8 +183,9 @@ def resolve_compact_py(
             cursor += t
             continue
         subs = Subscribers()
+        mode = ns_guard_mode(topics[i])
         if shards is None:
-            expand_sids(subs_table, sids[cursor : cursor + t], subs)
+            expand_sids(subs_table, sids[cursor : cursor + t], subs, mode=mode)
         else:
             # a topic's pairs come shard by shard (segments are topic-major,
             # shard-minor): expand each shard's run against its own table
@@ -186,7 +196,7 @@ def resolve_compact_py(
                 k = j
                 while k < end and shards[k] == s:
                     k += 1
-                expand_sids(tables[s], sids[j:k], subs, seen=set())
+                expand_sids(tables[s], sids[j:k], subs, seen=set(), mode=mode)
                 j = k
         results.append(subs)
         cursor += t
@@ -641,7 +651,7 @@ class TorchMatcher:
                     if c:
                         s0 = row[p]
                         sids.extend(range(s0, s0 + c))
-                results_append(expand_sids(table, sids, Subscribers()))
+                results_append(expand_sids(table, sids, Subscribers(), mode=ns_guard_mode(topic)))
         return results
 
     def _match_exact_fast(self, topics: list[str], flat, route_to_host):
@@ -649,7 +659,9 @@ class TorchMatcher:
         every topic is one dict probe + one snapshot expansion, covering
         spilled and over-deep entries too — no fallback classes, no device
         dispatch. The work happens when the RESOLVER runs, not at issue
-        time (the staging loop resolves off the event loop)."""
+        time (the staging loop resolves off the event loop). The namespace
+        guard needs no check here: it only drops filters with a ``+`` or
+        ``#`` level, and a wildcard-free set holds none."""
 
         def resolve() -> list[Subscribers]:
             stats = self.stats

@@ -72,7 +72,7 @@ from ..ops.matcher import (
     materialize_compact_pairs,
     pick_compact_capacity,
 )
-from ..topics import Mutation, Subscribers, TopicsIndex
+from ..topics import Mutation, Subscribers, TopicsIndex, ns_guard_mode
 
 _log = logging.getLogger("mqtt_tpu_torch.parallel")
 
@@ -810,7 +810,7 @@ class ShardedTorchMatcher:
                     stats.overflows += int(overflow[i])
                     results.append(self.topics.subscribers(topic))
                 else:
-                    results.append(self._expand(tables, rows[i]))
+                    results.append(self._expand(tables, rows[i], ns_guard_mode(topic)))
             return results
 
         if not self.compact:
@@ -887,12 +887,12 @@ class ShardedTorchMatcher:
     def subscribers(self, topic: str) -> Subscribers:
         return self.match_topics([topic])[0]
 
-    def _expand(self, tables, shard_sids: list) -> Subscribers:
+    def _expand(self, tables, shard_sids: list, mode: int) -> Subscribers:
         """Union per-shard local sub ids (one list per shard) into one
-        Subscribers set."""
+        Subscribers set; ``mode`` is the topic's ``ns_guard_mode``."""
         subs = Subscribers()
         for s in range(self.n_shards):
-            expand_sids(tables[s], shard_sids[s], subs, seen=set())
+            expand_sids(tables[s], shard_sids[s], subs, seen=set(), mode=mode)
         return subs
 
 

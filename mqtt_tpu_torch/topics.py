@@ -62,6 +62,36 @@ def _ns_local0(key: str) -> str:
     return key[i + 1 : i + 2] if i >= 0 else ""
 
 
+def shared_inner(filter: str) -> str:
+    """The inner filter of a ``$SHARE/<group>/<filter>`` subscription
+    ("" when it has none): the topic space its publishes match."""
+    parts = filter.split("/", 2)
+    return parts[2] if len(parts) > 2 else ""
+
+
+def ns_guard_class(filter: str) -> int:
+    """Which topics the namespace guard keeps ``filter`` from (for a
+    shared subscription, pass its inner filter): 0 none; 1 every scoped
+    topic (a GLOBAL ``+``/``#`` first level); 2 scoped topics whose
+    tenant-local first level starts with ``$`` (a scoped filter with a
+    local ``+``/``#`` first level)."""
+    if not filter:
+        return 0
+    if filter[0] in "+#":
+        return 1
+    return 2 if _ns_local0(filter) in "+#" else 0
+
+
+def ns_guard_mode(topic: str) -> int:
+    """The highest guard class ``topic`` excludes: 0 outside every
+    namespace, 2 for a scoped topic whose tenant-local first level starts
+    with ``$``, else 1. ``TopicsIndex._ns_excluded(topic, f)`` is
+    ``0 < ns_guard_class(f) <= ns_guard_mode(topic)``."""
+    if topic[:1] != NS_CHAR:
+        return 0
+    return 2 if _ns_local0(topic) == "$" else 1
+
+
 def ns_scope_topic(tenant: str, topic: str) -> str:
     """Prefix a tenant-local topic NAME into its namespace."""
     return NS_CHAR + tenant + "/" + topic
@@ -498,9 +528,7 @@ class TopicsIndex:
         level."""
         if topic[:1] != NS_CHAR or not filter:
             return False
-        if filter[0] in "+#":
-            return True  # global wildcard vs scoped topic
-        return _ns_local0(topic) == "$" and _ns_local0(filter) in "+#"
+        return 0 < ns_guard_class(filter) <= ns_guard_mode(topic)
 
     def _gather_subscriptions(self, topic: str, particle: _Particle, subs: Subscribers) -> None:
         """Merge a particle's subscriptions into the result set, excluding
@@ -520,9 +548,7 @@ class TopicsIndex:
                 if topic[:1] == NS_CHAR:
                     # the namespace guard applies to the INNER filter
                     # (publishes match the inner topic space)
-                    parts = sub.filter.split("/", 2)
-                    inner = parts[2] if len(parts) > 2 else ""
-                    if self._ns_excluded(topic, inner):
+                    if self._ns_excluded(topic, shared_inner(sub.filter)):
                         continue
                 subs.shared.setdefault(sub.filter, {})[client] = sub
 

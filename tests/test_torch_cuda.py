@@ -41,6 +41,8 @@ from test_torch_topics import (
     apply_port_ops,
     corpus_ops,
     corpus_topics,
+    ns_corpus_ops,
+    ns_topics,
     saturating_ops,
 )
 
@@ -119,6 +121,67 @@ def test_compact_without_patterns_is_constant(dev):
     got = flat.flat_match_compact(*arrays, tokens, max_levels=4, capacity=8)
     assert kernels.LAUNCHES == before
     assert torch.equal(got, flat.flat_match_compact_plain(*arrays, tokens, 4, 8))
+
+
+def _compact_pair(arrays, tokens, L, capacity):
+    got = flat.flat_match_compact(*arrays, tokens, max_levels=L, capacity=capacity)
+    return got, flat.flat_match_compact_plain(*arrays, tokens, L, capacity)
+
+
+@pytest.mark.parametrize("n", [24, 333])
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_compact_clip_slot_from_the_first_or_the_last_tile(dev, where, n):
+    # one topic of the batch has hits (40, over four patterns), the rest
+    # none: the last non-empty segment lies in the first or in the last
+    # CUDA block's tile (n = 333), or in one block (n = 24), and at a
+    # capacity below 40 the clip rule writes the last slot from it
+    ops = [("sub", f"c{f}{i}", f, 0, 0, False) for f in ("t/x", "t/+", "t/#", "+/x") for i in range(10)]
+    fl = flat.build_flat_index(apply_port_ops(ops, TopicsIndex()), max_levels=4)
+    arrays = flat.device_index_from_numpy(fl.table, fl.pat_kind, fl.pat_depth, fl.pat_mask, dev)
+    batch = ["n/y"] * n
+    batch[0 if where == "first" else -1] = "t/x"
+    tokens = packed(batch, fl, dev, 1)[: len(batch)]
+    for capacity in (1, 17, 39, 40, 41, 4096):
+        got, want = _compact_pair(arrays, tokens, 4, capacity)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), capacity
+        assert int(got[0]) == 40
+
+
+@pytest.mark.parametrize("B", [1, 13, 1000])
+def test_compact_ragged_batches_and_one_pattern(dev, index_pair, B):
+    # B not a multiple of the 8 topics a CUDA block takes, and P = 1
+    fl, arrays = index_pair
+    topics = corpus_topics(7, n=B)[:B]
+    tokens = packed(topics, fl, dev, 1)[:B].contiguous()
+    L = fl.max_levels
+    n_hits = int(flat.flat_match_packed_plain(*arrays, tokens, L)[:, -2].sum())
+    for capacity in (max(1, n_hits // 2), n_hits + 1):
+        got, want = _compact_pair(arrays, tokens, L, capacity)
+        assert torch.equal(got, want), capacity
+    one = (arrays[0], *(a[:1].contiguous() for a in arrays[1:]))
+    for capacity in (1, 64):
+        got, want = _compact_pair(one, tokens, L, capacity)
+        assert torch.equal(got, want), capacity
+    torch.cuda.synchronize()
+
+
+def test_compact_back_to_back_launches_on_one_stream(dev, index_pair):
+    # 50 launches queued on one stream, batches and capacities changing,
+    # with no synchronisation between them: a status word, ticket or done
+    # counter left stale by a launch would corrupt a later one
+    fl, arrays = index_pair
+    L = fl.max_levels
+    rng = np.random.default_rng(3)
+    runs = []
+    for i in range(50):
+        B = int(rng.choice([1, 16, 77, 256, 4096]))
+        tokens = packed(corpus_topics(100 + i, n=B)[:B], fl, dev, 1)[:B].contiguous()
+        capacity = int(rng.integers(1, 40 * B + 2))
+        runs.append((tokens, capacity, flat.flat_match_compact(*arrays, tokens, max_levels=L, capacity=capacity)))
+    torch.cuda.synchronize()
+    for tokens, capacity, got in runs:
+        assert torch.equal(got, flat.flat_match_compact_plain(*arrays, tokens, L, capacity)), capacity
 
 
 @pytest.mark.parametrize("k", [1, 8, 300])
@@ -246,7 +309,10 @@ def test_agg_reduce_kernel_matches_plain(dev, W, N):
     assert (np.abs(got[~exact] - want[~exact]) <= 1e-5 * np.maximum(1.0, np.abs(want[~exact]))).all()
 
 
-@pytest.mark.parametrize("T,N", [(1, 1), (3, 255), (512, 1 << 16)])
+KEYSTREAM_SHAPES = [(3, 255), (512, 1 << 16)] + [(T, N) for T in (1, 512) for N in (1, 16, 2048, 32768, 1 << 20)]
+
+
+@pytest.mark.parametrize("T,N", KEYSTREAM_SHAPES)
 def test_keystream_kernel_matches_plain(dev, T, N):
     rng = np.random.default_rng(T + N)
     table = torch.from_numpy(rng.integers(0, 256, (T, 11, 16), dtype=np.uint8)).to(dev)
@@ -258,6 +324,27 @@ def test_keystream_kernel_matches_plain(dev, T, N):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["keystream"] == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("N", [2048, (1 << 14) - 1, 1 << 14])
+def test_keystream_both_lane_splits_match_plain(dev, lanes, N):
+    # the wrapper picks four lanes per AES block below 2^14 blocks and one
+    # from there: hold both splits at both sides of the pick
+    import ctypes
+
+    T = 64
+    rng = np.random.default_rng(N + lanes)
+    table = torch.from_numpy(rng.integers(0, 256, (T, 11, 16), dtype=np.uint8)).to(dev)
+    kidx = torch.from_numpy(rng.integers(-T - 2, T + 2, N).astype(np.int32)).to(dev)
+    counters = torch.from_numpy(rng.integers(0, 256, (N, 16), dtype=np.uint8)).to(dev)
+    got = torch.empty((N, 16), dtype=torch.uint8, device=dev)
+    err = kernels.library("recrypt.cu").rc_keystream(
+        table.data_ptr(), T, kidx.data_ptr(), counters.data_ptr(), N, got.data_ptr(), lanes,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+    )
+    assert err == 0
+    assert torch.equal(got, rops.keystream_plain(table, kidx, counters))
 
 
 def test_keystream_kernel_fips_197_c1(dev):
@@ -442,6 +529,29 @@ def test_sharded_matcher_on_the_card_matches_the_cpu_mesh_and_the_trie(dev):
             m.compact = compact
             for got, t in zip(m.match_topics(topics), topics):
                 assert subscribers_equal(got, m.topics.subscribers(t)), t
+
+
+@pytest.mark.parametrize("route", ["matcher-packed", "matcher-compact", "mesh"])
+def test_namespace_guards_on_the_card(dev, route):
+    # the namespace corpus through the kernels: every scoped topic's result
+    # is the trie's (the materializer drops the guarded entries)
+    from mqtt_tpu_torch.parallel import ShardedTorchMatcher, make_mesh
+
+    index = apply_port_ops(ns_corpus_ops(31), TopicsIndex())
+    topics = ns_topics(32)
+    if route == "mesh":
+        m = ShardedTorchMatcher(index, mesh=make_mesh([dev] * 8), max_levels=MAX_LEVELS)
+    else:
+        compact = route == "matcher-compact"
+        m = TorchMatcher(index, max_levels=MAX_LEVELS, compact=compact,
+                         compact_capacity=16384 if compact else 0, device=dev)
+    try:
+        for got, t in zip(m.match_topics(topics), topics):
+            assert subscribers_equal(got, index.subscribers(t)), repr(t)
+        assert m.stats.host_fallbacks == 0
+    finally:
+        if route == "mesh":
+            m.close()
 
 
 def test_dryrun_multichip_on_one_card(dev):

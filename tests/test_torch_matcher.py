@@ -94,6 +94,25 @@ def test_torch_matcher_matches_jax_and_both_tries(corpus, compact):
         assert port.stats.compact_overflows == jaxm.stats.compact_overflows == 1
 
 
+def test_a_clients_filters_merge_in_probe_order_as_the_jax_package_does():
+    """A client with two matching filters: the device merges them in probe
+    (pattern) order, the trie in its walk's order, so the merged
+    Subscription's filter and identifiers map differ from the trie's — a
+    fault of the JAX package's matcher that the port keeps, result for
+    result (ROADMAP Queue C). Delivery (the client, its QoS) is the
+    trie's."""
+    ops = [("sub", "c", "a/#", 1, 3, False), ("sub", "c", "a/+/b", 2, 0, False), ("sub", "d", "z/+", 0, 0, False)]
+    jidx, tidx = twin_tries(ops)
+    for compact in (False, True):
+        got = TorchMatcher(tidx, max_levels=MAX_LEVELS, compact=compact, device="cpu").match_topics(["a/e/b"])[0]
+        want = TpuMatcher(jidx, max_levels=MAX_LEVELS, compact=compact, lazy=False).match_topics(["a/e/b"])[0]
+        assert canon(got) == canon(want)
+        host = tidx.subscribers("a/e/b").subscriptions["c"]
+        assert got.subscriptions["c"].qos == host.qos == 2
+        assert (got.subscriptions["c"].filter, host.filter) == ("a/+/b", "a/#")
+        assert (got.subscriptions["c"].identifiers, host.identifiers) == ({"a/+/b": 0, "a/#": 3}, {"a/#": 3})
+
+
 def test_adaptive_pick_serves_both_paths(corpus):
     jidx, tidx = twin_tries(corpus)
     port = TorchMatcher(tidx, max_levels=MAX_LEVELS, hits_estimate=1.0, device="cpu")
@@ -352,6 +371,31 @@ def test_cuda_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.scatter_rows(t, torch.zeros(8, dtype=torch.int32), torch.zeros((8, 16), dtype=torch.int32))
     assert kernels.LAUNCHES["scatter_rows"] == 0
+
+
+def test_compact_scratch_per_stream_with_epochs_that_skip_zero(monkeypatch):
+    # K2's status words are valid only under their launch's epoch; 0 is
+    # what a freshly zeroed scratch holds, so no launch may use it
+    import torch
+
+    monkeypatch.setattr(kernels, "_compact_scratch", {})
+    dev = torch.device("cpu")
+    a, e1 = kernels._compact_scratch_for(dev, 7, 10)
+    b, e2 = kernels._compact_scratch_for(dev, 7, 10)
+    assert a is b and (e1, e2) == (1, 2) and not a.any()
+    other, e = kernels._compact_scratch_for(dev, 8, 10)
+    assert other is not a and e == 1
+    kernels._compact_scratch[(None, 7)][1] = kernels._EPOCH_MASK
+    grown, e = kernels._compact_scratch_for(dev, 7, 5000)
+    assert e == 1 and grown.numel() == 5000 and not grown.any()
+    # a warp probes 32 // P topics (one where P > 32); a batch that fits in
+    # one block of 32 warps takes one block
+    assert [kernels._compact_warps(P, 4096) for P in (2, 8, 2048, 4096, 16384)] == [8, 8, 8, 4, 1]
+    assert [kernels._compact_warps(8, B) for B in (1, 4, 5, 16, 128, 129)] == [1, 1, 2, 4, 32, 8]
+    assert kernels._compact_warps(1024, 32) == 8 and kernels._compact_warps(1024, 16) == 16
+    for P in (32768, 3):
+        with pytest.raises(ValueError, match="power-of-two pattern count"):
+            kernels._compact_warps(P, 16)
 
 
 def test_package_imports_neither_jax_nor_the_jax_package():

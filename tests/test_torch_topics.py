@@ -12,7 +12,13 @@ import numpy as np
 import pytest
 
 from mqtt_tpu_torch.packets import Subscription
-from mqtt_tpu_torch.topics import SHARE_PREFIX, InlineSubscription, TopicsIndex
+from mqtt_tpu_torch.topics import (
+    SHARE_PREFIX,
+    InlineSubscription,
+    TopicsIndex,
+    ns_scope_filter,
+    ns_scope_topic,
+)
 
 MAX_LEVELS = 6
 SEGS = ["a", "b", "c", "dd", "", "x", "$SYS", "long-segment-name", "e", "f"]
@@ -96,6 +102,80 @@ def saturating_ops() -> list[tuple]:
     ops = [("sub", f"c{i}", tok, 1, 0, False) for i, tok in enumerate(colliding)]
     ops += [("sub", "solo", "plain/topic", 0, 0, False), ("sub", "wild", "wild/+", 0, 0, False)]
     return ops
+
+
+NS_TENANTS = ("t0", "t1", "t2")
+NS_SEGS = ["e", "1", "a", "$x", "b"]
+
+
+def ns_corpus_ops(seed: int, n_subs: int = 300) -> list[tuple]:
+    """A seeded mutation list over tenant namespaces: global and scoped
+    client, ``$SHARE`` and inline filters whose first (tenant-local) level
+    is often ``+``, ``#`` or ``$x``, plus the fixed set of the guard's
+    cases (global ``#``, ``+/e/1``, ``$SHARE/g/#``, inline ``#``; scoped
+    ``e/+``, ``#``, ``$x/#``). A fifth of the scoped client subscriptions
+    come with a global ``+/...`` filter of the same client, which
+    the guard drops on every scoped topic: the client's merge must hold
+    its scoped filter alone. No other client holds two filters (two
+    surviving filters merge in probe order on the device, the walk's
+    order in the trie: ROADMAP Queue C)."""
+    rng = np.random.default_rng(seed)
+    ops: list[tuple] = [
+        ("sub", "g", "#", 1, 0, False),
+        ("sub", "p", "+/e/1", 0, 3, False),
+        ("sub", "sg", f"{SHARE_PREFIX}/g/#", 2, 0, False),
+        ("inline", "", "#", 0, 9001, False),
+        ("inline", "", "+/e/+", 0, 9002, False),
+        ("sub", "t", ns_scope_filter("t9", "e/+"), 1, 0, False),
+        ("sub", "td", ns_scope_filter("t9", "#"), 0, 0, False),
+        ("sub", "tx", ns_scope_filter("t9", "$x/#"), 2, 0, False),
+        ("sub", "ts", ns_scope_filter("t9", f"{SHARE_PREFIX}/g/+/1"), 1, 0, False),
+        ("inline", "", ns_scope_filter("t9", "#"), 0, 9003, False),
+    ]
+    for i in range(n_subs):
+        depth = int(rng.integers(1, 4))
+        parts = [NS_SEGS[j] for j in rng.integers(0, len(NS_SEGS), depth)]
+        roll = rng.random()
+        if roll < 0.2:
+            parts[0] = "+"
+        elif roll < 0.3:
+            parts = parts[: int(rng.integers(0, depth + 1))] + ["#"]
+        elif roll < 0.45:
+            parts[int(rng.integers(0, depth))] = "+"
+        flt = "/".join(parts)
+        kind = rng.random()
+        if kind < 0.12:
+            flt = f"{SHARE_PREFIX}/grp{int(rng.integers(0, 3))}/{flt}"
+        scoped = rng.random() < 0.65
+        if scoped:
+            flt = ns_scope_filter(NS_TENANTS[int(rng.integers(0, len(NS_TENANTS)))], flt)
+        qos = int(rng.integers(0, 3))
+        ident = int(rng.choice([0, i % 31 + 1]))
+        if 0.12 <= kind < 0.24:
+            ops.append(("inline", "", flt, 0, 5000 + i, False))
+            continue
+        ops.append(("sub", f"n{i}", flt, qos, ident, False))
+        if scoped and kind >= 0.24 and rng.random() < 0.2:
+            wild = "+/" + "/".join(parts[1:] or [NS_SEGS[i % len(NS_SEGS)]])
+            ops.append(("sub", f"n{i}", wild, int(rng.integers(0, 3)), i % 29 + 1, False))
+    return ops
+
+
+def ns_topics(seed: int, n: int = 300) -> list[str]:
+    """Seeded PUBLISH topics, two thirds of them scoped into a tenant's
+    namespace (a tenant-local first level of ``$x`` among them), and the
+    guard's fixed cases."""
+    rng = np.random.default_rng(seed)
+    topics = []
+    for _ in range(n):
+        depth = int(rng.integers(1, 4))
+        topic = "/".join(NS_SEGS[j] for j in rng.integers(0, len(NS_SEGS), depth))
+        if rng.random() < 0.67:
+            topic = ns_scope_topic(NS_TENANTS[int(rng.integers(0, len(NS_TENANTS)))], topic)
+        topics.append(topic)
+    fixed = ["e/1", "a/e/1", "$x/1", "a"]
+    fixed += [ns_scope_topic("t9", t) for t in ("e/1", "$x/1", "$x", "a/1", "e")]
+    return topics + fixed
 
 
 def apply_port_ops(ops, index: TopicsIndex) -> TopicsIndex:
