@@ -16,8 +16,8 @@ Phases, each printed as it ends:
    compact capacity below the batch's hits, a fold-sized row scatter), with
    tolerance 0 (all outputs are integers); each kernel's CUDA-event time,
    bound and plain time, and ``torch.index_copy``'s time beside the row
-   scatter. After cfg3's main path, K2 again at the smallest batch bucket
-   its default-budget feed launched.
+   scatter. After cfg2's main path, K1 again at the smallest batch bucket
+   its default-budget feed launched; after cfg3's, K2 likewise.
 5. The main path, once per configuration, with the launch counts set to 0
    just before it: ``MatchStage`` → ``DeltaMatcher`` → ``TorchMatcher`` on
    ``cuda``, >= 64K publishes in three waves through a stage with a fixed
@@ -434,10 +434,11 @@ def phase_kernels(torch, cfgs: list, device, iters: int = 20) -> dict:
     return rec
 
 
-def phase_kernel_small_batch(torch, rec: dict, cfg: dict, device, iters: int = 20) -> None:
-    """K2 against its plain version at the smallest batch bucket that the
+def phase_kernel_small_batch(torch, rec: dict, cfg: dict, device, name: str, iters: int = 20) -> None:
+    """K1 (``name`` ``flat_probe_ranges``) or K2 (``flat_match_compact``)
+    against its plain version at the smallest batch bucket that the
     configuration's default-budget feed launched (``phase_main`` records
-    the buckets), at the capacity the matcher held for that bucket."""
+    the buckets); K2 at the capacity the matcher held for that bucket."""
     from mqtt_tpu_torch.ops import flat
     from mqtt_tpu_torch.ops.matcher import pick_compact_capacity
 
@@ -449,20 +450,33 @@ def phase_kernel_small_batch(torch, rec: dict, cfg: dict, device, iters: int = 2
     B = cfg["paced_buckets"][0]
     topics = [cfg["topic_gen"]() for _ in range(B)]
     tokens = _tokens(torch, flat, topics, fl, device)
-    n_hits = int(flat.flat_match_packed_plain(*arrays, tokens, L)[:, 2 * P].sum())
-    capacity = snap._caps.get(B) or pick_compact_capacity(0, max(1.0, n_hits / B), B, B * P * fl.window, {})
-    for cap in (capacity, max(1, n_hits // 2)):
-        got = flat.flat_match_compact(*arrays, tokens, max_levels=L, capacity=cap)
-        want = flat.flat_match_compact_plain(*arrays, tokens, L, cap)
-        compare("flat_match_compact", got, want, f"{cfg['name']} B={B} cap={cap}")
+    want = flat.flat_match_packed_plain(*arrays, tokens, L)
+    n_hits = int(want[:, 2 * P].sum())
     rows = int(torch.unique(flat.probe_slots(*arrays, tokens, max_levels=L)).numel())
-    n_bytes = tokens.numel() * 4 + rows * 64 + 3 * P * 4 + (2 + 2 * B + capacity) * 4
-    bound_ms, bound_by = bound(n_bytes, probe_ops(B, P, L) + 4 * B * P + 2 * n_hits)
+    in_bytes = tokens.numel() * 4 + rows * 64 + 3 * P * 4
+    if name == "flat_probe_ranges":
+        compare(name, flat.flat_match_packed(*arrays, tokens, max_levels=L), want, f"{cfg['name']} B={B}")
+        what = ""
+        n_bytes = in_bytes + want.numel() * 4
+        n_ops = probe_ops(B, P, L)
+        kernel = lambda: flat.flat_match_packed(*arrays, tokens, max_levels=L)  # noqa: E731
+        plain = lambda: flat.flat_match_packed_plain(*arrays, tokens, L)  # noqa: E731
+    else:
+        capacity = snap._caps.get(B) or pick_compact_capacity(0, max(1.0, n_hits / B), B, B * P * fl.window, {})
+        for cap in (capacity, max(1, n_hits // 2)):
+            got = flat.flat_match_compact(*arrays, tokens, max_levels=L, capacity=cap)
+            compare(name, got, flat.flat_match_compact_plain(*arrays, tokens, L, cap), f"{cfg['name']} B={B} cap={cap}")
+        what = f" cap={capacity}"
+        n_bytes = in_bytes + (2 + 2 * B + capacity) * 4
+        n_ops = probe_ops(B, P, L) + 4 * B * P + 2 * n_hits
+        kernel = lambda: flat.flat_match_compact(*arrays, tokens, max_levels=L, capacity=capacity)  # noqa: E731
+        plain = lambda: flat.flat_match_compact_plain(*arrays, tokens, L, capacity)  # noqa: E731
+    bound_ms, bound_by = bound(n_bytes, n_ops)
     measure = (lambda fn, n: event_ms(torch, fn, n)) if on_cuda else _host_ms
-    ms = measure(lambda: flat.flat_match_compact(*arrays, tokens, max_levels=L, capacity=capacity), iters)
-    plain = measure(lambda: flat.flat_match_compact_plain(*arrays, tokens, L, capacity), 3)
-    log(f"  flat_match_compact {cfg['name']} smallest default-budget bucket B={B} (buckets "
-        f"{cfg['paced_buckets']}) P={P} cap={capacity} hits={n_hits}: err 0, {ms:.4f} ms, plain {plain:.4f} ms, "
+    ms = measure(kernel, iters)
+    plain_ms = measure(plain, 3)
+    log(f"  {name} {cfg['name']} smallest default-budget bucket B={B} (buckets "
+        f"{cfg['paced_buckets']}) P={P}{what} hits={n_hits}: err 0, {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} B)")
 
 
@@ -1435,12 +1449,13 @@ def phase_kernels_pr(torch, rec: dict, cfgP: dict, cfgR: dict, device, n_recrypt
         row = {"bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                "ms": measure(kernel, iters), "plain_ms": measure(plain, plain_iters)}
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
-        log(f"  {name} {what}: err {err}, {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} B, {n_ops} ops)")
+        log(f"  {name} {what}{' (the main shape)' if main else ''}: err {err}, {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} B, {n_ops} ops)")
         if main:
             rec[name].update(row)
 
-    # K4: the engine's own rule table; feature rows of cfgP payloads
+    # K4: the engine's own rule table; feature rows of cfgP payloads (the
+    # main shape), the first 64 of them, and random S = 2 rows with NaNs
     eng = cfgP["eng"]
     with eng._lock:
         if eng._table_gen != eng._gen:
@@ -1551,9 +1566,10 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
         rec = phase_kernels(torch, cfgs, device)
         main2 = phase_main(cfgs[0], wave)
         check(main2["flat_probe_ranges"] > 0 or not counted, "cfg2's main path never launched flat_probe_ranges")
+        phase_kernel_small_batch(torch, rec, cfgs[0], device, "flat_probe_ranges")
         main3 = phase_main(cfgs[1], wave)
         check(main3["flat_match_compact"] > 0 or not counted, "cfg3's main path never launched flat_match_compact")
-        phase_kernel_small_batch(torch, rec, cfgs[1], device)
+        phase_kernel_small_batch(torch, rec, cfgs[1], device, "flat_match_compact")
         # the same tries, now served by the sharded matcher alone
         for cfg in cfgs:
             cfg["dm"].close()

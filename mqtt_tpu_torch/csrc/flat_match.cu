@@ -14,25 +14,28 @@
 //
 // What bounds them on the card: all three move bytes and do little
 // arithmetic. K1 is one random 64-byte bucket-row gather per active
-// (topic, shape) probe plus the token rows and the output; the design keeps
-// each probe to exactly one row read as four 16-byte loads and keeps the
-// per-topic reduction (total, overflow) in a warp, so nothing but the
-// packed output row returns to device memory. K2 adds an exclusive scan
-// over the B*P counts and the compacted write; at the path's batches it is
-// latency-bound (one dependent row gather per probe), so it runs as ONE
-// launch with no memset: each CUDA block probes a tile of topics with one
-// lane per (topic, pattern) probe (at P = 8 a warp takes four topics
-// where K1's leaves 24 lanes idle), keeps the tile's starts and counts in
-// shared memory, takes its exclusive offset by a decoupled look-back over
-// tiles numbered by an atomic ticket, writes its segments (a warp striding
-// over each range, so the stores coalesce), and the last block to finish
-// writes the header and the clip slot; the -1 tail is shared by the
-// blocks that finish after the last tile's prefix is known. A batch that
-// fits one block of 32 warps (128 topics at P = 8) skips the
-// ticket, the look-back and the done counter. Its scratch is four ints
-// per tile. K3 copies the whole table (the update is functional) and writes k
-// rows. The probe (probe_one) and the block scan live in flat_probe.cuh,
-// shared with sharded.cu.
+// (topic, shape) probe plus the token rows and the output; at the path's
+// batches it is latency-bound: a token-row read, the hash, then the
+// dependent row gather. The design gives each (topic, pattern) probe its
+// own lane (at P = 4 a warp probes eight topics), reads a warp's token rows
+// in one coalesced copy into shared memory before any lane hashes, keeps
+// each probe to exactly one row read as four 16-byte loads, reduces the
+// total and the overflow flag over the topic's lanes, and writes the
+// warp's output rows, one contiguous run, straight from the lanes (staging
+// them through shared memory first was slower on the H100). K2 adds an
+// exclusive scan over the B*P counts and the compacted write; it is
+// latency-bound the same way, so it runs as ONE launch with no memset:
+// each CUDA block probes a tile of topics with K1's lane mapping, keeps
+// the tile's starts and counts in shared memory, takes its exclusive
+// offset by a decoupled look-back over tiles numbered by an atomic
+// ticket, writes its segments (a warp striding over each range, so the
+// stores coalesce), and the last block to finish writes the header and
+// the clip slot; the -1 tail is shared by the blocks that finish after the
+// last tile's prefix is known. A batch that fits one block of 32 warps
+// (128 topics at P = 8) skips the ticket, the look-back and the done
+// counter. Its scratch is four ints per tile. K3 copies the whole table
+// (the update is functional) and writes k rows. The probe (probe_one), the lane mapping (probe_lanes) and the block
+// scan live in flat_probe.cuh, shared with sharded.cu.
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -43,42 +46,91 @@
 
 namespace {
 
-// One warp per topic; lane l takes shapes l, l+32, ... . start/cnt of
-// probe (b, p) land at start_out[b*row_stride + p] / cnt_out[...]; the
-// topic's total and overflow flag at total_out[b*tot_stride] and
-// ovf_out[b*tot_stride].
-__global__ void __launch_bounds__(kProbeThreads) probe_kernel(
+constexpr int kProbeMaxThreads = 256;  // K1: at most 8 warps a block
+constexpr int kCopyInts = 8;           // K1: token ints a lane loads per pass
+
+// K1. Lanes map to (topic, pattern) probes as K2's do: a warp takes G =
+// 32 / Pw whole topics, Pw = probe_lanes(P), lane l probing patterns
+// l % Pw, l % Pw + 32, ... of topic l / Pw (lanes past P idle, and past B
+// probe nothing). The warp first copies its G token rows (G * W ints, one
+// contiguous run) into its shared memory with coalesced loads, so no lane
+// re-reads a row from L2 for the hash; the pattern fields of its first
+// probe are loaded before that copy. The warp's G output rows are one
+// contiguous run of G * (2P+2) ints: a store instruction covers the
+// starts (or the counts) of all G topics. out holds [B, 2P+2] rows:
+// starts | counts | total | overflow.
+__global__ void __launch_bounds__(kProbeMaxThreads) probe_kernel(
     const int* __restrict__ tokens, int B, int W, int max_levels,
     const uint4* __restrict__ table, uint32_t slot_mask,
     const int* __restrict__ pat_kind, const int* __restrict__ pat_depth,
-    const int* __restrict__ pat_mask, int P, int* __restrict__ start_out,
-    int* __restrict__ cnt_out, long long row_stride, int* __restrict__ total_out,
-    int* __restrict__ ovf_out, long long tot_stride) {
-  const long long b =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
+    const int* __restrict__ pat_mask, int P, int* __restrict__ out) {
+  extern __shared__ int smem[];
+  const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  if (b >= B) return;  // uniform across the warp
-  const int L = (W - 2) / 2;
-  const int* tok = tokens + b * W;
-  const int n = tok[2 * L];
-  const bool dollar = tok[2 * L + 1] != 0;
+  const int Pw = probe_lanes(P);
+  const int G = kWarp / Pw;
+  const long long ow = 2LL * P + 2;
+  int* s_tok = smem + warp * G * W;
+  const long long b0 = (static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) + warp) * G;
+  if (b0 >= B) return;  // uniform across the warp
+  const int nb = static_cast<int>(min(static_cast<long long>(G), B - b0));
+  const int t = lane / Pw;
+  int p = lane % Pw;
+  uint32_t kind = 0, pmask = 0;
+  int depth = -1;
+  if (p < P) {
+    kind = static_cast<uint32_t>(pat_kind[p]);
+    depth = pat_depth[p];
+    pmask = static_cast<uint32_t>(pat_mask[p]);
+  }
+  // the copy: each pass issues all its loads before its first store, so a
+  // warp's rows (144 ints at P = 4, L = 8) arrive in one round trip
+  const int* src = tokens + b0 * W;
+  const int n_tok = nb * W;
+  for (int base = 0; base < n_tok; base += kWarp * kCopyInts) {
+    int v[kCopyInts];
+#pragma unroll
+    for (int u = 0; u < kCopyInts; ++u) {
+      const int i = base + u * kWarp + lane;
+      v[u] = i < n_tok ? src[i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kCopyInts; ++u) {
+      const int i = base + u * kWarp + lane;
+      if (i < n_tok) s_tok[i] = v[u];
+    }
+  }
+  __syncwarp();
   int total = 0;
   bool ovf = false;
-  for (int p = lane; p < P; p += kWarp) {
-    const ProbeOut r = probe_one(tok, L, max_levels, n, dollar, table, slot_mask,
-                                 static_cast<uint32_t>(pat_kind[p]), pat_depth[p],
-                                 static_cast<uint32_t>(pat_mask[p]));
-    start_out[b * row_stride + p] = r.start;
-    cnt_out[b * row_stride + p] = r.cnt;
-    total += r.cnt;
-    ovf |= r.overflow;
+  int* dst = out + (b0 + t) * ow;
+  if (t < nb) {
+    const int L = (W - 2) / 2;
+    const int* tok = s_tok + t * W;
+    const int n = tok[2 * L];
+    const bool dollar = tok[2 * L + 1] != 0;
+    while (p < P) {
+      const ProbeOut r = probe_one(tok, L, max_levels, n, dollar, table, slot_mask, kind, depth, pmask);
+      dst[p] = r.start;
+      dst[P + p] = r.cnt;
+      total += r.cnt;
+      ovf |= r.overflow;
+      p += kWarp;
+      if (p < P) {
+        kind = static_cast<uint32_t>(pat_kind[p]);
+        depth = pat_depth[p];
+        pmask = static_cast<uint32_t>(pat_mask[p]);
+      }
+    }
   }
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) total += __shfl_xor_sync(kFull, total, o);
-  ovf = __any_sync(kFull, ovf);
-  if (lane == 0) {
-    total_out[b * tot_stride] = total;
-    ovf_out[b * tot_stride] = ovf ? 1 : 0;
+  // the topic's total and flag over its aligned group of Pw lanes
+  for (int o = Pw / 2; o > 0; o >>= 1) {
+    total += __shfl_xor_sync(kFull, total, o);
+    ovf |= __shfl_xor_sync(kFull, ovf, o);
+  }
+  if (lane % Pw == 0 && t < nb) {
+    dst[2 * P] = total;
+    dst[2 * P + 1] = ovf ? 1 : 0;
   }
 }
 
@@ -187,8 +239,8 @@ __global__ void __launch_bounds__(1024) match_compact_kernel(
   __shared__ bool s_is_last;
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const int Pw = min(P, kWarp);  // lanes per topic
-  const int G = kWarp / Pw;      // topics per warp
+  const int Pw = probe_lanes(P);  // lanes per topic
+  const int G = kWarp / Pw;       // topics per warp
   const int n_topics = blockDim.x / kWarp * G;  // topics per tile
   const int n_tiles = gridDim.x;
   const bool single = n_tiles == 1;
@@ -412,18 +464,34 @@ const char* fm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// K1: out[B, 2P+2] = starts | counts | total | overflow.
+// K1: out[B, 2P+2] = starts | counts | total | overflow. B >= 1. A block
+// has 1-8 warps: as many as keep at least two blocks per SM where the
+// batch allows (B = 4096 at P = 4 is 512 warps: 512 one-warp blocks over
+// 132 SMs), each with its G token rows (G * W ints) of shared memory.
 int fm_probe_ranges(const int* tokens, int B, int W, int max_levels,
                     const int* table, int S, const int* pat_kind,
                     const int* pat_depth, const int* pat_mask, int P, int* out,
                     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long ow = 2LL * P + 2;
-  probe_kernel<<<blocks_for(static_cast<long long>(B) * kWarp, kProbeThreads),
-                 kProbeThreads, 0, st>>>(
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = kWarp / probe_lanes(P);
+  const long long n_warps = (B + G - 1LL) / G;
+  const size_t warp_bytes = static_cast<size_t>(G) * W * sizeof(int);
+  long long warps = n_warps / (2LL * (sms > 0 ? sms : 1));
+  warps = warps < 1 ? 1 : (warps > kProbeMaxThreads / kWarp ? kProbeMaxThreads / kWarp : warps);
+  while (warps > 1 && warps * warp_bytes > 48 * 1024) warps >>= 1;
+  const size_t smem = warps * warp_bytes;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  probe_kernel<<<static_cast<unsigned>((n_warps + warps - 1) / warps), static_cast<unsigned>(warps * kWarp),
+                 smem, static_cast<cudaStream_t>(stream)>>>(
       tokens, B, W, max_levels, reinterpret_cast<const uint4*>(table),
-      static_cast<uint32_t>(S - 1), pat_kind, pat_depth, pat_mask, P, out,
-      out + P, ow, out + 2 * P, out + 2 * P + 1, ow);
+      static_cast<uint32_t>(S - 1), pat_kind, pat_depth, pat_mask, P, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -443,7 +511,7 @@ int fm_match_compact(const int* tokens, int B, int W, int max_levels,
                      unsigned epoch, void* stream) {
   if (warps < 1 || warps > kWarp || P < 1 || (P & (P - 1)) || epoch == 0 || epoch >= (1u << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int G = kWarp / min(P, kWarp);
+  const int G = kWarp / probe_lanes(P);
   const size_t smem = static_cast<size_t>(warps) * G * P * 2 * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

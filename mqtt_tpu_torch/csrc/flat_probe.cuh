@@ -1,9 +1,9 @@
 // The probe and scan helpers shared by the port's matcher kernels:
 // flat_match.cu (K1-K3) and sharded.cu (K7-K9) both include this header.
 //
-// probe_one is the device half of the JAX package's _probe_head
-// (mqtt_tpu/ops/flat.py:786-855): one (topic, shape) probe of the
-// flat-hash table, bit for bit. block_inclusive_scan is the block-wide
+// probe_lanes is the lane mapping K1 and K2 share. probe_one is the
+// device half of the JAX package's _probe_head (mqtt_tpu/ops/flat.py:
+// 786-855): one (topic, shape) probe of the flat-hash table, bit for bit. block_inclusive_scan is the block-wide
 // int32 prefix sum K9's tile scan builds on (K2 scans across CUDA blocks by
 // decoupled look-back instead).
 
@@ -28,7 +28,7 @@ constexpr int kSpillShift = 20;
 constexpr int kSatShift = 21;
 
 constexpr int kWarp = 32;
-constexpr int kProbeThreads = 256;  // 8 topics per block, one warp each
+constexpr int kProbeThreads = 256;  // K7/K8: 8 topics per block, one warp each
 constexpr int kScanThreads = 1024;  // one tile of the prefix sum
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
@@ -36,6 +36,16 @@ __device__ __forceinline__ uint32_t mix(uint32_t h, uint32_t t) {
   uint32_t x = h ^ t;
   x = (x << 13) | (x >> 19);
   return x * kM1;
+}
+
+// Lanes per topic where lanes map to (topic, pattern) probes (K1, K2): the
+// pattern count rounded up to a power of two, at most a warp. A warp then
+// takes kWarp / probe_lanes(P) whole topics; its lanes reduce a topic's
+// total over an aligned group of that many lanes.
+__host__ __device__ __forceinline__ int probe_lanes(int P) {
+  int w = 1;
+  while (w < P && w < kWarp) w <<= 1;
+  return w;
 }
 
 struct ProbeOut {

@@ -86,6 +86,31 @@ def test_probe_ranges_kernel_matches_plain(dev, index_pair, b_min):
     assert bool(want[:, -1].any()) and int(want[:, -2].sum()) > 0
 
 
+@pytest.mark.parametrize("B", [1, 7, 333, 4097])
+@pytest.mark.parametrize("P", [0, 1, 2, 3, 4, 8, 16, 32, 64])
+def test_probe_ranges_lane_mapping_matches_plain(dev, index_pair, P, B):
+    # K1 with the corpus's patterns (50 shapes, padded to 64) cut to the
+    # first P, at batches that are no multiple of the 32 / P topics a warp
+    # takes, with $-rooted topics; and K2, which maps lanes the same way,
+    # on the same inputs
+    fl, arrays = index_pair
+    L = fl.max_levels
+    table, pats = arrays[0], [a[:P].contiguous() for a in arrays[1:]]
+    topics = [f"$SYS/{t}" if i % 5 == 2 else t for i, t in enumerate(corpus_topics(40 + B, n=B)[:B])]
+    tokens = packed(topics, fl, dev, 1)[:B].contiguous()
+    got = flat.flat_match_packed(table, *pats, tokens, max_levels=L)
+    want = flat.flat_match_packed_plain(table, *pats, tokens, L)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if B > 2:
+        assert bool(tokens[:, -1].any())  # $-rooted topics in the batch
+    if P and not P & (P - 1):
+        n_hits = int(want[:, 2 * P].sum())
+        for capacity in (max(1, n_hits // 2), n_hits + 1):
+            got = flat.flat_match_compact(table, *pats, tokens, max_levels=L, capacity=capacity)
+            assert torch.equal(got, flat.flat_match_compact_plain(table, *pats, tokens, L, capacity)), capacity
+
+
 def test_ranges_views_match_plain(dev, index_pair):
     fl, arrays = index_pair
     tokens = packed(corpus_topics(6), fl, dev)
@@ -267,27 +292,78 @@ def test_match_stage_on_the_card(dev):
 
 
 def _rules(seed, B, R, S, W, dev):
-    """Seeded rule table and feature batch on ``dev``: every op code, slots
-    and cbits past both clip edges, NaN and infinite values."""
+    """Seeded rule table and feature batch on ``dev``: every op code and
+    codes past the vocabulary, slots and cbits past both clip edges, NaN,
+    infinite and signed-zero values, and features equal to a threshold or
+    one float step beside it."""
     rng = np.random.default_rng(seed)
-    pool = np.array([0.0, 0.5, -1.0, 7.25, np.nan, np.inf, -np.inf], dtype=np.float32)
-    op = rng.integers(0, 14, R).astype(np.int32)
+    pool = np.array([0.0, -0.0, 0.5, -1.0, 7.25, np.nan, np.inf, -np.inf], dtype=np.float32)
+    op = rng.integers(-1, 15, R).astype(np.int32)
     slot = rng.integers(-2, S + 2, R).astype(np.int32)
     thresh = np.where(rng.random(R) < 0.5, rng.choice(pool, R), rng.normal(size=R)).astype(np.float32)
     cbit = rng.integers(-8, 32 * W + 40, R).astype(np.int32)
     feats = np.where(rng.random((B, S)) < 0.5, rng.choice(pool, (B, S)), rng.normal(size=(B, S))).astype(np.float32)
+    near = thresh[rng.integers(0, R, (B, S))]
+    step = rng.integers(-1, 2, (B, S))
+    near = np.where(step == 0, near, np.nextafter(near, np.where(step > 0, np.inf, -np.inf).astype(np.float32)))
+    feats = np.where(rng.random((B, S)) < 0.3, near, feats).astype(np.float32)
     cmask = rng.integers(0, 2**32, (B, W), dtype=np.uint64).astype(np.uint32).view(np.int32)
     return [torch.from_numpy(a).to(dev) for a in (op, slot, thresh, cbit, feats, cmask)]
 
 
-@pytest.mark.parametrize("B,R,S,W", [(1, 32, 1, 1), (17, 96, 3, 2), (64, 4096, 2, 64), (4096, 8192, 1, 63)])
-def test_rules_eval_kernel_matches_plain(dev, B, R, S, W):
-    args = _rules(B + R, B, R, S, W, dev)
+@pytest.mark.parametrize("W", [1, 63, 64])
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("B", [1, 17, 4096])
+@pytest.mark.parametrize("R", [32, 96, 1056, 131072])
+def test_rules_eval_kernel_matches_plain(dev, R, B, S, W):
+    # R past a block's 64 words (1056 = 33 words: a warp straddles the
+    # table's end), B past a run of 32 publishes
+    args = _rules(B + R + S + W, B, R, S, W, dev)
     before = kernels.LAUNCHES["rules_eval"]
     got = pops.rules_eval(*args)
     want = pops.rules_eval_plain(*args)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["rules_eval"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_rules_eval_cmask_words_past_64(dev, S):
+    # cmask rows of 100 words: bit-op rules reading words past the 64 a
+    # warp could stage, and past W (all ones)
+    args = _rules(5 + S, 64, 2048, S, 100, dev)
+    got = pops.rules_eval(*args)
+    want = pops.rules_eval_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_rules_eval_every_op_on_edge_values(dev, S):
+    # one warp of words (1024 rules) cycling through every op code with
+    # NaN, +-inf and +-0 thresholds among others, ending in OP_NONE pad rows
+    # as the engine pads; features at every threshold, one step either
+    # side of it, and NaN, +-inf and +-0
+    R = 1024
+    vals = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, -2.5, 1e-40, 3.4e38], dtype=np.float32)
+    codes = np.arange(-1, 15, dtype=np.int32)
+    op = np.resize(codes, R)
+    thresh = np.resize(vals, R - 7).astype(np.float32)
+    op[-96:] = pops.OP_NONE
+    thresh = np.concatenate([thresh, np.zeros(7, np.float32)])
+    thresh[-96:] = 0.0
+    rng = np.random.default_rng(S)
+    slot = rng.integers(0, S, R).astype(np.int32)
+    cbit = rng.integers(0, 96, R).astype(np.int32)
+    finite = np.unique(vals[~np.isnan(vals)])
+    cand = np.concatenate([vals, np.nextafter(finite, np.float32(np.inf)), np.nextafter(finite, np.float32(-np.inf))])
+    B = 4096
+    feats = rng.choice(cand.astype(np.float32), (B, S)).astype(np.float32)
+    cmask = rng.integers(0, 2**32, (B, 2), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (op, slot, thresh, cbit, feats, cmask)]
+    got = pops.rules_eval(*args)
+    want = pops.rules_eval_plain(*args)
+    torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
