@@ -1400,12 +1400,19 @@ def phase_recrypt(torch, cfg: dict, n_pub: int) -> dict:
     return launches
 
 
-def rules_ops(B: int, R: int) -> int:
-    """Operations the function needs for K4's B*R verdicts: one compare
-    per verdict (an unordered float compare folds in the NaN pass; a rule's
-    numeric-or-bit-op choice is fixed across the publishes), and per 32
-    verdicts one ballot and one store of the packed word."""
-    return B * R + 2 * (B * R // 32)
+def rules_ops(B: int, R: int, S: int, n_bit: int) -> int:
+    """Operations the function needs for K4's B*R verdicts, ``n_bit`` of
+    the R rules bit-op rules. At S = 1 a word's 32 numeric verdicts for a
+    feature depend only on where it falls among the word's sorted
+    thresholds: per publish and word a six-step search, one table read
+    and one store (8), and once per word a sort of its thresholds (32 x 5
+    compares) and its 66 region words. At S > 1 one compare per verdict
+    (an unordered float compare folds in the NaN pass), and per 32 one
+    ballot and one store. A bit-op verdict takes a shift and a mask."""
+    words = R // 32
+    if S == 1:
+        return B * words * 8 + words * (32 * 5 + 66) + 2 * B * n_bit
+    return B * R + 2 * B * words
 
 
 def keystream_ops(N: int) -> int:
@@ -1455,37 +1462,44 @@ def phase_kernels_pr(torch, rec: dict, cfgP: dict, cfgR: dict, device, n_recrypt
             rec[name].update(row)
 
     # K4: the engine's own rule table; feature rows of cfgP payloads (the
-    # main shape), the first 64 of them, and random S = 2 rows with NaNs
+    # main shape) and the first 64 of them, both also on the same table
+    # with its bit-op rules moved to its front (the order of a rule set
+    # that adds its $CONTAINS/$EQS rules together); random S = 2 rows with
+    # NaNs, 4096 and 64 of them
     eng = cfgP["eng"]
     with eng._lock:
         if eng._table_gen != eng._gen:
             eng._rebuild_evaluator()
-    table = eng._evaluator.table
-    R = table.arrays[0].shape[0]
+    table = eng._evaluator.table.arrays
+    R = table[0].shape[0]
+    is_bit = (table[0] == pops.OP_CONTAINS) | (table[0] == pops.OP_EQS)
+    n_bit = int(is_bit.sum())
+    crowded = [a[torch.argsort(~is_bit, stable=True)].contiguous() for a in table]
     prng = random.Random(7)
     feats = [eng.features_for(cfgP_payload(prng)) for _ in range(MAIN_BATCH)]
     F = np.stack([f.fvec for f in feats]).astype(np.float32)
     M = np.stack([f.cmask for f in feats]).view(np.int32)
-    cases = [(MAIN_BATCH, F, M, True), (64, F[:64], M[:64], False)]
     g = np.random.default_rng(8)
     F2 = g.random((MAIN_BATCH, 2), dtype=np.float32)
     F2[g.random(F2.shape) < 0.1] = np.nan
     M2 = g.integers(0, 2**32, (MAIN_BATCH, 64), dtype=np.uint64).astype(np.uint32).view(np.int32)
-    cases.append((MAIN_BATCH, F2, M2, False))
-    for B, f_np, m_np, main in cases:
+    cases = [("", table, F, M, True), ("", table, F[:64], M[:64], False),
+             (" bit-op rules first", crowded, F, M, False), (" bit-op rules first", crowded, F[:64], M[:64], False),
+             ("", table, F2, M2, False), ("", table, F2[:64], M2[:64], False)]
+    for what, rules, f_np, m_np, main in cases:
         f_t = torch.from_numpy(np.ascontiguousarray(f_np)).to(device)
         m_t = torch.from_numpy(np.ascontiguousarray(m_np)).to(device)
-        got = pops.rules_eval(*table.arrays, f_t, m_t)
-        want = pops.rules_eval_plain(*table.arrays, f_t, m_t)
+        got = pops.rules_eval(*rules, f_t, m_t)
+        want = pops.rules_eval_plain(*rules, f_t, m_t)
         check(got.shape == want.shape and got.dtype == want.dtype, "rules_eval: shape/dtype differ")
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        check(err == 0, f"rules_eval B={B}: kernel disagrees with its plain version (max abs err {err})")
+        (B, S), W = f_t.shape, m_t.shape[1]
+        check(err == 0, f"rules_eval B={B} S={S}{what}: kernel disagrees with its plain version (max abs err {err})")
         del want
-        S, W = f_t.shape[1], m_t.shape[1]
-        timed("rules_eval", f"B={B} R={R} S={S} W={W}",
-              lambda: pops.rules_eval(*table.arrays, f_t, m_t),
-              lambda: pops.rules_eval_plain(*table.arrays, f_t, m_t),
-              R * 16 + B * (S + W) * 4 + B * R // 8, rules_ops(B, R), err, main)
+        timed("rules_eval", f"B={B} R={R} S={S} W={W}{what}",
+              lambda: pops.rules_eval(*rules, f_t, m_t),
+              lambda: pops.rules_eval_plain(*rules, f_t, m_t),
+              R * 16 + B * (S + W) * 4 + B * R // 8, rules_ops(B, R, S, n_bit), err, main)
     if on_cuda:
         torch.cuda.empty_cache()
 

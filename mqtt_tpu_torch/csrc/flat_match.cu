@@ -34,8 +34,9 @@
 // last tile's prefix is known. A batch that fits one block of 32 warps
 // (128 topics at P = 8) skips the ticket, the look-back and the done
 // counter. Its scratch is four ints per tile. K3 copies the whole table
-// (the update is functional) and writes k rows. The probe (probe_one), the lane mapping (probe_lanes) and the block
-// scan live in flat_probe.cuh, shared with sharded.cu.
+// (the update is functional) and writes k rows. The probe (probe_one),
+// the lane mapping (probe_lanes) and the block scan live in
+// flat_probe.cuh, shared with sharded.cu.
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -46,7 +47,7 @@
 
 namespace {
 
-constexpr int kProbeMaxThreads = 256;  // K1: at most 8 warps a block
+constexpr int kProbeWarps = 4;         // K1: warps a block
 constexpr int kCopyInts = 8;           // K1: token ints a lane loads per pass
 
 // K1. Lanes map to (topic, pattern) probes as K2's do: a warp takes G =
@@ -59,7 +60,7 @@ constexpr int kCopyInts = 8;           // K1: token ints a lane loads per pass
 // contiguous run of G * (2P+2) ints: a store instruction covers the
 // starts (or the counts) of all G topics. out holds [B, 2P+2] rows:
 // starts | counts | total | overflow.
-__global__ void __launch_bounds__(kProbeMaxThreads) probe_kernel(
+__global__ void __launch_bounds__(kProbeWarps * kWarp) probe_kernel(
     const int* __restrict__ tokens, int B, int W, int max_levels,
     const uint4* __restrict__ table, uint32_t slot_mask,
     const int* __restrict__ pat_kind, const int* __restrict__ pat_depth,
@@ -465,31 +466,25 @@ const char* fm_error_string(int err) {
 }
 
 // K1: out[B, 2P+2] = starts | counts | total | overflow. B >= 1. A block
-// has 1-8 warps: as many as keep at least two blocks per SM where the
-// batch allows (B = 4096 at P = 4 is 512 warps: 512 one-warp blocks over
-// 132 SMs), each with its G token rows (G * W ints) of shared memory.
+// has four warps (fewer where their G token rows, G * W ints each, pass 48
+// KB). The launch goes to the current device, which must be the tensors'.
 int fm_probe_ranges(const int* tokens, int B, int W, int max_levels,
                     const int* table, int S, const int* pat_kind,
                     const int* pat_depth, const int* pat_mask, int P, int* out,
                     void* stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int G = kWarp / probe_lanes(P);
   const long long n_warps = (B + G - 1LL) / G;
   const size_t warp_bytes = static_cast<size_t>(G) * W * sizeof(int);
-  long long warps = n_warps / (2LL * (sms > 0 ? sms : 1));
-  warps = warps < 1 ? 1 : (warps > kProbeMaxThreads / kWarp ? kProbeMaxThreads / kWarp : warps);
+  int warps = kProbeWarps;
   while (warps > 1 && warps * warp_bytes > 48 * 1024) warps >>= 1;
   const size_t smem = warps * warp_bytes;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  probe_kernel<<<static_cast<unsigned>((n_warps + warps - 1) / warps), static_cast<unsigned>(warps * kWarp),
-                 smem, static_cast<cudaStream_t>(stream)>>>(
+  probe_kernel<<<static_cast<unsigned>((n_warps + warps - 1) / warps), warps * kWarp, smem,
+                 static_cast<cudaStream_t>(stream)>>>(
       tokens, B, W, max_levels, reinterpret_cast<const uint4*>(table),
       static_cast<uint32_t>(S - 1), pat_kind, pat_depth, pat_mask, P, out);
   return static_cast<int>(cudaGetLastError());

@@ -20,13 +20,14 @@
 // compares and an OR per verdict on the 64-lane ALU pipe, about 3x the
 // output's write time at the main path's shape (B=4096, R=131072, S=1).
 // The design takes that work off the verdicts. A CUDA block of two warps
-// owns a tile of 32 packed words (a lane each, 32 rules a word) and one run
-// of publishes (grid y), sized so the grid fills the card about once; it
-// stages the tile's 1024 rules in shared memory with coalesced loads and
-// builds the tile's tables once, and its warps take the run's publishes 32
-// at a time in turn. Where every rule reads the same feature (S = 1), a
-// word's numeric verdicts for a feature f depend only on where f falls
-// among the word's 32 thresholds (below, on or above each). So a lane
+// owns a tile of 32 packed words (a lane each, 32 rules a word) and one
+// chunk of publishes (grid y), sized so the grid fills the card about
+// once; it stages the tile's 1024 rules in shared memory with coalesced
+// loads and builds the tile's tables once, and its warps take the chunk's
+// publishes 32 at a time in turn (8 or 16 where the batch is too small to
+// fill the card with runs of 32). Where every rule reads the same feature
+// (S = 1), a word's numeric verdicts for a feature f depend only on where
+// f falls among the word's 32 thresholds (below, on or above each). So a lane
 // sorts its thresholds (a bitonic network in registers) and the tile
 // tabulates each word for the 65 regions they cut the line into, plus one
 // for a NaN feature; per publish a lane finds f's region by a six-step
@@ -34,15 +35,18 @@
 // word: 8 shared loads and about 20 other instructions per 32 verdicts. At
 // S > 1 the rules of a word read different features, and each verdict is
 // evaluated on its own from a 5-bit outcome mask (below, equal, above,
-// unordered, NaN feature). The $CONTAINS/$EQS rows, a few in a hundred in
-// the main path's table, take their bits from cmask words. Where a tile's
-// bit-op rules read at most 32 distinct words below 64, a warp stages
-// those words for 32 publishes (loaded while the previous 32 are
-// searched), walks the tile's list of bit-op rules with the lanes turned
-// to publishes, and leaves each word's bits per publish in shared memory
-// for the word's lane to OR in; otherwise each lane reads its own bit-op
-// rules' words from memory. Each warp stores 32 consecutive words of a
-// publish's row, one 128-byte segment.
+// unordered, NaN feature), a rule's fields read once for eight publishes.
+// The $CONTAINS/$EQS rows, a few in a hundred in the main path's table,
+// take their bits from cmask words. Where a tile's bit-op rules read at
+// most 32 distinct words below 64 and are few beside the most in one word
+// (a list walked per run costs each entry in turn; a lane's own loop takes
+// four of its rules at once), a warp stages those words for 32 publishes
+// (loaded while the previous 32 are searched), walks the tile's list of
+// bit-op rules with the lanes turned to publishes, and leaves each word's
+// bits per publish in shared memory for the word's lane to OR in;
+// otherwise each lane reads its own bit-op rules' words from memory, four
+// rules at a time. Each warp stores 32 consecutive words of a publish's
+// row, one 128-byte segment.
 //
 // K5 reduces W NaN-padded windows of N samples: one warp per window, lanes
 // striding over the samples, then a shuffle tree. It reads W*N floats once
@@ -51,6 +55,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -73,6 +79,9 @@ constexpr int kIlp = 8;                 // publishes a lane keeps in flight
 constexpr uint32_t kFillFlag = 1u << 20;   // a list entry whose cmask word lies past W
 constexpr uint32_t kNoEntry = 0xFFFFFFFFu;  // before the list's first entry
 constexpr int kEntries = 8;                 // list entries a lane takes at once
+constexpr int kRulesAtOnce = 4;             // bit-op rules a lane reads at once outside the list
+constexpr int kListPerRound = 64;           // list entries worth one round of kRulesAtOnce rules a lane
+constexpr int kMaxDevices = 64;             // devices whose launch shape is kept
 constexpr int kAggThreads = 256;   // 8 windows per block, one warp each
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
@@ -95,16 +104,16 @@ __device__ __forceinline__ uint32_t outcome_bits(int o) {
 }
 
 // K4. A block is kRulesWarps warps sharing one tile of 32 words (a word a
-// lane) and one run of publishes (blockIdx.y: [y*chunk, (y+1)*chunk),
-// chunk a multiple of 32), which the warps take 32 publishes at a time in
-// turn. The tile's tables are built once for the block; the warps compute
-// its per-lane registers alike. Lanes past the table's end compute on
+// lane) and one chunk of publishes (blockIdx.y: [y*chunk, (y+1)*chunk),
+// chunk a multiple of run), which the warps take run (8, 16 or 32)
+// publishes at a time in turn. The tile's tables are built once for the
+// block; the warps compute its per-lane registers alike. Lanes past the table's end compute on
 // empty rules and store nothing, so every shuffle has all 32 lanes.
 template <bool kOneSlot>
 __global__ void __launch_bounds__(kRulesWarps * 32) rules_eval_kernel(
     const int* __restrict__ op, const int* __restrict__ slot, const float* __restrict__ thresh,
     const int* __restrict__ cbit, int R, const float* __restrict__ feats, int S,
-    const uint32_t* __restrict__ cmask, int W, int B, int chunk, uint32_t* __restrict__ out) {
+    const uint32_t* __restrict__ cmask, int W, int B, int chunk, int run, uint32_t* __restrict__ out) {
   // Areas of 32 x kPad words. The tile's: s_cb, each rule's cmask bit in
   // row layout [lane * kPad + k] (then, compact, the list of bit-op
   // rules), and three areas that first hold the staged op, thresh and slot
@@ -249,11 +258,12 @@ __global__ void __launch_bounds__(kRulesWarps * 32) rules_eval_kernel(
   }
 
   // 5. the cmask words the tile's bit-op rules read. Where they are at
-  // most 32, all below 64 (compact), lane j stages the j-th of them for
-  // each publish of a run, and the tile's bit-op rules become one list in
-  // s_cb: column of s_cm, shift, word lane, rule; or kFillFlag where the
-  // word lies past W (jnp.take's fill mode: all ones). Otherwise s_cb keeps
-  // the raw bits and each lane reads its rules' words from memory.
+  // most 32, all below 64, and the rules are not dense (compact), lane j
+  // stages the j-th of them for each publish of a run, and the tile's
+  // bit-op rules become one list in s_cb: column of s_cm, shift, word
+  // lane, rule; or kFillFlag where the word lies past W (jnp.take's fill
+  // mode: all ones). Otherwise s_cb keeps the raw bits and each lane reads
+  // its rules' words from memory.
   const uint32_t bit_lanes = __ballot_sync(kFull, bitops != 0);
   uint32_t need_lo = 0, need_hi = 0;
   bool far = false;
@@ -269,7 +279,13 @@ __global__ void __launch_bounds__(kRulesWarps * 32) rules_eval_kernel(
   need_hi = __reduce_or_sync(kFull, need_hi);
   const int n_lo = __popc(need_lo);
   const int n_need = n_lo + __popc(need_hi);
-  const bool compact = !__any_sync(kFull, far) && n_need <= 32;
+  // the list is walked one entry at a time for each run; the per-lane
+  // loop takes kRulesAtOnce rules of every word at once, so a tile dense
+  // in bit-op rules takes the loop
+  const int most = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(__popc(bitops))));
+  const int n_bits = static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(__popc(bitops))));
+  const bool compact = !__any_sync(kFull, far) && n_need <= 32 &&
+                       n_bits <= kListPerRound * ((most + kRulesAtOnce - 1) / kRulesAtOnce);
   int my_cw = 0;  // the cmask word lane j stages: the j-th set bit of the need mask
   int n_ent = 0;  // compact: the list's length
   if (compact) {
@@ -307,23 +323,23 @@ __global__ void __launch_bounds__(kRulesWarps * 32) rules_eval_kernel(
   }
   __syncthreads();  // the tables are written; the warps' own areas are theirs
 
-  // 6. the run of publishes, 32 at a time. Compact: the next run's cmask
-  // words are loaded while this run is searched, and stored to s_cm when
-  // it starts.
+  // 6. the block's publishes, run at a time. Compact: the next run's
+  // cmask words are loaded while this run is searched, and stored to s_cm
+  // when it starts.
   const size_t row = static_cast<size_t>(words);
   const uint32_t* bits_row = s_bits + lane * kPad;
   uint32_t pf[32];
   const bool stage = bit_lanes && compact && lane < n_need;
   const auto prefetch = [&](int b0) {
-    const int nb = min(32, b_end - b0);
+    const int nb = min(run, b_end - b0);
     const uint32_t* p = cmask + static_cast<size_t>(b0) * W + my_cw;
 #pragma unroll
     for (int i = 0; i < 32; ++i, p += W) pf[i] = i < nb ? __ldg(p) : 0u;
   };
-  const int first_run = b_begin + 32 * warp;
+  const int first_run = b_begin + run * warp;
   if (stage && first_run < b_end) prefetch(first_run);
-  for (int b0 = first_run; b0 < b_end; b0 += 32 * kRulesWarps) {
-    const int nb = min(32, b_end - b0);
+  for (int b0 = first_run; b0 < b_end; b0 += run * kRulesWarps) {
+    const int nb = min(run, b_end - b0);
     // S = 1: lane j holds publish b0 + j's feature
     const float fr = kOneSlot ? feats[b0 + min(lane, nb - 1)] : 0.0f;
     if (bit_lanes && compact) {
@@ -332,7 +348,7 @@ __global__ void __launch_bounds__(kRulesWarps * 32) rules_eval_kernel(
       if (stage) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) s_cm[i * kPad + lane] = pf[i];
-        if (b0 + 32 * kRulesWarps < b_end) prefetch(b0 + 32 * kRulesWarps);
+        if (b0 + run * kRulesWarps < b_end) prefetch(b0 + run * kRulesWarps);
       }
       __syncwarp();
       // the list is in word-lane order: a word's bits gather in acc, which
@@ -386,16 +402,24 @@ __global__ void __launch_bounds__(kRulesWarps * 32) rules_eval_kernel(
           w[q] = s_word[at];
         }
       } else {
+        // a rule's fields are read once for the kIlp publishes, whose
+        // feature loads are then all in flight together
+        const float* frow[kIlp];
 #pragma unroll
         for (int q = 0; q < kIlp; ++q) {
           w[q] = 0;
-          const float* frow = feats + static_cast<size_t>(b0 + min(j + q, nb - 1)) * S;
-#pragma unroll 8
-          for (int k = 0; k < 32; ++k) {
-            const float f = __ldg(frow + s_sl[lane * kPad + k]);
-            const float t = __uint_as_float(s_th[lane * kPad + k]);
+          frow[q] = feats + static_cast<size_t>(b0 + min(j + q, nb - 1)) * S;
+        }
+#pragma unroll 4
+        for (int k = 0; k < 32; ++k) {
+          const uint32_t sl = s_sl[lane * kPad + k];
+          const float t = __uint_as_float(s_th[lane * kPad + k]);
+          const uint32_t m = s_op[lane * kPad + k];
+#pragma unroll
+          for (int q = 0; q < kIlp; ++q) {
+            const float f = __ldg(frow[q] + sl);
             const int oc = isnan(f) ? 4 : (f < t ? 0 : (f == t ? 1 : (f > t ? 2 : 3)));
-            w[q] |= ((s_op[lane * kPad + k] >> oc) & 1u) << k;
+            w[q] |= ((m >> oc) & 1u) << k;
           }
         }
       }
@@ -404,16 +428,28 @@ __global__ void __launch_bounds__(kRulesWarps * 32) rules_eval_kernel(
         for (int q = 0; q < kIlp; ++q) w[q] |= bits_row[j + q];
       } else if (bitops) {
         // many words, or words past 63: each lane reads its bit-op rules'
-        // words from memory (all lanes read one row, so the loads share lines)
-        for (uint32_t m = bitops; m; m &= m - 1) {
-          const int k = __ffs(m) - 1;
-          const uint32_t cb = s_cb[lane * kPad + k];
-          const int cw = static_cast<int>(cb >> 5);
+        // words from memory (all lanes read one row, so the loads share
+        // lines), kRulesAtOnce rules at a time so their loads are in flight
+        // together; a slot past the lane's last rule reads word 0 and adds
+        // nothing
+        for (uint32_t m = bitops; m;) {
+          int k[kRulesAtOnce];
+          uint32_t cb[kRulesAtOnce];
 #pragma unroll
-          for (int q = 0; q < kIlp; ++q) {
-            const size_t b = static_cast<size_t>(b0 + min(j + q, nb - 1));
-            const uint32_t cword = cw < W ? __ldg(cmask + b * W + cw) : kFull;
-            w[q] |= ((cword >> (cb & 31u)) & 1u) << k;
+          for (int u = 0; u < kRulesAtOnce; ++u) {
+            k[u] = m ? __ffs(m) - 1 : 32;
+            cb[u] = m ? s_cb[lane * kPad + k[u]] : 0u;
+            m &= m - 1;
+          }
+#pragma unroll
+          for (int u = 0; u < kRulesAtOnce; ++u) {
+            const int cw = static_cast<int>(cb[u] >> 5);
+#pragma unroll
+            for (int q = 0; q < kIlp; ++q) {
+              const size_t b = static_cast<size_t>(b0 + min(j + q, nb - 1));
+              const uint32_t cword = cw < W ? __ldg(cmask + b * W + cw) : kFull;
+              w[q] |= k[u] < 32 ? ((cword >> (cb[u] & 31u)) & 1u) << k[u] : 0u;
+            }
           }
         }
       }
@@ -470,30 +506,45 @@ const char* pk_error_string(int err) {
 }
 
 // K4: out[B, R/32] packed pass bits. R a multiple of 32, S >= 1, W >= 1.
-// The grid is (R/32/32 tiles of 32 words) x (runs of publishes), with as many
-// runs as fill the card's resident blocks once; a run is a multiple of 32
-// publishes, so any B fits.
+// The grid is (R/32/32 tiles of 32 words) x (chunks of publishes), with as
+// many chunks as fill the card's resident blocks once, a chunk holding the
+// same number of runs for each warp; a warp takes 32 publishes at a time,
+// or 16 or 8 where B is too small to fill the card with runs of 32. Any B
+// fits. The
+// launch goes to the current device, which must be the tensors'.
 int pk_rules_eval(const int* op, const int* slot, const float* thresh, const int* cbit, int R,
                   const float* feats, int S, const uint32_t* cmask, int W, int B, uint32_t* out,
                   void* stream) {
   if (B > 0 && R > 0) {
-    const auto kernel = S == 1 ? rules_eval_kernel<true> : rules_eval_kernel<false>;
-    int dev = 0, sms = 0, per_sm = 0;
+    const bool one_slot = S == 1;
+    const auto kernel = one_slot ? rules_eval_kernel<true> : rules_eval_kernel<false>;
+    // resident blocks of each kernel on each device, read once
+    static std::atomic<int> resident_of[kMaxDevices][2];
+    int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRulesWarps * 32, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+    int resident = resident_of[dev][one_slot].load(std::memory_order_relaxed);
+    if (resident == 0) {
+      int sms = 0, per_sm = 0;
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRulesWarps * 32, 0);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      resident = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+      resident_of[dev][one_slot].store(resident, std::memory_order_relaxed);
+    }
     const long long tiles = ((R >> 5) + 31LL) / 32;
-    const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-    const long long max_runs = (B + 32LL * kRulesWarps - 1) / (32LL * kRulesWarps);  // a run for every warp
-    long long runs = resident / tiles;
-    runs = runs < 1 ? 1 : (runs > max_runs ? max_runs : runs);
-    long long chunk = (B + runs - 1) / runs;
-    chunk = (chunk + 31) / 32 * 32;
-    runs = (B + chunk - 1) / chunk;
-    const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(runs));
+    const long long want = resident / tiles < 1 ? 1 : resident / tiles;  // chunks that fill the card
+    // halve the run while that doubles the chunks, so halves each warp's share
+    int run = 32;
+    while (run > 8 && (B + run - 1LL) / run <= want) run >>= 1;
+    const long long span = static_cast<long long>(run) * kRulesWarps;  // a run for each warp
+    const long long chunks = (B + span - 1) / span < want ? (B + span - 1) / span : want;
+    long long chunk = (B + chunks - 1) / chunks;
+    chunk = (chunk + span - 1) / span * span;
+    const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>((B + chunk - 1) / chunk));
     kernel<<<grid, kRulesWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        op, slot, thresh, cbit, R, feats, S, cmask, W, B, static_cast<int>(chunk), out);
+        op, slot, thresh, cbit, R, feats, S, cmask, W, B, static_cast<int>(chunk), run, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -311,14 +311,18 @@ def _rules(seed, B, R, S, W, dev):
     return [torch.from_numpy(a).to(dev) for a in (op, slot, thresh, cbit, feats, cmask)]
 
 
-@pytest.mark.parametrize("W", [1, 63, 64])
-@pytest.mark.parametrize("S", [1, 3])
-@pytest.mark.parametrize("B", [1, 17, 4096])
-@pytest.mark.parametrize("R", [32, 96, 1056, 131072])
-def test_rules_eval_kernel_matches_plain(dev, R, B, S, W):
-    # R past a block's 64 words (1056 = 33 words: a warp straddles the
-    # table's end), B past a run of 32 publishes
-    args = _rules(B + R + S + W, B, R, S, W, dev)
+# the earlier shapes, then every R past a tile of 32 words (1056 = 33
+# words: a tile straddles the table's end) with B of one publish, past a
+# run of 32 publishes and at the main path's batch
+_RULES_SHAPES = [(1, 32, 1, 1), (17, 96, 3, 2), (64, 4096, 2, 64), (4096, 8192, 1, 63)] + [
+    (B, R, S, W) for R in (32, 96, 1056, 131072) for B in (1, 17, 4096) for S in (1, 3) for W in (1, 63, 64)
+    if (B, R, S, W) != (1, 32, 1, 1)
+]
+
+
+@pytest.mark.parametrize("B,R,S,W", _RULES_SHAPES)
+def test_rules_eval_kernel_matches_plain(dev, B, R, S, W):
+    args = _rules(B + R, B, R, S, W, dev)
     before = kernels.LAUNCHES["rules_eval"]
     got = pops.rules_eval(*args)
     want = pops.rules_eval_plain(*args)
@@ -332,6 +336,32 @@ def test_rules_eval_cmask_words_past_64(dev, S):
     # cmask rows of 100 words: bit-op rules reading words past the 64 a
     # warp could stage, and past W (all ones)
     args = _rules(5 + S, 64, 2048, S, 100, dev)
+    got = pops.rules_eval(*args)
+    want = pops.rules_eval_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("in_order", [False, True])
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("B", [16, 64, 128, 4096])
+def test_rules_eval_crowded_bit_ops(dev, B, S, in_order):
+    # cfgP's shape with its bit-op rules crowded into the first 94 words,
+    # their cmask bits at random (a tile reads every word) or in order (a
+    # tile reads 32 words, as cfgP's do with its bit-op rules first); on an
+    # H100 these B give warps runs of 8, 8, 16 and 32 publishes
+    rng = np.random.default_rng(B + S)
+    R, W, n_bit = 131072, 63, 3000
+    op = np.full(R, pops.OP_GT, np.int32)
+    op[:n_bit] = np.where(np.arange(n_bit) % 2 == 0, pops.OP_CONTAINS, pops.OP_EQS)
+    thresh = rng.integers(0, 100, R).astype(np.float32)
+    slot = rng.integers(0, S, R).astype(np.int32)
+    cbit = np.zeros(R, np.int32)
+    cbit[:n_bit] = np.arange(n_bit) if in_order else rng.integers(0, 32 * W, n_bit)
+    feats = rng.integers(0, 100, (B, S)).astype(np.float32)
+    feats[rng.random((B, S)) < 0.05] = np.nan
+    cmask = rng.integers(0, 2**32, (B, W), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (op, slot, thresh, cbit, feats, cmask)]
     got = pops.rules_eval(*args)
     want = pops.rules_eval_plain(*args)
     torch.cuda.synchronize()
