@@ -35,11 +35,14 @@ Phases, each printed as it ends:
    ``ShardedTorchMatcher``: the replica tries and the four shard indexes
    built, then three waves of publishes with the launch counts set to 0
    just before (150 unsubscribes and subscribes and a flush between the
-   first two), and a fourth wave under ``torch.profiler``; then K8 (the
-   step) and K9 (the tile compaction, at the capacity the path settled
-   at) held against their plain versions at the path's shapes. Every
-   result must equal the trie's (every client of cfg2 and cfg3 holds one
-   filter, where the sharded matcher is identical to the trie).
+   first two), and a fourth wave under ``torch.profiler``; each step must
+   be one launch of K8 and one of K9 (launches equal to batches); then K8
+   (the step over both tiles, one launch) and K9 (the tile compaction, at
+   the capacity the path settled at and below the tiles' hits) held
+   against their plain versions at the path's shapes and at batches of
+   65,536. Every result must equal the trie's (every client of cfg2 and
+   cfg3 holds one filter, where the sharded matcher is identical to the
+   trie).
 7. Tenant namespaces (cfgN): 8 tenants x 2,500 scoped subscriptions
    beside global top-level wildcards (client, ``$SHARE`` and inline),
    8,192 publishes, two thirds scoped, through ``MatchStage`` over
@@ -741,11 +744,15 @@ def phase_setup_sharded(cfg: dict, device) -> dict:
 
 
 def phase_kernels_sharded(torch, rec: dict, sh: dict, device, main: bool, iters: int = 20) -> None:
-    """K8 (the step over the 4 stacked shards, both batch tiles) and K9
-    (the tile compaction, at the capacity the path's batches of 4096 used)
-    against their plain versions on the same inputs, after the sharded
-    path ran; fills ``rec`` when ``main``."""
+    """K8 (the step over the 4 stacked shards and both batch tiles, one
+    launch, as the path launches it) and K9 (the tile compaction, at the
+    capacity the path's batches of 4096 used, and one below the tiles'
+    hits) against their plain versions on the same inputs, after the
+    sharded path ran, at batches of 4096 (the path's) and 65,536 (K9 at
+    the capacity the path's policy picks for them); fills ``rec`` at 4096
+    when ``main``."""
     from mqtt_tpu_torch.ops import flat
+    from mqtt_tpu_torch.ops.matcher import pick_compact_capacity
     from mqtt_tpu_torch.parallel import sharded
 
     on_cuda = device.type == "cuda"
@@ -754,68 +761,73 @@ def phase_kernels_sharded(torch, rec: dict, sh: dict, device, main: bool, iters:
     placed, _tables, salt = snap._compiled
     (arrays,) = placed.values()  # every position on one device: one stack
     S, T, K, L = snap.n_shards, snap.n_batch, snap.out_slots, snap.max_levels
-    bl = MAIN_BATCH // T
+    P = arrays[1].shape[1]
     gen = sh["cfg"]["topic_gen"]
-    topics = [gen() for _ in range(MAIN_BATCH)]
-    tok1, tok2, lengths, is_dollar, _ = flat.tokenize_topics(topics, L, salt)
-    tokens = torch.from_numpy(flat.pack_tokens(tok1, tok2, lengths, is_dollar)).to(device)
 
     def measure(fn, n):
         return event_ms(torch, fn, n) if on_cuda else _host_ms(fn, n)
 
-    def row(name, what, kernel, plain, n_bytes, n_ops, plain_iters=3):
+    def row(name, B, what, kernel, plain, n_bytes, n_ops, plain_iters=3):
         bound_ms, bound_by = bound(n_bytes, n_ops)
         r = {"bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
              "ms": measure(kernel, iters), "plain_ms": measure(plain, plain_iters)}
         log(f"  {name} {sh['name']} {what}: err 0, {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} B, {n_ops} int32 ops)")
-        if main:
+        if main and B == MAIN_BATCH:
             rec[name].update(r)
 
-    # K8: the step, T launches of the kernel over the S stacked shards
-    def step(fn):
-        out = torch.empty((T, S, bl, K), dtype=torch.int32, device=device)
-        tot = torch.empty((T, S, bl), dtype=torch.int32, device=device)
-        ovf = torch.empty((T, S, bl), dtype=torch.bool, device=device)
-        for t in range(T):
-            fn(*arrays, tokens[t * bl : (t + 1) * bl], max_levels=L, out=out[t], totals=tot[t], overflow=ovf[t])
-        return out, tot, ovf
+    for B in BATCHES:
+        bl = B // T
+        topics = [gen() for _ in range(B)]
+        tok1, tok2, lengths, is_dollar, _ = flat.tokenize_topics(topics, L, salt)
+        tokens = torch.from_numpy(flat.pack_tokens(tok1, tok2, lengths, is_dollar)).to(device)
 
-    got = step(sharded.sharded_step)
-    want = step(sharded.sharded_step_plain)
-    for g, w, part in zip(got, want, ("slots", "totals", "overflow")):
-        compare("sharded_step", g, w, f"{sh['name']} S={S} B={MAIN_BATCH} {part}")
-    n_hits = int(want[1].clamp(max=K).sum())
-    rows = sum(
-        int(torch.unique(flat.probe_slots(*(a[s] for a in arrays), tokens, max_levels=L)).numel())
-        for s in range(S)
-    )
-    P = arrays[1].shape[1]
-    row("sharded_step", f"S={S} tiles={T} B={MAIN_BATCH} P={P} K={K} rows={rows} hits={n_hits}",
-        lambda: step(sharded.sharded_step), lambda: step(sharded.sharded_step_plain),
-        tokens.numel() * 4 + rows * 64 + 3 * S * P * 4 + S * MAIN_BATCH * (K * 4 + 5),
-        probe_ops(MAIN_BATCH, P, L) * S + MAIN_BATCH * K * S)
+        # K8: the step, one launch of the kernel over the T tiles and the S
+        # stacked shards
+        def step(fn, tokens=tokens, bl=bl):
+            out = torch.empty((T, S, bl, K), dtype=torch.int32, device=device)
+            tot = torch.empty((T, S, bl), dtype=torch.int32, device=device)
+            ovf = torch.empty((T, S, bl), dtype=torch.bool, device=device)
+            fn(*arrays, tokens, max_levels=L, out=out, totals=tot, overflow=ovf)
+            return out, tot, ovf
 
-    # K9: the capacity the path's batches of 4096 used (the sticky pick,
-    # split over the tiles as match_topics_async splits it), and one
-    # below the hits (the clip rule)
-    out, tot, ovf = got
-    check(MAIN_BATCH in snap._caps, f"the sharded path held no capacity for batches of {MAIN_BATCH}")
-    cap = max(16, snap._caps[MAIN_BATCH] // T)
-    tile_hits = [int(tot[t].clamp(max=K).sum()) for t in range(T)]
-    small = max(1, min(tile_hits) // 2)
-    for c in (cap, small):
-        g = sharded.tile_compact(out, tot, ovf, c)
-        w = sharded.tile_compact_plain(out, tot, ovf, c)
-        compare("tile_compact", g, w, f"{sh['name']} cap_local={c}")
-        check(g[:, 0].tolist() == tile_hits, "K9 header: hit counts wrong")
-    row_w = 2 + 2 * bl + 2 * cap
-    row("tile_compact", f"T={T} S={S} bl={bl} K={K} cap_local={cap} hits={n_hits} "
-        f"(also equal at cap_local {small} < hits)",
-        lambda: sharded.tile_compact(out, tot, ovf, cap), lambda: sharded.tile_compact_plain(out, tot, ovf, cap),
-        # what the function needs: the totals and flags, each gathered
-        # sid once, and the rows; a scan over the segments and the writes
-        T * S * bl * 5 + n_hits * 4 + T * row_w * 4, 4 * T * S * bl + 2 * T * cap)
+        got = step(sharded.sharded_step)
+        want = step(sharded.sharded_step_plain)
+        for g, w, part in zip(got, want, ("slots", "totals", "overflow")):
+            compare("sharded_step", g, w, f"{sh['name']} S={S} B={B} {part}")
+        n_hits = int(want[1].clamp(max=K).sum())
+        rows = sum(
+            int(torch.unique(flat.probe_slots(*(a[s] for a in arrays), tokens, max_levels=L)).numel())
+            for s in range(S)
+        )
+        row("sharded_step", B, f"S={S} tiles={T} B={B} P={P} K={K} rows={rows} hits={n_hits} (one launch)",
+            lambda: step(sharded.sharded_step), lambda: step(sharded.sharded_step_plain),
+            tokens.numel() * 4 + rows * 64 + 3 * S * P * 4 + S * B * (K * 4 + 5),
+            probe_ops(B, P, L) * S + B * K * S)
+
+        # K9: the capacity the path's batches of 4096 used (the sticky pick,
+        # split over the tiles as match_topics_async splits it) or the one
+        # its policy picks for 65,536, and one below the hits (the clip rule)
+        out, tot, ovf = got
+        if B == MAIN_BATCH:
+            check(MAIN_BATCH in snap._caps, f"the sharded path held no capacity for batches of {MAIN_BATCH}")
+            cap = max(16, snap._caps[MAIN_BATCH] // T)
+        else:
+            cap = max(16, pick_compact_capacity(snap.compact_capacity, snap._hits_ewma, B, B * S * K, {}) // T)
+        tile_hits = [int(tot[t].clamp(max=K).sum()) for t in range(T)]
+        small = max(1, min(tile_hits) // 2)
+        for c in (cap, small):
+            g = sharded.tile_compact(out, tot, ovf, c)
+            w = sharded.tile_compact_plain(out, tot, ovf, c)
+            compare("tile_compact", g, w, f"{sh['name']} B={B} cap_local={c}")
+            check(g[:, 0].tolist() == tile_hits, "K9 header: hit counts wrong")
+        row_w = 2 + 2 * bl + 2 * cap
+        row("tile_compact", B, f"T={T} S={S} bl={bl} K={K} cap_local={cap} hits={n_hits} "
+            f"(also equal at cap_local {small} < hits)",
+            lambda: sharded.tile_compact(out, tot, ovf, cap), lambda: sharded.tile_compact_plain(out, tot, ovf, cap),
+            # what the function needs: the totals and flags, each gathered
+            # sid once, and the rows; a scan over the segments and the writes
+            T * S * bl * 5 + n_hits * 4 + T * row_w * 4, 4 * T * S * bl + 2 * T * cap)
     log(f"phase kernels sharded {sh['name']}: ok K8 and K9 equal their plain versions (tolerance 0)")
 
 
@@ -877,6 +889,7 @@ def phase_sharded(sh: dict, wave: int, n_waves: int = 3, n_churn: int = 150) -> 
             out["stats"] = dict(dm.stats.as_dict())
             res, out["traced_s"], out["busy_us"], out["copy_us"] = await _traced_wave(stage, waves[-1], on_cuda)
             _verify(index, waves[-1], res, f"sharded {name} traced wave")
+            out["batches"] = dm.stats.batches - stats0["batches"]
         finally:
             await stage.stop()
         check(stage.admission_fallbacks == 0 and not stage.fallbacks,
@@ -893,12 +906,16 @@ def phase_sharded(sh: dict, wave: int, n_waves: int = 3, n_churn: int = 150) -> 
           f"the flush recompiled {out['recompiled']} shards for {len(touched)} touched")
     for k in ("sharded_step", "tile_compact"):
         check(launches[k] > 0 or not on_cuda, f"the sharded path never launched {k}")
+        # every position on one card: one launch of each per step
+        check(launches[k] == out["batches"] or not on_cuda,
+              f"the sharded path launched {k} {launches[k]} times for {out['batches']} batches")
     log(f"phase sharded {name}: ok {n} publishes bit-identical to the trie, "
         f"{n / out['seconds']:.1f} matches/s (stage wall {out['seconds']:.3f} s, fixed batch {MAIN_BATCH}, "
         f"no budget), {len(service)} batches, batch resolve p50 {_pct(service, 0.5) * 1e3:.3f} ms "
         f"max {max(service) * 1e3:.3f} ms, host_fallbacks {stats['host_fallbacks'] - stats0['host_fallbacks']}, "
         f"compact_batches {stats['compact_batches'] - stats0['compact_batches']}, "
         f"compact_overflows {stats['compact_overflows'] - stats0['compact_overflows']}, "
+        f"{out['batches']} steps with the traced wave, "
         f"device_skew_ratio {snap.device_skew_ratio():.6f} (tile hits {snap.tile_hit_counts().tolist()})")
     log(f"  sharded {name} flush: {len(unsub)} unsubscribes + {n_churn} subscribes touched shards "
         f"{sorted(touched)}, dirtied {out['dirty']}; the flush recompiled {out['recompiled']} of "

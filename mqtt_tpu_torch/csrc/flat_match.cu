@@ -35,12 +35,10 @@
 // (128 topics at P = 8) skips the ticket, the look-back and the done
 // counter. Its scratch is four ints per tile. K3 copies the whole table
 // (the update is functional) and writes k rows. The probe (probe_one),
-// the lane mapping (probe_lanes) and the block scan live in
+// the lane mapping (probe_lanes) and the look-back live in
 // flat_probe.cuh, shared with sharded.cu.
 
-#include <cuda/atomic>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 #include "flat_probe.cuh"
@@ -141,76 +139,14 @@ __global__ void __launch_bounds__(kProbeWarps * kWarp) probe_kernel(
 // takes one topic and its lanes stride over the patterns. CUDA block t (by
 // ticket) takes topics [t*W*G, (t+1)*W*G), W = blockDim.x / 32; smem holds
 // their starts and counts. The decoupled look-back (Merrill and Garland,
-// "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016) gives
-// the tile its exclusive offset. The scratch (see fm_match_compact) holds
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016;
+// look_back and its status words are in flat_probe.cuh, shared with K9)
+// gives the tile its exclusive offset. The scratch (see fm_match_compact) holds
 // the ticket, the done counter, the last non-empty tile (+1) and the tail
 // cursor, then per tile a 64-bit status word and a clip record. A launch of
 // one CUDA block needs none of it.
-constexpr unsigned long long kFlagInclusive = 1ull << 32;
-constexpr int kLookback = 8;       // statuses per lane per look-back round
 constexpr int kTailChunk = 4096;   // -1 slots per grab of the tail cursor
 constexpr int kMaxTileTopics = 1024;  // 32 warps x G = 32 (P = 1)
-
-__device__ __forceinline__ unsigned long long status_word(unsigned epoch, bool inclusive, int value) {
-  return (static_cast<unsigned long long>(epoch) << 33) | (inclusive ? kFlagInclusive : 0ull) |
-         static_cast<unsigned int>(value);
-}
-
-__device__ __forceinline__ unsigned long long load_status(unsigned long long* s) {
-  return cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(*s).load(
-      cuda::memory_order_relaxed);
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* s, unsigned long long v) {
-  cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(*s).store(
-      v, cuda::memory_order_relaxed);
-}
-
-// Warp 0's look-back for tile > 0: lane l reads the statuses of tiles
-// j - 8l .. j - 8l - 7, all loads in flight together; the round ends once
-// every tile nearer than the nearest inclusive status has published (the
-// unpublished ones are re-read after a short sleep). Returns the sum of the
-// predecessors' counts.
-__device__ int look_back(unsigned long long* status, int tile, unsigned epoch, int lane) {
-  int excl = 0;
-  for (int j = tile - 1;; j -= kWarp * kLookback) {
-    unsigned long long st[kLookback];
-#pragma unroll
-    for (int m = 0; m < kLookback; ++m) {
-      const int idx = j - (lane * kLookback + m);
-      st[m] = idx >= 0 ? load_status(status + idx) : status_word(epoch, true, 0);
-    }
-    while (true) {
-      int first = INT_MAX;  // the lane's nearest published inclusive status
-#pragma unroll
-      for (int m = 0; m < kLookback; ++m)
-        if (first == INT_MAX && static_cast<unsigned>(st[m] >> 33) == epoch && (st[m] & kFlagInclusive))
-          first = lane * kLookback + m;
-#pragma unroll
-      for (int o = kWarp / 2; o > 0; o >>= 1) first = min(first, __shfl_xor_sync(kFull, first, o));
-      bool ready = true;
-#pragma unroll
-      for (int m = 0; m < kLookback; ++m)
-        if (lane * kLookback + m < first && static_cast<unsigned>(st[m] >> 33) != epoch) ready = false;
-      if (__all_sync(kFull, ready)) {
-        int v = 0;
-#pragma unroll
-        for (int m = 0; m < kLookback; ++m)
-          if (lane * kLookback + m <= first) v += static_cast<int>(static_cast<unsigned int>(st[m]));
-#pragma unroll
-        for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-        excl += v;
-        if (first != INT_MAX) return excl;
-        break;
-      }
-      __nanosleep(100);
-#pragma unroll
-      for (int m = 0; m < kLookback; ++m)
-        if (lane * kLookback + m < first && static_cast<unsigned>(st[m] >> 33) != epoch)
-          st[m] = load_status(status + (j - (lane * kLookback + m)));
-    }
-  }
-}
 
 // -1 over the tail [n_hits, capacity) in chunks taken from *cursor, so the
 // blocks that finish after the last tile has its prefix share the work.

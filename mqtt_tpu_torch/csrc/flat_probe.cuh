@@ -1,15 +1,20 @@
-// The probe and scan helpers shared by the port's matcher kernels:
-// flat_match.cu (K1-K3) and sharded.cu (K7-K9) both include this header.
+// The probe, scan and look-back helpers shared by the port's matcher
+// kernels: flat_match.cu (K1-K3) and sharded.cu (K7-K9) both include this
+// header.
 //
-// probe_lanes is the lane mapping K1 and K2 share. probe_one is the
+// probe_lanes is the lane mapping K1, K2 and K7/K8 share. probe_one is the
 // device half of the JAX package's _probe_head (mqtt_tpu/ops/flat.py:
-// 786-855): one (topic, shape) probe of the flat-hash table, bit for bit. block_inclusive_scan is the block-wide
-// int32 prefix sum K9's tile scan builds on (K2 scans across CUDA blocks by
-// decoupled look-back instead).
+// 786-855): one (topic, shape) probe of the flat-hash table, bit for bit.
+// block_inclusive_scan is the block-wide int32 prefix sum K9 scans a
+// block's segments with. look_back and its status words are the
+// single-pass scan across CUDA blocks that K2 and K9 share (a decoupled
+// look-back over blocks numbered by an atomic ticket).
 
 #pragma once
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -28,8 +33,6 @@ constexpr int kSpillShift = 20;
 constexpr int kSatShift = 21;
 
 constexpr int kWarp = 32;
-constexpr int kProbeThreads = 256;  // K7/K8: 8 topics per block, one warp each
-constexpr int kScanThreads = 1024;  // one tile of the prefix sum
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ uint32_t mix(uint32_t h, uint32_t t) {
@@ -38,7 +41,7 @@ __device__ __forceinline__ uint32_t mix(uint32_t h, uint32_t t) {
   return x * kM1;
 }
 
-// Lanes per topic where lanes map to (topic, pattern) probes (K1, K2): the
+// Lanes per topic where lanes map to (topic, pattern) probes (K1, K2, K7/K8): the
 // pattern count rounded up to a power of two, at most a warp. A warp then
 // takes kWarp / probe_lanes(P) whole topics; its lanes reduce a topic's
 // total over an aligned group of that many lanes.
@@ -111,13 +114,14 @@ __device__ __forceinline__ ProbeOut probe_one(
   return r;
 }
 
-// Inclusive scan of v over the block (blockDim.x == kScanThreads); the
-// block's sum goes to *block_total. Two __syncthreads, shared scratch of
-// one int per warp.
+// Inclusive scan of v over the block (blockDim.x a multiple of 32, at
+// most 1024); the block's sum goes to *block_total. Two __syncthreads,
+// shared scratch of one int per warp.
 __device__ __forceinline__ int block_inclusive_scan(int v, int* block_total) {
-  __shared__ int warp_sums[kScanThreads / kWarp];
+  __shared__ int warp_sums[kWarp];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
+  const int n_warps = blockDim.x / kWarp;
   int x = v;
 #pragma unroll
   for (int o = 1; o < kWarp; o <<= 1) {
@@ -127,19 +131,91 @@ __device__ __forceinline__ int block_inclusive_scan(int v, int* block_total) {
   if (lane == kWarp - 1) warp_sums[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int w = warp_sums[lane];
+    int w = lane < n_warps ? warp_sums[lane] : 0;
 #pragma unroll
     for (int o = 1; o < kWarp; o <<= 1) {
       const int y = __shfl_up_sync(kFull, w, o);
       if (lane >= o) w += y;
     }
-    warp_sums[lane] = w;
+    if (lane < n_warps) warp_sums[lane] = w;
   }
   __syncthreads();
   const int incl = x + (warp > 0 ? warp_sums[warp - 1] : 0);
-  *block_total = warp_sums[kScanThreads / kWarp - 1];
+  *block_total = warp_sums[n_warps - 1];
   __syncthreads();  // warp_sums is reused by the caller's next scan
   return incl;
+}
+
+// The single-pass scan across CUDA blocks (Merrill and Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016). A
+// block's 64-bit status word holds the launch's epoch (bits 33-63), an
+// inclusive flag (bit 32) and a count (bits 0-31): its own aggregate, or,
+// once inclusive, the sum of every block up to and including it. The epoch
+// tags the words of this launch, so the scratch needs no reset between
+// launches on one stream.
+constexpr unsigned long long kFlagInclusive = 1ull << 32;
+constexpr int kLookback = 8;       // statuses per lane per look-back round
+
+__device__ __forceinline__ unsigned long long status_word(unsigned epoch, bool inclusive, int value) {
+  return (static_cast<unsigned long long>(epoch) << 33) | (inclusive ? kFlagInclusive : 0ull) |
+         static_cast<unsigned int>(value);
+}
+
+__device__ __forceinline__ unsigned long long load_status(unsigned long long* s) {
+  return cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(*s).load(
+      cuda::memory_order_relaxed);
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* s, unsigned long long v) {
+  cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(*s).store(
+      v, cuda::memory_order_relaxed);
+}
+
+// Warp 0's look-back for tile > 0: lane l reads the statuses of tiles
+// j - 8l .. j - 8l - 7, all loads in flight together; the round ends once
+// every tile nearer than the nearest inclusive status has published (the
+// unpublished ones are re-read after a short sleep). Returns the sum of the
+// predecessors' counts. A tile waits only on tiles whose tickets came
+// before its own, which were running when it took its ticket.
+__device__ __forceinline__ int look_back(unsigned long long* status, int tile, unsigned epoch, int lane) {
+  int excl = 0;
+  for (int j = tile - 1;; j -= kWarp * kLookback) {
+    unsigned long long st[kLookback];
+#pragma unroll
+    for (int m = 0; m < kLookback; ++m) {
+      const int idx = j - (lane * kLookback + m);
+      st[m] = idx >= 0 ? load_status(status + idx) : status_word(epoch, true, 0);
+    }
+    while (true) {
+      int first = INT_MAX;  // the lane's nearest published inclusive status
+#pragma unroll
+      for (int m = 0; m < kLookback; ++m)
+        if (first == INT_MAX && static_cast<unsigned>(st[m] >> 33) == epoch && (st[m] & kFlagInclusive))
+          first = lane * kLookback + m;
+#pragma unroll
+      for (int o = kWarp / 2; o > 0; o >>= 1) first = min(first, __shfl_xor_sync(kFull, first, o));
+      bool ready = true;
+#pragma unroll
+      for (int m = 0; m < kLookback; ++m)
+        if (lane * kLookback + m < first && static_cast<unsigned>(st[m] >> 33) != epoch) ready = false;
+      if (__all_sync(kFull, ready)) {
+        int v = 0;
+#pragma unroll
+        for (int m = 0; m < kLookback; ++m)
+          if (lane * kLookback + m <= first) v += static_cast<int>(static_cast<unsigned int>(st[m]));
+#pragma unroll
+        for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+        excl += v;
+        if (first != INT_MAX) return excl;
+        break;
+      }
+      __nanosleep(100);
+#pragma unroll
+      for (int m = 0; m < kLookback; ++m)
+        if (lane * kLookback + m < first && static_cast<unsigned>(st[m] >> 33) != epoch)
+          st[m] = load_status(status + (j - (lane * kLookback + m)));
+    }
+  }
 }
 
 }  // namespace

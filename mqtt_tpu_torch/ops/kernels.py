@@ -47,8 +47,8 @@ NVCC_FLAGS = (
 )
 
 # one count per kernel wrapper, bumped where the wrapper launches. The
-# sharded step launches K7's kernel over its stacked shards, so each of
-# its launches counts for "sharded_step" and "flat_match_slots" both
+# sharded step launches K7's kernel over its tiles and stacked shards and
+# counts under "sharded_step" only
 LAUNCHES = {
     "flat_probe_ranges": 0, "flat_match_compact": 0, "scatter_rows": 0,
     "rules_eval": 0, "agg_reduce": 0, "keystream": 0,
@@ -79,23 +79,29 @@ _SIGNATURES = {
         "rc_keystream": [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr],
     },
     "sharded.cu": {
-        "sh_match_slots": [_c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_int, _c_ptr,
-                           _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
-                           _c_ptr],
+        "sh_match_slots": [_c_ptr, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_int,
+                           _c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
+                           _c_ptr, _c_ptr],
         "sh_tile_compact": [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int, _c_int,
-                            _c_ptr, _c_ptr, _c_ptr],
+                            _c_ptr, _c_ptr, _c_int, ctypes.c_uint, _c_ptr],
+        "sh_tile_compact_scratch": [_c_int, _c_int, _c_int, _c_int],
     },
 }
+# entry points whose result is not an error code
+_RESTYPES = {"sh_tile_compact_scratch": ctypes.c_longlong}
 _ERROR_FNS = {
     "flat_match.cu": "fm_error_string",
     "predicates.cu": "pk_error_string",
     "recrypt.cu": "rc_error_string",
     "sharded.cu": "sh_error_string",
 }
-# K2's scratch, one per (device, stream): zeroed once when allocated and
-# kept zeroed by the kernel's own protocol, with the epoch of its last
-# launch (see fm_match_compact in flat_match.cu)
+# the look-back scratch of K2 and of K9, one each per (device, stream):
+# zeroed once when allocated and kept zeroed by the kernel's own protocol,
+# with the epoch of its last launch (see fm_match_compact in flat_match.cu
+# and sh_tile_compact in sharded.cu); K9's also holds the count of tiles
+# its counters are laid out for
 _compact_scratch: dict = {}
+_tile_scratch: dict = {}
 _EPOCH_MASK = (1 << 31) - 1
 
 
@@ -178,7 +184,7 @@ def library(source: str = "flat_match.cu"):
             for name, args in _SIGNATURES[source].items():
                 fn = getattr(lib, name)
                 fn.argtypes = args
-                fn.restype = _c_int
+                fn.restype = _RESTYPES.get(name, _c_int)
             err_fn = getattr(lib, _ERROR_FNS[source])
             err_fn.argtypes = [_c_int]
             err_fn.restype = ctypes.c_char_p
@@ -317,6 +323,25 @@ def _compact_scratch_for(device, stream: int, n: int) -> tuple:
         return entry[0], entry[1]
 
 
+def _tile_scratch_for(lib, device, stream: int, T: int, S: int, bl: int) -> tuple:
+    """K9's scratch for launches on ``stream``, the count of tiles its
+    counters are laid out for, and the next epoch. A launch of more tiles
+    than that, or one that needs more room, replaces it with a larger
+    zeroed one (launches on one stream run in order). Epochs cycle through
+    an even count of values, so consecutive launches alternate in parity,
+    across the wrap too (the kernel takes its tickets by that parity)."""
+    key = (device.index, stream)
+    with _lock:
+        entry = _tile_scratch.get(key)
+        tiles_cap = max(T, entry[1] if entry else 0)
+        need = lib.sh_tile_compact_scratch(T, S, bl, tiles_cap)
+        if entry is None or tiles_cap > entry[1] or entry[0].numel() < need:
+            zeroed = torch.zeros((max(need, 1024),), dtype=torch.int32, device=device)
+            entry = _tile_scratch[key] = [zeroed, tiles_cap, entry[2] if entry else 0]
+        entry[2] = entry[2] % (_EPOCH_MASK - 1) + 1  # 1 .. 2^31 - 2, never 0
+        return entry[0], entry[1], entry[2]
+
+
 def scatter_rows(table, idx, rows):
     """K3: a new table equal to ``table`` with rows ``idx`` replaced."""
     device = _cuda_device(table)
@@ -423,9 +448,10 @@ def keystream(key_table, kidx, counters):
 
 def _match_slots(tables, pat_kind, pat_depth, pat_mask, tokens, max_levels: int,
                  overflow_slots: int, out, totals, overflow, *names: str) -> None:
-    """Launch K7's kernel over the ``S`` shards of ``tables [S, NB, 16]``
-    (patterns ``[S, P]``) into ``out [S, B, K]``, ``totals [S, B]`` and
-    ``overflow [S, B]`` bool."""
+    """Launch K7's kernel once over the ``T`` tiles and ``S`` shards of
+    ``tables [S, NB, 16]`` (patterns ``[S, P]``): tokens ``[T*bl, 2L+2]``
+    into ``out [T, S, bl, K]``, ``totals [T, S, bl]`` and ``overflow [T, S,
+    bl]`` bool. Outputs ``[S, B, K]``, ``[S, B]``, ``[S, B]`` are one tile."""
     device = _cuda_device(tokens)
     _check(tables, "tables", device, 3)
     S, NB = tables.shape[0], tables.shape[1]
@@ -436,23 +462,26 @@ def _match_slots(tables, pat_kind, pat_depth, pat_mask, tokens, max_levels: int,
     for name, t in (("pat_kind", pat_kind), ("pat_depth", pat_depth), ("pat_mask", pat_mask)):
         _check(t, name, device, 2)
     P = pat_depth.shape[1]
-    if any(t.shape != (S, P) for t in (pat_kind, pat_depth, pat_mask)):
-        raise ValueError("pattern arrays must be [S, P], one row per shard")
+    if any(t.shape != (S, P) for t in (pat_kind, pat_depth, pat_mask)) or P < 1:
+        raise ValueError("pattern arrays must be [S, P >= 1], one row per shard")
     B, W = _check_tokens(tokens, device, max_levels)
-    _check(out, "out", device, 3)
-    _check(totals, "totals", device, 2)
-    _check(overflow, "overflow", device, 2, torch.bool)
-    K = out.shape[2]
-    if out.shape[:2] != (S, B) or totals.shape != (S, B) or overflow.shape != (S, B) or K < 1:
-        raise ValueError(f"outputs must be [S, B, K>=1], [S, B], [S, B] for S={S}, B={B}, "
-                         f"got {tuple(out.shape)}, {tuple(totals.shape)}, {tuple(overflow.shape)}")
-    if S * B * K >= 1 << 31:
-        raise ValueError("slot buffer too large for int32 offsets")
+    ndim = 3 if isinstance(out, torch.Tensor) and out.dim() == 3 else 4
+    _check(out, "out", device, ndim)
+    _check(totals, "totals", device, ndim - 1)
+    _check(overflow, "overflow", device, ndim - 1, torch.bool)
+    T, S_out, bl, K = (1, *out.shape) if ndim == 3 else out.shape
+    rows = (S, bl) if ndim == 3 else (T, S, bl)
+    if S_out != S or T * bl != B or totals.shape != rows or overflow.shape != rows or K < 1:
+        raise ValueError(f"outputs must be [T, S, bl, K>=1], [T, S, bl], [T, S, bl] (or [S, B, K], [S, B], "
+                         f"[S, B]) with S={S}, T*bl={B}, got {tuple(out.shape)}, {tuple(totals.shape)}, "
+                         f"{tuple(overflow.shape)}")
+    if T * S * bl * K >= 1 << 31 or T * S > 65535:
+        raise ValueError("slot buffer too large for int32 offsets or the launch grid")
     if B == 0:
         return
     lib = library("sharded.cu")
     err = lib.sh_match_slots(
-        tokens.data_ptr(), B, W, max_levels, tables.data_ptr(), S, NB,
+        tokens.data_ptr(), T, bl, W, max_levels, tables.data_ptr(), S, NB,
         pat_kind.data_ptr(), pat_depth.data_ptr(), pat_mask.data_ptr(), P, K,
         overflow_slots, out.data_ptr(), totals.data_ptr(), overflow.data_ptr(),
         _stream(device),
@@ -479,10 +508,12 @@ def flat_match_slots(table, pat_kind, pat_depth, pat_mask, tokens, max_levels: i
 
 def sharded_match_slots(tables, pat_kind, pat_depth, pat_mask, tokens, max_levels: int,
                         out, totals, overflow) -> None:
-    """K8: one batch tile against every shard of a stacked index, written
-    straight into the gathered ``out [S, b, K]``, ``totals [S, b]`` and
-    ``overflow [S, b]`` (views the caller allocated). The same kernel as
-    K7 with the shard dimension in its grid; a launch counts for K8 only."""
+    """K8: ``T`` batch tiles (``tokens [T*bl, 2L+2]``) against every shard
+    of a stacked index, in one launch, written straight into the gathered
+    ``out [T, S, bl, K]``, ``totals [T, S, bl]`` and ``overflow [T, S,
+    bl]`` (views the caller allocated; 3-D views are one tile). The same
+    kernel as K7 with tile and shard dimensions in its grid; a launch counts
+    for K8 only."""
     _match_slots(
         tables, pat_kind, pat_depth, pat_mask, tokens, max_levels, 0,
         out, totals, overflow, "sharded_step",
@@ -493,7 +524,7 @@ def tile_compact(out, totals, overflow, cap_local: int):
     """K9: ``T`` gathered tiles ``out [T, S, bl, K]``, ``totals [T, S, bl]``
     int32, ``overflow [T, S, bl]`` bool -> ``rows [T, 2 + 2*bl +
     2*cap_local]`` int32, one compacted ``(shard, sid)`` pair stream per
-    tile."""
+    tile, in one launch."""
     device = _cuda_device(out)
     _check(out, "out", device, 4)
     _check(totals, "totals", device, 3)
@@ -505,16 +536,17 @@ def tile_compact(out, totals, overflow, cap_local: int):
     if S < 1 or bl < 1 or K < 1 or cap_local < 1:
         raise ValueError(f"tile_compact needs S, bl, K, cap_local >= 1 (got {S}, {bl}, {K}, {cap_local})")
     row_w = 2 + 2 * bl + 2 * cap_local
-    if T * S * bl * K >= 1 << 31 or T * row_w >= 1 << 31:
-        raise ValueError("tiles too large for int32 offsets")
+    if T * S * bl * K >= 1 << 31 or T * row_w >= 1 << 31 or T > 65535:
+        raise ValueError("tiles too large for int32 offsets or the launch grid")
     rows = torch.empty((T, row_w), dtype=torch.int32, device=device)
     if T == 0:
         return rows
-    scratch = torch.empty((T * S * bl,), dtype=torch.int32, device=device)
     lib = library("sharded.cu")
+    stream = _stream(device)
+    scratch, tiles_cap, epoch = _tile_scratch_for(lib, device, stream, T, S, bl)
     err = lib.sh_tile_compact(
         out.data_ptr(), totals.data_ptr(), overflow.data_ptr(), T, S, bl, K, cap_local,
-        rows.data_ptr(), scratch.data_ptr(), _stream(device),
+        rows.data_ptr(), scratch.data_ptr(), tiles_cap, epoch, stream,
     )
     _launched("sharded.cu", err, "tile_compact")
     return rows

@@ -12,10 +12,11 @@ sid slots of a tile into one ``[S, b, K]`` buffer on the tile's owner
 of sub ids. One process drives the whole mesh, as the JAX package's
 ``shard_map`` does; positions may repeat a device. Where a tile's shards
 lie on its owner's card the kernel writes straight into the gathered
-layout; shards on another card write there and are copied across. A
-second kernel compacts each gathered tile into a ``(shard, sid)`` pair
-stream sized for the hits that exist, and the host maps local sub ids
-through per-shard tables and merges them shard by shard.
+layout, one launch for every such tile of the owner (on one card, one
+launch per step); shards on another card write there and are copied
+across. A second kernel compacts each gathered tile into a ``(shard,
+sid)`` pair stream sized for the hits that exist, and the host maps local
+sub ids through per-shard tables and merges them shard by shard.
 
 Who is delivered, and at which QoS, equals the host trie. One known
 departure, kept from the JAX package (whose results the port reproduces
@@ -145,9 +146,18 @@ def shard_of(kind, client: str, filter: str, identifier: int, n_shards: int) -> 
 
 
 def sharded_step_plain(tables, pat_kind, pat_depth, pat_mask, tokens, *, max_levels, out, totals, overflow):
-    """Every shard of the stack on one batch tile (``flat_match_core`` per
-    shard), written into the gathered ``out [S, b, K]``, ``totals [S, b]``
-    and ``overflow [S, b]``."""
+    """Every shard of the stack on ``T`` batch tiles (``flat_match_core``
+    per shard and tile): ``tokens [T*b, 2L+2]`` written into the gathered
+    ``out [T, S, b, K]``, ``totals [T, S, b]`` and ``overflow [T, S, b]``.
+    Outputs ``[S, b, K]``, ``[S, b]``, ``[S, b]`` are one tile."""
+    if out.dim() == 4:
+        b = out.shape[2]
+        for t in range(out.shape[0]):
+            sharded_step_plain(
+                tables, pat_kind, pat_depth, pat_mask, tokens[t * b : (t + 1) * b], max_levels=max_levels,
+                out=out[t], totals=totals[t], overflow=overflow[t],
+            )
+        return
     for s in range(tables.shape[0]):
         o, t, v = flat_match_core_plain(
             tables[s], pat_kind[s], pat_depth[s], pat_mask[s], tokens, max_levels, out.shape[2]
@@ -158,10 +168,11 @@ def sharded_step_plain(tables, pat_kind, pat_depth, pat_mask, tokens, *, max_lev
 
 
 def sharded_step(tables, pat_kind, pat_depth, pat_mask, tokens, *, max_levels, out, totals, overflow):
-    """K8: one batch tile against the stacked shards ``tables [S, NB, 16]``
-    (patterns ``[S, P]``, padded with depth -1), written straight into the
-    gathered views. CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    """K8: ``T`` batch tiles against the stacked shards ``tables [S, NB,
+    16]`` (patterns ``[S, P]``, padded with depth -1), written straight into
+    the gathered views ``[T, S, b, K]`` (or one tile's ``[S, b, K]``). CPU
+    tensors take the plain version; CUDA tensors launch the kernel once or
+    raise."""
     if tokens.device.type == "cpu":
         sharded_step_plain(
             tables, pat_kind, pat_depth, pat_mask, tokens, max_levels=max_levels,
@@ -343,6 +354,21 @@ class ShardedTorchMatcher:
             tiles = self._tiles_of.setdefault(owner, [])
             self._slot_of.append(len(tiles))
             tiles.append(t)
+        # the step's launches: a run of consecutive tiles of one owner whose
+        # shards all lie on it is one launch, as (owner, first tile, tiles);
+        # every other tile launches per run of shards
+        self._fused: list = []
+        self._split: list = []
+        for t, (owner, runs) in enumerate(zip(self._owner, self._plan)):
+            if runs != [(owner, 0, self.n_shards)]:
+                self._split.append(t)
+                continue
+            if self._fused:
+                last_owner, t0, n = self._fused[-1]
+                if last_owner == owner and t0 + n == t:
+                    self._fused[-1] = (owner, t0, n + 1)
+                    continue
+            self._fused.append((owner, t, 1))
         self._devices = self.mesh.unique_devices()
 
     def tile_hit_counts(self) -> np.ndarray:
@@ -677,9 +703,10 @@ class ShardedTorchMatcher:
     def _step(self, placed, tokens_on: dict, bl: int) -> dict:
         """K8 over every tile: per owner device, the gathered ``(out [n, S,
         bl, K], totals [n, S, bl], overflow [n, S, bl])`` of its ``n``
-        tiles. A run of shards on the owner's device writes straight into
-        the gathered views; a run on another device writes there and is
-        copied to the owner."""
+        tiles. Consecutive tiles whose shards all lie on their owner's
+        device are one launch, written straight into the gathered views (on
+        one card: one launch per step); a run of shards on another device
+        writes there and is copied to the owner."""
         S, K = self.n_shards, self.out_slots
         gathered = {}
         for owner, tiles in self._tiles_of.items():
@@ -689,7 +716,16 @@ class ShardedTorchMatcher:
                 torch.empty((n, S, bl), dtype=torch.int32, device=owner),
                 torch.empty((n, S, bl), dtype=torch.bool, device=owner),
             )
-        for t, runs in enumerate(self._plan):
+        for owner, t0, n in self._fused:
+            j0 = self._slot_of[t0]
+            g_out, g_tot, g_ovf = (a[j0 : j0 + n] for a in gathered[owner])
+            with _on(owner):
+                sharded_step(
+                    *placed[(owner, 0, S)], tokens_on[owner][t0 * bl : (t0 + n) * bl],
+                    max_levels=self.max_levels, out=g_out, totals=g_tot, overflow=g_ovf,
+                )
+        for t in self._split:
+            runs = self._plan[t]
             owner = self._owner[t]
             j = self._slot_of[t]
             g_out, g_tot, g_ovf = (a[j] for a in gathered[owner])

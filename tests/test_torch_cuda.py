@@ -549,10 +549,9 @@ def test_flat_match_core_kernel_matches_plain(dev, index_pair, b_min, out_slots,
 
 
 @contextlib.contextmanager
-def _sharded(dev, n_positions, ops):
+def _sharded_index(dev, n_positions, index):
     from mqtt_tpu_torch.parallel import ShardedTorchMatcher, make_mesh
 
-    index = apply_port_ops(ops, TopicsIndex())
     m = ShardedTorchMatcher(index, mesh=make_mesh([dev] * n_positions), max_levels=MAX_LEVELS)
     try:
         m.rebuild()
@@ -560,6 +559,12 @@ def _sharded(dev, n_positions, ops):
         yield m, arrays
     finally:
         m.close()
+
+
+@contextlib.contextmanager
+def _sharded(dev, n_positions, ops):
+    with _sharded_index(dev, n_positions, apply_port_ops(ops, TopicsIndex())) as pair:
+        yield pair
 
 
 @pytest.mark.parametrize("n_positions", [2, 8])  # S = 1 and S = 4 shards
@@ -586,7 +591,66 @@ def test_sharded_step_kernel_matches_plain(dev, n_positions, b):
     assert int((want[0] >= 0).sum()) > 0
 
 
-@pytest.mark.parametrize("S,bl,K", [(1, 64, 64), (4, 2048, 64), (4, 16, 8)])
+@pytest.fixture(scope="module")
+def stacks(dev):
+    """corpus_ops(7) and 15 clients on each of six filters of ``qq/zz``
+    (90 hits: more than 64 slots at S = 1), stacked on 2 and 8 positions of
+    the card (S = 1 and 4 shards), by S: (tables, kinds, depths, masks) and
+    a shard's flat index (for the tokenizer's salt)."""
+    hot = [("sub", f"hot{f}{i}", f, 0, 0, False)
+           for f in ("qq/zz", "qq/+", "+/zz", "qq/#", "qq/zz/#", "+/zz/#") for i in range(15)]
+    index = apply_port_ops(corpus_ops(7) + hot, TopicsIndex())
+    built = {}
+    for n in (2, 8):
+        with _sharded_index(dev, n, index) as (m, arrays):
+            built[m.n_shards] = (arrays, m._flats[0])
+    return built
+
+
+def _pats_to(pats, P):
+    """Pattern rows [S, P0] cut to their first P, or padded with inert
+    patterns (depth -1) to P."""
+    if P <= pats[0].shape[1]:
+        return [a[:, :P].contiguous() for a in pats]
+    pad = P - pats[0].shape[1]
+    return [torch.nn.functional.pad(a, (0, pad), value=v) for a, v in zip(pats, (0, -1, 0))]
+
+
+@pytest.mark.parametrize("K", [6, 8, 64])
+@pytest.mark.parametrize("P", [1, 3, 4, 8, 33, 64])
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("T", [1, 2, 4])
+def test_sharded_step_tiles_lanes_and_slots_match_plain(dev, stacks, T, S, P, K):
+    # K8 as the step launches it: T tiles of 333 topics (no multiple of the
+    # 32 / Pw topics a warp takes, $-rooted topics among them) in one launch
+    # into [T, S, bl, K]; P across probe_lanes' cases (1, a partial group,
+    # 4 and 8 topics a warp, and strides of 32 patterns), K with and without
+    # 16-byte stores (K = 6), rows whose totals pass K (qq/zz at S = 1, P = 64)
+    from mqtt_tpu_torch.parallel import sharded
+
+    arrays, fl = stacks[S]
+    table, pats = arrays[0], _pats_to(arrays[1:], P)
+    bl = 333
+    topics = [f"$SYS/{t}" if i % 7 == 3 else "qq/zz" if i % 50 == 5 else t
+              for i, t in enumerate(corpus_topics(60 + T, n=T * bl)[: T * bl])]
+    tokens = packed(topics, fl, dev, 1)[: T * bl].contiguous()
+    shapes = ((T, S, bl, K), (T, S, bl), (T, S, bl))
+    got = [torch.full(sh, 7, dtype=dt, device=dev) for sh, dt in zip(shapes, (torch.int32, torch.int32, torch.bool))]
+    want = [torch.empty_like(a) for a in got]
+    before = dict(kernels.LAUNCHES)
+    sharded.sharded_step(table, *pats, tokens, max_levels=MAX_LEVELS, out=got[0], totals=got[1], overflow=got[2])
+    sharded.sharded_step_plain(table, *pats, tokens, max_levels=MAX_LEVELS, out=want[0], totals=want[1],
+                               overflow=want[2])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sharded_step"] == before["sharded_step"] + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if P >= 8 and (K < 64 or (S, P) == (1, 64)):
+        assert bool((want[1] > K).any()) and int((want[0] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("S,bl,K", [(1, 64, 64), (4, 2048, 64), (4, 16, 8), (2, 256, 64), (3, 1000, 16),
+                                    (4, 32768, 64)])
 @pytest.mark.parametrize("fit", ["slack", "below", "negative"])
 def test_tile_compact_kernel_matches_plain(dev, S, bl, K, fit):
     from mqtt_tpu_torch.parallel import sharded
@@ -609,6 +673,64 @@ def test_tile_compact_kernel_matches_plain(dev, S, bl, K, fit):
     assert kernels.LAUNCHES["tile_compact"] == before + 1
     assert torch.equal(got, want)
     assert int(want[0, 0]) == n_hits
+
+
+def _gathered(dev, rng, T, S, bl, K, topics=None):
+    """Seeded gathered tiles: per (tile, shard, topic) a total (some past
+    K; zero outside ``topics``, a slice of the tile's topics), the first
+    min(total, K) slots holding sids, -1 after; flags at random."""
+    totals = np.where(rng.random((T, S, bl)) < 0.5, 0, rng.integers(0, 2 * K, (T, S, bl))).astype(np.int32)
+    if topics is not None:
+        keep = np.zeros(bl, bool)
+        keep[topics] = True
+        totals[:, :, ~keep] = 0
+    out = rng.integers(0, 10_000, (T, S, bl, K)).astype(np.int32)
+    out[np.arange(K)[None, None, None, :] >= np.minimum(totals, K)[..., None]] = -1
+    overflow = rng.random((T, S, bl)) < 0.1
+    return [torch.from_numpy(a).to(dev) for a in (out, totals, overflow)]
+
+
+@pytest.mark.parametrize("fit", ["slack", "below", "negative"])
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_tile_compact_clip_from_the_first_or_the_last_block(dev, where, fit):
+    # every hit of both tiles lies in the topics of the first or of the last
+    # of the tile's blocks (2048 topics x 4 shards take 16 of them), so the
+    # last non-empty segment, whose record the tile's last block reads for
+    # the clip slot, is the first block's or the last block's
+    from mqtt_tpu_torch.parallel import sharded
+
+    S, bl, K = 4, 2048, 64
+    topics = slice(3, 40) if where == "first" else slice(bl - 40, bl - 2)
+    args = _gathered(dev, np.random.default_rng(11), 2, S, bl, K, topics)
+    t_flat = args[1][0].clamp(max=K).t().reshape(-1).cpu().numpy()
+    n_hits = int(t_flat.sum())
+    last = np.nonzero(t_flat)[0][-1]
+    cap = {"slack": n_hits + 29, "below": n_hits // 2, "negative": max(1, int(t_flat[:last].sum()) - K - 3)}[fit]
+    got = sharded.tile_compact(*args, cap)
+    want = sharded.tile_compact_plain(*args, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(want[0, 0]) == n_hits
+
+
+def test_tile_compact_back_to_back_launches_on_one_stream(dev):
+    # 50 launches queued on one stream, tiles, shards, widths and
+    # capacities changing, with no synchronisation between them: a status
+    # word, ticket, done counter or tail cursor left stale by a launch would
+    # corrupt a later one
+    from mqtt_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(12)
+    runs = []
+    for _ in range(50):
+        T, S = int(rng.choice([1, 2, 3])), int(rng.choice([1, 2, 4]))
+        bl, K = int(rng.choice([16, 300, 2048, 4096])), int(rng.choice([8, 64]))
+        args = _gathered(dev, rng, T, S, bl, K)
+        cap = int(rng.integers(1, bl * S * K // 2 + 2))
+        runs.append((args, cap, sharded.tile_compact(*args, cap)))
+    torch.cuda.synchronize()
+    for args, cap, got in runs:
+        assert torch.equal(got, sharded.tile_compact_plain(*args, cap)), cap
 
 
 def test_sharded_matcher_on_the_card_matches_the_cpu_mesh_and_the_trie(dev):

@@ -184,6 +184,78 @@ def test_step_plain_matches_jax(mesh_pair, n_topics):
     assert (want[0] >= 0).any()
 
 
+@pytest.mark.parametrize("T", [1, 2, 4])
+def test_multi_tile_step_plain_matches_jax(mesh_pair, T):
+    # the plain step over T tiles at once, tokens [T*bl] into the 4-D
+    # gathered layout [T, S, bl, K], against the JAX step's [S, B, K]
+    jm, pm, _, _ = mesh_pair
+    topics = mesh_topics(10, n=124)
+    topics += [""] * (tflat._bucket(len(topics), minimum=4) - len(topics))
+    want = _jax_step(jm, topics)
+    placed, _tables, salt = pm._compiled
+    (arrays,) = placed.values()
+    tok1, tok2, lengths, is_dollar, _ = tflat.tokenize_topics(topics, pm.max_levels, salt)
+    tokens = torch.from_numpy(tflat.pack_tokens(tok1, tok2, lengths, is_dollar))
+    S, K, bl = pm.n_shards, pm.out_slots, len(topics) // T
+    out = torch.full((T, S, bl, K), 7, dtype=torch.int32)
+    totals = torch.full((T, S, bl), 7, dtype=torch.int32)
+    overflow = torch.zeros((T, S, bl), dtype=torch.bool)
+    tsharded.sharded_step(*arrays, tokens, max_levels=pm.max_levels, out=out, totals=totals, overflow=overflow)
+    got = [a.transpose(0, 1).reshape(S, len(topics), *a.shape[3:]).numpy() for a in (out, totals, overflow)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert np.array_equal(g, w)
+    assert (want[0] >= 0).any()
+
+
+def test_one_launch_step_equals_a_per_tile_loop(mesh_pair, monkeypatch):
+    # on a mesh whose positions share one device the step is one call over
+    # both tiles; its gathered buffers equal one call per tile
+    _, pm, _, _ = mesh_pair
+    assert pm._fused == [(torch.device("cpu"), 0, pm.n_batch)] and pm._split == []
+    topics = mesh_topics(11, n=124)
+    placed, _tables, salt = pm._compiled
+    (arrays,) = placed.values()
+    tok1, tok2, lengths, is_dollar, _ = tflat.tokenize_topics(topics, pm.max_levels, salt)
+    host = torch.from_numpy(tflat.pack_tokens(tok1, tok2, lengths, is_dollar))
+    bl = len(topics) // pm.n_batch
+    calls = []
+
+    def step(*args, **kwargs):
+        calls.append(kwargs["out"].shape)
+        tsharded.sharded_step_plain(*args, **kwargs)
+
+    monkeypatch.setattr(tsharded, "sharded_step", step)
+    ((g_out, g_tot, g_ovf),) = pm._step(placed, {d: host for d in pm._devices}, bl).values()
+    assert calls == [(pm.n_batch, pm.n_shards, bl, pm.out_slots)]
+    for t in range(pm.n_batch):
+        want = (torch.empty_like(g_out[t]), torch.empty_like(g_tot[t]), torch.empty_like(g_ovf[t]))
+        tsharded.sharded_step_plain(*arrays, host[t * bl : (t + 1) * bl], max_levels=pm.max_levels,
+                                    out=want[0], totals=want[1], overflow=want[2])
+        for g, w in zip((g_out[t], g_tot[t], g_ovf[t]), want):
+            assert torch.equal(g, w)
+
+
+def test_step_launch_plan_per_mesh_layout():
+    # which tiles the step launches together: consecutive tiles of one
+    # owner whose shards all lie on it; the rest per run of shards
+    from mqtt_tpu_torch.parallel import Mesh
+
+    c = [torch.device("cuda", i) for i in range(4)]
+    layouts = {
+        "one card": ([[c[0]] * 4, [c[0]] * 4], [(c[0], 0, 2)], []),
+        "a card per tile": ([[c[0]] * 4, [c[1]] * 4], [(c[0], 0, 1), (c[1], 1, 1)], []),
+        "4x1 per row": ([c, c], [], [0, 1]),
+        "mixed": ([[c[0]] * 2, [c[0], c[1]], [c[0]] * 2], [(c[0], 0, 1), (c[0], 2, 1)], [1]),
+    }
+    for name, (grid, fused, split) in layouts.items():
+        m = ShardedTorchMatcher(TopicsIndex(), mesh=Mesh(grid))
+        try:
+            assert (m._fused, m._split) == (fused, split), name
+        finally:
+            m.close()
+
+
 # -- K9: the tile compaction ----------------------------------------------------------
 
 
