@@ -7,10 +7,15 @@ Phases, each printed as it ends:
 
 1. The card (``nvidia-smi`` name and power limit) and the toolchain.
 2. The kernel build: ``nvcc`` for ``sm_90a`` on every source in
-   ``mqtt_tpu_torch/csrc`` (all started together), with ``-Xptxas -v``.
+   ``mqtt_tpu_torch/csrc`` (all started together), with ``-Xptxas -v``;
+   then phase "native": the host C tokenizer and materializer
+   (``mqtt_tpu_torch/native``) built with the host compiler.
 3. The main path's two 1M-subscription configurations (the BASELINE
    configs 2 and 3 of ``bench.py``: 3-level topics with 10% ``+``; 8-level
-   topics with 5% ``#``) built as tries and compiled to device indexes.
+   topics with 5% ``#``) built as tries and compiled to device indexes
+   with the cyclic collector off, then frozen (``freeze_index``) and the
+   collector's thresholds raised (``tune_for_throughput``), as bench.py
+   does before it measures; every later setup does the same.
 4. Every kernel against its plain PyTorch version on the card, at the main
    path's shapes (batches of 4096 and 65536 topics on both indexes, a
    compact capacity below the batch's hits, a fold-sized row scatter), with
@@ -28,7 +33,15 @@ Phases, each printed as it ends:
    at the server's default settings (250 ms latency budget, adaptive
    batches) fed at half the measured rate on a fixed schedule, for the
    per-publish latency. Every result must equal the port's
-   ``TopicsIndex.subscribers`` for its topic.
+   ``TopicsIndex.subscribers`` for its topic; results are lazy
+   ``SubscribersView`` objects (the matchers' default), each materialized
+   for the check after its wave. After each configuration's main path,
+   and again after its sharded path, phase "materialize": one batch of
+   4096 through the kernels, copied to the host once, then resolved in
+   turns by the Python plain version, eager C, C views materialized and
+   C views' ``targets()`` (all four checked against each other and the
+   trie; ns a hit and a topic each), and the batch tokenized by C and by
+   Python (equal arrays; µs a topic).
 6. The sharded path, on the same cfg2 and cfg3 tries: ``MatchStage`` →
    ``DeltaMatcher(mesh=make_mesh(["cuda:0"] * 8))`` (4 subscription shards
    x 2 batch tiles, every position on the one card) →
@@ -46,9 +59,10 @@ Phases, each printed as it ends:
 7. Tenant namespaces (cfgN): 8 tenants x 2,500 scoped subscriptions
    beside global top-level wildcards (client, ``$SHARE`` and inline),
    8,192 publishes, two thirds scoped, through ``MatchStage`` over
-   ``DeltaMatcher`` and then over ``DeltaMatcher(mesh=...)``. Every result
-   must equal the trie's: the namespace guard keeps every global wildcard
-   off the scoped topics on the device routes too.
+   ``DeltaMatcher`` and then over ``DeltaMatcher(mesh=...)``, each with
+   lazy views and with eager results. Every result must equal the trie's:
+   the namespace guard keeps every global wildcard off the scoped topics
+   on the device routes too.
 8. The predicate path (cfgP): cfg2's 1M subscriptions with cfg9's 100,000
    distinct ``$GT`` rules on every 10th filter, 1,000 each of
    ``$CONTAINS``, ``$EQS`` and ``$AND`` rules, and one hot topic whose 64
@@ -284,6 +298,33 @@ def phase_build() -> float:
     return dt
 
 
+def _settle_gc() -> None:
+    """After a setup built with the cyclic collector off: move the built
+    graph out of its reach and raise its thresholds, as bench.py does
+    before it measures (``tune_for_throughput`` and ``freeze_index``, the
+    port's copies of ``utils/gctune.py``)."""
+    from mqtt_tpu_torch.utils import freeze_index, tune_for_throughput
+
+    freeze_index()
+    gc.enable()
+    tune_for_throughput()
+
+
+def phase_native() -> float:
+    """Build the port's C host code (the tokenizer and the materializer)
+    with the host compiler and load both."""
+    from mqtt_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.lib()
+    t1 = time.perf_counter()
+    acc = native.accel()
+    t2 = time.perf_counter()
+    log(f"phase native: ok {native.compiler()} built mqtt_native.c in {t1 - t0:.2f} s and accelmod.c "
+        f"({acc.__name__}) in {t2 - t1:.2f} s")
+    return t2 - t0
+
+
 def phase_setup(name: str, make_config, n_subs: int, seed: int, device):
     from mqtt_tpu_torch import DeltaMatcher
 
@@ -299,13 +340,13 @@ def phase_setup(name: str, make_config, n_subs: int, seed: int, device):
         dm = DeltaMatcher(index, max_levels=8, rebuild_interval=0.5, device=device)
         t2 = time.perf_counter()
     finally:
-        gc.freeze()
-        gc.enable()
+        _settle_gc()
     fl = dm.snapshot.index
     table_bytes = int(dm.snapshot.device_arrays[0].numel() * 4)
     log(f"phase setup {name}: ok {n_subs} subscriptions, trie {t1 - t0:.1f} s, "
         f"index {t2 - t1:.1f} s, entries {fl.n_entries}, P {fl.num_patterns}, "
-        f"S {fl.table.shape[0]}, table {table_bytes} B, sat {fl.n_sat}, spill {fl.n_spill}")
+        f"S {fl.table.shape[0]}, table {table_bytes} B, sat {fl.n_sat}, spill {fl.n_spill}, "
+        f"gc thresholds {gc.get_threshold()}, {gc.get_freeze_count()} objects frozen")
     return {"name": name, "index": index, "entries": entries, "topic_gen": topic_gen,
             "rng": rng, "dm": dm, "table_bytes": table_bytes}
 
@@ -580,12 +621,20 @@ def _pct(xs, q: float) -> float:
     return xs[min(len(xs) - 1, int(len(xs) * q))]
 
 
-def _verify(index, topics, results, what):
-    from mqtt_tpu_torch import subscribers_equal
+def _verify(index, topics, results, what) -> int:
+    """Every result (each view materialized) must equal the trie's;
+    returns how many were lazy views."""
+    from mqtt_tpu_torch import native, subscribers_equal
 
+    view_t = native.accel().SubscribersView
     check(len(results) == len(topics), f"{what}: {len(results)} results for {len(topics)} topics")
+    n_views = 0
     for topic, got in zip(topics, results):
+        if isinstance(got, view_t):
+            n_views += 1
+            got = got.materialize()
         check(subscribers_equal(got, index.subscribers(topic)), f"{what}: mismatch on {topic!r}")
+    return n_views
 
 
 def phase_main(cfg: dict, wave: int, n_churn: int = 150, paced_s: float = 2.0) -> dict:
@@ -626,19 +675,19 @@ def phase_main(cfg: dict, wave: int, n_churn: int = 150, paced_s: float = 2.0) -
         out["t_waves"] = time.perf_counter()
         try:
             r1, t1 = await _wave(stage, waves[0])
-            _verify(index, waves[0], r1, f"{name} wave 1")
+            out["views"] = _verify(index, waves[0], r1, f"{name} wave 1")
             for c, f in sorted(unsub):
                 index.unsubscribe(f, c)
             for k, f in enumerate(resub):
                 index.subscribe(f"churn{k}", Subscription(filter=f, qos=k % 3, identifier=k + 1))
             r2, t2 = await _wave(stage, waves[1])
-            _verify(index, waves[1], r2, f"{name} wave 2 (overlay)")
+            out["views"] += _verify(index, waves[1], r2, f"{name} wave 2 (overlay)")
             deadline = time.perf_counter() + 60
             while dm.pending_deltas and time.perf_counter() < deadline:
                 await asyncio.sleep(0.05)
             check(dm.pending_deltas == 0, "the background fold did not drain the overlay")
             r3, t3 = await _wave(stage, waves[2])
-            _verify(index, waves[2], r3, f"{name} wave 3 (folded)")
+            out["views"] += _verify(index, waves[2], r3, f"{name} wave 3 (folded)")
             out["seconds"] = t1 + t2 + t3
             out["service"] = [dt for _, dt in stage.service_log]
             out["stats"] = dict(dm.stats.as_dict())
@@ -688,6 +737,7 @@ def phase_main(cfg: dict, wave: int, n_churn: int = 150, paced_s: float = 2.0) -
         f"compact_batches {stats['compact_batches'] - stats0['compact_batches']}, "
         f"compact_overflows {stats['compact_overflows'] - stats0['compact_overflows']}, folds {folds}, "
         f"P {dm.snapshot.index.num_patterns}, table {cfg['table_bytes']} B, "
+        f"{out['views']} of {n} results lazy views (each materialized against the trie after its wave), "
         f"{pauses.summary(*out['t_waves'])}")
     wall_us = out["traced_s"] * 1e6
     if out["busy_us"] is None:
@@ -714,6 +764,171 @@ def phase_main(cfg: dict, wave: int, n_churn: int = 150, paced_s: float = 2.0) -
     return launches
 
 
+# -- the host half: tokenizer and materializer ---------------------------------
+
+
+def _fetch_single(torch, cfg: dict, topics: list, device) -> dict:
+    """One fixed batch of the single-device path's kernels (the route its
+    matcher picks for the batch), copied to the host once."""
+    from mqtt_tpu_torch.ops import flat as tflat
+
+    snap = cfg["dm"].snapshot
+    fl, arrays, _ = snap._state
+    P = fl.pat_depth.shape[0]
+    tok1, tok2, lengths, is_dollar, len_ovf = tflat.tokenize_topics(topics, fl.max_levels, fl.salt)
+    tokens = torch.from_numpy(tflat.pack_tokens(tok1, tok2, lengths, is_dollar)).to(device)
+    b = len(topics)
+    if snap.compact and P > 0 and snap._compact_pays(P):
+        cap = snap._compact_capacity_for(b, fl)
+        out = tflat.flat_match_compact(*arrays, tokens, max_levels=fl.max_levels, capacity=cap).cpu().numpy()
+        if out[1]:  # the batch outgrew the policy's buffer: refetch at its hits
+            cap = tflat._bucket(int(out[0]), minimum=256)
+            out = tflat.flat_match_compact(*arrays, tokens, max_levels=fl.max_levels, capacity=cap).cpu().numpy()
+        check(not out[1], "materialize: the compact batch overflowed")
+        true_ovf = out[2 + b : 2 + 2 * b].astype(bool) | len_ovf
+        return {"route": "compact", "n_hits": int(out[0]), "totals": out[2 : 2 + b], "true_ovf": true_ovf,
+                "pair_sid": out[2 + 2 * b : 2 + 2 * b + cap], "pair_shard": None, "table": fl.subs,
+                "tables": None, "bytes": out.nbytes}
+    out = tflat.flat_match_packed(*arrays, tokens, max_levels=fl.max_levels).cpu().numpy()
+    hits = out[:, P : 2 * P].clip(min=0)
+    routed = (out[:, 2 * P + 1] != 0) | len_ovf
+    return {"route": "ranges", "packed": out, "P": P, "flat": fl, "len_ovf": len_ovf,
+            "n_hits": int(hits[~routed].sum()), "bytes": out.nbytes}
+
+
+def _fetch_sharded(torch, sh: dict, topics: list) -> dict:
+    """One fixed batch of the sharded step (K8) and its tile compaction
+    (K9) at a capacity the batch fits, copied to the host once and stitched
+    into one topic-major (shard, sid) stream as the matcher's resolver
+    stitches it."""
+    import numpy as np
+
+    from mqtt_tpu_torch.ops import flat as tflat
+    from mqtt_tpu_torch.parallel import sharded
+
+    snap = sh["dm"].snapshot
+    placed, tables, salt = snap._compiled
+    tok1, tok2, lengths, is_dollar, len_ovf = tflat.tokenize_topics(topics, snap.max_levels, salt)
+    host_tokens = torch.from_numpy(tflat.pack_tokens(tok1, tok2, lengths, is_dollar))
+    tokens_on = {dev: host_tokens.to(dev) for dev in snap._devices}
+    b, T = len(topics), snap.n_batch
+    bl = b // T
+    gathered = snap._step(placed, tokens_on, bl)
+    cap = max(16, snap._caps.get(b, 0) // T)
+    while True:
+        rows = np.empty((T, 2 + 2 * bl + 2 * cap), dtype=np.int32)
+        for owner, tiles in snap._tiles_of.items():
+            rows[tiles] = sharded.tile_compact(*gathered[owner], cap).cpu().numpy()
+        if not rows[:, 1].any():
+            break
+        cap = tflat._bucket(int(rows[:, 0].max()), minimum=16)
+    lo = 2 + 2 * bl
+    tile_hits = rows[:, 0]
+    return {"route": "sharded", "n_hits": int(tile_hits.sum()), "totals": rows[:, 2 : 2 + bl].reshape(b),
+            "true_ovf": rows[:, 2 + bl : 2 + 2 * bl].reshape(b).astype(bool) | len_ovf,
+            "pair_shard": np.concatenate([rows[t, lo : lo + tile_hits[t]] for t in range(T)]),
+            "pair_sid": np.concatenate([rows[t, lo + cap : lo + cap + tile_hits[t]] for t in range(T)]),
+            "table": None, "tables": tables, "bytes": rows.nbytes}
+
+
+def _resolvers(index, topics: list, f: dict) -> dict:
+    """The four ways to turn one fetched batch into results, on the same
+    host arrays: the Python plain version, eager C, C views materialized,
+    and C views' fan-out plans (``targets()``)."""
+    from mqtt_tpu_torch import Subscribers
+    from mqtt_tpu_torch.ops import matcher as tm
+
+    walk = index.subscribers
+
+    if f["route"] == "ranges":
+        args = (f["packed"], topics, f["flat"], f["P"], f["len_ovf"], None, None)
+
+        def plain():
+            return tm.resolve_ranges_py(tm.MatcherStats(), walk, *args)
+
+        def c(lazy):
+            return tm.resolve_ranges_native(tm.MatcherStats(), walk, *args, lazy)
+    else:
+        def plain():
+            res, ovf = tm.resolve_compact_py(f["pair_sid"], f["totals"], f["true_ovf"], topics, f["table"],
+                                             n_hits=f["n_hits"], pair_shard=f["pair_shard"], tables=f["tables"])
+            for i in ovf:
+                res[i] = walk(topics[i]) if topics[i] else Subscribers()
+            return res
+
+        def c(lazy):
+            return tm.materialize_compact_pairs(
+                tm.MatcherStats(), walk, f["pair_sid"], f["totals"], f["true_ovf"], f["n_hits"], topics,
+                f["table"], f["true_ovf"], pair_shard=f["pair_shard"], tables=f["tables"], lazy=lazy)
+
+    def views(each):
+        return [each(r) if type(r) is not Subscribers else r for r in c(True)]
+
+    return {
+        "python": plain,
+        "eager C": lambda: c(False),
+        "views + materialize": lambda: views(lambda v: v.materialize()),
+        "views + targets": lambda: views(lambda v: v.targets()),
+    }
+
+
+def phase_materialize(index, topics: list, fetched: dict, what: str, rounds: int = 3) -> dict:
+    """The host half of one fixed batch: the C tokenizer against the
+    Python one (equal arrays), then the four resolvers of ``_resolvers``
+    timed in turns on the same fetched arrays; all four must agree with
+    each other and with the trie."""
+    import numpy as np
+
+    from mqtt_tpu_torch import Subscribers, subscribers_equal
+    from mqtt_tpu_torch.ops import hashing
+
+    b = len(topics)
+    tok_c = hashing.tokenize_topics(topics, 8, 0)
+    tok_py = hashing.tokenize_topics_py(topics, 8, 0)  # warms the per-token cache as the path does
+    check(all(np.array_equal(x, y) and x.dtype == y.dtype for x, y in zip(tok_c, tok_py)),
+          f"materialize {what}: the C tokenizer disagrees with the Python one")
+    tok_ms = {"C": _host_ms(lambda: hashing.tokenize_topics(topics, 8, 0), 5),
+              "python": _host_ms(lambda: hashing.tokenize_topics_py(topics, 8, 0), 5)}
+
+    fns = _resolvers(index, topics, fetched)
+    times: dict = {k: [] for k in fns}
+    results: dict = {}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            results[k] = fn()
+            times[k].append(time.perf_counter() - t0)
+    eager = results["eager C"]
+    n_views = 0
+    for i, t in enumerate(topics):
+        want = index.subscribers(t)
+        e = eager[i]
+        check(type(e) is Subscribers and subscribers_equal(e, want), f"materialize {what}: eager C != trie on {t!r}")
+        check(subscribers_equal(results["python"][i], e), f"materialize {what}: python != eager C on {t!r}")
+        check(subscribers_equal(results["views + materialize"][i], e),
+              f"materialize {what}: a materialized view != eager C on {t!r}")
+        plan = results["views + targets"][i]
+        if type(plan) is Subscribers:  # a host-walked row
+            continue
+        n_views += 1
+        check([c for c, _ in plan] == list(e.subscriptions), f"materialize {what}: targets() clients differ on {t!r}")
+        for c, sub in plan:
+            w = e.subscriptions[c]
+            check((sub.qos, sub.no_local, sub.retain_as_published, sub.predicates)
+                  == (w.qos, w.no_local, w.retain_as_published, w.predicates),
+                  f"materialize {what}: targets() of {c} on {t!r} differs from the eager result")
+    n_hits = fetched["n_hits"]
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    cells = ", ".join(f"{k} {med[k] * 1e3:.3f} ms ({med[k] * 1e9 / max(1, n_hits):.1f} ns a hit, "
+                      f"{med[k] * 1e9 / b:.1f} ns a topic)" for k in fns)
+    log(f"phase materialize {what}: ok B={b} {fetched['route']} ({fetched['bytes']} B fetched once), "
+        f"{n_hits} hits, {n_views} views; all four agree with each other and the trie; median of {rounds} "
+        f"in turns: {cells}")
+    log(f"  tokenize {what}: C {tok_ms['C'] * 1e3 / b:.3f} us a topic, python {tok_ms['python'] * 1e3 / b:.3f} "
+        f"us a topic (equal arrays, B={b}, 8 levels)")
+    return {"ns_hit": {k: med[k] * 1e9 / max(1, n_hits) for k in fns}, "tok_us": tok_ms}
+
+
 # -- the sharded path -----------------------------------------------------------
 
 
@@ -731,8 +946,7 @@ def phase_setup_sharded(cfg: dict, device) -> dict:
         dm = DeltaMatcher(cfg["index"], max_levels=8, background=False, mesh=mesh, out_slots=OUT_SLOTS)
         dt = time.perf_counter() - t0
     finally:
-        gc.freeze()
-        gc.enable()
+        _settle_gc()
     snap = dm.snapshot
     flats = snap._flats
     log(f"phase setup sharded {cfg['name']}: ok mesh {mesh.shape} of {[str(d) for d in mesh.unique_devices()]}, "
@@ -859,10 +1073,11 @@ def phase_sharded(sh: dict, wave: int, n_waves: int = 3, n_churn: int = 150) -> 
         stage.start()
         try:
             seconds = 0.0
+            out["views"] = 0
             for w in range(n_waves):
                 res, dt = await _wave(stage, waves[w])
                 seconds += dt
-                _verify(index, waves[w], res, f"sharded {name} wave {w + 1}")
+                out["views"] += _verify(index, waves[w], res, f"sharded {name} wave {w + 1}")
                 if w == 0:
                     muts: list = []
                     record = muts.append
@@ -915,7 +1130,7 @@ def phase_sharded(sh: dict, wave: int, n_waves: int = 3, n_churn: int = 150) -> 
         f"max {max(service) * 1e3:.3f} ms, host_fallbacks {stats['host_fallbacks'] - stats0['host_fallbacks']}, "
         f"compact_batches {stats['compact_batches'] - stats0['compact_batches']}, "
         f"compact_overflows {stats['compact_overflows'] - stats0['compact_overflows']}, "
-        f"{out['batches']} steps with the traced wave, "
+        f"{out['batches']} steps with the traced wave, {out['views']} of {n} results lazy views, "
         f"device_skew_ratio {snap.device_skew_ratio():.6f} (tile hits {snap.tile_hit_counts().tolist()})")
     log(f"  sharded {name} flush: {len(unsub)} unsubscribes + {n_churn} subscribes touched shards "
         f"{sorted(touched)}, dirtied {out['dirty']}; the flush recompiled {out['recompiled']} of "
@@ -990,10 +1205,11 @@ def build_cfgN(n_tenants: int, per_tenant: int, rng: random.Random):
 def phase_namespace(torch, device, n_tenants: int = 8, per_tenant: int = 2500, n_topics: int = 8192) -> dict:
     """The namespace corpus on the card (launch counts reset just before):
     ``n_topics`` publishes through ``MatchStage`` over ``DeltaMatcher``, then
-    through ``DeltaMatcher(mesh=make_mesh([device] * 8))``; every result
-    must equal the trie's, no global wildcard client may reach a scoped
-    topic, and the global ``#`` client must reach every global topic that
-    does not start with ``$``."""
+    through ``DeltaMatcher(mesh=make_mesh([device] * 8))``, each with lazy
+    views (the default) and with eager results from the C materializer;
+    every result must equal the trie's, no global wildcard client may
+    reach a scoped topic, and the global ``#`` client must reach every
+    global topic that does not start with ``$``."""
     from mqtt_tpu_torch import DeltaMatcher, MatchStage
     from mqtt_tpu_torch.ops import kernels
     from mqtt_tpu_torch.parallel import make_mesh
@@ -1003,10 +1219,11 @@ def phase_namespace(torch, device, n_tenants: int = 8, per_tenant: int = 2500, n
     index, n_subs, gen = build_cfgN(n_tenants, per_tenant, rng)
     topics = [gen() for _ in range(n_topics)]
     launches = dict.fromkeys(REPLACES, 0)
-    for mesh in (None, make_mesh([device] * MESH_POSITIONS)):
-        what = "mesh" if mesh is not None else "single-device"
+    routes = [(mesh, lazy) for mesh in (None, make_mesh([device] * MESH_POSITIONS)) for lazy in (True, False)]
+    for mesh, lazy in routes:
+        what = ("mesh" if mesh is not None else "single-device") + (" views" if lazy else " eager")
         dm = DeltaMatcher(index, max_levels=8, background=False, device=device, mesh=mesh,
-                          out_slots=OUT_SLOTS)
+                          out_slots=OUT_SLOTS, lazy=lazy)
 
         async def drive():
             stage = MatchStage(dm, index.subscribers, max_batch=MAIN_BATCH, latency_budget_s=None,
@@ -1025,7 +1242,8 @@ def phase_namespace(torch, device, n_tenants: int = 8, per_tenant: int = 2500, n
             stats = dm.stats.as_dict()
         finally:
             dm.close()
-        _verify(index, topics, results, f"namespace {what}")
+        n_views = _verify(index, topics, results, f"namespace {what}")
+        check((n_views > 0) == lazy, f"namespace {what}: {n_views} lazy views")
         scoped = 0
         for t, r in zip(topics, results):
             wild = {c for c in r.subscriptions if c.startswith("gw")}
@@ -1037,7 +1255,8 @@ def phase_namespace(torch, device, n_tenants: int = 8, per_tenant: int = 2500, n
                 check("gw0" in wild, f"namespace {what}: the global # client missed {t!r}")
         log(f"phase namespace {what}: ok {n_topics} publishes ({scoped} scoped) over {n_subs} subscriptions "
             f"of {n_tenants} tenants bit-identical to the trie, no global wildcard on a scoped topic; "
-            f"host_fallbacks {stats['host_fallbacks']}, compact_batches {stats['compact_batches']}")
+            f"{n_views} lazy views, host_fallbacks {stats['host_fallbacks']}, "
+            f"compact_batches {stats['compact_batches']}")
     if device.type == "cuda":
         check(launches["flat_probe_ranges"] + launches["flat_match_compact"] > 0
               and launches["sharded_step"] > 0, f"the namespace phase ran no matcher kernel: {launches}")
@@ -1110,8 +1329,7 @@ def phase_setup_predicates(n_subs: int, seed: int, device) -> dict:
         dm = DeltaMatcher(index, max_levels=8, rebuild_interval=0.5, device=device)
         t3 = time.perf_counter()
     finally:
-        gc.freeze()
-        gc.enable()
+        _settle_gc()
     g = eng.gauges()
     log(f"phase setup cfgP: ok {len(entries)} subscriptions, trie {t1 - t0:.1f} s, rules {t2 - t1:.1f} s, "
         f"index {t3 - t2:.1f} s; {g['rules']} rules, {g['device_rules']} on the card, "
@@ -1583,11 +1801,18 @@ def phase_kernels_pr(torch, rec: dict, cfgP: dict, cfgR: dict, device, n_recrypt
 
 
 
+def _materialize_single(torch, cfg: dict, device) -> None:
+    topics = [cfg["topic_gen"]() for _ in range(MAIN_BATCH)]
+    phase_materialize(cfg["index"], topics, _fetch_single(torch, cfg, topics, device),
+                      f"{cfg['name']} single-device")
+
+
 def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRYPT) -> list:
     import torch
 
     # off the card (a rehearsal) the wrappers are never called: no counts
     counted = device.type == "cuda"
+    phase_native()
     cfgs = [
         phase_setup("cfg2", build_cfg2, n_subs, 2, device),
         phase_setup("cfg3", build_cfg3, n_subs, 3, device),
@@ -1598,9 +1823,11 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
         main2 = phase_main(cfgs[0], wave)
         check(main2["flat_probe_ranges"] > 0 or not counted, "cfg2's main path never launched flat_probe_ranges")
         phase_kernel_small_batch(torch, rec, cfgs[0], device, "flat_probe_ranges")
+        _materialize_single(torch, cfgs[0], device)
         main3 = phase_main(cfgs[1], wave)
         check(main3["flat_match_compact"] > 0 or not counted, "cfg3's main path never launched flat_match_compact")
         phase_kernel_small_batch(torch, rec, cfgs[1], device, "flat_match_compact")
+        _materialize_single(torch, cfgs[1], device)
         # the same tries, now served by the sharded matcher alone
         for cfg in cfgs:
             cfg["dm"].close()
@@ -1610,6 +1837,8 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
             sharded.append(sh)
             main_sh.append(phase_sharded(sh, wave))
             phase_kernels_sharded(torch, rec, sh, device, main=cfg is cfgs[0])
+            topics = [cfg["topic_gen"]() for _ in range(MAIN_BATCH)]
+            phase_materialize(cfg["index"], topics, _fetch_sharded(torch, sh, topics), f"{cfg['name']} sharded")
             sh["dm"].close()
     finally:
         for cfg in cfgs:

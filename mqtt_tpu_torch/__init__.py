@@ -12,18 +12,23 @@ evaluates MQTT+ payload predicates (``PredicateEngine``,
 ``parallel`` shards the subscriptions over a mesh of device positions
 (``DeltaMatcher(mesh=parallel.make_mesh(...))``, ``csrc/sharded.cu``).
 It imports ``torch`` and numpy and keeps its own copies of the host code
-it needs.
+it needs, its C tokenizer and C result materializer among them
+(``native``, built with the host compiler at first use): a match returns
+lazy ``SubscribersView`` results by default, which read like
+``Subscribers``.
 
 Entry points run on ``"cuda"`` unless given ``device="cpu"``, which runs
 the plain PyTorch version of every kernel.
 """
 
+from .native import NativeError
 from .ops import DeltaMatcher, KernelError, MatcherStats, TorchMatcher, subscribers_equal
 from .packets import Subscription
 from .predicates import PredicateEngine, PublishFeatures
 from .staging import MatchStage
 from .tenancy import KeyRegistry, RecryptEngine, RecryptJob, Tenant
 from .topics import SHARE_PREFIX, InlineSubscription, Subscribers, TopicsIndex
+from .utils import freeze_index, tune_for_throughput
 
 __all__ = [
     "DeltaMatcher",
@@ -32,6 +37,7 @@ __all__ = [
     "KeyRegistry",
     "MatchStage",
     "MatcherStats",
+    "NativeError",
     "PredicateEngine",
     "PublishFeatures",
     "RecryptEngine",
@@ -42,5 +48,7 @@ __all__ = [
     "Tenant",
     "TopicsIndex",
     "TorchMatcher",
+    "freeze_index",
     "subscribers_equal",
+    "tune_for_throughput",
 ]

@@ -11,8 +11,10 @@ the payload-predicate rule table and the re-encryption keystream.
                  window reduction (``agg_reduce``)
 - ``recrypt``  — AES-128-CTR keystream (``keystream``) and its numpy oracle
 - ``hashing``  — host-side topic-level tokenization and dual u32 hashing
+                 (the C tokenizer of ``native/``, beside its plain version)
 - ``matcher``  — the broker-facing ``TorchMatcher`` (drop-in for
-                 ``TopicsIndex.subscribers``)
+                 ``TopicsIndex.subscribers``); results come from the C
+                 materializer of ``native/``, its plain versions beside it
 - ``delta``    — ``DeltaMatcher``: snapshot + host delta overlay +
                  background fold/rebuild, for live brokers under churn; with
                  a mesh its snapshot is ``parallel.ShardedTorchMatcher``
@@ -34,9 +36,17 @@ from .flat import (
     pack_tokens,
     scatter_rows,
 )
-from .hashing import hash_token, tokenize_topics
+from .hashing import hash_token, hash_token_py, tokenize_topics, tokenize_topics_py
 from .kernels import KernelError
-from .matcher import MatcherStats, TorchMatcher, expand_sids, subscribers_equal
+from .matcher import (
+    MatcherStats,
+    TorchMatcher,
+    expand_sids,
+    expand_snap_py,
+    resolve_compact_py,
+    resolve_ranges_py,
+    subscribers_equal,
+)
 
 __all__ = [
     "DeltaMatcher",
@@ -51,13 +61,18 @@ __all__ = [
     "build_flat_index",
     "device_index_from_numpy",
     "expand_sids",
+    "expand_snap_py",
     "flat_match_compact",
     "flat_match_core",
     "flat_match_packed",
     "flat_match_ranges",
     "hash_token",
+    "hash_token_py",
     "pack_tokens",
+    "resolve_compact_py",
+    "resolve_ranges_py",
     "scatter_rows",
     "subscribers_equal",
     "tokenize_topics",
+    "tokenize_topics_py",
 ]

@@ -146,6 +146,7 @@ class DeltaMatcher:
         device="cuda",
         mesh=None,
         out_slots: int = 64,
+        lazy: bool = True,
     ) -> None:
         self.topics = topics
         self.max_levels = max_levels
@@ -176,6 +177,7 @@ class DeltaMatcher:
                 compact=compact,
                 compact_capacity=compact_capacity,
                 hits_estimate=hits_estimate,
+                lazy=lazy,
             )
         else:
             snap = _Snapshot(
@@ -189,6 +191,7 @@ class DeltaMatcher:
                 compact_capacity=compact_capacity,
                 hits_estimate=hits_estimate,
                 device=device,
+                lazy=lazy,
             )
         try:
             snap.rebuild()

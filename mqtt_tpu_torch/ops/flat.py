@@ -431,6 +431,17 @@ class _LazySubTable:
     def __len__(self) -> int:
         return self._n
 
+    @property
+    def snaps(self) -> list:
+        """The raw snapshot tuples, indexed by entry ordinal — the C
+        materializer (``native/accelmod.c``) walks these directly."""
+        return self._snaps
+
+    @property
+    def window(self) -> int:
+        """Slots per entry ordinal (sid = ordinal * window + slot)."""
+        return self._window
+
     def __getitem__(self, sid: int) -> SubEntry:
         entry = self.memo.get(sid)
         if entry is not None:

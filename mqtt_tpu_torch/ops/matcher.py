@@ -10,7 +10,14 @@ The counterpart of the JAX package's ``TpuMatcher``, with the same
 policies: the compact-vs-packed encoding pick, the per-batch re-run of a
 compact batch whose hits outgrew the pair buffer, the exact-map fast path
 for wildcard-free filter sets, and copy-on-write folds. Results are
-materialized in Python.
+materialized by the port's C materializer (``native/accelmod.c``), with
+the tenant namespace guards: lazy ``SubscribersView`` results by default
+(``lazy=True``, as the JAX package's ``TpuMatcher``), eager ``Subscribers``
+with ``lazy=False``. A view reads like a ``Subscribers`` (any of its three
+maps materializes it once); ``targets()`` gives the fan-out plan without
+building the maps. ``expand_sids``, ``resolve_compact_py``,
+``resolve_ranges_py`` and ``expand_snap_py`` are the plain Python versions
+the tests hold the C against; no path of the matchers calls them.
 """
 
 from __future__ import annotations
@@ -22,7 +29,8 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from ..topics import Subscribers, TopicsIndex, ns_guard_mode
+from .. import native
+from ..topics import NS_CHAR, Subscribers, TopicsIndex, ns_guard_mode
 from .flat import (
     KIND_CLIENT,
     KIND_SHARED,
@@ -39,6 +47,28 @@ from .flat import (
     scatter_rows,
 )
 from .hashing import tokenize_topics
+
+# the C materializer, resolved once (native.accel() is itself memoized;
+# this skips the call in the per-batch path)
+_ACCEL = None
+
+
+def _accel():
+    """The C materializer module (``native/accelmod.c``), built on first
+    use; a failed build raises ``native.NativeError``."""
+    global _ACCEL
+    if _ACCEL is None:
+        _ACCEL = native.accel()
+    return _ACCEL
+
+
+def ns_modes(topics: list[str]) -> Optional[np.ndarray]:
+    """Each topic's ``ns_guard_mode`` as int8 ``[len(topics)]`` for the C
+    materializer, or None when no topic is scoped into a namespace (the
+    common case costs one join and one scan)."""
+    if NS_CHAR not in "".join(topics):
+        return None
+    return np.fromiter((ns_guard_mode(t) for t in topics), dtype=np.int8, count=len(topics))
 
 
 def expand_sids(
@@ -203,28 +233,10 @@ def resolve_compact_py(
     return results, ovf_idx
 
 
-def materialize_compact_pairs(
-    stats: "MatcherStats",
-    host_walk: Callable[[str], Subscribers],
-    pair_sid: np.ndarray,
-    totals: np.ndarray,
-    host_route: np.ndarray,
-    n_hits: int,
-    topics: list[str],
-    subs_table: Any,
-    true_overflow: np.ndarray,
-    pair_shard: Optional[np.ndarray] = None,
-    tables: Optional[list] = None,
-) -> list[Subscribers]:
-    """Expand one device-compacted batch into Subscribers results.
-    ``totals`` drives a cursor over the topic-major pair stream (padded
-    rows included); host-routed topics skip their pairs and re-walk the
-    live trie. ``pair_shard``/``tables`` serve the sharded form
-    (``resolve_compact_py``)."""
-    results, ovf_idx = resolve_compact_py(
-        pair_sid, totals, host_route, topics, subs_table, n_hits=int(n_hits),
-        pair_shard=pair_shard, tables=tables,
-    )
+def _fill_host_rows(stats, host_walk, results, ovf_idx, topics, true_overflow) -> list:
+    """Re-walk the host-routed rows of a resolved batch on the live trie
+    (counting each as a fallback, and as an overflow when the device
+    routed it), and give every empty topic an empty result."""
     for i in ovf_idx:
         topic = topics[i]
         if topic:
@@ -239,6 +251,155 @@ def materialize_compact_pairs(
             if not topic:
                 results[i] = Subscribers()
     return results
+
+
+def materialize_compact_pairs(
+    stats: "MatcherStats",
+    host_walk: Callable[[str], Subscribers],
+    pair_sid: np.ndarray,
+    totals: np.ndarray,
+    host_route: np.ndarray,
+    n_hits: int,
+    topics: list[str],
+    subs_table: Any,
+    true_overflow: np.ndarray,
+    pair_shard: Optional[np.ndarray] = None,
+    tables: Optional[list] = None,
+    lazy: bool = False,
+) -> list[Subscribers]:
+    """Expand one device-compacted batch into Subscribers results through
+    the C materializer (``resolve_compact_py`` is its plain version).
+    ``totals`` drives a cursor over the topic-major pair stream (padded
+    rows included); host-routed topics skip their pairs and re-walk the
+    live trie. ``pair_shard``/``tables`` serve the sharded form: each
+    pair expands against its shard's table.
+
+    ``lazy=True`` returns ``SubscribersView`` results over the pair
+    stream: per-hit objects are built only when a consumer asks. A view
+    keeps its stream alive, so it gets its own pageable copy (4 B a hit,
+    8 sharded), never the pinned D2H buffer or a kernel's output tensor.
+    Host-routed rows carry real Subscribers from the trie walk. A
+    mismatch of stream and totals raises ``ValueError`` on either path."""
+    acc = _accel()
+    if tables is None:
+        snaps, window = subs_table.snaps, subs_table.window
+    else:
+        snaps, window = [t.snaps for t in tables], tables[0].window
+    resolve = acc.resolve_compact_views if lazy else acc.resolve_compact
+    results, ovf_idx = resolve(
+        np.array(pair_sid, dtype=np.int32) if lazy else np.ascontiguousarray(pair_sid, dtype=np.int32),
+        None if pair_shard is None else np.array(pair_shard, dtype=np.int32),
+        np.ascontiguousarray(totals, dtype=np.int32),
+        np.ascontiguousarray(host_route, dtype=np.int32),
+        int(n_hits),
+        len(topics),
+        snaps,
+        window,
+        Subscribers,
+        ns_modes(topics),
+    )
+    return _fill_host_rows(stats, host_walk, results, ovf_idx, topics, true_overflow)
+
+
+def expand_snap_py(snap) -> Subscribers:
+    """Materialize one node snapshot tuple ``(clients, shared, inline)``
+    into a Subscribers result: the single-node case of the host gather
+    (topics.go:631-678) and the plain version of the C ``expand_snap``.
+    The namespace guard needs no check here: it only drops filters with a
+    ``+`` or ``#`` first level, and the exact-map path serves
+    wildcard-free filter sets."""
+    subs = Subscribers()
+    cli, shr, inl = snap
+    subscriptions = subs.subscriptions
+    for client, sub in cli:
+        subscriptions[client] = sub.self_merged_copy()
+    if shr:
+        shared = subs.shared
+        for client, sub in shr:
+            group = shared.get(sub.filter)
+            if group is None:
+                group = shared[sub.filter] = {}
+            group[client] = sub
+    if inl:
+        inline = subs.inline_subscriptions
+        for isub in inl:
+            inline[isub.identifier] = isub
+    return subs
+
+
+def _ranges_routes(packed, topics, P, len_overflow, pred, batch_pred):
+    """The host-route classes of a packed-ranges batch: ``(true_overflow,
+    routed)`` — device overflow (sat/spill) or over-deep topics, and the
+    delta-routed topic indices."""
+    true_overflow = (packed[:, 2 * P + 1] != 0) | len_overflow
+    if batch_pred is not None:
+        routed = list(batch_pred(topics))
+    elif pred is not None:
+        routed = [i for i, t in enumerate(topics) if t and pred(t)]
+    else:
+        routed = []
+    return true_overflow, routed
+
+
+def resolve_ranges_py(
+    stats: "MatcherStats", host_walk: Callable[[str], Subscribers], packed, topics, flat,
+    P, len_overflow, pred, batch_pred,
+) -> list[Subscribers]:
+    """The plain version of ``resolve_ranges_native``: the Python loop over
+    the packed ranges rows."""
+    true_overflow, routed = _ranges_routes(packed, topics, P, len_overflow, pred, batch_pred)
+    overflow = true_overflow.tolist()
+    routed = frozenset(routed)
+    # one bulk conversion: per-row numpy slicing costs ~10us of fixed
+    # overhead per topic, plain list walks are ~10x cheaper
+    out_rows = packed[:, : 2 * P].tolist()
+    results = []
+    results_append = results.append
+    table = flat.subs
+    for i, topic in enumerate(topics):
+        if not topic:
+            results_append(Subscribers())  # empty topic never matches
+        elif overflow[i] or i in routed:
+            stats.host_fallbacks += 1
+            stats.overflows += int(overflow[i])
+            results_append(host_walk(topic))  # host fallback
+        else:
+            row = out_rows[i]
+            sids = []
+            for p in range(P):
+                c = row[P + p]
+                if c:
+                    s0 = row[p]
+                    sids.extend(range(s0, s0 + c))
+            results_append(expand_sids(table, sids, Subscribers(), mode=ns_guard_mode(topic)))
+    return results
+
+
+def resolve_ranges_native(
+    stats: "MatcherStats", host_walk: Callable[[str], Subscribers], packed, topics, flat,
+    P, len_overflow, pred, batch_pred, lazy: bool,
+) -> list[Subscribers]:
+    """Materialize one already-synced packed-ranges batch through the C
+    materializer (JAX ``TpuMatcher._resolve_native``). Every host-route
+    class (device overflow, over-deep topics, delta-routed topics) is
+    merged into the overflow column before the C call, so routed rows are
+    never materialized only to be replaced. ``lazy`` returns views over a
+    pageable copy of the rows (never the pinned D2H buffer or a kernel's
+    output tensor, which a view would otherwise keep alive)."""
+    col = 2 * P + 1
+    true_overflow, routed = _ranges_routes(packed, topics, P, len_overflow, pred, batch_pred)
+    if lazy or len_overflow.any() or routed:
+        packed = np.array(packed, dtype=np.int32)
+        packed[:, col] |= len_overflow
+        if routed:
+            packed[np.asarray(routed, dtype=np.int64), col] = 1
+    acc = _accel()
+    resolve = acc.resolve_batch_views if lazy else acc.resolve_batch
+    results, ovf_idx = resolve(
+        np.ascontiguousarray(packed, dtype=np.int32), len(topics), P, flat.subs.snaps,
+        flat.window, Subscribers, ns_modes(topics),
+    )
+    return _fill_host_rows(stats, host_walk, results, ovf_idx, topics, true_overflow)
 
 
 @dataclass
@@ -309,7 +470,9 @@ class TorchMatcher:
 
     ``device`` is where the index lives and the kernels run: ``"cuda"`` by
     default (raises when there is no card), ``"cpu"`` for the plain
-    PyTorch versions. ``window`` caps ids per filter path.
+    PyTorch versions. ``window`` caps ids per filter path. ``lazy``
+    (default True) returns ``SubscribersView`` results; False returns
+    eager ``Subscribers``.
     """
 
     def __init__(
@@ -322,6 +485,7 @@ class TorchMatcher:
         compact_capacity: int = 0,
         hits_estimate: float = 2.0,
         device="cuda",
+        lazy: bool = True,
     ) -> None:
         self.device = resolve_device(device)
         self.topics = topics
@@ -339,6 +503,9 @@ class TorchMatcher:
         self._hits_ewma = max(1.0, float(hits_estimate))
         # sticky per-batch-bucket capacities (pick_compact_capacity)
         self._caps: dict[int, int] = {}
+        # lazy SubscribersView results over the D2H'd stream (ranges rows
+        # or pairs); any consumer that reads a map materializes it
+        self.lazy = lazy
         self.stats = MatcherStats()
         # one (flat_index, device_arrays, built_version) tuple, swapped
         # atomically by rebuild()/fold() so a concurrent match never mixes
@@ -532,9 +699,9 @@ class TorchMatcher:
                 # hits EWMA the compact path uses, so the encoding pick
                 # keeps adapting from EITHER path
                 self._observe_hits(int(packed[: len(topics), 2 * P].sum()), len(topics))
-                return self._resolve_ranges(
-                    packed[: len(topics)], topics, flat, P,
-                    len_overflow[: len(topics)], pred, batch_pred,
+                return resolve_ranges_native(
+                    self.stats, self.topics.subscribers, packed[: len(topics)], topics, flat, P,
+                    len_overflow[: len(topics)], pred, batch_pred, self.lazy,
                 )
 
             return resolve
@@ -562,9 +729,9 @@ class TorchMatcher:
                     *arrays, dev_tokens, max_levels=flat.max_levels
                 ).cpu().numpy()
                 stats.d2h_bytes += int(out.nbytes + packed.nbytes)
-                return self._resolve_ranges(
-                    packed[: len(topics)], topics, flat, P,
-                    len_overflow[: len(topics)], pred, batch_pred,
+                return resolve_ranges_native(
+                    self.stats, self.topics.subscribers, packed[: len(topics)], topics, flat, P,
+                    len_overflow[: len(topics)], pred, batch_pred, self.lazy,
                 )
             stats.compact_batches += 1
             stats.d2h_bytes += int(out.nbytes)
@@ -582,7 +749,7 @@ class TorchMatcher:
                 host_route[np.asarray(routed, dtype=np.int64)] = True
             return materialize_compact_pairs(
                 self.stats, self.topics.subscribers, pair_sid, totals, host_route,
-                n_hits, topics, flat.subs, true_overflow,
+                n_hits, topics, flat.subs, true_overflow, lazy=self.lazy,
             )
 
         return resolve_compact
@@ -613,47 +780,6 @@ class TorchMatcher:
         """Feed one batch's true hit count into the capacity EWMA."""
         self._hits_ewma = fold_hits_ewma(self._hits_ewma, n_hits, b)
 
-    def _resolve_ranges(
-        self, packed, topics, flat, P, len_overflow, pred, batch_pred
-    ) -> list[Subscribers]:
-        """Materialize one already-synced packed-ranges batch (the dense
-        path, and the compact path's per-batch overflow re-run)."""
-        stats = self.stats
-        # the host-route classes: device overflow (sat/spill), >max_levels
-        # topics, and delta-routed topics
-        overflow = (packed[:, 2 * P + 1].astype(bool) | len_overflow).tolist()
-        if batch_pred is not None:
-            routed = frozenset(batch_pred(topics))
-        else:
-            routed = frozenset()
-        # one bulk conversion: per-row numpy slicing costs ~10us of fixed
-        # overhead per topic, plain list walks are ~10x cheaper
-        out_rows = packed[:, : 2 * P].tolist()
-        results = []
-        results_append = results.append
-        table = flat.subs
-        for i, topic in enumerate(topics):
-            if not topic:
-                results_append(Subscribers())  # empty topic never matches
-            elif (
-                overflow[i]
-                or i in routed
-                or (batch_pred is None and pred is not None and pred(topic))
-            ):
-                stats.host_fallbacks += 1
-                stats.overflows += int(overflow[i])
-                results_append(self.topics.subscribers(topic))  # host fallback
-            else:
-                row = out_rows[i]
-                sids = []
-                for p in range(P):
-                    c = row[P + p]
-                    if c:
-                        s0 = row[p]
-                        sids.extend(range(s0, s0 + c))
-                results_append(expand_sids(table, sids, Subscribers(), mode=ns_guard_mode(topic)))
-        return results
-
     def _match_exact_fast(self, topics: list[str], flat, route_to_host):
         """Serve a batch from the exact-map (wildcard-free filter sets):
         every topic is one dict probe + one snapshot expansion, covering
@@ -677,7 +803,8 @@ class TorchMatcher:
                 )
             get = flat.exact_map.get
             subscribers = self.topics.subscribers
-            expand = self._expand_snap
+            expand_c = _accel().expand_snap
+            modes = ns_modes(topics)
             results = []
             results_append = results.append
             n_fast = 0
@@ -690,33 +817,14 @@ class TorchMatcher:
                 else:
                     n_fast += 1
                     snap = get(topic)
-                    results_append(expand(snap) if snap is not None else Subscribers())
+                    results_append(
+                        Subscribers() if snap is None
+                        else expand_c(snap, Subscribers, 0 if modes is None else int(modes[i]))
+                    )
             stats.host_fast += n_fast
             return results
 
         return resolve
-
-    @staticmethod
-    def _expand_snap(snap) -> Subscribers:
-        """Materialize one node snapshot tuple into a Subscribers result —
-        the single-node case of the host gather (topics.go:631-678)."""
-        subs = Subscribers()
-        cli, shr, inl = snap
-        subscriptions = subs.subscriptions
-        for client, sub in cli:
-            subscriptions[client] = sub.self_merged_copy()
-        if shr:
-            shared = subs.shared
-            for client, sub in shr:
-                group = shared.get(sub.filter)
-                if group is None:
-                    group = shared[sub.filter] = {}
-                group[client] = sub
-        if inl:
-            inline = subs.inline_subscriptions
-            for isub in inl:
-                inline[isub.identifier] = isub
-        return subs
 
     def match_topics(self, topics: list[str], route_to_host=None) -> list[Subscribers]:
         """Match a batch of topics; every result is bit-identical to the

@@ -68,12 +68,13 @@ from ..ops.flat import (
 from ..ops.hashing import tokenize_topics
 from ..ops.matcher import (
     MatcherStats,
-    expand_sids,
+    _accel,
     fold_hits_ewma,
     materialize_compact_pairs,
+    ns_modes,
     pick_compact_capacity,
 )
-from ..topics import Mutation, Subscribers, TopicsIndex, ns_guard_mode
+from ..topics import Mutation, Subscribers, TopicsIndex
 
 _log = logging.getLogger("mqtt_tpu_torch.parallel")
 
@@ -289,6 +290,7 @@ class ShardedTorchMatcher:
         compact: bool = True,
         compact_capacity: int = 0,
         hits_estimate: float = 2.0,
+        lazy: bool = False,
     ) -> None:
         self.topics = topics
         self.mesh = mesh or make_mesh()
@@ -301,6 +303,10 @@ class ShardedTorchMatcher:
         # contract as TorchMatcher
         self.compact = compact
         self.compact_capacity = max(0, compact_capacity)
+        # lazy SubscribersView results over the stitched (shard, sid) pair
+        # stream of the compact route (False by default, as the JAX
+        # package's ShardedTpuMatcher; DeltaMatcher passes its own True)
+        self.lazy = lazy
         self._hits_ewma = max(1.0, float(hits_estimate))
         # sticky per-batch-bucket capacities (pick_compact_capacity)
         self._caps: dict[int, int] = {}
@@ -837,6 +843,8 @@ class ShardedTorchMatcher:
             stats.d2h_bytes += int(out.nbytes)
             routed = frozenset(routed_indices())
             rows = np.transpose(out[:, :b], (1, 0, 2)).tolist()
+            modes = ns_modes(topics)
+            acc = _accel()  # once per batch, not per topic
             results = []
             for i, topic in enumerate(topics):
                 if not topic:
@@ -846,7 +854,7 @@ class ShardedTorchMatcher:
                     stats.overflows += int(overflow[i])
                     results.append(self.topics.subscribers(topic))
                 else:
-                    results.append(self._expand(tables, rows[i], ns_guard_mode(topic)))
+                    results.append(self._expand(tables, rows[i], 0 if modes is None else int(modes[i]), acc))
             return results
 
         if not self.compact:
@@ -899,6 +907,7 @@ class ShardedTorchMatcher:
             return materialize_compact_pairs(
                 stats, self.topics.subscribers, pair_sid, per_topic, host_route, n_hits,
                 topics, None, true_overflow, pair_shard=pair_shard, tables=tables,
+                lazy=self.lazy,
             )
 
         return resolve_compact
@@ -923,12 +932,15 @@ class ShardedTorchMatcher:
     def subscribers(self, topic: str) -> Subscribers:
         return self.match_topics([topic])[0]
 
-    def _expand(self, tables, shard_sids: list, mode: int) -> Subscribers:
+    def _expand(self, tables, shard_sids: list, mode: int, acc) -> Subscribers:
         """Union per-shard local sub ids (one list per shard) into one
-        Subscribers set; ``mode`` is the topic's ``ns_guard_mode``."""
+        Subscribers set through the C materializer ``acc`` (``expand_sids``
+        shard by shard is its plain version); ``mode`` is the topic's
+        ``ns_guard_mode``. The slot route (compact off, or a batch whose
+        hits outgrew the pair buffer) is eager, as in the JAX package."""
         subs = Subscribers()
         for s in range(self.n_shards):
-            expand_sids(tables[s], shard_sids[s], subs, seen=set(), mode=mode)
+            acc.expand_sids_list(shard_sids[s], tables[s].snaps, tables[s].window, subs, mode)
         return subs
 
 

@@ -72,20 +72,31 @@ def churn_ops(seed: int, ops, n: int = 150) -> list[tuple]:
     return out
 
 
+# the matchers' two result forms: lazy SubscribersView (the default) and
+# eager Subscribers, both from the C materializer
+LAZY = pytest.mark.parametrize("lazy", [True, False], ids=["views", "eager"])
+
+
 @pytest.fixture(scope="module")
 def corpus():
     return corpus_ops(7, n_subs=1500)
 
 
+@LAZY
 @pytest.mark.parametrize("compact", [False, True], ids=["packed", "compact"])
-def test_torch_matcher_matches_jax_and_both_tries(corpus, compact):
+def test_torch_matcher_matches_jax_and_both_tries(corpus, compact, lazy):
     jidx, tidx = twin_tries(corpus)
     topics = corpus_topics(21, n=400)
-    port = TorchMatcher(tidx, max_levels=MAX_LEVELS, compact=compact, compact_capacity=64 if compact else 0, device="cpu")
+    port = TorchMatcher(tidx, max_levels=MAX_LEVELS, compact=compact, compact_capacity=64 if compact else 0,
+                        device="cpu", lazy=lazy)
     jaxm = TpuMatcher(jidx, max_levels=MAX_LEVELS, compact=compact, compact_capacity=64 if compact else 0, lazy=False)
     got = port.match_topics(topics)
     want = jaxm.match_topics(topics)
     assert_same(topics, got, tidx, jidx, want)
+    # device-route rows are views when lazy; host-walked rows are plain
+    n_views = sum(type(r).__name__ == "SubscribersView" for r in got)
+    device_rows = len(topics) - port.stats.host_fallbacks - topics.count("")
+    assert n_views == (device_rows if lazy else 0)
     assert port.stats.host_fallbacks == jaxm.stats.host_fallbacks
     assert port.stats.overflows == jaxm.stats.overflows
     assert port.stats.host_fallbacks > 0  # spilled path + over-deep topics
@@ -113,9 +124,10 @@ def test_a_clients_filters_merge_in_probe_order_as_the_jax_package_does():
         assert (got.subscriptions["c"].identifiers, host.identifiers) == ({"a/+/b": 0, "a/#": 3}, {"a/#": 3})
 
 
-def test_adaptive_pick_serves_both_paths(corpus):
+@LAZY
+def test_adaptive_pick_serves_both_paths(corpus, lazy):
     jidx, tidx = twin_tries(corpus)
-    port = TorchMatcher(tidx, max_levels=MAX_LEVELS, hits_estimate=1.0, device="cpu")
+    port = TorchMatcher(tidx, max_levels=MAX_LEVELS, hits_estimate=1.0, device="cpu", lazy=lazy)
     jaxm = TpuMatcher(jidx, max_levels=MAX_LEVELS, hits_estimate=1.0, lazy=False)
     for seed in range(4):
         topics = corpus_topics(30 + seed, n=100)
@@ -125,17 +137,18 @@ def test_adaptive_pick_serves_both_paths(corpus):
     }
 
 
-def test_saturated_and_exact_only_indexes():
+@LAZY
+def test_saturated_and_exact_only_indexes(lazy):
     ops = saturating_ops()
     jidx, tidx = twin_tries(ops)
     topics = [o[2] for o in ops] + ["plain/topic", "wild/x", "nothing"]
-    port = TorchMatcher(tidx, max_levels=4, device="cpu")
+    port = TorchMatcher(tidx, max_levels=4, device="cpu", lazy=lazy)
     assert_same(topics, port.match_topics(topics), tidx, jidx)
     assert port.index.n_sat >= 1
     assert port.stats.overflows >= 6
     exact = [("sub", f"c{i}", f"a/{i % 50}/b", i % 3, 0, False) for i in range(300)]
     jidx, tidx = twin_tries(exact)
-    port = TorchMatcher(tidx, device="cpu")
+    port = TorchMatcher(tidx, device="cpu", lazy=lazy)
     topics = [f"a/{i}/b" for i in range(60)] + ["a/x", ""]
     assert_same(topics, port.match_topics(topics), tidx, jidx)
     assert port.stats.host_fast == len(topics) - 1
@@ -171,11 +184,12 @@ def test_fold_matches_jax_fold(corpus):
     assert_same(topics, port.match_topics(topics), tidx, jidx, jaxm.match_topics(topics))
 
 
-def test_fold_between_issue_and_resolve_keeps_the_issued_snapshot():
+@LAZY
+def test_fold_between_issue_and_resolve_keeps_the_issued_snapshot(lazy):
     ops = [("sub", f"c{i}", f"room/{i % 4}/t", 1, 0, False) for i in range(40)]
     ops.append(("sub", "w", "room/+/t", 2, 0, False))
     jidx, tidx = twin_tries(ops)
-    port = TorchMatcher(tidx, max_levels=4, device="cpu")
+    port = TorchMatcher(tidx, max_levels=4, device="cpu", lazy=lazy)
     topics = ["room/0/t", "room/1/t"]
     before = [tidx.subscribers(t) for t in topics]
     resolver = port.match_topics_async(topics)
@@ -190,9 +204,10 @@ def test_fold_between_issue_and_resolve_keeps_the_issued_snapshot():
         assert subscribers_equal(g, tidx.subscribers(t))
 
 
-def test_delta_matcher_under_churn(corpus):
+@LAZY
+def test_delta_matcher_under_churn(corpus, lazy):
     jidx, tidx = twin_tries(corpus)
-    dm = DeltaMatcher(tidx, max_levels=MAX_LEVELS, background=False, device="cpu")
+    dm = DeltaMatcher(tidx, max_levels=MAX_LEVELS, background=False, device="cpu", lazy=lazy)
     jaxm = TpuMatcher(jidx, max_levels=MAX_LEVELS, lazy=False)
     try:
         topics = corpus_topics(50, n=300)
@@ -232,9 +247,10 @@ def test_delta_matcher_background_fold():
         dm.close()
 
 
-def test_match_stage_end_to_end(corpus):
+@LAZY
+def test_match_stage_end_to_end(corpus, lazy):
     jidx, tidx = twin_tries(corpus)
-    dm = DeltaMatcher(tidx, max_levels=MAX_LEVELS, background=False, device="cpu")
+    dm = DeltaMatcher(tidx, max_levels=MAX_LEVELS, background=False, device="cpu", lazy=lazy)
     jaxm = TpuMatcher(jidx, max_levels=MAX_LEVELS, lazy=False)
     topics = corpus_topics(60, n=700)
 

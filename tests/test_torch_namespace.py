@@ -52,28 +52,33 @@ def _stage_results(dm, tidx, topics):
 ROUTES = ["matcher-packed", "matcher-compact", "stage", "mesh-slots", "mesh-compact"]
 
 
+@pytest.mark.parametrize("lazy", [True, False], ids=["views", "eager"])
 @pytest.mark.parametrize("route", ROUTES)
-def test_every_route_equals_the_trie_on_scoped_topics(route, monkeypatch):
+def test_every_route_equals_the_trie_on_scoped_topics(route, lazy, monkeypatch):
     mesh = route.startswith("mesh")
     _, tidx = twin_tries(ns_corpus_ops(31))
     topics = ns_topics(32)
     if route.startswith("matcher"):
         compact = route == "matcher-compact"
         m = TorchMatcher(tidx, max_levels=MAX_LEVELS, compact=compact,
-                         compact_capacity=16384 if compact else 0, device="cpu")
+                         compact_capacity=16384 if compact else 0, device="cpu", lazy=lazy)
         got = m.match_topics(topics)
         assert (m.stats.compact_batches > 0) == compact
         assert m.stats.host_fallbacks == 0  # every topic on the device route
     else:
         dm = DeltaMatcher(tidx, max_levels=MAX_LEVELS, background=False, device="cpu",
                           compact=route != "mesh-slots", compact_capacity=16384 if mesh else 0,
-                          mesh=make_mesh(["cpu"] * 8) if mesh else None)
+                          mesh=make_mesh(["cpu"] * 8) if mesh else None, lazy=lazy)
         try:
             got = _stage_results(dm, tidx, topics) if route == "stage" else dm.match_topics(topics)
             assert (dm.stats.compact_batches > 0) == (route != "mesh-slots")
             assert dm.stats.host_fallbacks == 0
         finally:
             dm.close()
+    # the C materializer's two forms: views on every compact or ranges
+    # route when lazy (the mesh's slot route is eager), eager otherwise
+    n_views = sum(type(g).__name__ == "SubscribersView" for g in got)
+    assert (n_views > len(topics) // 2) if lazy and route != "mesh-slots" else n_views == 0
     unguarded = _unguarded(tidx, topics, monkeypatch)
     guarded = 0
     for t, g, u in zip(topics, got, unguarded):

@@ -335,11 +335,19 @@ def test_shard_of_matches_jax():
         assert shard_of(kind, client, flt, ident, n) == jsharded.shard_of(kind, client, flt, ident, n)
 
 
+# the matchers' two result forms: lazy SubscribersView over the compact
+# route's (shard, sid) stream, and eager Subscribers (ShardedTorchMatcher's
+# default, and every result of the slot route)
+LAZY = pytest.mark.parametrize("lazy", [True, False], ids=["views", "eager"])
+
+
+@LAZY
 @pytest.mark.parametrize("compact", [False, True], ids=["full", "compact"])
-def test_sharded_matcher_matches_jax_and_both_tries(compact):
+def test_sharded_matcher_matches_jax_and_both_tries(compact, lazy):
     jidx, tidx = twin_tries(mesh_corpus(7))
     topics = mesh_topics(8, n=200)
-    pm = ShardedTorchMatcher(tidx, mesh=make_mesh(["cpu"] * 8), max_levels=MAX_LEVELS, compact=compact)
+    pm = ShardedTorchMatcher(tidx, mesh=make_mesh(["cpu"] * 8), max_levels=MAX_LEVELS, compact=compact,
+                             lazy=lazy)
     jm = ShardedTpuMatcher(jidx, mesh=jax_make_mesh(jax.devices()[:8]), max_levels=MAX_LEVELS,
                            compact=compact, lazy=False)
     try:
@@ -356,12 +364,24 @@ def test_sharded_matcher_matches_jax_and_both_tries(compact):
             assert pm.stats.compact_overflows >= 1
             assert np.array_equal(pm.tile_hit_counts(), jm.tile_hit_counts())
             assert pm.device_skew_ratio() == pytest.approx(jm.device_skew_ratio())
+        # a batch that fits its pair buffer: views come from the compact
+        # route only (a batch that outgrew it re-runs on the eager slot
+        # route, as both batches above did)
+        pm.compact_capacity = 1 << 15 if compact else 0
+        fallbacks = pm.stats.host_fallbacks
+        got = pm.match_topics(topics)
+        assert_same(topics, got, tidx, jidx)
+        n_views = sum(type(r).__name__ == "SubscribersView" for r in got)
+        device_rows = len(topics) - (pm.stats.host_fallbacks - fallbacks) - topics.count("")
+        assert device_rows > len(topics) // 2
+        assert n_views == (device_rows if lazy and compact else 0)
     finally:
         pm.close()
         jm.close()
 
 
-def test_multi_shard_clients_merge_as_the_jax_package_does():
+@LAZY
+def test_multi_shard_clients_merge_as_the_jax_package_does(lazy):
     """A client whose matching filters lie in different shards: its merged
     Subscription takes the first shard's fields (filter, identifier,
     retain flags) where the trie takes the walk's first — a fault of the
@@ -369,7 +389,7 @@ def test_multi_shard_clients_merge_as_the_jax_package_does():
     Who is delivered, and at which QoS, is the trie's."""
     jidx, tidx = twin_tries(corpus_ops(10, n_subs=300))
     topics = corpus_topics(11, n=300)
-    pm = ShardedTorchMatcher(tidx, mesh=make_mesh(["cpu"] * 8), max_levels=MAX_LEVELS)
+    pm = ShardedTorchMatcher(tidx, mesh=make_mesh(["cpu"] * 8), max_levels=MAX_LEVELS, lazy=lazy)
     jm = ShardedTpuMatcher(jidx, mesh=jax_make_mesh(jax.devices()[:8]), max_levels=MAX_LEVELS, lazy=False)
     differ = 0
     try:
@@ -410,11 +430,12 @@ def test_incremental_rebuild_touches_one_shard():
     assert tidx._observers == []
 
 
-def test_sharded_matcher_under_churn_matches_jax():
+@LAZY
+def test_sharded_matcher_under_churn_matches_jax(lazy):
     rng = random.Random(4242)
     ops = mesh_corpus(5, n=150)
     jidx, tidx = twin_tries(ops)
-    pm = ShardedTorchMatcher(tidx, mesh=make_mesh(["cpu"] * 8), max_levels=5)
+    pm = ShardedTorchMatcher(tidx, mesh=make_mesh(["cpu"] * 8), max_levels=5, lazy=lazy)
     jm = ShardedTpuMatcher(jidx, mesh=jax_make_mesh(jax.devices()[:8]), max_levels=5, lazy=False)
     live = [(o[2], o[1]) for o in ops if o[0] == "sub"]
     pm.rebuild()
@@ -441,10 +462,11 @@ def test_sharded_matcher_under_churn_matches_jax():
         jm.close()
 
 
-def test_delta_matcher_over_mesh():
+@LAZY
+def test_delta_matcher_over_mesh(lazy):
     ops = [("sub", f"cl{i}", f"room/{i % 6}/+", 0, 0, False) for i in range(60)]
     jidx, tidx = twin_tries(ops)
-    dm = DeltaMatcher(tidx, background=False, mesh=make_mesh(["cpu"] * 4))
+    dm = DeltaMatcher(tidx, background=False, mesh=make_mesh(["cpu"] * 4), lazy=lazy)
     try:
         topics = ["room/3/x", "room/0/y", "room/9/z"]
         assert_same(topics, dm.match_topics(topics), tidx, jidx)
@@ -466,10 +488,11 @@ def test_delta_matcher_over_mesh():
     assert tidx._observers == []
 
 
-def test_match_stage_over_a_mesh():
+@LAZY
+def test_match_stage_over_a_mesh(lazy):
     ops = mesh_corpus(11)
     jidx, tidx = twin_tries(ops)
-    dm = DeltaMatcher(tidx, max_levels=MAX_LEVELS, background=False, mesh=make_mesh(["cpu"] * 4))
+    dm = DeltaMatcher(tidx, max_levels=MAX_LEVELS, background=False, mesh=make_mesh(["cpu"] * 4), lazy=lazy)
     topics = mesh_topics(12, n=300)
 
     async def drive():

@@ -99,7 +99,8 @@ def _carriers(pubs, predicates, recrypt, tenant):
     return items
 
 
-def test_stage_legs_match_the_jax_stage():
+@pytest.mark.parametrize("lazy", [True, False], ids=["views", "eager"])
+def test_stage_legs_match_the_jax_stage(lazy):
     jidx, tidx, suffixes = twin_predicated_tries(13)
     _add_tenant(jidx, tidx)
     jpred, tpred = JPredicates(oracle_sample=1), PredicateEngine(oracle_sample=1, device="cpu")
@@ -116,7 +117,7 @@ def test_stage_legs_match_the_jax_stage():
 
     jstage = JMatchStage(TpuMatcher(jidx, max_levels=6, lazy=False), jidx.subscribers, max_batch=64,
                          latency_budget_s=None, predicates=jpred, recrypt=jrec)
-    dm = DeltaMatcher(tidx, max_levels=6, background=False, device="cpu")
+    dm = DeltaMatcher(tidx, max_levels=6, background=False, device="cpu", lazy=lazy)
     tstage = MatchStage(dm, tidx.subscribers, max_batch=64, latency_budget_s=None,
                         predicates=tpred, recrypt=trec_eng)
     try:
@@ -125,6 +126,9 @@ def test_stage_legs_match_the_jax_stage():
     finally:
         dm.close()
     assert not tstage.fallbacks and tstage.admission_fallbacks == 0
+    # apply() reads (and filters) a view's maps as it does a Subscribers'
+    n_views = sum(type(ts).__name__ == "SubscribersView" for ts in tres)
+    assert (n_views > 0) if lazy else n_views == 0
     n_rows = n_keystreams = 0
     for (topic, payload), (_t, jf, jr), (_t2, tf, tr), js, ts in zip(pubs, jitems, titems, jres, tres):
         assert not isinstance(ts, BaseException) and not isinstance(js, BaseException)
