@@ -79,6 +79,22 @@ Phases, each printed as it ends:
    plaintext, and every sealed payload must open under its subscriber's
    key (all through the plain PyTorch AES on the card, one per publish
    through the numpy ``open_with_key``).
+10. Retained delivery (bench.py config 11's retained scan,
+    ``bench.py:1345-1372``), at 50,000 and at 1,000,000 retained topics,
+    with 4 tenant namespaces x 2,000 scoped topics, 64 ``$SYS`` and 64
+    ``$other`` topics and a namespace holding an over-deep topic:
+    ``RetainedMatchEngine`` (K1 with one filter over the device-resident
+    corpus) answers config 11's 64 filters and 27 others in three rounds,
+    300 retains and 300 clears (a namespace compacting) between the first
+    two, every answer equal to the walk (``TopicsIndex.messages``); a
+    fourth round under the profiler; the per-scan split; K1 held against
+    its plain version at the corpus's capacity.
+11. The re-key re-seal (cfgR's setup): a tenant's 4,096 encrypted retained
+    payloads of 256 B and 4,096 of 4096 B re-sealed across a new epoch
+    through ``RecryptEngine.reseal_batch``, one K6 launch per call; every
+    new payload carries the epoch's tag and opens under the new key, and
+    the engine's answers stay the same; then K6 at that block count
+    against its plain version.
 
 Phase 4 also holds K7 (``flat_match_core``, the single-index entry point
 of K8's kernel) and K4-K6 against their plain versions at the shapes these
@@ -156,6 +172,13 @@ RECRYPT_SIZES = (256, 4096)
 RECRYPT_FANOUT = 100
 N_TENANTS = 4
 KEYS_PER_TENANT = 128
+# retained delivery: bench.py config 11's retained-scan corpus (leg 2, 50,000
+# topics) and a fleet keeping one retained status topic per device of 1M
+RETAINED_SIZES = (50_000, 1_000_000)
+RET_TENANTS = 4  # tenant namespaces of scoped retained topics beside the global corpus
+RET_PER_TENANT = 2_000
+RET_CHURN = 300  # retains, and as many clears, between the first two rounds
+N_RESEAL = 4096  # cfgR: retained encrypted payloads per size re-sealed at a re-key
 
 
 def log(msg: str) -> None:
@@ -540,9 +563,8 @@ async def _wave(stage, topics):
 
 async def _traced_wave(stage, topics, on_cuda: bool):
     """A wave under ``torch.profiler``: the results, the wall seconds, and
-    the device's busy and copy microseconds (the union of the kernel, copy
-    and memset spans in the CUDA trace; None off the card or when the
-    trace holds no device span)."""
+    the device's busy and copy microseconds (``_device_busy``; None off
+    the card or when the trace holds no device span)."""
     if not on_cuda:
         results, wall = await _wave(stage, topics)
         return results, wall, None, None
@@ -550,12 +572,19 @@ async def _traced_wave(stage, topics, on_cuda: bool):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         results, wall = await _wave(stage, topics)
+    return (results, wall) + _device_busy(prof)
+
+
+def _device_busy(prof) -> tuple:
+    """The union of the kernel, copy and memset spans in a CUDA trace, and
+    the copies' and memsets' share of it, in microseconds; ``(None,
+    None)`` when the trace holds no device span."""
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name)
         for e in prof.events() if str(e.device_type).endswith("CUDA")
     )
     if not spans:
-        return results, wall, None, None
+        return None, None
     busy = copy = 0.0
     lo, hi = spans[0][0], spans[0][1]
     for a, b, name in spans:
@@ -566,7 +595,7 @@ async def _traced_wave(stage, topics, on_cuda: bool):
             lo, hi = a, b
         else:
             hi = max(hi, b)
-    return results, wall, busy + hi - lo, copy
+    return busy + hi - lo, copy
 
 
 async def _paced(stage, topics, rate: float):
@@ -1494,16 +1523,17 @@ def phase_setup_recrypt(seed: int, device) -> dict:
     """cfg10's non-fast shape (bench.py:974-1000): 4 tenants x 128 keys,
     the encrypted namespace ``e/``; each tenant has four topic groups,
     each subscribed by 100 keyed subscribers through ``e/g<j>/+``."""
-    from mqtt_tpu_torch import DeltaMatcher, KeyRegistry, RecryptEngine, Subscription, Tenant, TopicsIndex
+    from mqtt_tpu_torch import DeltaMatcher, RecryptEngine, Subscription, TenantPlane, TopicsIndex
     from mqtt_tpu_torch.topics import ns_scope_filter
 
     t0 = time.perf_counter()
-    reg = KeyRegistry()
+    plane = TenantPlane()
+    reg = plane.keys
     tenants = []
     keys = {}
     index = TopicsIndex()
     for t in range(N_TENANTS):
-        tenant = Tenant(f"bt{t}", encrypted=("e/",))
+        tenant = plane.register(f"bt{t}", encrypted=("e/",))
         tenants.append(tenant)
         for k in range(KEYS_PER_TENANT):
             keys[(tenant.name, f"c{k}")] = bytes([t, k % 256]) * 8
@@ -1518,7 +1548,7 @@ def phase_setup_recrypt(seed: int, device) -> dict:
     log(f"phase setup cfgR: ok {N_TENANTS} tenants x {KEYS_PER_TENANT} keys, "
         f"{N_TENANTS * 4 * RECRYPT_FANOUT} subscriptions, {time.perf_counter() - t0:.1f} s")
     return {"name": "cfgR", "index": index, "dm": dm, "rec": rec, "tenants": tenants, "keys": keys,
-            "rng": random.Random(seed)}
+            "plane": plane, "rng": random.Random(seed)}
 
 
 def _verify_sealed(torch, rec, chunk, device):
@@ -1801,13 +1831,439 @@ def phase_kernels_pr(torch, rec: dict, cfgP: dict, cfgR: dict, device, n_recrypt
 
 
 
+# -- retained delivery (bench.py config 11, leg 2) and the re-key re-seal -----
+
+
+def cfg11_topic(i: int) -> str:
+    """bench.py:1352-1356's retained topic ``i`` (unique for every i)."""
+    return f"region{i % 40}/device{(i // 40) % 50}/metric{i // 2000}"
+
+
+def cfg11_filters() -> list:
+    """bench.py:1361-1371: config 11's 64 wildcard filters, four shapes."""
+    return [
+        [f"region{k % 40}/device{k % 50}/+", f"region{k % 40}/+/metric{k % 25}", f"region{k % 40}/#",
+         f"+/device{k % 50}/metric{k % 25}"][k % 4]
+        for k in range(64)
+    ]
+
+
+def _retained_packet(topic: str, payload: bytes, origin: str = ""):
+    from mqtt_tpu_torch import PUBLISH, FixedHeader, Packet
+
+    return Packet(fixed_header=FixedHeader(type=PUBLISH, retain=True), topic_name=topic, payload=payload,
+                  origin=origin)
+
+
+def subscribe_retained(eng, index, flt: str) -> list:
+    """A SUBSCRIBE's retained delivery, as the broker runs it
+    (mqtt_tpu/server.py:4364-4374): the engine's names, each looked up in
+    the retained store; the trie walk when the engine declines."""
+    names = eng.match(flt)
+    if names is None:
+        return index.messages(flt)
+    return [m for m in (index.retained.get(n) for n in names) if m is not None]
+
+
+def retain(eng, index, pk) -> int:
+    """A retained PUBLISH or clear, then the engine's note of it
+    (mqtt_tpu/server.py:3026-3027)."""
+    r = index.retain_message(pk)
+    eng.note_retained(pk.topic_name, r == 1)
+    return r
+
+
+def phase_setup_retained(n: int, device) -> dict:
+    """Config 11's retained corpus of ``n`` topics (payload ``b"r"``), with
+    4 tenant namespaces x 2,000 scoped topics, 64 ``$SYS/...`` and 64
+    ``$other/...`` topics and a namespace ``deep`` holding one topic deeper
+    than ``max_levels``; the engine reseeded from the store, then every
+    namespace's corpus tokenized and copied to the card."""
+    from mqtt_tpu_torch import RetainedMatchEngine, TopicsIndex
+    from mqtt_tpu_torch.topics import ns_scope_topic
+
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        topics = [cfg11_topic(i) for i in range(n)]
+        topics += [ns_scope_topic(f"rt{t}", cfg11_topic(i)) for t in range(RET_TENANTS) for i in range(RET_PER_TENANT)]
+        topics += [f"$SYS/broker/load{i}" for i in range(64)] + [f"$other/load/n{i}" for i in range(64)]
+        topics += [ns_scope_topic("deep", "/".join(f"l{i}" for i in range(10))),
+                   ns_scope_topic("deep", cfg11_topic(1))]
+        index = TopicsIndex()
+        check(index.retain_bulk([_retained_packet(t, b"r") for t in topics]) == len(topics),
+              "the retained corpus holds a repeated topic")
+        t1 = time.perf_counter()
+        eng = RetainedMatchEngine(index, max_levels=8, oracle_sample=0, device=device)
+        size = eng.reseed()
+        t2 = time.perf_counter()
+        for ns in eng._corpora:  # what each namespace's first match does
+            with eng._lock:
+                eng._ensure_tokens(eng._corpora[ns])
+        if device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        _settle_gc()
+    caps = {ns or "global": int(c.packed.shape[0]) for ns, c in eng._corpora.items()}
+    log(f"phase setup retained {n}: ok {size} retained topics in {len(caps)} namespaces, trie {t1 - t0:.1f} s, "
+        f"reseed {t2 - t1:.2f} s, first tokenize + copy to the device {t3 - t2:.2f} s "
+        f"({(t3 - t2) / size * 1e6:.3f} us a topic), capacities {caps}")
+    return {"n": n, "index": index, "eng": eng, "rng": random.Random(n)}
+
+
+def _retained_extra_filters() -> tuple:
+    """Beside config 11's filters: global and scoped ``+``/``#`` filters
+    that reach the namespaces, ``$SYS`` and ``$other``; and the two that
+    take the ``depth`` class (an over-deep filter, and a filter on the
+    namespace holding an over-deep topic)."""
+    from mqtt_tpu_torch.topics import ns_scope_filter
+
+    extra = ["#", "+/+/+", "$SYS/#", "$SYS/+", "+/load/+", "$other/#", "region3/device3/metric1/#"]
+    for t in range(RET_TENANTS):
+        extra += [ns_scope_filter(f"rt{t}", f) for f in ("#", f"region{t}/#", "+/device7/+", "$SYS/#")]
+    extra += [ns_scope_filter("churn", "#"), ns_scope_filter("churn", "+/device3/+")]
+    return extra, ["/".join(["+"] * 9), ns_scope_filter("deep", "#")]
+
+
+def _retained_round(eng, index, bench: list, extra: list, deep: list) -> dict:
+    """One round: config 11's filters through the engine, then through the
+    walk (each timed as a whole), every answer equal to the walk as sorted
+    lists and delivered from the store; then the other filters, checked
+    the same way (the ``depth`` ones must decline)."""
+    t0 = time.perf_counter()
+    got = [eng.match(f) for f in bench]
+    t1 = time.perf_counter()
+    want = [index.messages(f) for f in bench]
+    t2 = time.perf_counter()
+    hits = 0
+    for f, g, w in zip(bench, got, want):
+        check(g is not None, f"retained: the engine declined {f!r}")
+        names = sorted(p.topic_name for p in w)
+        check(sorted(g) == names, f"retained: {f!r} differs from the walk")
+        check(all(index.retained.get(x).payload == b"r" for x in g), f"retained: {f!r} names a topic the store lacks")
+        hits += len(g)
+    for f in extra + deep:
+        delivered = sorted(p.topic_name for p in subscribe_retained(eng, index, f))
+        check(delivered == sorted(p.topic_name for p in index.messages(f)), f"retained: {f!r} differs from the walk")
+    check(all(eng.match(f) is None for f in deep), "retained: an over-deep filter was not declined")
+    return {"dev_s": t1 - t0, "host_s": t2 - t1, "hits": hits}
+
+
+def _scan_split(torch, eng, filters: list) -> dict:
+    """Each filter's scan step by step (``_corpus``, ``_launch``,
+    ``_fetch``, ``_select``), the card synchronised between steps: mean
+    ms a scan for each, K1 by CUDA events. Then the cost of fresh rows:
+    4,096 global names tokenized, and their rows copied to the card, in
+    us a row."""
+    on_cuda = eng.device.type == "cuda"
+    t = {"corpus": 0.0, "k1": 0.0, "launch+sync": 0.0, "d2h": 0.0, "select": 0.0}
+    for f in filters:
+        local = f  # config 11's filters are global
+        a = time.perf_counter()
+        names, n, packed, lengths = eng._corpus("")
+        b = time.perf_counter()
+        fidx, arrays = eng._filter_index(local)
+        if on_cuda:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            b = time.perf_counter()
+            e0.record()
+        out = eng._launch(arrays, packed)
+        if on_cuda:
+            e1.record()
+            torch.cuda.synchronize()
+            t["k1"] += e0.elapsed_time(e1) / 1e3
+        c = time.perf_counter()
+        res = eng._fetch(out, n, fidx.num_patterns)
+        d = time.perf_counter()
+        eng._select(res, names, lengths, local)
+        e = time.perf_counter()
+        t["corpus"] += b - a
+        t["launch+sync"] += c - b
+        t["d2h"] += d - c
+        t["select"] += e - d
+    split = {k: v / len(filters) * 1e3 for k, v in t.items()}
+    c = eng._corpora[""]
+    fresh = c.names[:4096]
+    a = time.perf_counter()
+    rows, _over = eng._tokenize(fresh)
+    b = time.perf_counter()
+    scratch = torch.empty(rows.shape, dtype=torch.int32, device=eng.device)
+    if on_cuda:
+        torch.cuda.synchronize()
+    b2 = time.perf_counter()
+    scratch.copy_(torch.from_numpy(rows))
+    if on_cuda:
+        torch.cuda.synchronize()
+    e = time.perf_counter()
+    split["tokenize_us_a_row"] = (b - a) / len(fresh) * 1e6
+    split["h2d_us_a_row"] = (e - b2) / len(fresh) * 1e6
+    return split
+
+
+def phase_retained(torch, rec: dict, st: dict, device, iters: int = 20) -> dict:
+    """The retained-delivery path at one corpus size (launch counts reset
+    just before): three rounds of config 11's 64 filters and the others,
+    with 300 retains (a new namespace) and 300 clears (a third of them in
+    that namespace, past ``rebuild_ratio``, so its corpus compacts)
+    between the first two; a fourth round of the engine under the
+    profiler. Then the per-scan split, and K1 held against its plain
+    version with one filter over the global corpus's capacity."""
+    from mqtt_tpu_torch.ops import flat, kernels
+    from mqtt_tpu_torch.topics import ns_scope_topic
+
+    eng, index, rng, n = st["eng"], st["index"], st["rng"], st["n"]
+    on_cuda = device.type == "cuda"
+    bench = cfg11_filters()
+    extra, deep = _retained_extra_filters()
+    f0, m0 = dict(eng.fallbacks), eng.device_matches
+    rounds = []
+    kernels.reset_launches()
+    rounds.append(_retained_round(eng, index, bench, extra, deep))
+    churn = [ns_scope_topic("churn", cfg11_topic(i)) for i in range(RET_CHURN)]
+    for topic in churn:
+        check(retain(eng, index, _retained_packet(topic, b"r")) == 1, "retained: a churn retain was not new")
+    cleared = churn[: RET_CHURN // 3] + [cfg11_topic(i) for i in rng.sample(range(n), RET_CHURN - RET_CHURN // 3)]
+    for topic in cleared:
+        check(retain(eng, index, _retained_packet(topic, b"")) == -1, "retained: a clear found nothing")
+    check(len(eng._corpora["churn"].names) < RET_CHURN, "retained: the churn namespace did not compact")
+    for _ in range(2):
+        rounds.append(_retained_round(eng, index, bench, extra, deep))
+    traced = {"busy_us": None}
+    if on_cuda:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for f in bench:
+                eng.match(f)
+            traced["wall_s"] = time.perf_counter() - t0
+        traced["busy_us"], traced["copy_us"] = _device_busy(prof)
+    launches = dict(kernels.LAUNCHES)
+    check(launches["flat_probe_ranges"] > 0 or not on_cuda, "retained: K1 was never launched")
+    fallbacks = {k: eng.fallbacks[k] - f0[k] for k in eng.fallbacks}
+    check(fallbacks["depth"] > 0 and fallbacks["filter"] == 0 and fallbacks["overflow"] == 0,
+          f"retained: fallbacks {fallbacks}")
+    scans = sum(len(bench) for _ in rounds)
+    dev_s = sum(r["dev_s"] for r in rounds)
+    host_s = sum(r["host_s"] for r in rounds)
+    per_round = (", ".join(f"{r['dev_s']:.4f}" for r in rounds), ", ".join(f"{r['host_s']:.4f}" for r in rounds))
+    log(f"phase retained {n}: ok {len(rounds)} rounds of {len(bench)} config-11 filters and "
+        f"{len(extra) + len(deep)} others, every answer equal to the walk, {RET_CHURN} retains and "
+        f"{RET_CHURN} clears after round 1 (the churn namespace compacted to "
+        f"{len(eng._corpora['churn'].names)} rows); retained_device_scans_per_sec {scans / dev_s:.1f}, "
+        f"retained_host_scans_per_sec {scans / host_s:.1f} (rounds: engine {per_round[0]} s, walk "
+        f"{per_round[1]} s; {rounds[0]['hits']} hits a round), device matches {eng.device_matches - m0}, fallbacks {fallbacks}, "
+        f"K1 launches {launches['flat_probe_ranges']}")
+    if traced["busy_us"] is None:
+        log(f"  retained {n} traced round: idle share not measured (no device span in the trace)")
+    else:
+        log(f"  retained {n} traced round: {len(bench)} scans in {traced['wall_s']:.4f} s under the profiler, "
+            f"device busy {traced['busy_us']:.1f} us (copies {traced['copy_us']:.1f} us), "
+            f"idle share {1 - traced['busy_us'] / (traced['wall_s'] * 1e6):.6f}")
+    split = _scan_split(torch, eng, bench)
+    log(f"  retained {n} per-scan split (ms a scan, mean of {len(bench)}): corpus check {split['corpus']:.4f}, "
+        f"K1 {split['k1']:.4f} (launch to sync {split['launch+sync']:.4f}), D2H {split['d2h']:.4f}, host filter "
+        f"{split['select']:.4f}; fresh rows: tokenize {split['tokenize_us_a_row']:.3f} us a row, H2D "
+        f"{split['h2d_us_a_row']:.3f} us a row")
+
+    # K1 with one filter over the global corpus, every config-11 shape, tolerance 0
+    compare = _comparer(torch, rec)
+    names, B_live, packed, _lengths = eng._corpus("")
+    B, L = packed.shape[0], eng.max_levels
+    measure = (lambda fn, k: event_ms(torch, fn, k)) if on_cuda else _host_ms
+    for f in bench[:4]:
+        fidx, arrays = eng._filter_index(f)
+        got = flat.flat_match_packed(*arrays, packed, max_levels=L)
+        want = flat.flat_match_packed_plain(*arrays, packed, L)
+        compare("flat_probe_ranges", got, want, f"retained {n} B={B} {f!r}")
+    f = bench[2]  # region{k}/#: the shape with the most hits
+    fidx, arrays = eng._filter_index(f)
+    # the build pads one pattern to its minimum of two (the pad never
+    # probes): K1 writes [B, 2P+2] with P = 2 and probes one pattern a topic
+    P = fidx.num_patterns
+    rows = int(torch.unique(flat.probe_slots(*arrays, packed, max_levels=L)).numel())
+    n_bytes = B * (2 * L + 2) * 4 + rows * 64 + 3 * P * 4 + B * (2 * P + 2) * 4
+    bound_ms, bound_by = bound(n_bytes, probe_ops(B, 1, L))
+    ms = measure(lambda: flat.flat_match_packed(*arrays, packed, max_levels=L), iters)
+    plain_ms = measure(lambda: flat.flat_match_packed_plain(*arrays, packed, L), 3)
+    log(f"phase retained {n} K1: ok flat_probe_ranges one filter (P={P}, one pad) B={B} ({B_live} live rows), "
+        f"the four config-11 "
+        f"shapes equal to the plain version (tolerance 0); {f!r}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} B, {probe_ops(B, 1, L)} int32 ops)")
+    return launches
+
+
+def _open_resealed(torch, keys, tenant: str, resealed: list, plains: dict, device) -> int:
+    """Open every re-sealed payload ``(topic, ident, wire)`` under its
+    identity's current key through the plain PyTorch AES on ``device``, in
+    chunks of one payload size; returns how many opened to their
+    plaintext."""
+    import numpy as np
+    from mqtt_tpu_torch.ops import recrypt as rops
+
+    table = torch.from_numpy(keys.table()).to(device)
+    by_size: dict = {}
+    for x in resealed:
+        by_size.setdefault(len(x[2]), []).append(x)
+    chunks = [g[k : k + 512] for g in by_size.values() for k in range(0, len(g), 512)]
+    ok = 0
+    for chunk in chunks:
+        nb = (len(chunk[0][2]) - 12 + 15) // 16
+        kidx = np.repeat(np.array([keys.key_id(tenant, ident) for _t, ident, _w in chunk], np.int32), nb)
+        ctrs = np.concatenate([rops.ctr_counters(w[:12], nb) for _t, _i, w in chunk])
+        ks = rops.keystream_plain(table, torch.from_numpy(kidx).to(device), torch.from_numpy(ctrs).to(device))
+        ks = ks.cpu().numpy().reshape(len(chunk), -1)
+        ct = np.stack([np.frombuffer(w[12:], np.uint8) for _t, _i, w in chunk])
+        pt = np.stack([np.frombuffer(plains[t], np.uint8) for t, _i, _w in chunk])
+        check(np.array_equal(ct ^ ks[:, : ct.shape[1]], pt), "reseal: a payload does not open under the new key")
+        ok += len(chunk)
+    return ok
+
+
+def phase_reseal(torch, rec: dict, cfg: dict, device, n: int = N_RESEAL, iters: int = 20) -> dict:
+    """A live re-key of one cfgR tenant with a retained store (launch
+    counts reset just before the re-key): ``n`` encrypted payloads of 256
+    B and ``n`` of 4096 B retained under the tenant's encrypted prefix,
+    each sealed under its origin's key; the engine answers the tenant's
+    filters. Then, as the broker re-keys (mqtt_tpu/server.py:4463-4556):
+    stage the epoch, collect the tenant's encrypted retained payloads,
+    ``reseal_batch`` them (one call, and one K6 launch, per size), retain
+    the new payloads, activate, ``note_rekey``. Every new payload carries
+    the epoch's tag and opens under the new key; the engine's answers are
+    unchanged. Then K6 held against its plain version at that block count."""
+    import numpy as np
+    from mqtt_tpu_torch import RetainedMatchEngine
+    from mqtt_tpu_torch.ops import kernels
+    from mqtt_tpu_torch.ops import recrypt as rops
+    from mqtt_tpu_torch.tenancy import EPOCH_NONCE_MAGIC, local_client_id, nonce_epoch, scope_client_id
+    from mqtt_tpu_torch.topics import NS_CHAR, ns_local, ns_scope_filter, ns_scope_topic
+
+    plane, renc, index, keys = cfg["plane"], cfg["rec"], cfg["index"], cfg["keys"]
+    tenant = cfg["tenants"][0]
+    name = tenant.name
+    on_cuda = device.type == "cuda"
+    eng = RetainedMatchEngine(index, device=device)
+    plains = {}
+    rng = np.random.default_rng(20)
+    t0 = time.perf_counter()
+    for size in RECRYPT_SIZES:
+        data = rng.integers(0, 256, (n, size), dtype=np.uint8)
+        for i in range(n):
+            ident = f"c{i % KEYS_PER_TENANT}"
+            topic = ns_scope_topic(name, f"e/r{size}/d{i}")
+            plains[topic] = data[i].tobytes()
+            wire = renc.seal_with_key(keys[(name, ident)], plains[topic])
+            retain(eng, index, _retained_packet(topic, wire, scope_client_id(name, ident)))
+    retain(eng, index, _retained_packet(ns_scope_topic(name, "pub/status"), b"clear text"))
+    filters = [ns_scope_filter(name, f) for f in ("e/#", "e/r256/+", "e/r4096/+", "e/+/d7", "+/+/+", "#")]
+
+    def answers() -> dict:
+        out = {}
+        for f in filters:
+            got = sorted(p.topic_name for p in subscribe_retained(eng, index, f))
+            check(got == sorted(p.topic_name for p in index.messages(f)), f"reseal: {f!r} differs from the walk")
+            out[f] = got
+        return out
+
+    before = answers()
+    t1 = time.perf_counter()
+    new_keys = {f"c{k}": bytes([0xE0 + k % 16, k]) * 8 for k in range(KEYS_PER_TENANT)}
+    g0 = dict(renc.gauges())
+    kernels.reset_launches()
+    t2 = time.perf_counter()
+    reg = plane.keys
+    epoch = reg.stage_epoch(name, new_keys)
+    prefix = NS_CHAR + name + "/"
+    victims: dict = {}
+    for topic, pkv in index.retained.get_all().items():
+        if not topic.startswith(prefix) or not pkv.payload:
+            continue
+        local = ns_local(topic)
+        if local.startswith("$SYS") or not tenant.is_encrypted(local):
+            continue
+        ident = local_client_id(pkv.origin)
+        item = (bytes(pkv.payload), reg.key_id(name, ident), reg.kid_for_epoch(name, ident, epoch))
+        victims.setdefault(len(pkv.payload), []).append((topic, pkv, ident, item))
+    check(sorted(victims) == [12 + s for s in RECRYPT_SIZES], f"reseal: payload sizes {sorted(victims)}")
+    resealed = []
+    calls = []
+    for size in sorted(victims):
+        group = victims[size]
+        l0 = kernels.LAUNCHES["keystream"]
+        a = time.perf_counter()
+        outs = renc.reseal_batch(tenant, [item for *_x, item in group], epoch)
+        b = time.perf_counter()
+        check(not on_cuda or kernels.LAUNCHES["keystream"] == l0 + 1,
+              f"reseal {size - 12} B: {kernels.LAUNCHES['keystream'] - l0} K6 launches for one call")
+        for (topic, pkv, ident, _item), data in zip(group, outs):
+            check(data is not None, f"reseal: {topic!r} was not re-sealed")
+            out = pkv.copy(False)
+            out.payload = data
+            out.fixed_header.retain = True
+            check(retain(eng, index, out) == 1, "reseal: a re-sealed payload was not retained")
+            resealed.append((topic, ident, data))
+        calls.append((size - 12, len(group), 2 * len(group) * ((size - 12 + 15) // 16), b - a,
+                      time.perf_counter() - b))
+    reg.activate_epoch(name)
+    renc.note_rekey(name)
+    t3 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    g = renc.gauges()
+    check(reg.current_epoch(name) == epoch and g["rekeys"] - g0["rekeys"] == 1, "reseal: the epoch did not activate")
+    check(all(w[0] == EPOCH_NONCE_MAGIC and nonce_epoch(w[:12]) == epoch for _t, _i, w in resealed),
+          "reseal: a payload lacks the epoch's tag")
+    opened = _open_resealed(torch, reg, name, resealed, plains, device)
+    check(opened == len(plains) == 2 * n, f"reseal: opened {opened} of {len(plains)}")
+    for size in RECRYPT_SIZES:
+        topic, ident, wire = next(x for x in resealed if len(x[2]) == 12 + size)
+        check(renc.open_with_key(new_keys[ident], wire) == plains[topic], "reseal: open_with_key failed")
+    check(answers() == before, "reseal: the engine's answers changed across the re-key")
+    log(f"phase reseal cfgR: ok tenant {name} re-keyed to epoch {epoch}: "
+        + "; ".join(f"{sz} B: {k} payloads in one reseal_batch of {blk} blocks (one K6 launch), "
+                    f"{dt * 1e3:.3f} ms ({dt / k * 1e6:.3f} us a payload), retain {rt * 1e3:.3f} ms"
+                    for sz, k, blk, dt, rt in calls)
+        + f"; whole re-key {t3 - t2:.3f} s; every payload tagged with the epoch and opened under the new key "
+          f"(plain PyTorch AES on the card; one a size through open_with_key); the engine's {len(filters)} "
+          f"answers unchanged; setup {t1 - t0:.1f} s; device batches {g['device_batches'] - g0['device_batches']}, "
+          f"blocks {g['device_blocks'] - g0['device_blocks']}, resealed {g['resealed'] - g0['resealed']}, "
+          f"oracle checks {g['oracle_checks'] - g0['oracle_checks']} mismatches "
+          f"{g['oracle_mismatches'] - g0['oracle_mismatches']}")
+
+    # K6 at the re-seal's largest block count, tolerance 0
+    key_table = torch.from_numpy(reg.table()).to(device)
+    T = key_table.shape[0]
+    N = calls[-1][2]
+    g_np = np.random.default_rng(21)
+    kidx = torch.from_numpy(g_np.integers(0, T, N).astype(np.int32)).to(device)
+    ctrs = torch.from_numpy(g_np.integers(0, 256, (N, 16), dtype=np.uint8)).to(device)
+    got = rops.keystream(key_table, kidx, ctrs)
+    want = rops.keystream_plain(key_table, kidx, ctrs)
+    err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+    rec["keystream"]["max_abs_err"] = max(rec["keystream"]["max_abs_err"], err)
+    check(err == 0, f"keystream N={N}: kernel disagrees with its plain version (max abs err {err})")
+    del got, want
+    measure = (lambda fn, k: event_ms(torch, fn, k)) if on_cuda else _host_ms
+    ms = measure(lambda: rops.keystream(key_table, kidx, ctrs), iters)
+    plain_ms = measure(lambda: rops.keystream_plain(key_table, kidx, ctrs), 2)
+    n_bytes = N * 36 + T * 176
+    bound_ms, bound_by = bound(n_bytes, keystream_ops(N))
+    log(f"phase reseal K6: ok keystream N={N} T={T} equal to its plain version (tolerance 0): {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} B, {keystream_ops(N)} ops)")
+    return launches
+
+
 def _materialize_single(torch, cfg: dict, device) -> None:
     topics = [cfg["topic_gen"]() for _ in range(MAIN_BATCH)]
     phase_materialize(cfg["index"], topics, _fetch_single(torch, cfg, topics, device),
                       f"{cfg['name']} single-device")
 
 
-def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRYPT) -> list:
+def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRYPT,
+        retained_sizes: tuple = RETAINED_SIZES, n_reseal: int = N_RESEAL) -> list:
     import torch
 
     # off the card (a rehearsal) the wrappers are never called: no counts
@@ -1853,13 +2309,22 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
         phase_kernels_pr(torch, rec, cfgP, cfgR, device, n_recrypt)
         mainP = phase_predicates(cfgP, wave)
         mainR = phase_recrypt(torch, cfgR, n_recrypt)
-    finally:
         cfgP["dm"].close()
+        del cfgP
+        main_ret = []
+        for n in retained_sizes:
+            st = phase_setup_retained(n, device)
+            main_ret.append(phase_retained(torch, rec, st, device))
+            del st
+        main_rs = phase_reseal(torch, rec, cfgR, device, n_reseal)
+    finally:
+        if "cfgP" in locals():
+            cfgP["dm"].close()
         cfgR["dm"].close()
     kernels_line = []
     for name in REPLACES:
         launches = (main2[name] + main3[name] + mainN[name] + mainP[name] + mainR[name]
-                    + sum(m[name] for m in main_sh))
+                    + sum(m[name] for m in main_sh) + sum(m[name] for m in main_ret) + main_rs[name])
         check(launches > 0 or name in INSIDE or not counted, f"{name} was never launched on the main paths")
         r = rec[name]
         entry = {
@@ -1893,12 +2358,16 @@ def main() -> int:
     ap.add_argument("--subs", type=int, default=N_SUBS, help="subscriptions per configuration")
     ap.add_argument("--wave", type=int, default=WAVE, help="publishes per wave (three waves each)")
     ap.add_argument("--recrypt", type=int, default=N_RECRYPT, help="encrypted publishes per payload size")
+    ap.add_argument("--retained", default=",".join(map(str, RETAINED_SIZES)),
+                    help="retained corpus sizes, comma-separated")
+    ap.add_argument("--reseal", type=int, default=N_RESEAL, help="retained payloads per size re-sealed at the re-key")
     args = ap.parse_args()
     t0 = time.perf_counter()
     try:
         phase_card(torch)
         phase_build()
-        kernels_line = run(torch.device("cuda"), args.subs, args.wave, args.recrypt)
+        kernels_line = run(torch.device("cuda"), args.subs, args.wave, args.recrypt,
+                           tuple(int(x) for x in args.retained.split(",")), args.reseal)
     except PhaseFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

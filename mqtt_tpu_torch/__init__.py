@@ -9,6 +9,11 @@ hand in CUDA C++ (``csrc/flat_match.cu``). On the same staged batch it
 evaluates MQTT+ payload predicates (``PredicateEngine``,
 ``csrc/predicates.cu``) and decrypts tenant publishes
 (``RecryptEngine``, ``csrc/recrypt.cu``), and the fan-out applies both.
+A wildcard SUBSCRIBE finds its retained messages through
+``RetainedMatchEngine`` (the matcher's probe kernel run over the retained
+topic names), and a tenant's key rotation re-seals its retained payloads
+in one keystream launch (``RecryptEngine.reseal_batch``; tenants resolve
+through ``TenantPlane``).
 ``parallel`` shards the subscriptions over a mesh of device positions
 (``DeltaMatcher(mesh=parallel.make_mesh(...))``, ``csrc/sharded.cu``).
 It imports ``torch`` and numpy and keeps its own copies of the host code
@@ -22,30 +27,36 @@ the plain PyTorch version of every kernel.
 """
 
 from .native import NativeError
-from .ops import DeltaMatcher, KernelError, MatcherStats, TorchMatcher, subscribers_equal
-from .packets import Subscription
+from .ops import DeltaMatcher, KernelError, MatcherStats, RetainedMatchEngine, TorchMatcher, subscribers_equal
+from .packets import PUBLISH, FixedHeader, Packet, PacketStore, Subscription
 from .predicates import PredicateEngine, PublishFeatures
 from .staging import MatchStage
-from .tenancy import KeyRegistry, RecryptEngine, RecryptJob, Tenant
+from .tenancy import KeyRegistry, RecryptEngine, RecryptJob, Tenant, TenantPlane
 from .topics import SHARE_PREFIX, InlineSubscription, Subscribers, TopicsIndex
 from .utils import freeze_index, tune_for_throughput
 
 __all__ = [
     "DeltaMatcher",
+    "FixedHeader",
     "InlineSubscription",
     "KernelError",
     "KeyRegistry",
     "MatchStage",
     "MatcherStats",
     "NativeError",
+    "PUBLISH",
+    "Packet",
+    "PacketStore",
     "PredicateEngine",
     "PublishFeatures",
     "RecryptEngine",
     "RecryptJob",
+    "RetainedMatchEngine",
     "SHARE_PREFIX",
     "Subscribers",
     "Subscription",
     "Tenant",
+    "TenantPlane",
     "TopicsIndex",
     "TorchMatcher",
     "freeze_index",

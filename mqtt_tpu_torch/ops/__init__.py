@@ -15,6 +15,9 @@ the payload-predicate rule table and the re-encryption keystream.
 - ``matcher``  — the broker-facing ``TorchMatcher`` (drop-in for
                  ``TopicsIndex.subscribers``); results come from the C
                  materializer of ``native/``, its plain versions beside it
+- ``retained`` — ``RetainedMatchEngine``: wildcard SUBSCRIBE against the
+                 retained store, K1 run in reverse over a device-resident
+                 corpus of retained topic names
 - ``delta``    — ``DeltaMatcher``: snapshot + host delta overlay +
                  background fold/rebuild, for live brokers under churn; with
                  a mesh its snapshot is ``parallel.ShardedTorchMatcher``
@@ -47,6 +50,7 @@ from .matcher import (
     resolve_ranges_py,
     subscribers_equal,
 )
+from .retained import RetainedMatchEngine
 
 __all__ = [
     "DeltaMatcher",
@@ -56,6 +60,7 @@ __all__ = [
     "KIND_SHARED",
     "KernelError",
     "MatcherStats",
+    "RetainedMatchEngine",
     "SubEntry",
     "TorchMatcher",
     "build_flat_index",

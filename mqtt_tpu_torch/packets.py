@@ -1,16 +1,22 @@
-"""The subscription record the trie stores and the matcher returns.
+"""The records the trie stores: subscriptions and retained packets.
 
-A copy of ``Subscription`` from the JAX package's packet codec, cut to the
-fields and methods the subscription trie, the match result and the
-predicate engine need. The
-wire codec (CONNECT/PUBLISH/SUBSCRIBE encoding) comes with the broker
-slice of the port.
+Copies of ``Subscription``, ``FixedHeader``, ``Packet`` and ``PacketStore``
+from the JAX package's packet codec, cut to the fields and methods the
+subscription trie, the match result, the predicate engine, the retained
+half of the trie, the retained-match engine and the re-key re-seal read
+and write. The wire codec (CONNECT/PUBLISH/SUBSCRIBE encoding) comes with
+the broker slice of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+
+from .utils.locked import LockedMap
+
+# the packet type id of PUBLISH (bits 7-4 of the header byte, MQTT §2.1.2)
+PUBLISH = 3
 
 
 @dataclass(slots=True)
@@ -83,3 +89,55 @@ class Subscription:
         elif s.identifier > 0:
             s.identifiers[s.filter] = s.identifier
         return s
+
+
+@dataclass
+class FixedHeader:
+    """The first byte's packed fields that the retained store reads
+    (fixedheader.go:12-20)."""
+
+    type: int = 0
+    qos: int = 0
+    retain: bool = False
+
+
+@dataclass
+class Packet:
+    """A PUBLISH as the retained store keeps it: the fields a retained
+    message carries between its PUBLISH and its delivery (packets.go:123-141)."""
+
+    payload: bytes = b""
+    topic_name: str = ""
+    origin: str = ""  # client id of the issuing client (internal)
+    fixed_header: FixedHeader = field(default_factory=FixedHeader)
+    created: int = 0  # unix ts when the packet was created/received
+    expiry: int = 0  # unix ts when the packet expires and should be deleted
+
+    def copy(self, allow_transfer: bool) -> "Packet":
+        """A copy with its own payload bytes (packets.go:185-250). The
+        packet id and properties that ``allow_transfer`` moves are not
+        part of this cut, so the flag changes nothing here."""
+        del allow_transfer
+        return Packet(
+            payload=bytes(self.payload),
+            topic_name=self.topic_name,
+            origin=self.origin,
+            fixed_header=FixedHeader(
+                type=self.fixed_header.type,
+                qos=self.fixed_header.qos,
+                retain=self.fixed_header.retain,
+            ),
+            created=self.created,
+            expiry=self.expiry,
+        )
+
+
+class PacketStore(LockedMap[str, Packet]):
+    """Topic-keyed packet map: the retained-message store
+    (packets.go:66-117)."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str = "") -> None:
+        super().__init__()
+        self.name = name

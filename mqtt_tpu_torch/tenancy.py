@@ -1,32 +1,41 @@
-"""Tenant payload re-encryption (MQT-TZ, arxiv 2007.12442): the key
-registry and the batched re-encryption engine.
+"""The secure multi-tenant plane (MQT-TZ, arxiv 2007.12442): the tenant
+registry, the key registry and the batched re-encryption engine.
 
-Publishes in a tenant's ``encrypted`` namespaces arrive as
-``nonce || ciphertext`` under the publisher's key. The broker decrypts
-once — the keystream launch rides the staged match batch: a
-:class:`RecryptJob` travels through ``staging.MatchStage`` beside the
-predicate feature rows — and re-encrypts per subscriber with each
-subscriber's key: ONE keystream launch per fan-out tick covers every
-(publish, subscriber) block, and the XOR runs on the host (numpy).
-
+- :class:`TenantPlane`: the tenant registry and CONNECT-time resolution.
+  A client maps (username first, then client id, then the default) to a
+  :class:`Tenant`; from then on every key the broker stores or matches
+  for it carries the tenant's namespace prefix (``topics.ns_scope_topic``
+  / ``ns_scope_filter``), so two tenants' identical topics land on
+  disjoint trie subtrees. Per-tenant counters register lazily, at a
+  tenant's first CONNECT, as labelled ``mqtt_tpu_tenant_*`` families on a
+  registry given to the plane (any object with ``counter`` and ``gauge``).
 - :class:`KeyRegistry`: per-(tenant, identity) AES-128 keys, expanded
   once into a dense round-key table (``uint8 [T, 11, 16]``) that a launch
   gathers per-block keys from by index; re-key epochs layer on top.
-- :class:`RecryptEngine`: the decrypt leg (``decrypt_job``,
-  ``issue_batch``, ``attach``, ``open_publish``) and the fan-out leg
-  (``seal_fanout``), with the numpy keystream as the sampled oracle.
+- :class:`RecryptEngine`: publishes in a tenant's ``encrypted``
+  namespaces arrive as ``nonce || ciphertext`` under the publisher's key.
+  The broker decrypts once (the keystream launch rides the staged match
+  batch: a :class:`RecryptJob` travels through ``staging.MatchStage``
+  beside the predicate feature rows) and re-encrypts per subscriber with
+  each subscriber's key: ONE keystream launch per fan-out tick covers
+  every (publish, subscriber) block, and the XOR runs on the host
+  (numpy). Across a key rotation, ``reseal_batch`` re-seals stored
+  ciphertexts (the retained store) from the old generation to the new in
+  ONE launch of decrypt and seal blocks. The numpy keystream is the
+  sampled oracle.
 
 Unlike the JAX engine there is no circuit breaker: a failed launch or
 copy raises to the caller (in the stage: the batch's futures). The host
 keystream serves only what the JAX engine routes there by design —
 batches below ``device_min_blocks``, and jobs that reach
 ``open_publish`` without a staged keystream — counted in
-``host_reasons``.
+``host_reasons``. ``TenantPlane`` guards its maps with a plain
+``threading.Lock`` where the JAX plane takes an instrumented lock of the
+lock witness, which the port does not have yet.
 
 Subscribers without a key receive NOTHING from an encrypted namespace
 (counted, never plaintext); ciphertext shorter than the nonce delivers
-nothing and counts. The tenant registry and CONNECT-time resolution
-(``TenantPlane``) and the re-key re-seal come with a later slice.
+nothing and counts.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import logging
 import os
 import struct
 import threading
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 
@@ -49,6 +58,7 @@ from .ops.recrypt import (
     keystream_async,
     xor_into,
 )
+from .topics import NS_CHAR, ns_local, ns_scope_filter, ns_scope_topic, ns_tenant
 
 _log = logging.getLogger("mqtt_tpu_torch.tenancy")
 
@@ -75,19 +85,243 @@ def nonce_epoch(nonce: bytes) -> Optional[int]:
     return None
 
 
+def scope_client_id(tenant: str, client_id: str) -> str:
+    """The broker-registry identity of a tenant client, scoped like a
+    topic: two tenants' equal client ids never take over each other's
+    sessions."""
+    return NS_CHAR + tenant + "/" + client_id
+
+
+def local_client_id(client_id: str) -> str:
+    """The tenant-local client id (identity for global ids)."""
+    return ns_local(client_id)
+
+
 class Tenant:
-    """One tenant as the re-encryption engine reads it: its name (the key
-    registry's namespace), its encrypted topic prefixes, and its
-    re-encrypted fan-out count."""
+    """One tenant: namespace name, quota class, encrypted prefixes, count
+    caps and the per-tenant counters (``$SYS`` rows and labelled registry
+    families). Counter bumps are plain ``+=`` on the event loop."""
 
-    __slots__ = ("name", "encrypted", "recrypt_fanouts")
+    __slots__ = (
+        "name",
+        "quota_class",
+        "encrypted",
+        "connected",
+        "connects",
+        "messages_in",
+        "messages_out",
+        "messages_dropped",
+        "bytes_in",
+        "bytes_out",
+        "recrypt_fanouts",
+        "max_retained",
+        "max_subscriptions",
+        "retained_count",
+        "subscriptions_count",
+        "retained_refused",
+        "subscriptions_refused",
+    )
 
-    def __init__(self, name: str, encrypted: tuple = ()) -> None:
+    def __init__(
+        self,
+        name: str,
+        quota_class: str = "",
+        encrypted: tuple = (),
+        max_retained: int = 0,
+        max_subscriptions: int = 0,
+    ) -> None:
         self.name = name
+        self.quota_class = quota_class
         # tenant-local topic prefixes whose publishes carry the
         # nonce || ciphertext wire format and re-encrypt per subscriber
         self.encrypted = tuple(encrypted)
+        self.connected = 0
+        self.connects = 0
+        self.messages_in = 0
+        self.messages_out = 0
+        self.messages_dropped = 0
+        self.bytes_in = 0
+        self.bytes_out = 0
         self.recrypt_fanouts = 0
+        # how many retained topics / stored subscriptions the tenant may
+        # hold (0 = unlimited); the broker keeps the counts and refuses
+        # growth past a cap with v5 0x97 Quota exceeded
+        self.max_retained = max_retained
+        self.max_subscriptions = max_subscriptions
+        self.retained_count = 0
+        self.subscriptions_count = 0
+        self.retained_refused = 0
+        self.subscriptions_refused = 0
+
+    def is_encrypted(self, local_topic: str) -> bool:
+        """Does a tenant-local topic live in an encrypted namespace?"""
+        return any(local_topic.startswith(prefix) for prefix in self.encrypted)
+
+    def sys_rows(self) -> dict:
+        """The per-tenant ``$SYS/broker/tenant/*`` rows."""
+        return {
+            "connected": self.connected,
+            "connects": self.connects,
+            "messages/in": self.messages_in,
+            "messages/out": self.messages_out,
+            "messages/dropped": self.messages_dropped,
+            "bytes/in": self.bytes_in,
+            "bytes/out": self.bytes_out,
+            "recrypt_fanouts": self.recrypt_fanouts,
+            "retained/count": self.retained_count,
+            "retained/refused": self.retained_refused,
+            "subscriptions/count": self.subscriptions_count,
+            "subscriptions/refused": self.subscriptions_refused,
+        }
+
+
+def _valid_tenant_name(name: str) -> bool:
+    return bool(name) and not any(c in name for c in ("/", "+", "#", NS_CHAR))
+
+
+class TenantPlane:
+    """The tenant registry and CONNECT-time resolver. Registration runs at
+    startup (config) or from embedder code, resolution once per CONNECT.
+    The lock guards the registry maps only; scoping and counter bumps take
+    no lock."""
+
+    def __init__(self, registry: Optional[Any] = None) -> None:
+        self._lock = threading.Lock()
+        self._tenants: dict[str, Tenant] = {}
+        self._users: dict[str, str] = {}  # username-or-client-id -> tenant
+        self.default = ""  # tenant for unmapped clients ("" = untenanted)
+        self.keys = KeyRegistry()
+        self._registry = registry
+        self._metered: set[str] = set()  # tenants with registered families
+
+    # -- registration ------------------------------------------------------
+
+    def register(self, name: str, quota_class: str = "", encrypted: tuple = ()) -> Tenant:
+        """Create (or return) one tenant. An invalid name raises: tenancy
+        is operator config, so a typo fails at startup."""
+        if not _valid_tenant_name(name):
+            raise ValueError(f"invalid tenant name: {name!r}")
+        with self._lock:
+            t = self._tenants.get(name)
+            if t is None:
+                t = self._tenants[name] = Tenant(name, quota_class=quota_class, encrypted=tuple(encrypted))
+            return t
+
+    def map_user(self, ident: str, tenant: str) -> None:
+        """Route a username-or-client-id to a tenant at CONNECT."""
+        with self._lock:
+            self._users[ident] = tenant
+
+    def configure(self, tenants: Optional[dict], users: Optional[dict], default: str = "") -> None:
+        """Load the config maps: ``tenants`` is name -> {quota_class,
+        encrypted: [prefix...], max_retained, max_subscriptions, keys:
+        {ident: hex}}, ``users`` is username-or-client-id -> tenant name."""
+        for name, cfg in (tenants or {}).items():
+            cfg = cfg or {}
+            t = self.register(
+                str(name),
+                quota_class=str(cfg.get("quota_class", "") or ""),
+                encrypted=tuple(cfg.get("encrypted", ()) or ()),
+            )
+            try:
+                t.max_retained = int(cfg.get("max_retained", t.max_retained))
+                t.max_subscriptions = int(cfg.get("max_subscriptions", t.max_subscriptions))
+            except (TypeError, ValueError):
+                _log.warning("tenant %r max_retained/max_subscriptions is not an integer; cap ignored", t.name)
+            for ident, hexkey in (cfg.get("keys") or {}).items():
+                try:
+                    self.keys.set_key(t.name, str(ident), bytes.fromhex(str(hexkey)))
+                except ValueError:
+                    _log.warning("tenant %r key for %r is not a 32-hex-char AES-128 key; ignored", t.name, ident)
+        for ident, tenant in (users or {}).items():
+            self.map_user(str(ident), str(tenant))
+        if default:
+            self.register(str(default))
+            self.default = str(default)
+
+    # -- resolution --------------------------------------------------------
+
+    def resolve(self, username: str, client_id: str) -> Optional[Tenant]:
+        """The CONNECT-time tenant: username first, then client id, then
+        the default; None = untenanted (the global namespace). A tenant
+        name in the user map that is not registered registers itself."""
+        with self._lock:
+            name = self._users.get(username) or self._users.get(client_id) or self.default
+            if not name:
+                return None
+            t = self._tenants.get(name)
+        if t is None:
+            t = self.register(name)
+        return t
+
+    def get(self, name: str) -> Optional[Tenant]:
+        with self._lock:
+            return self._tenants.get(name)
+
+    def tenant_of_topic(self, scoped_topic: str) -> Optional[Tenant]:
+        """The tenant owning a scoped topic key (None for global)."""
+        name = ns_tenant(scoped_topic)
+        if not name:
+            return None
+        with self._lock:
+            return self._tenants.get(name)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._tenants)
+
+    scope_topic = staticmethod(ns_scope_topic)
+    scope_filter = staticmethod(ns_scope_filter)
+    local = staticmethod(ns_local)
+
+    # -- accounting --------------------------------------------------------
+
+    def note_connect(self, tenant: Tenant) -> None:
+        tenant.connects += 1
+        tenant.connected += 1
+        if self._registry is not None and tenant.name not in self._metered:
+            # families register at a tenant's first CONNECT, outside the
+            # plane lock (the registry takes its own)
+            with self._lock:
+                fresh = tenant.name not in self._metered
+                self._metered.add(tenant.name)
+            if fresh:
+                self._register_tenant_metrics(tenant)
+
+    def note_disconnect(self, tenant: Tenant) -> None:
+        tenant.connected = max(0, tenant.connected - 1)
+
+    def active_tenants(self) -> list[Tenant]:
+        """Tenants with live connections or a connect in their history:
+        the set the per-tenant ``$SYS`` tick publishes for."""
+        with self._lock:
+            snap = list(self._tenants.values())
+        return [t for t in snap if t.connected > 0 or t.connects > 0]
+
+    def _register_tenant_metrics(self, tenant: Tenant) -> None:
+        r = self._registry
+        for name, attr in (
+            ("mqtt_tpu_tenant_messages_in_total", "messages_in"),
+            ("mqtt_tpu_tenant_messages_out_total", "messages_out"),
+            ("mqtt_tpu_tenant_messages_dropped_total", "messages_dropped"),
+            ("mqtt_tpu_tenant_bytes_in_total", "bytes_in"),
+            ("mqtt_tpu_tenant_bytes_out_total", "bytes_out"),
+            ("mqtt_tpu_tenant_connects_total", "connects"),
+            ("mqtt_tpu_tenant_retained_refused_total", "retained_refused"),
+            ("mqtt_tpu_tenant_subscriptions_refused_total", "subscriptions_refused"),
+        ):
+            r.counter(name, f"Per-tenant Tenant.{attr}", fn=lambda t=tenant, a=attr: getattr(t, a),
+                      tenant=tenant.name)
+        r.gauge("mqtt_tpu_tenant_connected", "Live connections per tenant",
+                fn=lambda t=tenant: t.connected, tenant=tenant.name)
+        r.gauge("mqtt_tpu_tenant_retained_count",
+                "Retained topics currently held per tenant (count-capped by "
+                "max_retained / tenant_max_retained)",
+                fn=lambda t=tenant: t.retained_count, tenant=tenant.name)
+        r.gauge("mqtt_tpu_tenant_subscriptions_count",
+                "Stored subscriptions currently held per tenant (count-capped "
+                "by max_subscriptions / tenant_max_subscriptions)",
+                fn=lambda t=tenant: t.subscriptions_count, tenant=tenant.name)
 
 
 class KeyRegistry:
@@ -267,6 +501,7 @@ class RecryptEngine:
         oracle_sample: int = 64,
         device_min_blocks: int = 4,
         device="cuda",
+        registry: Optional[Any] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.keys = keys
@@ -290,11 +525,17 @@ class RecryptEngine:
         self.no_key_drops = 0  # deliveries withheld: subscriber keyless
         self.malformed = 0  # publishes dropped: bad ciphertext framing
         self.stale_epoch_drops = 0  # publishes under a retired epoch key
+        self.rekeys = 0  # epoch rotations completed
+        self.resealed = 0  # stored payloads re-sealed across epochs
         # host keystream blocks by reason: small_batch (a fan-out under
         # device_min_blocks), no_keystream (a decrypt job that reached
         # open_publish without a staged keystream)
         self.host_reasons: dict[str, int] = {}
         self._dispatch_seq = 0  # oracle sampling clock
+        # where note_rekey registers its per-tenant epoch gauge (any object
+        # with a ``gauge`` method)
+        self._registry = registry
+        self._epoch_metered: set[str] = set()
 
     def _host(self, reason: str, n: int) -> None:
         self.host_reasons[reason] = self.host_reasons.get(reason, 0) + n
@@ -438,6 +679,20 @@ class RecryptEngine:
 
     # -- the fan-out leg ---------------------------------------------------
 
+    def _keystream_rows(self, table, kidx: np.ndarray, counters: np.ndarray) -> np.ndarray:
+        """One keystream generation: one launch from ``device_min_blocks``
+        blocks up, the host keystream below (counted)."""
+        total = len(kidx)
+        if total >= self.device_min_blocks:
+            rows = keystream_async(table, kidx, counters, self.device)()
+            self.device_batches += 1
+            self.device_blocks += total
+            self._maybe_oracle(table, kidx, counters, rows)
+            return rows
+        self._host("small_batch", total)
+        self.host_blocks += total
+        return host_keystream(table, kidx, counters)
+
     def seal_fanout_raw(self, tenant: Tenant, plaintext: bytes, targets: list) -> Optional[tuple]:
         """One keystream generation for every keyed target (the card when
         the tick has at least ``device_min_blocks`` blocks, the host
@@ -473,16 +728,7 @@ class RecryptEngine:
         counters[:, :12] = np.repeat(nonces, n_blocks, axis=0)
         ctr = np.tile(np.arange(n_blocks, dtype=np.uint32).astype(">u4"), j)
         counters[:, 12:] = ctr.view(np.uint8).reshape(total, 4)
-        if total >= self.device_min_blocks:
-            rows = keystream_async(table, kidx, counters, self.device)()
-            self.device_batches += 1
-            self.device_blocks += total
-            self._maybe_oracle(table, kidx, counters, rows)
-        else:
-            self._host("small_batch", total)
-            self.host_blocks += total
-            rows = host_keystream(table, kidx, counters)
-        return keyed, nonces, rows
+        return keyed, nonces, self._keystream_rows(table, kidx, counters)
 
     def seal_fanout(self, tenant: Tenant, plaintext: bytes, targets: list) -> dict:
         """Re-encrypt one plaintext for every keyed target in ONE
@@ -505,6 +751,71 @@ class RecryptEngine:
         for i, (tkey, _kid) in enumerate(keyed):
             out[tkey] = nonces[i].tobytes() + ct[i].tobytes()
         return out
+
+    # -- the re-key re-seal ------------------------------------------------
+
+    def reseal_batch(self, tenant: Tenant, items: list, epoch: int) -> list:
+        """Re-seal stored ciphertexts across a key rotation in ONE keystream
+        generation: every item's decrypt blocks (old key) and seal blocks
+        (new key) share the launch, ``[decrypt blocks | seal blocks]``, then
+        one XOR per item rewrites its ciphertext. ``items`` yield
+        ``(payload, old_kid, new_kid)`` with payload ``nonce ||
+        ciphertext``; returns the new payloads (a fresh nonce tagged with
+        ``epoch``, then the ciphertext; a zero-length ciphertext gives the
+        nonce alone), None per malformed or keyless item."""
+        del tenant  # the kids name the keys; the signature is the JAX engine's
+        nb = self.nonce_bytes
+        out: list = [None] * len(items)
+        spans = []  # (item, old nonce, ciphertext, first block, blocks)
+        total = 0
+        for i, (payload, old_kid, new_kid) in enumerate(items):
+            if len(payload) < nb or old_kid < 0 or new_kid < 0:
+                continue
+            ct = payload[nb:]
+            n = (len(ct) + 15) // 16
+            spans.append((i, payload[:nb], ct, total, n))
+            total += n
+        if not spans:
+            return out
+        fresh = self._next_nonces(len(spans))
+        fresh[:, 0] = EPOCH_NONCE_MAGIC
+        fresh[:, 1] = (epoch >> 8) & 0xFF
+        fresh[:, 2] = epoch & 0xFF
+        rows = None
+        if total:
+            kidx = np.empty(2 * total, dtype=np.int32)
+            counters = np.empty((2 * total, 16), dtype=np.uint8)
+            for s, (i, old_nonce, _ct, off, n) in enumerate(spans):
+                _payload, old_kid, new_kid = items[i]
+                kidx[off : off + n] = old_kid
+                counters[off : off + n] = ctr_counters(old_nonce, n)
+                kidx[total + off : total + off + n] = new_kid
+                counters[total + off : total + off + n] = ctr_counters(fresh[s].tobytes(), n)
+            rows = self._keystream_rows(self.keys.table(), kidx, counters)
+        for s, (i, _old_nonce, ct, off, n) in enumerate(spans):
+            self.resealed += 1
+            if n == 0:
+                out[i] = fresh[s].tobytes()
+                continue
+            c = np.frombuffer(ct, dtype=np.uint8)
+            ks_old = rows[off : off + n].reshape(-1)[: len(ct)]
+            ks_new = rows[total + off : total + off + n].reshape(-1)[: len(ct)]
+            out[i] = fresh[s].tobytes() + (c ^ ks_old ^ ks_new).tobytes()
+        return out
+
+    def note_rekey(self, tenant: str) -> None:
+        """Count one completed rotation and register the tenant's epoch
+        gauge (``mqtt_tpu_recrypt_epoch``) on the registry, once."""
+        self.rekeys += 1
+        r = self._registry
+        if r is not None and tenant not in self._epoch_metered:
+            self._epoch_metered.add(tenant)
+            r.gauge(
+                "mqtt_tpu_recrypt_epoch",
+                "Current re-key epoch per tenant (0 = never rotated)",
+                fn=lambda t=tenant: self.keys.current_epoch(t),
+                tenant=tenant,
+            )
 
     # -- client-side helpers -----------------------------------------------
 
@@ -532,8 +843,7 @@ class RecryptEngine:
 
     def gauges(self) -> dict:
         """The ``$SYS/broker/recrypt/*`` tree (the JAX engine's, without
-        the breaker state and the re-key counters of the later slice,
-        plus the host blocks by reason)."""
+        the breaker state, plus the host blocks by reason)."""
         return {
             "keys": len(self.keys),
             "fanouts": self.fanouts,
@@ -544,6 +854,8 @@ class RecryptEngine:
             "oracle_mismatches": self.oracle_mismatches,
             "no_key_drops": self.no_key_drops,
             "malformed": self.malformed,
+            "rekeys": self.rekeys,
+            "resealed": self.resealed,
             "stale_epoch_drops": self.stale_epoch_drops,
             "host_reasons": dict(self.host_reasons),
         }

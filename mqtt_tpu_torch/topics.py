@@ -26,8 +26,14 @@ Also here: the tenant-namespace helpers (``ns_*``) and the MQTT+
 predicate-suffix split (``split_predicate_suffix``) that the predicate
 and tenancy planes use.
 
-Retained messages (``retain_message``/``messages``) come with the
-retained-engine slice of the port.
+The retained half: ``retain_message``/``retain_bulk`` keep one packet
+per topic in ``retained`` and mark its node (``retain_path``), and
+``messages`` walks a filter over the marked nodes. The walk hides
+``$SYS`` from top-level wildcards (at the tenant-local top level inside a
+namespace), never takes a global wildcard into a namespace, and under
+``#`` collects only strictly deeper topics. ``_trim`` keeps a node that
+holds a retained message. The retained walk is the oracle of
+``ops/retained.RetainedMatchEngine``.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import threading
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-from .packets import Subscription
+from .packets import Packet, PacketStore, Subscription
 from .utils import LockedMap
 
 SHARE_PREFIX = "$SHARE"  # prefix indicating a shared-subscription filter
@@ -328,6 +334,7 @@ class _Particle:
         "subscriptions",
         "shared",
         "inline_subscriptions",
+        "retain_path",
     )
 
     def __init__(self, key: str, parent: "_Particle | None") -> None:
@@ -337,6 +344,7 @@ class _Particle:
         self.subscriptions = Subscriptions()
         self.shared = SharedSubscriptions()
         self.inline_subscriptions = InlineSubscriptions()
+        self.retain_path = ""  # the topic of the retained message held here
 
 
 class TopicsIndex:
@@ -344,6 +352,7 @@ class TopicsIndex:
     TopicsIndex, topics.go:350+)."""
 
     def __init__(self) -> None:
+        self.retained = PacketStore(name="retained")
         self.root = _Particle("", None)
         self._lock = threading.RLock()
         # bumped on every subscription mutation; device indexes compare
@@ -447,6 +456,43 @@ class TopicsIndex:
             self._notify(Mutation(filter, "inline", "del", identifier=id_))
             return True
 
+    def retain_message(self, pk: Packet) -> int:
+        """Store or clear the retained message for a topic. Returns 1 when a
+        message was retained, -1 when an existing one was cleared, 0 for a
+        clear with nothing to clear (topics.go:453-476)."""
+        with self._lock:
+            n = self._set(pk.topic_name, 0)
+            if pk.payload:
+                n.retain_path = pk.topic_name
+                self.retained.add(pk.topic_name, pk)
+                return 1
+            out = 0
+            pke = self.retained.get(pk.topic_name)
+            if pke is not None and pke.payload and pke.fixed_header.retain:
+                out = -1
+            n.retain_path = ""
+            self.retained.delete(pk.topic_name)  # [MQTT-3.3.1-6] [MQTT-3.3.1-7]
+            self._trim(n)
+            return out
+
+    def retain_bulk(self, packets: list[Packet]) -> int:
+        """:meth:`retain_message` over a batch under one lock acquisition
+        (restart restore). Returns how many were retained; clears are
+        applied but not summed."""
+        retained = 0
+        with self._lock:
+            for pk in packets:
+                n = self._set(pk.topic_name, 0)
+                if pk.payload:
+                    n.retain_path = pk.topic_name
+                    self.retained.add(pk.topic_name, pk)
+                    retained += 1
+                else:
+                    n.retain_path = ""
+                    self.retained.delete(pk.topic_name)
+                    self._trim(n)
+        return retained
+
     def _set(self, topic: str, d: int) -> _Particle:
         """Create (or find) the particle at a topic address (topics.go:479)."""
         parts = topic.split("/")
@@ -469,9 +515,11 @@ class TopicsIndex:
         return n
 
     def _trim(self, n: _Particle) -> None:
-        """Prune empty particles up the parent chain (topics.go:516-522)."""
+        """Prune empty particles up the parent chain, stopping at one that
+        holds a retained message (topics.go:516-522)."""
         while (
             n.parent is not None
+            and n.retain_path == ""
             and len(n.particles) + len(n.subscriptions) + len(n.shared) + len(n.inline_subscriptions) == 0
         ):
             key = n.key
@@ -559,3 +607,49 @@ class TopicsIndex:
                     subs.inline_subscriptions[iid] = isub
             return
         subs.inline_subscriptions.update(particle.inline_subscriptions.get_all())
+
+    def messages(self, filter: str) -> list[Packet]:
+        """All retained messages matching ``filter`` (topics.go:525-579).
+        Iterative walk, as :meth:`subscribers`."""
+        pks: list[Packet] = []
+        if len(filter) == 0 or len(self.retained) == 0:
+            return pks
+        if "#" not in filter and "+" not in filter:
+            pk = self.retained.get(filter)
+            if pk is not None:
+                pks.append(pk)
+            return pks
+        parts = filter.split("/")
+        last = len(parts) - 1
+        # a scoped filter's tenant-local top level sits at depth 1; the
+        # $SYS wildcard exclusion applies there
+        sys_d = 1 if parts[0][:1] == NS_CHAR else 0
+        stack: list[tuple[_Particle, int]] = [(self.root, 0)]
+        while stack:
+            n, d = stack.pop()
+            key = parts[d] if d < len(parts) else parts[-1]
+            has_next = d < last
+            if key in ("+", "#"):
+                for adjacent in list(n.particles.values()):
+                    if d == sys_d and adjacent.key == SYS_PREFIX:
+                        continue
+                    if d == 0 and adjacent.key[:1] == NS_CHAR:
+                        # a global wildcard never descends into a tenant
+                        # namespace (scoped filters name its level)
+                        continue
+                    if not has_next and adjacent.retain_path:
+                        pk = self.retained.get(adjacent.retain_path)
+                        if pk is not None:
+                            pks.append(pk)
+                    if has_next or key == "#":
+                        stack.append((adjacent, d + 1))
+            else:
+                particle = n.particles.get(key)
+                if particle is not None:
+                    if has_next:
+                        stack.append((particle, d + 1))
+                    elif particle.retain_path:
+                        pk = self.retained.get(particle.retain_path)
+                        if pk is not None:
+                            pks.append(pk)
+        return pks

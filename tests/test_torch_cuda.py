@@ -3,6 +3,9 @@
 K1-K3 (the publish matcher), K4-K6 (predicates, re-encryption) and K7-K9
 (the subscription-sharded matcher over a mesh whose positions all lie on
 the one card: ``make_mesh(["cuda:0"] * 8)``, and ``dryrun_multichip(8)``).
+Then the retained-delivery slice's shapes: K1 with one filter over a
+retained corpus of up to 2^20 topics, ``RetainedMatchEngine`` on the card
+against the walk, and K6's re-seal launch against the CPU engine.
 
 Every test here needs an NVIDIA card with ``sm_90a`` and ``nvcc``; where
 there is none it skips with that reason. The tolerance is 0 everywhere but
@@ -26,6 +29,7 @@ from mqtt_tpu_torch import (
     MatchStage,
     PredicateEngine,
     RecryptEngine,
+    RetainedMatchEngine,
     Subscription,
     Tenant,
     TopicsIndex,
@@ -43,6 +47,9 @@ from test_torch_topics import (
     corpus_topics,
     ns_corpus_ops,
     ns_topics,
+    retain_packet,
+    retained_filters,
+    retained_ops,
     saturating_ops,
 )
 
@@ -814,3 +821,102 @@ def test_mesh_across_cards(dev, layout):
         assert m.stats.compact_batches + m.stats.compact_overflows >= 1
     finally:
         m.close()
+
+
+# -- the retained-delivery slice ----------------------------------------------
+
+
+def retained_corpus(B: int) -> list[str]:
+    """The retained-scan corpus of bench.py's config 11 (unique at any
+    size), with a few ``$SYS`` and ``$other`` roots."""
+    names = [f"region{i % 40}/device{(i // 40) % 50}/metric{i // 2000}" for i in range(B - 128)]
+    return names + [f"$SYS/broker/n{i}" for i in range(64)] + [f"$other/n{i}" for i in range(64)]
+
+
+@pytest.mark.parametrize("B", [1 << 16, 1 << 20])
+def test_probe_ranges_one_pattern_over_a_retained_corpus(dev, B):
+    names = retained_corpus(B)
+    tok1, tok2, lengths, _dollar, _over = flat.tokenize_topics(names, 8, 0)
+    is_sys = np.array([n.startswith("$SYS/") for n in names])
+    tokens = torch.from_numpy(flat.pack_tokens(tok1, tok2, lengths, is_sys)).to(dev)
+    for flt in ("region7/device7/+", "region7/+/metric7", "region7/#", "+/device7/metric7", "#", "+/+/+"):
+        index = TopicsIndex()
+        index.subscribe("\x00probe", Subscription(filter=flt))
+        fl = flat.build_flat_index(index, max_levels=8, salt=0, min_buckets=64)
+        arrays = flat.device_index_from_numpy(fl.table, fl.pat_kind, fl.pat_depth, fl.pat_mask, dev)
+        before = kernels.LAUNCHES["flat_probe_ranges"]
+        got = flat.flat_match_packed(*arrays, tokens, max_levels=8)
+        want = flat.flat_match_packed_plain(*arrays, tokens, 8)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["flat_probe_ranges"] == before + 1
+        # one pattern, padded to the build's minimum of two (the pad has
+        # depth -1 and never probes): [B, 2P+2] with P = 2
+        assert fl.num_patterns == 2 and got.shape == (B, 6) and torch.equal(got, want), flt
+        assert int(want[:, 2].sum()) > 0
+
+
+def test_retained_engine_on_the_card_matches_the_walk_and_the_cpu(dev):
+    engines = {}
+    for device in (dev, torch.device("cpu")):
+        index = TopicsIndex()
+        for topic, payload in retained_ops(21):
+            index.retain_message(retain_packet(topic, payload))
+        engines[device.type] = (index, RetainedMatchEngine(index, oracle_sample=0, min_capacity=16,
+                                                           device=device))
+    for _index, eng in engines.values():
+        eng.reseed()
+    filters = retained_filters(21)
+
+    def check(rounds):
+        for flt in filters:
+            got = [eng.match(flt) for _i, eng in engines.values()]
+            assert got[0] == got[1], flt
+            if got[0] is not None:
+                assert sorted(got[0]) == sorted(p.topic_name for p in engines["cuda"][0].messages(flt)), flt
+        rounds.append(kernels.LAUNCHES["flat_probe_ranges"])
+
+    rounds = [kernels.LAUNCHES["flat_probe_ranges"]]
+    check(rounds)
+    first = engines["cuda"][1]._corpora[""].packed
+    # growth past the first capacity, then clears past rebuild_ratio
+    for topic, payload in retained_ops(22, n=600):
+        for index, eng in engines.values():
+            eng.note_retained(topic, index.retain_message(retain_packet(topic, payload)) == 1)
+    check(rounds)
+    assert engines["cuda"][1]._corpora[""].packed is not first
+    held = [t for t in engines["cuda"][0].retained.get_all() if t[:1] != "\x00"]
+    for topic in held[::2]:
+        for index, eng in engines.values():
+            assert index.retain_message(retain_packet(topic, b"")) == -1
+            eng.note_retained(topic, False)
+    assert engines["cuda"][1]._corpora[""].tombstones < len(held) // 2  # compacted
+    check(rounds)
+    assert rounds[1] > rounds[0] and rounds[2] > rounds[1] and rounds[3] > rounds[2]
+    assert engines["cuda"][1].device_matches == engines["cpu"][1].device_matches > 0
+    for (_i, a), (_j, b) in zip([engines["cuda"]], [engines["cpu"]]):
+        for ns, c in b._corpora.items():
+            n = c.n_tok
+            assert torch.equal(a._corpora[ns].packed[:n].cpu(), c.packed[:n])
+
+
+@pytest.mark.parametrize("size", [256, 4096])
+def test_reseal_batch_on_the_card_matches_the_cpu(dev, size):
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        keys = KeyRegistry()
+        for k in range(8):
+            keys.set_key("t", f"c{k}", bytes([k]) * 16)
+        eng = RecryptEngine(keys, oracle_sample=0, device=device)
+        eng.reseed_nonce(b"reseal", 3)
+        epoch = keys.stage_epoch("t", {f"c{k}": bytes([k, 1]) * 8 for k in range(8)})
+        rng = np.random.default_rng(size)
+        items = []
+        for i in range(512):
+            wire = eng.seal_with_key(bytes([i % 8]) * 16, rng.integers(0, 256, size, dtype=np.uint8).tobytes())
+            items.append((wire, keys.key_id("t", f"c{i % 8}"), keys.kid_for_epoch("t", f"c{i % 8}", epoch)))
+        before = kernels.LAUNCHES["keystream"]
+        outs.append(eng.reseal_batch(Tenant("t"), items, epoch))
+        if device.type == "cuda":
+            assert kernels.LAUNCHES["keystream"] == before + 1
+            assert eng.device_blocks == 2 * 512 * (size // 16)
+    assert outs[0] == outs[1]

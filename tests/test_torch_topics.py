@@ -11,7 +11,7 @@ the JAX package's on the same corpora.
 import numpy as np
 import pytest
 
-from mqtt_tpu_torch.packets import Subscription
+from mqtt_tpu_torch.packets import PUBLISH, FixedHeader, Packet, Subscription
 from mqtt_tpu_torch.topics import (
     SHARE_PREFIX,
     InlineSubscription,
@@ -178,6 +178,70 @@ def ns_topics(seed: int, n: int = 300) -> list[str]:
     return topics + fixed
 
 
+RET_SEGS = ["a", "b", "c", "", "x", "$SYS", "$other", "long-segment-name"]
+RET_TENANTS = ("acme", "bulkco", "t2")
+
+
+def _ret_topic(rng, max_depth: int = MAX_LEVELS) -> str:
+    depth = int(rng.integers(1, max_depth + 1))
+    parts = [RET_SEGS[j] for j in rng.integers(0, len(RET_SEGS), depth)]
+    if rng.random() < 0.5:  # keep $-levels mostly at the top, where the rules bite
+        parts[1:] = [q for q in parts[1:] if not q.startswith("$")] or ["a"]
+    return "/".join(parts) or "e"  # a topic name is never empty [MQTT-4.7.3-1]
+
+
+def retained_ops(seed: int, n: int = 400) -> list[tuple]:
+    """A seeded retain/clear list ``(topic, payload)`` (an empty payload
+    clears): global and scoped topics (``RET_TENANTS``), ``$SYS`` and
+    ``$other`` roots, empty levels, topics that are a ``#`` filter's base,
+    re-retains and clears of held and of absent topics."""
+    rng = np.random.default_rng(seed)
+    held: list[str] = []
+    ops: list[tuple] = []
+    for i in range(n):
+        roll = rng.random()
+        if held and roll < 0.2:
+            ops.append((held[int(rng.integers(0, len(held)))], b""))  # a clear
+            continue
+        if held and roll < 0.3:
+            ops.append((held[int(rng.integers(0, len(held)))], b"again%d" % i))
+            continue
+        topic = _ret_topic(rng)
+        if rng.random() < 0.4:
+            topic = ns_scope_topic(RET_TENANTS[int(rng.integers(0, len(RET_TENANTS)))], topic)
+        payload = b"" if rng.random() < 0.05 else b"p%d" % i  # a clear of nothing, now and then
+        ops.append((topic, payload))
+        held.append(topic)
+    return ops
+
+
+def retained_filters(seed: int, n: int = 80) -> list[str]:
+    """Seeded SUBSCRIBE filters over the retained corpus: ``+`` and ``#``
+    anywhere, exact filters (the engine declines them), ``$SHARE/``
+    filters, ``$SYS``/``$other`` roots, global and scoped, and the fixed
+    cases of the walk's guards."""
+    rng = np.random.default_rng(seed)
+    out = ["#", "+", "+/+", "+/#", "a/#", "a/+", "$SYS/#", "$SYS/+", "$other/#", "+/b", "/#", "a",
+           f"{SHARE_PREFIX}/g/#"]
+    out += [ns_scope_filter(t, f) for t in RET_TENANTS for f in ("#", "+", "+/#", "$SYS/#", "a/+")]
+    for _ in range(n):
+        parts = _ret_topic(rng, 4).split("/")
+        roll = rng.random()
+        if roll < 0.4:
+            parts[int(rng.integers(0, len(parts)))] = "+"
+        elif roll < 0.8:
+            parts = parts[: int(rng.integers(0, len(parts) + 1))] + ["#"]
+        flt = "/".join(parts)
+        if rng.random() < 0.35:
+            flt = ns_scope_filter(RET_TENANTS[int(rng.integers(0, len(RET_TENANTS)))], flt)
+        out.append(flt)
+    return out
+
+
+def retain_packet(topic: str, payload: bytes) -> Packet:
+    return Packet(fixed_header=FixedHeader(type=PUBLISH, retain=True), topic_name=topic, payload=payload)
+
+
 def apply_port_ops(ops, index: TopicsIndex) -> TopicsIndex:
     for op, client, flt, qos, ident, no_local in ops:
         if op == "sub":
@@ -271,3 +335,65 @@ def test_corpus_helpers_are_seeded():
     assert corpus_topics(3, n=20) == corpus_topics(3, n=20)
     index = apply_port_ops(corpus_ops(3, n_subs=200), TopicsIndex())
     assert {f"hot{j}" for j in range(20)} <= set(index.subscribers("hot/x").subscriptions)
+
+
+# -- the retained half --------------------------------------------------------
+
+
+def test_port_retain_message_return_codes():
+    index = TopicsIndex()
+    assert index.retain_message(retain_packet("a/b", b"x")) == 1  # new
+    assert index.retain_message(retain_packet("a/b", b"y")) == 1  # replace
+    assert index.retain_message(retain_packet("a/b", b"")) == -1  # clear
+    assert index.retain_message(retain_packet("a/b", b"")) == 0  # nothing to clear
+    assert index.retained.get("a/b") is None
+    assert index.root.particles == {}  # the cleared chain is trimmed
+
+
+def test_port_trim_stops_at_a_retained_node():
+    index = TopicsIndex()
+    index.retain_message(retain_packet("keep/me", b"x"))
+    index.subscribe("c1", Subscription(filter="keep/me/deeper"))
+    index.unsubscribe("keep/me/deeper", "c1")
+    # keep/me anchors a retained message and stays; deeper goes
+    assert "deeper" not in index.root.particles["keep"].particles["me"].particles
+    assert [p.topic_name for p in index.messages("keep/#")] == ["keep/me"]
+    # and a subscription anchors a node whose retained message is cleared
+    index.subscribe("c2", Subscription(filter="r/t"))
+    index.retain_message(retain_packet("r/t", b"x"))
+    index.retain_message(retain_packet("r/t", b""))
+    assert len(index.subscribers("r/t").subscriptions) == 1
+
+
+def test_port_messages_guards():
+    index = TopicsIndex()
+    for t in ("$SYS/broker/uptime", "normal/topic", "$other/v", "a", "a/b",
+              ns_scope_topic("acme", "a/b"), ns_scope_topic("acme", "$SYS/x")):
+        index.retain_message(retain_packet(t, b"1"))
+    names = lambda f: sorted(p.topic_name for p in index.messages(f))  # noqa: E731
+    assert names("#") == ["$other/v", "a", "a/b", "normal/topic"]  # no $SYS, no namespace
+    assert names("+/broker/uptime") == []
+    assert names("$SYS/#") == ["$SYS/broker/uptime"]
+    assert names("a/#") == ["a/b"]  # strictly deeper under #
+    assert names(ns_scope_filter("acme", "#")) == [ns_scope_topic("acme", "a/b")]
+    assert names(ns_scope_filter("acme", "$SYS/#")) == [ns_scope_topic("acme", "$SYS/x")]
+    assert names("a") == ["a"] and names("") == []
+
+
+def test_port_packet_copy_and_store():
+    pk = Packet(fixed_header=FixedHeader(type=PUBLISH, qos=1, retain=True), topic_name="t",
+                payload=b"x", origin="c", created=5, expiry=9)
+    cp = pk.copy(False)
+    assert cp == pk and cp is not pk and cp.fixed_header is not pk.fixed_header
+    cp.payload = b"y"
+    assert pk.payload == b"x"
+    index = TopicsIndex()
+    assert index.retained.name == "retained" and len(index.retained) == 0
+
+
+def test_retained_helpers_are_seeded():
+    assert retained_ops(3, n=50) == retained_ops(3, n=50)
+    assert retained_filters(3, n=20) == retained_filters(3, n=20)
+    index = TopicsIndex()
+    codes = {index.retain_message(retain_packet(t, p)) for t, p in retained_ops(3)}
+    assert codes == {1, -1, 0}
