@@ -96,6 +96,30 @@ Phases, each printed as it ends:
     the engine's answers stay the same; then K6 at that block count
     against its plain version.
 
+12. The device plane's instruments (phase "observe", run on cfg2 after
+    its sharded phases): one ``MetricsRegistry`` with a
+    ``tracing.DeviceProfiler`` on the single-card stage (a fresh
+    ``DeltaMatcher`` on the trie as it stands) and on the sharded stage,
+    a ``DeviceStatsPlane`` (per-card memory, the sharded matcher's tiles),
+    the first-launch ledger, and the port's lock plane armed with its
+    order witness. One wave through both routes with all of it attached
+    and armed, then the same wave bare, both under ``torch.profiler``,
+    with the launch counts set to 0 just before and read after (the
+    single-card route must launch K1 or K2, the sharded K8 and K9; the
+    counts join the kernels line). Every answer must equal the trie's,
+    the profiler must hold one record
+    with both windows per device batch, duty cycle and overlap lie in
+    [0, 1], one device window per card, live <= peak <= limit with the
+    limit ``torch.cuda.mem_get_info()``'s, and the witness no violation.
+    Printed: the per-leg split (issue, D2H, idle gap, p50 and p99), duty
+    cycle and overlap beside the traced busy share, memory, the ledger's
+    events, lock acquisitions and waits, matches/s armed and bare, each
+    with the card's name and power limit. The same registry goes to the
+    predicate and re-encryption engines (and the tenant plane) of the
+    later phases, and is rendered once at the end (phase "observe
+    render"), checked with ``check_exposition`` for every engine's
+    families.
+
 Phase 4 also holds K7 (``flat_match_core``, the single-index entry point
 of K8's kernel) and K4-K6 against their plain versions at the shapes these
 paths give them (K5's MEAN within ``1e-5 * max(1, |want|)``, the rest with
@@ -1177,6 +1201,260 @@ def phase_sharded(sh: dict, wave: int, n_waves: int = 3, n_churn: int = 150) -> 
     return launches
 
 
+# -- the device plane's instruments --------------------------------------------------
+
+# the families a rendered registry must hold once every engine is attached
+OBSERVE_FAMILIES = (
+    "mqtt_tpu_device_issue_seconds", "mqtt_tpu_device_d2h_seconds", "mqtt_tpu_device_idle_gap_seconds",
+    "mqtt_tpu_device_d2h_bytes", "mqtt_tpu_device_duty_cycle_ratio", "mqtt_tpu_device_overlap_ratio",
+    "mqtt_tpu_device_hbm_live_bytes", "mqtt_tpu_device_hbm_peak_bytes", "mqtt_tpu_device_hbm_limit_bytes",
+    "mqtt_tpu_device_hbm_ratio", "mqtt_tpu_device_skew_ratio", "mqtt_tpu_device_tile_hits_total",
+    "mqtt_tpu_device_tile_fill_ratio", "mqtt_tpu_matcher_compile_seconds", "mqtt_tpu_matcher_recompiles_total",
+    "mqtt_tpu_matcher_shard_compile_seconds", "mqtt_tpu_predicate_rules", "mqtt_tpu_predicate_evals_total",
+    "mqtt_tpu_predicate_filtered_ratio", "mqtt_tpu_recrypt_keys", "mqtt_tpu_recrypt_fanouts_total",
+    "mqtt_tpu_recrypt_device_blocks_total", "mqtt_tpu_recrypt_epoch",
+)
+
+
+def _exact_pct(xs, q: float) -> float:
+    return _pct(xs, q) if xs else 0.0
+
+
+def _leg_split(recs) -> str:
+    """Issue, D2H and idle-gap p50/p99 in ms, exact from the records'
+    own stamps (the histograms' bounds are powers of two apart)."""
+    issue = [r.dispatch[1] - r.dispatch[0] for r in recs]
+    d2h = [r.d2h[1] - r.d2h[0] for r in recs]
+    ends = sorted((r.dispatch[1], max(r.d2h[1], r.dispatch[1])) for r in recs)
+    gaps, busy_until = [], 0.0
+    for start, end in ends:
+        if busy_until and start >= busy_until:
+            gaps.append(start - busy_until)
+        busy_until = max(busy_until, end)
+    return ", ".join(f"{leg} p50 {_exact_pct(xs, 0.5) * 1e3:.3f} p99 {_exact_pct(xs, 0.99) * 1e3:.3f} ms"
+                     for leg, xs in (("issue", issue), ("D2H", d2h), ("idle gap", gaps)))
+
+
+def phase_observe(torch, cfg: dict, sh: dict, wave: int, device, card: str) -> dict:
+    """The device plane's instruments on cfg2, after its main and sharded
+    phases: one ``MetricsRegistry`` holding a ``DeviceProfiler`` on the
+    single-card stage and on the sharded stage, a ``DeviceStatsPlane``
+    (memory gauges, the sharded matcher's tiles) and the first-launch
+    ledger, with the port's lock plane armed and its witness on. One wave
+    runs through both routes with everything attached and armed, under
+    ``torch.profiler``; then the same wave bare (nothing attached, the
+    ledger's watch off), under ``torch.profiler`` too so the two rates
+    compare. The single-card route is a fresh ``DeltaMatcher`` compiled
+    from the trie as it stands: cfg2's first one was closed before the
+    sharded phase churned the trie. The registry goes on to the engines
+    of the later phases and is rendered once at the end
+    (``phase_observe_render``)."""
+    from mqtt_tpu_torch import DeltaMatcher, MatchStage
+    from mqtt_tpu_torch.ops import devicestats, kernels
+    from mqtt_tpu_torch.telemetry import MetricsRegistry
+    from mqtt_tpu_torch.tracing import DeviceProfiler
+    from mqtt_tpu_torch.utils.locked import DEFAULT_PLANE
+
+    class RecordingProfiler(DeviceProfiler):
+        """Keeps every record it opens, for the per-record checks."""
+
+        def __init__(self, registry):
+            super().__init__(registry)
+            self.records: list = []
+
+        def open_batch(self):
+            rec = super().open_batch()
+            self.records.append(rec)
+            return rec
+
+    on_cuda = device.type == "cuda"
+    index, gen, name = cfg["index"], cfg["topic_gen"], cfg["name"]
+    t_phase = time.perf_counter()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        single = DeltaMatcher(index, max_levels=8, background=False, device=device)
+        build_s = time.perf_counter() - t0
+    finally:
+        _settle_gc()
+    routes = {"single-card": single, "sharded": sh["dm"]}
+    snap_sh = sh["dm"].snapshot
+    registry = MetricsRegistry()
+    prof = RecordingProfiler(registry)
+    plane = devicestats.DeviceStatsPlane(registry, device=device.type)
+    plane.attach_profiler(prof)
+    plane.attach_matcher(snap_sh)  # the plane binds the first-launch ledger to the registry too
+    registry.histogram(
+        "mqtt_tpu_matcher_shard_compile_seconds",
+        "Per-shard flat-index compile wall time (shard-local histogram shards, merged at scrape)",
+        fn=snap_sh.merged_shard_compile,
+    )
+    witness = DEFAULT_PLANE.arm_witness()
+    topics = [gen() for _ in range(wave)]
+    ledger0 = devicestats.LEDGER.total()
+
+    async def one_pass(armed: bool) -> dict:
+        out = {}
+        for rname, dm in routes.items():
+            dm.snapshot.profiler = prof if armed else None
+            stage = MatchStage(dm, index.subscribers, max_batch=MAIN_BATCH, latency_budget_s=None,
+                               max_pending=1 << 20, profiler=prof if armed else None)
+            stage.start()
+            b0, r0 = dm.stats.batches, len(prof.records)
+            try:
+                res, dt = await _wave(stage, topics)
+            finally:
+                await stage.stop()
+                dm.snapshot.profiler = None
+            check(stage.admission_fallbacks == 0 and not stage.fallbacks,
+                  f"observe {rname}: stage fell back to the host walk: {stage.fallbacks}")
+            out[rname] = {"results": res, "seconds": dt, "batches": dm.stats.batches - b0,
+                          "records": prof.records[r0:]}
+        return out
+
+    def traced(armed: bool):
+        if not on_cuda:
+            t0 = time.perf_counter()
+            return asyncio.run(one_pass(armed)), time.perf_counter() - t0, None
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+            t0 = time.perf_counter()
+            out = asyncio.run(one_pass(armed))
+            wall = time.perf_counter() - t0
+        return out, wall, _device_busy(tp)[0]
+
+    DEFAULT_PLANE.reset()
+    DEFAULT_PLANE.arm()
+    kernels.reset_launches()
+    try:
+        armed, armed_wall, armed_busy = traced(True)
+    finally:
+        DEFAULT_PLANE.disarm()
+    locks = [st.as_dict() for st in DEFAULT_PLANE.snapshot() if st.acquisitions]
+    ledger_armed = devicestats.LEDGER.total()
+    devicestats.set_watch_enabled(False)
+    try:
+        bare, bare_wall, bare_busy = traced(False)
+    finally:
+        devicestats.set_watch_enabled(True)
+    launches = dict(kernels.LAUNCHES)
+    for rname in routes:
+        for label, run_ in (("armed", armed), ("bare", bare)):
+            _verify(index, topics, run_[rname]["results"], f"observe {name} {rname} {label}")
+            run_[rname]["results"] = None
+    single.close()
+
+    # the checks
+    issued = sum(armed[r]["batches"] for r in routes)
+    check(prof.batches == issued == len(prof.records),
+          f"observe: the profiler folded {prof.batches} batches, {len(prof.records)} records, "
+          f"for {issued} device batches issued")
+    check(all(r.dispatch is not None and r.d2h is not None for r in prof.records),
+          "observe: a record lacks its issue or D2H window")
+    check(all(armed[r]["batches"] > 0 for r in routes), "observe: a route issued no device batch")
+    check(0.0 <= prof.duty_cycle() <= 1.0 and 0.0 <= prof.overlap_ratio() <= 1.0,
+          f"observe: duty cycle {prof.duty_cycle()} or overlap {prof.overlap_ratio()} outside [0, 1]")
+    cards = sorted({d.index or 0 for dm in routes.values() for d in _route_devices(dm)})
+    windows = prof.device_snapshot()
+    check(sorted(windows) == cards, f"observe: device windows {sorted(windows)} for cards {cards}")
+    snap = plane.snapshot()
+    mem = [d["hbm"] for d in snap["devices"]]
+    if on_cuda:
+        check(len(mem) == torch.cuda.device_count(), "observe: the plane does not list every card")
+        for did, h in enumerate(mem):
+            check(0 < h["live_bytes"] <= h["peak_bytes"] <= h["limit_bytes"],
+                  f"observe: card {did} memory live {h['live_bytes']} peak {h['peak_bytes']} "
+                  f"limit {h['limit_bytes']} out of order")
+            check(h["limit_bytes"] == torch.cuda.mem_get_info(did)[1],
+                  f"observe: card {did} limit {h['limit_bytes']} is not mem_get_info's")
+    check(not witness.violations, f"observe: lock-order violations {witness.violations}")
+    for k in ("sharded_step", "tile_compact"):
+        check(launches[k] > 0 or not on_cuda, f"observe: the sharded route never launched {k}")
+    check(launches["flat_probe_ranges"] + launches["flat_match_compact"] > 0 or not on_cuda,
+          "observe: the single-card route launched neither K1 nor K2")
+
+    # the readings
+    for rname in routes:
+        recs = armed[rname]["records"]
+        log(f"phase observe {name} {rname}: {card}; {armed[rname]['batches']} device batches, "
+            f"{len(recs)} records, each with both windows; {_leg_split(recs)}")
+    log(f"  observe {name} per-leg split (both routes, the profiler's histograms, bucket bounds): "
+        + ", ".join(f"{leg} p50 {hist.percentile(0.5) * 1e3:.3f} p99 {hist.percentile(0.99) * 1e3:.3f} ms"
+                    for leg, hist in (("issue", prof.issue_hist), ("D2H", prof.d2h_hist),
+                                      ("idle gap", prof.idle_gap_hist)))
+        + f" ({prof.idle_gap_hist.count} gaps); {card}")
+    per_route = []
+    for rname in routes:
+        replay = DeviceProfiler()
+        for r in armed[rname]["records"]:
+            replay.note_dispatch(r, *r.dispatch)
+            replay.note_resolve(r, *r.d2h)
+        per_route.append(f"{rname} {replay.duty_cycle():.6f} / {replay.overlap_ratio():.6f}")
+    busy = ("not measured (no device span in the trace)" if armed_busy is None
+            else f"{armed_busy / (armed_wall * 1e6):.6f} ({armed_busy:.1f} us of {armed_wall:.3f} s)")
+    log(f"  observe {name} duty cycle {prof.duty_cycle():.6f}, overlap {prof.overlap_ratio():.6f} "
+        f"(per route, duty / overlap: {', '.join(per_route)}); torch.profiler busy share of the armed "
+        f"wave {busy}; {card}")
+    for h_ in mem:
+        log(f"  observe {name} card memory: live {h_['live_bytes']} B, peak {h_['peak_bytes']} B, "
+            f"limit {h_['limit_bytes']} B (ratio {h_['ratio']}); {card}")
+    new = devicestats.LEDGER.events()[-(ledger_armed - ledger0):] if ledger_armed > ledger0 else []
+    log(f"  observe {name} first-launch ledger: {ledger0} events before the phase "
+        f"({devicestats.LEDGER.counts()}), {ledger_armed - ledger0} during the armed wave "
+        f"{['%s[%s]' % (e['kernel'], e['shape_bucket']) for e in new]}, "
+        f"{devicestats.LEDGER.total() - ledger_armed} during the bare wave (watch off); {card}")
+    for st in sorted(locks, key=lambda s: s["name"]):
+        log(f"  observe {name} lock {st['name']}: {st['acquisitions']} acquisitions, {st['contended']} contended, "
+            f"wait p99 {st['wait_p99_ms']} ms, hold p99 {st['hold_p99_ms']} ms; {card}")
+    log(f"  observe {name} witness: {len(witness.edges)} edges {sorted(witness.edges)}, "
+        f"{len(witness.violations)} violations; {card}")
+    for rname in routes:
+        a, b = armed[rname]["seconds"], bare[rname]["seconds"]
+        log(f"  observe {name} {rname}: {wave / a:.1f} matches/s armed against {wave / b:.1f} bare "
+            f"(both under torch.profiler; single-card index rebuilt in {build_s:.1f} s); {card}")
+    bare_share = "not measured" if bare_busy is None else f"{bare_busy / (bare_wall * 1e6):.6f}"
+    log(f"phase observe {name}: ok {len(routes)} routes x 2 waves of {wave}, every answer the trie's, "
+        f"bare busy share {bare_share}, {time.perf_counter() - t_phase:.1f} s; launches {launches}; {card}")
+    return {"registry": registry, "launches": launches, "profiler": prof, "plane": plane, "witness": witness,
+            "ledger": ledger_armed, "card": card}
+
+
+def _route_devices(dm) -> list:
+    """The devices a DeltaMatcher's snapshot runs on."""
+    snap = dm.snapshot
+    mesh = getattr(snap, "mesh", None)
+    return mesh.unique_devices() if mesh is not None else [snap.device]
+
+
+def phase_observe_render(obs: dict) -> None:
+    """Render the registry once, after every engine of the later phases
+    has registered on it, and check it; the witness has watched every
+    phase since ``observe`` and must hold no violation."""
+    from mqtt_tpu_torch.ops import devicestats
+    from mqtt_tpu_torch.telemetry import check_exposition
+    from mqtt_tpu_torch.utils.locked import DEFAULT_PLANE
+
+    t0 = time.perf_counter()
+    text = obs["registry"].exposition()
+    render_s = time.perf_counter() - t0
+    samples = check_exposition(text)
+    families = {line.split()[2] for line in text.splitlines() if line.startswith("# TYPE ")}
+    missing = [f for f in OBSERVE_FAMILIES if f not in families]
+    check(not missing, f"observe render: families missing: {missing}")
+    witness = obs["witness"]
+    check(not witness.violations, f"observe render: lock-order violations {witness.violations}")
+    DEFAULT_PLANE.disarm_witness()
+    since = devicestats.LEDGER.total() - obs["ledger"]
+    kinds: dict = {}
+    for e in devicestats.LEDGER.events()[-since:] if since else []:
+        kinds[e["kernel"]] = kinds.get(e["kernel"], 0) + 1
+    log(f"phase observe render: ok {samples} samples in {len(families)} families (all "
+        f"{len(OBSERVE_FAMILIES)} expected present), rendered in {render_s * 1e3:.3f} ms, check_exposition "
+        f"passed; the ledger noted {since} events after the armed wave {kinds}; the witness saw "
+        f"{len(witness.edges)} edges {sorted(witness.edges)} and no violation; {obs['card']}")
+
+
 # -- tenant namespaces ------------------------------------------------------------
 
 NS_SEGS = ["e", "1", "a", "$x", "b"] + [f"s{i}" for i in range(75)]
@@ -1342,7 +1620,7 @@ def build_cfgP(n_subs: int, rng: random.Random):
     return index, entries, topic_gen, suffixes
 
 
-def phase_setup_predicates(n_subs: int, seed: int, device) -> dict:
+def phase_setup_predicates(n_subs: int, seed: int, device, registry=None) -> dict:
     from mqtt_tpu_torch import DeltaMatcher, PredicateEngine
 
     rng = random.Random(seed)
@@ -1351,7 +1629,7 @@ def phase_setup_predicates(n_subs: int, seed: int, device) -> dict:
         t0 = time.perf_counter()
         index, entries, topic_gen, suffixes = build_cfgP(n_subs, rng)
         t1 = time.perf_counter()
-        eng = PredicateEngine(device=device)
+        eng = PredicateEngine(device=device, registry=registry)
         for sfx in suffixes:
             eng.register(sfx)
         t2 = time.perf_counter()
@@ -1519,7 +1797,7 @@ def phase_predicates(cfg: dict, wave: int) -> dict:
     return launches
 
 
-def phase_setup_recrypt(seed: int, device) -> dict:
+def phase_setup_recrypt(seed: int, device, registry=None) -> dict:
     """cfg10's non-fast shape (bench.py:974-1000): 4 tenants x 128 keys,
     the encrypted namespace ``e/``; each tenant has four topic groups,
     each subscribed by 100 keyed subscribers through ``e/g<j>/+``."""
@@ -1527,7 +1805,7 @@ def phase_setup_recrypt(seed: int, device) -> dict:
     from mqtt_tpu_torch.topics import ns_scope_filter
 
     t0 = time.perf_counter()
-    plane = TenantPlane()
+    plane = TenantPlane(registry)
     reg = plane.keys
     tenants = []
     keys = {}
@@ -1542,7 +1820,7 @@ def phase_setup_recrypt(seed: int, device) -> dict:
             flt = ns_scope_filter(tenant.name, f"e/g{g}/+")
             for i in range(RECRYPT_FANOUT):
                 index.subscribe(f"{tenant.name}:g{g}:c{i}", Subscription(filter=flt, qos=1))
-    rec = RecryptEngine(reg, oracle_sample=16, device=device)
+    rec = RecryptEngine(reg, oracle_sample=16, device=device, registry=registry)
     rec.reseed_nonce(b"bnch")
     dm = DeltaMatcher(index, max_levels=8, rebuild_interval=0.5, device=device)
     log(f"phase setup cfgR: ok {N_TENANTS} tenants x {KEYS_PER_TENANT} keys, "
@@ -2263,7 +2541,7 @@ def _materialize_single(torch, cfg: dict, device) -> None:
 
 
 def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRYPT,
-        retained_sizes: tuple = RETAINED_SIZES, n_reseal: int = N_RESEAL) -> list:
+        retained_sizes: tuple = RETAINED_SIZES, n_reseal: int = N_RESEAL, card: str = "") -> list:
     import torch
 
     # off the card (a rehearsal) the wrappers are never called: no counts
@@ -2295,6 +2573,8 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
             phase_kernels_sharded(torch, rec, sh, device, main=cfg is cfgs[0])
             topics = [cfg["topic_gen"]() for _ in range(MAIN_BATCH)]
             phase_materialize(cfg["index"], topics, _fetch_sharded(torch, sh, topics), f"{cfg['name']} sharded")
+            if cfg is cfgs[0]:
+                obs = phase_observe(torch, cfg, sh, wave, device, card)
             sh["dm"].close()
     finally:
         for cfg in cfgs:
@@ -2303,8 +2583,9 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
             sh["dm"].close()
     del cfgs, sharded
     mainN = phase_namespace(torch, device)
-    cfgP = phase_setup_predicates(n_subs, 9, device)
-    cfgR = phase_setup_recrypt(10, device)
+    # the observe phase's registry goes on to the later phases' engines
+    cfgP = phase_setup_predicates(n_subs, 9, device, obs["registry"])
+    cfgR = phase_setup_recrypt(10, device, obs["registry"])
     try:
         phase_kernels_pr(torch, rec, cfgP, cfgR, device, n_recrypt)
         mainP = phase_predicates(cfgP, wave)
@@ -2321,10 +2602,12 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
         if "cfgP" in locals():
             cfgP["dm"].close()
         cfgR["dm"].close()
+    phase_observe_render(obs)
     kernels_line = []
     for name in REPLACES:
         launches = (main2[name] + main3[name] + mainN[name] + mainP[name] + mainR[name]
-                    + sum(m[name] for m in main_sh) + sum(m[name] for m in main_ret) + main_rs[name])
+                    + sum(m[name] for m in main_sh) + sum(m[name] for m in main_ret) + main_rs[name]
+                    + obs["launches"][name])
         check(launches > 0 or name in INSIDE or not counted, f"{name} was never launched on the main paths")
         r = rec[name]
         entry = {
@@ -2364,10 +2647,10 @@ def main() -> int:
     args = ap.parse_args()
     t0 = time.perf_counter()
     try:
-        phase_card(torch)
+        card = phase_card(torch)["card"]
         phase_build()
         kernels_line = run(torch.device("cuda"), args.subs, args.wave, args.recrypt,
-                           tuple(int(x) for x in args.retained.split(",")), args.reseal)
+                           tuple(int(x) for x in args.retained.split(",")), args.reseal, card)
     except PhaseFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -22,6 +22,12 @@ it needs, its C tokenizer and C result materializer among them
 lazy ``SubscribersView`` results by default, which read like
 ``Subscribers``.
 
+The device plane carries the JAX package's instruments: ``telemetry``
+(the metrics registry), ``utils.locked`` (named instrumented locks, the
+lock plane and its order witness), ``ops.devicestats`` (the first-launch
+ledger, per-card memory gauges) and ``tracing`` (the device pipeline
+profiler the matchers and the stage stamp).
+
 Entry points run on ``"cuda"`` unless given ``device="cpu"``, which runs
 the plain PyTorch version of every kernel.
 """

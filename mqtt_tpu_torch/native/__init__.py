@@ -17,6 +17,8 @@ Each builds with the host C compiler (``$CC``, else the first of ``cc``,
 the flags, the compiler and (for the extension) the CPython ABI, so an
 edited source rebuilds. A build writes a temp file and renames it into
 place, so processes that build at once never load a half-written library.
+Each build is noted in the first-launch ledger (``ops.devicestats.LEDGER``)
+as ``cc:<source>`` with its wall time.
 A failed build or load raises ``NativeError`` with the compiler's output:
 the port has no Python fallback on its main path. The plain Python
 versions (``ops/hashing.tokenize_topics_py``, ``ops/matcher.expand_sids``
@@ -36,6 +38,7 @@ import sys
 import sysconfig
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -99,6 +102,7 @@ def _build(src: Path) -> Path:
     os.close(fd)
     try:
         cmd = [cc, *CFLAGS, *_extra(src), "-o", tmp, str(src)]
+        t0 = time.perf_counter()
         try:
             r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         except (OSError, subprocess.SubprocessError) as e:
@@ -108,6 +112,10 @@ def _build(src: Path) -> Path:
                 f"{src.name}: {cc} exit {r.returncode}\n{r.stdout}{r.stderr}"
             )
         os.replace(tmp, out)
+        # imported here: ops imports this package
+        from ..ops.devicestats import LEDGER
+
+        LEDGER.note_compile(f"cc:{src.name}", cc, time.perf_counter() - t0)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -18,6 +18,9 @@ the payload-predicate rule table and the re-encryption keystream.
 - ``retained`` — ``RetainedMatchEngine``: wildcard SUBSCRIBE against the
                  retained store, K1 run in reverse over a device-resident
                  corpus of retained topic names
+- ``devicestats`` — the first-launch ledger (a ``KernelWatch`` around
+                 every CUDA wrapper), the build notes and the per-card
+                 memory and tile-skew gauges (``DeviceStatsPlane``)
 - ``delta``    — ``DeltaMatcher``: snapshot + host delta overlay +
                  background fold/rebuild, for live brokers under churn; with
                  a mesh its snapshot is ``parallel.ShardedTorchMatcher``

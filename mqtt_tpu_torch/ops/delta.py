@@ -319,15 +319,17 @@ class DeltaMatcher:
 
     # -- matching ------------------------------------------------------------
 
-    def match_topics_async(self, topics: list[str]):
+    def match_topics_async(self, topics: list[str], profile=None):
         """Issue one batch; the returned resolver yields the results. The
         generation (snapshot + overlay) is captured at issue time; the
-        generation object itself is the route-to-host authority. Raises
+        generation object itself is the route-to-host authority.
+        ``profile`` is the caller's per-batch ``tracing.BatchProfile``,
+        stamped by the snapshot when a profiler is attached to it. Raises
         the ``KernelError`` of a failed background fold."""
         if self._kernel_error is not None:
             raise self._kernel_error
         gen = self._gen  # atomic read: one generation per call
-        return gen.snap.match_topics_async(topics, route_to_host=gen)
+        return gen.snap.match_topics_async(topics, route_to_host=gen, profile=profile)
 
     def match_topics(self, topics: list[str]) -> list[Subscribers]:
         """Match a batch of topics, bit-identical to the live host trie."""

@@ -15,7 +15,13 @@ compiler.
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 ``torch.cuda.current_stream()``, raises if the launch reports an error,
-and adds one to its entry in ``LAUNCHES``. The wrappers take CUDA tensors
+and adds one to its entry in ``LAUNCHES``. Each runs inside a
+``devicestats.KernelWatch`` under its own name, which notes the first
+launch of every new signature (shapes, dtypes, devices, integer
+arguments) in ``devicestats.LEDGER``: the host's enqueue time of that
+launch, not the kernel's. The library is loaded (built at first use)
+before the watch times the call, and each ``nvcc`` build is noted under
+its own name, ``nvcc:<source>``. The wrappers take CUDA tensors
 only; the plain PyTorch versions in ``ops/flat.py``, ``ops/predicates.py``,
 ``ops/recrypt.py`` and ``parallel/sharded.py`` serve CPU tensors.
 
@@ -28,14 +34,18 @@ caller.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
+
+from .devicestats import LEDGER, KernelWatch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
@@ -144,6 +154,7 @@ def build_all(verbose: bool = False) -> dict:
     ``{source: compiler output}``; raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for source in SOURCES:
         out = library_path(source)
         if out.exists():
@@ -165,6 +176,9 @@ def build_all(verbose: bool = False) -> dict:
             failed.append(f"{source}: nvcc exit {proc.returncode}\n{log}")
         else:
             os.replace(tmp, out)
+            # the builds run together: each one's seconds are from the
+            # common start to the moment this one is known to be done
+            LEDGER.note_compile(f"nvcc:{source}", "sm_90a", time.perf_counter() - t0)
     if failed:
         raise KernelError("kernel build failed:\n" + "\n".join(failed))
     return logs
@@ -251,6 +265,29 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _watched(source: str):
+    """Run a wrapper inside a ``KernelWatch`` named after it. Where its
+    first argument lies on a card, ``source``'s library is loaded (and
+    built at first use) before the watch times the call, so a first
+    launch's note holds the launch's host time and not the build's."""
+
+    def wrap(fn):
+        watch = KernelWatch(fn.__name__, fn)
+
+        @functools.wraps(fn)
+        def launch(*args, **kwargs):
+            first = args[0] if args else None
+            if source not in _libs and isinstance(first, torch.Tensor) and first.is_cuda:
+                library(source)
+            return watch(*args, **kwargs)
+
+        launch.watch = watch
+        return launch
+
+    return wrap
+
+
+@_watched("flat_match.cu")
 def flat_probe_ranges(table, pat_kind, pat_depth, pat_mask, tokens, max_levels: int):
     """K1: ``[B, 2L+2]`` packed tokens -> ``[B, 2P+2]`` packed ranges."""
     device = _cuda_device(tokens)
@@ -269,6 +306,7 @@ def flat_probe_ranges(table, pat_kind, pat_depth, pat_mask, tokens, max_levels: 
     return out
 
 
+@_watched("flat_match.cu")
 def flat_match_compact(table, pat_kind, pat_depth, pat_mask, tokens, max_levels: int, capacity: int):
     """K2: ``[B, 2L+2]`` packed tokens -> ``[2 + 2B + capacity]`` compacted
     sid stream. Needs ``B >= 1`` and ``P >= 1`` (``ops/flat.py`` writes the
@@ -342,6 +380,7 @@ def _tile_scratch_for(lib, device, stream: int, T: int, S: int, bl: int) -> tupl
         return entry[0], entry[1], entry[2]
 
 
+@_watched("flat_match.cu")
 def scatter_rows(table, idx, rows):
     """K3: a new table equal to ``table`` with rows ``idx`` replaced."""
     device = _cuda_device(table)
@@ -364,6 +403,7 @@ def scatter_rows(table, idx, rows):
     return out
 
 
+@_watched("predicates.cu")
 def rules_eval(op, slot, thresh, cbit, feats, cmask):
     """K4: every rule of the ``[R]`` table on every publish of ``feats``
     ``[B, S]`` float32 and ``cmask`` ``[B, W]`` (u32 bits in int32) ->
@@ -397,6 +437,7 @@ def rules_eval(op, slot, thresh, cbit, feats, cmask):
     return out
 
 
+@_watched("predicates.cu")
 def agg_reduce(vals, ops, counts):
     """K5: ``W`` NaN-padded windows ``vals [W, N]`` float32 with their
     ``ops``/``counts`` ``[W]`` int32 -> the ``[W]`` float32 aggregates."""
@@ -418,6 +459,7 @@ def agg_reduce(vals, ops, counts):
     return out
 
 
+@_watched("recrypt.cu")
 def keystream(key_table, kidx, counters):
     """K6: AES-128 of ``counters [N, 16]`` uint8 under the round keys
     ``key_table [T, 11, 16]`` uint8 picked by ``kidx [N]`` int32 ->
@@ -489,6 +531,7 @@ def _match_slots(tables, pat_kind, pat_depth, pat_mask, tokens, max_levels: int,
     _launched("sharded.cu", err, *names)
 
 
+@_watched("sharded.cu")
 def flat_match_slots(table, pat_kind, pat_depth, pat_mask, tokens, max_levels: int,
                      out_slots: int, overflow_slots: int = 0):
     """K7: ``[B, 2L+2]`` packed tokens against one index -> ``(sub_ids
@@ -506,6 +549,7 @@ def flat_match_slots(table, pat_kind, pat_depth, pat_mask, tokens, max_levels: i
     return out[0], totals[0], overflow[0]
 
 
+@_watched("sharded.cu")
 def sharded_match_slots(tables, pat_kind, pat_depth, pat_mask, tokens, max_levels: int,
                         out, totals, overflow) -> None:
     """K8: ``T`` batch tiles (``tokens [T*bl, 2L+2]``) against every shard
@@ -520,6 +564,7 @@ def sharded_match_slots(tables, pat_kind, pat_depth, pat_mask, tokens, max_level
     )
 
 
+@_watched("sharded.cu")
 def tile_compact(out, totals, overflow, cap_local: int):
     """K9: ``T`` gathered tiles ``out [T, S, bl, K]``, ``totals [T, S, bl]``
     int32, ``overflow [T, S, bl]`` bool -> ``rows [T, 2 + 2*bl +

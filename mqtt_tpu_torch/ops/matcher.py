@@ -48,6 +48,11 @@ from .flat import (
 )
 from .hashing import tokenize_topics
 
+# sid slots a topic of the padded slot buffer (the JAX matcher's default
+# ``out_slots``): the dense geometry the profiler's transfer ledger
+# compares each batch's bytes with
+DENSE_SLOTS = 64
+
 # the C materializer, resolved once (native.accel() is itself memoized;
 # this skips the call in the per-batch path)
 _ACCEL = None
@@ -450,6 +455,20 @@ class MatcherStats:
         return out
 
 
+def _stamp_bytes(
+    rec, d2h_bytes: int, bytes_ranges: int, bytes_dense: int,
+    compact: bool, overflow: bool = False,
+) -> None:
+    """Stamp one batch's transfer accounting onto its BatchProfile
+    (``tracing``): the bytes moved beside the pre-compaction geometries,
+    and whether the result came back compacted."""
+    rec.d2h_bytes = d2h_bytes
+    rec.d2h_bytes_ranges = bytes_ranges
+    rec.d2h_bytes_dense = bytes_dense
+    rec.compact = compact
+    rec.compact_overflow = overflow
+
+
 def _to_host_async(out_dev: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.cuda.Event]]:
     """Start the D2H copy of a result into a fresh pinned buffer and
     record an event after it; a CPU result is already on the host. Each
@@ -507,6 +526,10 @@ class TorchMatcher:
         # or pairs); any consumer that reads a map materializes it
         self.lazy = lazy
         self.stats = MatcherStats()
+        # device pipeline profiler (tracing.DeviceProfiler) or None:
+        # match_topics_async feeds it the issue leg, the resolver the D2H
+        # wait — duty cycle / overlap / idle-gap accounting lives there
+        self.profiler: Optional[Any] = None
         # one (flat_index, device_arrays, built_version) tuple, swapped
         # atomically by rebuild()/fold() so a concurrent match never mixes
         # arrays and salt from different generations
@@ -626,7 +649,7 @@ class TorchMatcher:
 
     # -- matching ----------------------------------------------------------
 
-    def match_topics_async(self, topics: list[str], route_to_host=None):
+    def match_topics_async(self, topics: list[str], route_to_host=None, profile=None):
         """Issue one device match batch and return a zero-arg resolver.
 
         Issue: host tokenize, ONE packed H2D copy from a pinned buffer, ONE
@@ -640,6 +663,13 @@ class TorchMatcher:
         either a plain ``topic -> bool`` predicate or an object exposing
         ``affected(topic)`` plus ``affected_batch(topics) -> indices`` (the
         delta overlay, ops/delta._Gen).
+
+        ``profile`` is an optional per-batch ``tracing.BatchProfile`` the
+        caller (the stage) holds; with a profiler attached this method
+        stamps its issue leg (from before tokenizing to after the launch
+        and the D2H copy are queued) and the resolver its D2H window,
+        which closes when the wait on the copy returns. With a profiler
+        attached and no record passed, a private one is opened.
         """
         st = self._state
         if st is None or self.stale:
@@ -651,6 +681,11 @@ class TorchMatcher:
             # wildcard-free filter set: one host dict probe per topic beats
             # any device round trip
             return self._match_exact_fast(topics, flat, route_to_host)
+        prof = self.profiler
+        rec = None
+        if prof is not None:
+            rec = profile if profile is not None else prof.open_batch()
+            t_issue0 = time.perf_counter()
         # pad ragged batches to a power-of-two bucket; padded rows are
         # ignored at resolve time
         b = len(topics)
@@ -676,6 +711,12 @@ class TorchMatcher:
         else:
             out_dev = flat_match_packed(*arrays, dev_tokens, max_levels=flat.max_levels)
         out_host, event = _to_host_async(out_dev)
+        if prof is not None:
+            # the issue leg (tokenize + H2D + launch + D2H queued) ends
+            # here and the device window opens; the batch ran on the
+            # output's card (the host counts as device 0)
+            rec.devices = (out_dev.device.index or 0,)
+            prof.note_dispatch(rec, t_issue0, time.perf_counter())
         if route_to_host is None:
             pred = batch_pred = None
         elif hasattr(route_to_host, "affected_batch"):
@@ -684,13 +725,24 @@ class TorchMatcher:
         else:
             pred = route_to_host
             batch_pred = None
+        # the pre-compaction transfer geometries, stamped per batch: ranges
+        # = the packed [B, 2P+2] rows, dense = the padded slot buffer
+        # [B, DENSE_SLOTS] the JAX matcher's slot path copies by default
+        bytes_ranges = len(padded) * (2 * P + 2) * 4
+        bytes_dense = len(padded) * DENSE_SLOTS * 4
 
         if not use_compact:
 
             def resolve() -> list[Subscribers]:
+                t_sync0 = time.perf_counter() if prof is not None else 0.0
                 if event is not None:
                     event.synchronize()
                 packed = out_host.numpy()
+                if prof is not None:
+                    # the D2H wait just returned: close the device window
+                    # (kernel + transfer) on this batch's record
+                    _stamp_bytes(rec, packed.nbytes, bytes_ranges, bytes_dense, False)
+                    prof.note_resolve(rec, t_sync0, time.perf_counter())
                 stats = self.stats
                 stats.batches += 1
                 stats.topics += len(topics)
@@ -707,6 +759,7 @@ class TorchMatcher:
             return resolve
 
         def resolve_compact() -> list[Subscribers]:
+            t_sync0 = time.perf_counter() if prof is not None else 0.0
             if event is not None:
                 event.synchronize()
             out = out_host.numpy()
@@ -728,11 +781,18 @@ class TorchMatcher:
                 packed = flat_match_packed(
                     *arrays, dev_tokens, max_levels=flat.max_levels
                 ).cpu().numpy()
-                stats.d2h_bytes += int(out.nbytes + packed.nbytes)
+                d2h_bytes = int(out.nbytes + packed.nbytes)
+                stats.d2h_bytes += d2h_bytes
+                if prof is not None:
+                    _stamp_bytes(rec, d2h_bytes, bytes_ranges, bytes_dense, True, overflow=True)
+                    prof.note_resolve(rec, t_sync0, time.perf_counter())
                 return resolve_ranges_native(
                     self.stats, self.topics.subscribers, packed[: len(topics)], topics, flat, P,
                     len_overflow[: len(topics)], pred, batch_pred, self.lazy,
                 )
+            if prof is not None:
+                _stamp_bytes(rec, int(out.nbytes), bytes_ranges, bytes_dense, True)
+                prof.note_resolve(rec, t_sync0, time.perf_counter())
             stats.compact_batches += 1
             stats.d2h_bytes += int(out.nbytes)
             totals = out[2 : 2 + bp]

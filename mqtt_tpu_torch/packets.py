@@ -139,5 +139,6 @@ class PacketStore(LockedMap[str, Packet]):
     __slots__ = ("name",)
 
     def __init__(self, name: str = "") -> None:
-        super().__init__()
+        # a named store registers its lock with the lock plane
+        super().__init__(name or None)
         self.name = name

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels
+from ..ops.devicestats import KernelWatch
 from ..ops.flat import (
     KIND_CLIENT,
     KIND_INLINE,
@@ -74,6 +75,7 @@ from ..ops.matcher import (
     ns_modes,
     pick_compact_capacity,
 )
+from ..telemetry import FILL_BOUNDS, Histogram
 from ..topics import Mutation, Subscribers, TopicsIndex
 
 _log = logging.getLogger("mqtt_tpu_torch.parallel")
@@ -311,6 +313,10 @@ class ShardedTorchMatcher:
         # sticky per-batch-bucket capacities (pick_compact_capacity)
         self._caps: dict[int, int] = {}
         self.stats = MatcherStats()
+        # device pipeline profiler (tracing.DeviceProfiler) or None; the
+        # same seam as TorchMatcher.profiler: the step's issue leg and
+        # D2H window feed duty-cycle/overlap/idle-gap accounting
+        self.profiler = None
         self._plan_mesh()
         # one (placed arrays, tables, salt) tuple swapped atomically so a
         # concurrent match never mixes generations
@@ -334,8 +340,20 @@ class ShardedTorchMatcher:
         self._tile_lock = threading.Lock()
         self._tile_hits = np.zeros(self.n_batch, dtype=np.int64)
         self._tile_batches = 0
-        # seconds of each shard's most recent compile
+        # per-batch fill of each tile's compact capacity, one histogram a
+        # tile, folded under _tile_lock with the hit counts
+        self.tile_fill_hists = [Histogram(bounds=FILL_BOUNDS) for _ in range(self.n_batch)]
+        # seconds of each shard's most recent compile, and per-shard
+        # compile-time histogram SHARDS: the thread compiling shard s
+        # records into shard s's own histogram, and a scrape merges them
+        # (merged_shard_compile)
         self.shard_compile_seconds = [0.0] * self.n_shards
+        self.shard_compile_hists = [Histogram() for _ in range(self.n_shards)]
+        # the mesh step and each capacity's tile compaction under the
+        # first-launch ledger's watch (ops/devicestats), named as the JAX
+        # package names its jitted mesh steps
+        self._step_watch = KernelWatch("sharded_step", self._mesh_step)
+        self._compact_steps: dict[int, KernelWatch] = {}
         topics.add_observer(self._on_mutation)
 
     def _plan_mesh(self) -> None:
@@ -376,6 +394,9 @@ class ShardedTorchMatcher:
                     continue
             self._fused.append((owner, t, 1))
         self._devices = self.mesh.unique_devices()
+        # the cards the step runs on, stamped onto each BatchProfile so
+        # the profiler keeps one window per card (the host is device 0)
+        self._device_ids = tuple(sorted({d.index or 0 for d in self._devices}))
 
     def tile_hit_counts(self) -> np.ndarray:
         """Cumulative per-batch-tile hit counts (a copy)."""
@@ -392,13 +413,25 @@ class ShardedTorchMatcher:
                 return 0.0
             return float(hits.max()) / mean
 
-    def _fold_tile_hits(self, tile_hits: np.ndarray) -> None:
+    def _fold_tile_hits(self, tile_hits: np.ndarray, cap_local: int) -> None:
         """Fold one resolved batch's per-tile hit counts into the skew
-        accounting (called from resolvers, any thread)."""
+        accounting and the fill histograms (called from resolvers, any
+        thread)."""
         n = min(len(tile_hits), self.n_batch)
         with self._tile_lock:
             self._tile_hits[:n] += tile_hits[:n].astype(np.int64)
             self._tile_batches += 1
+            if cap_local > 0:
+                for t in range(n):
+                    self.tile_fill_hists[t].observe(float(tile_hits[t]) / cap_local)
+
+    def merged_shard_compile(self) -> Histogram:
+        """One merged snapshot of the per-shard compile-time histogram
+        shards (a scrape-time callback for a ``MetricsRegistry``)."""
+        merged = Histogram()
+        for h in self.shard_compile_hists:
+            merged.merge(h)
+        return merged
 
     def close(self) -> None:
         """Detach from the trie's mutation stream."""
@@ -599,7 +632,10 @@ class ShardedTorchMatcher:
         try:
             return self._compile_shard_inner(s, replicas, salt, min_buckets, retry_tears)
         finally:
-            self.shard_compile_seconds[s] = time.perf_counter() - t0
+            # shard-local: only the thread compiling shard s writes here
+            dt = time.perf_counter() - t0
+            self.shard_compile_seconds[s] = dt
+            self.shard_compile_hists[s].observe(dt)
 
     def _compile_shard_inner(
         self,
@@ -706,6 +742,12 @@ class ShardedTorchMatcher:
 
     # -- matching ----------------------------------------------------------
 
+    def _mesh_step(self, host_tokens: torch.Tensor, placed, tokens_on: dict) -> dict:
+        """``_step`` over the batch ``host_tokens`` (its copies on each
+        device in ``tokens_on``): the callable the ledger watches, keyed
+        by the batch's shape."""
+        return self._step(placed, tokens_on, host_tokens.shape[0] // self.n_batch)
+
     def _step(self, placed, tokens_on: dict, bl: int) -> dict:
         """K8 over every tile: per owner device, the gathered ``(out [n, S,
         bl, K], totals [n, S, bl], overflow [n, S, bl])`` of its ``n``
@@ -762,7 +804,18 @@ class ShardedTorchMatcher:
                     dst.copy_(src, non_blocking=True)
         return gathered
 
-    def match_topics_async(self, topics: list[str], route_to_host=None):
+    def _compact_step(self, cap_local: int) -> KernelWatch:
+        """K9 at one local capacity under its own watch: each capacity is
+        a kernel name of the ledger, so a capacity that changes batch after
+        batch shows as a steady stream of first launches."""
+        step = self._compact_steps.get(cap_local)
+        if step is None:
+            step = self._compact_steps.setdefault(
+                cap_local, KernelWatch(f"sharded_tile_compact_c{cap_local}", tile_compact)
+            )
+        return step
+
+    def match_topics_async(self, topics: list[str], route_to_host=None, profile=None):
         """Issue one step over the mesh and return a zero-arg resolver.
 
         Mirrors ``TorchMatcher.match_topics_async``: tokenize, one H2D copy
@@ -771,10 +824,18 @@ class ShardedTorchMatcher:
         resolver waits on the copies, then materializes
         ``list[Subscribers]`` on the host. ``route_to_host`` forces extra
         topics onto the host walk: a ``topic -> bool`` predicate or an
-        object with ``affected``/``affected_batch`` (the delta overlay)."""
+        object with ``affected``/``affected_batch`` (the delta overlay).
+        ``profile`` is the caller's per-batch ``tracing.BatchProfile``, as
+        for ``TorchMatcher``: with a profiler attached, the issue leg and
+        the D2H window are stamped on it for every card of the mesh."""
         if self._compiled is None or self.stale:
             self.rebuild()
         placed, tables, salt = self._compiled
+        prof = self.profiler
+        rec = None
+        if prof is not None:
+            rec = profile if profile is not None else prof.open_batch()
+            t_issue0 = time.perf_counter()
         b = len(topics)
         # pad ragged batches to a power-of-two bucket, rounded up to a
         # multiple of the batch axis for even tiles
@@ -788,7 +849,7 @@ class ShardedTorchMatcher:
         tokens_on = {dev: _to_device(host_tokens, dev) for dev in self._devices}
         bp = len(padded)
         bl = bp // self.n_batch
-        gathered = self._step(placed, tokens_on, bl)
+        gathered = self._step_watch(host_tokens, placed, tokens_on)
         cap_local = 0
         rows_host: dict = {}
         full_host: dict = {}
@@ -797,12 +858,18 @@ class ShardedTorchMatcher:
             # [S, bl, K] slot buffer collapses to a (shard, sid) pair
             # stream sized for the hits that exist
             cap_local = max(16, self._compact_capacity_for(bp) // self.n_batch)
+            compact = self._compact_step(cap_local)
             for owner, arrays in gathered.items():
                 with _on(owner):
-                    rows_host[owner] = _to_host_async(tile_compact(*arrays, cap_local))
+                    rows_host[owner] = _to_host_async(compact(*arrays, cap_local))
         else:
             for owner, arrays in gathered.items():
                 full_host[owner] = tuple(_to_host_async(a) for a in arrays)
+        if prof is not None:
+            # the issue leg ends here; every card of the mesh took part in
+            # the step, so each card's window gets this batch
+            rec.devices = self._device_ids
+            prof.note_dispatch(rec, t_issue0, time.perf_counter())
         if route_to_host is None:
             pred = batch_pred = None
         elif hasattr(route_to_host, "affected_batch"):
@@ -812,6 +879,8 @@ class ShardedTorchMatcher:
             pred = route_to_host
             batch_pred = None
         S, K = self.n_shards, self.out_slots
+        # the pre-compaction transfer geometry: the full gathered slot buffer
+        bytes_padded = S * bp * K * 4
 
         def routed_indices() -> list:
             if batch_pred is not None:
@@ -820,7 +889,7 @@ class ShardedTorchMatcher:
                 return [i for i, t in enumerate(topics) if t and pred(t)]
             return []
 
-        def resolve_full() -> list[Subscribers]:
+        def resolve_full(t_sync0: float) -> list[Subscribers]:
             # the gathered slot buffers, tile by tile into [S, bp, K]
             out = np.empty((S, bp, K), dtype=np.int32)
             ovf = np.empty((S, bp), dtype=bool)
@@ -841,6 +910,12 @@ class ShardedTorchMatcher:
             overflow = (ovf.any(axis=0) | len_overflow).tolist()
             stats = self.stats
             stats.d2h_bytes += int(out.nbytes)
+            if prof is not None:
+                # every copy has landed: close the device window
+                rec.d2h_bytes += int(out.nbytes)
+                rec.d2h_bytes_ranges += int(out.nbytes)
+                rec.d2h_bytes_dense += bytes_padded
+                prof.note_resolve(rec, t_sync0, time.perf_counter())
             routed = frozenset(routed_indices())
             rows = np.transpose(out[:, :b], (1, 0, 2)).tolist()
             modes = ns_modes(topics)
@@ -860,13 +935,15 @@ class ShardedTorchMatcher:
         if not self.compact:
 
             def resolve() -> list[Subscribers]:
+                t_sync0 = time.perf_counter() if prof is not None else 0.0
                 self.stats.batches += 1
                 self.stats.topics += b
-                return resolve_full()
+                return resolve_full(t_sync0)
 
             return resolve
 
         def resolve_compact() -> list[Subscribers]:
+            t_sync0 = time.perf_counter() if prof is not None else 0.0
             # [n_batch, 2 + 2*bl + 2*cap_local]: one compacted row per tile
             rows = np.empty((self.n_batch, 2 + 2 * bl + 2 * cap_local), dtype=np.int32)
             for owner, tiles in self._tiles_of.items():
@@ -882,14 +959,25 @@ class ShardedTorchMatcher:
             self._observe_hits(n_hits, b)
             # every resolved batch, the overflow fallback included (its tile
             # counts are true hit counts), feeds the skew accounting
-            self._fold_tile_hits(rows[:, 0])
+            self._fold_tile_hits(rows[:, 0], cap_local)
             stats.d2h_bytes += int(rows.nbytes)
             if batch_ovf:
                 # a tile outgrew its pair buffer: THIS batch copies the
-                # gathered slot buffers (still resident) instead
+                # gathered slot buffers (still resident) instead; both
+                # copies count (resolve_full adds the gather's bytes)
                 stats.compact_overflows += 1
                 self._hits_ewma = max(self._hits_ewma, n_hits / max(1, b))
-                return resolve_full()
+                if rec is not None:
+                    rec.compact = True
+                    rec.compact_overflow = True
+                    rec.d2h_bytes = int(rows.nbytes)
+                return resolve_full(t_sync0)
+            if prof is not None:
+                rec.d2h_bytes = int(rows.nbytes)
+                rec.d2h_bytes_ranges = bytes_padded
+                rec.d2h_bytes_dense = bytes_padded
+                rec.compact = True
+                prof.note_resolve(rec, t_sync0, time.perf_counter())
             stats.compact_batches += 1
             # stitch the per-tile streams back into one topic-major batch
             per_topic = rows[:, 2 : 2 + bl].reshape(bp)

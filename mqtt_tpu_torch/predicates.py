@@ -45,13 +45,14 @@ from __future__ import annotations
 import json
 import logging
 import math
-import threading
+import zlib
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import numpy as np
 
 from .ops.flat import resolve_device
+from .telemetry import MetricsRegistry
 from .topics import (
     PREDICATE_AGG_OPS,
     PREDICATE_COMPOUND_OPS,
@@ -60,6 +61,7 @@ from .topics import (
     split_predicate_suffix,
     split_predicate_tokens,
 )
+from .utils.locked import InstrumentedLock
 
 _log = logging.getLogger("mqtt_tpu_torch.predicates")
 
@@ -123,6 +125,16 @@ class PredicateSpec:
     @property
     def is_compound(self) -> bool:
         return self.op in _COMPOUND_CODES
+
+
+def predicate_digest(suffix: str) -> int:
+    """The 32-bit interning digest of one predicate suffix: CRC32 over
+    the literal suffix text, deterministic across processes (two workers
+    must agree on the digest of the same interned rule). A collision
+    only merges two rules' cache slots — the suffix itself always
+    travels beside the digest, so evaluation never trusts the digest
+    alone."""
+    return zlib.crc32(suffix.encode("utf-8", "surrogatepass"))
 
 
 def compile_suffix(suffix: str) -> PredicateSpec:
@@ -365,19 +377,22 @@ class PredicateEngine:
 
     ``device`` is where the rule table lives and the kernels run:
     ``"cuda"`` by default (raises where there is no card), ``"cpu"`` for
-    the plain PyTorch versions. Registry mutation takes ``_lock``; the
-    publish path reads interned rules without it."""
+    the plain PyTorch versions. Registry mutation takes ``_lock`` (the
+    lock plane's ``predicate_rules``); the publish path reads interned
+    rules without it. ``registry`` (a ``telemetry.MetricsRegistry``)
+    receives the engine's ``mqtt_tpu_predicate_*`` families."""
 
     def __init__(
         self,
         max_rules: int = 1 << 20,
         oracle_sample: int = 64,
         device="cuda",
+        registry: Optional[MetricsRegistry] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.max_rules = max(1, max_rules)
         self.oracle_sample = max(0, oracle_sample)
-        self._lock = threading.Lock()
+        self._lock = InstrumentedLock("predicate_rules")
         self._rules: dict[str, CompiledRule] = {}
         self._fields: dict[str, int] = {}  # field name -> feature slot
         # ONE bit space for CONTAINS substrings and EQS (field, literal)
@@ -412,6 +427,8 @@ class PredicateEngine:
         # agg_small_window / agg_small_tick (windows reduced on the host)
         self.host_reasons: dict[str, int] = {}
         self._apply_seq = 0  # oracle sampling clock (1-in-N publishes)
+        if registry is not None:
+            self._register_metrics(registry)
 
     def _host(self, reason: str, n: int = 1) -> None:
         self.host_reasons[reason] = self.host_reasons.get(reason, 0) + n
@@ -882,3 +899,35 @@ class PredicateEngine:
             "stale_rows": self.stale_rows,
             "host_reasons": dict(self.host_reasons),
         }
+
+    def _register_metrics(self, registry: MetricsRegistry) -> None:
+        """The JAX engine's Prometheus families, without its device-error
+        counter: here a failed launch raises."""
+        registry.gauge(
+            "mqtt_tpu_predicate_rules",
+            "Live interned payload-predicate rules",
+            fn=lambda: len(self._rules),
+        )
+        for name, attr in (
+            ("mqtt_tpu_predicate_evals_total", "device_evals"),
+            ("mqtt_tpu_predicate_host_evals_total", "host_evals"),
+            ("mqtt_tpu_predicate_filtered_total", "filtered"),
+            ("mqtt_tpu_predicate_deliveries_total", "deliveries"),
+            ("mqtt_tpu_predicate_agg_emits_total", "agg_emits"),
+            (
+                "mqtt_tpu_predicate_agg_device_reductions_total",
+                "agg_device_reductions",
+            ),
+            ("mqtt_tpu_predicate_oracle_checks_total", "oracle_checks"),
+            ("mqtt_tpu_predicate_oracle_mismatches_total", "oracle_mismatches"),
+        ):
+            registry.counter(
+                name,
+                f"PredicateEngine.{attr}",
+                fn=lambda a=attr: getattr(self, a),
+            )
+        registry.gauge(
+            "mqtt_tpu_predicate_filtered_ratio",
+            "Predicated deliveries suppressed / decided (selectivity)",
+            fn=self.filtered_ratio,
+        )

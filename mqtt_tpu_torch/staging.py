@@ -32,6 +32,11 @@ pipelined batch engine:
   (``RecryptEngine.issue_batch``) beside the match, the drain leg waits
   for all three in one executor call and stamps the pass-bit rows and
   keystreams onto their carriers before the futures complete.
+- With a device profiler (``tracing.DeviceProfiler``, ``profiler=``)
+  the issue leg opens each batch's ``BatchProfile`` on the dispatch
+  thread and hands it to the matcher, which stamps the batch's issue and
+  D2H windows on it (attach the same profiler to the matcher's snapshot,
+  ``DeltaMatcher.snapshot.profiler``).
 - A failure on any leg (a kernel that fails to build or launch, a failed
   copy) is set on the affected batch's futures, so it reaches each
   publisher: a host path would move the work off the card without a
@@ -74,9 +79,13 @@ class MatchStage:
         latency_budget_s: Optional[float] = 0.25,
         max_pending: int = 8192,
         pipeline_depth: int = 3,
+        profiler=None,
     ) -> None:
         self.matcher = matcher
         self.host_fallback = host_fallback
+        # device pipeline profiler (tracing.DeviceProfiler) or None: the
+        # issue leg opens each batch's record for the matcher to stamp
+        self.profiler = profiler
         # the predicate plane (predicates.PredicateEngine) and the tenant
         # re-encryption engine (tenancy.RecryptEngine), or None
         self.predicates = predicates
@@ -278,9 +287,15 @@ class MatchStage:
             feats = [item[2] for item in batch]
             rjobs = [item[3] for item in batch]
             matcher, predicates, recrypt = self.matcher, self.predicates, self.recrypt
+            profiler = self.profiler
 
             def issue():
-                resolver = matcher.match_topics_async(topics)
+                if profiler is not None:
+                    # the batch's OWN record: resolves on the executor can
+                    # never cross-attribute another batch's windows
+                    resolver = matcher.match_topics_async(topics, profile=profiler.open_batch())
+                else:
+                    resolver = matcher.match_topics_async(topics)
                 pred_resolver = predicates.eval_batch_async(feats) if predicates is not None else None
                 rec_resolver = recrypt.issue_batch(rjobs) if recrypt is not None else None
                 return resolver, pred_resolver, rec_resolver

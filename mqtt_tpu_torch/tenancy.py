@@ -8,7 +8,7 @@ registry, the key registry and the batched re-encryption engine.
   / ``ns_scope_filter``), so two tenants' identical topics land on
   disjoint trie subtrees. Per-tenant counters register lazily, at a
   tenant's first CONNECT, as labelled ``mqtt_tpu_tenant_*`` families on a
-  registry given to the plane (any object with ``counter`` and ``gauge``).
+  ``telemetry.MetricsRegistry`` given to the plane.
 - :class:`KeyRegistry`: per-(tenant, identity) AES-128 keys, expanded
   once into a dense round-key table (``uint8 [T, 11, 16]``) that a launch
   gathers per-block keys from by index; re-key epochs layer on top.
@@ -29,9 +29,8 @@ copy raises to the caller (in the stage: the batch's futures). The host
 keystream serves only what the JAX engine routes there by design —
 batches below ``device_min_blocks``, and jobs that reach
 ``open_publish`` without a staged keystream — counted in
-``host_reasons``. ``TenantPlane`` guards its maps with a plain
-``threading.Lock`` where the JAX plane takes an instrumented lock of the
-lock witness, which the port does not have yet.
+``host_reasons``. The plane's and the key registry's locks are the lock
+plane's ``tenants`` and ``recrypt_keys`` (``utils/locked``).
 
 Subscribers without a key receive NOTHING from an encrypted namespace
 (counted, never plaintext); ciphertext shorter than the nonce delivers
@@ -44,7 +43,7 @@ import logging
 import os
 import struct
 import threading
-from typing import Any, Callable, Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -58,7 +57,9 @@ from .ops.recrypt import (
     keystream_async,
     xor_into,
 )
+from .telemetry import MetricsRegistry
 from .topics import NS_CHAR, ns_local, ns_scope_filter, ns_scope_topic, ns_tenant
+from .utils.locked import InstrumentedLock
 
 _log = logging.getLogger("mqtt_tpu_torch.tenancy")
 
@@ -185,8 +186,8 @@ class TenantPlane:
     The lock guards the registry maps only; scoping and counter bumps take
     no lock."""
 
-    def __init__(self, registry: Optional[Any] = None) -> None:
-        self._lock = threading.Lock()
+    def __init__(self, registry: Optional[MetricsRegistry] = None) -> None:
+        self._lock = InstrumentedLock("tenants")
         self._tenants: dict[str, Tenant] = {}
         self._users: dict[str, str] = {}  # username-or-client-id -> tenant
         self.default = ""  # tenant for unmapped clients ("" = untenanted)
@@ -337,7 +338,7 @@ class KeyRegistry:
     work keyed before a rotation drains on the old key material."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = InstrumentedLock("recrypt_keys")
         self._ids: dict[tuple[str, str], int] = {}
         self._round_keys: list[np.ndarray] = []  # [11, 16] per key id
         self._table: Optional[np.ndarray] = None  # stacked cache
@@ -501,7 +502,7 @@ class RecryptEngine:
         oracle_sample: int = 64,
         device_min_blocks: int = 4,
         device="cuda",
-        registry: Optional[Any] = None,
+        registry: Optional[MetricsRegistry] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.keys = keys
@@ -532,10 +533,12 @@ class RecryptEngine:
         # open_publish without a staged keystream)
         self.host_reasons: dict[str, int] = {}
         self._dispatch_seq = 0  # oracle sampling clock
-        # where note_rekey registers its per-tenant epoch gauge (any object
-        # with a ``gauge`` method)
+        # the engine's mqtt_tpu_recrypt_* families, and where note_rekey
+        # registers its per-tenant epoch gauge
         self._registry = registry
         self._epoch_metered: set[str] = set()
+        if registry is not None:
+            self._register_metrics(registry)
 
     def _host(self, reason: str, n: int) -> None:
         self.host_reasons[reason] = self.host_reasons.get(reason, 0) + n
@@ -859,3 +862,30 @@ class RecryptEngine:
             "stale_epoch_drops": self.stale_epoch_drops,
             "host_reasons": dict(self.host_reasons),
         }
+
+    def _register_metrics(self, registry: MetricsRegistry) -> None:
+        """The JAX engine's Prometheus families, without its device-error
+        counter: here a failed launch raises."""
+        registry.gauge(
+            "mqtt_tpu_recrypt_keys",
+            "Registered per-(tenant, identity) AES keys",
+            fn=lambda: len(self.keys),
+        )
+        for name, attr in (
+            ("mqtt_tpu_recrypt_fanouts_total", "fanouts"),
+            ("mqtt_tpu_recrypt_device_batches_total", "device_batches"),
+            ("mqtt_tpu_recrypt_device_blocks_total", "device_blocks"),
+            ("mqtt_tpu_recrypt_host_blocks_total", "host_blocks"),
+            ("mqtt_tpu_recrypt_oracle_checks_total", "oracle_checks"),
+            ("mqtt_tpu_recrypt_oracle_mismatches_total", "oracle_mismatches"),
+            ("mqtt_tpu_recrypt_no_key_drops_total", "no_key_drops"),
+            ("mqtt_tpu_recrypt_malformed_total", "malformed"),
+            ("mqtt_tpu_recrypt_epoch_rekeys_total", "rekeys"),
+            ("mqtt_tpu_recrypt_epoch_resealed_total", "resealed"),
+            ("mqtt_tpu_recrypt_epoch_stale_drops_total", "stale_epoch_drops"),
+        ):
+            registry.counter(
+                name,
+                f"RecryptEngine.{attr}",
+                fn=lambda a=attr: getattr(self, a),
+            )

@@ -45,6 +45,7 @@ from typing import Callable, Optional
 
 from .packets import Packet, PacketStore, Subscription
 from .utils import LockedMap
+from .utils.locked import InstrumentedLock
 
 SHARE_PREFIX = "$SHARE"  # prefix indicating a shared-subscription filter
 SYS_PREFIX = "$SYS"  # prefix indicating a system info topic
@@ -351,10 +352,13 @@ class TopicsIndex:
     """A trie of topic filters with the subscriber scan (reference
     TopicsIndex, topics.go:350+)."""
 
-    def __init__(self) -> None:
+    def __init__(self, lock_name: str = "topics_trie") -> None:
         self.retained = PacketStore(name="retained")
         self.root = _Particle("", None)
-        self._lock = threading.RLock()
+        # the lock plane's instrumented re-entrant lock (utils/locked):
+        # every host walk, subscribe/unsubscribe and retained-store
+        # mutation serializes here, measured under ``lock_name``
+        self._lock = InstrumentedLock(lock_name, rlock=True)
         # bumped on every subscription mutation; device indexes compare
         # against it to detect staleness
         self.version = 0

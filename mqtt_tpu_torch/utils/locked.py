@@ -1,23 +1,512 @@
-"""A lock-protected map for the subscription trie's per-node containers."""
+"""Lock-guarded shared state plus the lock-contention plane with its
+lock-order witness.
+
+A copy of the JAX package's ``mqtt_tpu/utils/locked.py``. The reference
+wraps every shared map in a small mutex-guarded struct (e.g.
+topics.go:249-301, packets/packets.go:66-117); ``LockedMap`` is the one
+Python equivalent they all reuse.
+
+``InstrumentedLock`` is a drop-in ``threading.Lock``/``RLock`` wrapper
+that measures, per named lock, how long acquirers WAIT and how long
+holders HOLD, aggregated by name in a ``LockPlane`` (same-named locks
+share one stats record). The port takes them where the JAX package
+does, under the same names (``LOCK_NAMES``): the trie (``topics_trie``),
+the retained store (``retained``), the predicate registry
+(``predicate_rules``), the tenant maps (``tenants``), the key registry
+(``recrypt_keys``), the metrics registry (``metrics_registry``) and the
+first-launch ledger (``device_stats``).
+
+The port's ``DEFAULT_PLANE`` is its own object: nothing here reads or
+arms the JAX package's plane, and the JAX package's gate over its own
+witness (its ``tests/test_zz_lockwitness.py``) never sees the port's
+locks.
+
+Overhead discipline: the plane is DISARMED by default — a disarmed
+acquire is one extra attribute read and a bool test over the bare lock.
+Armed, the uncontended path pays one non-blocking try-acquire plus two
+``perf_counter`` reads (hold timing); the wait histogram is touched
+only when the try-acquire actually missed. Stats writes happen while
+the writing lock INSTANCE is held — but same-named instances on
+different objects share one record, so concurrent ``+=`` updates can
+occasionally lose an increment under GIL preemption: telemetry-grade
+accuracy, never a lock on the measurement path itself.
+
+Lock-order verification rides the same plane:
+
+- ``LockWitness``: armed, every outermost acquire records this thread's
+  held NAME set and merges the implied acquisition-order edges; an edge
+  that closes a cycle is a potential-deadlock violation, recorded (and
+  optionally raised) at the acquire that completed it. A re-entrant
+  acquire of an ``RLock`` records nothing.
+- ``PreemptionInjector``: a seeded, per-thread-deterministic "maybe
+  yield the GIL here" at every armed acquire/release boundary, so tests
+  can drive hostile interleavings at exactly the lock boundaries (same
+  seed + same thread names => same per-thread decision sequence).
+
+Both are opt-in and share the plane's single fast-path test.
+"""
 
 from __future__ import annotations
 
+import random
 import threading
-from typing import Generic, Optional, TypeVar
+from time import perf_counter, sleep
+from typing import Any, Callable, Generic, Hashable, Optional, TypeVar
 
-K = TypeVar("K")
+from ..telemetry import Histogram
+
+K = TypeVar("K", bound=Hashable)
 V = TypeVar("V")
+
+# the canonical lock-plane names (label values of the mqtt_tpu_lock_*
+# metric families), the JAX package's list: the port takes the ones its
+# modules hold, and the rest stay reserved for the modules still to port
+LOCK_NAMES = (
+    "clients",
+    "tenants",
+    "recrypt_keys",
+    "topics_trie",
+    "cluster_remote_trie",
+    "predicate_rules",
+    "retained",
+    "inflight",
+    "durable_store",
+    "metrics_registry",
+    "flight_ring",
+    "trace_ring",
+    "device_stats",
+    "overload_governor",
+    "overload_peer_pressure",
+    "matcher_breaker",
+    "shard_fabric",
+    "mesh_topology",
+    "interest_bloom",
+    "dup_suppressor",
+)
+
+
+class LockStats:
+    """Aggregate wait/hold accounting for one lock NAME (all same-named
+    lock instances share one record)."""
+
+    __slots__ = (
+        "name",
+        "acquisitions",
+        "contended",
+        "wait_s",
+        "hold_s",
+        "wait_hist",
+        "hold_hist",
+    )
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.clear()
+
+    def clear(self) -> None:
+        """Zero IN PLACE: live locks and registered metric closures hold
+        references to this record, so reset must never replace it."""
+        self.acquisitions = 0
+        self.contended = 0  # acquires that actually blocked
+        self.wait_s = 0.0  # total seconds spent waiting (contended only)
+        self.hold_s = 0.0  # total seconds the lock was held
+        self.wait_hist = Histogram()
+        self.hold_hist = Histogram()
+
+    def as_dict(self) -> dict:
+        return {
+            "name": self.name,
+            "acquisitions": self.acquisitions,
+            "contended": self.contended,
+            "wait_s": round(self.wait_s, 6),
+            "hold_s": round(self.hold_s, 6),
+            "wait_p99_ms": round(self.wait_hist.percentile(0.99) * 1e3, 4),
+            "hold_p99_ms": round(self.hold_hist.percentile(0.99) * 1e3, 4),
+        }
+
+
+class LockOrderViolation(AssertionError):
+    """An armed ``LockWitness`` observed an acquisition-order edge that
+    closes a cycle: two threads taking the same named locks in opposite
+    orders is a latent deadlock even when this run got lucky."""
+
+
+class LockWitness:
+    """The runtime lock-order witness: per-thread held NAME stacks plus
+    a merged edge set ``(held, acquired)``.
+
+    Cost discipline: a KNOWN edge costs one dict probe per held name on
+    the acquiring thread; only a never-seen edge takes the witness mutex
+    (to merge + cycle-check once).
+
+    Same-name nesting (two instances sharing one stats record) is
+    recorded as a held-stack push but never as a self-edge: name-level
+    order has nothing to say about one name.
+    """
+
+    def __init__(self, raise_on_cycle: bool = False) -> None:
+        self._mutex = threading.Lock()
+        self._tls = threading.local()
+        self.raise_on_cycle = raise_on_cycle
+        # (held_name, acquired_name) -> first-observed (thread, stack)
+        self.edges: dict[tuple[str, str], tuple[str, tuple[str, ...]]] = {}
+        # cycle descriptions, in observation order
+        self.violations: list[str] = []
+
+    def held(self) -> tuple[str, ...]:
+        """This thread's current held-name stack (outermost first)."""
+        return tuple(getattr(self._tls, "stack", ()))
+
+    def note_acquire(self, name: str) -> None:
+        stack = getattr(self._tls, "stack", None)
+        if stack is None:
+            stack = self._tls.stack = []
+        fresh = None
+        for h in stack:
+            if h != name and (h, name) not in self.edges:
+                if fresh is None:
+                    fresh = []
+                fresh.append((h, name))
+        stack.append(name)
+        if fresh is None:
+            return
+        evidence = (threading.current_thread().name, tuple(stack))
+        mine: list[str] = []
+        with self._mutex:
+            for edge in fresh:
+                if edge in self.edges:
+                    continue
+                self.edges[edge] = evidence
+                cyc = self._cycle_through(edge)
+                if cyc is not None:
+                    msg = (
+                        "lock-order cycle: " + " -> ".join(cyc)
+                        + f" (closed by {evidence[0]} holding {evidence[1]})"
+                    )
+                    self.violations.append(msg)
+                    mine.append(msg)
+        if mine and self.raise_on_cycle:
+            # only violations THIS acquire created raise. The refused
+            # acquire's push unwinds here, and InstrumentedLock.acquire
+            # releases the just-taken inner lock before re-raising
+            stack.pop()
+            raise LockOrderViolation(mine[0])
+
+    def note_release(self, name: str) -> None:
+        stack = getattr(self._tls, "stack", None)
+        if not stack:
+            return
+        # releases are usually LIFO but the API does not require it
+        # (acquire A, acquire B, release A): drop the LAST occurrence
+        for i in range(len(stack) - 1, -1, -1):
+            if stack[i] == name:
+                del stack[i]
+                return
+
+    def _cycle_through(self, edge: tuple[str, str]) -> Optional[list[str]]:
+        """A cycle containing ``edge`` if one now exists: DFS from the
+        edge's destination back to its source over the observed edges.
+        Called under ``_mutex`` with a consistent edge set."""
+        src, dst = edge
+        adj: dict[str, list[str]] = {}
+        for a, b in self.edges:
+            adj.setdefault(a, []).append(b)
+        path = [dst]
+        seen = {dst}
+
+        def dfs(node: str) -> bool:
+            if node == src:
+                return True
+            for nxt in adj.get(node, ()):
+                if nxt in seen:
+                    continue
+                seen.add(nxt)
+                path.append(nxt)
+                if dfs(nxt):
+                    return True
+                path.pop()
+            return False
+
+        if dfs(dst):
+            return [src] + path + ([] if path[-1] == src else [src])
+        return None
+
+
+class PreemptionInjector:
+    """Seeded, deterministic preemption injection at the lock plane's
+    acquire/release boundaries.
+
+    Determinism contract: each thread draws from its OWN
+    ``random.Random(f"{seed}:{thread.name}")`` stream, so the decision
+    SEQUENCE a thread sees depends only on (seed, thread name, that
+    thread's own lock-op order) — never on how the OS interleaved the
+    threads.
+
+    ``names`` restricts injection to some lock names; None fuzzes every
+    named lock. A hit yields the GIL (``sleep(pause_s)``; 0 is a bare
+    yield)."""
+
+    def __init__(
+        self,
+        seed: int,
+        rate: float = 0.4,
+        pause_s: float = 0.0,
+        names: Optional[frozenset[str]] = None,
+    ) -> None:
+        self.seed = seed
+        self.rate = rate
+        self.pause_s = pause_s
+        self.names = names
+        self._tls = threading.local()
+        self._mutex = threading.Lock()
+        # thread name -> [(op_index, lock name, phase, preempted)]
+        self._logs: dict[str, list[tuple[int, str, str, bool]]] = {}
+
+    def _state(self) -> tuple[random.Random, list]:
+        st = getattr(self._tls, "state", None)
+        if st is None:
+            tname = threading.current_thread().name
+            with self._mutex:
+                # a re-used thread name CONTINUES its own log
+                log = self._logs.setdefault(tname, [])
+            st = self._tls.state = (random.Random(f"{self.seed}:{tname}"), log)
+        return st
+
+    def __call__(self, name: str, phase: str) -> None:
+        if self.names is not None and name not in self.names:
+            return
+        rng, log = self._state()
+        hit = rng.random() < self.rate
+        log.append((len(log), name, phase, hit))
+        if hit:
+            sleep(self.pause_s)
+
+    def trace(self) -> dict[str, list[tuple[int, str, str, bool]]]:
+        """Per-thread decision logs (the determinism assertion's key)."""
+        with self._mutex:
+            return {t: list(ops) for t, ops in self._logs.items()}
+
+
+class LockPlane:
+    """A registry of named lock stats, plus the optional order witness
+    and preemption-fuzz hook. Arming is refcounted so two owners cannot
+    disarm each other.
+
+    ``active`` is the single fast-path test ``InstrumentedLock.acquire``
+    reads: true when ANY of stats arming, the witness, or the fuzz hook
+    is on. ``enabled`` means stats arming only, because the stats writes
+    are the expensive part."""
+
+    def __init__(self) -> None:
+        self._names_mutex = threading.Lock()
+        self._stats: dict[str, LockStats] = {}
+        self._armed = 0
+        self.enabled = False
+        self.active = False
+        self.witness: Optional[LockWitness] = None
+        self.fuzz: Optional[Callable[[str, str], None]] = None
+
+    def stats(self, name: str) -> LockStats:
+        with self._names_mutex:
+            st = self._stats.get(name)
+            if st is None:
+                st = self._stats[name] = LockStats(name)
+            return st
+
+    def _refresh_active_locked(self) -> None:
+        self.active = (
+            self.enabled or self.witness is not None or self.fuzz is not None
+        )
+
+    def arm(self) -> None:
+        with self._names_mutex:
+            self._armed += 1
+            self.enabled = True
+            self._refresh_active_locked()
+
+    def disarm(self) -> None:
+        with self._names_mutex:
+            self._armed = max(0, self._armed - 1)
+            self.enabled = self._armed > 0
+            self._refresh_active_locked()
+
+    def arm_witness(self, raise_on_cycle: bool = False) -> LockWitness:
+        """Attach (or return the already-attached) order witness.
+        ``raise_on_cycle=True`` ESCALATES an existing witness to the
+        raising tripwire; it never de-escalates — disarm and re-arm for
+        that."""
+        with self._names_mutex:
+            if self.witness is None:
+                self.witness = LockWitness(raise_on_cycle=raise_on_cycle)
+            elif raise_on_cycle:
+                self.witness.raise_on_cycle = True
+            self._refresh_active_locked()
+            return self.witness
+
+    def disarm_witness(self) -> None:
+        with self._names_mutex:
+            self.witness = None
+            self._refresh_active_locked()
+
+    def arm_fuzz(self, fuzz: Callable[[str, str], None]) -> None:
+        """Attach the preemption hook, called as ``fuzz(name, phase)``
+        with phase in {"acquire", "release"} at every armed boundary."""
+        with self._names_mutex:
+            self.fuzz = fuzz
+            self._refresh_active_locked()
+
+    def disarm_fuzz(self) -> None:
+        with self._names_mutex:
+            self.fuzz = None
+            self._refresh_active_locked()
+
+    def reset(self) -> None:
+        """Zero every stats record — in place, so locks and metric
+        closures created BEFORE the reset keep feeding the same records
+        afterwards."""
+        with self._names_mutex:
+            for st in self._stats.values():
+                st.clear()
+
+    def snapshot(self) -> list[LockStats]:
+        with self._names_mutex:
+            return list(self._stats.values())
+
+    def total_wait_s(self) -> float:
+        return sum(st.wait_s for st in self.snapshot())
+
+    def top_contended(self, k: int = 3) -> list[dict]:
+        """The k most-contended lock names by total wait time."""
+        ranked = sorted(self.snapshot(), key=lambda s: s.wait_s, reverse=True)
+        return [st.as_dict() for st in ranked[:k] if st.acquisitions]
+
+    def wait_share(self, name: str) -> float:
+        """One lock's share of ALL measured lock wait."""
+        total = self.total_wait_s()
+        if total <= 0.0:
+            return 0.0
+        return self.stats(name).wait_s / total
+
+
+# the port's default plane: its named locks register here
+DEFAULT_PLANE = LockPlane()
+
+
+class InstrumentedLock:
+    """A named, plane-registered ``threading.Lock``/``RLock`` drop-in:
+    context manager, ``acquire``/``release``/``locked``. Re-entrant
+    acquires (``rlock=True``) time only the outermost hold, and only the
+    outermost acquire reaches the witness."""
+
+    __slots__ = ("_inner", "_plane", "stats", "_local")
+
+    def __init__(
+        self,
+        name: str,
+        rlock: bool = False,
+        plane: Optional[LockPlane] = None,
+    ) -> None:
+        self._inner: Any = threading.RLock() if rlock else threading.Lock()
+        self._plane = plane if plane is not None else DEFAULT_PLANE
+        self.stats = self._plane.stats(name)
+        self._local = threading.local()  # re-entrancy depth + hold start
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        plane = self._plane
+        if not plane.active:
+            return self._inner.acquire(blocking, timeout)
+        fuzz = plane.fuzz
+        if fuzz is not None:
+            # pre-acquire boundary: the injector may yield the GIL here
+            fuzz(self.stats.name, "acquire")
+        ok = self._inner.acquire(False)
+        wait = 0.0
+        if not ok:
+            if not blocking:
+                return False
+            t0 = perf_counter()
+            ok = self._inner.acquire(True, timeout)
+            if not ok:
+                return False
+            wait = perf_counter() - t0
+        local = self._local
+        depth = getattr(local, "depth", 0)
+        local.depth = depth + 1
+        if depth == 0:
+            witness = plane.witness
+            if witness is not None:
+                try:
+                    witness.note_acquire(self.stats.name)
+                except BaseException:
+                    # raise_on_cycle tripwire: fail THIS acquire cleanly —
+                    # unwind the depth we claimed and release the inner
+                    # lock we just took
+                    local.depth = depth
+                    self._inner.release()
+                    raise
+            if plane.enabled:
+                # stats writes below happen while THIS lock is held, so
+                # the shared per-name record is single-writer in practice
+                local.t_held = perf_counter()
+                st = self.stats
+                st.acquisitions += 1
+                if wait > 0.0:
+                    st.contended += 1
+                    st.wait_s += wait
+                    st.wait_hist.observe(wait)
+        return True
+
+    def release(self) -> None:
+        plane = self._plane
+        local = self._local
+        depth = getattr(local, "depth", 0)
+        if depth > 0:
+            # the depth bookkeeping must unwind even when the plane was
+            # disarmed MID-HOLD: skipping the decrement would leave this
+            # thread's counter stuck and blind the stats after a re-arm
+            local.depth = depth - 1
+            if depth == 1:
+                witness = plane.witness
+                if witness is not None:
+                    witness.note_release(self.stats.name)
+                if plane.enabled:
+                    held = perf_counter() - getattr(
+                        local, "t_held", perf_counter()
+                    )
+                    st = self.stats
+                    st.hold_s += held
+                    st.hold_hist.observe(held)
+        self._inner.release()
+        if plane.active:
+            fuzz = plane.fuzz
+            if fuzz is not None:
+                # post-release boundary: yield so a waiter can run NOW
+                fuzz(self.stats.name, "release")
+
+    def locked(self) -> bool:
+        return bool(self._inner.locked()) if hasattr(self._inner, "locked") else False
+
+    def __enter__(self) -> bool:
+        return self.acquire()
+
+    def __exit__(self, *exc: object) -> None:
+        self.release()
 
 
 class LockedMap(Generic[K, V]):
-    """Lock-protected dict with copy-on-iterate semantics. ``internal`` is
-    public: the flat-index build reads it without the lock and retries a
-    torn read."""
+    """Lock-protected dict with copy-on-iterate semantics. Pass a
+    ``name`` to register the lock with the contention plane (the
+    retained store); unnamed maps (the trie's per-node containers) keep
+    a bare lock so the trie's millions of nodes cost nothing extra.
+    ``internal`` is public: the flat-index build reads it without the
+    lock and retries a torn read."""
 
     __slots__ = ("_lock", "internal")
 
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
+    def __init__(self, name: Optional[str] = None) -> None:
+        self._lock: Any = (
+            threading.Lock() if name is None else InstrumentedLock(name, rlock=True)
+        )
         self.internal: dict[K, V] = {}
 
     def add(self, key: K, val: V) -> None:

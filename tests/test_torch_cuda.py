@@ -920,3 +920,52 @@ def test_reseal_batch_on_the_card_matches_the_cpu(dev, size):
             assert kernels.LAUNCHES["keystream"] == before + 1
             assert eng.device_blocks == 2 * 512 * (size // 16)
     assert outs[0] == outs[1]
+
+
+# -- the device plane's instruments on the card -----------------------------------
+
+
+def test_memory_gauges_and_first_launch_notes_on_the_card(dev):
+    """``DeviceStatsPlane()`` on the card: live <= peak <= limit, the limit
+    the card's total, a 64 MiB tensor seen by the live gauge; the ledger
+    notes K1's first launch at a new batch bucket once and a repeat not at
+    all; the profiler keeps one window on this card, closed after each
+    resolver's wait."""
+    from mqtt_tpu_torch.ops import devicestats
+    from mqtt_tpu_torch.telemetry import MetricsRegistry, check_exposition
+    from mqtt_tpu_torch.tracing import DeviceProfiler
+
+    reg = MetricsRegistry()
+    prof = DeviceProfiler(reg)
+    plane = devicestats.DeviceStatsPlane(reg)  # device="cuda": every card
+    plane.attach_profiler(prof)
+    assert [d.id for d in plane._devices] == list(range(torch.cuda.device_count()))
+    index = apply_port_ops(corpus_ops(31, n_subs=2000), TopicsIndex())
+    # a token width (2L+2) no other test launches K1 at: a new signature
+    m = TorchMatcher(index, max_levels=MAX_LEVELS + 3, device=dev, compact=False)
+    m.rebuild()
+    m.profiler = prof
+    torch.cuda.synchronize()
+    live0 = plane.snapshot()["devices"][dev.index or 0]["hbm"]["live_bytes"]
+    hold = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    topics = corpus_topics(32, n=1500)
+    before = devicestats.LEDGER.counts()
+    for t, got in zip(topics, m.match_topics(topics)):
+        assert subscribers_equal(got, index.subscribers(t)), t
+    after = devicestats.LEDGER.counts()
+    assert after.get("flat_probe_ranges", 0) == before.get("flat_probe_ranges", 0) + 1
+    last = devicestats.LEDGER.events()[-1]
+    assert last["kernel"] == "flat_probe_ranges" and f"x{2 * (MAX_LEVELS + 3) + 2}" in last["shape_bucket"]
+    m.match_topics(topics)  # the same signature: nothing new
+    assert devicestats.LEDGER.counts() == after
+    snap = plane.snapshot()
+    h = snap["devices"][dev.index or 0]["hbm"]
+    assert h["live_bytes"] >= live0 + (64 << 20)
+    assert 0 < h["live_bytes"] <= h["peak_bytes"] <= h["limit_bytes"] == torch.cuda.mem_get_info(dev)[1]
+    assert snap["devices"][dev.index or 0]["platform"] == "gpu"
+    assert prof.batches == 2 and sorted(prof.device_snapshot()) == [dev.index or 0]
+    assert 0.0 < prof.duty_cycle() <= 1.0
+    text = reg.exposition()
+    assert check_exposition(text) > 0
+    assert f'mqtt_tpu_device_hbm_limit_bytes{{device="{dev.index or 0}"}} {h["limit_bytes"]}' in text
+    del hold

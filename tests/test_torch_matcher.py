@@ -418,6 +418,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, mqtt_tpu_torch, mqtt_tpu_torch.ops.kernels, mqtt_tpu_torch.staging\n"
         "import mqtt_tpu_torch.parallel, mqtt_tpu_torch.parallel.sharded\n"
+        "import mqtt_tpu_torch.telemetry, mqtt_tpu_torch.tracing, mqtt_tpu_torch.utils.locked\n"
+        "import mqtt_tpu_torch.ops.devicestats\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mqtt_tpu'))\n"
         "print(','.join(bad))\n"
     )

@@ -424,3 +424,32 @@ def test_passes_retained_matches_jax():
         for p in (b'{"v": 0.7}', b'{"v": 0.1}', b"zz", b"x"):
             assert teng.passes_retained(TSubscription(predicates=preds), p) == jeng.passes_retained(
                 JSubscription(predicates=preds), p)
+
+
+@pytest.mark.parametrize("device_rows", [False, True], ids=["host_path", "device_rows"])
+def test_engine_metric_families_match_jax(engines_corpus, device_rows):
+    """``PredicateEngine(registry=)``: the same families as the JAX
+    engine's, read live, but for its device-error counter (a failed launch
+    raises in the port); and the same interning digests."""
+    from mqtt_tpu.predicates import predicate_digest as jdigest
+    from mqtt_tpu.telemetry import MetricsRegistry as JRegistry
+    from mqtt_tpu_torch.telemetry import MetricsRegistry, check_exposition
+
+    jidx, tidx, suffixes = engines_corpus
+    jreg, treg = JRegistry(), MetricsRegistry()
+    jeng, teng = _engines(suffixes, registry=None)
+    jeng._register_metrics(jreg)
+    teng._register_metrics(treg)
+    _run_apply(jidx, tidx, jeng, teng, device_rows, seed=23, n=200)
+    skip = "mqtt_tpu_predicate_device_errors_total"
+    want = [line for line in jreg.exposition().splitlines() if skip not in line]
+    got = treg.exposition()
+    assert got.splitlines() == want
+    assert check_exposition(got) == len([line for line in want if not line.startswith("#")])
+    assert f"mqtt_tpu_predicate_rules {teng.rule_count}" in got
+    for s in suffixes:
+        assert tpred.predicate_digest(s) == jdigest(s)
+    # through the constructor, as the JAX engine takes it
+    reg = MetricsRegistry()
+    tpred.PredicateEngine(device="cpu", registry=reg)
+    assert "# TYPE mqtt_tpu_predicate_filtered_ratio gauge" in reg.exposition()

@@ -2,11 +2,12 @@
 slice against the JAX package, on the CPU.
 
 ``TenantPlane`` (configuration, CONNECT-time resolution, active tenants,
-the lazily registered per-tenant metric families on a recording
-registry) against ``mqtt_tpu.tenancy.TenantPlane`` for the same maps;
+the lazily registered per-tenant metric families, rendered by each
+package's ``MetricsRegistry``) against ``mqtt_tpu.tenancy.TenantPlane`` for the same maps;
 ``RecryptEngine.reseal_batch`` byte for byte against the JAX engine's from
 the same nonce stream (256-B and 4096-B payloads, malformed, keyless and
-zero-length items); ``note_rekey``'s count and its gauge. Then the slice
+zero-length items); ``note_rekey``'s count and its gauge, beside the
+engine's other families. Then the slice
 as a broker runs it: retain, wildcard SUBSCRIBE through the retained
 engine, re-key (stage the epoch, re-seal the tenant's encrypted retained
 payloads in one keystream generation, retain them, activate, note), and
@@ -21,6 +22,7 @@ from mqtt_tpu.ops.retained import RetainedMatchEngine as JRetained
 from mqtt_tpu.packets import PUBLISH as JPUBLISH
 from mqtt_tpu.packets import FixedHeader as JFixedHeader
 from mqtt_tpu.packets import Packet as JPacket
+from mqtt_tpu.telemetry import MetricsRegistry as JRegistry
 from mqtt_tpu.tenancy import RecryptEngine as JEngine
 from mqtt_tpu.tenancy import TenantPlane as JPlane
 from mqtt_tpu.tenancy import local_client_id as j_local_client_id
@@ -29,27 +31,18 @@ from mqtt_tpu.topics import TopicsIndex as JTopicsIndex
 
 from mqtt_tpu_torch import PUBLISH, FixedHeader, Packet, RecryptEngine, RetainedMatchEngine, TenantPlane, TopicsIndex
 from mqtt_tpu_torch import tenancy as tten
+from mqtt_tpu_torch.telemetry import MetricsRegistry, check_exposition
 from mqtt_tpu_torch.topics import NS_CHAR, ns_local, ns_scope_filter, ns_scope_topic
 
 KEY_A = bytes.fromhex("000102030405060708090a0b0c0d0e0f")
 KEY_S = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
 
 
-class Registry:
-    """A recording metrics registry: every family registered, and its
-    value function."""
-
-    def __init__(self) -> None:
-        self.families: list = []
-
-    def counter(self, name, help, fn, **labels):
-        self.families.append(("counter", name, help, tuple(sorted(labels.items())), fn))
-
-    def gauge(self, name, help, fn, **labels):
-        self.families.append(("gauge", name, help, tuple(sorted(labels.items())), fn))
-
-    def read(self, only=None) -> list:
-        return [(k, n, h, lab, fn()) for k, n, h, lab, fn in self.families if only is None or n == only]
+def family(text: str, name: str) -> list:
+    """The exposition lines of one family: its HELP and TYPE lines and
+    its samples."""
+    return [line for line in text.splitlines()
+            if line.split("{")[0].split(" ")[0] == name or line.startswith((f"# HELP {name} ", f"# TYPE {name} "))]
 
 
 CONFIG = {
@@ -62,7 +55,7 @@ USERS = {"alice": "acme", "cid-b": "bulkco", "carol": "newco"}
 
 
 def _planes():
-    jr, tr = Registry(), Registry()
+    jr, tr = JRegistry(), MetricsRegistry()
     jp, tp = JPlane(registry=jr), TenantPlane(registry=tr)
     for p in (jp, tp):
         p.configure(CONFIG, USERS, default="fallback")
@@ -117,16 +110,17 @@ def test_connect_accounting_and_metric_families_match_jax():
     assert _tenant_view(tp.get("acme")) == _tenant_view(jp.get("acme"))
     assert _tenant_view(tp.get("bulkco")) == _tenant_view(jp.get("bulkco"))
     # one set of families per tenant, at its first connect, read live
-    assert tr.read() == jr.read()
-    assert len(tr.families) == 2 * 11
+    assert tr.exposition() == jr.exposition()
+    assert check_exposition(tr.exposition()) == 2 * 11
     tp.get("acme").bytes_out += 7
     jp.get("acme").bytes_out += 7
-    assert tr.read() == jr.read()
+    assert tr.exposition() == jr.exposition()
+    assert 'mqtt_tpu_tenant_bytes_out_total{tenant="acme"} 7' in tr.exposition()
 
 
 def _engines(registry=None, **kw):
     jp, tp, _, _ = _planes()
-    jeng = JEngine(jp.keys, oracle_sample=1, registry=registry and Registry(), **kw)
+    jeng = JEngine(jp.keys, oracle_sample=1, registry=registry and JRegistry(), **kw)
     teng = RecryptEngine(tp.keys, oracle_sample=1, device="cpu", registry=registry, **kw)
     jeng.reseed_nonce(b"seal", 7)
     teng.reseed_nonce(b"seal", 7)
@@ -173,7 +167,7 @@ def test_reseal_batch_of_nothing_viable_launches_nothing():
 
 
 def test_note_rekey_counts_and_registers_its_gauge_once():
-    reg = Registry()
+    reg = MetricsRegistry()
     jp, tp, jeng, teng = _engines(registry=reg)
     jreg = jeng._registry
     for plane, eng in ((jp, jeng), (tp, teng)):
@@ -185,8 +179,17 @@ def test_note_rekey_counts_and_registers_its_gauge_once():
     assert teng.rekeys == jeng.rekeys == 3
     assert teng.gauges()["rekeys"] == 3
     name = "mqtt_tpu_recrypt_epoch"
-    assert reg.read(name) == jreg.read(name)
-    assert [(lab, v) for _k, _n, _h, lab, v in reg.read(name)] == [((("tenant", "acme"),), 1), ((("tenant", "bulkco"),), 0)]
+    text, jtext = reg.exposition(), jreg.exposition()
+    assert family(text, name) == family(jtext, name)
+    assert family(text, name)[2:] == ['mqtt_tpu_recrypt_epoch{tenant="acme"} 1', 'mqtt_tpu_recrypt_epoch{tenant="bulkco"} 0']
+    # the engine's other families, as the JAX engine's but for its device-error counter (a failed
+    # launch raises in the port)
+    names = {line.split()[2] for line in jtext.splitlines() if line.startswith("# TYPE ")}
+    assert names - {line.split()[2] for line in text.splitlines() if line.startswith("# TYPE ")} == {
+        "mqtt_tpu_recrypt_device_errors_total"}
+    for n in names - {"mqtt_tpu_recrypt_device_errors_total"}:
+        assert family(text, n) == family(jtext, n), n
+    assert 'mqtt_tpu_recrypt_epoch_rekeys_total 3' in text and check_exposition(text) > 0
 
 
 # -- the slice: retain, SUBSCRIBE, re-key, SUBSCRIBE --------------------------
