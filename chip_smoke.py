@@ -120,6 +120,44 @@ Phases, each printed as it ends:
     render"), checked with ``check_exposition`` for every engine's
     families.
 
+13. The fan-out's wire and session layer (phase "fanout", run after the
+    namespace phase): bench.py's config 4 at full width, 100,000
+    ``$SHARE/grp<g>/<region>/<device>/<metric>`` groups x 16 members at
+    QoS 1 (1.6M subscriptions, ``build_cfg4``'s generator), matched at
+    ``max_levels=4`` as ``run_cfg4`` does. Two waves of 24,576 publishes
+    from eight publishers (v4 and v5, QoS 0 and 1, three reading through
+    one ``ScanGate``, one sending inbound topic aliases), each encoded by
+    the port's codec, fed to a ``StreamReader`` and read by
+    ``Client.read`` (``frame_scan``, ``frame_scan_multi``); matched by
+    ``MatchStage`` over ``DeltaMatcher`` on the card with lazy views; one
+    member selected per group by the port's ``server.fan_out_targets``
+    (``Server._fan_out``'s selection: ``materialize``,
+    ``Hooks.on_select_subscribers``, ``select_shared``,
+    ``merge_shared_selected``; the second wave with a hook on the seam);
+    delivered by the port's ``server.publish_to_client`` (effective QoS,
+    retain flag, identifiers, outbound aliases, ``next_packet_id`` and
+    ``Inflight.set``, QoS 0 through one ``_FrameCache`` encode) onto the
+    outbound queues of v4, v5 and aliasing v5 ``Client``s, each made with
+    its write loop at its first delivery and writing to memory. Config 4
+    holds no wildcard filter, so the first wave takes the matchers'
+    exact-map route (a host dict probe per topic, as in the JAX package
+    and bench.py's ``run_cfg4``; no kernel in either package). Between the
+    waves 300 group members (the first of each of the 64 groups the alias
+    publisher hits, the rest at random) unsubscribe and subscribe again
+    and an audit group of 16 subscribes to ``<region>/+/+``, an addition
+    that bench.py does not have (cell ``cfg4+audit``); the fold (K3)
+    takes the wildcard, which ends the exact-only regime, so the second
+    wave runs on the kernels, and K1, K2, K3 and K7 are then held against
+    their plain versions on that table (phase 4's checks at B = 4096 and
+    65,536). Every frame written is decoded and must be the next
+    one ``FanoutCheck`` derives from the trie's own walk with
+    ``select_shared``: the member, QoS, packet id, topic and alias.
+    Printed per wave: publishes/s and deliveries/s, the split per batch
+    (inbound decode, stage resolve, select + merge, deliver + encode) and
+    the route's counters; then frames, bytes, inflight and alias hits,
+    and the K1/K2/K3 launches (the second wave must launch K1 or K2, the
+    fold K3). ``--groups`` shrinks the configuration.
+
 Phase 4 also holds K7 (``flat_match_core``, the single-index entry point
 of K8's kernel) and K4-K6 against their plain versions at the shapes these
 paths give them (K5's MEAN within ``1e-5 * max(1, |want|)``, the rest with
@@ -147,6 +185,7 @@ import random
 import subprocess
 import sys
 import time
+import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -1571,6 +1610,502 @@ def phase_namespace(torch, device, n_tenants: int = 8, per_tenant: int = 2500, n
     return launches
 
 
+# -- the fan-out's wire and session layer (cfg4) -------------------------------
+
+N_GROUPS = 100_000  # bench.py config 4: $SHARE groups ...
+GROUP_MEMBERS = 16  # ... of 16 members each, QoS 1
+FANOUT_CHURN = 300  # group members unsubscribing and subscribing again between the waves
+FANOUT_HOT = 64  # the alias publisher's topics, each a group's inner filter
+# config 4 holds no wildcard filter, so neither package's matcher launches
+# a kernel on it; the phase's second wave adds an audit group on
+# <region>/+/+, which bench.py does not have, and is named apart
+AUDIT_CELL = "cfg4+audit"
+# the publishers of a wave: (protocol version, QoS, through the shared
+# ScanGate, with inbound topic aliases); each sends every 8th topic
+PUBLISHERS = (
+    (4, 0, False, False), (4, 1, False, False), (5, 0, False, False), (5, 1, False, False),
+    (4, 0, True, False), (5, 1, True, False), (5, 0, True, False), (5, 1, False, True),
+)
+ALIAS_MAX = 8  # the outbound topic alias maximum of a third of the subscribers (v5)
+
+
+def subscriber_kind(cid: str) -> tuple:
+    """A subscriber's protocol version and outbound topic alias maximum,
+    by its client id: v4, v5, or v5 with ``ALIAS_MAX`` aliases, a third
+    each."""
+    return ((4, 0), (5, 0), (5, ALIAS_MAX))[zlib.crc32(cid.encode()) % 3]
+
+
+def build_cfg4(n_groups: int, members: int, rng: random.Random):
+    """100k ``$share`` groups x 16 members, QoS1 (bench.py:218-236), the
+    trie filled in the generator's order under one lock acquisition."""
+    from mqtt_tpu_torch import SHARE_PREFIX, Subscription, TopicsIndex
+
+    v0 = [f"region{i}" for i in range(100)]
+    v1 = [f"device{i}" for i in range(100)]
+    v2 = [f"metric{i}" for i in range(100)]
+    entries = []
+    for g in range(n_groups):
+        flt = f"{rng.choice(v0)}/{rng.choice(v1)}/{rng.choice(v2)}"
+        for m in range(members):
+            entries.append((f"g{g}m{m}", Subscription(filter=f"{SHARE_PREFIX}/grp{g}/{flt}", qos=1)))
+    index = TopicsIndex()
+    index.subscribe_bulk(entries)
+
+    def topic_gen():
+        return f"{rng.choice(v0)}/{rng.choice(v1)}/{rng.choice(v2)}"
+
+    return index, entries, topic_gen
+
+
+class MemWriter:
+    """An in-memory stand-in for a client's ``asyncio.StreamWriter``."""
+
+    def __init__(self) -> None:
+        self.data = bytearray()
+
+    def write(self, b) -> None:
+        self.data += b
+
+    def get_extra_info(self, name, default=None):
+        return default
+
+
+def split_frames(data: bytes) -> list:
+    """Split a byte stream of whole MQTT packets at their fixed headers."""
+    out, pos = [], 0
+    while pos < len(data):
+        n, shift, k = 0, 0, pos + 1
+        while True:
+            b = data[k]
+            n |= (b & 0x7F) << shift
+            k += 1
+            if not b & 0x80:
+                break
+            shift += 7
+        out.append(bytes(data[pos : k + n]))
+        pos = k + n
+    return out
+
+
+class Fanout:
+    """The fan-out's wire and session layer of one package, beneath its
+    server: publishers' frames read by ``Client.read`` (``frame_scan``, or
+    ``ScanGate``/``frame_scan_multi``) and decoded by the codec, inbound
+    topic aliases resolved; each result of the stage's match taken by the
+    package's ``server.fan_out_targets`` (``Server._fan_out``'s selection:
+    a view without shared or inline entries through ``targets()``, else
+    materialized; ``Hooks.on_select_subscribers``, then ``select_shared``
+    unless a hook selected, and ``merge_shared_selected``); each target
+    delivered by the package's ``server.publish_to_client`` onto the
+    client's outbound queue, which the client's write loop drains into an
+    in-memory writer. QoS 0 targets share one encode through
+    ``_FrameCache``; the others take the effective QoS, the retain flag,
+    subscription identifiers, outbound aliases, ``next_packet_id`` and
+    ``Inflight.set``, then ``write_packet``.
+
+    ``mods`` names the package's modules (``packets``, ``clients``,
+    ``hooks``, ``topics``, ``server``, ``system``, ``native``), so the same
+    steps run over the port and, in the tests, over the JAX package (whose
+    ``server`` there is its ``Server``'s own methods, with ``ops`` its
+    ``Server``'s). A subscriber's ``Client`` is made, and its write loop
+    started, when it first receives."""
+
+    def __init__(self, mods, ops=None) -> None:
+        self.m = mods
+        hk = mods.hooks
+        if ops is None:
+            opts = mods.server.Options()
+            opts.ensure_defaults()
+            ops = mods.server._Ops(opts, mods.system.Info(), hk.Hooks(opts.logger), opts.logger)
+        self.ops = ops
+
+        class Allow(hk.Hook):
+            """Allows every client and topic (the auth hooks arrive with
+            the server)."""
+
+            def id(self):
+                return "allow-all"
+
+            def provides(self, b):
+                return b in (hk.ON_ACL_CHECK, hk.ON_CONNECT_AUTHENTICATE)
+
+            def on_acl_check(self, cl, topic, write):
+                return True
+
+            def on_connect_authenticate(self, cl, pk):
+                return True
+
+        class Select(hk.Hook):
+            """The selection seam: selects as the server would, and counts."""
+
+            def __init__(self):
+                super().__init__()
+                self.calls = 0
+
+            def id(self):
+                return "select-shared"
+
+            def provides(self, b):
+                return b == hk.ON_SELECT_SUBSCRIBERS
+
+            def on_select_subscribers(self, subs, pk):
+                self.calls += 1
+                subs.select_shared()
+                return subs
+
+        self.ops.hooks.add(Allow(), None)
+        self.select_hook = Select()
+        self.clients = mods.clients.Clients()
+        self.writers: dict = {}
+        acc = mods.native.accel()
+        self.view_t = getattr(acc, "SubscribersView", None) if acc is not None else None
+        self.gate = mods.clients.ScanGate()
+        self.inbound_alias_hits = 0
+        self.dropped = 0
+
+    def add_select_hook(self) -> None:
+        self.ops.hooks.add(self.select_hook, None)
+
+    # -- inbound --------------------------------------------------------------
+
+    def connect(self, cid: str, version: int, alias_max: int = 0, writer=None):
+        """A ``Client`` after ``parse_connect`` of its CONNECT."""
+        p = self.m.packets
+        pk = p.Packet(
+            fixed_header=p.FixedHeader(type=p.CONNECT), protocol_version=version,
+            connect=p.ConnectParams(protocol_name=b"MQTT", clean=True, keepalive=30, client_identifier=cid),
+            properties=p.Properties(topic_alias_maximum=alias_max),
+        )
+        cl = self.m.clients.Client(None, writer, self.ops)
+        cl.parse_connect("fanout", pk)
+        return cl
+
+    def publish_frames(self, topics: list, wave: int, hot: list) -> list:
+        """Each publisher's PUBLISH frames, encoded by the codec: every 8th
+        topic (the alias publisher sends the hot topics in turn, each with
+        its alias the first time and the alias alone after); payloads name
+        the wave, the publisher and the publish."""
+        p = self.m.packets
+        out = []
+        for k, (version, qos, _gated, aliased) in enumerate(PUBLISHERS):
+            buf = bytearray()
+            aliases: dict = {}
+            for i, topic in enumerate(topics[k :: len(PUBLISHERS)]):
+                pk = p.Packet(fixed_header=p.FixedHeader(type=p.PUBLISH, qos=qos), protocol_version=version,
+                              payload=f"w{wave}p{k}n{i}".encode(), topic_name=topic,
+                              packet_id=1 + i % 0xFFFF if qos else 0)
+                if aliased:
+                    topic = hot[i % len(hot)]
+                    alias = aliases.get(topic)
+                    pk.topic_name = "" if alias is not None else topic
+                    if alias is None:
+                        alias = aliases[topic] = len(aliases) + 1
+                    pk.properties.topic_alias, pk.properties.topic_alias_flag = alias, True
+                buf += p.encode_packet(pk)
+            out.append(bytes(buf))
+        return out
+
+    async def inbound(self, frames: list) -> list:
+        """Every publisher's frames through ``Client.read`` over a fed and
+        closed ``StreamReader`` (the read loop ends at its EOF), the gated
+        publishers' scans coalesced by one ``ScanGate``; returns the
+        publishes in publisher order, aliases resolved."""
+        p, m = self.m.packets, self.m
+        got: list = [[] for _ in frames]
+
+        def handler_for(k):
+            def handle(cl, pk):
+                if pk.fixed_header.type != p.PUBLISH:
+                    return None
+                if pk.properties.topic_alias_flag and pk.properties.topic_alias > 0:  # [MQTT-3.3.2-11]
+                    self.inbound_alias_hits += pk.topic_name == ""
+                    pk.topic_name = cl.state.topic_aliases.inbound.set(pk.properties.topic_alias, pk.topic_name)
+                if m.topics.is_valid_filter(pk.topic_name, True):
+                    pk.origin = cl.id
+                    got[k].append(pk)
+                return None
+
+            return handle
+
+        async def one(k, data):
+            reader = asyncio.StreamReader()
+            reader.feed_data(data)
+            reader.feed_eof()
+            cl = self.connect(f"pub{k}", PUBLISHERS[k][0])
+            cl.net.reader = reader
+            if PUBLISHERS[k][2]:
+                cl.scan_gate = self.gate
+            try:
+                await cl.read(handler_for(k))
+            except m.clients.ConnectionClosedError:
+                pass  # the reader's EOF
+
+        await asyncio.gather(*(one(k, d) for k, d in enumerate(frames)))
+        return [pk for pks in got for pk in pks]
+
+    # -- select and deliver ---------------------------------------------------
+
+    def subscriber(self, cid: str):
+        """The subscriber's ``Client`` (of its ``subscriber_kind``), made
+        with its write loop at its first delivery."""
+        cl = self.clients.get(cid)
+        if cl is None:
+            w = MemWriter()
+            cl = self.connect(cid, *subscriber_kind(cid), w)
+            self.clients.add_client(cl)
+            self.writers[cid] = w
+            cl.start_write_loop()
+        return cl
+
+    async def wave(self, stage, topics: list, wave: int, hot: list) -> dict:
+        """One wave through every step; the legs' seconds and the
+        publishes and targets, for the check."""
+        hk = self.m.hooks
+        frames = self.publish_frames(topics, wave, hot)
+        t0 = time.perf_counter()
+        pks = await self.inbound(frames)
+        t1 = time.perf_counter()
+        results = await asyncio.gather(*(stage.submit(pk.topic_name) for pk in pks))
+        t2 = time.perf_counter()
+        srv = self.m.server
+        targets = [list(srv.fan_out_targets(self.ops, pk, r)) for pk, r in zip(pks, results)]
+        t3 = time.perf_counter()
+        share = not self.ops.hooks.provides(hk.ON_PACKET_ENCODE, hk.ON_PACKET_SENT)
+        touched = {}
+        for pk, items in zip(pks, targets):
+            fast = srv._FrameCache(pk) if pk.fixed_header.qos == 0 and share else None
+            for cid, sub in items:
+                cl = touched[cid] = self.subscriber(cid)
+                try:
+                    srv.publish_to_client(self.ops, cl, sub, pk, fast)
+                except self.m.packets.Code:
+                    self.dropped += 1
+        # the write loops drain the outbound queues
+        while any(not cl.state.outbound.empty() for cl in touched.values()):
+            await asyncio.sleep(0)
+        t4 = time.perf_counter()
+        return {"pks": pks, "targets": targets, "frames": frames, "results": results,
+                "inbound_s": t1 - t0, "resolve_s": t2 - t1, "select_s": t3 - t2, "deliver_s": t4 - t3}
+
+    def outbound(self) -> dict:
+        return {cid: bytes(w.data) for cid, w in self.writers.items()}
+
+    async def close(self) -> None:
+        """Stop every subscriber's ``Client``: its write loop ends."""
+        for cid in self.writers:
+            self.clients.get(cid).stop()
+        await asyncio.sleep(0)
+
+
+def fanout_modules():
+    """The port's modules the fan-out harness drives."""
+    from types import SimpleNamespace
+
+    from mqtt_tpu_torch import clients, hooks, native, packets, server, system, topics
+
+    return SimpleNamespace(clients=clients, hooks=hooks, native=native, packets=packets, server=server,
+                           system=system, topics=topics)
+
+
+class FanoutCheck:
+    """The plain reference for the delivered frames: per publish, the
+    trie's own walk (``TopicsIndex.subscribers``) with ``select_shared``
+    and ``merge_shared_selected``; per subscriber, the protocol version of
+    its kind, packet ids counted from 1 for its QoS 1 deliveries, and its
+    outbound aliases. Every frame the clients' writers hold since the last
+    check is decoded with the port's codec and must be the next one
+    expected."""
+
+    def __init__(self) -> None:
+        self.offsets: dict = {}
+        self.pids: dict = {}
+        self.aliases: dict = {}  # cid -> {topic: alias}
+        self.frames = self.bytes = self.alias_hits = 0
+
+    def __call__(self, index, fan, pks: list, what: str) -> int:
+        from mqtt_tpu_torch import packets as p
+
+        want: dict = {}
+        for pk in pks:
+            s = index.subscribers(pk.topic_name)
+            s.select_shared()
+            s.merge_shared_selected()
+            for cid, sub in s.subscriptions.items():
+                if sub.no_local and pk.origin == cid:
+                    continue
+                want.setdefault(cid, []).append((pk.topic_name, bytes(pk.payload), min(pk.fixed_header.qos, sub.qos)))
+        n = 0
+        check(set(want) <= set(fan.writers), f"{what}: {len(set(want) - set(fan.writers))} subscribers never written")
+        for cid, w in fan.writers.items():
+            start = self.offsets.get(cid, 0)
+            frames = split_frames(bytes(w.data[start:]))
+            self.offsets[cid] = len(w.data)
+            self.bytes += len(w.data) - start
+            exp = want.get(cid, [])
+            check(len(frames) == len(exp), f"{what}: {cid} got {len(frames)} frames, the trie selects it {len(exp)} times")
+            version, alias_max = subscriber_kind(cid)
+            amap = self.aliases.setdefault(cid, {})
+            for raw, (topic, payload, qos) in zip(frames, exp):
+                got = p.decode_packet(raw, version)
+                check(got.fixed_header.type == p.PUBLISH and bytes(got.payload) == payload
+                      and got.fixed_header.qos == qos and not got.fixed_header.retain and not got.fixed_header.dup,
+                      f"{what}: {cid} got {got.fixed_header} {bytes(got.payload)!r}, want {payload!r} at QoS {qos}")
+                pid = 0
+                if qos:
+                    pid = self.pids[cid] = self.pids.get(cid, 0) + 1
+                check(got.packet_id == pid, f"{what}: {cid} packet id {got.packet_id}, want {pid}")
+                alias = 0
+                if alias_max:
+                    alias = amap.get(topic, 0)
+                    if alias == 0 and len(amap) < alias_max:
+                        alias = amap[topic] = len(amap) + 1
+                        wire = topic
+                    else:
+                        wire = "" if alias else topic
+                        self.alias_hits += alias > 0
+                else:
+                    wire = topic
+                check(got.properties.topic_alias == alias and got.topic_name == wire,
+                      f"{what}: {cid} topic {got.topic_name!r} alias {got.properties.topic_alias}, "
+                      f"want {wire!r} alias {alias}")
+                n += 1
+        self.frames += n
+        return n
+
+
+def phase_setup_fanout(n_groups: int, device, card: str) -> dict:
+    from mqtt_tpu_torch import DeltaMatcher
+
+    rng = random.Random(4)
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        index, entries, topic_gen = build_cfg4(n_groups, GROUP_MEMBERS, rng)
+        t1 = time.perf_counter()
+        # bench.py's run_cfg4 matches at max_levels=4
+        dm = DeltaMatcher(index, max_levels=4, rebuild_interval=0.5, device=device)
+        t2 = time.perf_counter()
+    finally:
+        _settle_gc()
+    fl = dm.snapshot.index
+    log(f"phase setup cfg4: ok {len(entries)} subscriptions ({n_groups} $SHARE groups x {GROUP_MEMBERS}, QoS 1), "
+        f"trie {t1 - t0:.1f} s, index {t2 - t1:.1f} s, entries {fl.n_entries}, P {fl.num_patterns}, "
+        f"S {fl.table.shape[0]}, sat {fl.n_sat}, spill {fl.n_spill}; {card}")
+    return {"name": "cfg4", "index": index, "entries": entries, "topic_gen": topic_gen, "rng": rng, "dm": dm}
+
+
+def phase_fanout(cfg: dict, wave: int, card: str, n_churn: int = FANOUT_CHURN) -> dict:
+    """Config 4 delivered to clients (launch counts reset just before):
+    two waves of ``wave`` publishes from eight publishers (v4 and v5, QoS
+    0 and 1, three through one ``ScanGate``, one with inbound topic
+    aliases) read, decoded, matched by ``MatchStage`` over
+    ``DeltaMatcher``, one member selected per group, and delivered to
+    v4, v5 and aliasing v5 subscribers. Config 4's filters hold no
+    wildcard, so the first wave takes the matchers' exact-map route (a
+    host dict probe per topic, as the JAX matcher takes it; no kernel).
+    Between the waves ``n_churn`` group members unsubscribe and subscribe
+    again, and an audit group of ``GROUP_MEMBERS`` subscribes to
+    ``<region>/+/+`` (not in bench.py: cell ``AUDIT_CELL``): its wildcard
+    ends the exact-only regime at the fold (K3), so the second wave, with
+    a hook on the selection seam, runs on the kernels. Every frame must be the plain reference's
+    (``FanoutCheck``)."""
+    from mqtt_tpu_torch import SHARE_PREFIX, MatchStage, Subscription
+    from mqtt_tpu_torch.ops import kernels
+    from mqtt_tpu_torch.topics import shared_inner
+
+    index, dm, rng, gen, entries = cfg["index"], cfg["dm"], cfg["rng"], cfg["topic_gen"], cfg["entries"]
+    on_cuda = dm.snapshot.device.type == "cuda"
+    fan = Fanout(fanout_modules())
+    verify = FanoutCheck()
+    hot = [shared_inner(entries[g * GROUP_MEMBERS][1].filter) for g in range(min(FANOUT_HOT, len(entries) // GROUP_MEMBERS))]
+    # the first member of every hot group, then members at random: a
+    # churned first member moves to the end of its group, so the second
+    # wave selects another member for it (from the folded device rows)
+    churn = dict(entries[g * GROUP_MEMBERS] for g in range(len(hot)))
+    churn.update(entries[rng.randrange(len(entries))] for _ in range(n_churn - len(churn)))
+    audit = f"{SHARE_PREFIX}/audit/{hot[0].split('/')[0]}/+/+"
+    check(dm.snapshot.index.exact_map is not None, "cfg4: a wildcard-free filter set without the exact map")
+    rows = []
+
+    async def drive():
+        stage = MatchStage(dm, index.subscribers, max_batch=MAIN_BATCH, latency_budget_s=None,
+                           max_pending=1 << 20)
+        stage.start()
+        try:
+            for w in range(2):
+                if w == 1:
+                    for cid, sub in churn.items():
+                        index.unsubscribe(sub.filter, cid)
+                    for cid, sub in churn.items():
+                        index.subscribe(cid, Subscription(filter=sub.filter, qos=1))
+                    for m in range(GROUP_MEMBERS):
+                        index.subscribe(f"audit{m}", Subscription(filter=audit, qos=1))
+                    deadline = time.perf_counter() + 60
+                    while dm.pending_deltas and time.perf_counter() < deadline:
+                        await asyncio.sleep(0.05)
+                    check(dm.pending_deltas == 0, "cfg4: the background fold did not drain the overlay")
+                    check(dm.snapshot.index.exact_map is None, "cfg4: the wildcard did not end the exact map")
+                    fan.add_select_hook()
+                batches0, stats0 = len(stage.service_log), dict(dm.stats.as_dict())
+                launches0 = dict(kernels.LAUNCHES)
+                t0 = time.perf_counter()
+                r = await fan.wave(stage, [gen() for _ in range(wave)], w, hot)
+                r["wall_s"] = time.perf_counter() - t0
+                r["launches"] = {k: v - launches0[k] for k, v in kernels.LAUNCHES.items()}
+                r["batches"] = len(stage.service_log) - batches0
+                r["stats"] = {k: v - stats0[k] for k, v in dm.stats.as_dict().items()
+                              if isinstance(v, (int, float)) and k in stats0}
+                r["frames_out"] = verify(index, fan, r["pks"], f"cfg4 wave {w + 1}")
+                rows.append(r)
+        finally:
+            await fan.close()
+            await stage.stop()
+        check(stage.admission_fallbacks == 0 and not stage.fallbacks,
+              f"cfg4: the stage fell back to the host walk: {stage.fallbacks}")
+
+    t_phase = time.perf_counter()
+    folds0 = dm.stats.as_dict()["folds"]
+    kernels.reset_launches()
+    asyncio.run(drive())
+    launches = dict(kernels.LAUNCHES)
+    for w, r in enumerate(rows):
+        n_pub = len(r["pks"])
+        check(n_pub == wave, f"cfg4 wave {w + 1}: {n_pub} of {wave} publishes read")
+        nb = max(1, r["batches"])
+        n_del = sum(len(t) for t in r["targets"])
+        st = r["stats"]
+        cell = "cfg4" if w == 0 else f"{AUDIT_CELL} (the audit wildcard is not from bench.py)"
+        log(f"phase fanout {cell} wave {w + 1}: ok {n_pub} publishes, {n_del} deliveries "
+            f"({n_del / n_pub:.4f} a publish), every frame the trie's selection; "
+            f"{n_pub / r['wall_s']:.1f} publishes/s, {n_del / r['wall_s']:.1f} deliveries/s through the whole path "
+            f"({r['wall_s']:.3f} s); per batch of {MAIN_BATCH} ({r['batches']} batches): inbound decode "
+            f"{r['inbound_s'] / nb * 1e3:.3f} ms, stage resolve {r['resolve_s'] / nb * 1e3:.3f} ms, "
+            f"select + merge {r['select_s'] / nb * 1e3:.3f} ms, deliver + encode {r['deliver_s'] / nb * 1e3:.3f} ms; "
+            f"route {'exact map (host dict probe)' if w == 0 else 'kernels'}: host_fast {st.get('host_fast', 0)}, "
+            f"host_fallbacks {st.get('host_fallbacks', 0)}, compact_batches {st.get('compact_batches', 0)}, "
+            f"compact_overflows {st.get('compact_overflows', 0)}, K1 {r['launches']['flat_probe_ranges']}, "
+            f"K2 {r['launches']['flat_match_compact']}; selection hook {'on' if w else 'off'}; {card}")
+    inflight = sum(len(fan.clients.get(c).state.inflight) for c in fan.writers)
+    folds = dm.stats.as_dict()["folds"] - folds0
+    log(f"  cfg4 outbound: {verify.frames} frames, {verify.bytes} bytes to {len(fan.writers)} subscribers, "
+        f"QoS 1 inflight {inflight}, outbound alias hits {verify.alias_hits}, inbound alias hits "
+        f"{fan.inbound_alias_hits}, scan gate {fan.gate.batches} batches of {fan.gate.scans} scans, "
+        f"selection seam {fan.select_hook.calls} calls, {len(churn)} members churned and {GROUP_MEMBERS} "
+        f"subscribed to {audit}, folds {folds}; {card}")
+    log(f"  cfg4 launches: flat_probe_ranges {launches['flat_probe_ranges']}, flat_match_compact "
+        f"{launches['flat_match_compact']}, scatter_rows {launches['scatter_rows']} (the fold); "
+        f"phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    check(folds >= 1, "cfg4: the churn was not folded")
+    if on_cuda:
+        check(rows[1]["launches"]["flat_probe_ranges"] + rows[1]["launches"]["flat_match_compact"] > 0,
+              f"cfg4: the second wave launched neither flat_probe_ranges nor flat_match_compact: {launches}")
+        check(launches["scatter_rows"] > 0, "cfg4: the fold did not launch scatter_rows")
+    check(fan.select_hook.calls > 0, "cfg4: the selection seam was never called")
+    check(fan.dropped == 0, f"cfg4: {fan.dropped} deliveries refused")
+    return launches
+
+
 # -- the predicate path (cfgP) and the re-encryption path (cfgR) ---------------
 
 
@@ -2541,7 +3076,8 @@ def _materialize_single(torch, cfg: dict, device) -> None:
 
 
 def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRYPT,
-        retained_sizes: tuple = RETAINED_SIZES, n_reseal: int = N_RESEAL, card: str = "") -> list:
+        retained_sizes: tuple = RETAINED_SIZES, n_reseal: int = N_RESEAL, card: str = "",
+        n_groups: int = N_GROUPS) -> list:
     import torch
 
     # off the card (a rehearsal) the wrappers are never called: no counts
@@ -2583,6 +3119,17 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
             sh["dm"].close()
     del cfgs, sharded
     mainN = phase_namespace(torch, device)
+    cfg4 = phase_setup_fanout(n_groups, device, card)
+    try:
+        main4 = phase_fanout(cfg4, wave, card)
+        # K1, K2, K3 (and K7) at the shapes the fan-out's second wave gave
+        # them: cfg4's table with the audit wildcard folded in
+        rec4 = phase_kernels(torch, [dict(cfg4, name=AUDIT_CELL)], device)
+        for name, r in rec4.items():
+            rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], r["max_abs_err"])
+    finally:
+        cfg4["dm"].close()
+    del cfg4
     # the observe phase's registry goes on to the later phases' engines
     cfgP = phase_setup_predicates(n_subs, 9, device, obs["registry"])
     cfgR = phase_setup_recrypt(10, device, obs["registry"])
@@ -2605,7 +3152,7 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
     phase_observe_render(obs)
     kernels_line = []
     for name in REPLACES:
-        launches = (main2[name] + main3[name] + mainN[name] + mainP[name] + mainR[name]
+        launches = (main2[name] + main3[name] + mainN[name] + main4[name] + mainP[name] + mainR[name]
                     + sum(m[name] for m in main_sh) + sum(m[name] for m in main_ret) + main_rs[name]
                     + obs["launches"][name])
         check(launches > 0 or name in INSIDE or not counted, f"{name} was never launched on the main paths")
@@ -2644,13 +3191,14 @@ def main() -> int:
     ap.add_argument("--retained", default=",".join(map(str, RETAINED_SIZES)),
                     help="retained corpus sizes, comma-separated")
     ap.add_argument("--reseal", type=int, default=N_RESEAL, help="retained payloads per size re-sealed at the re-key")
+    ap.add_argument("--groups", type=int, default=N_GROUPS, help="cfg4's $SHARE groups (16 members each)")
     args = ap.parse_args()
     t0 = time.perf_counter()
     try:
         card = phase_card(torch)["card"]
         phase_build()
         kernels_line = run(torch.device("cuda"), args.subs, args.wave, args.recrypt,
-                           tuple(int(x) for x in args.retained.split(",")), args.reseal, card)
+                           tuple(int(x) for x in args.retained.split(",")), args.reseal, card, args.groups)
     except PhaseFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -22,6 +22,13 @@ it needs, its C tokenizer and C result materializer among them
 lazy ``SubscribersView`` results by default, which read like
 ``Subscribers``.
 
+Beneath the broker's server it carries the wire and session layer: the
+MQTT codec (``packets``), the frame scanners (``native.frame_scan``),
+``Inflight``, ``Hooks`` (with the ``on_select_subscribers`` seam),
+``Client``/``Clients`` and the server's ``Options`` and ``_FrameCache``;
+a matched publish's ``$SHARE`` groups select one member each
+(``Subscribers.select_shared``) before delivery.
+
 The device plane carries the JAX package's instruments: ``telemetry``
 (the metrics registry), ``utils.locked`` (named instrumented locks, the
 lock plane and its order witness), ``ops.devicestats`` (the first-launch
@@ -32,24 +39,37 @@ Entry points run on ``"cuda"`` unless given ``device="cpu"``, which runs
 the plain PyTorch version of every kernel.
 """
 
+from .clients import Client, Clients
+from .hooks import Hook, Hooks
+from .inflight import Inflight
 from .native import NativeError
 from .ops import DeltaMatcher, KernelError, MatcherStats, RetainedMatchEngine, TorchMatcher, subscribers_equal
 from .packets import PUBLISH, FixedHeader, Packet, PacketStore, Subscription
 from .predicates import PredicateEngine, PublishFeatures
+from .server import Capabilities, Options
 from .staging import MatchStage
 from .tenancy import KeyRegistry, RecryptEngine, RecryptJob, Tenant, TenantPlane
-from .topics import SHARE_PREFIX, InlineSubscription, Subscribers, TopicsIndex
+from .system import Info
+from .topics import SHARE_PREFIX, InlineSubscription, Subscribers, TopicAliases, TopicsIndex
 from .utils import freeze_index, tune_for_throughput
 
 __all__ = [
+    "Capabilities",
+    "Client",
+    "Clients",
     "DeltaMatcher",
     "FixedHeader",
+    "Hook",
+    "Hooks",
+    "Inflight",
+    "Info",
     "InlineSubscription",
     "KernelError",
     "KeyRegistry",
     "MatchStage",
     "MatcherStats",
     "NativeError",
+    "Options",
     "PUBLISH",
     "Packet",
     "PacketStore",
@@ -63,6 +83,7 @@ __all__ = [
     "Subscription",
     "Tenant",
     "TenantPlane",
+    "TopicAliases",
     "TopicsIndex",
     "TorchMatcher",
     "freeze_index",

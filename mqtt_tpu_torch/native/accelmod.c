@@ -35,10 +35,8 @@
  *    0 < g <= mode before it merges, as ops/matcher.expand_sids does; a
  *    view applies it in materialize(), targets(), len, has_shared and
  *    has_inline. The JAX package's materializer has no guard;
- *  - the result layout: the port's Subscribers has three slots and no
- *    shared_selected (fan-out's shared-group selection is not ported),
- *    so the slot fast path takes a result class without it. view_stats()
- *    counts which path built each result and each copy.
+ *  - view_stats() also counts which path built each result and each
+ *    copy.
  *
  * Contract notes mirrored from expand_sids:
  *  - a client's first sighting takes Subscription.self_merged_copy(): a
@@ -206,11 +204,8 @@ res_layout_for(PyTypeObject *tp)
     int n = collect_object_slots(tp, dummy, MAX_SLOTS, named_offs, named, 4);
     if (PyErr_Occurred())
         PyErr_Clear();
-    /* Port: the port's Subscribers has no shared_selected slot (fan-out's
-     * shared-group selection is not ported); a class without one takes
-     * the slot path all the same, and new_result leaves it unset */
     L->ok = (n > 0 && L->subscriptions_off >= 0 && L->shared_off >= 0 &&
-             L->inline_off >= 0);
+             L->shared_selected_off >= 0 && L->inline_off >= 0);
     n_res_layouts++;
     return L;
 }
@@ -544,9 +539,8 @@ merge_sid(int64_t sid, PyObject *snaps, Py_ssize_t n_snaps, int64_t window,
     return 0; /* slot beyond the snapshot: skip (parity with bounds check) */
 }
 
-/* A fresh Subscribers result: tp_alloc + empty dicts (three, or four with
- * a shared_selected slot) when the class has the expected slots layout,
- * the plain constructor otherwise. The
+/* A fresh Subscribers result: tp_alloc + four empty dicts when the class
+ * has the expected slots layout, the plain constructor otherwise. The
  * three gather dicts are returned as NEW (owned) references — a
  * Subscribers-compatible class whose accessors are properties returning
  * fresh objects must not leave the caller holding dangling pointers, so
@@ -561,11 +555,9 @@ new_result(PyObject *cls, ResLayout *L, PyObject **subscriptions,
         PyObject *o = tp->tp_alloc(tp, 0);
         if (o == NULL)
             return NULL;
-        /* Port: no shared_selected slot in the port's Subscribers */
-        int with_sel = L->shared_selected_off >= 0;
-        PyObject *a = PyDict_New(), *b = with_sel ? PyDict_New() : NULL,
-                 *c = PyDict_New(), *d = PyDict_New();
-        if (a == NULL || (with_sel && b == NULL) || c == NULL || d == NULL) {
+        PyObject *a = PyDict_New(), *b = PyDict_New(), *c = PyDict_New(),
+                 *d = PyDict_New();
+        if (a == NULL || b == NULL || c == NULL || d == NULL) {
             Py_XDECREF(a);
             Py_XDECREF(b);
             Py_XDECREF(c);
@@ -574,8 +566,7 @@ new_result(PyObject *cls, ResLayout *L, PyObject **subscriptions,
             return NULL;
         }
         SLOT_AT(o, L->shared_off) = a;
-        if (with_sel)
-            SLOT_AT(o, L->shared_selected_off) = b;
+        SLOT_AT(o, L->shared_selected_off) = b;
         SLOT_AT(o, L->subscriptions_off) = c;
         SLOT_AT(o, L->inline_off) = d;
         stat_slot_results++;

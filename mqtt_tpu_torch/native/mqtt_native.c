@@ -15,10 +15,10 @@
  *   - UTF-8 validation with the MQTT NUL rejection rule [MQTT-1.5.4-2].
  *
  * Exposed as a flat C ABI consumed via ctypes
- * (mqtt_tpu_torch/native/__init__.py). The port binds mqtt_hash_token and
- * mqtt_tokenize_topics; the frame functions wait for the packet codec.
- * ops/hashing.py keeps the plain Python versions the tests hold these
- * against.
+ * (mqtt_tpu_torch/native/__init__.py), which binds every entry point:
+ * the tokenizer, and the frame functions of the clients' read and write
+ * paths. ops/hashing.py keeps the plain Python tokenizer the tests hold
+ * the C one against.
  */
 
 #include <stdint.h>

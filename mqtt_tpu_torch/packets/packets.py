@@ -1,0 +1,819 @@
+"""The single concrete :class:`Packet` model covering all 15 MQTT packet
+types, with per-type encode/decode/validate.
+
+Behavioral parity with reference ``packets/packets.go`` (Packet :123-141,
+Copy :185-250, Subscription codec/merge :254-299, per-type codecs :302-1168).
+One struct for every type keeps broker dispatch branch-free and lets session
+state (inflight, retained, wills) store packets uniformly.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from . import fixedheader as fh
+from .codec import (
+    decode_byte,
+    decode_byte_bool,
+    decode_bytes,
+    decode_string,
+    decode_uint16,
+    encode_bool,
+    encode_bytes,
+    encode_string,
+    encode_uint16,
+)
+from .codes import (
+    CODE_CONTINUE_AUTHENTICATION,
+    CODE_GRANTED_QOS0,
+    CODE_GRANTED_QOS1,
+    CODE_GRANTED_QOS2,
+    CODE_NO_MATCHING_SUBSCRIBERS,
+    CODE_NO_SUBSCRIPTION_EXISTED,
+    CODE_RE_AUTHENTICATE,
+    CODE_SUCCESS,
+    ERR_CLIENT_IDENTIFIER_NOT_VALID,
+    ERR_IMPLEMENTATION_SPECIFIC_ERROR,
+    ERR_MALFORMED_FLAGS,
+    ERR_MALFORMED_KEEPALIVE,
+    ERR_MALFORMED_PACKET_ID,
+    ERR_MALFORMED_PASSWORD,
+    ERR_MALFORMED_PROPERTIES,
+    ERR_MALFORMED_PROTOCOL_NAME,
+    ERR_MALFORMED_PROTOCOL_VERSION,
+    ERR_MALFORMED_QOS,
+    ERR_MALFORMED_REASON_CODE,
+    ERR_MALFORMED_SESSION_PRESENT,
+    ERR_MALFORMED_TOPIC,
+    ERR_MALFORMED_USERNAME,
+    ERR_MALFORMED_WILL_PAYLOAD,
+    ERR_MALFORMED_WILL_PROPERTIES,
+    ERR_MALFORMED_WILL_TOPIC,
+    ERR_NOT_AUTHORIZED,
+    ERR_PACKET_IDENTIFIER_IN_USE,
+    ERR_PACKET_IDENTIFIER_NOT_FOUND,
+    ERR_PAYLOAD_FORMAT_INVALID,
+    ERR_PROTOCOL_VIOLATION_FLAG_NO_PASSWORD,
+    ERR_PROTOCOL_VIOLATION_FLAG_NO_USERNAME,
+    ERR_PROTOCOL_VIOLATION_INVALID_REASON,
+    ERR_PROTOCOL_VIOLATION_NO_FILTERS,
+    ERR_PROTOCOL_VIOLATION_NO_PACKET_ID,
+    ERR_PROTOCOL_VIOLATION_NO_TOPIC,
+    ERR_PROTOCOL_VIOLATION_OVERSIZE_SUB_ID,
+    ERR_PROTOCOL_VIOLATION_PASSWORD_NO_FLAG,
+    ERR_PROTOCOL_VIOLATION_PASSWORD_TOO_LONG,
+    ERR_PROTOCOL_VIOLATION_PROTOCOL_NAME,
+    ERR_PROTOCOL_VIOLATION_PROTOCOL_VERSION,
+    ERR_PROTOCOL_VIOLATION_QOS_OUT_OF_RANGE,
+    ERR_PROTOCOL_VIOLATION_RESERVED_BIT,
+    ERR_PROTOCOL_VIOLATION_SURPLUS_PACKET_ID,
+    ERR_PROTOCOL_VIOLATION_SURPLUS_SUB_ID,
+    ERR_PROTOCOL_VIOLATION_SURPLUS_WILDCARD,
+    ERR_PROTOCOL_VIOLATION_USERNAME_NO_FLAG,
+    ERR_PROTOCOL_VIOLATION_USERNAME_TOO_LONG,
+    ERR_PROTOCOL_VIOLATION_WILL_FLAG_NO_PAYLOAD,
+    ERR_PROTOCOL_VIOLATION_WILL_FLAG_SURPLUS_RETAIN,
+    ERR_QUOTA_EXCEEDED,
+    ERR_SHARED_SUBSCRIPTIONS_NOT_SUPPORTED,
+    ERR_SUBSCRIPTION_IDENTIFIERS_NOT_SUPPORTED,
+    ERR_TOPIC_ALIAS_INVALID,
+    ERR_TOPIC_FILTER_INVALID,
+    ERR_TOPIC_NAME_INVALID,
+    ERR_UNSPECIFIED_ERROR,
+    ERR_WILDCARD_SUBSCRIPTIONS_NOT_SUPPORTED,
+    Code,
+)
+from ..utils import LockedMap
+from .fixedheader import FixedHeader
+from .properties import Mods, Properties
+
+MAX_UINT16 = 0xFFFF
+MAX_SUB_ID = 268_435_455  # v5 §3.3.2.3.8: subscription identifier range 1..268,435,455
+
+
+@dataclass
+class ConnectParams:
+    """CONNECT-specific packet values (reference packets.go:151-166)."""
+
+    will_properties: Properties = field(default_factory=Properties)
+    password: bytes = b""
+    username: bytes = b""
+    protocol_name: bytes = b""
+    will_payload: bytes = b""
+    client_identifier: str = ""
+    will_topic: str = ""
+    keepalive: int = 0
+    password_flag: bool = False
+    username_flag: bool = False
+    will_qos: int = 0
+    will_flag: bool = False
+    will_retain: bool = False
+    clean: bool = False  # CleanSession in v3.1.1, CleanStart in v5
+
+
+@dataclass(slots=True)
+class Subscription:
+    """A client's subscription to a topic filter (packets.go:172-182).
+
+    ``slots=True`` pins every field at a fixed offset: the C materializer
+    (native/accelmod.c) copies instances as ten pointer moves instead of
+    a dict clone. The field order is the JAX package's."""
+
+    filter: str = ""
+    share_name: list[str] = field(default_factory=list)
+    identifier: int = 0
+    identifiers: dict[str, int] | None = None
+    retain_handling: int = 0
+    qos: int = 0
+    retain_as_published: bool = False
+    no_local: bool = False
+    # True when this subscription forms part of a retained-publish response.
+    fwd_retained_flag: bool = False
+    # MQTT+ payload predicates (mqtt_tpu_torch.predicates): the SOURCE suffix
+    # texts (e.g. "$GT{temp:25.0}") stripped off the filter at SUBSCRIBE
+    # time. () = unpredicated (deliver everything — the pre-MQTT+ path).
+    predicates: tuple = ()
+
+    def merge(self, n: "Subscription") -> "Subscription":
+        """Fold ``n`` into this subscription: max QoS [MQTT-3.3.4-2], union of
+        identifiers, sticky NoLocal [MQTT-3.8.3-3] (packets.go:254-274).
+
+        Mirrors the reference's value-receiver semantics: the receiver is not
+        mutated, but an existing identifiers map is shared and extended.
+
+        Predicates merge with OR semantics: a client matched through an
+        UNPREDICATED filter must receive every payload, so either side
+        being () clears the merge; otherwise the union is kept and
+        delivery requires any one predicate to pass (mqtt_tpu_torch.predicates).
+        """
+        s = Subscription(
+            filter=self.filter,
+            share_name=self.share_name,
+            identifier=self.identifier,
+            identifiers=self.identifiers,
+            retain_handling=self.retain_handling,
+            qos=self.qos,
+            retain_as_published=self.retain_as_published,
+            no_local=self.no_local,
+            fwd_retained_flag=self.fwd_retained_flag,
+            predicates=(
+                ()
+                if not self.predicates or not n.predicates
+                else self.predicates
+                if n.predicates == self.predicates
+                else tuple(dict.fromkeys(self.predicates + n.predicates))
+            ),
+        )
+        if s.identifiers is None:
+            s.identifiers = {s.filter: s.identifier}
+        if n.identifier > 0:
+            s.identifiers[n.filter] = n.identifier
+        if n.qos > s.qos:
+            s.qos = n.qos
+        if n.no_local:
+            s.no_local = True
+        return s
+
+    def self_merged_copy(self) -> "Subscription":
+        """``merge(self, self)``'s value without the second argument: a
+        fresh instance (subclass-preserving) whose identifiers map is
+        materialized ({filter: identifier}) or shared-and-extended when
+        identifier > 0 — the per-client first-sighting copy the result
+        gather makes (reference gatherSubscriptions, topics.go:631-649).
+        The C materializer performs the same copy via slot offsets; this
+        is the Python fallback and the semantic source of truth."""
+        import dataclasses
+
+        s = dataclasses.replace(self)
+        if s.identifiers is None:
+            s.identifiers = {s.filter: s.identifier}
+        elif s.identifier > 0:
+            s.identifiers[s.filter] = s.identifier
+        return s
+
+    def encode_options(self) -> int:
+        """Pack the v5 subscription-options byte (packets.go:277-291)."""
+        flag = self.qos
+        if self.no_local:
+            flag |= 1 << 2
+        if self.retain_as_published:
+            flag |= 1 << 3
+        flag |= self.retain_handling << 4
+        return flag
+
+    def decode_options(self, b: int) -> None:
+        self.qos = b & 3
+        self.no_local = bool((b >> 2) & 1)
+        self.retain_as_published = bool((b >> 3) & 1)
+        self.retain_handling = (b >> 4) & 3
+
+
+# A SUBSCRIBE/UNSUBSCRIBE packet's ordered filter list.
+Subscriptions = list  # list[Subscription]; a list to retain order (packets.go:169)
+
+
+@dataclass
+class Packet:
+    """An MQTT packet of any type; a combination of spec values and
+    broker-internal control fields (packets.go:123-141)."""
+
+    connect: ConnectParams = field(default_factory=ConnectParams)
+    properties: Properties = field(default_factory=Properties)
+    payload: bytes = b""
+    reason_codes: bytes = b""
+    filters: list[Subscription] = field(default_factory=list)
+    topic_name: str = ""
+    origin: str = ""  # client id of the issuing client (internal)
+    fixed_header: FixedHeader = field(default_factory=FixedHeader)
+    created: int = 0  # unix ts when the packet was created/received
+    expiry: int = 0  # unix ts when the packet expires and should be deleted
+    mods: Mods = field(default_factory=Mods)
+    packet_id: int = 0
+    protocol_version: int = 0
+    session_present: bool = False
+    reason_code: int = 0
+    reserved_bit: int = 0
+    ignore: bool = False  # if True, skip message forwarding
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def copy(self, allow_transfer: bool) -> "Packet":
+        """Deep copy with a reset DUP flag [MQTT-4.3.1-1] [MQTT-4.3.2-2] and
+        an optional transfer of packet id / topic alias (packets.go:185-250)."""
+        p = Packet(
+            fixed_header=FixedHeader(
+                remaining=self.fixed_header.remaining,
+                type=self.fixed_header.type,
+                retain=self.fixed_header.retain,
+                dup=False,
+                qos=self.fixed_header.qos,
+            ),
+            mods=Mods(max_size=self.mods.max_size),
+            reserved_bit=self.reserved_bit,
+            protocol_version=self.protocol_version,
+            connect=ConnectParams(
+                client_identifier=self.connect.client_identifier,
+                keepalive=self.connect.keepalive,
+                will_qos=self.connect.will_qos,
+                will_topic=self.connect.will_topic,
+                will_flag=self.connect.will_flag,
+                will_retain=self.connect.will_retain,
+                will_properties=self.connect.will_properties.copy(allow_transfer),
+                clean=self.connect.clean,
+            ),
+            topic_name=self.topic_name,
+            properties=self.properties.copy(allow_transfer),
+            session_present=self.session_present,
+            reason_code=self.reason_code,
+            filters=self.filters,
+            created=self.created,
+            expiry=self.expiry,
+            origin=self.origin,
+        )
+        if allow_transfer:
+            p.packet_id = self.packet_id
+        if self.connect.protocol_name:
+            p.connect.protocol_name = bytes(self.connect.protocol_name)
+        if self.connect.password:
+            p.connect.password_flag = True
+            p.connect.password = bytes(self.connect.password)
+        if self.connect.username:
+            p.connect.username_flag = True
+            p.connect.username = bytes(self.connect.username)
+        if self.connect.will_payload:
+            p.connect.will_payload = bytes(self.connect.will_payload)
+        if self.payload:
+            p.payload = bytes(self.payload)
+        if self.reason_codes:
+            p.reason_codes = bytes(self.reason_codes)
+        return p
+
+    def format_id(self) -> str:
+        return str(self.packet_id)
+
+    # -- CONNECT -----------------------------------------------------------
+
+    def connect_encode(self, out: bytearray) -> None:
+        nb = bytearray()
+        nb += encode_bytes(self.connect.protocol_name)
+        nb.append(self.protocol_version)
+        nb.append(
+            (encode_bool(self.connect.clean) << 1)
+            | (encode_bool(self.connect.will_flag) << 2)
+            | (self.connect.will_qos << 3)
+            | (encode_bool(self.connect.will_retain) << 5)
+            | (encode_bool(self.connect.password_flag) << 6)
+            | (encode_bool(self.connect.username_flag) << 7)
+        )  # [MQTT-2.1.3-1]
+        nb += encode_uint16(self.connect.keepalive)
+        if self.protocol_version == 5:
+            self.properties.encode(self.fixed_header.type, self.mods, nb, 0)
+        nb += encode_string(self.connect.client_identifier)
+        if self.connect.will_flag:
+            if self.protocol_version == 5:
+                self.connect.will_properties.encode(fh.WILL_PROPERTIES, self.mods, nb, 0)
+            nb += encode_string(self.connect.will_topic)
+            nb += encode_bytes(self.connect.will_payload)
+        if self.connect.username_flag:
+            nb += encode_bytes(self.connect.username)
+        if self.connect.password_flag:
+            nb += encode_bytes(self.connect.password)
+        self.fixed_header.remaining = len(nb)
+        self.fixed_header.encode(out)
+        out += nb
+
+    def connect_decode(self, buf: bytes) -> None:
+        try:
+            self.connect.protocol_name, offset = decode_bytes(buf, 0)
+        except Code:
+            raise ERR_MALFORMED_PROTOCOL_NAME() from None
+        try:
+            self.protocol_version, offset = decode_byte(buf, offset)
+        except Code:
+            raise ERR_MALFORMED_PROTOCOL_VERSION() from None
+        try:
+            flags, offset = decode_byte(buf, offset)
+        except Code:
+            raise ERR_MALFORMED_FLAGS() from None
+        self.reserved_bit = flags & 1
+        self.connect.clean = bool((flags >> 1) & 1)
+        self.connect.will_flag = bool((flags >> 2) & 1)
+        self.connect.will_qos = (flags >> 3) & 3
+        self.connect.will_retain = bool((flags >> 5) & 1)
+        self.connect.password_flag = bool((flags >> 6) & 1)
+        self.connect.username_flag = bool((flags >> 7) & 1)
+        try:
+            self.connect.keepalive, offset = decode_uint16(buf, offset)
+        except Code:
+            raise ERR_MALFORMED_KEEPALIVE() from None
+        if self.protocol_version == 5:
+            try:
+                offset = self.properties.decode(self.fixed_header.type, buf, offset)
+            except Code as e:
+                raise _wrap(e, ERR_MALFORMED_PROPERTIES) from None
+        try:
+            # [MQTT-3.1.3-1] [MQTT-3.1.3-2] [MQTT-3.1.3-3] [MQTT-3.1.3-4]
+            self.connect.client_identifier, offset = decode_string(buf, offset)
+        except Code:
+            raise ERR_CLIENT_IDENTIFIER_NOT_VALID() from None # [MQTT-3.1.3-8]
+        if self.connect.will_flag:  # [MQTT-3.1.2-7]
+            if self.protocol_version == 5:
+                try:
+                    offset = self.connect.will_properties.decode(fh.WILL_PROPERTIES, buf, offset)
+                except Code:
+                    raise ERR_MALFORMED_WILL_PROPERTIES() from None
+            try:
+                self.connect.will_topic, offset = decode_string(buf, offset)
+            except Code:
+                raise ERR_MALFORMED_WILL_TOPIC() from None
+            try:
+                self.connect.will_payload, offset = decode_bytes(buf, offset)
+            except Code:
+                raise ERR_MALFORMED_WILL_PAYLOAD() from None
+        if self.connect.username_flag:  # [MQTT-3.1.3-12]
+            if offset >= len(buf):  # end of packet
+                raise ERR_PROTOCOL_VIOLATION_FLAG_NO_USERNAME()   # [MQTT-3.1.2-17]
+            try:
+                self.connect.username, offset = decode_bytes(buf, offset)
+            except Code:
+                raise ERR_MALFORMED_USERNAME() from None
+        if self.connect.password_flag:
+            try:
+                self.connect.password, _ = decode_bytes(buf, offset)
+            except Code:
+                raise ERR_MALFORMED_PASSWORD() from None
+    def connect_validate(self) -> Code:
+        """Compliance check; returns CODE_SUCCESS or a violation
+        (packets.go:444-497)."""
+        name = self.connect.protocol_name
+        if name not in (b"MQIsdp", b"MQTT"):
+            return ERR_PROTOCOL_VIOLATION_PROTOCOL_NAME  # [MQTT-3.1.2-1]
+        if (name == b"MQIsdp" and self.protocol_version != 3) or (
+            name == b"MQTT" and self.protocol_version not in (4, 5)
+        ):
+            return ERR_PROTOCOL_VIOLATION_PROTOCOL_VERSION  # [MQTT-3.1.2-2]
+        if self.reserved_bit != 0:
+            return ERR_PROTOCOL_VIOLATION_RESERVED_BIT  # [MQTT-3.1.2-3]
+        if len(self.connect.password) > MAX_UINT16:
+            return ERR_PROTOCOL_VIOLATION_PASSWORD_TOO_LONG
+        if len(self.connect.username) > MAX_UINT16:
+            return ERR_PROTOCOL_VIOLATION_USERNAME_TOO_LONG
+        if not self.connect.username_flag and self.connect.username:
+            return ERR_PROTOCOL_VIOLATION_USERNAME_NO_FLAG  # [MQTT-3.1.2-16]
+        if self.connect.password_flag and not self.connect.password:
+            return ERR_PROTOCOL_VIOLATION_FLAG_NO_PASSWORD  # [MQTT-3.1.2-19]
+        if not self.connect.password_flag and self.connect.password:
+            return ERR_PROTOCOL_VIOLATION_PASSWORD_NO_FLAG  # [MQTT-3.1.2-18]
+        if len(self.connect.client_identifier) > MAX_UINT16:
+            return ERR_CLIENT_IDENTIFIER_NOT_VALID
+        if self.connect.will_flag:
+            if not self.connect.will_payload or not self.connect.will_topic:
+                return ERR_PROTOCOL_VIOLATION_WILL_FLAG_NO_PAYLOAD  # [MQTT-3.1.2-9]
+            if self.connect.will_qos > 2:
+                return ERR_PROTOCOL_VIOLATION_QOS_OUT_OF_RANGE  # [MQTT-3.1.2-12]
+        if not self.connect.will_flag and self.connect.will_retain:
+            return ERR_PROTOCOL_VIOLATION_WILL_FLAG_SURPLUS_RETAIN  # [MQTT-3.1.2-13]
+        return CODE_SUCCESS
+
+    # -- CONNACK -----------------------------------------------------------
+
+    def connack_encode(self, out: bytearray) -> None:
+        nb = bytearray()
+        nb.append(encode_bool(self.session_present))
+        nb.append(self.reason_code)
+        if self.protocol_version == 5:
+            # +2 accounts for session-present + reason-code bytes
+            self.properties.encode(self.fixed_header.type, self.mods, nb, len(nb) + 2)
+        self.fixed_header.remaining = len(nb)
+        self.fixed_header.encode(out)
+        out += nb
+
+    def connack_decode(self, buf: bytes) -> None:
+        try:
+            self.session_present, offset = decode_byte_bool(buf, 0)
+        except Code as e:
+            raise _wrap(e, ERR_MALFORMED_SESSION_PRESENT) from None
+        try:
+            self.reason_code, offset = decode_byte(buf, offset)
+        except Code as e:
+            raise _wrap(e, ERR_MALFORMED_REASON_CODE) from None
+        if self.protocol_version == 5:
+            try:
+                self.properties.decode(self.fixed_header.type, buf, offset)
+            except Code as e:
+                raise _wrap(e, ERR_MALFORMED_PROPERTIES) from None
+
+    # -- DISCONNECT --------------------------------------------------------
+
+    def disconnect_encode(self, out: bytearray) -> None:
+        nb = bytearray()
+        if self.protocol_version == 5:
+            nb.append(self.reason_code)
+            self.properties.encode(self.fixed_header.type, self.mods, nb, len(nb))
+        self.fixed_header.remaining = len(nb)
+        self.fixed_header.encode(out)
+        out += nb
+
+    def disconnect_decode(self, buf: bytes) -> None:
+        if self.protocol_version == 5 and self.fixed_header.remaining > 1:
+            try:
+                self.reason_code, offset = decode_byte(buf, 0)
+            except Code as e:
+                raise _wrap(e, ERR_MALFORMED_REASON_CODE) from None
+            if self.fixed_header.remaining > 2:
+                try:
+                    self.properties.decode(self.fixed_header.type, buf, offset)
+                except Code as e:
+                    raise _wrap(e, ERR_MALFORMED_PROPERTIES) from None
+
+    # -- PINGREQ / PINGRESP ------------------------------------------------
+
+    def pingreq_encode(self, out: bytearray) -> None:
+        self.fixed_header.encode(out)
+
+    def pingreq_decode(self, buf: bytes) -> None:
+        pass
+
+    def pingresp_encode(self, out: bytearray) -> None:
+        self.fixed_header.encode(out)
+
+    def pingresp_decode(self, buf: bytes) -> None:
+        pass
+
+    # -- PUBLISH -----------------------------------------------------------
+
+    def publish_encode(self, out: bytearray) -> None:
+        nb = bytearray()
+        nb += encode_string(self.topic_name)  # [MQTT-3.3.2-1]
+        if self.fixed_header.qos > 0:
+            if self.packet_id == 0:
+                raise ERR_PROTOCOL_VIOLATION_NO_PACKET_ID()   # [MQTT-2.2.1-2]
+            nb += encode_uint16(self.packet_id)
+        if self.protocol_version == 5:
+            self.properties.encode(
+                self.fixed_header.type, self.mods, nb, len(nb) + len(self.payload)
+            )
+        self.fixed_header.remaining = len(nb) + len(self.payload)
+        self.fixed_header.encode(out)
+        out += nb
+        out += self.payload
+
+    def publish_decode(self, buf: bytes) -> None:
+        try:
+            self.topic_name, offset = decode_string(buf, 0)  # [MQTT-3.3.2-1]
+        except Code as e:
+            raise _wrap(e, ERR_MALFORMED_TOPIC) from None
+        if self.fixed_header.qos > 0:
+            try:
+                self.packet_id, offset = decode_uint16(buf, offset)
+            except Code as e:
+                raise _wrap(e, ERR_MALFORMED_PACKET_ID) from None
+        if self.protocol_version == 5:
+            try:
+                offset = self.properties.decode(self.fixed_header.type, buf, offset)
+            except Code as e:
+                raise _wrap(e, ERR_MALFORMED_PROPERTIES) from None
+        self.payload = bytes(buf[offset:])
+
+    def publish_validate(self, topic_alias_maximum: int) -> Code:
+        """Publish compliance check (packets.go:670-700)."""
+        if self.fixed_header.qos > 0 and self.packet_id == 0:
+            return ERR_PROTOCOL_VIOLATION_NO_PACKET_ID  # [MQTT-2.2.1-3] [MQTT-2.2.1-4]
+        if self.fixed_header.qos == 0 and self.packet_id > 0:
+            return ERR_PROTOCOL_VIOLATION_SURPLUS_PACKET_ID  # [MQTT-2.2.1-2]
+        if "+" in self.topic_name or "#" in self.topic_name:
+            return ERR_PROTOCOL_VIOLATION_SURPLUS_WILDCARD  # [MQTT-3.3.2-2]
+        if self.properties.topic_alias > topic_alias_maximum:
+            return ERR_TOPIC_ALIAS_INVALID  # [MQTT-3.2.2-17] [MQTT-3.3.2-9]
+        if self.topic_name == "" and self.properties.topic_alias == 0:
+            return ERR_PROTOCOL_VIOLATION_NO_TOPIC  # ~[MQTT-3.3.2-8]
+        if self.properties.topic_alias_flag and self.properties.topic_alias == 0:
+            return ERR_TOPIC_ALIAS_INVALID  # [MQTT-3.3.2-8]
+        if self.properties.subscription_identifier:
+            return ERR_PROTOCOL_VIOLATION_SURPLUS_SUB_ID  # [MQTT-3.3.4-6]
+        return CODE_SUCCESS
+
+    # -- PUBACK / PUBREC / PUBREL / PUBCOMP --------------------------------
+
+    def _encode_pub_ack_rel_rec_comp(self, out: bytearray) -> None:
+        nb = bytearray()
+        nb += encode_uint16(self.packet_id)
+        if self.protocol_version == 5:
+            pb = bytearray()
+            self.properties.encode(self.fixed_header.type, self.mods, pb, len(nb))
+            if self.reason_code >= ERR_UNSPECIFIED_ERROR.code or len(pb) > 1:
+                nb.append(self.reason_code)
+            if len(pb) > 1:
+                nb += pb
+        self.fixed_header.remaining = len(nb)
+        self.fixed_header.encode(out)
+        out += nb
+
+    def _decode_pub_ack_rel_rec_comp(self, buf: bytes) -> None:
+        try:
+            self.packet_id, offset = decode_uint16(buf, 0)
+        except Code as e:
+            raise _wrap(e, ERR_MALFORMED_PACKET_ID) from None
+        if self.protocol_version == 5 and self.fixed_header.remaining > 2:
+            try:
+                self.reason_code, offset = decode_byte(buf, offset)
+            except Code as e:
+                raise _wrap(e, ERR_MALFORMED_REASON_CODE) from None
+            if self.fixed_header.remaining > 3:
+                try:
+                    self.properties.decode(self.fixed_header.type, buf, offset)
+                except Code as e:
+                    raise _wrap(e, ERR_MALFORMED_PROPERTIES) from None
+
+    puback_encode = _encode_pub_ack_rel_rec_comp
+    puback_decode = _decode_pub_ack_rel_rec_comp
+    pubrec_encode = _encode_pub_ack_rel_rec_comp
+    pubrec_decode = _decode_pub_ack_rel_rec_comp
+    pubrel_encode = _encode_pub_ack_rel_rec_comp
+    pubrel_decode = _decode_pub_ack_rel_rec_comp
+    pubcomp_encode = _encode_pub_ack_rel_rec_comp
+    pubcomp_decode = _decode_pub_ack_rel_rec_comp
+
+    def reason_code_valid(self) -> bool:
+        """True if the reason code is in the valid set for this packet type
+        (packets.go:794-843)."""
+        t = self.fixed_header.type
+        rc = self.reason_code
+        if t == fh.PUBREC:
+            return rc in (
+                CODE_SUCCESS.code,
+                CODE_NO_MATCHING_SUBSCRIBERS.code,
+                ERR_UNSPECIFIED_ERROR.code,
+                ERR_IMPLEMENTATION_SPECIFIC_ERROR.code,
+                ERR_NOT_AUTHORIZED.code,
+                ERR_TOPIC_NAME_INVALID.code,
+                ERR_PACKET_IDENTIFIER_IN_USE.code,
+                ERR_QUOTA_EXCEEDED.code,
+                ERR_PAYLOAD_FORMAT_INVALID.code,
+            )
+        if t in (fh.PUBREL, fh.PUBCOMP):
+            return rc in (CODE_SUCCESS.code, ERR_PACKET_IDENTIFIER_NOT_FOUND.code)
+        if t == fh.SUBACK:
+            return rc in (
+                CODE_GRANTED_QOS0.code,
+                CODE_GRANTED_QOS1.code,
+                CODE_GRANTED_QOS2.code,
+                ERR_UNSPECIFIED_ERROR.code,
+                ERR_IMPLEMENTATION_SPECIFIC_ERROR.code,
+                ERR_NOT_AUTHORIZED.code,
+                ERR_TOPIC_FILTER_INVALID.code,
+                ERR_PACKET_IDENTIFIER_IN_USE.code,
+                ERR_QUOTA_EXCEEDED.code,
+                ERR_SHARED_SUBSCRIPTIONS_NOT_SUPPORTED.code,
+                ERR_SUBSCRIPTION_IDENTIFIERS_NOT_SUPPORTED.code,
+                ERR_WILDCARD_SUBSCRIPTIONS_NOT_SUPPORTED.code,
+            )
+        if t == fh.UNSUBACK:
+            return rc in (
+                CODE_SUCCESS.code,
+                CODE_NO_SUBSCRIPTION_EXISTED.code,
+                ERR_UNSPECIFIED_ERROR.code,
+                ERR_IMPLEMENTATION_SPECIFIC_ERROR.code,
+                ERR_NOT_AUTHORIZED.code,
+                ERR_TOPIC_FILTER_INVALID.code,
+                ERR_PACKET_IDENTIFIER_IN_USE.code,
+            )
+        return True
+
+    # -- SUBSCRIBE / SUBACK ------------------------------------------------
+
+    def suback_encode(self, out: bytearray) -> None:
+        nb = bytearray()
+        nb += encode_uint16(self.packet_id)
+        if self.protocol_version == 5:
+            self.properties.encode(
+                self.fixed_header.type, self.mods, nb, len(nb) + len(self.reason_codes)
+            )
+        nb += self.reason_codes
+        self.fixed_header.remaining = len(nb)
+        self.fixed_header.encode(out)
+        out += nb
+
+    def suback_decode(self, buf: bytes) -> None:
+        try:
+            self.packet_id, offset = decode_uint16(buf, 0)
+        except Code as e:
+            raise _wrap(e, ERR_MALFORMED_PACKET_ID) from None
+        if self.protocol_version == 5:
+            try:
+                offset = self.properties.decode(self.fixed_header.type, buf, offset)
+            except Code as e:
+                raise _wrap(e, ERR_MALFORMED_PROPERTIES) from None
+        self.reason_codes = bytes(buf[offset:])
+
+    def subscribe_encode(self, out: bytearray) -> None:
+        if self.packet_id == 0:
+            raise ERR_PROTOCOL_VIOLATION_NO_PACKET_ID()
+        nb = bytearray()
+        nb += encode_uint16(self.packet_id)
+        xb = bytearray()
+        for sub in self.filters:
+            xb += encode_string(sub.filter)  # [MQTT-3.8.3-1]
+            xb.append(sub.encode_options() if self.protocol_version == 5 else sub.qos)
+        if self.protocol_version == 5:
+            self.properties.encode(self.fixed_header.type, self.mods, nb, len(nb) + len(xb))
+        nb += xb
+        self.fixed_header.remaining = len(nb)
+        self.fixed_header.encode(out)
+        out += nb
+
+    def subscribe_decode(self, buf: bytes) -> None:
+        try:
+            self.packet_id, offset = decode_uint16(buf, 0)
+        except Code:
+            raise ERR_MALFORMED_PACKET_ID() from None
+        if self.protocol_version == 5:
+            try:
+                offset = self.properties.decode(self.fixed_header.type, buf, offset)
+            except Code as e:
+                raise _wrap(e, ERR_MALFORMED_PROPERTIES) from None
+        self.filters = []
+        while offset < len(buf):
+            try:
+                filter_, offset = decode_string(buf, offset)  # [MQTT-3.8.3-1]
+            except Code:
+                raise ERR_MALFORMED_TOPIC() from None
+            sub = Subscription(filter=filter_)
+            if self.protocol_version == 5:
+                opts, offset = decode_byte(buf, offset)
+                sub.decode_options(opts)
+            else:
+                try:
+                    qos, offset = decode_byte(buf, offset)
+                except Code:
+                    raise ERR_MALFORMED_QOS() from None
+                sub.qos = qos
+            if self.properties.subscription_identifier:
+                sub.identifier = self.properties.subscription_identifier[0]
+            if sub.qos > 2:
+                raise ERR_PROTOCOL_VIOLATION_QOS_OUT_OF_RANGE()
+            self.filters.append(sub)
+
+    def subscribe_validate(self) -> Code:
+        if self.fixed_header.qos > 0 and self.packet_id == 0:
+            return ERR_PROTOCOL_VIOLATION_NO_PACKET_ID  # [MQTT-2.2.1-3] [MQTT-2.2.1-4]
+        if not self.filters:
+            return ERR_PROTOCOL_VIOLATION_NO_FILTERS  # [MQTT-3.10.3-2]
+        for sub in self.filters:
+            if sub.identifier > MAX_SUB_ID:
+                return ERR_PROTOCOL_VIOLATION_OVERSIZE_SUB_ID
+        return CODE_SUCCESS
+
+    # -- UNSUBSCRIBE / UNSUBACK --------------------------------------------
+
+    def unsuback_encode(self, out: bytearray) -> None:
+        nb = bytearray()
+        nb += encode_uint16(self.packet_id)
+        if self.protocol_version == 5:
+            self.properties.encode(self.fixed_header.type, self.mods, nb, len(nb))
+            nb += self.reason_codes
+        self.fixed_header.remaining = len(nb)
+        self.fixed_header.encode(out)
+        out += nb
+
+    def unsuback_decode(self, buf: bytes) -> None:
+        try:
+            self.packet_id, offset = decode_uint16(buf, 0)
+        except Code as e:
+            raise _wrap(e, ERR_MALFORMED_PACKET_ID) from None
+        if self.protocol_version == 5:
+            try:
+                offset = self.properties.decode(self.fixed_header.type, buf, offset)
+            except Code as e:
+                raise _wrap(e, ERR_MALFORMED_PROPERTIES) from None
+            self.reason_codes = bytes(buf[offset:])
+
+    def unsubscribe_encode(self, out: bytearray) -> None:
+        if self.packet_id == 0:
+            raise ERR_PROTOCOL_VIOLATION_NO_PACKET_ID()
+        nb = bytearray()
+        nb += encode_uint16(self.packet_id)
+        xb = bytearray()
+        for sub in self.filters:
+            xb += encode_string(sub.filter)  # [MQTT-3.10.3-1]
+        if self.protocol_version == 5:
+            self.properties.encode(self.fixed_header.type, self.mods, nb, len(nb) + len(xb))
+        nb += xb
+        self.fixed_header.remaining = len(nb)
+        self.fixed_header.encode(out)
+        out += nb
+
+    def unsubscribe_decode(self, buf: bytes) -> None:
+        try:
+            self.packet_id, offset = decode_uint16(buf, 0)
+        except Code as e:
+            raise _wrap(e, ERR_MALFORMED_PACKET_ID) from None
+        if self.protocol_version == 5:
+            try:
+                offset = self.properties.decode(self.fixed_header.type, buf, offset)
+            except Code as e:
+                raise _wrap(e, ERR_MALFORMED_PROPERTIES) from None
+        self.filters = []
+        while offset < len(buf):
+            try:
+                filter_, offset = decode_string(buf, offset)  # [MQTT-3.10.3-1]
+            except Code as e:
+                raise _wrap(e, ERR_MALFORMED_TOPIC) from None
+            self.filters.append(Subscription(filter=filter_))
+
+    def unsubscribe_validate(self) -> Code:
+        if self.fixed_header.qos > 0 and self.packet_id == 0:
+            return ERR_PROTOCOL_VIOLATION_NO_PACKET_ID  # [MQTT-2.2.1-3] [MQTT-2.2.1-4]
+        if not self.filters:
+            return ERR_PROTOCOL_VIOLATION_NO_FILTERS  # [MQTT-3.10.3-2]
+        return CODE_SUCCESS
+
+    # -- AUTH --------------------------------------------------------------
+
+    def auth_encode(self, out: bytearray) -> None:
+        nb = bytearray()
+        nb.append(self.reason_code)
+        self.properties.encode(self.fixed_header.type, self.mods, nb, len(nb))
+        self.fixed_header.remaining = len(nb)
+        self.fixed_header.encode(out)
+        out += nb
+
+    def auth_decode(self, buf: bytes) -> None:
+        try:
+            self.reason_code, offset = decode_byte(buf, 0)
+        except Code as e:
+            raise _wrap(e, ERR_MALFORMED_REASON_CODE) from None
+        try:
+            self.properties.decode(self.fixed_header.type, buf, offset)
+        except Code as e:
+            raise _wrap(e, ERR_MALFORMED_PROPERTIES) from None
+
+    def auth_validate(self) -> Code:
+        if self.reason_code not in (
+            CODE_SUCCESS.code,
+            CODE_CONTINUE_AUTHENTICATION.code,
+            CODE_RE_AUTHENTICATE.code,
+        ):
+            return ERR_PROTOCOL_VIOLATION_INVALID_REASON  # [MQTT-3.15.2-1]
+        return CODE_SUCCESS
+
+
+def _wrap(inner: Code, outer: Code) -> Code:
+    """Wrap an inner decode error in an outer classification. The result
+    compares equal to ``outer`` (classification by equality, like the
+    reference's ``errors.Is`` over ``fmt.Errorf("%s: %w")``) while carrying
+    the inner message as detail for logs."""
+    return outer.wrap(inner)
+
+
+class PacketStore(LockedMap[str, Packet]):
+    """Concurrency-safe id-keyed packet map used for the retained-message
+    store and delayed wills (reference packets.go:66-117). The port's
+    store keeps the name it registered its lock under."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str = "") -> None:
+        # a named store registers its lock with the lock plane
+        super().__init__(name or None)
+        self.name = name

@@ -1,8 +1,8 @@
-"""Topic trie: subscriptions, shared subscriptions, inline subscriptions and
-the wildcard match walk.
+"""Topic trie: subscriptions, shared subscriptions, inline subscriptions,
+retained messages, the wildcard match walks, and topic aliases.
 
-A copy of the subscription half of the JAX package's ``topics`` module
-(behavioural parity with reference ``topics.go``). This host walk is the
+A copy of the JAX package's ``topics`` module (behavioural parity with
+reference ``topics.go``). This host walk is the
 bit-identical oracle and the fallback path for the device matcher in
 ``mqtt_tpu_torch.ops``. The corner cases that define "bit-identical":
 
@@ -25,6 +25,14 @@ does not match topic ``a``.
 Also here: the tenant-namespace helpers (``ns_*``) and the MQTT+
 predicate-suffix split (``split_predicate_suffix``) that the predicate
 and tenancy planes use.
+
+The fan-out half: ``Subscribers.select_shared`` picks one member of each
+matched ``$SHARE`` group (the first in insertion order, as the reference
+takes the first map entry) and ``merge_shared_selected`` folds the picks
+into the non-shared set; ``is_valid_filter`` checks a filter or a publish
+topic; ``summary_base`` strips a filter to the topic space its publishes
+match; ``TopicAliases`` holds a client's inbound and outbound alias
+registries.
 
 The retained half: ``retain_message``/``retain_bulk`` keep one packet
 per topic in ``retained`` and mark its node (``retain_path``), and
@@ -216,6 +224,17 @@ def split_predicate_suffix(filter: str) -> tuple[str, str]:
     return base, filter[len(m.group("base")) :]
 
 
+def summary_base(filter: str) -> str:
+    """The filter as PUBLISHES match it: a ``$SHARE/<group>/...``
+    subscription strips to its inner filter (the group is a delivery
+    policy), and a trailing MQTT+ predicate strips to its base filter (the
+    predicate gates delivery, not routability)."""
+    if is_shared_filter(filter):
+        filter = shared_inner(filter)
+    base, _suffix = split_predicate_suffix(filter)
+    return base
+
+
 @dataclass(frozen=True)
 class Mutation:
     """One subscription mutation, delivered to trie observers (the delta
@@ -241,6 +260,90 @@ def isolate_particle(filter: str, d: int) -> tuple[str, bool]:
 def is_shared_filter(filter: str) -> bool:
     prefix, _ = isolate_particle(filter, 0)
     return prefix.upper() == SHARE_PREFIX
+
+
+def is_valid_filter(filter: str, for_publish: bool = False) -> bool:
+    """Validate a topic filter (or topic name when ``for_publish``);
+    reference topics.go:707-745."""
+    if not for_publish and len(filter) == 0:
+        return False  # [MQTT-4.7.3-1]
+    if NS_CHAR in filter:
+        # [MQTT-4.7.3-2]: no U+0000, which doubles as the namespace marker,
+        # so a wire topic never aliases into another tenant's keys
+        return False
+    if for_publish:
+        # 4.7.2: clients may not exchange messages on $SYS topic names
+        if len(filter) >= len(SYS_PREFIX) and filter[: len(SYS_PREFIX)].upper() == SYS_PREFIX:
+            return False
+        if "+" in filter or "#" in filter:
+            return False  # [MQTT-3.3.2-2]
+    wildhash = filter.find("#")
+    if wildhash >= 0 and wildhash != len(filter) - 1:
+        return False  # [MQTT-4.7.1-2]
+    prefix, has_next = isolate_particle(filter, 0)
+    if prefix.upper() == SHARE_PREFIX:
+        if not has_next:
+            return False  # [MQTT-4.8.2-1]
+        group, has_next = isolate_particle(filter, 1)
+        if not has_next:
+            return False  # [MQTT-4.8.2-1]
+        if "+" in group or "#" in group:
+            return False  # [MQTT-4.8.2-2]
+    return True
+
+
+# -- topic aliases ---------------------------------------------------------
+
+
+class InboundTopicAliases:
+    """Aliases received from the client (topics.go:43-64)."""
+
+    def __init__(self, maximum: int) -> None:
+        self.maximum = maximum
+        self.internal: dict[int, str] = {}
+        self._lock = threading.Lock()
+
+    def set(self, id_: int, topic: str) -> str:
+        with self._lock:
+            if self.maximum == 0:
+                return topic
+            if topic == "" and id_ in self.internal:
+                return self.internal[id_]
+            self.internal[id_] = topic
+            return topic
+
+
+class OutboundTopicAliases:
+    """Aliases assigned by the broker for messages to the client; ids are
+    cursor-allocated 1..maximum (topics.go:67-105)."""
+
+    def __init__(self, maximum: int) -> None:
+        self.maximum = maximum
+        self.internal: dict[str, int] = {}
+        self.cursor = 0
+        self._lock = threading.Lock()
+
+    def set(self, topic: str) -> tuple[int, bool]:
+        """Returns ``(alias, already_existed)``; ``(0, False)`` when aliases
+        are disabled or exhausted."""
+        with self._lock:
+            if self.maximum == 0:
+                return 0, False
+            if topic in self.internal:
+                return self.internal[topic], True
+            if self.cursor + 1 > self.maximum:
+                return 0, False
+            self.cursor += 1
+            self.internal[topic] = self.cursor
+            return self.cursor, False
+
+
+class TopicAliases:
+    """Inbound and outbound alias registries for one client (topics.go:21)."""
+
+    def __init__(self, topic_alias_maximum: int) -> None:
+        self.inbound = InboundTopicAliases(topic_alias_maximum)
+        self.outbound = OutboundTopicAliases(topic_alias_maximum)
 
 
 # -- subscription containers -----------------------------------------------
@@ -283,6 +386,10 @@ class SharedSubscriptions:
         with self._lock:
             return {group: dict(subs) for group, subs in self.internal.items()}
 
+    def group_len(self) -> int:
+        with self._lock:
+            return len(self.internal)
+
     def __len__(self) -> int:
         with self._lock:
             return sum(len(subs) for subs in self.internal.values())
@@ -312,14 +419,37 @@ class InlineSubscriptions(LockedMap[int, "InlineSubscription"]):
 
 
 class Subscribers:
-    """The result set of a subscriber scan (topics.go:312-347)."""
+    """The result set of a subscriber scan (topics.go:312-347).
 
-    __slots__ = ("shared", "subscriptions", "inline_subscriptions")
+    ``__slots__`` keeps the result object dict-free so the C materializer
+    (native/accelmod.c) builds one per matched topic at tp_alloc + four
+    dict stores."""
+
+    __slots__ = ("shared", "shared_selected", "subscriptions", "inline_subscriptions")
 
     def __init__(self) -> None:
         self.shared: dict[str, dict[str, Subscription]] = {}
+        self.shared_selected: dict[str, Subscription] = {}
         self.subscriptions: dict[str, Subscription] = {}
         self.inline_subscriptions: dict[int, InlineSubscription] = {}
+
+    def select_shared(self) -> None:
+        """Pick one subscriber per shared group: the first in insertion
+        order (the reference takes the first map entry, unordered in Go).
+        The ``on_select_subscribers`` hook may replace the pick."""
+        self.shared_selected = {}
+        for subs in self.shared.values():
+            for client, sub in subs.items():
+                cls = self.shared_selected.get(client, sub)
+                self.shared_selected[client] = cls.merge(sub)
+                break
+
+    def merge_shared_selected(self) -> None:
+        """Fold selected shared subscribers into the non-shared set so no
+        client receives duplicates (topics.go:338-347)."""
+        for client, sub in self.shared_selected.items():
+            cls = self.subscriptions.get(client, sub)
+            self.subscriptions[client] = cls.merge(sub)
 
 
 # -- the trie --------------------------------------------------------------
@@ -459,6 +589,16 @@ class TopicsIndex:
                 self._trim(particle)
             self._notify(Mutation(filter, "inline", "del", identifier=id_))
             return True
+
+    def inline_subscription(self, id_: int, filter: str) -> Optional[InlineSubscription]:
+        """The stored inline subscription at (identifier, filter), or None.
+        The predicate plane consults it on replace and unsubscribe so rule
+        refcounts track the subscription actually stored."""
+        with self._lock:
+            particle = self._seek(filter, 0)
+            if particle is None:
+                return None
+            return particle.inline_subscriptions.get(id_)
 
     def retain_message(self, pk: Packet) -> int:
         """Store or clear the retained message for a topic. Returns 1 when a

@@ -969,3 +969,60 @@ def test_memory_gauges_and_first_launch_notes_on_the_card(dev):
     assert check_exposition(text) > 0
     assert f'mqtt_tpu_device_hbm_limit_bytes{{device="{dev.index or 0}"}} {h["limit_bytes"]}' in text
     del hold
+
+
+def _cfg4_ops(seed: int, n_groups: int = 400, members: int = 4) -> list:
+    """bench.py config 4's shape, small: ``$SHARE/grp<g>/<a>/<b>/<c>``
+    groups of QoS 1 members over a vocabulary of 6 values a level."""
+    rng = np.random.default_rng(seed)
+    ops = []
+    for g in range(n_groups):
+        flt = "/".join(f"v{int(x)}" for x in rng.integers(0, 6, 3))
+        ops += [("sub", f"g{g}m{m}", f"$SHARE/grp{g}/{flt}", 1, 0, False) for m in range(members)]
+    return ops
+
+
+def _selected(subs):
+    subs.select_shared()
+    picks = {c: (s.filter, s.qos) for c, s in subs.shared_selected.items()}
+    subs.merge_shared_selected()
+    return picks, {c: (s.qos, s.no_local) for c, s in subs.subscriptions.items()}
+
+
+@pytest.mark.parametrize("compact", [True, False], ids=["compact", "ranges"])
+@pytest.mark.parametrize("lazy", [True, False], ids=["views", "eager"])
+def test_shared_selection_on_the_card_equals_the_cpu(dev, compact, lazy):
+    """A small config-4 corpus, with one group on a wildcard filter (a
+    wildcard-free set takes the exact-map route and no kernel), through
+    ``TorchMatcher`` on the card, then ``select_shared`` and
+    ``merge_shared_selected``: every pick and every merged target equals
+    the same corpus on ``device="cpu"`` and the trie's own, before and
+    after group members churn and fold (K3)."""
+    ops = _cfg4_ops(5) + [("sub", f"w{m}", "$SHARE/grpw/v0/+/+", 1, 0, False) for m in range(4)]
+    index = apply_port_ops(ops, TopicsIndex())
+    rng = np.random.default_rng(6)
+    topics = ["/".join(f"v{int(x)}" for x in rng.integers(0, 6, 3)) for _ in range(3000)]
+    card = TorchMatcher(index, max_levels=4, device=dev, compact=compact, lazy=lazy)
+    cpu = TorchMatcher(index, max_levels=4, device="cpu", compact=compact, lazy=lazy)
+    for m in (card, cpu):
+        m.rebuild()
+    assert card.index.exact_map is None
+    probes = kernels.LAUNCHES["flat_probe_ranges"] + kernels.LAUNCHES["flat_match_compact"]
+    n_picks = 0
+    for rnd in range(2):
+        if rnd:
+            # every group's first member leaves and comes back last
+            churn = [o for o in ops if o[1].endswith("m0")][:150]
+            apply_port_ops([("unsub",) + o[1:] for o in churn] + churn, index)
+            launches = kernels.LAUNCHES["scatter_rows"]
+            for m in (card, cpu):
+                assert m.fold({o[2] for o in churn})
+            assert kernels.LAUNCHES["scatter_rows"] == launches + 1
+        for t, a, b in zip(topics, card.match_topics(topics), cpu.match_topics(topics)):
+            want, got_card, got_cpu = _selected(index.subscribers(t)), _selected(a), _selected(b)
+            assert got_card == got_cpu == want, t
+            n_picks += len(want[0])
+    # spilled entries (more members on one path than the id window) take
+    # the host walk on both devices alike
+    assert n_picks > 3000 and card.stats.host_fallbacks == cpu.stats.host_fallbacks < len(topics) // 4
+    assert kernels.LAUNCHES["flat_probe_ranges"] + kernels.LAUNCHES["flat_match_compact"] > probes

@@ -420,6 +420,9 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "import mqtt_tpu_torch.parallel, mqtt_tpu_torch.parallel.sharded\n"
         "import mqtt_tpu_torch.telemetry, mqtt_tpu_torch.tracing, mqtt_tpu_torch.utils.locked\n"
         "import mqtt_tpu_torch.ops.devicestats\n"
+        "import mqtt_tpu_torch.clients, mqtt_tpu_torch.server, mqtt_tpu_torch.hooks\n"
+        "import mqtt_tpu_torch.inflight, mqtt_tpu_torch.system, mqtt_tpu_torch.packets.codec\n"
+        "import mqtt_tpu_torch.utils.loopwitness, mqtt_tpu_torch.utils.mempool, mqtt_tpu_torch.utils.proc\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mqtt_tpu'))\n"
         "print(','.join(bad))\n"
     )

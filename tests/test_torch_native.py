@@ -13,9 +13,13 @@ first use: the tokenizer (``mqtt_native.c``) and the materializer
   the trie;
 - views read like eager results (``materialize``, ``targets``, ``len``,
   ``has_shared``, ``has_inline``, ``is_lazy``) and outlive their sources;
-- the port's three-slot ``Subscribers`` and ``Subscription`` take the C
-  slot paths;
-- a failed build raises.
+- the port's four-slot ``Subscribers`` and ``Subscription`` take the C
+  slot paths, and ``select_shared``/``merge_shared_selected`` through a
+  view leave what they leave on the eager result;
+- the frame bindings (``varint_*``, ``utf8_valid``, ``frame_scan``,
+  ``frame_scan_multi``, ``fan_flush``, ``assemble_frames``) equal the JAX
+  package's on seeded and hostile inputs;
+- a failed build raises, from every binding.
 """
 
 import gc
@@ -31,6 +35,7 @@ import torch
 from mqtt_tpu.ops import hashing as jhashing
 from mqtt_tpu.ops import matcher as jmatcher
 from mqtt_tpu.ops.matcher import TpuMatcher
+from mqtt_tpu.packets.codec import encode_length
 
 from mqtt_tpu_torch import Subscribers, Subscription, TorchMatcher, native, subscribers_equal
 from mqtt_tpu_torch.ops import hashing, matcher
@@ -302,9 +307,9 @@ def test_a_view_outlives_its_source_arrays():
 
 
 def test_the_port_result_classes_take_the_slot_paths():
-    """The port's three-slot ``Subscribers`` (no ``shared_selected``) and
-    ``Subscription`` (``slots=True``) are built by the C slot paths; a
-    subclass with an instance dict takes the generic paths."""
+    """The port's four-slot ``Subscribers`` and ``Subscription``
+    (``slots=True``) are built by the C slot paths; a subclass with an
+    instance dict takes the generic paths."""
     acc = native.accel()
     sub = Subscription(filter="a/+", qos=1)
     snaps = [((("c1", sub),), (), ())]
@@ -320,6 +325,7 @@ def test_the_port_result_classes_take_the_slot_paths():
 
     res, d = delta(Subscribers)
     assert type(res) is Subscribers and res.subscriptions["c1"] == sub.self_merged_copy()
+    assert res.shared_selected == {}
     assert d == {"slot_results": 1, "generic_results": 0, "slot_copies": 1, "method_copies": 0}
 
     class WithDict(Subscribers):
@@ -460,3 +466,178 @@ def test_gctune_is_idempotent_and_leaves_a_disabled_collector_disabled(monkeypat
         gc.unfreeze()
         gc.set_threshold(*before)
         (gc.enable if enabled else gc.disable)()
+
+
+# -- the fan-out: the fourth slot through views --------------------------------
+
+
+@pytest.mark.parametrize("route", ["ranges", "compact"])
+def test_view_select_and_merge_leave_what_the_eager_route_leaves(route):
+    """``view.select_shared(); view.merge_shared_selected()`` (attribute
+    reads and calls reach the materialized result) leaves exactly the
+    eager result's state after the same calls, and the trie's; the
+    results counted by ``view_stats()`` took the slot path."""
+    ops = corpus_ops(7, n_subs=300) + [
+        ("sub", f"g{g}m{m}", f"$SHARE/grp{g}/a/{'+' if g % 2 else 'b'}", 1, 0, False)
+        for g in range(6) for m in range(3)
+    ]
+    topics = corpus_topics(21, n=400) + ["a/b"] * 8
+    _, tidx = twin_tries(ops)
+    both = _ranges_both if route == "ranges" else _compact_both
+    acc = native.accel()
+    before = acc.view_stats()
+    views, _, _, _ = both(tidx, topics, lazy=True)
+    eager, _, _, _ = both(tidx, topics, lazy=False)
+    after = acc.view_stats()
+    assert after["generic_results"] == before["generic_results"]
+    assert after["slot_results"] > before["slot_results"]
+    n_sel = 0
+    for v, e, t in zip(views, eager, topics):
+        if type(v) is Subscribers:
+            continue
+        for r in (v, e):
+            r.select_shared()
+            r.merge_shared_selected()
+        host = tidx.subscribers(t)
+        host.select_shared()
+        host.merge_shared_selected()
+        assert canon(v) == canon(e) and delivery(v) == delivery(host), repr(t)
+        assert {c: (x.filter, x.qos) for c, x in v.shared_selected.items()} == \
+            {c: (x.filter, x.qos) for c, x in e.shared_selected.items()} == \
+            {c: (x.filter, x.qos) for c, x in host.shared_selected.items()}, repr(t)
+        n_sel += len(v.shared_selected)
+    assert n_sel > 8
+
+
+# -- the frame bindings --------------------------------------------------------
+
+
+def _frame_streams(seed: int, n: int = 40) -> list:
+    """Seeded byte streams of whole, partial, malformed and oversized
+    packets."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        buf = bytearray()
+        for _ in range(int(rng.integers(0, 30))):
+            kind = int(rng.integers(0, 10))
+            body = bytes(rng.integers(0, 256, int(rng.integers(0, 300))).astype(np.uint8))
+            if kind < 6:
+                first = int(rng.choice([0x30, 0x32, 0x3B, 0x40, 0x62, 0x82, 0xC0, 0xE0]))
+                ln = bytearray()
+                encode_length(ln, len(body))
+                buf += bytes([first]) + ln + body
+            elif kind == 6:
+                buf += b"\x30\xff\xff\xff\xff"  # a varint past four bytes
+            elif kind == 7:
+                buf += bytes([int(rng.integers(0, 256))])  # any header byte
+            elif kind == 8:
+                buf += b"\x30\x80\x80\x01"  # a long but legal varint
+            else:
+                buf += bytes([0x30, 0x7F])  # a truncated tail
+        out.append(bytes(buf))
+    return out
+
+
+def _frames(res):
+    frames, consumed, err = res
+    return [(f.first_byte, f.body_offset, f.remaining) for f in frames], consumed, err
+
+
+def test_frame_bindings_equal_the_jax_package():
+    from mqtt_tpu import native as jn
+
+    assert native.MAX_FRAMES_PER_SCAN == jn.MAX_FRAMES_PER_SCAN
+    rng = np.random.default_rng(3)
+    for v in [0, 1, 127, 128, 16383, 16384, 2097151, 2097152, 268435455, *rng.integers(0, 1 << 28, 200).tolist()]:
+        assert native.varint_encode(int(v)) == jn.varint_encode(int(v))
+        enc = native.varint_encode(int(v))
+        assert native.varint_decode(enc + b"rest") == jn.varint_decode(enc + b"rest") == (int(v), len(enc))
+    for bad in (268435456, 1 << 31):
+        with pytest.raises(ValueError):
+            native.varint_encode(bad)
+    for raw in [b"", b"\x80", b"\x80\x80\x80", b"\xff\xff\xff\xff", b"\xff\xff\xff\x7f",
+                *(bytes(rng.integers(0, 256, int(rng.integers(0, 6))).astype(np.uint8)) for _ in range(300))]:
+        try:
+            want = jn.varint_decode(raw)
+        except ValueError:
+            with pytest.raises(ValueError):
+                native.varint_decode(raw)
+        else:
+            assert native.varint_decode(raw) == want
+    for data in [b"", b"abc", "é日本".encode(), b"a\x00b", b"\xc0\xaf", b"\xed\xa0\x80", b"\xf4\x90\x80\x80",
+                 *(bytes(rng.integers(0, 256, 12).astype(np.uint8)) for _ in range(300))]:
+        assert native.utf8_valid(data) == jn.utf8_valid(data)
+    streams = _frame_streams(5)
+    for buf in streams:
+        for max_frames, max_size in ((1024, 0), (3, 0), (256, 120)):
+            want = _frames(jn.frame_scan(buf, max_frames, max_size))
+            assert _frames(native.frame_scan(buf, max_frames, max_size)) == want
+            assert _frames(native.frame_scan(bytearray(buf), max_frames, max_size)) == want
+    for max_frames, max_size in ((256, 0), (4, 0), (256, 100)):
+        got = native.frame_scan_multi([bytearray(b) for b in streams] + [b""], max_frames, max_size)
+        want = jn.frame_scan_multi([bytearray(b) for b in streams] + [b""], max_frames, max_size)
+        assert [_frames(r) for r in got] == [_frames(r) for r in want]
+    assert native.frame_scan_multi([]) == []
+    rb = bytearray(streams[0])
+    native.frame_scan(rb)
+    native.frame_scan_multi([rb])
+    del rb[:1]  # no buffer export outlives a scan
+
+
+def test_assemble_frames_and_fan_flush_equal_the_jax_package():
+    import socket
+
+    from mqtt_tpu import native as jn
+
+    rng = np.random.default_rng(9)
+    for n, pt_len in ((0, 10), (1, 0), (5, 33), (17, 300)):
+        nonces = rng.integers(0, 256, (n, 12)).astype(np.uint8)
+        ks = rng.integers(0, 256, (n, pt_len + 7)).astype(np.uint8)
+        pt = bytes(rng.integers(0, 256, pt_len).astype(np.uint8))
+        got, want = native.assemble_frames(b"\x30\x10hd", nonces, ks, pt), jn.assemble_frames(b"\x30\x10hd", nonces, ks, pt)
+        assert got.shape == want.shape and np.array_equal(got, want)
+    assert native.assemble_frames(b"h", np.zeros((2, 12), np.uint8), np.zeros((2, 4), np.uint8), b"longer") is None
+    frame = b"\x32\x0b\x00\x03a/b\x00\x00payload"
+    for ids in (None, [7, 0xFFFF, 1]):
+        received = []
+        for mod in (native, jn):
+            pairs = [socket.socketpair() for _ in range(3)]
+            try:
+                sent = mod.fan_flush([a.fileno() for a, _ in pairs], frame, 5 if ids else -1, ids)
+                assert sent.tolist() == [len(frame)] * 3
+                received.append([b.recv(4096) for _, b in pairs])
+            finally:
+                for a, b in pairs:
+                    a.close()
+                    b.close()
+        assert received[0] == received[1]
+        if ids:
+            assert received[0][1][5:7] == b"\xff\xff"
+    assert native.fan_flush([], frame).tolist() == []
+
+
+def test_a_failed_build_raises_from_every_frame_binding(tmp_path):
+    """Under a ``CC`` that cannot build, every frame binding raises
+    ``NativeError``; none falls back to a Python scanner."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from mqtt_tpu_torch import native\n"
+        "calls = [lambda: native.varint_decode(b'\\x01'), lambda: native.varint_encode(1),\n"
+        "         lambda: native.utf8_valid(b'a'), lambda: native.frame_scan(b'\\xc0\\x00'),\n"
+        "         lambda: native.frame_scan_multi([b'\\xc0\\x00']), lambda: native.fan_flush([], b'x'),\n"
+        "         lambda: native.assemble_frames(b'h', np.zeros((1, 1), np.uint8), np.zeros((1, 1), np.uint8), b'')]\n"
+        "for call in calls:\n"
+        "    try:\n"
+        "        call()\n"
+        "    except native.NativeError:\n"
+        "        print('raised')\n"
+        "    else:\n"
+        "        sys.exit('no error')\n"
+    )
+    env = dict(os.environ, CC="/nonexistent/cc", PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                       cwd=tmp_path, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.count("raised") == 7, r.stdout
