@@ -130,11 +130,11 @@ Phases, each printed as it ends:
     the port's codec, fed to a ``StreamReader`` and read by
     ``Client.read`` (``frame_scan``, ``frame_scan_multi``); matched by
     ``MatchStage`` over ``DeltaMatcher`` on the card with lazy views; one
-    member selected per group by the port's ``server.fan_out_targets``
+    member selected per group by the port's ``Server.fan_out_targets``
     (``Server._fan_out``'s selection: ``materialize``,
     ``Hooks.on_select_subscribers``, ``select_shared``,
     ``merge_shared_selected``; the second wave with a hook on the seam);
-    delivered by the port's ``server.publish_to_client`` (effective QoS,
+    delivered by the port's ``Server.publish_to_client`` (effective QoS,
     retain flag, identifiers, outbound aliases, ``next_packet_id`` and
     ``Inflight.set``, QoS 0 through one ``_FrameCache`` encode) onto the
     outbound queues of v4, v5 and aliasing v5 ``Client``s, each made with
@@ -157,6 +157,45 @@ Phases, each printed as it ends:
     the route's counters; then frames, bytes, inflight and alias hits,
     and the K1/K2/K3 launches (the second wave must launch K1 or K2, the
     fold K3). ``--groups`` shrinks the configuration.
+
+14. The broker itself (phase "broker", after the re-key re-seal, with the
+    earlier phases' tries freed): the port's ``Server`` with an
+    ``AllowHook``, a ``MemoryStore`` and a ``TCP`` listener on
+    127.0.0.1:0, driven by ``WireClient``s over ``asyncio.open_connection``
+    with frames built and parsed by this script's own builders. Cell
+    ``broker-cfg2-restart``: a store of bench.py config 2's 1,000,000
+    subscription records (made in bulk, the bytes ``dumps`` writes) and
+    1,024 persistent sessions (v4 ``clean=0``, v5 with a session expiry),
+    the ids the trie walk hits most on the waves' topics; ``serve()``
+    restores them (``read_store`` -> ``bulk_register``) and the device
+    matcher folds them onto the card; the sessions reconnect with clean
+    start off (session present), 8 publishers (v4/v5, QoS 0/1) send 24,576
+    cfg2 topics, 300 UNSUBSCRIBE/SUBSCRIBE packets go over the same
+    sockets (the fold: K3), 24,576 more. The restore must count every
+    record and each session must hold its stored filter; every socket's
+    frames must be the multiset of (topic, QoS, payload) that the stored
+    filters (as the churn changes them) match, by cfg2's rule. Cell
+    ``broker-legs``: cfgP's 100,000 ``$GT`` rules and 64 windows arrive as
+    predicated SUBSCRIBE filters, its ``$CONTAINS``/``$EQS``/``$AND`` rules
+    are restored from the store for three persistent sessions; 8,192 JSON
+    publishes and 192 hot-topic ones, every delivery the trie's filtered by
+    the host interpreter, every aggregate the plain windows' (K4, K5); on a
+    second server (tenancy, ``retained_matcher``) cfg11's 50,000 retained
+    messages restored (``load_retained`` -> ``bulk_retain`` -> ``reseed``)
+    and its 64 wildcard filters SUBSCRIBEd, every retained delivery the
+    walk's (K1); cfg10's tenant (100 keyed subscribers, encrypted ``e/``):
+    64 encrypted retained messages re-keyed at SUBSCRIBE and 4,096
+    encrypted publishes of 256 B, every payload opening under its
+    subscriber's key (K6, ``native.assemble_frames``); ``rekey_tenant``
+    re-seals the retained ones (``reseal_batch``, K6). Both legs' matchers
+    hold a window of 63 ids a filter path, and split the 64 window holders
+    and the 100 tenant subscribers over two filter paths each. Printed per
+    cell: restore seconds and batches, publishes/s and deliveries/s per
+    wave, the stage's batches and resolve p50/max, the publishes the device
+    resolved against each host route, and the launches per kernel; each
+    line ends with the card's name and power limit. The phase fails unless
+    every check holds, deliveries are more than zero, K1-K6 each launch
+    inside it, and the device resolves most of each wave.
 
 Phase 4 also holds K7 (``flat_match_core``, the single-index entry point
 of K8's kernel) and K4-K6 against their plain versions at the shapes these
@@ -260,9 +299,10 @@ def check(cond: bool, msg: str) -> None:
 # -- configurations (copies of bench.py's build_cfg2 / build_cfg3) ------------
 
 
-def build_cfg2(n_subs: int, rng: random.Random):
-    """3-level topics, 10% single-level + wildcards (bench.py:172)."""
-    from mqtt_tpu_torch import Subscription, TopicsIndex
+def cfg2_entries(n_subs: int, rng: random.Random):
+    """cfg2's subscriptions and topic generator (bench.py:172): 3-level
+    topics, 10% single-level + wildcards."""
+    from mqtt_tpu_torch import Subscription
 
     v0 = [f"region{i}" for i in range(100)]
     v1 = [f"device{i}" for i in range(100)]
@@ -273,12 +313,20 @@ def build_cfg2(n_subs: int, rng: random.Random):
         if rng.random() < 0.10:
             parts[rng.randrange(3)] = "+"
         entries.append((f"cl{i}", Subscription(filter="/".join(parts), qos=i % 3)))
-    index = TopicsIndex()
-    index.subscribe_bulk(entries)
 
     def topic_gen():
         return f"{rng.choice(v0)}/{rng.choice(v1)}/{rng.choice(v2)}"
 
+    return entries, topic_gen
+
+
+def build_cfg2(n_subs: int, rng: random.Random):
+    """cfg2's subscriptions in a trie, and its topic generator."""
+    from mqtt_tpu_torch import TopicsIndex
+
+    entries, topic_gen = cfg2_entries(n_subs, rng)
+    index = TopicsIndex()
+    index.subscribe_bulk(entries)
     return index, entries, topic_gen
 
 
@@ -1690,35 +1738,39 @@ def split_frames(data: bytes) -> list:
 
 class Fanout:
     """The fan-out's wire and session layer of one package, beneath its
-    server: publishers' frames read by ``Client.read`` (``frame_scan``, or
-    ``ScanGate``/``frame_scan_multi``) and decoded by the codec, inbound
-    topic aliases resolved; each result of the stage's match taken by the
-    package's ``server.fan_out_targets`` (``Server._fan_out``'s selection:
-    a view without shared or inline entries through ``targets()``, else
-    materialized; ``Hooks.on_select_subscribers``, then ``select_shared``
-    unless a hook selected, and ``merge_shared_selected``); each target
-    delivered by the package's ``server.publish_to_client`` onto the
-    client's outbound queue, which the client's write loop drains into an
-    in-memory writer. QoS 0 targets share one encode through
+    server's listeners: publishers' frames read by ``Client.read``
+    (``frame_scan``, or ``ScanGate``/``frame_scan_multi``) and decoded by
+    the codec, inbound topic aliases resolved; each result of the stage's
+    match taken by the server's ``fan_out_targets`` (``Server._fan_out``'s
+    selection: a view without shared or inline entries through
+    ``targets()``, else materialized; ``Hooks.on_select_subscribers``,
+    then ``select_shared`` unless a hook selected, and
+    ``merge_shared_selected``); each target delivered by the server's
+    ``publish_to_client`` onto the client's outbound queue, which the
+    client's write loop drains into an in-memory writer. QoS 0 targets share one encode through
     ``_FrameCache``; the others take the effective QoS, the retain flag,
     subscription identifiers, outbound aliases, ``next_packet_id`` and
     ``Inflight.set``, then ``write_packet``.
 
     ``mods`` names the package's modules (``packets``, ``clients``,
     ``hooks``, ``topics``, ``server``, ``system``, ``native``), so the same
-    steps run over the port and, in the tests, over the JAX package (whose
-    ``server`` there is its ``Server``'s own methods, with ``ops`` its
-    ``Server``'s). A subscriber's ``Client`` is made, and its write loop
+    steps run over the port and, in the tests, over the JAX package.
+    ``srv`` is the server whose ``fan_out_targets``, ``deliver_inline``,
+    ``publish_to_client`` and ``_ops`` the steps use: by default a port
+    ``Server`` without its device planes (``predicate_filters=False``); in
+    the tests a stand-in over a JAX ``Server``. Its QoS 0 frame passthrough
+    is switched off (it would answer these publishers from the server's
+    empty trie). A subscriber's ``Client`` is made, and its write loop
     started, when it first receives."""
 
-    def __init__(self, mods, ops=None) -> None:
+    def __init__(self, mods, srv=None) -> None:
         self.m = mods
         hk = mods.hooks
-        if ops is None:
-            opts = mods.server.Options()
-            opts.ensure_defaults()
-            ops = mods.server._Ops(opts, mods.system.Info(), hk.Hooks(opts.logger), opts.logger)
-        self.ops = ops
+        if srv is None:
+            srv = mods.server.Server(mods.server.Options(predicate_filters=False, gc_tuning=False))
+        self.srv = srv
+        self.ops = srv._ops
+        self.ops.fast_publish = self.ops.fast_publish_eligible = None
 
         class Allow(hk.Hook):
             """Allows every client and topic (the auth hooks arrive with
@@ -1868,17 +1920,21 @@ class Fanout:
         t1 = time.perf_counter()
         results = await asyncio.gather(*(stage.submit(pk.topic_name) for pk in pks))
         t2 = time.perf_counter()
-        srv = self.m.server
-        targets = [list(srv.fan_out_targets(self.ops, pk, r)) for pk, r in zip(pks, results)]
+        srv = self.srv
+        targets = []
+        for pk, r in zip(pks, results):
+            items, inline, _ = srv.fan_out_targets(pk, r)
+            targets.append(list(items))
+            srv.deliver_inline(inline, pk)
         t3 = time.perf_counter()
         share = not self.ops.hooks.provides(hk.ON_PACKET_ENCODE, hk.ON_PACKET_SENT)
         touched = {}
         for pk, items in zip(pks, targets):
-            fast = srv._FrameCache(pk) if pk.fixed_header.qos == 0 and share else None
+            fast = self.m.server._FrameCache(pk) if pk.fixed_header.qos == 0 and share else None
             for cid, sub in items:
                 cl = touched[cid] = self.subscriber(cid)
                 try:
-                    srv.publish_to_client(self.ops, cl, sub, pk, fast)
+                    srv.publish_to_client(cl, sub, pk, fast)
                 except self.m.packets.Code:
                     self.dropped += 1
         # the write loops drain the outbound queues
@@ -1972,6 +2028,275 @@ class FanoutCheck:
                 n += 1
         self.frames += n
         return n
+
+
+# -- MQTT frames built and parsed by hand, and a client over TCP (phase broker)
+
+
+def _vbi(n: int) -> bytes:
+    """A variable byte integer (MQTT 5 section 1.5.5)."""
+    out = bytearray()
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _utf8(s) -> bytes:
+    b = s.encode() if isinstance(s, str) else bytes(s)
+    return len(b).to_bytes(2, "big") + b
+
+
+# property identifiers by type (MQTT 5 section 2.2.2.2)
+_PROP_BYTE = {0x01, 0x17, 0x19, 0x24, 0x25, 0x28, 0x29, 0x2A}
+_PROP_U16 = {0x13, 0x21, 0x22, 0x23}
+_PROP_U32 = {0x02, 0x11, 0x18, 0x27}
+_PROP_VBI = {0x0B}
+_PROP_STR = {0x03, 0x08, 0x12, 0x15, 0x1A, 0x1C, 0x1F, 0x09, 0x16}  # strings and binary data
+P_MESSAGE_EXPIRY, P_SUB_ID, P_SESSION_EXPIRY, P_WILL_DELAY = 0x02, 0x0B, 0x11, 0x18
+P_RECEIVE_MAX, P_ALIAS_MAX, P_ALIAS, P_USER = 0x21, 0x22, 0x23, 0x26
+
+
+def wire_props(props) -> bytes:
+    """An MQTT 5 property block from ``(identifier, value)`` pairs."""
+    body = bytearray()
+    for pid, v in props:
+        body.append(pid)
+        if pid in _PROP_BYTE:
+            body.append(v)
+        elif pid in _PROP_U16:
+            body += v.to_bytes(2, "big")
+        elif pid in _PROP_U32:
+            body += v.to_bytes(4, "big")
+        elif pid in _PROP_VBI:
+            body += _vbi(v)
+        elif pid in _PROP_STR:
+            body += _utf8(v)
+        elif pid == P_USER:
+            body += _utf8(v[0]) + _utf8(v[1])
+        else:
+            raise ValueError(f"property {pid:#x}")
+    return _vbi(len(body)) + bytes(body)
+
+
+def parse_props(buf: bytes, off: int) -> tuple:
+    """An MQTT 5 property block at ``off``: ``({identifier: value or
+    [values]}, offset after it)``."""
+    n, shift = 0, 0
+    while True:
+        b = buf[off]
+        off += 1
+        n |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            break
+    end, out = off + n, {}
+    while off < end:
+        pid = buf[off]
+        off += 1
+        if pid in _PROP_BYTE:
+            v, off = buf[off], off + 1
+        elif pid in _PROP_U16:
+            v, off = int.from_bytes(buf[off:off + 2], "big"), off + 2
+        elif pid in _PROP_U32:
+            v, off = int.from_bytes(buf[off:off + 4], "big"), off + 4
+        elif pid in _PROP_VBI:
+            v, shift = 0, 0
+            while True:
+                b = buf[off]
+                off += 1
+                v |= (b & 0x7F) << shift
+                shift += 7
+                if not b & 0x80:
+                    break
+        elif pid in _PROP_STR or pid == P_USER:
+            ln = int.from_bytes(buf[off:off + 2], "big")
+            v, off = bytes(buf[off + 2:off + 2 + ln]), off + 2 + ln
+            if pid == P_USER:
+                ln = int.from_bytes(buf[off:off + 2], "big")
+                v, off = (v, bytes(buf[off + 2:off + 2 + ln])), off + 2 + ln
+        else:
+            raise ValueError(f"property {pid:#x}")
+        if pid in out:
+            out[pid] = (out[pid] if isinstance(out[pid], list) else [out[pid]]) + [v]
+        else:
+            out[pid] = v
+    return out, end
+
+
+def wire_frame(first: int, body: bytes) -> bytes:
+    return bytes([first]) + _vbi(len(body)) + body
+
+
+def connect_frame(cid: str, version: int = 4, clean: bool = True, keepalive: int = 60, props=(),
+                  will=None, username=None, password=None) -> bytes:
+    """CONNECT; ``will`` is ``(topic, payload, qos, retain, props)``."""
+    flags = 0x02 if clean else 0
+    if will is not None:
+        flags |= 0x04 | (will[2] << 3) | (0x20 if will[3] else 0)
+    if username is not None:
+        flags |= 0x80
+    if password is not None:
+        flags |= 0x40
+    body = _utf8(b"MQIsdp" if version == 3 else b"MQTT") + bytes([version, flags]) + keepalive.to_bytes(2, "big")
+    if version == 5:
+        body += wire_props(props)
+    body += _utf8(cid)
+    if will is not None:
+        if version == 5:
+            body += wire_props(will[4])
+        body += _utf8(will[0]) + _utf8(will[1])
+    if username is not None:
+        body += _utf8(username)
+    if password is not None:
+        body += _utf8(password)
+    return wire_frame(0x10, body)
+
+
+def subscribe_frame(pid: int, filters, version: int = 4, props=()) -> bytes:
+    """SUBSCRIBE of ``(filter, qos, option bits)`` entries (no local 0x04,
+    retain as published 0x08, retain handling << 4)."""
+    body = pid.to_bytes(2, "big") + (wire_props(props) if version == 5 else b"")
+    for flt, qos, opts in filters:
+        body += _utf8(flt) + bytes([qos | opts])
+    return wire_frame(0x82, body)
+
+
+def unsubscribe_frame(pid: int, filters, version: int = 4) -> bytes:
+    body = pid.to_bytes(2, "big") + (wire_props(()) if version == 5 else b"")
+    for flt in filters:
+        body += _utf8(flt)
+    return wire_frame(0xA2, body)
+
+
+def publish_frame(topic: str, payload: bytes, qos: int = 0, pid: int = 0, retain: bool = False,
+                  dup: bool = False, version: int = 4, props=()) -> bytes:
+    first = 0x30 | (0x08 if dup else 0) | (qos << 1) | (0x01 if retain else 0)
+    body = _utf8(topic) + (pid.to_bytes(2, "big") if qos else b"") + (wire_props(props) if version == 5 else b"")
+    return wire_frame(first, body + payload)
+
+
+PUBACK, PUBREC, PUBREL, PUBCOMP = 4, 5, 6, 7
+PINGREQ_FRAME = b"\xc0\x00"
+
+
+def ack_frame(kind: int, pid: int) -> bytes:
+    """PUBACK, PUBREC, PUBREL (flags 0010) or PUBCOMP, reason success."""
+    return wire_frame((kind << 4) | (0x02 if kind == PUBREL else 0), pid.to_bytes(2, "big"))
+
+
+def disconnect_frame(version: int = 4, reason: int = 0, props=()) -> bytes:
+    if version == 5 and (reason or props):
+        return wire_frame(0xE0, bytes([reason]) + wire_props(props))
+    return b"\xe0\x00"
+
+
+def frame_parts(raw: bytes) -> tuple:
+    """``(first byte, body)`` of one whole frame."""
+    k = 1
+    while raw[k] & 0x80:
+        k += 1
+    return raw[0], raw[k + 1:]
+
+
+def parse_publish(raw: bytes, version: int) -> dict:
+    """A PUBLISH frame's fields."""
+    first, body = frame_parts(raw)
+    qos = (first >> 1) & 3
+    tl = int.from_bytes(body[0:2], "big")
+    topic, off = body[2:2 + tl].decode(), 2 + tl
+    pid = 0
+    if qos:
+        pid, off = int.from_bytes(body[off:off + 2], "big"), off + 2
+    props = {}
+    if version == 5:
+        props, off = parse_props(body, off)
+    return {"topic": topic, "qos": qos, "pid": pid, "retain": bool(first & 1), "dup": bool(first & 8),
+            "props": props, "payload": bytes(body[off:])}
+
+
+class WireClient:
+    """One MQTT client over TCP (``asyncio.open_connection``): it sends the
+    frames above, and a reader task keeps every byte the broker sends, one
+    buffer per connection (``conns``), until the broker ends it."""
+
+    def __init__(self, name: str, version: int = 4) -> None:
+        self.name = name
+        self.version = version
+        self.conns: list = []
+        self.writer = None
+        self.task = None
+        self._got = asyncio.Event()
+
+    async def open(self, host: str, port: int) -> None:
+        reader, self.writer = await asyncio.open_connection(host, port)
+        buf = bytearray()
+        self.conns.append(buf)
+        self.task = asyncio.get_running_loop().create_task(self._read(reader, buf))
+
+    async def _read(self, reader, buf: bytearray) -> None:
+        try:
+            while True:
+                chunk = await reader.read(1 << 16)
+                if not chunk:
+                    return
+                buf += chunk
+                self._got.set()
+        except ConnectionError:
+            return
+        finally:
+            self._got.set()
+
+    def send(self, data: bytes) -> None:
+        self.writer.write(data)
+
+    def frames(self) -> list:
+        """The whole frames of the current connection so far."""
+        buf = bytes(self.conns[-1])
+        out, pos = [], 0
+        while pos + 1 < len(buf):
+            n, shift, k = 0, 0, pos + 1
+            while k < len(buf):
+                b = buf[k]
+                n |= (b & 0x7F) << shift
+                k += 1
+                if not b & 0x80:
+                    break
+                shift += 7
+            else:
+                break
+            if k + n > len(buf):
+                break
+            out.append(buf[pos:k + n])
+            pos = k + n
+        return out
+
+    async def wait_frames(self, n: int, limit: float = 30.0) -> list:
+        """The current connection's frames once it holds ``n`` (or once the
+        broker ended it)."""
+        deadline = time.monotonic() + limit
+        while True:
+            frames = self.frames()
+            if len(frames) >= n or self.task.done():
+                return frames
+            self._got.clear()
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise PhaseFailed(f"{self.name}: {len(frames)} of {n} frames within {limit} s")
+            try:
+                await asyncio.wait_for(self._got.wait(), left)
+            except asyncio.TimeoutError:
+                pass
+
+    async def half_close(self, limit: float = 30.0) -> None:
+        """Send EOF and wait for the broker to end the connection."""
+        self.writer.write_eof()
+        await self.ended(limit)
+
+    async def ended(self, limit: float = 30.0) -> None:
+        await asyncio.wait_for(asyncio.shield(self.task), limit)
+        self.writer.close()
 
 
 def phase_setup_fanout(n_groups: int, device, card: str) -> dict:
@@ -2109,14 +2434,14 @@ def phase_fanout(cfg: dict, wave: int, card: str, n_churn: int = FANOUT_CHURN) -
 # -- the predicate path (cfgP) and the re-encryption path (cfgR) ---------------
 
 
-def build_cfgP(n_subs: int, rng: random.Random):
+def cfgP_entries(n_subs: int, rng: random.Random, predicated_only: bool = False):
     """cfg2's population (bench.py:172) with predicates: every 10th filter
     carries a distinct ``$GT{v:t}``, t uniform in [0, 1) (bench.py cfg9,
     849-870, at its full 100,000 rules for 1M filters); filters 1, 3 and 7
     of every thousand carry a distinct ``$CONTAINS{x<k>y}``,
     ``$EQS{s:w<k>}`` or ``$AND{$GT{v:a}$LT{v:b}}``; and HOT_TOPIC has 64
     subscribers holding ``$MEAN{v:32}``, ``$MAX{v:32}`` or ``$MIN{v:64}``."""
-    from mqtt_tpu_torch import Subscription, TopicsIndex
+    from mqtt_tpu_torch import Subscription
 
     v0 = [f"region{i}" for i in range(100)]
     v1 = [f"device{i}" for i in range(100)]
@@ -2139,6 +2464,8 @@ def build_cfgP(n_subs: int, rng: random.Random):
             pred = "$AND{$GT{v:%.6f}$LT{v:%.6f}}" % ((k + 0.5) / 2000, 0.5 + (k + 0.5) / 2000)
         else:
             pred = ""
+        if predicated_only and not pred:
+            continue
         preds = (pred,) if pred else ()
         suffixes.extend(preds)
         entries.append((f"cl{i}", Subscription(filter="/".join(parts), qos=i % 3, predicates=preds)))
@@ -2146,12 +2473,20 @@ def build_cfgP(n_subs: int, rng: random.Random):
         pred = ("$MEAN{v:32}", "$MAX{v:32}", "$MIN{v:64}")[k % 3]
         suffixes.append(pred)
         entries.append((f"agg{k}", Subscription(filter=HOT_TOPIC, qos=1, predicates=(pred,))))
-    index = TopicsIndex()
-    index.subscribe_bulk(entries)
 
     def topic_gen():
         return f"{rng.choice(v0)}/{rng.choice(v1)}/{rng.choice(v2)}"
 
+    return entries, topic_gen, suffixes
+
+
+def build_cfgP(n_subs: int, rng: random.Random):
+    """cfgP's subscriptions in a trie (``cfgP_entries``)."""
+    from mqtt_tpu_torch import TopicsIndex
+
+    entries, topic_gen, suffixes = cfgP_entries(n_subs, rng)
+    index = TopicsIndex()
+    index.subscribe_bulk(entries)
     return index, entries, topic_gen, suffixes
 
 
@@ -3069,6 +3404,699 @@ def phase_reseal(torch, rec: dict, cfg: dict, device, n: int = N_RESEAL, iters: 
     return launches
 
 
+# -- the broker itself (phase broker) ----------------------------------------
+
+BROKER_SESSIONS = 1024  # cfg2 restart: persistent sessions restored, then reconnected over TCP
+# the restart cell's eight publishers: (protocol version, QoS)
+BROKER_PUBLISHERS = ((4, 0), (4, 1), (5, 0), (5, 1), (4, 0), (4, 1), (5, 0), (5, 1))
+BROKER_CHURN = 300  # SUBSCRIBE and UNSUBSCRIBE packets between the restart cell's waves
+PRED_WAVE = 8192  # the legs cell's predicated publishes, beside HOT_PER_WAVE hot-topic ones
+PRED_HOLDERS = 100  # connections that SUBSCRIBE cfgP's $GT rules, about 1,000 filters each
+PRED_PER_PACKET = 250  # filters per SUBSCRIBE packet
+BROKER_RECRYPT = 4096  # bench.py cfg10: encrypted publishes of 256 B
+RET_SEALED = 64  # the tenant's encrypted retained messages, re-sealed at the re-key
+RESTART_CELL, LEGS_CELL = "broker-cfg2-restart", "broker-legs"
+CHURN_PID = 0xFFF0  # the churn's packet ids: above every id the broker gives a session's deliveries here
+LEGS_WINDOW = 63  # the legs' matcher window: ids a filter path holds on the card (default 16, at most 63)
+
+
+def _raise_nofile(want: int) -> int:
+    """This process's open-file limit, raised toward ``want`` (within the
+    hard limit): every session is two sockets of this process."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < want:
+        soft = want if hard == resource.RLIM_INFINITY else min(want, hard)
+        resource.setrlimit(resource.RLIMIT_NOFILE, (soft, hard))
+    return soft
+
+
+def _sub_record(cid: str, flt: str, qos: int) -> bytes:
+    """The bytes ``hooks.storage.base.dumps`` writes for a plain
+    subscription record (checked against ``dumps`` on a sample): the store
+    of a million records is made in bulk."""
+    return ('{"t": "SUB", "client": %s, "filter": %s, "identifier": 0, "retain_handling": 0, "qos": %d, '
+            '"retain_as_published": false, "no_local": false, "predicates": []}'
+            % (json.dumps(cid), json.dumps(flt), qos)).encode()
+
+
+async def _serve(srv) -> tuple:
+    """``serve()`` (the restore included) with the cyclic collector off;
+    the listener's address and the seconds serve took."""
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        await srv.serve()
+        dt = time.perf_counter() - t0
+    finally:
+        _settle_gc()
+    host, port = srv.listeners.get("t").address().rsplit(":", 1)
+    return host, int(port), dt
+
+
+async def _connect_all(clients: list, host: str, port: int, frames: list, limit: float = 120.0) -> list:
+    """Open every client, send its CONNECT; every client's CONNACK."""
+    for c, f in zip(clients, frames):
+        await c.open(host, port)
+        c.send(f)
+    out = []
+    for c in clients:
+        got = await c.wait_frames(1, limit)
+        check(got and got[0][0] == 0x20 and got[0][3] == 0,
+              f"{c.name}: CONNACK {bytes(got[0]) if got else None!r}")
+        out.append(got[0])
+    return out
+
+
+async def _await_fold(dm, what: str, limit: float = 600.0) -> float:
+    t0 = time.perf_counter()
+    while dm.pending_deltas:
+        check(time.perf_counter() - t0 < limit, f"{what}: the overlay was not folded within {limit} s")
+        await asyncio.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+async def _await_idle(srv) -> None:
+    """The stage holds nothing and every outbound queue is drained."""
+    st = srv._stage
+    for _ in range(20000):
+        busy = st is not None and (st._pending or st.inflight_batches)
+        if not busy and all(cl.state.outbound.empty() for cl in srv.clients.get_all().values()):
+            break
+        await asyncio.sleep(0.005)
+    await asyncio.sleep(0.1)
+
+
+def _publishes(c, start: int) -> list:
+    """The PUBLISH frames of ``c``'s current connection from frame
+    ``start`` on, parsed."""
+    return [parse_publish(f, c.version) for f in c.frames()[start:] if f[0] >> 4 == 3]
+
+
+def _stage_split(srv, batches0: int) -> str:
+    log_ = list(srv._stage.service_log)[batches0:]
+    if not log_:
+        return "stage 0 batches"
+    res = sorted(dt for _n, dt in log_)
+    return (f"stage {len(log_)} batches (mean {sum(n for n, _ in log_) / len(log_):.1f} publishes), "
+            f"resolve p50 {_exact_pct(res, 0.5) * 1e3:.3f} ms max {res[-1] * 1e3:.3f} ms")
+
+
+def _routes(dm, stage, stats0: dict, fb0: dict) -> dict:
+    """Publishes resolved by the device and by each host route since
+    ``stats0``/``fb0``: the delta overlay, device-side overflow (spilled,
+    saturated, over-deep), the exact map, and the stage's own routes."""
+    st = dm.stats.as_dict()
+    d = {k: st[k] - stats0[k] for k in ("topics", "host_fallbacks", "overflows", "host_fast")}
+    out = {"device": d["topics"] - d["host_fallbacks"] - d["host_fast"],
+           "overlay": d["host_fallbacks"] - d["overflows"], "overflow": d["overflows"], "exact_map": d["host_fast"]}
+    for k, v in stage.fallbacks.items():
+        out["stage_" + k] = v - fb0.get(k, 0)
+    out["stage_admission"] = out.get("stage_admission", 0)
+    return out
+
+
+def phase_broker_restart(torch, device, card: str, n_subs: int = N_SUBS, wave: int = WAVE,
+                         n_sessions: int = BROKER_SESSIONS, n_churn: int = BROKER_CHURN) -> dict:
+    """Cell ``broker-cfg2-restart``: the port's ``Server`` restarted from a
+    ``MemoryStore`` holding bench.py config 2's 1,000,000 subscription
+    records and ``n_sessions`` persistent sessions (v4 ``clean=0``, v5 with
+    a session expiry): ``serve()`` restores them through ``read_store`` ->
+    ``bulk_register`` and the device matcher folds them onto the card.
+    The sessions are the ``n_sessions`` client ids the trie walk hits most
+    often on the waves' seeded topics; every other subscription is
+    restored with no session. The sessions reconnect over TCP with clean
+    start off and inherit their sessions; 8 publishers (v4/v5, QoS 0/1)
+    send ``wave`` cfg2 topics; ``n_churn`` SUBSCRIBE/UNSUBSCRIBE packets go
+    over the same sockets (the fold: K3); ``wave`` more publishes. The
+    restore must count all ``n_subs`` records, and each session must hold
+    its stored filter at its QoS. Every socket's frames must be the
+    multiset of (topic, QoS, payload) that the session's filter, as the
+    store held it and the churn changed it, matches: the topic itself or
+    the topic with one level ``+`` (cfg2's filters), at the lesser QoS.
+    The oracle is built from the records, not from the trie the restore
+    built."""
+    from collections import Counter
+
+    from mqtt_tpu_torch.hooks.auth import AllowHook
+    from mqtt_tpu_torch.hooks.storage import CLIENT_KEY, Client as SClient, ClientProperties, Subscription as SSub
+    from mqtt_tpu_torch.hooks.storage.base import dumps
+    from mqtt_tpu_torch.hooks.storage.memory import MemoryStore
+    from mqtt_tpu_torch.listeners import TCP, Config
+    from mqtt_tpu_torch.ops import kernels
+    from mqtt_tpu_torch.server import Options, Server
+
+    t_phase = time.perf_counter()
+    nofile = _raise_nofile(4 * n_sessions + 256)
+    check(nofile >= 2 * n_sessions + 64, f"{RESTART_CELL}: open-file limit {nofile} below two sockets a session")
+    rng = random.Random(2)
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        entries, topic_gen = cfg2_entries(n_subs, rng)
+        waves = [[topic_gen() for _ in range(wave)] for _ in range(2)]
+        # the sessions: the ids the walk hits most often on the waves'
+        # topics (cfg2's filters have 3 levels and at most one '+', so a
+        # topic's matches are its exact filter and its three one-'+' ones)
+        by_filter: dict = {}
+        for cid, sub in entries:
+            by_filter.setdefault(sub.filter, []).append(cid)
+        hits: Counter = Counter()
+        for topics in waves:
+            for t in topics:
+                a, b, c = t.split("/")
+                for f in (t, f"+/{b}/{c}", f"{a}/+/{c}", f"{a}/{b}/+"):
+                    for cid in by_filter.get(f, ()):
+                        hits[cid] += 1
+        del by_filter
+        sessions = [cid for cid, _n in sorted(hits.items(), key=lambda kv: (-kv[1], int(kv[0][2:])))[:n_sessions]]
+        session_sub = {cid: None for cid in sessions}  # each cfg2 id holds one subscription
+        store = MemoryStore()
+        data = store.data
+        for k, (cid, sub) in enumerate(entries):
+            rec = _sub_record(cid, sub.filter, sub.qos)
+            if k < 1000:
+                check(rec == dumps(SSub(client=cid, filter=sub.filter, qos=sub.qos)),
+                      f"{RESTART_CELL}: the bulk record of {cid} is not dumps'")
+            data["SUB_" + cid + ":" + sub.filter] = rec
+            if cid in session_sub:
+                session_sub[cid] = (sub.filter, sub.qos)
+        versions = {}
+        for k, cid in enumerate(sessions):
+            v5 = k % 2 == 1
+            versions[cid] = 5 if v5 else 4
+            data[CLIENT_KEY + "_" + cid] = dumps(SClient(
+                id=cid, listener="t", clean=False, protocol_version=versions[cid],
+                properties=ClientProperties(session_expiry_interval=3600 if v5 else 0,
+                                            session_expiry_interval_flag=v5)))
+        del entries
+        t_store = time.perf_counter() - t0
+    finally:
+        _settle_gc()
+    log(f"phase broker {RESTART_CELL} setup: ok a MemoryStore of {len(data)} records ({n_subs} subscriptions, "
+        f"{len(sessions)} sessions hit {sum(hits[c] for c in sessions)} times by the waves' topics) in {t_store:.1f} s; "
+        f"open-file limit {nofile}; {card}")
+    del hits
+    srv = Server(Options(device_matcher=True, matcher_opts={"max_levels": 4}, device=str(device)))
+    srv.add_hook(AllowHook())
+    srv.add_hook(store)
+    srv.add_listener(TCP(Config(type="tcp", id="t", address="127.0.0.1:0")))
+    rows = []
+    info: dict = {}
+    kernels.reset_launches()
+
+    # the oracle: the online sessions' filters as the store holds them
+    # (then as the churn changes them), matched by cfg2's rule, not by the
+    # trie the restore built
+    held: dict = {}
+    for cid, (flt, qos) in session_sub.items():
+        held.setdefault(flt, []).append((cid, qos))
+
+    async def wave_run(w: int, topics: list, clients: dict, pubs: list) -> dict:
+        exp = {cid: Counter() for cid in clients}
+        bufs = [bytearray() for _ in pubs]
+        n_pub = [0] * len(pubs)
+        for i, t in enumerate(topics):
+            k = i % len(pubs)
+            v, q = BROKER_PUBLISHERS[k]
+            payload = b"w%dp%dn%d" % (w, k, i)
+            bufs[k] += publish_frame(t, payload, q, n_pub[k] % 65535 + 1 if q else 0, version=v)
+            n_pub[k] += 1
+            a, b, c = t.split("/")
+            for f in (t, f"+/{b}/{c}", f"{a}/+/{c}", f"{a}/{b}/+"):
+                for cid, sq in held.get(f, ()):
+                    exp[cid][(t, min(q, sq), payload)] += 1
+        n_del = sum(sum(e.values()) for e in exp.values())
+        off = {cid: len(c.frames()) for cid, c in clients.items()}
+        pub_off = [len(c.frames()) for c in pubs]
+        st, dm = srv._stage, srv.matcher
+        batches0, stats0, fb0 = len(st.service_log), dict(dm.stats.as_dict()), dict(st.fallbacks)
+        t0 = time.perf_counter()
+        for c, buf in zip(pubs, bufs):
+            c.send(bytes(buf))
+        for cid, c in clients.items():
+            await c.wait_frames(off[cid] + sum(exp[cid].values()), 300.0)
+        for k, c in enumerate(pubs):
+            if BROKER_PUBLISHERS[k][1]:
+                await c.wait_frames(pub_off[k] + n_pub[k], 300.0)
+        wall = time.perf_counter() - t0
+        await _await_idle(srv)
+        bad = 0
+        for cid, c in clients.items():
+            got = Counter((p["topic"], p["qos"], p["payload"]) for p in _publishes(c, off[cid]))
+            if got != exp[cid]:
+                bad += 1
+                if bad <= 3:
+                    log(f"  {cid}: got {sorted(got - exp[cid])[:3]} beyond the stored filters', missing "
+                        f"{sorted(exp[cid] - got)[:3]}")
+        check(bad == 0, f"{RESTART_CELL} wave {w + 1}: {bad} sockets' frames differ from the stored filters' matches")
+        for k, c in enumerate(pubs):
+            acks = [f for f in c.frames()[pub_off[k]:]]
+            check(len(acks) == (n_pub[k] if BROKER_PUBLISHERS[k][1] else 0) and all(f[0] == 0x40 for f in acks),
+                  f"{RESTART_CELL} wave {w + 1}: publisher {k} got {len(acks)} frames for {n_pub[k]} publishes")
+        routes = _routes(dm, st, stats0, fb0)
+        return {"n_pub": len(topics), "n_del": n_del, "wall": wall, "routes": routes,
+                "split": _stage_split(srv, batches0)}
+
+    async def drive():
+        host, port, t_serve = await _serve(srv)
+        dm = srv.matcher
+        info["serve"] = t_serve
+        info["fold"] = await _await_fold(dm, RESTART_CELL)
+        info["durable"] = d = dict(srv._durable)
+        check(d["restored_subscriptions"] == n_subs,
+              f"{RESTART_CELL}: {d['restored_subscriptions']} of {n_subs} subscriptions restored")
+        clients = {cid: WireClient(cid, versions[cid]) for cid in sessions}
+        acks = await _connect_all(
+            list(clients.values()), host, port,
+            [connect_frame(cid, versions[cid], clean=False,
+                           props=[(P_SESSION_EXPIRY, 3600)] if versions[cid] == 5 else ()) for cid in sessions])
+        present = sum(1 for a in acks if a[2] & 1)
+        check(present == len(sessions), f"{RESTART_CELL}: {present} of {len(sessions)} sessions present at CONNACK")
+        lost = 0
+        for cid, (flt, qos) in session_sub.items():
+            sub = srv.clients.get(cid).state.subscriptions.get(flt)
+            lost += sub is None or sub.qos != qos
+        check(lost == 0, f"{RESTART_CELL}: {lost} inherited sessions lack their stored filter or its QoS")
+        # an inherited session re-subscribes its filters: fold them too
+        info["reconnect_fold"] = await _await_fold(dm, RESTART_CELL + " reconnect")
+        pubs = [WireClient(f"bpub{k}", v) for k, (v, _q) in enumerate(BROKER_PUBLISHERS)]
+        await _connect_all(pubs, host, port, [connect_frame(c.name, c.version) for c in pubs])
+        try:
+            rows.append(await wave_run(0, waves[0], clients, pubs))
+            # the churn: half the churned sessions UNSUBSCRIBE their restored
+            # filter and SUBSCRIBE one of the second wave's topics with its
+            # middle level wildcarded
+            churned = sessions[: n_churn // 2]
+            off = {cid: len(clients[cid].frames()) for cid in churned}
+            folds0, k3 = dm.stats.as_dict()["folds"], kernels.LAUNCHES["scatter_rows"]
+            # the sessions leave their QoS 1 deliveries unacknowledged, so
+            # the broker's inflight holds ids from 1 up, and an UNSUBSCRIBE
+            # with one of them is refused as "packet identifier in use"
+            # (the JAX server's rule too): the churn takes ids far above
+            new_filter = {}
+            for j, cid in enumerate(churned):
+                a, _b, c = waves[1][j * 7 % len(waves[1])].split("/")
+                v = versions[cid]
+                old = session_sub[cid]
+                new_filter[cid] = f"{a}/+/{c}"
+                clients[cid].send(unsubscribe_frame(CHURN_PID, [old[0]], v)
+                                  + subscribe_frame(CHURN_PID + 1, [(new_filter[cid], 1, 0)], v))
+                held[old[0]].remove((cid, old[1]))
+                held.setdefault(new_filter[cid], []).append((cid, 1))
+            for cid in churned:
+                got = await clients[cid].wait_frames(off[cid] + 2, 120.0)
+                check([f[0] >> 4 for f in got[off[cid]:]] == [11, 9], f"{cid}: churn acks {got[off[cid]:]}")
+                now = list(srv.clients.get(cid).state.subscriptions.get_all())
+                check(now == [new_filter[cid]], f"{cid}: after the churn it holds {now}, not {new_filter[cid]}")
+            info["churn_fold"] = await _await_fold(dm, f"{RESTART_CELL} churn")
+            info["folds"] = dm.stats.as_dict()["folds"] - folds0
+            info["k3"] = kernels.LAUNCHES["scatter_rows"] - k3
+            rows.append(await wave_run(1, waves[1], clients, pubs))
+        finally:
+            for c in list(clients.values()) + pubs:
+                if c.task is not None and not c.task.done():
+                    c.send(disconnect_frame(c.version))
+            for c in list(clients.values()) + pubs:
+                if c.task is not None:
+                    await c.ended(60.0)
+            info["stage_fallbacks"] = dict(srv._stage.fallbacks)
+            await srv.close()
+
+    asyncio.run(drive())
+    launches = dict(kernels.LAUNCHES)
+    d = info["durable"]
+    log(f"phase broker {RESTART_CELL}: restore {d['recovery_seconds']:.3f} s ({d['restore_batches']} batches: "
+        f"{d['restored_subscriptions']} subscriptions, {len(sessions)} sessions), serve {info['serve']:.3f} s, "
+        f"fold onto the card {info['fold']:.3f} s; {card}")
+    for w, r in enumerate(rows):
+        ro = r["routes"]
+        log(f"phase broker {RESTART_CELL} wave {w + 1}: ok {r['n_pub']} publishes, {r['n_del']} deliveries to "
+            f"{len(sessions)} sockets, every frame the stored filters' match; {r['n_pub'] / r['wall']:.1f} publishes/s, "
+            f"{r['n_del'] / r['wall']:.1f} deliveries/s (wall {r['wall']:.3f} s); {r['split']}; resolved by the "
+            f"device {ro['device']}, by the host: " + ", ".join(f"{k} {v}" for k, v in ro.items() if k != "device")
+            + f"; {card}")
+        check(ro["device"] > r["n_pub"] // 2, f"{RESTART_CELL} wave {w + 1}: the device resolved {ro['device']} "
+              f"of {r['n_pub']} publishes")
+    log(f"  {RESTART_CELL} churn: {n_churn} packets, fold {info['churn_fold']:.3f} s, folds {info['folds']}, "
+        f"scatter_rows {info['k3']}; launches in the cell: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f"; cell {time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches
+
+
+def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained: int = RETAINED_SIZES[0],
+                      n_recrypt: int = BROKER_RECRYPT, pred_wave: int = PRED_WAVE) -> dict:
+    """Cell ``broker-legs``: the engines at their call sites in the port's
+    ``Server``, over TCP.
+
+    Predicates (one server): cfgP's ``$GT`` rules arrive as predicated
+    SUBSCRIBE filters from ``PRED_HOLDERS`` connections and the 64
+    aggregation windows from 64 more; its ``$CONTAINS``, ``$EQS`` and
+    ``$AND`` rules are restored from the store for three persistent
+    sessions (``load_subscriptions`` re-registers them), which reconnect.
+    ``pred_wave`` JSON publishes and the hot topic's ``HOT_PER_WAVE``; every
+    delivery must be the trie's selection filtered by the host interpreter,
+    every aggregate the plain windows' (K4, K5).
+
+    Tenancy and retained (a second server, ``tenancy`` on with
+    ``retained_matcher``): cfg11's ``n_retained`` retained messages restored
+    through ``load_retained`` -> ``bulk_retain`` -> ``reseed()``; cfg11's 64
+    wildcard filters SUBSCRIBEd over TCP, every retained delivery the
+    trie's retained walk (K1 run in reverse). cfgR's tenant as bench.py's
+    ``run_cfg10`` builds it (encrypted ``e/``, a publisher and 100 keyed
+    subscribers, the device threshold): ``RET_SEALED`` encrypted retained
+    messages, delivered re-keyed at SUBSCRIBE, then ``n_recrypt`` encrypted
+    publishes of 256 B; every payload must open under its subscriber's key
+    to the plaintext (K6). Then ``rekey_tenant`` re-seals the retained
+    payloads through ``reseal_batch`` (K6), each opening under the new key."""
+    from collections import Counter
+
+    import numpy as np
+    from mqtt_tpu_torch.hooks.auth import AllowHook
+    from mqtt_tpu_torch.hooks.storage import (
+        CLIENT_KEY, RETAINED_KEY, SUBSCRIPTION_KEY, Client as SClient, Message, Subscription as SSub)
+    from mqtt_tpu_torch.hooks.storage.base import dumps
+    from mqtt_tpu_torch.hooks.storage.memory import MemoryStore
+    from mqtt_tpu_torch.listeners import TCP, Config
+    from mqtt_tpu_torch.ops import kernels
+    from mqtt_tpu_torch.ops import recrypt as rops
+    from mqtt_tpu_torch.predicates import OP_MAX, OP_MEAN
+    from mqtt_tpu_torch.server import Options, Server
+
+    t_phase = time.perf_counter()
+    _raise_nofile(1024)
+    kernels.reset_launches()
+    info: dict = {}
+
+    # -- predicates ----------------------------------------------------------
+    rng = random.Random(9)
+    gc.disable()
+    try:
+        entries, topic_gen, _sfx = cfgP_entries(n_subs, rng, predicated_only=True)
+    finally:
+        _settle_gc()
+    restored = {"$CONTAINS": "pc", "$EQS{": "pe", "$AND": "pa"}
+    store = MemoryStore()
+    gt_holders: dict = {}
+    agg = []
+    n_rest = 0
+    for cid, sub in entries:
+        pred = sub.predicates[0]
+        if cid.startswith("agg"):
+            agg.append((cid, sub))
+            continue
+        holder = next((h for pfx, h in restored.items() if pred.startswith(pfx)), None)
+        if holder is not None:
+            store.data[SUBSCRIPTION_KEY + "_" + holder + ":" + sub.filter] = dumps(
+                SSub(client=holder, filter=sub.filter, qos=sub.qos, predicates=[pred]))
+            n_rest += 1
+        else:
+            gt_holders.setdefault(f"g{(int(cid[2:]) // 10) % PRED_HOLDERS}", []).append(sub.filter + pred)
+    for holder in restored.values():
+        store.data[CLIENT_KEY + "_" + holder] = dumps(SClient(id=holder, listener="t", protocol_version=4))
+    n_gt = sum(len(v) for v in gt_holders.values())
+    del entries
+    # a window of 63 ids a filter path (the default 16 leaves a path with
+    # more holders to the host): the hot topic's 64 window holders split
+    # over two filter paths, HOT_TOPIC and its middle level wildcarded
+    srvP = Server(Options(device_matcher=True, matcher_opts={"window": LEGS_WINDOW}, device=str(device)))
+    srvP.add_hook(AllowHook())
+    srvP.add_hook(store)
+    srvP.add_listener(TCP(Config(type="tcp", id="t", address="127.0.0.1:0")))
+
+    async def drive_predicates():
+        host, port, t_serve = await _serve(srvP)
+        eng = srvP._predicates
+        info["p_restore"] = (t_serve, dict(srvP._durable), eng.rule_count)
+        holders = {h: WireClient(h, 4) for h in sorted(gt_holders)}
+        aggs = {cid: WireClient(cid, 4) for cid, _s in agg}
+        back = {h: WireClient(h, 4) for h in restored.values()}
+        pub = WireClient("ppub", 4)
+        every = list(holders.values()) + list(aggs.values())
+        await _connect_all(every + list(back.values()) + [pub], host, port,
+                           [connect_frame(c.name, 4) for c in every]
+                           + [connect_frame(c.name, 4, clean=False) for c in back.values()]
+                           + [connect_frame("ppub", 4)])
+        t0 = time.perf_counter()
+        n_packets = 0
+        for h, c in holders.items():
+            flts = gt_holders[h]
+            for j in range(0, len(flts), PRED_PER_PACKET):
+                c.send(subscribe_frame(j // PRED_PER_PACKET + 1, [(f, 1, 0) for f in flts[j:j + PRED_PER_PACKET]]))
+                n_packets += 1
+        for k, (cid, sub) in enumerate(agg):
+            flt = sub.filter if k % 2 == 0 else HOT_TOPIC.replace("/agg/", "/+/")
+            aggs[cid].send(subscribe_frame(1, [(flt + sub.predicates[0], 1, 0)]))
+            n_packets += 1
+        for h, c in holders.items():
+            await c.wait_frames(1 + -(-len(gt_holders[h]) // PRED_PER_PACKET), 600.0)
+        for c in aggs.values():
+            await c.wait_frames(2, 600.0)
+        t_sub = time.perf_counter() - t0
+        fold = await _await_fold(srvP.matcher, LEGS_CELL + " predicates")
+        info["p_sub"] = (n_packets, t_sub, fold, eng.rule_count)
+        ref = PredicateReference(srvP.topics)
+        exp = {c.name: Counter() for c in every + list(back.values())}
+        emits = {cid: [] for cid in aggs}
+        buf = bytearray()
+        total = pred_wave + HOT_PER_WAVE
+        hot_at = {j * total // HOT_PER_WAVE for j in range(HOT_PER_WAVE)}  # the hot topic, spread evenly
+        n_pub = 0
+        for i in range(total):
+            topic = HOT_TOPIC if i in hot_at else topic_gen()
+            payload = cfgP_payload(rng)
+            buf += publish_frame(topic, payload)
+            n_pub += 1
+            subs, done = ref.expect(topic, payload)
+            for cid, sub in subs.subscriptions.items():
+                if cid in exp:
+                    exp[cid][(topic, 0, payload)] += 1
+            for cid, (op, values) in done.items():
+                emits[cid].append((op, values))
+        off = {c.name: len(c.frames()) for c in every + list(back.values())}
+        st, dm = srvP._stage, srvP.matcher
+        batches0, stats0, fb0 = len(st.service_log), dict(dm.stats.as_dict()), dict(st.fallbacks)
+        g0 = dict(eng.gauges())
+        t0 = time.perf_counter()
+        pub.send(bytes(buf))
+        for c in every + list(back.values()):
+            n = sum(exp[c.name].values()) + len(emits.get(c.name, ()))
+            await c.wait_frames(off[c.name] + n, 300.0)
+        wall = time.perf_counter() - t0
+        await _await_idle(srvP)
+        bad = 0
+        for c in list(holders.values()) + list(back.values()):
+            got = Counter((p["topic"], p["qos"], p["payload"]) for p in _publishes(c, off[c.name]))
+            bad += got != exp[c.name]
+        check(bad == 0, f"{LEGS_CELL} predicates: {bad} sockets' frames differ from the interpreter's selection")
+        n_emit = 0
+        for cid, c in aggs.items():
+            got = [p["payload"] for p in _publishes(c, off[cid])]
+            check(len(got) == len(emits[cid]), f"{cid}: {len(got)} aggregates, the windows complete {len(emits[cid])}")
+            for payload, (op, values) in zip(got, emits[cid]):
+                if op == OP_MEAN:
+                    want = sum(values) / len(values)
+                    check(abs(float(payload) - want) <= MEAN_TOL * max(1.0, abs(want)), f"{cid}: MEAN {payload!r}")
+                else:
+                    v32 = [float(np.float32(x)) for x in values]
+                    check(payload == b"%.10g" % (max(v32) if op == OP_MAX else min(v32)), f"{cid}: {payload!r}")
+                n_emit += 1
+        g = eng.gauges()
+        n_del = sum(sum(e.values()) for e in exp.values())
+        info["p_wave"] = (n_pub, n_del, n_emit, wall, _routes(dm, st, stats0, fb0), _stage_split(srvP, batches0),
+                          {k: g[k] - g0.get(k, 0) for k in ("device_decisions", "host_evals", "agg_device_reductions")
+                           if k in g}, dict(eng.host_reasons))
+        for c in every + list(back.values()) + [pub]:
+            c.send(disconnect_frame(4))
+        for c in every + list(back.values()) + [pub]:
+            await c.ended(60.0)
+        await srvP.close()
+
+    asyncio.run(drive_predicates())
+    t_serve, dur, rules = info["p_restore"]
+    n_packets, t_sub, fold, rules_all = info["p_sub"]
+    n_pub, n_del, n_emit, wall, ro, split, dg, reasons = info["p_wave"]
+    log(f"phase broker {LEGS_CELL} predicates: restore {dur['recovery_seconds']:.3f} s ({dur['restore_batches']} "
+        f"batches, {n_rest} predicated subscriptions, {rules} rules re-registered); {n_gt} $GT and {len(agg)} window "
+        f"filters in {n_packets} SUBSCRIBE packets in {t_sub:.3f} s, fold {fold:.3f} s, {rules_all} rules; "
+        f"{n_pub} JSON publishes, {n_del} deliveries and {n_emit} aggregates, every one the interpreter's; "
+        f"{n_pub / wall:.1f} publishes/s, {(n_del + n_emit) / wall:.1f} deliveries/s (wall {wall:.3f} s); {split}; "
+        f"resolved by the device {ro['device']}, by the host: " + ", ".join(f"{k} {v}" for k, v in ro.items()
+                                                                        if k != "device")
+        + f"; engine {dg}, host reasons {reasons}; {card}")
+    check(ro["device"] > n_pub // 2, f"{LEGS_CELL} predicates: the device resolved {ro['device']} of {n_pub}")
+
+    # -- tenancy, retained and the re-key ------------------------------------
+    keys = {"pub": bytes(range(16))}
+    for i in range(RECRYPT_FANOUT):
+        keys[f"s{i}"] = bytes([i, 255 - i]) * 8
+    tenants = {"bt": {"encrypted": ["e/"], "keys": {k: v.hex() for k, v in keys.items()}}}
+    users = {k: "bt" for k in keys}
+    store = MemoryStore()
+    now = int(time.time())
+    for i in range(n_retained):
+        topic = cfg11_topic(i)
+        store.data[RETAINED_KEY + "_" + topic] = dumps(Message(
+            t=RETAINED_KEY, id=RETAINED_KEY + "_" + topic, topic_name=topic, payload=b"r%d" % i, retain=True,
+            created=now, protocol_version=4))
+    # a window of 63 (see srvP): cfg10's 100 subscribers split over two
+    # filter paths, e/# and e/+
+    srvT = Server(Options(device_matcher=True, matcher_opts={"window": LEGS_WINDOW}, tenancy=True,
+                          tenants=tenants, tenant_users=users,
+                          recrypt_device_min_blocks=4, retained_matcher=True, device=str(device)))
+    srvT.add_hook(AllowHook())
+    srvT.add_hook(store)
+    srvT.add_listener(TCP(Config(type="tcp", id="t", address="127.0.0.1:0")))
+    plain_of = {}
+
+    async def drive_tenant():
+        host, port, t_serve = await _serve(srvT)
+        reng, renc, plane = srvT._retained_engine, srvT._recrypt, srvT._tenancy
+        info["t_restore"] = (t_serve, dict(srvT._durable), dict(reng.stats()))
+        # retained: cfg11's 64 wildcard filters, one SUBSCRIBE each from
+        # its own connection (a retained delivery is queued on the client's
+        # outbound queue, maximum_client_writes_pending deep)
+        rsubs = [WireClient(f"r{k}", 4) for k in range(len(cfg11_filters()))]
+        await _connect_all(rsubs, host, port, [connect_frame(c.name, 4) for c in rsubs])
+        want = {c.name: Counter((m.topic_name, bytes(m.payload)) for m in srvT.topics.messages(f))
+                for c, f in zip(rsubs, cfg11_filters())}
+        k1 = kernels.LAUNCHES["flat_probe_ranges"]
+        dm0 = reng.device_matches
+        t0 = time.perf_counter()
+        for c, f in zip(rsubs, cfg11_filters()):
+            c.send(subscribe_frame(1, [(f, 0, 0)]))
+        for c in rsubs:
+            await c.wait_frames(2 + sum(want[c.name].values()), 300.0)
+        t_ret = time.perf_counter() - t0
+        await _await_idle(srvT)
+        n_ret = 0
+        for c in rsubs:
+            got = _publishes(c, 2)
+            check(all(p["retain"] for p in got) and Counter((p["topic"], p["payload"]) for p in got) == want[c.name],
+                  f"{LEGS_CELL} retained: {c.name} got {len(got)} deliveries, the walk's {sum(want[c.name].values())}")
+            n_ret += len(got)
+        info["retained"] = (n_ret, t_ret, reng.device_matches - dm0,
+                            kernels.LAUNCHES["flat_probe_ranges"] - k1, dict(reng.fallbacks))
+        # encryption: the publisher's retained sealed messages, then 100
+        # keyed subscribers (re-keyed retained delivery at SUBSCRIBE)
+        pub = WireClient("pub", 4)
+        subs = [WireClient(f"s{i}", 4) for i in range(RECRYPT_FANOUT)]
+        await _connect_all([pub], host, port, [connect_frame("pub", 4)])
+        buf = bytearray()
+        for i in range(RET_SEALED):
+            plain = b"retained-%05d-" % i + bytes(range(200))
+            plain_of[f"e/r{i}"] = plain
+            buf += publish_frame(f"e/r{i}", renc.seal_with_key(keys["pub"], plain), 0, retain=True)
+        pub.send(bytes(buf) + PINGREQ_FRAME)
+        await pub.wait_frames(2, 120.0)
+        await _await_idle(srvT)
+        await _connect_all(subs, host, port, [connect_frame(c.name, 4) for c in subs])
+        for k, c in enumerate(subs):
+            c.send(subscribe_frame(1, [("e/#" if k % 2 == 0 else "e/+", 0, 0)]))
+        for c in subs:
+            await c.wait_frames(2 + RET_SEALED, 300.0)
+        fold = await _await_fold(srvT.matcher, LEGS_CELL + " tenant")
+        plaintext = (bytes(range(256)) * 2)[:256]
+        bufs = bytearray()
+        for i in range(n_recrypt):
+            bufs += publish_frame("e/bench", renc.seal_with_key(keys["pub"], plaintext), 1, i % 65535 + 1)
+        st, dm = srvT._stage, srvT.matcher
+        batches0, stats0, fb0 = len(st.service_log), dict(dm.stats.as_dict()), dict(st.fallbacks)
+        g0 = dict(renc.gauges())
+        t0 = time.perf_counter()
+        pub.send(bytes(bufs))
+        for c in subs:
+            await c.wait_frames(2 + RET_SEALED + n_recrypt, 300.0)
+        await pub.wait_frames(2 + n_recrypt, 300.0)
+        wall = time.perf_counter() - t0
+        await _await_idle(srvT)
+        g = renc.gauges()
+        # every payload opened under its subscriber's key by the plain
+        # PyTorch AES on the card
+        table = plane.keys.table()
+        kidx, ctrs, cts, pts = [], [], [], []
+        for c in subs:
+            kid = plane.keys.key_id("bt", c.name)
+            for p in _publishes(c, 2):
+                plain = plaintext if p["topic"] == "e/bench" else plain_of[p["topic"]]
+                nb = (len(plain) + 15) // 16
+                kidx.append(np.full(nb, kid, np.int32))
+                ctrs.append(rops.ctr_counters(p["payload"][:12], nb))
+                cts.append(np.frombuffer(p["payload"][12:], np.uint8))
+                pts.append(np.frombuffer(plain, np.uint8))
+        ks = rops.keystream_plain(
+            torch.from_numpy(table).to(device), torch.from_numpy(np.concatenate(kidx)).to(device),
+            torch.from_numpy(np.concatenate(ctrs)).to(device)).cpu().numpy().reshape(-1)
+        pos, bad = 0, 0
+        for ct, pt in zip(cts, pts):
+            n16 = (len(pt) + 15) // 16 * 16
+            bad += not np.array_equal(ct ^ ks[pos:pos + len(ct)], pt)
+            pos += n16
+        check(bad == 0 and len(cts) == RECRYPT_FANOUT * (RET_SEALED + n_recrypt),
+              f"{LEGS_CELL} recrypt: {bad} of {len(cts)} payloads do not open to their plaintext")
+        info["recrypt"] = (n_recrypt, len(cts), wall, fold, _routes(dm, st, stats0, fb0),
+                           _stage_split(srvT, batches0),
+                           {k: g[k] - g0.get(k, 0) for k in ("device_batches", "device_blocks", "host_blocks",
+                                                             "fanouts", "no_key_drops", "oracle_mismatches")
+                            if k in g}, dict(renc.host_reasons))
+        # the re-key: every retained sealed payload re-sealed in one launch
+        k6 = kernels.LAUNCHES["keystream"]
+        new_keys = {k: bytes(b ^ 0x5A for b in v) for k, v in keys.items()}
+        t0 = time.perf_counter()
+        out = srvT.rekey_tenant("bt", new_keys)
+        t_rekey = time.perf_counter() - t0
+        check(out["resealed"] == RET_SEALED, f"{LEGS_CELL} re-key: {out['resealed']} of {RET_SEALED} re-sealed")
+        opened = 0
+        for topic, plain in plain_of.items():
+            m = srvT.topics.retained.get("\x00bt/" + topic)
+            opened += renc.open_with_key(new_keys["pub"], bytes(m.payload)) == plain
+        check(opened == RET_SEALED, f"{LEGS_CELL} re-key: {opened} of {RET_SEALED} open under the new key")
+        info["rekey"] = (out, t_rekey, kernels.LAUNCHES["keystream"] - k6)
+        for c in rsubs + [pub] + subs:
+            c.send(disconnect_frame(4))
+        for c in rsubs + [pub] + subs:
+            await c.ended(60.0)
+        await srvT.close()
+
+    asyncio.run(drive_tenant())
+    launches = dict(kernels.LAUNCHES)
+    t_serve, dur, rstats = info["t_restore"]
+    n_ret, t_ret, dmatch, k1, fb = info["retained"]
+    log(f"phase broker {LEGS_CELL} retained: restore {dur['recovery_seconds']:.3f} s ({dur['restore_batches']} "
+        f"batches, {dur['restored_retained']} retained, reseed); cfg11's 64 filters SUBSCRIBEd on 64 sockets: {n_ret} "
+        f"retained deliveries, every one the walk's, in {t_ret:.3f} s; device matches {dmatch}, K1 launches {k1}, "
+        f"fallbacks {fb}; {card}")
+    n_rc, n_open, wall, fold, ro, split, dg, reasons = info["recrypt"]
+    log(f"phase broker {LEGS_CELL} recrypt: {n_rc} encrypted publishes of 256 B to {RECRYPT_FANOUT} keyed "
+        f"subscribers and {RET_SEALED} retained re-keyed at SUBSCRIBE: {n_open} payloads, every one opens to its "
+        f"plaintext under its subscriber's key; {n_rc / wall:.1f} publishes/s, {n_rc * RECRYPT_FANOUT / wall:.1f} "
+        f"deliveries/s (wall {wall:.3f} s); {split}; resolved by the device {ro['device']}, by the host: "
+        + ", ".join(f"{k} {v}" for k, v in ro.items() if k != "device") + f"; engine {dg}, host reasons {reasons}; {card}")
+    check(ro["device"] > n_rc // 2, f"{LEGS_CELL} recrypt: the device resolved {ro['device']} of {n_rc}")
+    out, t_rekey, k6 = info["rekey"]
+    log(f"phase broker {LEGS_CELL} re-key: epoch {out['old_epoch']} -> {out['epoch']}, {out['resealed']} retained "
+        f"payloads re-sealed in {t_rekey * 1e3:.3f} ms, {k6} keystream launches, every one opens under the new "
+        f"key; {card}")
+    log(f"  {LEGS_CELL} launches in the cell: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f"; cell {time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches
+
+
+def phase_broker(torch, device, card: str, n_subs: int = N_SUBS, wave: int = WAVE,
+                 n_sessions: int = BROKER_SESSIONS, n_retained: int = RETAINED_SIZES[0],
+                 n_recrypt: int = BROKER_RECRYPT, pred_wave: int = PRED_WAVE) -> dict:
+    """Phase ``broker``: both cells; K1-K6 must each launch inside it."""
+    a = phase_broker_restart(torch, device, card, n_subs, wave, n_sessions)
+    b = phase_broker_legs(torch, device, card, n_subs, n_retained, n_recrypt, pred_wave)
+    launches = {k: a[k] + b[k] for k in a}
+    if device.type == "cuda":
+        for name in ("flat_probe_ranges", "flat_match_compact", "scatter_rows", "rules_eval", "agg_reduce",
+                     "keystream"):
+            check(launches[name] > 0, f"phase broker: {name} was not launched inside the phase: {launches}")
+    return launches
+
+
 def _materialize_single(torch, cfg: dict, device) -> None:
     topics = [cfg["topic_gen"]() for _ in range(MAIN_BATCH)]
     phase_materialize(cfg["index"], topics, _fetch_single(torch, cfg, topics, device),
@@ -3149,12 +4177,17 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
         if "cfgP" in locals():
             cfgP["dm"].close()
         cfgR["dm"].close()
+    del cfgR
+    gc.collect()
+    # the broker itself, on the earlier phases' engines' kernels
+    main_br = phase_broker(torch, device, card, n_subs, wave, min(BROKER_SESSIONS, n_subs // 2),
+                           retained_sizes[0], n_recrypt)
     phase_observe_render(obs)
     kernels_line = []
     for name in REPLACES:
         launches = (main2[name] + main3[name] + mainN[name] + main4[name] + mainP[name] + mainR[name]
                     + sum(m[name] for m in main_sh) + sum(m[name] for m in main_ret) + main_rs[name]
-                    + obs["launches"][name])
+                    + obs["launches"][name] + main_br[name])
         check(launches > 0 or name in INSIDE or not counted, f"{name} was never launched on the main paths")
         r = rec[name]
         entry = {

@@ -22,11 +22,17 @@ it needs, its C tokenizer and C result materializer among them
 lazy ``SubscribersView`` results by default, which read like
 ``Subscribers``.
 
-Beneath the broker's server it carries the wire and session layer: the
-MQTT codec (``packets``), the frame scanners (``native.frame_scan``),
-``Inflight``, ``Hooks`` (with the ``on_select_subscribers`` seam),
-``Client``/``Clients`` and the server's ``Options`` and ``_FrameCache``;
-a matched publish's ``$SHARE`` groups select one member each
+The broker itself is ``server.Server``: CONNECT, dispatch, the QoS flows,
+retained, wills, $SYS, expiry and the restart from a storage hook, over
+the listeners (``listeners``: TCP, unix socket, a pre-bound socket, the
+mock), with the auth and storage hooks (``hooks.auth``,
+``hooks.storage``). With ``Options(device_matcher=True)`` its publishes
+are matched by the chain above on the card, with the predicate and
+re-encryption legs and the retained engine at their call sites. Beneath
+it lies the wire and session layer: the MQTT codec (``packets``), the
+frame scanners (``native.frame_scan``), ``Inflight``, ``Hooks`` (with the
+``on_select_subscribers`` seam) and ``Client``/``Clients``; a matched
+publish's ``$SHARE`` groups select one member each
 (``Subscribers.select_shared``) before delivery.
 
 The device plane carries the JAX package's instruments: ``telemetry``
@@ -46,7 +52,7 @@ from .native import NativeError
 from .ops import DeltaMatcher, KernelError, MatcherStats, RetainedMatchEngine, TorchMatcher, subscribers_equal
 from .packets import PUBLISH, FixedHeader, Packet, PacketStore, Subscription
 from .predicates import PredicateEngine, PublishFeatures
-from .server import Capabilities, Options
+from .server import Capabilities, Options, Server
 from .staging import MatchStage
 from .tenancy import KeyRegistry, RecryptEngine, RecryptJob, Tenant, TenantPlane
 from .system import Info
@@ -79,6 +85,7 @@ __all__ = [
     "RecryptJob",
     "RetainedMatchEngine",
     "SHARE_PREFIX",
+    "Server",
     "Subscribers",
     "Subscription",
     "Tenant",

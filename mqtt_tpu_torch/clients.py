@@ -10,8 +10,7 @@ drop-on-slow-consumer semantics (server.go:1099-1110).
 
 A copy of the JAX package's module. The planes the JAX server attaches to
 ``Client.ops`` that the port does not have yet (the overload governor,
-telemetry, the read-side scan gate, the QoS 0 fast publish) read as
-``None`` here: ``server._Ops`` sets them so.
+telemetry) read as ``None`` here: ``server._Ops`` sets them so.
 """
 
 from __future__ import annotations
@@ -289,11 +288,11 @@ class ClientState:
         # whose buffer SHRANK since then is draining (slow, not stalled)
         # and must not accumulate eviction grace
         self.sweep_buffered = 0
-        # outbound queue-wait sampling (the server's telemetry): every
-        # successful enqueue bumps out_seq (server._stamp_outbound);
-        # sampled enqueues park (seq, t) here and the write loop matches
-        # out_deq against the head to observe the wait. Bounded: evicted
-        # stamps are just lost samples.
+        # outbound queue-wait sampling (the JAX server's telemetry, not
+        # ported: the port's server takes no stamps): every successful
+        # enqueue bumps out_seq, sampled enqueues park (seq, t) here and
+        # the write loop matches out_deq against the head to observe the
+        # wait. Bounded: evicted stamps are just lost samples.
         self.out_seq = 0
         self.out_deq = 0
         self.out_stamps: collections.deque = collections.deque(maxlen=64)

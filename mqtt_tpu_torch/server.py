@@ -1,59 +1,160 @@
-"""The broker server, first cut: the options, the values the server hands
-its clients, and the fan-out's selection and per-subscriber delivery.
+"""The broker server: lifecycle, CONNECT handshake, packet dispatch, QoS
+flows, retained/LWT/$SYS handling, expiry loops, and persistence restore,
+over the port's device planes.
 
-Copies from the JAX package's ``server`` module: ``Compatibilities`` and
-``Capabilities`` (server.go:46-93), ``Options`` cut to the fields that the
-port's clients and fan-out read (with the JAX defaults), ``_Ops`` (the
-values a ``Client`` reads: options, ``Info``, ``Hooks`` and the logger;
-the overload governor, telemetry, the read-side scan gate and the QoS 0
-fast publish stay ``None`` until the planes that set them are ported),
-``_FrameCache`` (one encode per publish for every shared-frame target),
-and the raw-frame parsers ``publish_frame_body_offset`` and
-``publish_frame_topic``.
+A copy of the JAX package's ``server`` module (reference ``server.go``; the
+per-symbol map is SURVEY.md §2.1). The reference's goroutine-per-connection
+becomes an asyncio task per connection; the housekeeping tickers become one
+asyncio task (server.go:374-395); everything else is a synchronous call
+graph of the reference's shape.
 
-The fan-out's two steps are here as functions over ``_Ops``, so that the
-next slice moves them into ``Server`` as its methods:
-``fan_out_targets`` is the selection of ``Server._fan_out`` (a lazy view
-consumed through ``targets()`` or materialized, the
-``on_select_subscribers`` seam, ``select_shared``,
-``merge_shared_selected``, the inline handlers), and ``publish_to_client``
-with ``shared_frame_ok``, ``enqueue_frame`` and ``stamp_outbound`` is
-``Server.publish_to_client`` (server.go:1023-1113) onto the client's
-outbound queue. The predicate, encrypted and batched fan-out legs come
-with ``Server``.
+With ``Options.device_matcher`` a client PUBLISH is matched by
+``staging.MatchStage`` over ``ops.delta.DeltaMatcher`` (K1-K3 on the card);
+the same staged batch carries the MQTT+ predicate leg
+(``predicates.PredicateEngine``, K4/K5) and the tenant decrypt leg
+(``tenancy.RecryptEngine``, K6). A wildcard SUBSCRIBE finds its retained
+messages through ``ops.retained.RetainedMatchEngine`` with
+``Options.retained_matcher`` (K1 run in reverse), and ``rekey_tenant``
+re-seals a tenant's retained payloads through ``reseal_batch`` (K6).
+``Options.device`` names the card every plane runs on: ``"cuda"`` by
+default, which raises where there is no card as soon as a device plane is
+built (``predicate_filters`` is on by default); ``"cpu"`` runs the plain
+PyTorch version of every kernel.
 
-``Server`` itself (lifecycle, CONNECT, dispatch, QoS flows, listeners,
-the auth and storage hooks) arrives in the next slice of the port.
+The fan-out's selection (``fan_out_targets``) and per-subscriber delivery
+(``publish_to_client``) are ``Server`` methods; the batched fan-out writes
+each encoded variant to many ready sockets in one native call
+(``native.fan_flush``), and the encrypted fan-out assembles its frames in C
+(``native.assemble_frames``).
+
+Departures from the JAX server, on purpose:
+
+- No ``ResilientMatcher``: a kernel or copy failure raises out of the
+  stage's future through ``_process_publish_deferred``; the broker logs it
+  and closes the publishing client's connection. No subscriber receives a
+  host answer in its place. The stage's own host routes (stopping,
+  admission, the deadline) stay, counted in ``MatchStage.fallbacks``.
+- ``Options.trace_torch_profiler_dir`` takes the place of the JAX
+  package's profiler switch: ``serve()`` starts a ``torch.profiler``
+  capture over the host and the card, ``close()`` exports its Chrome
+  trace there; a failure to start raises.
+- The planes the port does not have yet are absent, not switched off:
+  the overload governor (CONNECT admission, publish shedding, the
+  slow-consumer sweep), telemetry and tracing, the host profiler, SLOs,
+  the device-stats plane, the worker cluster, the event-loop shard fabric,
+  the HTTP listeners (``health_report``) and the websocket listener.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
+import os
+import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Optional
 
 from . import packets as pkts
-from .hooks import Hooks
+from .clients import Client, Clients, ConnectionClosedError, Will
+from .hooks import (
+    ON_PACKET_ENCODE,
+    ON_PACKET_PROCESSED,
+    ON_PACKET_READ,
+    ON_PACKET_SENT,
+    ON_PUBLISH,
+    ON_PUBLISHED,
+    STORED_CLIENTS,
+    STORED_INFLIGHT_MESSAGES,
+    STORED_RETAINED_MESSAGES,
+    STORED_SUBSCRIPTIONS,
+    STORED_SYS_INFO,
+    Hook,
+    HookOptions,
+    Hooks,
+)
+from .listeners import (
+    TYPE_MOCK,
+    TYPE_TCP,
+    TYPE_UNIX,
+    TCP,
+    Config as ListenerConfig,
+    Listener,
+    Listeners,
+    MockListener,
+    UnixSock,
+)
 from .native import accel
 from .packets import (
     CODE_DISCONNECT,
+    CODE_DISCONNECT_WILL_MESSAGE,
+    CODE_SUCCESS,
+    CODE_SUCCESS_IGNORE,
+    ERR_BAD_USERNAME_OR_PASSWORD,
+    ERR_INLINE_SUBSCRIPTION_HANDLER_INVALID,
     ERR_NOT_AUTHORIZED,
+    ERR_PACKET_IDENTIFIER_IN_USE,
+    ERR_PACKET_IDENTIFIER_NOT_FOUND,
     ERR_PENDING_CLIENT_WRITES_EXCEEDED,
+    ERR_PROTOCOL_VIOLATION_INVALID_SHARED_NO_LOCAL,
+    ERR_PROTOCOL_VIOLATION_REQUIRE_FIRST_CONNECT,
+    ERR_PROTOCOL_VIOLATION_SECOND_CONNECT,
+    ERR_PROTOCOL_VIOLATION_ZERO_NON_ZERO_EXPIRY,
+    ERR_QOS_NOT_SUPPORTED,
     ERR_QUOTA_EXCEEDED,
+    ERR_RECEIVE_MAXIMUM,
+    ERR_REJECT_PACKET,
+    ERR_RETAIN_NOT_SUPPORTED,
+    ERR_SERVER_BUSY,
+    ERR_SERVER_SHUTTING_DOWN,
+    ERR_SERVER_UNAVAILABLE,
+    ERR_SESSION_TAKEN_OVER,
+    ERR_TOPIC_FILTER_INVALID,
+    ERR_UNSPECIFIED_ERROR,
+    ERR_UNSUPPORTED_PROTOCOL_VERSION,
+    QOS_CODES,
+    V5_CODES_TO_V3,
     Code,
+    FixedHeader,
     Packet,
+    PacketStore,
+    Properties,
     Subscription,
 )
 from .system import Info
-from .topics import NS_CHAR, ns_local
+from .topics import (
+    NS_CHAR,
+    SYS_PREFIX,
+    InlineSubFn,
+    InlineSubscription,
+    TopicsIndex,
+    is_shared_filter,
+    is_valid_filter,
+    ns_local,
+    ns_scope_filter,
+    ns_scope_topic,
+    split_predicate_suffix,
+)
 from .utils.loopwitness import DEFAULT_LOOP_PLANE as _LOOP_PLANE
 from .utils.mempool import get_buffer, put_buffer
+from .utils.proc import rss_bytes
+
+VERSION = "0.1.0"  # the framework version (the JAX package's)
+DEFAULT_SYS_TOPIC_INTERVAL = 1  # seconds between $SYS publishes
+LOCAL_LISTENER = "local"
+INLINE_CLIENT_ID = "inline"
 
 MAX_INT64 = (1 << 63) - 1
 MAX_UINT32 = (1 << 32) - 1
 
+
+class ListenerIDExistsError(Exception):
+    """A listener with the same id already exists."""
+
+
+class InlineClientNotEnabledError(Exception):
+    """Options.inline_client must be True to use inline pub/sub."""
 
 @dataclass
 class Compatibilities:
@@ -90,17 +191,167 @@ class Capabilities:
 
 @dataclass
 class Options:
-    """Configurable server options (server.go:96-131), cut to the fields
-    the port's clients and fan-out read."""
+    """Configurable server options (server.go:96-131): the JAX package's
+    fields for the planes the port has, with its defaults, and ``device``.
+    The JAX fields of the planes not ported (overload control, telemetry,
+    tracing, profiling, SLOs, device stats, the cluster, the loop-shard
+    fabric, matcher resilience) are absent: passing one is a TypeError."""
 
+    listeners: list[ListenerConfig] = field(default_factory=list)
+    hooks: list[tuple[Hook, Any]] = field(default_factory=list)
     capabilities: Capabilities = field(default_factory=Capabilities)
+    client_net_write_buffer_size: int = 0
+    client_net_read_buffer_size: int = 0
     logger: Optional[logging.Logger] = None
+    sys_topic_resend_interval: int = 0
+    inline_client: bool = False
+    # the card every device plane runs on (the matcher, the stage, the
+    # predicate, re-encryption and retained engines): "cuda" raises where
+    # there is no card; "cpu" runs the plain PyTorch versions
+    device: str = "cuda"
+    # route publish-topic matching through the delta-staged device matcher
+    # (ops.delta.DeltaMatcher) instead of the host trie walk; results are
+    # bit-identical, the index lives on the card
+    device_matcher: bool = False
+    # kwargs forwarded to DeltaMatcher (max_levels, window, rebuild_after,
+    # rebuild_interval, background, mesh, ...)
+    matcher_opts: Optional[dict] = None
+    # publish staging loop (staging.MatchStage): accumulation window and
+    # batch cap for device match batches; pipeline depth for in-flight
+    # batches
+    matcher_stage_window_ms: float = 2.0
+    matcher_stage_max_batch: int = 4096
+    matcher_stage_max_inflight: int = 4
+    # p99 latency budget for one staged publish (the stage adapts window +
+    # batch cap to hold it); <= 0 disables adaptation
+    matcher_stage_latency_budget_ms: float = 250.0
+    # overlapped-staging depth: batches in flight across the issue /
+    # device / drain legs; <= 0 falls back to matcher_stage_max_inflight
+    matcher_stage_pipeline_depth: int = 3
+    # the stage's admission bound: its parked publishes never exceed this
+    # (overflow resolves through the host walk, counted as "admission");
+    # the JAX package's name, which its overload plane shares
+    overload_stage_max_pending: int = 8192
+    # device-resident hit compaction (K2): match results transfer as packed
+    # (topic, sid) pairs sized for the hits that exist
+    matcher_compact: bool = True
+    # pair-buffer capacity; 0 = adaptive from the observed hits a topic
+    matcher_compact_capacity: int = 0
+    # device match results stay lazy SubscribersView objects over the
+    # fetched rows (native/accelmod.c); fan-out consumes (client, sub)
+    # targets straight off the view, and consumers needing dict semantics
+    # (predicates, shared groups) materialize
+    matcher_lazy_views: bool = True
+    # encode-once batched fan-out: group targets by (protocol version,
+    # effective QoS, retain) variant, encode each variant once, patch
+    # per-target packet ids in the native writev flush
+    # (native.fan_flush). False = the per-subscriber encode path
+    fanout_batch: bool = True
+    # read-side decode batching: coalesce frame scans from read loops that
+    # wake in the same event-loop tick into one native multi-buffer scan
+    # (clients.ScanGate). Opt-in
+    scan_coalesce: bool = False
+    # raise the process-global CPython GC thresholds for broker throughput
+    # (utils/gctune.py); an embedding application that wants its own GC
+    # cadence sets this False
+    gc_tuning: bool = True
+    # MQTT+ payload-predicate subscriptions (predicates.PredicateEngine):
+    # `$GT{...}`-style suffixes parsed off SUBSCRIBE filters, the rule
+    # table evaluated on the card inside the staged match batch. Default
+    # on; an unpredicated broker pays one attribute read per publish
+    predicate_filters: bool = True
+    # device rule-table cap: rules registered past it are evaluated by the
+    # host interpreter only (counted in host_reasons)
+    predicate_max_rules: int = 1 << 20
+    # 1-in-N predicated publishes re-derive every device verdict on the
+    # host and count mismatches (0 disables sampling)
+    predicate_oracle_sample: int = 64
+    # the multi-tenant plane (tenancy): clients resolve to a tenant at
+    # CONNECT (username first, then client id), and every broker key they
+    # touch carries the tenant's namespace prefix. Off by default
+    tenancy: bool = False
+    # tenant registry: name -> {quota_class: str, encrypted: [topic
+    # prefix, ...], keys: {client-id-or-username: 32-hex-char AES-128
+    # key, ...}}
+    tenants: Optional[dict] = None
+    # username-or-client-id -> tenant name (resolved at CONNECT)
+    tenant_users: Optional[dict] = None
+    # tenant for unmapped clients; "" keeps them in the global namespace
+    tenant_default: str = ""
+    # per-tenant durable COUNT caps: the default maximum number of retained
+    # topics / stored subscriptions a tenant may hold (a tenant dict may
+    # override with max_retained / max_subscriptions). 0 = unlimited
+    tenant_max_retained: int = 0
+    tenant_max_subscriptions: int = 0
+    # device-resident retained matching (ops.retained): wildcard-SUBSCRIBE
+    # retained delivery answered by K1 run in reverse over the retained
+    # corpus, with the host walk as its 1-in-N sampled oracle. Off by
+    # default
+    retained_matcher: bool = False
+    # 1-in-N oracle cadence for the retained engine (0 disables it)
+    retained_oracle_sample: int = 16
+    # restart re-registration batch size: persisted subscriptions, inflight
+    # and retained messages re-enter through the bulk paths in chunks of
+    # this many (staging.bulk_register / bulk_inflight / bulk_retain)
+    durable_restore_batch: int = 4096
+    # the re-encryption stage (tenancy.RecryptEngine): publishes in a
+    # tenant's encrypted namespaces are decrypted once with the
+    # publisher's key and re-encrypted per subscriber in one batched
+    # keystream launch per fan-out. Requires tenancy
+    recrypt: bool = True
+    # 1-in-N keystream launches re-derived on the host (0 disables)
+    recrypt_oracle_sample: int = 64
+    # launches below this many 16-byte blocks run on the host (counted as
+    # small_batch in the engine's host_reasons)
+    recrypt_device_min_blocks: int = 4
+    # when set, serve() starts a torch.profiler capture over the host and
+    # the card (requires a device matcher) and close() exports its Chrome
+    # trace into this directory ("" disables)
+    trace_torch_profiler_dir: str = ""
 
     def ensure_defaults(self) -> None:
         """Sane defaults when unset (server.go:208-235)."""
         self.capabilities.maximum_packet_id = 0xFFFF  # spec maximum
         if self.capabilities.maximum_inflight == 0:
             self.capabilities.maximum_inflight = 1024 * 8
+        if self.sys_topic_resend_interval == 0:
+            self.sys_topic_resend_interval = DEFAULT_SYS_TOPIC_INTERVAL
+        if self.client_net_write_buffer_size == 0:
+            self.client_net_write_buffer_size = 1024 * 2
+        if self.client_net_read_buffer_size == 0:
+            self.client_net_read_buffer_size = 1024 * 2
+        # a zero/negative max_batch would busy-spin the collector on empty
+        # batches, and a zero max_inflight turns the bounded queue
+        # unbounded (asyncio.Queue semantics)
+        if self.matcher_stage_max_batch <= 0:
+            self.matcher_stage_max_batch = 4096
+        if self.matcher_stage_max_inflight <= 0:
+            self.matcher_stage_max_inflight = 4
+        if self.matcher_stage_window_ms < 0:
+            self.matcher_stage_window_ms = 0.0
+        if self.overload_stage_max_pending <= 0:
+            self.overload_stage_max_pending = 8192
+        # a zero/negative rule cap would refuse every predicate, a negative
+        # sample means "default"
+        if self.predicate_max_rules <= 0:
+            self.predicate_max_rules = 1 << 20
+        if self.predicate_oracle_sample < 0:
+            self.predicate_oracle_sample = 64
+        if self.recrypt_oracle_sample < 0:
+            self.recrypt_oracle_sample = 64
+        if self.recrypt_device_min_blocks < 1:
+            self.recrypt_device_min_blocks = 4
+        # negative caps mean "unlimited", a negative oracle sample means
+        # "default", and the restore batch needs >= 1 or bulk chunking
+        # never drains
+        if self.tenant_max_retained < 0:
+            self.tenant_max_retained = 0
+        if self.tenant_max_subscriptions < 0:
+            self.tenant_max_subscriptions = 0
+        if self.retained_oracle_sample < 0:
+            self.retained_oracle_sample = 16
+        if self.durable_restore_batch < 1:
+            self.durable_restore_batch = 4096
         if self.logger is None:
             self.logger = logging.getLogger("mqtt_tpu_torch")
 
@@ -140,21 +391,16 @@ class _FrameCache:
     drops inbound topic aliases exactly like the per-subscriber slow path
     ([MQTT-3.3.2-7] via ``Packet.copy``)."""
 
-    __slots__ = ("pk", "frames", "telemetry")
+    __slots__ = ("pk", "frames")
 
-    def __init__(self, pk: "Packet", telemetry: Optional[Any] = None) -> None:
+    def __init__(self, pk: "Packet") -> None:
         self.pk = pk
         self.frames: dict[tuple[int, bool], bytes] = {}
-        self.telemetry = telemetry
 
     def get(self, version: int, retain: bool) -> bytes:
         key = (version, bool(retain))
         data = self.frames.get(key)
         if data is None:
-            # a real encode (cache hits share the bytes): fan-out
-            # amplification accounting counts exactly these
-            if self.telemetry is not None:
-                self.telemetry.publish_encodes.inc()
             out = self.pk.copy(False)
             out.fixed_header.retain = bool(retain)
             out.protocol_version = version
@@ -186,210 +432,2962 @@ class _Ops:
         self.log = log
         self.fast_publish: Optional[Callable[..., bool]] = None
         self.fast_publish_eligible: Optional[Callable[..., bool]] = None
-        # the overload governor; None = ungoverned. Clients consult it
-        # for the THROTTLE read-delay verdict.
+        # the overload governor and the telemetry plane, which clients
+        # consult; the port has neither yet, so they stay None
         self.overload: Optional[Any] = None
-        # the telemetry plane; None = uninstrumented. Clients consult it
-        # for the publish stage clock and the sampled outbound queue-wait
-        # stamps.
         self.telemetry: Optional[Any] = None
         # read-side scan coalescer (clients.ScanGate); None = per-socket
         # scans. The server sets it when its scan coalescing is on.
         self.scan_gate: Optional[Any] = None
 
 
-def fan_out_targets(ops: _Ops, pk: Packet, subscribers, inline_client=None):
-    """The delivery targets of one matched publish, ``(client id,
-    Subscription)`` pairs, selected as ``Server._fan_out`` selects them
-    (server.go:1000-1021): a lazy ``SubscribersView`` with no shared or
-    inline entries is consumed through its ``targets()`` plan, any other
-    is materialized; then the ``on_select_subscribers`` seam,
-    ``select_shared`` unless a hook selected, ``merge_shared_selected``,
-    and the inline handlers, called with ``inline_client``."""
-    if type(subscribers) is accel().SubscribersView:
-        if not subscribers.has_shared and not subscribers.has_inline:
-            return subscribers.targets()
-        subscribers = subscribers.materialize()
-    if subscribers.shared:
-        subscribers = ops.hooks.on_select_subscribers(subscribers, pk)
-        if not subscribers.shared_selected:
-            subscribers.select_shared()
-        subscribers.merge_shared_selected()
-    for inline_sub in subscribers.inline_subscriptions.values():
-        inline_sub.handler(inline_client, inline_sub, pk)
-    return subscribers.subscriptions.items()
+class Server:
+    """An MQTT broker server; create via ``Server(options)``
+    (server.go:135-205)."""
 
+    def __init__(self, options: Optional[Options] = None) -> None:
+        opts = options or Options()
+        opts.ensure_defaults()
+        self.options = opts
+        # ensure_defaults() guarantees a logger; the fallback keeps the
+        # attribute non-Optional for every `self.log.<level>` call site
+        self.log: logging.Logger = opts.logger or logging.getLogger("mqtt_tpu_torch")
+        self.info = Info(version=VERSION, started=int(time.time()))  # brokerlint: ok=R3 $SYS start stamp is wall-clock; uptime uses the monotonic anchor
+        self.clients = Clients()
+        self.topics = TopicsIndex()
+        self.listeners = Listeners()
+        self.hooks = Hooks(self.log)
+        self.will_delayed = PacketStore()
+        self.done = asyncio.Event()
+        self._event_loop_task: Optional[asyncio.Task] = None
+        self.inline_client: Optional[Client] = None
+        self._ops = _Ops(opts, self.info, self.hooks, self.log)
+        self._ops.fast_publish = self.try_fast_publish
+        self._ops.fast_publish_eligible = self.fast_publish_eligible
+        self._fastpub_gate_gen = -1  # hooks generation the gate was cached at
+        self._fastpub_gate_ok = False
+        # encode-once batched fan-out: variant grouping + the GIL-released
+        # native flush; False = the per-subscriber path
+        self._fanout_batch = opts.fanout_batch
+        if opts.scan_coalesce:
+            # read-side decode batching: frame scans from read loops that
+            # wake in the same event-loop tick coalesce into one native
+            # multi-buffer call (clients.ScanGate)
+            from .clients import ScanGate
 
-def shared_frame_ok(props, sub: Subscription) -> bool:
-    """Target eligibility for shared-frame delivery (nothing forces a
-    per-subscriber rewrite of the encoded publish): no positive
-    subscription identifiers, no outbound aliasing, no size cap."""
-    ids = sub.identifiers
-    return (
-        props.props.topic_alias_maximum == 0
-        and props.props.maximum_packet_size == 0
-        and not (ids and any(v > 0 for v in ids.values()))
-    )
+            self._ops.scan_gate = ScanGate()
+        self._fastpub_plans: dict = {}  # topic -> (trie version, fan-out plan)
+        # clients_connected gates maximum_clients
+        self._conn_lock = threading.Lock()
+        self.matcher: Optional[Any] = None  # device matcher; None = host walk
+        self._stage: Optional[Any] = None  # publish staging loop (serve())
+        self._torch_profiler: Optional[Any] = None  # trace_torch_profiler_dir capture
+        # the MQTT+ payload-predicate plane: suffix registry + host
+        # interpreter + the rule table on the card. Built before the
+        # matcher so the staging loop can carry its feature batches.
+        self._predicates: Optional[Any] = None
+        if opts.predicate_filters:
+            from .predicates import PredicateEngine
 
+            self._predicates = PredicateEngine(
+                max_rules=opts.predicate_max_rules,
+                oracle_sample=opts.predicate_oracle_sample,
+                device=opts.device,
+            )
+        # the multi-tenant plane: tenant registry + CONNECT resolution + the
+        # re-encryption engine. Built before the matcher so the staging
+        # loop can carry decrypt jobs.
+        self._tenancy: Optional[Any] = None
+        self._recrypt: Optional[Any] = None
+        if opts.tenancy:
+            from .tenancy import RecryptEngine, TenantPlane
 
-def stamp_outbound(ops: _Ops, tcl) -> None:
-    """Sampled outbound queue-wait accounting: every successful enqueue
-    bumps the client's sequence; 1-in-N also records the enqueue time,
-    and the write loop matches the sequence on dequeue to observe the
-    wait."""
-    st = tcl.state
-    st.out_seq += 1
-    tele = ops.telemetry
-    if tele is not None and tele.sample_outbound():
-        st.out_stamps.append((st.out_seq, time.perf_counter()))
+            self._tenancy = TenantPlane()
+            self._tenancy.configure(opts.tenants, opts.tenant_users, opts.tenant_default)
+            if opts.recrypt:
+                self._recrypt = RecryptEngine(
+                    self._tenancy.keys,
+                    oracle_sample=opts.recrypt_oracle_sample,
+                    device_min_blocks=opts.recrypt_device_min_blocks,
+                    device=opts.device,
+                )
+        # device-resident retained matching: wildcard-SUBSCRIBE retained
+        # delivery answered by K1 run in reverse over the retained corpus.
+        # Opt-in; None = host walk only.
+        self._retained_engine: Optional[Any] = None
+        if opts.retained_matcher:
+            from .ops.retained import RetainedMatchEngine
 
+            self._retained_engine = RetainedMatchEngine(
+                self.topics,
+                oracle_sample=opts.retained_oracle_sample,
+                device=opts.device,
+            )
+        # durable session plane recovery state (read_store and
+        # $SYS/broker/durable)
+        self._durable: dict = {
+            "recovering": False,
+            "recovery_seconds": 0.0,
+            "replayed_keys": 0,
+            "restored_subscriptions": 0,
+            "restored_retained": 0,
+            "restored_inflight": 0,
+            "restore_batches": 0,
+        }
+        if opts.device_matcher:
+            from .ops.delta import DeltaMatcher
 
-def enqueue_frame(ops: _Ops, tcl, data: bytes, pk_source, count_delivery: bool = True) -> bool:
-    """Queue a pre-encoded frame on a target's bounded outbound queue;
-    False = dropped (queue full) with the shared drop accounting.
-    ``pk_source()`` materializes the Packet for on_publish_dropped;
-    ``count_delivery`` keeps $SYS housekeeping out of the fan-out
-    accounting."""
-    try:
-        tcl.state.outbound.put_nowait(data)
-        tcl.state.outbound_full_since = None
-        stamp_outbound(ops, tcl)
-        if count_delivery and ops.telemetry is not None:
-            ops.telemetry.fanout_deliveries.inc()
-        return True
-    except asyncio.QueueFull:
-        if tcl.state.outbound_full_since is None:
-            # slow-consumer eviction clock (overload SHED posture)
-            tcl.state.outbound_full_since = time.monotonic()
-        ops.info.messages_dropped += 1
-        ops.hooks.on_publish_dropped(tcl, pk_source())
-        return False
+            # compaction knobs ride beside matcher_opts (which wins on
+            # conflict)
+            mopts: dict = {
+                "compact": opts.matcher_compact,
+                "compact_capacity": opts.matcher_compact_capacity,
+                "lazy": opts.matcher_lazy_views,
+                "device": opts.device,
+            }
+            mopts.update(opts.matcher_opts or {})
+            self.matcher = DeltaMatcher(self.topics, **mopts)
+        if opts.inline_client:
+            self.inline_client = self.new_client(None, None, LOCAL_LISTENER, INLINE_CLIENT_ID, True)
+            self.clients.add_client(self.inline_client)
 
+    # -- construction ------------------------------------------------------
 
-def publish_to_client(ops: _Ops, cl, sub: Subscription, pk: Packet, fast: Optional[_FrameCache] = None) -> Packet:
-    """Deliver one publish to one subscriber (server.go:1023-1113): onto
-    its outbound queue, which its write loop drains.
+    def new_client(self, reader, writer, listener: str, id_: str, inline: bool) -> Client:
+        """A client wired to this server's ops (server.go:241-260)."""
+        cl = Client(reader, writer, self._ops)
+        cl.id = id_
+        cl.net.listener = listener
+        if inline:
+            cl.net.inline = True
+            # don't restrict embedding-application publishes by default
+            cl.state.inflight.reset_receive_quota((1 << 31) - 1)
+        return cl
 
-    A namespace-scoped ``pk`` is delivered under its tenant-LOCAL topic:
-    the ACL, aliasing, and the wire all see what the client subscribed
-    to."""
-    if sub.no_local and pk.origin == cl.id:
-        return pk  # [MQTT-3.8.3-3]
+    def add_hook(self, hook: Hook, config: Any = None) -> None:
+        """Attach a hook, ideally before serve() (server.go:264-272)."""
+        hook.set_opts(self.log, HookOptions(capabilities=self.options.capabilities))
+        self.log.info("added hook %s", hook.id())
+        self.hooks.add(hook, config)
 
-    if _LOOP_PLANE.active:
-        w = _LOOP_PLANE.witness
-        if w is not None:
-            eff = pk.fixed_header.qos
-            if eff > sub.qos:
-                eff = sub.qos
-            if eff > 0 or cl.properties.props.topic_alias_maximum > 0:
-                # this delivery mutates loop-affine per-client state
-                # (packet ids / inflight / outbound aliases)
-                w.check_owner("client_state", "owner_touch", cl.net.loop, detail=cl.id)
-    topic = pk.topic_name
-    if topic[:1] == NS_CHAR:
-        topic = ns_local(topic)
+    def add_listener(self, listener: Listener) -> None:
+        """Register a listener; init happens during serve (server.go:286-301)."""
+        if self.listeners.get(listener.id()) is not None:
+            raise ListenerIDExistsError(listener.id())
+        self.listeners.add(listener)
 
-    # zero-valued identifiers never reach the wire (properties.py encodes
-    # only v > 0), so they don't disqualify the shared frame
-    if fast is not None and shared_frame_ok(cl.properties, sub):
-        if not ops.hooks.on_acl_check(cl, topic, False):
-            raise ERR_NOT_AUTHORIZED()
-        retain = pk.fixed_header.retain and (
-            sub.fwd_retained_flag or (cl.properties.protocol_version == 5 and sub.retain_as_published)
+    def _listener_from_config(self, conf: ListenerConfig) -> Optional[Listener]:
+        t = conf.type.lower()
+        if t == TYPE_TCP:
+            return TCP(conf)
+        if t == TYPE_MOCK:
+            return MockListener(conf.id, conf.address)
+        if t == TYPE_UNIX:
+            return UnixSock(conf)
+        # the websocket and HTTP (healthcheck, sysinfo) listeners are not
+        # ported yet: their types, like an unknown one, are logged and
+        # skipped, as the JAX server skips a type whose builder is missing
+        self.log.error("listener type unavailable by config: %s", conf.type)
+        return None
+
+    def add_listeners_from_config(self, configs: list[ListenerConfig]) -> None:
+        for conf in configs:
+            listener = self._listener_from_config(conf)
+            if listener is not None:
+                self.add_listener(listener)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    async def serve(self) -> None:
+        """Start hooks, restore persisted state, init+serve all listeners,
+        begin the housekeeping loop (server.go:334-371)."""
+        self.log.info("mqtt_tpu_torch starting version=%s", VERSION)
+        if self.options.gc_tuning:
+            # process-global: embedders opt out via Options.gc_tuning
+            from .utils.gctune import tune_for_throughput
+
+            tune_for_throughput()
+            self.log.info(
+                "gc thresholds tuned for broker throughput "
+                "(Options.gc_tuning=False restores the application's cadence)"
+            )
+        # build the native core now: its first-use compile would otherwise
+        # block the event loop mid-connection (a failed build raises)
+        from .native import lib
+
+        def _warm() -> None:
+            lib()
+            accel()
+
+        await asyncio.get_running_loop().run_in_executor(None, _warm)
+        if self.options.listeners:
+            self.add_listeners_from_config(self.options.listeners)
+        for hook, config in self.options.hooks:
+            self.add_hook(hook, config)
+
+        if self.hooks.provides(
+            STORED_CLIENTS,
+            STORED_INFLIGHT_MESSAGES,
+            STORED_RETAINED_MESSAGES,
+            STORED_SUBSCRIPTIONS,
+            STORED_SYS_INFO,
+        ):
+            self.read_store()
+
+        if self.matcher is not None:
+            from .staging import MatchStage
+
+            budget_ms = self.options.matcher_stage_latency_budget_ms
+            self._stage = MatchStage(
+                self.matcher,
+                host_fallback=self.topics.subscribers,
+                window_s=self.options.matcher_stage_window_ms / 1e3,
+                max_batch=self.options.matcher_stage_max_batch,
+                max_inflight=self.options.matcher_stage_max_inflight,
+                latency_budget_s=(budget_ms / 1e3) if budget_ms > 0 else None,
+                max_pending=self.options.overload_stage_max_pending,
+                predicates=self._predicates,
+                pipeline_depth=self.options.matcher_stage_pipeline_depth,
+                recrypt=self._recrypt,
+            )
+            self._stage.start()
+            if self.options.trace_torch_profiler_dir:
+                # the deep-dive capture: the stage's counters say WHETHER
+                # the card idles, a profiler trace says WHY. A capture
+                # that cannot start raises.
+                import torch
+
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if torch.device(self.options.device).type == "cuda":
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=acts)
+                prof.start()
+                self._torch_profiler = prof
+                self.log.info(
+                    "torch.profiler capture started (dir=%s)",
+                    self.options.trace_torch_profiler_dir,
+                )
+
+        for listener in list(self.listeners.internal.values()):
+            await listener.init(self.log)
+        self._event_loop_task = asyncio.get_running_loop().create_task(self._event_loop())
+        await self.listeners.serve_all(self.establish_connection)
+        self.publish_sys_topics()
+        self.hooks.on_started()
+        if self._durable["recovering"]:
+            # the restored maps are now actually served: leave the
+            # recovery numbers behind as retained $SYS/broker/durable/#
+            # rows
+            self._durable["recovering"] = False
+            self.publish_durable_sys()
+            self.log.info(
+                "durable restore complete: seconds=%.3f replayed_keys=%d "
+                "subscriptions=%d retained=%d inflight=%d batches=%d",
+                self._durable["recovery_seconds"],
+                self._durable["replayed_keys"],
+                self._durable["restored_subscriptions"],
+                self._durable["restored_retained"],
+                self._durable["restored_inflight"],
+                self._durable["restore_batches"],
+            )
+        self.log.info("mqtt_tpu_torch server started")
+
+    async def _event_loop(self) -> None:
+        """Housekeeping ticks (server.go:374-395): expiry reaping every
+        second, $SYS publishing on its own interval."""
+        sys_interval = self.options.sys_topic_resend_interval
+        next_sys = time.monotonic() + sys_interval
+        while not self.done.is_set():
+            try:
+                await asyncio.wait_for(self.done.wait(), timeout=1.0)
+                return
+            except asyncio.TimeoutError:
+                pass
+            now = int(time.time())  # brokerlint: ok=R3 expiry sweeps compare against absolute wall-clock stamps
+            self.clear_expired_clients(now)
+            self.clear_expired_retained_messages(now)
+            self.send_delayed_lwt(now)
+            self.clear_expired_inflights(now)
+            if time.monotonic() >= next_sys:
+                self.publish_sys_topics()
+                next_sys = time.monotonic() + sys_interval
+
+    # -- durable session plane ---------------------------------------------
+
+    def _durable_store_stats(self) -> dict:
+        """Merge ``durable_stats()`` across storage hooks that expose one
+        (duck-typed — the LogKV store does; third-party hooks may too)."""
+        out: dict = {}
+        for hook in self.hooks.get_all():
+            fn = getattr(hook, "durable_stats", None)
+            if not callable(fn):
+                continue
+            try:
+                stats = fn()
+            except Exception:  # pragma: no cover  # brokerlint: ok=R4 observability merge must not take the broker down with a hook
+                continue
+            for k, v in stats.items():
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    out[k] = out.get(k, 0) + v
+                else:
+                    out.setdefault(k, v)
+        return out
+
+    def publish_durable_sys(self) -> None:
+        """Publish the recovery progress tree as retained
+        ``$SYS/broker/durable/#`` rows: serve() calls this
+        once the restored maps are actually served, and the periodic
+        $SYS tick republishes via publish_sys_topics."""
+        d = self._durable
+        store = self._durable_store_stats()
+        rows = {
+            "recovering": "1" if d["recovering"] else "0",
+            "recovery_seconds": "%.6f" % d["recovery_seconds"],
+            "replayed_keys": str(d["replayed_keys"]),
+            "restored_subscriptions": str(d["restored_subscriptions"]),
+            "restored_retained": str(d["restored_retained"]),
+            "restored_inflight": str(d["restored_inflight"]),
+            "restore_batches": str(d["restore_batches"]),
+        }
+        for k in ("segments", "snapshot_seq", "replay_corruptions", "snapshot_invalid"):
+            if k in store:
+                rows[k] = str(store[k])
+        pk = Packet(
+            fixed_header=FixedHeader(type=pkts.PUBLISH, retain=True),
+            created=int(time.time()),  # brokerlint: ok=R3 $SYS stamps are wall-clock (operator-correlatable)
         )
-        data = fast.get(cl.properties.protocol_version, retain)
-        if cl.net.writer is None or cl.closed:
-            raise CODE_DISCONNECT()
-        if not enqueue_frame(ops, cl, data, lambda: pk, count_delivery=not topic.startswith("$SYS")):
-            raise ERR_PENDING_CLIENT_WRITES_EXCEEDED()
+        for name, payload in rows.items():
+            pk.topic_name = SYS_PREFIX + "/broker/durable/" + name
+            pk.payload = payload.encode()
+            retained = pk.copy(False)
+            self.topics.retain_message(retained)
+            if self._retained_engine is not None:
+                self._retained_engine.note_retained(retained.topic_name, True)
+            self.publish_to_subscribers(pk)
+
+    # -- connection ----------------------------------------------------------
+
+    def _resolve_tenant(self, cl: Client) -> None:
+        """CONNECT-time tenant resolution (tenancy): map the client
+        (username first, then client id) to its tenant and scope the
+        registry identity into the tenant namespace, so two tenants' equal
+        client ids can never collide or take each other's sessions over.
+        Runs AFTER authentication (an unauthenticated client must not
+        resolve into a tenant). The tenant's quota class is recorded on
+        the client; the port has no governor that weighs it yet."""
+        plane = self._tenancy
+        if plane is None or cl.net.inline:
+            return
+        from .tenancy import scope_client_id
+
+        username = cl.properties.username
+        uname = (
+            username.decode("utf-8", "replace")
+            if isinstance(username, (bytes, bytearray))
+            else (username or "")
+        )
+        tenant = plane.resolve(uname, cl.id)
+        if tenant is None:
+            return
+        cl.tenant = tenant
+        cl.id = scope_client_id(tenant.name, cl.id)
+        if tenant.quota_class:
+            cl.priority_class = tenant.quota_class
+
+    async def establish_connection(self, listener: str, reader, writer) -> None:
+        """Attach a newly accepted connection (server.go:398-401)."""
+        task = asyncio.current_task()
+        if task is not None:
+            # ClientsWg analog (listeners.go:43)
+            self.listeners.client_tasks.add(task)
+            task.add_done_callback(self.listeners.client_tasks.discard)
+        cl = self.new_client(reader, writer, listener, "", False)
+        await self.attach_client(cl, listener)
+
+    async def attach_client(self, cl: Client, listener: str) -> None:
+        """Validate an incoming connection, run the CONNECT handshake, and
+        read packets until disconnect (server.go:405-494)."""
+        cl.net.loop = asyncio.get_running_loop()
+        cl._handler_task = asyncio.current_task()
+        cl.start_write_loop()
+        err: Optional[Exception] = None
+        connected = False
+        try:
+            pk = await self.read_connection_packet(cl)
+            cl.parse_connect(listener, pk)
+            if self.info.clients_connected >= self.options.capabilities.maximum_clients:
+                if cl.properties.protocol_version < 5:
+                    self.send_connack(cl, ERR_SERVER_UNAVAILABLE, False, None)
+                else:
+                    self.send_connack(cl, ERR_SERVER_BUSY, False, None)
+                raise ERR_SERVER_BUSY()
+
+            code = self.validate_connect(cl, pk)  # [MQTT-3.1.4-1] [MQTT-3.1.4-2]
+            if code != CODE_SUCCESS:
+                self.send_connack(cl, code, False, None)
+                raise code()  # [MQTT-3.2.2-7] [MQTT-3.1.4-6]
+
+            self.hooks.on_connect(cl, pk)  # error aborts
+
+            cl.refresh_deadline(cl.state.keepalive)
+            if not self.hooks.on_connect_authenticate(cl, pk):  # [MQTT-3.1.4-2]
+                self.send_connack(cl, ERR_BAD_USERNAME_OR_PASSWORD, False, None)
+                raise ERR_BAD_USERNAME_OR_PASSWORD()
+
+            self._resolve_tenant(cl)
+
+            with self._conn_lock:
+                self.info.clients_connected += 1
+            connected = True
+            if cl.tenant is not None and self._tenancy is not None:
+                self._tenancy.note_connect(cl.tenant)
+
+            self.hooks.on_session_establish(cl, pk)
+
+            session_present = self.inherit_client_session(pk, cl)
+            self.clients.add_client(cl)  # [MQTT-4.1.0-1]
+
+            self.send_connack(cl, code, session_present, None)  # [MQTT-3.1.4-5]
+            self.will_delayed.delete(cl.id)  # [MQTT-3.1.3-9]
+
+            if session_present:
+                cl.resend_inflight_messages(True)
+
+            self.hooks.on_session_established(cl, pk)
+
+            try:
+                await cl.read(self.receive_packet)
+            except Exception as e:
+                err = e
+                self.send_lwt(cl)
+                cl.stop(e)
+            else:
+                cl.properties.will = Will()  # [MQTT-3.14.4-3] [MQTT-3.1.2-10]
+
+            self.log.debug(
+                "client disconnected: error=%s client=%s remote=%s listener=%s",
+                err, cl.id, cl.net.remote, listener,
+            )
+
+            expire = (
+                cl.properties.protocol_version == 5
+                and cl.properties.props.session_expiry_interval == 0
+            ) or (cl.properties.protocol_version < 5 and cl.properties.clean)
+            self.hooks.on_disconnect(cl, err, expire)
+
+            if expire and not cl.is_taken_over:
+                cl.clear_inflights()
+                self.unsubscribe_client(cl)
+                self.clients.delete(cl.id)  # [MQTT-4.1.0-2]
+        except Exception as e:
+            err = e
+        finally:
+            if connected:
+                with self._conn_lock:
+                    self.info.clients_connected -= 1
+                if cl.tenant is not None and self._tenancy is not None:
+                    self._tenancy.note_disconnect(cl.tenant)
+            cl.stop(err)
+        if err is not None and not isinstance(
+            err, (asyncio.IncompleteReadError, ConnectionError, ConnectionClosedError)
+        ):
+            self.log.debug("connection ended: %s", err)
+
+    async def read_connection_packet(self, cl: Client) -> Packet:
+        """The first packet MUST be CONNECT [MQTT-3.1.0-1]
+        (server.go:498-515)."""
+        fh = FixedHeader()
+        await cl.read_fixed_header(fh)
+        if fh.type != pkts.CONNECT:
+            raise ERR_PROTOCOL_VIOLATION_REQUIRE_FIRST_CONNECT()
+        return await cl.read_packet(fh)
+
+    def receive_packet(self, cl: Client, pk: Packet):
+        """Process one inbound packet; a v5 error code disconnects the client
+        (server.go:519-534). Returns a coroutine when processing defers to
+        the publish staging loop — the caller's read loop awaits it, so the
+        publishing client blocks on its own fan-out (the reference's
+        per-connection-goroutine semantics) while other clients proceed."""
+        try:
+            result = self.process_packet(cl, pk)
+        except Code as code:
+            self._packet_error(cl, code)
+            raise
+        if asyncio.iscoroutine(result):
+            return self._receive_deferred(cl, result)
+        return None
+
+    async def _receive_deferred(self, cl: Client, coro) -> None:
+        try:
+            await coro
+        except Code as code:
+            self._packet_error(cl, code)
+            raise
+
+    def _packet_error(self, cl: Client, code: Code) -> None:
+        if cl.properties.protocol_version == 5 and code.code >= ERR_UNSPECIFIED_ERROR.code:
+            try:
+                self.disconnect_client(cl, code)
+            except Exception:  # brokerlint: ok=R4 already on the error path; the warning below records the packet error
+                pass
+        self.log.warning(
+            "error processing packet: error=%s client=%s listener=%s",
+            code, cl.id, cl.net.listener,
+        )
+
+    def validate_connect(self, cl: Client, pk: Packet) -> Code:
+        """Connect compliance checks beyond the codec's (server.go:537-556)."""
+        code = pk.connect_validate()
+        if code != CODE_SUCCESS:
+            return code
+        if (
+            cl.properties.protocol_version < 5
+            and not pk.connect.clean
+            and pk.connect.client_identifier == ""
+        ):
+            return ERR_UNSPECIFIED_ERROR
+        caps = self.options.capabilities
+        if cl.properties.protocol_version < caps.minimum_protocol_version:
+            return ERR_UNSUPPORTED_PROTOCOL_VERSION  # [MQTT-3.1.2-2]
+        if cl.properties.will.qos > caps.maximum_qos:
+            return ERR_QOS_NOT_SUPPORTED  # [MQTT-3.2.2-12]
+        if cl.properties.will.retain and caps.retain_available == 0:
+            return ERR_RETAIN_NOT_SUPPORTED  # [MQTT-3.2.2-13]
+        return code
+
+    def inherit_client_session(self, pk: Packet, cl: Client) -> bool:
+        """Session takeover: disconnect the existing client with the same id
+        and inherit (or discard) its state (server.go:561-603)."""
+        existing = self.clients.get(cl.id)
+        if existing is not None:
+            try:
+                self.disconnect_client(existing, ERR_SESSION_TAKEN_OVER)  # [MQTT-3.1.4-3]
+            except Code:
+                pass
+            if pk.connect.clean or (
+                existing.properties.clean and existing.properties.protocol_version < 5
+            ):  # [MQTT-3.1.2-4] [MQTT-3.1.4-4]
+                self.unsubscribe_client(existing)
+                existing.clear_inflights()
+                existing.state.is_taken_over = True  # after unsubscribe
+                return False  # [MQTT-3.2.2-3]
+
+            existing.state.is_taken_over = True
+            if len(existing.state.inflight) > 0:
+                cl.state.inflight = existing.state.inflight.clone()  # [MQTT-3.1.2-5]
+                if (
+                    cl.state.inflight.maximum_receive_quota == 0
+                    and self.options.capabilities.receive_maximum != 0
+                ):
+                    cl.state.inflight.reset_receive_quota(
+                        self.options.capabilities.receive_maximum
+                    )
+                    cl.state.inflight.reset_send_quota(cl.properties.props.receive_maximum)
+
+            for sub in existing.state.subscriptions.get_all().values():
+                existed = not self.topics.subscribe(cl.id, sub)  # [MQTT-3.8.4-3]
+                if not existed:
+                    self.info.subscriptions += 1
+                cl.state.subscriptions.add(sub.filter, sub)
+
+            # clean existing state so sequential takeovers don't leak
+            self.unsubscribe_client(existing)
+            existing.clear_inflights()
+
+            self.log.debug(
+                "session taken over: client=%s old_remote=%s new_remote=%s",
+                cl.id, existing.net.remote, cl.net.remote,
+            )
+            return True  # [MQTT-3.2.2-3]
+
+        if self.info.clients_connected > self.info.clients_maximum:
+            self.info.clients_maximum += 1
+        return False  # [MQTT-3.2.2-2]
+
+    def send_connack(
+        self, cl: Client, reason: Code, present: bool, properties: Optional[Properties]
+    ) -> None:
+        """Issue a CONNACK, translating v5 codes for v3 clients
+        (server.go:606-663)."""
+        if properties is None:
+            properties = Properties()
+        properties.receive_maximum = self.options.capabilities.receive_maximum  # 3.2.2.3.3
+        if cl.state.server_keepalive:  # set dynamically via the on_connect hook
+            properties.server_keep_alive = cl.state.keepalive  # [MQTT-3.1.2-21]
+            properties.server_keep_alive_flag = True
+
+        if reason.code >= ERR_UNSPECIFIED_ERROR.code:
+            if cl.properties.protocol_version < 5:
+                reason = V5_CODES_TO_V3.get(reason, reason)
+            properties.reason_string = reason.reason
+            ack = Packet(
+                fixed_header=FixedHeader(type=pkts.CONNACK),
+                session_present=False,  # [MQTT-3.2.2-6]
+                reason_code=reason.code,  # [MQTT-3.2.2-8]
+                properties=properties,
+            )
+            cl.write_packet(ack)
+            return
+
+        caps = self.options.capabilities
+        if caps.maximum_qos < 2:
+            properties.maximum_qos = caps.maximum_qos  # [MQTT-3.2.2-9]
+            properties.maximum_qos_flag = True
+        if cl.properties.props.assigned_client_id:
+            properties.assigned_client_id = cl.properties.props.assigned_client_id  # [MQTT-3.1.3-7]
+        if cl.properties.props.session_expiry_interval > caps.maximum_session_expiry_interval:
+            properties.session_expiry_interval = caps.maximum_session_expiry_interval
+            properties.session_expiry_interval_flag = True
+            cl.properties.props.session_expiry_interval = properties.session_expiry_interval
+            cl.properties.props.session_expiry_interval_flag = True
+
+        ack = Packet(
+            fixed_header=FixedHeader(type=pkts.CONNACK),
+            session_present=present,
+            reason_code=reason.code,  # [MQTT-3.2.2-8]
+            properties=properties,
+        )
+        cl.write_packet(ack)
+
+    # -- packet processing -------------------------------------------------
+
+    def process_packet(self, cl: Client, pk: Packet):
+        """Dispatch one inbound packet by type (server.go:667-730); raises a
+        Code on protocol errors. A staged PUBLISH returns a coroutine whose
+        await completes the fan-out (hook order — on_published before
+        on_packet_processed — is preserved inside it)."""
+        t = pk.fixed_header.type
+        if (
+            t == pkts.PUBLISH
+            and self._stage is not None
+            and not cl.net.inline
+        ):
+            return self._process_publish_deferred(cl, pk)
+        err: Optional[Exception] = None
+        try:
+            if t == pkts.CONNECT:
+                self.process_connect(cl, pk)
+            elif t == pkts.DISCONNECT:
+                self.process_disconnect(cl, pk)
+            elif t == pkts.PINGREQ:
+                self.process_pingreq(cl, pk)
+            elif t == pkts.PUBLISH:
+                self._dispatch_publish(cl, pk)
+            elif t == pkts.PUBACK:
+                self.process_puback(cl, pk)
+            elif t == pkts.PUBREC:
+                self.process_pubrec(cl, pk)
+            elif t == pkts.PUBREL:
+                self.process_pubrel(cl, pk)
+            elif t == pkts.PUBCOMP:
+                self.process_pubcomp(cl, pk)
+            elif t == pkts.SUBSCRIBE:
+                code = pk.subscribe_validate()
+                if code != CODE_SUCCESS:
+                    raise code()
+                self.process_subscribe(cl, pk)
+            elif t == pkts.UNSUBSCRIBE:
+                code = pk.unsubscribe_validate()
+                if code != CODE_SUCCESS:
+                    raise code()
+                self.process_unsubscribe(cl, pk)
+            elif t == pkts.AUTH:
+                code = pk.auth_validate()
+                if code != CODE_SUCCESS:
+                    raise code()
+                self.process_auth(cl, pk)
+            else:
+                raise pkts.ERR_NO_VALID_PACKET_AVAILABLE()
+        except Exception as e:
+            err = e
+            raise
+        finally:
+            self.hooks.on_packet_processed(cl, pk, err)
+
+        self._drain_quota_starved(cl)
+
+    def _dispatch_publish(self, cl: Client, pk: Packet):
+        """Validate + process one PUBLISH — the single dispatch point shared
+        by the sync and staged paths; returns a coroutine when staged."""
+        code = pk.publish_validate(self.options.capabilities.topic_alias_maximum)
+        if code != CODE_SUCCESS:
+            raise code()
+        return self.process_publish(cl, pk)
+
+    async def _process_publish_deferred(self, cl: Client, pk: Packet) -> None:
+        """The staged PUBLISH path: identical dispatch semantics to the sync
+        path (validate, process, on_packet_processed with the error, quota
+        drain) with the fan-out awaited through the staging loop.
+
+        A device failure (a ``KernelError`` or a failed copy out of the
+        stage's future) is not answered by the host walk: it is logged and
+        raised into the publisher's read loop, which ends its connection;
+        no subscriber receives this publish."""
+        err: Optional[Exception] = None
+        try:
+            deferred = self._dispatch_publish(cl, pk)
+            if deferred is not None:
+                await deferred
+        except Exception as e:
+            err = e
+            if not isinstance(e, Code):
+                self.log.error(
+                    "publish fan-out failed on the device; closing the connection: "
+                    "error=%r client=%s topic=%s",
+                    e, cl.id, pk.topic_name,
+                )
+            raise
+        finally:
+            self.hooks.on_packet_processed(cl, pk, err)
+        self._drain_quota_starved(cl)
+
+    def _drain_quota_starved(self, cl: Client) -> None:
+        # post-process: drain one quota-starved inflight if quota freed up
+        if len(cl.state.inflight) > 0 and cl.state.inflight.send_quota > 0:
+            nxt = cl.state.inflight.next_immediate()
+            if nxt is not None:
+                try:
+                    cl.write_packet(nxt)
+                except Exception:  # brokerlint: ok=R4 client mid-teardown; the inflight store still reconciles below
+                    pass
+                if cl.state.inflight.delete(nxt.packet_id):
+                    self.info.inflight -= 1
+                cl.state.inflight.decrease_send_quota()
+
+    def process_connect(self, cl: Client, pk: Packet) -> None:
+        """A second CONNECT is a protocol violation [MQTT-3.1.0-2]
+        (server.go:734-737)."""
+        self.send_lwt(cl)
+        raise ERR_PROTOCOL_VIOLATION_SECOND_CONNECT()
+
+    def process_pingreq(self, cl: Client, pk: Packet) -> None:
+        cl.write_packet(Packet(fixed_header=FixedHeader(type=pkts.PINGRESP)))  # [MQTT-3.12.4-1]
+
+    # -- inline client api -------------------------------------------------
+
+    def publish(self, topic: str, payload: bytes, retain: bool, qos: int) -> None:
+        """Inline publish into the broker, bypassing ACL (server.go:752-767)."""
+        if not self.options.inline_client:
+            raise InlineClientNotEnabledError()
+        assert self.inline_client is not None  # built in __init__ with the option on
+        self.inject_packet(
+            self.inline_client,
+            Packet(
+                fixed_header=FixedHeader(type=pkts.PUBLISH, qos=qos, retain=retain),
+                topic_name=topic,
+                payload=payload,
+                packet_id=qos,  # unprocessed inbound qos still needs a packet id
+            ),
+        )
+
+    def subscribe(self, filter: str, subscription_id: int, handler: InlineSubFn) -> None:
+        """Inline (in-process) subscription (server.go:771-808)."""
+        if not self.options.inline_client:
+            raise InlineClientNotEnabledError()
+        assert self.inline_client is not None  # built in __init__ with the option on
+        if handler is None:
+            raise ERR_INLINE_SUBSCRIPTION_HANDLER_INVALID()
+        predicates: tuple = ()
+        if self._predicates is not None:
+            base, pred_suffix = split_predicate_suffix(filter)
+            if pred_suffix:
+                filter = base
+                predicates = (pred_suffix,)
+        if not is_valid_filter(filter, False):
+            raise ERR_TOPIC_FILTER_INVALID()
+        if self._predicates is not None:
+            if predicates:
+                self._predicates.register(predicates[0])
+            # re-subscribing the same (identifier, filter) REPLACES the
+            # stored inline subscription: drop the replaced one's rule
+            # refs (after registering, like the client SUBSCRIBE path)
+            replaced = self.topics.inline_subscription(subscription_id, filter)
+            if replaced is not None and replaced.predicates:
+                self._predicates.release(replaced.predicates)
+        subscription = Subscription(
+            identifier=subscription_id, filter=filter, predicates=predicates
+        )
+        pk = self.hooks.on_subscribe(
+            self.inline_client,
+            Packet(
+                origin=self.inline_client.id,
+                fixed_header=FixedHeader(type=pkts.SUBSCRIBE),
+                filters=[subscription],
+            ),
+        )
+        inline_sub = InlineSubscription(
+            filter=filter,
+            identifier=subscription_id,
+            handler=handler,
+            predicates=predicates,
+        )
+        self.topics.inline_subscribe(inline_sub)
+        self.hooks.on_subscribed(self.inline_client, pk, bytes([CODE_SUCCESS.code]))
+        for pkv in self.topics.messages(filter):  # [MQTT-3.8.4-4]
+            if self._predicates is not None and not self._predicates.passes_retained(
+                subscription, bytes(pkv.payload)
+            ):
+                continue
+            handler(self.inline_client, subscription, pkv)
+
+    def unsubscribe(self, filter: str, subscription_id: int) -> None:
+        """Remove an inline subscription (server.go:813-836)."""
+        if not self.options.inline_client:
+            raise InlineClientNotEnabledError()
+        assert self.inline_client is not None  # built in __init__ with the option on
+        if self._predicates is not None:
+            base, pred_suffix = split_predicate_suffix(filter)
+            if pred_suffix:
+                filter = base
+        if not is_valid_filter(filter, False):
+            raise ERR_TOPIC_FILTER_INVALID()
+        pk = self.hooks.on_unsubscribe(
+            self.inline_client,
+            Packet(
+                origin=self.inline_client.id,
+                fixed_header=FixedHeader(type=pkts.UNSUBSCRIBE),
+                filters=[Subscription(identifier=subscription_id, filter=filter)],
+            ),
+        )
+        if self._predicates is not None:
+            # release the STORED subscription's rule refs, and only when
+            # a subscription is actually removed — an unsubscribe for a
+            # (filter, id) that never existed must not underflow a rule
+            # other live subscriptions still reference
+            stored = self.topics.inline_subscription(subscription_id, filter)
+            removed = self.topics.inline_unsubscribe(subscription_id, filter)
+            if removed and stored is not None and stored.predicates:
+                self._predicates.release(stored.predicates)
+        else:
+            self.topics.inline_unsubscribe(subscription_id, filter)
+        self.hooks.on_unsubscribed(self.inline_client, pk)
+
+    def inject_packet(self, cl: Client, pk: Packet) -> None:
+        """Process a packet as if sent by ``cl``, bypassing the network
+        (server.go:840-854). A staged PUBLISH completes its fan-out as a
+        scheduled task (or synchronously when no loop is running)."""
+        pk.protocol_version = cl.properties.protocol_version
+        result = self.process_packet(cl, pk)
+        if asyncio.iscoroutine(result):
+            try:
+                # found by brokerlint R13: the fan-out task was
+                # fire-and-forget, so asyncio's weak reference was the
+                # only thing keeping it alive mid-flight
+                task = asyncio.get_running_loop().create_task(result)
+                self.listeners.client_tasks.add(task)
+                task.add_done_callback(self.listeners.client_tasks.discard)
+            except RuntimeError:
+                asyncio.run(result)
+        self.info.packets_received += 1
+        if pk.fixed_header.type == pkts.PUBLISH:
+            self.info.messages_received += 1
+
+    # -- publish flow ------------------------------------------------------
+
+    def process_publish(self, cl: Client, pk: Packet):
+        """The publish hot path (server.go:857-968). With the staging loop
+        active, returns a coroutine completing the fan-out (QoS acks are
+        already written synchronously before it is returned)."""
+        if not cl.net.inline and not is_valid_filter(pk.topic_name, True):
+            return
+
+        if cl.state.inflight.receive_quota == 0:
+            self.disconnect_client(cl, ERR_RECEIVE_MAXIMUM)  # ~[MQTT-3.3.4-7/-8]
+            return
+
+        if not cl.net.inline and not self.hooks.on_acl_check(cl, pk.topic_name, True):
+            if pk.fixed_header.qos == 0:
+                return
+            if cl.properties.protocol_version != 5:
+                self.disconnect_client(cl, ERR_NOT_AUTHORIZED)
+                return
+            ack_type = pkts.PUBREC if pk.fixed_header.qos == 2 else pkts.PUBACK
+            ack = self.build_ack(pk.packet_id, ack_type, 0, pk.properties, ERR_NOT_AUTHORIZED)
+            cl.write_packet(ack)
+            return
+
+        pk.origin = cl.id
+        pk.created = int(time.time())  # brokerlint: ok=R3 packet creation stamp is wall-clock (persists/expires across restarts)
+        expiry = _minimum(
+            self.options.capabilities.maximum_message_expiry_interval,
+            pk.properties.message_expiry_interval,
+        )
+        if expiry > 0:
+            pk.expiry = pk.created + expiry
+
+        if not cl.net.inline:
+            pki = cl.state.inflight.get(pk.packet_id)
+            if pki is not None:
+                if pki.fixed_header.type == pkts.PUBREC:  # [MQTT-4.3.3-10]
+                    ack = self.build_ack(
+                        pk.packet_id, pkts.PUBREC, 0, pk.properties, ERR_PACKET_IDENTIFIER_IN_USE
+                    )
+                    cl.write_packet(ack)
+                    return
+                if cl.state.inflight.delete(pk.packet_id):  # [MQTT-4.3.2-5]
+                    self.info.inflight -= 1
+
+        if pk.properties.topic_alias_flag and pk.properties.topic_alias > 0:  # [MQTT-3.3.2-11]
+            pk.topic_name = cl.state.topic_aliases.inbound.set(
+                pk.properties.topic_alias, pk.topic_name
+            )
+
+        if pk.fixed_header.qos > self.options.capabilities.maximum_qos:
+            pk.fixed_header.qos = self.options.capabilities.maximum_qos  # [MQTT-3.2.2-9]
+
+        try:
+            pk = self.hooks.on_publish(cl, pk)
+        except Code as e:
+            if e == ERR_REJECT_PACKET:
+                return
+            if e == CODE_SUCCESS_IGNORE:
+                pk.ignore = True
+            elif cl.properties.protocol_version == 5 and pk.fixed_header.qos > 0:
+                cl.write_packet(self.build_ack(pk.packet_id, pkts.PUBACK, 0, pk.properties, e))
+                return
+            # other errors: continue with the original packet (reference
+            # server.go:912-925 falls through)
+
+        if cl.tenant is not None:
+            # tenant namespace: validation, the ACL, aliases and the
+            # on_publish hook all saw the LOCAL topic above; matching,
+            # retention and staging operate on the scoped key from here
+            # (deliveries strip it back off at the fan-out choke point)
+            pk.topic_name = ns_scope_topic(cl.tenant.name, pk.topic_name)
+            cl.tenant.messages_in += 1
+            cl.tenant.bytes_in += len(pk.payload)
+
+        if pk.fixed_header.retain and self._retained_quota_refused(cl, pk):
+            # tenant retained COUNT cap: refuse the whole publish. QoS0
+            # drops (counted), QoS1/2 ack 0x97 Quota Exceeded.
+            self.info.messages_dropped += 1
+            if cl.tenant is not None:
+                cl.tenant.messages_dropped += 1
+            if pk.fixed_header.qos == 0:
+                return
+            ack_type = pkts.PUBREC if pk.fixed_header.qos == 2 else pkts.PUBACK
+            cl.write_packet(
+                self.build_ack(
+                    pk.packet_id, ack_type, 0, pk.properties, ERR_QUOTA_EXCEEDED
+                )
+            )
+            return
+
+        if pk.fixed_header.retain:  # [MQTT-3.3.1-5]
+            self.retain_message(cl, pk)
+
+        # inline clients can't handle PUBREC/PUBREL: treat as qos 0 inbound
+        if pk.fixed_header.qos == 0 or cl.net.inline:
+            if self._stage is not None and not cl.net.inline:
+                return self._staged_fan_out(cl, pk)
+            self.publish_to_subscribers(pk)
+            self.hooks.on_published(cl, pk)
+            return None
+
+        cl.state.inflight.decrease_receive_quota()
+        ack = self.build_ack(
+            pk.packet_id, pkts.PUBACK, 0, pk.properties, QOS_CODES[pk.fixed_header.qos]
+        )  # [MQTT-4.3.2-4]
+        if pk.fixed_header.qos == 2:
+            ack = self.build_ack(
+                pk.packet_id, pkts.PUBREC, 0, pk.properties, CODE_SUCCESS
+            )  # [MQTT-3.3.4-1] [MQTT-4.3.3-8]
+
+        if cl.state.inflight.set(ack):
+            self.info.inflight += 1
+            self.hooks.on_qos_publish(cl, ack, ack.created, 0)
+
+        cl.write_packet(ack)
+
+        if pk.fixed_header.qos == 1:
+            if cl.state.inflight.delete(ack.packet_id):
+                self.info.inflight -= 1
+            cl.state.inflight.increase_receive_quota()
+            self.hooks.on_qos_complete(cl, ack)
+
+        if self._stage is not None and not cl.net.inline:
+            return self._staged_fan_out(cl, pk)
+        self.publish_to_subscribers(pk)
+        self.hooks.on_published(cl, pk)
+        return None
+
+    async def _staged_fan_out(self, cl: Client, pk: Packet) -> None:
+        """Fan out one publish through the staging loop: the device match
+        batch resolves off the event loop and this client awaits only its
+        own result (seam: server.go:984-1021)."""
+        if not pk.ignore:
+            self._stamp_publish_expiry(pk)
+            # MQTT+ predicate plane: extract the payload features ONCE on
+            # the host; the stage batches them to the card beside the
+            # tokenized topics and stamps the resolved pass bits back onto
+            # this carrier
+            eng = self._predicates
+            feats = (
+                eng.features_for(bytes(pk.payload))
+                if eng is not None and eng.active
+                else None
+            )
+            # encrypted-namespace publishes carry a decrypt job whose
+            # keystream launch rides the same staged batch
+            rjob = self._recrypt_job_for(cl, pk)
+            subscribers = await self._stage.submit(pk.topic_name, feats, rjob)
+            self._fan_out(pk, subscribers, feats, rjob)
+        self.hooks.on_published(cl, pk)
+
+    def _retained_quota_refused(self, cl: Client, pk: Packet) -> bool:
+        """Tenant retained COUNT cap: True refuses the publish
+        with 0x97 before any state grows. Growth only — clearing (empty
+        payload) and overwriting an existing retained topic always pass,
+        so a capped tenant can still update or free slots. The topic is
+        already namespace-scoped here (process_publish scopes first)."""
+        t = cl.tenant
+        if t is None or not pk.payload:
+            return False
+        cap = t.max_retained or self.options.tenant_max_retained
+        if cap <= 0 or t.retained_count < cap:
+            return False
+        if self.topics.retained.get(pk.topic_name) is not None:
+            return False  # overwrite, not growth
+        t.retained_refused += 1
+        return True
+
+    def _subscribe_quota_refused(self, cl: Client, sub: Subscription) -> bool:
+        """Tenant subscription COUNT cap: True refuses the
+        filter with 0x97 before any rule or trie registration. Growth
+        only — replacing an existing subscription always passes. Sees
+        the LOCAL filter (scoping happens in the grant branch); shared
+        ($SHARE) filters are uncapped."""
+        t = cl.tenant
+        if t is None or is_shared_filter(sub.filter):
+            return False
+        cap = t.max_subscriptions or self.options.tenant_max_subscriptions
+        if cap <= 0 or t.subscriptions_count < cap:
+            return False
+        scoped = ns_scope_filter(t.name, sub.filter)
+        if cl.state.subscriptions.get(scoped) is not None:
+            return False  # replacement, not growth
+        t.subscriptions_refused += 1
+        return True
+
+    def retain_message(self, cl: Client, pk: Packet) -> None:
+        """(server.go:972-981)"""
+        if self.options.capabilities.retain_available == 0 or pk.ignore:
+            return
+        out = pk.copy(False)
+        existed = self.topics.retained.get(out.topic_name) is not None
+        r = self.topics.retain_message(out)
+        self.hooks.on_retain_message(cl, pk, r)
+        self.info.retained = len(self.topics.retained)
+        if self._tenancy is not None and out.topic_name[:1] == NS_CHAR:
+            t = self._tenancy.tenant_of_topic(out.topic_name)
+            if t is not None:
+                # durable COUNT quota bookkeeping: growth
+                # only on a NEW retained topic, shrink on a real clear
+                if r == 1 and not existed:
+                    t.retained_count += 1
+                elif r == -1 and t.retained_count > 0:
+                    t.retained_count -= 1
+        if self._retained_engine is not None:
+            self._retained_engine.note_retained(out.topic_name, r == 1)
+
+    def publish_to_subscribers(self, pk: Packet) -> None:
+        """Match subscribers and fan out (server.go:984-1021).
+
+        The synchronous path always walks the host trie: its callers are
+        the housekeeping flows ($SYS ticks, LWT, retained delivery, inline
+        publishes), which must never pay a device round trip on the event
+        loop. Client PUBLISH traffic takes ``_staged_fan_out`` instead when
+        the device matcher is active (``staging``)."""
+        if pk.ignore:
+            return
+        self._stamp_publish_expiry(pk)
+        self._fan_out(pk, self.topics.subscribers(pk.topic_name))
+
+    def _stamp_publish_expiry(self, pk: Packet) -> None:
+        if pk.created == 0:
+            pk.created = int(time.time())  # brokerlint: ok=R3 packet creation stamp is wall-clock (persists/expires across restarts)
+        if pk.expiry == 0:
+            expiry = _minimum(
+                self.options.capabilities.maximum_message_expiry_interval,
+                pk.properties.message_expiry_interval,
+            )
+            if expiry > 0:
+                pk.expiry = pk.created + expiry
+
+    def fast_publish_eligible(self, cl: Client) -> bool:
+        """Session-level gate for the QoS0 passthrough, checked by the
+        read loop BEFORE it materializes the frame bytes: v4 network
+        client, no staging loop, quota headroom, and no hook that takes
+        the packet (the provides() scan is cached per hooks
+        generation)."""
+        if cl.net.inline or cl.properties.protocol_version != 4:
+            return False
+        if self._stage is not None or cl.state.inflight.receive_quota == 0:
+            return False
+        if cl.tenant is not None:
+            # tenant publishes need namespace scoping (and possibly the
+            # re-encryption leg) — the decode path owns both
+            return False
+        gen = self.hooks.generation
+        if gen != self._fastpub_gate_gen:
+            ok = not self.hooks.provides(
+                ON_PACKET_READ,
+                ON_PUBLISH,
+                ON_PACKET_ENCODE,
+                ON_PACKET_SENT,
+                ON_PUBLISHED,
+                ON_PACKET_PROCESSED,
+            )
+            # only cache when no add_hook raced the scan: Hooks.add bumps
+            # the generation on BOTH sides of the list publish, so a scan
+            # that saw a mid-add list can never be cached as current (it
+            # still decides this one frame — the same one-frame window the
+            # reference's lock-free hook swap has, hooks.go:150-170)
+            if self.hooks.generation == gen:
+                self._fastpub_gate_ok = ok
+                self._fastpub_gate_gen = gen
+            return ok
+        return self._fastpub_gate_ok
+
+    @staticmethod
+    def _shared_frame_ok(props, sub: Subscription) -> bool:
+        """Target eligibility for shared-frame delivery (nothing forces a
+        per-subscriber rewrite of the encoded publish): no positive
+        subscription identifiers, no outbound aliasing, no size cap.
+
+        Used by publish_to_client's frame-cache branch and by both batched
+        fan-out paths. try_fast_publish splits the same predicate: the
+        subscription half (identifiers) is precomputed into the cached
+        fan-out plan, the session half re-checks at delivery."""
+        ids = sub.identifiers
+        return (
+            props.props.topic_alias_maximum == 0
+            and props.props.maximum_packet_size == 0
+            and not (ids and any(v > 0 for v in ids.values()))
+        )
+
+    def _enqueue_frame(self, tcl: Client, data: bytes, pk_source) -> bool:
+        """Queue a pre-encoded frame on a target's bounded outbound queue;
+        False = dropped (queue full) with the shared drop accounting.
+        ``pk_source()`` materializes the Packet for on_publish_dropped."""
+        try:
+            tcl.state.outbound.put_nowait(data)
+            tcl.state.outbound_full_since = None
+            return True
+        except asyncio.QueueFull:
+            if tcl.state.outbound_full_since is None:
+                tcl.state.outbound_full_since = time.monotonic()
+            self.info.messages_dropped += 1
+            self.hooks.on_publish_dropped(tcl, pk_source())
+            return False
+
+    def try_fast_publish(self, cl: Client, frame: bytes, body_offset: int) -> bool:
+        """QoS0 v4 PUBLISH frame passthrough, the data-plane fast path.
+
+        Delivers an inbound frame without materializing a ``Packet`` when
+        nothing can observe the difference (server.go:857-1021). The caller
+        guarantees first byte 0x30 (qos/dup/retain all zero) and that
+        ``fast_publish_eligible`` held; this method adds the topic gates
+        (a plain non-``$`` topic, byte rules a strict superset of
+        ``is_valid_filter``'s publish rejections) and requires no
+        shared/inline/predicated subscribers. The v4 QoS0 frame is
+        version- and property-free, so inbound bytes equal outbound bytes
+        for every shared-frame-eligible target.
+
+        Returns True when fully handled (including an ACL-denied silent
+        drop); False defers to the decode path, which owns all error and
+        edge-case semantics."""
+        body_len = len(frame) - body_offset
+        if body_len < 2:
+            return False
+        # the frame is relayed VERBATIM, so its remaining-length varint
+        # must be minimally encoded
+        if body_offset - 1 != (
+            1 if body_len < 128 else 2 if body_len < 16384 else 3 if body_len < 2097152 else 4
+        ):
+            return False
+        tl = (frame[body_offset] << 8) | frame[body_offset + 1]
+        t0 = body_offset + 2
+        end = t0 + tl
+        if tl == 0 or len(frame) < end:
+            return False  # empty/truncated topic: decode path raises
+        raw = frame[t0:end]
+        if b"+" in raw or b"#" in raw or b"\x00" in raw or raw[:1] == b"$":
+            return False  # wildcard/$-topic rules live in the slow path
+        try:
+            topic = raw.decode("utf-8")
+        except UnicodeDecodeError:
+            return False
+
+        plan = self._plan_for_topic(topic)
+        if plan is None:
+            return False
+
+        self.info.packets_received += 1
+        self.info.messages_received += 1
+        if not self.hooks.on_acl_check(cl, topic, True):
+            return True  # QoS0 deny is a silent drop (server.go:879-881)
+        self._fast_fan_frame(plan, topic, frame, body_offset, cl.id)
+        return True
+
+    def _plan_for_topic(self, topic: str):
+        """The fast path's fan-out plan, cached per (topic, trie version):
+        the walk and the per-subscription identifier scan re-run only
+        after a mutation. None means the topic needs the decode path
+        (shared/inline/predicated subscribers — negative-cached too)."""
+        version = self.topics.version
+        cached = self._fastpub_plans.get(topic)
+        if cached is not None and cached[0] == version:
+            return cached[1]
+        subscribers = self.topics.subscribers(topic)
+        if (
+            subscribers.shared
+            or subscribers.inline_subscriptions
+            or any(
+                sub.predicates
+                for sub in subscribers.subscriptions.values()
+            )
+        ):
+            # negative-cache: shared/inline topics — and topics with any
+            # PREDICATED subscriber, whose delivery depends on each
+            # payload — always take the decode path; don't re-walk here
+            # on every publish. Version-keyed, so a predicated subscribe
+            # (which bumps the trie version) invalidates stale plans.
+            if len(self._fastpub_plans) >= 4096:
+                self._fastpub_plans.clear()
+            self._fastpub_plans[topic] = (version, None)
+            return None
+        plan = [
+            # frame-shareable iff nothing in the SUBSCRIPTION forces a
+            # rewrite; the per-SESSION half (version/alias/size) is
+            # re-verified at delivery, since cids can reconnect with
+            # different properties under the same plan
+            (cid, sub, not (sub.identifiers and any(v > 0 for v in sub.identifiers.values())), sub.no_local)
+            for cid, sub in subscribers.subscriptions.items()
+        ]
+        if len(self._fastpub_plans) >= 4096:
+            self._fastpub_plans.clear()
+        self._fastpub_plans[topic] = (version, plan)
+        return plan
+
+    def _fast_fan_frame(
+        self, plan, topic: str, frame: bytes, body_offset: int, origin: str
+    ) -> None:
+        """The fast path's delivery loop over a cached fan-out plan:
+        shareable v4 targets get the frame verbatim, everything else takes
+        the full per-subscription path."""
+        pk: Optional[Packet] = None  # decoded lazily, once, for slow paths
+
+        def pk_source() -> Packet:
+            nonlocal pk
+            if pk is None:
+                pk = self._decode_fast_frame(origin, frame[body_offset:])
+            return pk
+
+        clients_get = self.clients.get
+        on_acl = self.hooks.on_acl_check
+        for cid, sub, shareable, no_local in plan:
+            tcl = clients_get(cid)
+            if tcl is None or (no_local and cid == origin):
+                continue  # [MQTT-3.8.3-3]
+            props = tcl.properties
+            if (
+                shareable
+                and props.protocol_version == 4
+                and props.props.topic_alias_maximum == 0
+                and props.props.maximum_packet_size == 0
+            ):
+                if not on_acl(tcl, topic, False):
+                    continue
+                if tcl.net.writer is None or tcl.closed:
+                    continue
+                self._enqueue_frame(tcl, frame, pk_source)
+                continue
+            # v5 target / identifiers / alias / size cap: full per-sub path
+            try:
+                self.publish_to_client(tcl, sub, pk_source())
+            except Exception as e:
+                self.log.debug("failed publishing packet: error=%s client=%s", e, cid)
+
+    def _decode_fast_frame(self, origin: str, body: bytes) -> Packet:
+        """Materialize the Packet for a fast-path frame that met a
+        per-target slow case, stamped exactly like process_publish."""
+        pk = Packet(
+            fixed_header=FixedHeader(type=pkts.PUBLISH), protocol_version=4
+        )
+        pk.publish_decode(body)
+        pk.origin = origin
+        self._stamp_publish_expiry(pk)
         return pk
 
-    out = pk.copy(False)
-    out.topic_name = topic
-    if not ops.hooks.on_acl_check(cl, topic, False):
-        raise ERR_NOT_AUTHORIZED()
-    if not sub.fwd_retained_flag and (
-        (cl.properties.protocol_version == 5 and not sub.retain_as_published)
-        or cl.properties.protocol_version < 5
-    ):  # ![MQTT-3.3.1-13] [v3 MQTT-3.3.1-9]
-        out.fixed_header.retain = False  # [MQTT-3.3.1-12]
+    def fan_out_targets(self, pk: Packet, subscribers, feats=None):
+        """The selection of one matched publish (server.go:1000-1021):
+        ``(items, inline, emissions)``, where ``items`` are the delivery
+        targets as ``(client id, Subscription)`` pairs, ``inline`` the
+        inline subscriptions to call, and ``emissions`` the MQTT+
+        aggregation windows this publish completed.
 
-    if sub.identifiers:  # [MQTT-3.3.4-3]
-        out.properties.subscription_identifier = sorted(sub.identifiers.values())  # [MQTT-3.3.4-4] ![MQTT-3.3.4-5]
+        A lazy ``SubscribersView`` result (the device's rows as the
+        currency, native/accelmod.c) is consumed through its ``targets()``
+        plan without building the dicts, as long as no dict-semantics
+        consumer is ahead (shared groups, inline handlers, live predicate
+        rules). Otherwise it materializes here; the predicate rules filter
+        it (``feats`` carries the publish's device verdicts, else the host
+        interpreter decides), the ``on_select_subscribers`` seam and
+        ``select_shared`` pick one member per ``$SHARE`` group, and
+        ``merge_shared_selected`` folds them in."""
+        eng = self._predicates
+        if type(subscribers) is accel().SubscribersView:
+            if (
+                (eng is None or not eng.active)
+                and not subscribers.has_shared
+                and not subscribers.has_inline
+            ):
+                return subscribers.targets(), (), ()
+            subscribers = subscribers.materialize()
+        emissions = ()
+        if eng is not None and eng.active:
+            subscribers, emissions = eng.apply(subscribers, bytes(pk.payload), feats)
+        if subscribers.shared:
+            subscribers = self.hooks.on_select_subscribers(subscribers, pk)
+            if not subscribers.shared_selected:
+                subscribers.select_shared()
+            subscribers.merge_shared_selected()
+        return (
+            subscribers.subscriptions.items(),
+            subscribers.inline_subscriptions.values(),
+            emissions,
+        )
 
-    caps = ops.options.capabilities
-    if out.fixed_header.qos > sub.qos:
-        out.fixed_header.qos = sub.qos
-    if out.fixed_header.qos > caps.maximum_qos:
-        out.fixed_header.qos = caps.maximum_qos  # [MQTT-3.2.2-9]
+    def deliver_inline(self, inline, pk: Packet) -> None:
+        """Call each inline subscription's handler with the publish, as
+        the inline client (part of server.go:1000-1021)."""
+        for inline_sub in inline:
+            inline_sub.handler(self.inline_client, inline_sub, pk)
 
-    if cl.properties.props.topic_alias_maximum > 0:
-        alias, alias_exists = cl.state.topic_aliases.outbound.set(topic)
-        out.properties.topic_alias = alias
-        if alias > 0:
-            out.properties.topic_alias_flag = True
-            if alias_exists:
-                out.topic_name = ""
+    def _fan_out(self, pk: Packet, subscribers, feats=None, rjob=None) -> None:
+        """Deliver one matched publish: the selection (``fan_out_targets``),
+        inline handlers, per-subscriber delivery (server.go:1000-1021).
 
-    if out.fixed_header.qos > 0:
+        MQTT+ predicate filtering happens in the selection, the one choke
+        point every delivery path funnels through (the staged fan-out and
+        the host sync path).
+
+        Tenant-namespace publishes (tenancy) strip their scope prefix here
+        (every subscriber of a scoped topic is in the same tenant by
+        construction, so one copy serves the whole fan-out), and
+        encrypted-namespace publishes take the batched re-encryption leg
+        instead of the shared-frame path (``rjob`` is the staged decrypt
+        carrier when the pipeline generated the keystream on the card)."""
+        items, inline, emissions = self.fan_out_targets(pk, subscribers, feats)
+
+        # tenant namespace: deliveries carry the tenant-LOCAL topic
+        # (clients never see the scope prefix); the scoped pk itself stays
+        # untouched
+        dpk = pk
+        enc_tenant = None
+        if pk.topic_name[:1] == NS_CHAR and self._tenancy is not None:
+            dpk = pk.copy(False)
+            dpk.topic_name = ns_local(pk.topic_name)
+            tenant = self._tenancy.tenant_of_topic(pk.topic_name)
+            if (
+                self._recrypt is not None
+                and tenant is not None
+                and tenant.is_encrypted(dpk.topic_name)
+            ):
+                enc_tenant = tenant
+
+        if enc_tenant is None:
+            self.deliver_inline(inline, dpk)
+
+        if enc_tenant is not None:
+            self._fan_out_encrypted(enc_tenant, pk, dpk, items, rjob)
+        elif self._fanout_batch and not self.hooks.provides(ON_PACKET_ENCODE, ON_PACKET_SENT):
+            # encode-once variant-grouped delivery with the batched
+            # GIL-released flush
+            self._fan_out_batched(dpk, items)
+        else:
+            # the per-subscriber path (hooks that observe encodes/sends, or
+            # the batching knob off): QoS0 still shares frames through the
+            # per-publish cache; QoS>0 re-encodes per subscriber
+            fast = None
+            if dpk.fixed_header.qos == 0 and not self.hooks.provides(
+                ON_PACKET_ENCODE, ON_PACKET_SENT
+            ):
+                fast = _FrameCache(dpk)
+            for id_, subs in items:
+                cl = self.clients.get(id_)
+                if cl is not None:
+                    try:
+                        self.publish_to_client(cl, subs, dpk, fast)
+                    except Exception as e:
+                        self.log.debug(
+                            "failed publishing packet: error=%s client=%s", e, id_
+                        )
+                    else:
+                        self._note_tenant_out(cl, dpk)
+
+        # MQTT+ aggregation windows that completed on this publish emit ONE
+        # synthesized publish each (payload = the aggregate), riding the
+        # same fan-out tick
+        for kind, target, sub, agg_payload in emissions:
+            out = dpk.copy(False)
+            out.payload = agg_payload
+            if kind == "inline":
+                try:
+                    target.handler(self.inline_client, target, out)
+                except Exception as e:
+                    self.log.debug("inline aggregate handler failed: %s", e)
+                continue
+            cl = self.clients.get(target)
+            if cl is not None:
+                try:
+                    self.publish_to_client(cl, sub, out)
+                except Exception as e:
+                    self.log.debug(
+                        "failed publishing aggregate: error=%s client=%s", e, target
+                    )
+
+    def _fan_out_batched(self, dpk: Packet, items) -> None:
+        """Encode-once variant-grouped fan-out. Targets are grouped by
+        (protocol version, effective QoS, retain), the complete set of
+        per-target wire differences once aliasing/size-caps/positive-
+        identifier sessions are excluded, and each variant's frame is
+        encoded ONCE. QoS>0 targets get their packet id patched inside the
+        batched native flush (writev iovecs, GIL released across the whole
+        delivery batch); targets whose session forces a per-subscriber
+        rewrite take publish_to_client. Per-socket backpressure (bounded
+        outbound queues) and every drop counter behave exactly as the
+        per-subscriber path."""
+        topic = dpk.topic_name
+        sys_topic = topic.startswith("$SYS")
+        caps = self.options.capabilities
+        origin = dpk.origin
+        clients_get = self.clients.get
+        groups: dict[tuple, list] = {}
+        slow: list = []
+        for cid, sub in items:
+            cl = clients_get(cid)
+            if cl is None or (sub.no_local and cid == origin):
+                continue  # [MQTT-3.8.3-3]
+            props = cl.properties
+            if not self._shared_frame_ok(props, sub):
+                slow.append((cl, sub))
+                continue
+            eff = dpk.fixed_header.qos
+            if eff > sub.qos:
+                eff = sub.qos
+            if eff > caps.maximum_qos:
+                eff = caps.maximum_qos  # [MQTT-3.2.2-9]
+            pv = props.protocol_version
+            retain = dpk.fixed_header.retain and (
+                sub.fwd_retained_flag
+                or (pv == 5 and sub.retain_as_published)
+            )  # [MQTT-3.3.1-12] / [MQTT-3.3.1-13]
+            groups.setdefault((pv, eff, bool(retain)), []).append((cl, sub))
+
+        variants = []
+        for (pv, eff, retain), group in groups.items():
+            out = dpk.copy(False)
+            out.fixed_header.qos = eff
+            out.fixed_header.retain = retain
+            out.protocol_version = pv
+            if eff > 0:
+                # nonzero placeholder (the encoder rejects pid 0 on QoS>0);
+                # every target's real id is patched at flush
+                out.packet_id = 1
+            if out.expiry > 0:
+                # the send-time expiry rewrite [MQTT-3.3.2-6], once per
+                # variant instead of per subscriber
+                out.properties.message_expiry_interval = max(
+                    1, out.expiry - int(time.time())  # brokerlint: ok=R3 message expiry is an absolute wall-clock stamp
+                )
+            buf = get_buffer()
+            try:
+                pkts.ENCODERS[pkts.PUBLISH](out, buf)
+                data = bytes(buf)
+            finally:
+                put_buffer(buf)
+            id_off = -1
+            if eff > 0:
+                # packet id sits right after the topic in the variable
+                # header (no aliasing in this path, so the topic is always
+                # present)
+                id_off = publish_frame_body_offset(data) + 2 + len(topic.encode("utf-8"))
+            variants.append((eff, retain, data, id_off, group))
+
+        for eff, retain, data, id_off, group in variants:
+            self._flush_variant(dpk, eff, retain, data, id_off, group, sys_topic)
+        for cl, sub in slow:
+            try:
+                self.publish_to_client(cl, sub, dpk)
+            except Exception as e:
+                self.log.debug("failed publishing packet: error=%s client=%s", e, cl.id)
+            else:
+                self._note_tenant_out(cl, dpk)
+
+    def _flush_variant(
+        self,
+        dpk: Packet,
+        eff: int,
+        retain: bool,
+        data: bytes,
+        id_off: int,
+        group: list,
+        sys_topic: bool,
+    ) -> None:
+        """Deliver one encoded variant to its target group: ready sockets
+        (idle transport + empty outbound queue, no TLS) flush through ONE
+        GIL-released native call (``native.fan_flush``); everything else
+        rides the bounded outbound queue with its backpressure and drop
+        accounting."""
+        from .native import fan_flush
+
+        topic = dpk.topic_name
+        if topic[:1] == NS_CHAR:
+            topic = ns_local(topic)
+        on_acl = self.hooks.on_acl_check
+        flush: list = []
+        for cl, sub in group:
+            try:
+                if not on_acl(cl, topic, False):
+                    continue
+                if cl.closed or cl.net.writer is None:
+                    continue
+                pid = 0
+                if eff > 0:
+                    pid = self._begin_qos_delivery(cl, dpk, eff, retain)
+                    if pid < 0:
+                        continue  # quota-refused or parked for resend
+                writer = cl.net.writer
+                fd = -1
+                if (
+                    cl.state.outbound_qty == 0
+                    and writer.get_extra_info("sslcontext") is None
+                    and writer.transport.get_write_buffer_size() == 0
+                ):
+                    sock = writer.get_extra_info("socket")
+                    if sock is not None:
+                        try:
+                            fd = sock.fileno()
+                        except OSError:
+                            fd = -1
+                if fd >= 0:
+                    # tenant accounting deferred to the flush outcome
+                    flush.append((cl, fd, pid))
+                    continue
+                frame = data if id_off < 0 else self._patch_id(data, id_off, pid)
+                if not self._enqueue_frame(cl, frame, lambda: dpk):
+                    if eff > 0:
+                        self._rollback_qos_delivery(cl, pid)
+                    continue
+            except Exception as e:
+                self.log.debug("failed publishing packet: error=%s client=%s", e, cl.id)
+                continue
+            self._note_tenant_out(cl, dpk)
+        if not flush:
+            return
+        sent = fan_flush(
+            [fd for _, fd, _ in flush],
+            data,
+            id_off,
+            [pid for _, _, pid in flush] if id_off >= 0 else None,
+        )
+        n = len(data)
+        for (cl, _fd, pid), wrote in zip(flush, sent.tolist()):
+            if wrote == n:
+                self._note_direct_write(cl, n)
+            elif wrote >= 0:
+                # short write (kernel buffer filled mid-frame): finish
+                # through the transport; ordering-safe, the transport
+                # buffer was empty and we never left the loop thread
+                frame = data if id_off < 0 else self._patch_id(data, id_off, pid)
+                try:
+                    cl.net.writer.write(frame[wrote:])
+                except Exception as e:
+                    self.log.debug("fan-out flush tail failed: error=%s client=%s", e, cl.id)
+                    continue
+                self._note_direct_write(cl, n)
+            else:
+                # -errno (EAGAIN-before-anything, or the connection is
+                # going away): the transport path owns delivery + errors
+                frame = data if id_off < 0 else self._patch_id(data, id_off, pid)
+                if not self._transport_write_frame(cl, frame):
+                    continue
+            # accounting only on a delivery that actually went out
+            self._note_tenant_out(cl, dpk)
+
+    @staticmethod
+    def _patch_id(data: bytes, id_off: int, pid: int) -> bytes:
+        """A copy of the variant frame with this target's packet id."""
+        b = bytearray(data)
+        b[id_off] = (pid >> 8) & 0xFF
+        b[id_off + 1] = pid & 0xFF
+        return bytes(b)
+
+    def _begin_qos_delivery(
+        self, cl: Client, dpk: Packet, eff: int, retain: bool
+    ) -> int:
+        """The QoS>0 per-target bookkeeping of publish_to_client —
+        inflight cap, packet-id allocation, inflight store, send quota —
+        WITHOUT the per-target encode. Returns the allocated packet id,
+        or -1 when nothing must be written now (quota refusal, or the
+        send-quota park that resends once quota frees)."""
+        caps = self.options.capabilities
         if len(cl.state.inflight) >= caps.maximum_inflight:
-            ops.info.inflight_dropped += 1
-            ops.log.warning("client store quota reached: client=%s listener=%s", cl.id, cl.net.listener)
-            raise ERR_QUOTA_EXCEEDED()
+            self.info.inflight_dropped += 1
+            self.log.warning(
+                "client store quota reached: client=%s listener=%s",
+                cl.id, cl.net.listener,
+            )
+            return -1
         try:
             i = cl.next_packet_id()  # [MQTT-4.3.2-1] [MQTT-4.3.3-1]
         except Code:
-            ops.hooks.on_packet_id_exhausted(cl, pk)
-            ops.info.inflight_dropped += 1
-            ops.log.warning("packet ids exhausted: client=%s listener=%s", cl.id, cl.net.listener)
-            raise ERR_QUOTA_EXCEEDED() from None
-
+            self.hooks.on_packet_id_exhausted(cl, dpk)
+            self.info.inflight_dropped += 1
+            self.log.warning(
+                "packet ids exhausted: client=%s listener=%s",
+                cl.id, cl.net.listener,
+            )
+            return -1
+        out = dpk.copy(False)
+        out.topic_name = (
+            ns_local(dpk.topic_name)
+            if dpk.topic_name[:1] == NS_CHAR
+            else dpk.topic_name
+        )
+        out.fixed_header.qos = eff
+        out.fixed_header.retain = retain
         out.packet_id = i & 0xFFFF  # [MQTT-2.2.1-4]
         sent_quota = cl.state.inflight.send_quota
-
         if cl.state.inflight.set(out):  # [MQTT-4.3.2-3] [MQTT-4.3.3-3]
-            ops.info.inflight += 1
-            ops.hooks.on_qos_publish(cl, out, out.created, 0)
+            self.info.inflight += 1
+            self.hooks.on_qos_publish(cl, out, out.created, 0)
             cl.state.inflight.decrease_send_quota()
-
         if sent_quota == 0 and cl.state.inflight.maximum_send_quota > 0:
             out.expiry = -1  # mark for immediate resend once quota frees
             cl.state.inflight.set(out)
-            return out
+            return -1
+        return out.packet_id
 
-    if cl.net.writer is None or cl.closed:
-        raise CODE_DISCONNECT()
+    def _rollback_qos_delivery(self, cl: Client, pid: int) -> None:
+        """Undo _begin_qos_delivery after a failed enqueue — the exact
+        rollback publish_to_client performs on a full outbound queue."""
+        cl.state.inflight.delete(pid)
+        cl.state.inflight.increase_send_quota()
 
-    try:
-        cl.state.outbound.put_nowait(out)
-        cl.state.outbound_full_since = None
-        stamp_outbound(ops, cl)
-    except asyncio.QueueFull:
-        if cl.state.outbound_full_since is None:
-            # slow-consumer eviction clock (overload SHED posture)
-            cl.state.outbound_full_since = time.monotonic()
-        ops.info.messages_dropped += 1
-        ops.hooks.on_publish_dropped(cl, pk)
+    def _note_direct_write(self, cl: Client, nbytes: int) -> None:
+        """Accounting for one completed direct-socket delivery: the
+        io counters ``clients.write_frame`` keeps."""
+        self.info.bytes_sent += nbytes
+        self.info.packets_sent += 1
+        self.info.messages_sent += 1
+        st = cl.state
+        st.out_bytes += nbytes
+        st.out_writes += 1
+
+    @staticmethod
+    def _note_tenant_out(cl: Client, dpk: Packet) -> None:
+        """Per-tenant outbound accounting for one completed delivery."""
+        if cl.tenant is not None:
+            cl.tenant.messages_out += 1
+            cl.tenant.bytes_out += len(dpk.payload)
+
+    def _transport_write_frame(self, cl: Client, frame: bytes) -> bool:
+        """Delivery of a pre-encoded frame through the asyncio transport
+        (the native flush refused the socket); False = the write was not
+        accepted."""
+        try:
+            cl.write_frame(frame)
+        except Exception as e:
+            self.log.debug("failed publishing packet: error=%s client=%s", e, cl.id)
+            return False
+        return True
+
+    def _key_idents(self, cid: str, cl: Optional[Client] = None) -> tuple:
+        """The key-identity candidates for a client id: the tenant-LOCAL
+        client id first, then the connected client's username — whatever
+        the operator keyed the tenant's key map on (``tenancy``)."""
+        from .tenancy import local_client_id
+
+        if cl is None:
+            cl = self.clients.get(cid)
+        uname = ""
+        if cl is not None:
+            u = cl.properties.username
+            uname = (
+                u.decode("utf-8", "replace")
+                if isinstance(u, (bytes, bytearray))
+                else (u or "")
+            )
+        return (local_client_id(cid), uname)
+
+    def _origin_idents(self, pk: Packet) -> tuple:
+        """Key-identity candidates for a publish's ORIGIN: the live
+        session's identities (the JAX package adds the username a cluster
+        forward carries; the port has no cluster)."""
+        return self._key_idents(pk.origin)
+
+    def _recrypt_job_for(self, cl: Client, pk: Packet):
+        """The staged decrypt carrier for an encrypted-namespace publish
+        (None for everything else). Built at submit time so the
+        keystream launch rides the match batch (``staging``)."""
+        renc = self._recrypt
+        tenant = cl.tenant
+        if renc is None or tenant is None:
+            return None
+        local = ns_local(pk.topic_name)
+        if not tenant.is_encrypted(local):
+            return None
+        return renc.decrypt_job(
+            tenant, self._key_idents(pk.origin, cl), bytes(pk.payload)
+        )
+
+    def _fan_out_encrypted(self, tenant, pk: Packet, dpk: Packet, items, rjob) -> None:
+        """The re-encryption fan-out (tenancy): decrypt the publish once
+        with the publisher's key (the staged keystream when the batch rode
+        the card, the host path otherwise), re-encrypt per subscriber in
+        ONE batched keystream launch, and deliver each subscriber its own
+        ``nonce || ciphertext``. Keyless subscribers receive nothing
+        (counted): an encrypted namespace never leaks plaintext or someone
+        else's ciphertext.
+
+        Shareable-QoS0 targets skip the per-subscriber Packet+encode: one
+        shared frame HEAD is encoded per (version, retain) variant and the
+        native layer assembles ``head || nonce_i || ciphertext_i`` frames
+        from the batched keystream XOR in a single pass."""
+        renc = self._recrypt
+        plaintext = renc.open_publish(
+            tenant, self._origin_idents(pk), bytes(pk.payload), rjob
+        )
+        if plaintext is None:
+            # keyless publisher / malformed framing: the publish is
+            # undeliverable (engine counters carry the reason)
+            self.info.messages_dropped += 1
+            tenant.messages_dropped += 1
+            return
+        items = list(items)
+        if self._fanout_batch and not self.hooks.provides(ON_PACKET_ENCODE, ON_PACKET_SENT):
+            if self._fan_out_encrypted_batched(tenant, dpk, plaintext, items):
+                return
+        key_targets = [(cid, self._key_idents(cid)) for cid, _sub in items]
+        sealed = renc.seal_fanout(tenant, plaintext, key_targets)
+        for id_, subs in items:
+            data = sealed.get(id_)
+            if data is None:
+                continue  # keyless subscriber: withheld, counted
+            cl = self.clients.get(id_)
+            if cl is None:
+                continue
+            out = dpk.copy(False)
+            out.payload = data
+            try:
+                self.publish_to_client(cl, subs, out)
+            except Exception as e:
+                self.log.debug(
+                    "failed publishing recrypted packet: error=%s client=%s", e, id_
+                )
+            else:
+                tenant.messages_out += 1
+                tenant.bytes_out += len(data)
+
+    def _fan_out_encrypted_batched(
+        self, tenant, dpk: Packet, plaintext: bytes, items: list
+    ) -> bool:
+        """The re-encrypt fan-out's encode-once leg: ONE keystream launch
+        for every keyed target, then per-subscriber frames assembled in C
+        (``native.assemble_frames``) as ``head || nonce_i || (plaintext XOR
+        keystream_i)``; the frame HEAD is encoded once per (version,
+        retain) variant. Targets whose session forces a per-subscriber
+        rewrite (QoS>0, aliasing, size caps, positive identifiers) still
+        ride publish_to_client with their sealed payloads, from the same
+        keystream launch. Returns True when delivery was fully handled
+        here."""
+        import numpy as np
+
+        from .native import assemble_frames
+
+        renc = self._recrypt
+        caps = self.options.capabilities
+        clients_get = self.clients.get
+        origin = dpk.origin
+        live: list = []  # (cid, cl, sub, eff, pv, retain, shareable)
+        for cid, sub in items:
+            cl = clients_get(cid)
+            if cl is None or (sub.no_local and cid == origin):
+                continue
+            props = cl.properties
+            eff = dpk.fixed_header.qos
+            if eff > sub.qos:
+                eff = sub.qos
+            if eff > caps.maximum_qos:
+                eff = caps.maximum_qos
+            pv = props.protocol_version
+            retain = dpk.fixed_header.retain and (
+                sub.fwd_retained_flag
+                or (pv == 5 and sub.retain_as_published)
+            )
+            shareable = eff == 0 and self._shared_frame_ok(props, sub)
+            live.append((cid, cl, sub, eff, pv, bool(retain), shareable))
+        if not any(s for *_x, s in live):
+            return False  # nothing shareable: the per-subscriber path is simpler
+        raw = renc.seal_fanout_raw(
+            tenant, plaintext,
+            [(cid, self._key_idents(cid, cl)) for cid, cl, *_r in live],
+        )
+        if raw is None:
+            # keyless everything: withheld (counted by the engine)
+            return True
+        keyed, nonces, rows = raw
+        kmap = {tkey: i for i, (tkey, _kid) in enumerate(keyed)}
+        n_blocks = (len(plaintext) + 15) // 16
+        ks2d = rows.reshape(len(keyed), n_blocks * 16) if rows is not None else None
+        payload_len = renc.nonce_bytes + len(plaintext)
+
+        # group shareable targets by head variant; deliver the rest
+        # per-subscriber with their sealed payload slices
+        groups: dict[tuple, list] = {}
+        pt_arr = np.frombuffer(plaintext, dtype=np.uint8)
+        for cid, cl, sub, eff, pv, retain, shareable in live:
+            ki = kmap.get(cid)
+            if ki is None:
+                continue  # keyless subscriber: withheld, counted
+            if shareable:
+                groups.setdefault((pv, retain), []).append((cl, ki))
+                continue
+            data = nonces[ki].tobytes() + (
+                (ks2d[ki][: len(plaintext)] ^ pt_arr).tobytes()
+                if ks2d is not None
+                else b""
+            )
+            out = dpk.copy(False)
+            out.payload = data
+            try:
+                self.publish_to_client(cl, sub, out)
+            except Exception as e:
+                self.log.debug(
+                    "failed publishing recrypted packet: error=%s client=%s", e, cid
+                )
+            else:
+                tenant.messages_out += 1
+                tenant.bytes_out += len(data)
+
+        # the tenant-LOCAL topic (what the subscriber subscribed to): the
+        # ACL below must judge what the client sees on the wire
+        topic = dpk.topic_name
+        if topic[:1] == NS_CHAR:
+            topic = ns_local(topic)
+        for (pv, retain), group in groups.items():
+            out = dpk.copy(False)
+            out.fixed_header.qos = 0
+            out.fixed_header.retain = retain
+            out.protocol_version = pv
+            out.payload = b"\x00" * payload_len  # placeholder bytes only
+            if out.expiry > 0:
+                out.properties.message_expiry_interval = max(
+                    1, out.expiry - int(time.time())  # brokerlint: ok=R3 message expiry is an absolute wall-clock stamp
+                )
+            buf = get_buffer()
+            try:
+                pkts.ENCODERS[pkts.PUBLISH](out, buf)
+                frame = bytes(buf)
+            finally:
+                put_buffer(buf)
+            head = frame[: len(frame) - payload_len]
+            idxs = [ki for _cl, ki in group]
+            if ks2d is not None:
+                rows_bytes = [
+                    f.tobytes() for f in assemble_frames(head, nonces[idxs], ks2d[idxs], plaintext)
+                ]
+            else:
+                # an empty plaintext: the frames are the head and the nonce
+                rows_bytes = [head + nonces[ki].tobytes() for ki in idxs]
+            for (cl, _ki), fbytes in zip(group, rows_bytes):
+                try:
+                    # the per-target read ACL every delivery path enforces
+                    # (publish_to_client raises on the slow legs; here
+                    # denial withholds the frame)
+                    if not self.hooks.on_acl_check(cl, topic, False):
+                        continue
+                    if cl.closed or cl.net.writer is None:
+                        continue
+                    if self._enqueue_frame(cl, fbytes, lambda: dpk):
+                        tenant.messages_out += 1
+                        tenant.bytes_out += payload_len
+                except Exception as e:
+                    self.log.debug(
+                        "failed publishing recrypted packet: error=%s client=%s", e, cl.id
+                    )
+        return True
+
+    def publish_to_client(
+        self,
+        cl: Client,
+        sub: Subscription,
+        pk: Packet,
+        fast: Optional["_FrameCache"] = None,
+    ) -> Packet:
+        """Deliver one publish to one subscriber (server.go:1023-1113):
+        onto its outbound queue, which its write loop drains.
+
+        A namespace-scoped ``pk`` (retained deliveries walk the trie
+        directly, so their packets still carry the tenant prefix) is
+        delivered under its tenant-LOCAL topic: the ACL, aliasing, and the
+        wire all see what the client subscribed to."""
+        if sub.no_local and pk.origin == cl.id:
+            return pk  # [MQTT-3.8.3-3]
+
+        if _LOOP_PLANE.active:
+            w = _LOOP_PLANE.witness
+            if w is not None:
+                eff = pk.fixed_header.qos
+                if eff > sub.qos:
+                    eff = sub.qos
+                if eff > 0 or cl.properties.props.topic_alias_maximum > 0:
+                    # this delivery mutates loop-affine per-client state
+                    # (packet ids / inflight / outbound aliases)
+                    w.check_owner("client_state", "owner_touch", cl.net.loop, detail=cl.id)
+        topic = pk.topic_name
+        if topic[:1] == NS_CHAR:
+            topic = ns_local(topic)
+
+        # zero-valued identifiers never reach the wire (properties.py
+        # encodes only v > 0), so they don't disqualify the shared frame
+        if fast is not None and self._shared_frame_ok(cl.properties, sub):
+            if not self.hooks.on_acl_check(cl, topic, False):
+                raise ERR_NOT_AUTHORIZED()
+            retain = pk.fixed_header.retain and (
+                sub.fwd_retained_flag or (cl.properties.protocol_version == 5 and sub.retain_as_published)
+            )
+            data = fast.get(cl.properties.protocol_version, retain)
+            if cl.net.writer is None or cl.closed:
+                raise CODE_DISCONNECT()
+            if not self._enqueue_frame(cl, data, lambda: pk):
+                raise ERR_PENDING_CLIENT_WRITES_EXCEEDED()
+            return pk
+
+        out = pk.copy(False)
+        out.topic_name = topic
+        if not self.hooks.on_acl_check(cl, topic, False):
+            raise ERR_NOT_AUTHORIZED()
+        if not sub.fwd_retained_flag and (
+            (cl.properties.protocol_version == 5 and not sub.retain_as_published)
+            or cl.properties.protocol_version < 5
+        ):  # ![MQTT-3.3.1-13] [v3 MQTT-3.3.1-9]
+            out.fixed_header.retain = False  # [MQTT-3.3.1-12]
+
+        if sub.identifiers:  # [MQTT-3.3.4-3]
+            out.properties.subscription_identifier = sorted(sub.identifiers.values())  # [MQTT-3.3.4-4] ![MQTT-3.3.4-5]
+
+        caps = self.options.capabilities
+        if out.fixed_header.qos > sub.qos:
+            out.fixed_header.qos = sub.qos
+        if out.fixed_header.qos > caps.maximum_qos:
+            out.fixed_header.qos = caps.maximum_qos  # [MQTT-3.2.2-9]
+
+        if cl.properties.props.topic_alias_maximum > 0:
+            alias, alias_exists = cl.state.topic_aliases.outbound.set(topic)
+            out.properties.topic_alias = alias
+            if alias > 0:
+                out.properties.topic_alias_flag = True
+                if alias_exists:
+                    out.topic_name = ""
+
         if out.fixed_header.qos > 0:
-            cl.state.inflight.delete(out.packet_id)  # rollback inflight
-            cl.state.inflight.increase_send_quota()
-        raise ERR_PENDING_CLIENT_WRITES_EXCEEDED() from None
+            if len(cl.state.inflight) >= caps.maximum_inflight:
+                self.info.inflight_dropped += 1
+                self.log.warning("client store quota reached: client=%s listener=%s", cl.id, cl.net.listener)
+                raise ERR_QUOTA_EXCEEDED()
+            try:
+                i = cl.next_packet_id()  # [MQTT-4.3.2-1] [MQTT-4.3.3-1]
+            except Code:
+                self.hooks.on_packet_id_exhausted(cl, pk)
+                self.info.inflight_dropped += 1
+                self.log.warning("packet ids exhausted: client=%s listener=%s", cl.id, cl.net.listener)
+                raise ERR_QUOTA_EXCEEDED() from None
 
-    return out
+            out.packet_id = i & 0xFFFF  # [MQTT-2.2.1-4]
+            sent_quota = cl.state.inflight.send_quota
+
+            if cl.state.inflight.set(out):  # [MQTT-4.3.2-3] [MQTT-4.3.3-3]
+                self.info.inflight += 1
+                self.hooks.on_qos_publish(cl, out, out.created, 0)
+                cl.state.inflight.decrease_send_quota()
+
+            if sent_quota == 0 and cl.state.inflight.maximum_send_quota > 0:
+                out.expiry = -1  # mark for immediate resend once quota frees
+                cl.state.inflight.set(out)
+                return out
+
+        if cl.net.writer is None or cl.closed:
+            raise CODE_DISCONNECT()
+
+        try:
+            cl.state.outbound.put_nowait(out)
+            cl.state.outbound_full_since = None
+        except asyncio.QueueFull:
+            if cl.state.outbound_full_since is None:
+                cl.state.outbound_full_since = time.monotonic()
+            self.info.messages_dropped += 1
+            self.hooks.on_publish_dropped(cl, pk)
+            if out.fixed_header.qos > 0:
+                cl.state.inflight.delete(out.packet_id)  # rollback inflight
+                cl.state.inflight.increase_send_quota()
+            raise ERR_PENDING_CLIENT_WRITES_EXCEEDED() from None
+
+        return out
+
+    def publish_retained_to_client(self, cl: Client, sub: Subscription, existed: bool) -> None:
+        """Send matching retained messages after a subscribe
+        (server.go:1115-1133)."""
+        if is_shared_filter(sub.filter):
+            return  # 4.8.2 Non-normative: no retained on shared subscribe
+        if (sub.retain_handling == 1 and existed) or sub.retain_handling == 2:
+            return  # [MQTT-3.3.1-10] [MQTT-3.3.1-11]
+        # value-copy: the reference ranges over Subscription values, so the
+        # trie-stored subscription never carries fwd_retained_flag
+        sub = replace(sub, fwd_retained_flag=True)
+        # device-resident retained matching: the flat publish
+        # kernel run in reverse answers wildcard filters against the
+        # retained corpus; None (non-wildcard, $SHARE, fallback class,
+        # open breaker) = host trie walk, the differential oracle
+        retained_msgs: list = []
+        if self._retained_engine is not None:
+            names = self._retained_engine.match(sub.filter)
+            if names is not None:
+                retained_msgs = [
+                    m
+                    for m in (self.topics.retained.get(n) for n in names)
+                    if m is not None
+                ]
+            else:
+                retained_msgs = self.topics.messages(sub.filter)
+        else:
+            retained_msgs = self.topics.messages(sub.filter)
+        for pkv in retained_msgs:  # [MQTT-3.8.4-4]
+            # MQTT+ predicates apply to retained payloads too: the
+            # sub.filter here is already the BASE filter, so the walk is
+            # unchanged and only the delivery gate consults the rules
+            if self._predicates is not None and not self._predicates.passes_retained(
+                sub, bytes(pkv.payload)
+            ):
+                continue
+            if (
+                self._recrypt is not None
+                and pkv.topic_name[:1] == NS_CHAR
+            ):
+                # an encrypted-namespace retained message is stored as
+                # the PUBLISHER's ciphertext; deliver it re-keyed to
+                # this subscriber (or not at all)
+                pkv2 = self._recrypt_retained(cl, pkv)
+                if pkv2 is None:
+                    continue
+                pkv = pkv2
+            try:
+                self.publish_to_client(cl, sub, pkv)
+            except Exception as e:
+                self.log.debug(
+                    "failed to publish retained message: error=%s client=%s", e, cl.id
+                )
+                continue
+            self.hooks.on_retain_published(cl, pkv)
+
+    def _recrypt_retained(self, cl: Client, pkv: Packet) -> Optional[Packet]:
+        """Re-key one retained encrypted-namespace message for a fresh
+        subscriber (``tenancy``): the store holds the publisher's
+        ciphertext, the wire carries this subscriber's. None = withhold
+        (keyless publisher or subscriber, malformed framing — counted by
+        the engine). Scoped-but-unencrypted topics pass through."""
+        tenant = (
+            self._tenancy.tenant_of_topic(pkv.topic_name)
+            if self._tenancy is not None
+            else None
+        )
+        if tenant is None or not tenant.is_encrypted(ns_local(pkv.topic_name)):
+            return pkv
+        renc = self._recrypt
+        plaintext = renc.open_publish(
+            tenant, self._origin_idents(pkv), bytes(pkv.payload)
+        )
+        if plaintext is None:
+            return None
+        sealed = renc.seal_fanout(
+            tenant, plaintext, [(cl.id, self._key_idents(cl.id, cl))]
+        )
+        data = sealed.get(cl.id)
+        if data is None:
+            return None
+        out = pkv.copy(False)
+        out.payload = data
+        return out
+
+    # -- live tenant re-key (the MQT-TZ rotation) ---------------------------
+
+    def _publish_rekey_notice(
+        self, tenant: str, state: str, epoch: int, extra: Optional[dict] = None
+    ) -> None:
+        """The $SYS half of the epoch protocol: a retained
+        ``$SYS/broker/tenant/rekey`` message in the tenant's OWN
+        namespace (its clients subscribe there to learn the new epoch)
+        plus the global operator mirror, published on every state edge
+        (distributing -> active -> retired)."""
+        payload = {"tenant": tenant, "epoch": epoch, "state": state}
+        if extra:
+            payload.update(extra)
+        data = json.dumps(payload).encode()
+        now = int(time.time())  # brokerlint: ok=R3 $SYS rekey notice stamps are wall-clock (operator-correlatable)
+        for topic in (
+            ns_scope_topic(tenant, SYS_PREFIX + "/broker/tenant/rekey"),
+            SYS_PREFIX + f"/broker/tenants/{tenant}/rekey",
+        ):
+            pk = Packet(
+                fixed_header=FixedHeader(type=pkts.PUBLISH, retain=True),
+                topic_name=topic,
+                payload=data,
+                created=now,
+            )
+            self.topics.retain_message(pk.copy(False))
+            if self._retained_engine is not None:
+                self._retained_engine.note_retained(topic, True)
+            self.publish_to_subscribers(pk)
+
+    def rekey_tenant(
+        self, name: str, new_keys: dict, reseal_retained: bool = True
+    ) -> dict:
+        """Rotate a tenant's encryption keys LIVE: stage the
+        next epoch's keys (``ident -> raw 16-byte key``), announce the
+        distributing epoch on ``$SYS/broker/tenant/rekey``, re-seal the
+        tenant's retained encrypted payloads across the rotation in
+        batched device dispatches, then activate — new fan-out ticks
+        seal under the new generation while in-flight ticks drain on
+        their old-table snapshots. The OLD epoch stays decryptable
+        (epoch-tagged nonces) until :meth:`retire_tenant_epoch`.
+
+        Returns ``{"epoch", "old_epoch", "resealed"}``; raises
+        ValueError when tenancy/recrypt is off or the tenant is
+        unknown."""
+        if self._tenancy is None or self._recrypt is None:
+            raise ValueError("rekey requires tenancy + recrypt enabled")
+        t = self._tenancy.get(name)
+        if t is None:
+            raise ValueError(f"unknown tenant {name!r}")
+        renc = self._recrypt
+        keys = self._tenancy.keys
+        old_epoch = keys.current_epoch(name)
+        epoch = keys.stage_epoch(name, new_keys)
+        self._publish_rekey_notice(name, "distributing", epoch)
+        resealed = 0
+        if reseal_retained:
+            resealed = self._reseal_tenant_retained(t, epoch)
+        keys.activate_epoch(name)
+        renc.note_rekey(name)
+        self._publish_rekey_notice(
+            name, "active", epoch, {"resealed": resealed}
+        )
+        self.log.info(
+            "tenant %s re-keyed: epoch %d -> %d, %d retained re-sealed",
+            name, old_epoch, epoch, resealed,
+        )
+        return {"epoch": epoch, "old_epoch": old_epoch, "resealed": resealed}
+
+    def retire_tenant_epoch(self, name: str, epoch: int) -> int:
+        """Retire a drained epoch: tagged publishes under it now drop
+        (counted as stale), its round-key rows are scrubbed, and the
+        retirement is announced on the rekey $SYS topic. Returns how
+        many key rows were scrubbed."""
+        if self._tenancy is None:
+            raise ValueError("rekey requires tenancy enabled")
+        scrubbed = self._tenancy.keys.retire_epoch(name, epoch)
+        self._publish_rekey_notice(
+            name, "retired", epoch, {"scrubbed": scrubbed}
+        )
+        return scrubbed
+
+    def _reseal_tenant_retained(self, t, epoch: int) -> int:
+        """Re-seal every retained encrypted-namespace payload of one
+        tenant from its CURRENT generation to the staged ``epoch`` in
+        ONE batched keystream dispatch (decrypt + seal blocks share the
+        call — tenancy.RecryptEngine.reseal_batch). The rewritten
+        payloads ride retain_message, so durable persistence and the
+        retained-match engine see the new ciphertext."""
+        renc = self._recrypt
+        keys = self._tenancy.keys
+        prefix = NS_CHAR + t.name + "/"
+        victims: list = []
+        items: list = []
+        for topic, pkv in self.topics.retained.get_all().items():
+            if not topic.startswith(prefix) or not pkv.payload:
+                continue
+            local = ns_local(topic)
+            if local.startswith("$SYS") or not t.is_encrypted(local):
+                continue
+            idents = self._origin_idents(pkv)
+            old_kid = new_kid = -1
+            for ident in idents:
+                if not ident:
+                    continue
+                old_kid = keys.key_id(t.name, ident)
+                new_kid = keys.kid_for_epoch(t.name, ident, epoch)
+                if old_kid >= 0 and new_kid >= 0:
+                    break
+            victims.append((topic, pkv))
+            items.append((bytes(pkv.payload), old_kid, new_kid))
+        if not items:
+            return 0
+        resealed = renc.reseal_batch(t, items, epoch)
+        n = 0
+        for (topic, pkv), data in zip(victims, resealed):
+            if data is None:
+                continue  # keyless origin: the old ciphertext stands
+            out = pkv.copy(False)
+            out.payload = data
+            out.fixed_header.retain = True
+            self.retain_message(self.clients.get(out.origin), out)
+            n += 1
+        return n
+
+    def build_ack(
+        self, packet_id: int, pkt: int, qos: int, properties: Properties, reason: Code
+    ) -> Packet:
+        """A standardized ack for puback/pubrec/pubrel/pubcomp
+        (server.go:1136-1157)."""
+        if self.options.capabilities.compatibilities.no_inherited_properties_on_ack:
+            properties = Properties()
+        if reason.code >= ERR_UNSPECIFIED_ERROR.code:
+            properties.reason_string = reason.reason
+        now = int(time.time())  # brokerlint: ok=R3 ack created/expiry stamps are wall-clock (message-expiry contract)
+        return Packet(
+            fixed_header=FixedHeader(type=pkt, qos=qos),
+            packet_id=packet_id,  # [MQTT-2.2.1-5]
+            reason_code=reason.code,  # [MQTT-3.4.2-1]
+            properties=properties,
+            created=now,
+            expiry=now + self.options.capabilities.maximum_message_expiry_interval,
+        )
+
+    # -- qos acks ----------------------------------------------------------
+
+    def process_puback(self, cl: Client, pk: Packet) -> None:
+        """(server.go:1160-1172)"""
+        if cl.state.inflight.get(pk.packet_id) is None:
+            return  # omit ErrPacketIdentifierNotFound
+        if cl.state.inflight.delete(pk.packet_id):  # [MQTT-4.3.2-5]
+            cl.state.inflight.increase_send_quota()
+            self.info.inflight -= 1
+            self.hooks.on_qos_complete(cl, pk)
+
+    def process_pubrec(self, cl: Client, pk: Packet) -> None:
+        """(server.go:1175-1192)"""
+        if cl.state.inflight.get(pk.packet_id) is None:  # [MQTT-4.3.3-7/-13]
+            cl.write_packet(
+                self.build_ack(
+                    pk.packet_id, pkts.PUBREL, 1, pk.properties, ERR_PACKET_IDENTIFIER_NOT_FOUND
+                )
+            )
+            return
+        if pk.reason_code >= ERR_UNSPECIFIED_ERROR.code or not pk.reason_code_valid():
+            if cl.state.inflight.delete(pk.packet_id):
+                self.info.inflight -= 1
+            self.hooks.on_qos_dropped(cl, pk)
+            return  # MQTT5 section 4.13.2 paragraph 2
+        ack = self.build_ack(pk.packet_id, pkts.PUBREL, 1, pk.properties, CODE_SUCCESS)
+        cl.state.inflight.decrease_receive_quota()
+        cl.state.inflight.set(ack)  # [MQTT-4.3.3-5]
+        # persist the PUBLISH -> PUBREL window transition:
+        # the durable record must flip with the in-memory window, or a
+        # crash-restore re-inflates the window as an unacked PUBLISH and
+        # re-delivers a message the receiver already PUBREC'd — the
+        # exactly-once violation the qos2_fanout scenario's kill -9 leg
+        # caught ([MQTT-4.3.3-6]: no PUBLISH re-send once PUBREC is in)
+        self.hooks.on_qos_publish(cl, ack, ack.created, 0)
+        cl.write_packet(ack)
+
+    def process_pubrel(self, cl: Client, pk: Packet) -> None:
+        """(server.go:1195-1224)"""
+        if cl.state.inflight.get(pk.packet_id) is None:  # [MQTT-4.3.3-7/-13]
+            cl.write_packet(
+                self.build_ack(
+                    pk.packet_id, pkts.PUBCOMP, 0, pk.properties, ERR_PACKET_IDENTIFIER_NOT_FOUND
+                )
+            )
+            return
+        if pk.reason_code >= ERR_UNSPECIFIED_ERROR.code or not pk.reason_code_valid():
+            if cl.state.inflight.delete(pk.packet_id):
+                self.info.inflight -= 1
+            self.hooks.on_qos_dropped(cl, pk)
+            return
+        ack = self.build_ack(pk.packet_id, pkts.PUBCOMP, 0, pk.properties, CODE_SUCCESS)
+        cl.state.inflight.set(ack)
+        cl.write_packet(ack)
+        cl.state.inflight.increase_receive_quota()
+        cl.state.inflight.increase_send_quota()
+        if cl.state.inflight.delete(pk.packet_id):  # [MQTT-4.3.3-12]
+            self.info.inflight -= 1
+            self.hooks.on_qos_complete(cl, pk)
+
+    def process_pubcomp(self, cl: Client, pk: Packet) -> None:
+        """(server.go:1227-1237)"""
+        cl.state.inflight.increase_receive_quota()
+        cl.state.inflight.increase_send_quota()
+        if cl.state.inflight.delete(pk.packet_id):
+            self.info.inflight -= 1
+            self.hooks.on_qos_complete(cl, pk)
+
+    # -- subscribe / unsubscribe -------------------------------------------
+
+    def process_subscribe(self, cl: Client, pk: Packet) -> None:
+        """(server.go:1240-1312)"""
+        pk = self.hooks.on_subscribe(cl, pk)
+        code = CODE_SUCCESS
+        if cl.state.inflight.get(pk.packet_id) is not None:
+            code = ERR_PACKET_IDENTIFIER_IN_USE
+
+        caps = self.options.capabilities
+        filter_existed = [False] * len(pk.filters)
+        reason_codes = bytearray(len(pk.filters))
+        for i, sub in enumerate(pk.filters):
+            if code != CODE_SUCCESS:
+                reason_codes[i] = code.code  # NB 3.9.3 Non-normative 0x91
+                continue
+            # MQTT+ predicate suffix (``predicates``): split BEFORE
+            # validation so the SUBACK reason, the ACL check, $SHARE
+            # parsing, and the trie all see the BASE filter — the suffix
+            # never leaks past this point. Registration waits for the
+            # success branch so a refused filter leaks no rule.
+            pred_suffix = ""
+            if self._predicates is not None:
+                base, pred_suffix = split_predicate_suffix(sub.filter)
+                if pred_suffix:
+                    sub.filter = base
+            if not is_valid_filter(sub.filter, False):
+                reason_codes[i] = ERR_TOPIC_FILTER_INVALID.code
+            elif sub.no_local and is_shared_filter(sub.filter):
+                reason_codes[i] = ERR_PROTOCOL_VIOLATION_INVALID_SHARED_NO_LOCAL.code  # [MQTT-3.8.3-4]
+            elif not self.hooks.on_acl_check(cl, sub.filter, False):
+                reason_codes[i] = ERR_NOT_AUTHORIZED.code
+                if caps.compatibilities.obscure_not_authorized:
+                    reason_codes[i] = ERR_UNSPECIFIED_ERROR.code
+            elif self._subscribe_quota_refused(cl, sub):
+                # tenant subscription COUNT cap: 0x97 before
+                # any rule/trie registration (the v3 clamp below turns
+                # it into 0x80 for pre-v5 clients)
+                reason_codes[i] = ERR_QUOTA_EXCEEDED.code
+            else:
+                if cl.tenant is not None:
+                    # tenant namespace (``tenancy``): validation,
+                    # $SHARE parsing, and the ACL all saw the LOCAL
+                    # filter above; everything stored or matched from
+                    # here — trie, client state, retained walk,
+                    # persistence — carries the
+                    # scoped key, so two tenants' identical filter
+                    # strings live on disjoint subtrees
+                    sub.filter = ns_scope_filter(cl.tenant.name, sub.filter)
+                if pred_suffix:
+                    self._predicates.register(pred_suffix)
+                    sub.predicates = (pred_suffix,)
+                if self._predicates is not None:
+                    # [MQTT-3.8.4-3] a re-subscribe REPLACES the stored
+                    # subscription: drop the replaced one's rule refs
+                    # (after registering, so a same-suffix replace never
+                    # drops the rule to zero in between)
+                    old = cl.state.subscriptions.get(sub.filter)
+                    if old is not None and old.predicates:
+                        self._predicates.release(old.predicates)
+                is_new = self.topics.subscribe(cl.id, sub)  # [MQTT-3.8.4-3]
+                if is_new:
+                    self.info.subscriptions += 1
+                    if cl.tenant is not None and sub.filter[:1] == NS_CHAR:
+                        cl.tenant.subscriptions_count += 1
+                cl.state.subscriptions.add(sub.filter, sub)  # [MQTT-3.2.2-10]
+                # granted qos caps at server max [MQTT-3.2.2-9] without
+                # mutating the trie-stored subscription (the reference caps a
+                # value copy, server.go:1269-1274)
+                filter_existed[i] = not is_new
+                reason_codes[i] = min(sub.qos, caps.maximum_qos)  # [MQTT-3.9.3-1]
+
+            if reason_codes[i] > 2 and cl.properties.protocol_version < 5:  # MQTT3
+                reason_codes[i] = ERR_UNSPECIFIED_ERROR.code
+
+        ack = Packet(  # [MQTT-3.8.4-1] [MQTT-3.8.4-5]
+            fixed_header=FixedHeader(type=pkts.SUBACK),
+            packet_id=pk.packet_id,  # [MQTT-2.2.1-6] [MQTT-3.8.4-2]
+            reason_codes=bytes(reason_codes),  # [MQTT-3.8.4-6]
+            properties=Properties(user=pk.properties.user),
+        )
+        if code.code >= ERR_UNSPECIFIED_ERROR.code:
+            ack.properties.reason_string = code.reason
+
+        self.hooks.on_subscribed(cl, pk, bytes(reason_codes))
+        cl.write_packet(ack)
+
+        for i, sub in enumerate(pk.filters):  # [MQTT-3.3.1-9]
+            if reason_codes[i] >= ERR_UNSPECIFIED_ERROR.code:
+                continue
+            self.publish_retained_to_client(cl, sub, filter_existed[i])
+
+    def process_unsubscribe(self, cl: Client, pk: Packet) -> None:
+        """(server.go:1315-1356)"""
+        code = CODE_SUCCESS
+        if cl.state.inflight.get(pk.packet_id) is not None:
+            code = ERR_PACKET_IDENTIFIER_IN_USE
+        pk = self.hooks.on_unsubscribe(cl, pk)
+        reason_codes = bytearray(len(pk.filters))
+        for i, sub in enumerate(pk.filters):  # [MQTT-3.10.4-6] [MQTT-3.11.3-1]
+            if code != CODE_SUCCESS:
+                reason_codes[i] = code.code
+                continue
+            if self._predicates is not None:
+                # an UNSUBSCRIBE naming the original predicated filter
+                # must remove the subscription stored under its base
+                base, pred_suffix = split_predicate_suffix(sub.filter)
+                if pred_suffix:
+                    sub.filter = base
+            if cl.tenant is not None:
+                # the stored key is namespace-scoped (process_subscribe)
+                sub.filter = ns_scope_filter(cl.tenant.name, sub.filter)
+            if self._predicates is not None:
+                old = cl.state.subscriptions.get(sub.filter)
+                if old is not None and old.predicates:
+                    self._predicates.release(old.predicates)
+            if self.topics.unsubscribe(sub.filter, cl.id):
+                self.info.subscriptions -= 1
+                if (
+                    cl.tenant is not None
+                    and sub.filter[:1] == NS_CHAR
+                    and cl.tenant.subscriptions_count > 0
+                ):
+                    cl.tenant.subscriptions_count -= 1
+                reason_codes[i] = CODE_SUCCESS.code
+            else:
+                reason_codes[i] = pkts.CODE_NO_SUBSCRIPTION_EXISTED.code
+            cl.state.subscriptions.delete(sub.filter)  # [MQTT-3.10.4-2]
+
+        ack = Packet(  # [MQTT-3.10.4-4]
+            fixed_header=FixedHeader(type=pkts.UNSUBACK),
+            packet_id=pk.packet_id,  # [MQTT-2.2.1-6] [MQTT-3.10.4-5]
+            reason_codes=bytes(reason_codes),  # [MQTT-3.11.3-2]
+            properties=Properties(user=pk.properties.user),
+        )
+        if code.code >= ERR_UNSPECIFIED_ERROR.code:
+            ack.properties.reason_string = code.reason
+
+        self.hooks.on_unsubscribed(cl, pk)
+        cl.write_packet(ack)
+
+    def unsubscribe_client(self, cl: Client) -> None:
+        """Remove all of a client's subscriptions (server.go:1359-1379)."""
+        filter_map = cl.state.subscriptions.get_all()
+        for k in filter_map:
+            cl.state.subscriptions.delete(k)
+        if cl.is_taken_over:
+            return  # the inheriting session keeps the rules referenced
+        for k, sub in filter_map.items():
+            if self._predicates is not None and sub.predicates:
+                self._predicates.release(sub.predicates)
+            if self.topics.unsubscribe(k, cl.id):
+                self.info.subscriptions -= 1
+                if self._tenancy is not None and k[:1] == NS_CHAR:
+                    # restored clients may not carry cl.tenant — resolve
+                    # the owner off the scoped filter itself
+                    t = self._tenancy.tenant_of_topic(k)
+                    if t is not None and t.subscriptions_count > 0:
+                        t.subscriptions_count -= 1
+        self.hooks.on_unsubscribed(
+            cl,
+            Packet(
+                fixed_header=FixedHeader(type=pkts.UNSUBSCRIBE),
+                filters=list(filter_map.values()),
+            ),
+        )
+
+    # -- auth / disconnect -------------------------------------------------
+
+    def process_auth(self, cl: Client, pk: Packet) -> None:
+        """(server.go:1382-1389)"""
+        self.hooks.on_auth_packet(cl, pk)
+
+    def process_disconnect(self, cl: Client, pk: Packet) -> None:
+        """(server.go:1392-1410)"""
+        if pk.properties.session_expiry_interval_flag:
+            if (
+                pk.properties.session_expiry_interval > 0
+                and cl.properties.props.session_expiry_interval == 0
+            ):
+                raise ERR_PROTOCOL_VIOLATION_ZERO_NON_ZERO_EXPIRY()
+            cl.properties.props.session_expiry_interval = pk.properties.session_expiry_interval
+            cl.properties.props.session_expiry_interval_flag = True
+
+        if pk.reason_code == CODE_DISCONNECT_WILL_MESSAGE.code:  # [MQTT-3.1.2.5]
+            raise CODE_DISCONNECT_WILL_MESSAGE()
+
+        self.will_delayed.delete(cl.id)  # [MQTT-3.1.3-9] [MQTT-3.1.2-8]
+        # discard the will STRUCT too, not just a pending delayed entry
+        # [MQTT-3.14.4-3]: the read loop usually
+        # returns cleanly after stop() and clears it, but a transport
+        # already racing its own teardown can surface the close as a
+        # ConnectionError first — and that path fires send_lwt
+        cl.properties.will = Will()
+        cl.stop(CODE_DISCONNECT())  # [MQTT-3.14.4-2]
+
+    def disconnect_client(self, cl: Client, code: Code) -> None:
+        """Send DISCONNECT and close (server.go:1413-1437). Raises the code
+        for error-class disconnects (mirrors the reference's error
+        return)."""
+        out = Packet(
+            fixed_header=FixedHeader(type=pkts.DISCONNECT),
+            reason_code=code.code,
+            properties=Properties(),
+        )
+        if code.code >= ERR_UNSPECIFIED_ERROR.code:
+            out.properties.reason_string = code.reason  # [MQTT-3.14.2-1]
+        try:
+            cl.write_packet(out)
+        except Exception:  # brokerlint: ok=R4 we're already disconnecting; write errors don't matter
+            pass
+        if not self.options.capabilities.compatibilities.passive_client_disconnect:
+            cl.stop(code)
+            if code.code >= ERR_UNSPECIFIED_ERROR.code:
+                raise code()
+
+    # -- $SYS / housekeeping -----------------------------------------------
+
+    def publish_sys_topics(self) -> None:
+        """Publish retained $SYS values (server.go:1442-1492)."""
+        now = int(time.time())  # brokerlint: ok=R3 $SYS/broker/time is wall-clock by definition
+        self.info.memory_alloc = rss_bytes()
+        self.info.threads = threading.active_count()
+        self.info.time = now
+        # monotonic anchor, not `now - started`: a wall-clock step (NTP,
+        # suspend) must not bend $SYS/broker/uptime (system.Info)
+        self.info.uptime = self.info.uptime_now()
+        self.info.clients_total = len(self.clients)
+        self.info.clients_disconnected = self.info.clients_total - self.info.clients_connected
+
+        info = self.info.clone()
+        topics = {
+            SYS_PREFIX + "/broker/version": info.version,
+            SYS_PREFIX + "/broker/time": str(info.time),
+            SYS_PREFIX + "/broker/uptime": str(info.uptime),
+            SYS_PREFIX + "/broker/started": str(info.started),
+            SYS_PREFIX + "/broker/load/bytes/received": str(info.bytes_received),
+            SYS_PREFIX + "/broker/load/bytes/sent": str(info.bytes_sent),
+            SYS_PREFIX + "/broker/clients/connected": str(info.clients_connected),
+            SYS_PREFIX + "/broker/clients/disconnected": str(info.clients_disconnected),
+            SYS_PREFIX + "/broker/clients/maximum": str(info.clients_maximum),
+            SYS_PREFIX + "/broker/clients/total": str(info.clients_total),
+            SYS_PREFIX + "/broker/packets/received": str(info.packets_received),
+            SYS_PREFIX + "/broker/packets/sent": str(info.packets_sent),
+            SYS_PREFIX + "/broker/messages/received": str(info.messages_received),
+            SYS_PREFIX + "/broker/messages/sent": str(info.messages_sent),
+            SYS_PREFIX + "/broker/messages/dropped": str(info.messages_dropped),
+            SYS_PREFIX + "/broker/messages/inflight": str(info.inflight),
+            SYS_PREFIX + "/broker/retained": str(info.retained),
+            SYS_PREFIX + "/broker/subscriptions": str(info.subscriptions),
+            SYS_PREFIX + "/broker/system/memory": str(info.memory_alloc),
+            SYS_PREFIX + "/broker/system/threads": str(info.threads),
+        }
+        if self.matcher is not None:
+            # device-matcher observability (MatcherStats.as_dict): batches,
+            # topics, host_fallbacks, overflows, rebuilds, fallback_ratio
+            for key, val in self.matcher.stats.as_dict().items():
+                topics[SYS_PREFIX + "/broker/matcher/" + key] = str(val)
+        if self._predicates is not None:
+            # MQTT+ predicate plane: rule counts, device vs host eval
+            # split, filter selectivity, aggregation emissions, oracle
+            # verdicts
+            for key, val in self._predicates.gauges().items():
+                topics[SYS_PREFIX + "/broker/predicates/" + key] = str(val)
+        if self._recrypt is not None:
+            # re-encryption observability: batch/block split, oracle
+            # verdicts, key count
+            for key, val in self._recrypt.gauges().items():
+                topics[SYS_PREFIX + "/broker/recrypt/" + key] = str(val)
+        if self._tenancy is not None:
+            # per-tenant $SYS scoping: each ACTIVE tenant's counters
+            # publish INTO its own namespace plus a global operator mirror
+            # under $SYS/broker/tenants/<name>/
+            for t in self._tenancy.active_tenants():
+                for key, val in t.sys_rows().items():
+                    topics[
+                        ns_scope_topic(t.name, SYS_PREFIX + "/broker/tenant/" + key)
+                    ] = str(val)
+                    topics[SYS_PREFIX + f"/broker/tenants/{t.name}/" + key] = str(val)
+        pk = Packet(
+            fixed_header=FixedHeader(type=pkts.PUBLISH, retain=True),
+            created=now,
+        )
+        for topic, payload in topics.items():
+            pk.topic_name = topic
+            pk.payload = payload.encode()
+            self.topics.retain_message(pk.copy(False))
+            if self._retained_engine is not None:
+                self._retained_engine.note_retained(topic, True)
+            self.publish_to_subscribers(pk)
+        if (
+            self._durable["recovering"]
+            or self._durable["replayed_keys"]
+            or self._durable["restore_batches"]
+        ):
+            # keep the recovery tree fresh on the $SYS cadence (only once a
+            # durable restore has actually happened)
+            self.publish_durable_sys()
+        self.hooks.on_sys_info_tick(info)
+
+    async def close(self) -> None:
+        """Gracefully stop the server, listeners, clients, and hooks
+        (server.go:1495-1504)."""
+        self.done.set()
+        self.log.info("gracefully stopping server")
+        await self.listeners.close_all(self._close_listener_clients)
+        # stage first (parked publishes resolve via the host walk), then the
+        # matcher; shutdown LWT publishes and clean-session unsubscribes
+        # must still flow through the live delta overlay
+        if self._stage is not None:
+            await self._stage.stop()
+            self._stage = None
+        prof, self._torch_profiler = self._torch_profiler, None
+        if prof is not None:
+            prof.stop()
+            out_dir = self.options.trace_torch_profiler_dir
+            os.makedirs(out_dir, exist_ok=True)
+            path = os.path.join(out_dir, f"mqtt_tpu_torch_{os.getpid()}_{int(time.time())}.json")  # brokerlint: ok=R3 a trace file name, not a clock
+            prof.export_chrome_trace(path)
+            self.log.info("torch.profiler trace written: %s", path)
+        if self.matcher is not None:
+            self.matcher.close()
+        self.hooks.on_stopped()
+        self.hooks.stop()
+        if self._event_loop_task is not None:
+            self._event_loop_task.cancel()
+        self.log.info("mqtt_tpu_torch server stopped")
+
+    def _close_listener_clients(self, listener: str) -> None:
+        """(server.go:1507-1512)"""
+        for cl in self.clients.get_by_listener(listener):
+            try:
+                self.disconnect_client(cl, ERR_SERVER_SHUTTING_DOWN)
+            except Code:
+                pass
+
+    def send_lwt(self, cl: Client) -> None:
+        """Issue (or delay) a client's will message (server.go:1515-1551)."""
+        if cl.properties.will.flag == 0:
+            return
+        if cl.is_taken_over:
+            # session takeover is not an ungraceful disconnect: the
+            # inheriting connection IS the client, so the old connection's
+            # will must not fire
+            cl.properties.will = Will()
+            return
+        modified = self.hooks.on_will(cl, cl.properties.will)
+        now = int(time.time())  # brokerlint: ok=R3 will-message created/expiry stamps are wall-clock
+        pk = Packet(
+            fixed_header=FixedHeader(
+                type=pkts.PUBLISH,
+                retain=modified.retain,  # [MQTT-3.1.2-14/-15]
+                qos=modified.qos,
+            ),
+            topic_name=modified.topic_name,
+            payload=modified.payload,
+            properties=Properties(user=modified.user),
+            origin=cl.id,
+            created=now,
+        )
+        if cl.tenant is not None:
+            # a tenant's will fires into its own namespace, exactly like
+            # its live publishes
+            pk.topic_name = ns_scope_topic(cl.tenant.name, pk.topic_name)
+        if cl.properties.will.will_delay_interval > 0:
+            pk.connect.will_properties.will_delay_interval = (
+                cl.properties.will.will_delay_interval
+            )
+            pk.expiry = now + pk.connect.will_properties.will_delay_interval
+            self.will_delayed.add(cl.id, pk)
+            return
+        if pk.fixed_header.retain:
+            self.retain_message(cl, pk)
+        self.publish_to_subscribers(pk)  # [MQTT-3.1.2-8]
+        cl.properties.will.flag = 0  # [MQTT-3.1.2-10]
+        self.hooks.on_will_sent(cl, pk)
+
+    # -- persistence restore (server.go:1554-1692) -------------------------
+
+    def read_store(self) -> None:
+        # durable recovery window: `recovering` holds from the first
+        # restored byte until serve() has the maps actually being served
+        # (after hooks.on_started()). Restore failures propagate — serving
+        # a silently-partial session map would be worse than refusing to
+        # start.
+        self._durable["recovering"] = True
+        t0 = time.perf_counter()
+        try:
+            if self.hooks.provides(STORED_CLIENTS):
+                clients = self.hooks.stored_clients()
+                self.load_clients(clients)
+                self.log.debug("loaded clients from store: len=%d", len(clients))
+            if self.hooks.provides(STORED_SUBSCRIPTIONS):
+                subs = self.hooks.stored_subscriptions()
+                self.load_subscriptions(subs)
+                self.log.debug("loaded subscriptions from store: len=%d", len(subs))
+            if self.hooks.provides(STORED_INFLIGHT_MESSAGES):
+                inflight = self.hooks.stored_inflight_messages()
+                self.load_inflight(inflight)
+                self.log.debug("loaded inflights from store: len=%d", len(inflight))
+            if self.hooks.provides(STORED_RETAINED_MESSAGES):
+                retained = self.hooks.stored_retained_messages()
+                self.load_retained(retained)
+                self.log.debug("loaded retained messages from store: len=%d", len(retained))
+            if self.hooks.provides(STORED_SYS_INFO):
+                sys_info = self.hooks.stored_sys_info()
+                if sys_info is not None:
+                    self.load_server_info(sys_info.info)
+                    self.log.debug("loaded $SYS info from store")
+        finally:
+            self._durable["recovery_seconds"] = time.perf_counter() - t0
+            self._durable["replayed_keys"] = int(
+                self._durable_store_stats().get("replayed_keys", 0)
+            )
+
+    def load_server_info(self, v: Info) -> None:
+        if self.options.capabilities.compatibilities.restore_sys_info_on_restart:
+            self.info.bytes_received = v.bytes_received
+            self.info.bytes_sent = v.bytes_sent
+            self.info.clients_maximum = v.clients_maximum
+            self.info.clients_total = v.clients_total
+            self.info.clients_disconnected = v.clients_disconnected
+            self.info.messages_received = v.messages_received
+            self.info.messages_sent = v.messages_sent
+            self.info.messages_dropped = v.messages_dropped
+            self.info.packets_received = v.packets_received
+            self.info.packets_sent = v.packets_sent
+            self.info.inflight_dropped = v.inflight_dropped
+        self.info.retained = v.retained
+        self.info.inflight = v.inflight
+        self.info.subscriptions = v.subscriptions
+
+    def load_subscriptions(self, v: list) -> None:
+        entries: list[tuple[str, Subscription]] = []
+        for sub in v:
+            predicates = tuple(getattr(sub, "predicates", ()) or ())
+            if predicates and self._predicates is not None:
+                # re-intern persisted MQTT+ rules (a restart must keep
+                # filtering; with the plane disabled the subscription
+                # restores as its base filter and fails open)
+                for suffix in predicates:
+                    try:
+                        self._predicates.register(suffix)
+                    except ValueError:
+                        predicates = ()
+                        break
+            sb = Subscription(
+                filter=sub.filter,
+                retain_handling=sub.retain_handling,
+                qos=sub.qos,
+                retain_as_published=sub.retain_as_published,
+                no_local=sub.no_local,
+                identifier=sub.identifier,
+                predicates=predicates,
+            )
+            entries.append((sub.client, sb))
+        # batched re-registration: a million-session restart
+        # must not pay a trie lock round-trip per subscription — chunks
+        # flow through the trie's bulk-insert path
+        from .staging import bulk_register
+
+        new, batches = bulk_register(
+            self.topics, entries, batch=self.options.durable_restore_batch
+        )
+        self._durable["restored_subscriptions"] += new
+        self._durable["restore_batches"] += batches
+        for client, sb in entries:
+            cl = self.clients.get(client)
+            if cl is not None:
+                cl.state.subscriptions.add(sb.filter, sb)
+            if self._tenancy is not None and sb.filter[:1] == NS_CHAR:
+                t = self._tenancy.tenant_of_topic(sb.filter)
+                if t is not None:
+                    # seed the durable COUNT quota from restored state:
+                    # a tenant over cap after restart keeps its
+                    # subscriptions but cannot grow further
+                    t.subscriptions_count += 1
+
+    def load_clients(self, v: list) -> None:
+        for c in v:
+            cl = self.new_client(None, None, c.listener, c.id, False)
+            cl.properties.username = c.username
+            cl.properties.clean = c.clean
+            cl.properties.protocol_version = c.protocol_version
+            cl.properties.props = Properties(
+                session_expiry_interval=c.properties.session_expiry_interval,
+                session_expiry_interval_flag=c.properties.session_expiry_interval_flag,
+                authentication_method=c.properties.authentication_method,
+                authentication_data=c.properties.authentication_data,
+                request_problem_info_flag=c.properties.request_problem_info_flag,
+                request_problem_info=c.properties.request_problem_info,
+                request_response_info=c.properties.request_response_info,
+                receive_maximum=c.properties.receive_maximum,
+                topic_alias_maximum=c.properties.topic_alias_maximum,
+                user=list(c.properties.user),
+                maximum_packet_size=c.properties.maximum_packet_size,
+            )
+            cl.properties.will = Will(
+                payload=c.will.payload,
+                user=list(c.will.user),
+                topic_name=c.will.topic_name,
+                flag=c.will.flag,
+                will_delay_interval=c.will.will_delay_interval,
+                qos=c.will.qos,
+                retain=c.will.retain,
+            )
+            # restored clients are disconnected and expire normally
+            cl.stop(ERR_SERVER_SHUTTING_DOWN())
+            expire = (
+                cl.properties.protocol_version == 5
+                and cl.properties.props.session_expiry_interval == 0
+            ) or (cl.properties.protocol_version < 5 and cl.properties.clean)
+            self.hooks.on_disconnect(cl, ERR_SERVER_SHUTTING_DOWN(), expire)
+            if expire:
+                cl.clear_inflights()
+                self.unsubscribe_client(cl)
+            else:
+                self.clients.add_client(cl)
+
+    def load_inflight(self, v: list) -> None:
+        # batched restore: the unacked QoS1/QoS2
+        # window rides the same chunked bulk path as subscriptions and
+        # retained — one inflight-lock acquisition per chunk, and the
+        # restore counters prove it was batched
+        from .staging import bulk_inflight
+
+        restored, batches = bulk_inflight(
+            self.clients, v, batch=self.options.durable_restore_batch
+        )
+        self._durable["restored_inflight"] += restored
+        self._durable["restore_batches"] += batches
+
+    def load_retained(self, v: list) -> None:
+        from .staging import bulk_retain
+
+        packets = [msg.to_packet() for msg in v]
+        retained, batches = bulk_retain(
+            self.topics, packets, batch=self.options.durable_restore_batch
+        )
+        self._durable["restored_retained"] += retained
+        self._durable["restore_batches"] += batches
+        self.info.retained = len(self.topics.retained)
+        if self._tenancy is not None:
+            for pk in packets:
+                if pk.payload and pk.topic_name[:1] == NS_CHAR:
+                    t = self._tenancy.tenant_of_topic(pk.topic_name)
+                    if t is not None:
+                        t.retained_count += 1
+        if self._retained_engine is not None:
+            # one corpus rebuild beats a million note_retained calls
+            self._retained_engine.reseed()
+
+    # -- expiry loops (server.go:1696-1758) --------------------------------
+
+    def clear_expired_clients(self, dt: int) -> None:
+        for id_, client in self.clients.get_all().items():
+            disconnected = client.stop_time
+            if disconnected == 0:
+                continue
+            expire = self.options.capabilities.maximum_session_expiry_interval
+            if (
+                client.properties.protocol_version == 5
+                and client.properties.props.session_expiry_interval_flag
+            ):
+                expire = client.properties.props.session_expiry_interval
+            if disconnected + expire < dt:
+                # a pending delayed will fires when the session ends,
+                # even if its delay interval has not elapsed
+                # [MQTT-3.1.2-8]: expiry must not
+                # orphan the entry — and its retain flag must still be
+                # honored after the session object is gone
+                pending = self.will_delayed.get(id_)
+                if pending is not None:
+                    self.will_delayed.delete(id_)
+                    if pending.fixed_header.retain:
+                        self.topics.retain_message(pending.copy(False))
+                        self.info.retained = len(self.topics.retained)
+                        if self._retained_engine is not None:
+                            self._retained_engine.note_retained(
+                                pending.topic_name, True
+                            )
+                    self.publish_to_subscribers(pending)
+                    self.hooks.on_will_sent(client, pending)
+                self.hooks.on_client_expired(client)
+                self.clients.delete(id_)  # [MQTT-4.1.0-2]
+
+    def clear_expired_retained_messages(self, now: int) -> None:
+        for filter_, pk in self.topics.retained.get_all().items():
+            expired = pk.protocol_version == 5 and 0 < pk.expiry < now  # [MQTT-3.3.2-5]
+            enforced = (
+                self.options.capabilities.maximum_message_expiry_interval > 0
+                and now - pk.created > self.options.capabilities.maximum_message_expiry_interval
+            )
+            if expired or enforced:
+                self.topics.retained.delete(filter_)
+                self.hooks.on_retained_expired(filter_)
+                if self._tenancy is not None and filter_[:1] == NS_CHAR:
+                    t = self._tenancy.tenant_of_topic(filter_)
+                    if t is not None and t.retained_count > 0:
+                        t.retained_count -= 1
+                if self._retained_engine is not None:
+                    self._retained_engine.note_retained(filter_, False)
+
+    def clear_expired_inflights(self, now: int) -> None:
+        for client in self.clients.get_all().values():
+            deleted = client.clear_expired_inflights(
+                now, self.options.capabilities.maximum_message_expiry_interval
+            )
+            for id_ in deleted:
+                self.hooks.on_qos_dropped(client, Packet(packet_id=id_))
+
+    def send_delayed_lwt(self, dt: int) -> None:
+        for id_, pk in self.will_delayed.get_all().items():
+            if dt > pk.expiry:
+                cl = self.clients.get(id_)
+                self.publish_to_subscribers(pk)  # [MQTT-3.1.2-8]
+                if pk.fixed_header.retain:
+                    if cl is not None:
+                        self.retain_message(cl, pk)
+                    else:
+                        # the retain flag holds even when the session is
+                        # already gone
+                        self.topics.retain_message(pk.copy(False))
+                        self.info.retained = len(self.topics.retained)
+                        if self._retained_engine is not None:
+                            self._retained_engine.note_retained(pk.topic_name, True)
+                if cl is not None:
+                    cl.properties.will = Will()  # [MQTT-3.1.2-10]
+                    self.hooks.on_will_sent(cl, pk)
+                self.will_delayed.delete(id_)
+
+
+def _minimum(a: int, b: int) -> int:
+    """Minimum of the non-zero values of a and b; 0 when both are zero
+    (server.go:1767-1780)."""
+    if a != 0:
+        if b != 0 and b < a:
+            return b
+        return a
+    return b
 
 
 __all__ = [
     "Capabilities",
     "Compatibilities",
+    "INLINE_CLIENT_ID",
+    "InlineClientNotEnabledError",
+    "LOCAL_LISTENER",
+    "ListenerIDExistsError",
     "MAX_INT64",
     "MAX_UINT32",
     "Options",
-    "enqueue_frame",
-    "fan_out_targets",
+    "Server",
+    "VERSION",
     "publish_frame_body_offset",
     "publish_frame_topic",
-    "publish_to_client",
-    "shared_frame_ok",
-    "stamp_outbound",
 ]

@@ -1026,3 +1026,105 @@ def test_shared_selection_on_the_card_equals_the_cpu(dev, compact, lazy):
     # the host walk on both devices alike
     assert n_picks > 3000 and card.stats.host_fallbacks == cpu.stats.host_fallbacks < len(topics) // 4
     assert kernels.LAUNCHES["flat_probe_ranges"] + kernels.LAUNCHES["flat_match_compact"] > probes
+
+
+def test_broker_on_the_card_over_loopback(dev):
+    """The port's ``Server`` on the card behind a TCP listener: a
+    cfg2-shaped corpus (20,000 subscriptions, all but 32 restored from a
+    ``MemoryStore`` with no session), 32 clients that SUBSCRIBE their own
+    cfg2 filters over TCP, one predicated subscriber
+    (``+/+/+$GT{v:0.5}``), a few retained messages, and a wave of 2,048
+    JSON publishes from a v4 QoS 0 and a v5 QoS 1 publisher. Every frame
+    each client receives is the trie's selection (the predicated one
+    filtered by the host interpreter), every retained delivery the trie's
+    retained walk, and K1 (retained delivery at SUBSCRIBE), K2 (the staged
+    batches) and K4 (the predicate leg) launched."""
+    import random
+    from collections import Counter
+
+    import chip_smoke as cs
+    from mqtt_tpu_torch.hooks.auth import AllowHook
+    from mqtt_tpu_torch.hooks.storage.memory import MemoryStore
+    from mqtt_tpu_torch.listeners import TCP, Config
+    from mqtt_tpu_torch.predicates import compile_suffix, eval_rule_host
+    from mqtt_tpu_torch.server import Options, Server
+
+    rng = random.Random(21)
+    entries, topic_gen = cs.cfg2_entries(20_000, rng)
+    topics = [topic_gen() for _ in range(2048)]
+    online = entries[:32]
+    pred = "$GT{v:0.5}"
+    spec = compile_suffix(pred)
+
+    async def main():
+        srv = Server(Options(device_matcher=True, matcher_opts={"max_levels": 4}, retained_matcher=True,
+                             device="cuda"))
+        srv.add_hook(AllowHook())
+        store = MemoryStore()
+        for cid, sub in entries[32:]:
+            store.data["SUB_" + cid + ":" + sub.filter] = cs._sub_record(cid, sub.filter, sub.qos)
+        srv.add_hook(store)
+        srv.add_listener(TCP(Config(type="tcp", id="t", address="127.0.0.1:0")))
+        await srv.serve()
+        host, port = srv.listeners.get("t").address().rsplit(":", 1)
+        port = int(port)
+        retained = {f"region{i}/device{i}/metric{i}": b"ret%d" % i for i in range(40)}
+        rpub = cs.WireClient("rpub", 4)
+        await cs._connect_all([rpub], host, port, [cs.connect_frame("rpub", 4)])
+        rpub.send(b"".join(cs.publish_frame(t, p, 0, retain=True) for t, p in retained.items()) + cs.PINGREQ_FRAME)
+        await rpub.wait_frames(2, 60.0)
+        clients = {cid: cs.WireClient(cid, 4 + k % 2) for k, (cid, _s) in enumerate(online)}
+        clients["pred"] = cs.WireClient("pred", 5)
+        pubs = [cs.WireClient("p4", 4), cs.WireClient("p5", 5)]
+        every = list(clients.values()) + pubs
+        await cs._connect_all(every, host, port, [cs.connect_frame(c.name, c.version) for c in every])
+        k1 = kernels.LAUNCHES["flat_probe_ranges"]
+        want_ret = {}
+        for cid, sub in online:
+            clients[cid].send(cs.subscribe_frame(1, [(sub.filter, sub.qos, 0)], clients[cid].version))
+            want_ret[cid] = Counter((m.topic_name, bytes(m.payload)) for m in srv.topics.messages(sub.filter))
+        clients["pred"].send(cs.subscribe_frame(1, [("+/+/+" + pred, 1, 0)], 5))
+        # a payload without the field passes (the interpreter's skip-to-pass)
+        want_ret["pred"] = Counter((m.topic_name, bytes(m.payload)) for m in srv.topics.messages("+/+/+")
+                                   if eval_rule_host(spec, bytes(m.payload)))
+        for cid, c in clients.items():
+            await c.wait_frames(2 + sum(want_ret[cid].values()), 60.0)
+        k1 = kernels.LAUNCHES["flat_probe_ranges"] - k1
+        for cid, c in clients.items():
+            got = Counter((p["topic"], p["payload"]) for p in cs._publishes(c, 2))
+            assert got == want_ret[cid], cid
+        await cs._await_fold(srv.matcher, "card test", 120.0)
+        exp = {cid: Counter() for cid in clients}
+        bufs = [bytearray(), bytearray()]
+        for i, t in enumerate(topics):
+            q = i % 2
+            payload = json_payload = ('{"v": %.6f}' % rng.random()).encode()
+            bufs[q] += cs.publish_frame(t, payload, q, i // 2 % 65535 + 1 if q else 0, version=4 + q)
+            for cid, sub in srv.topics.subscribers(t).subscriptions.items():
+                if cid in exp and (not sub.predicates or eval_rule_host(spec, json_payload)):
+                    exp[cid][(t, min(q, sub.qos), payload)] += 1
+        off = {cid: len(c.frames()) for cid, c in clients.items()}
+        before = dict(kernels.LAUNCHES)
+        for c, buf in zip(pubs, bufs):
+            c.send(bytes(buf))
+        for cid, c in clients.items():
+            await c.wait_frames(off[cid] + sum(exp[cid].values()), 120.0)
+        await pubs[1].wait_frames(1 + len(topics) // 2, 120.0)
+        await cs._await_idle(srv)
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        for cid, c in clients.items():
+            got = Counter((p["topic"], p["qos"], p["payload"]) for p in cs._publishes(c, off[cid]))
+            assert got == exp[cid], cid
+        for c in every + [rpub]:
+            c.send(cs.disconnect_frame(c.version))
+        for c in every + [rpub]:
+            await c.ended(60.0)
+        stats = srv.matcher.stats.as_dict()
+        await srv.close()
+        return k1, launched, exp, stats
+
+    k1, launched, exp, stats = asyncio.run(main())
+    assert sum(sum(e.values()) for e in exp.values()) > 300 and sum(exp["pred"].values()) > 500
+    assert k1 > 0, "no retained delivery at SUBSCRIBE launched K1"
+    assert launched["flat_match_compact"] > 0 and launched["rules_eval"] > 0, launched
+    assert stats["topics"] - stats["host_fallbacks"] - stats["host_fast"] > len(topics) // 2

@@ -10,9 +10,9 @@ clients): ``chip_smoke.Fanout`` (publishers' frames read and decoded,
 matched by a ``MatchStage`` over a ``DeltaMatcher``, one member selected
 per group, delivered to v4, v5 and aliasing v5 clients through their
 outbound queues and write loops), once over the port on ``device="cpu"``
-(its ``server.fan_out_targets`` and ``server.publish_to_client``) and once
-over the JAX package's own modules on its CPU matcher (a JAX ``Server``'s
-``publish_to_client``), with lazy views and eager results, across a churn
+(a port ``Server``'s ``fan_out_targets`` and ``publish_to_client``) and
+once over the JAX package's own modules on its CPU matcher (a JAX
+``Server``'s ``publish_to_client``), with lazy views and eager results, across a churn
 of group members folded between two waves. The bytes each client receives must be
 identical in both packages, and every frame must be what
 ``chip_smoke.FanoutCheck`` derives from the trie's own walk. All
@@ -46,20 +46,19 @@ from test_torch_topics import corpus_ops, corpus_topics
 def jax_fan_out_targets(ops, pk, subs):
     """The selection lines of the JAX ``Server._fan_out``
     (mqtt_tpu/server.py:3384-3407, no predicate rules), which the JAX
-    package has no function of its own for."""
+    package has no function of its own for: ``(items, inline,
+    emissions)`` as the port's ``Server.fan_out_targets`` returns them."""
     vcls = jserver._view_class()
     if vcls is not None and type(subs) is vcls:
         if not subs.has_shared and not subs.has_inline:
-            return subs.targets()
+            return subs.targets(), (), ()
         subs = subs.materialize()
     if subs.shared:
         subs = ops.hooks.on_select_subscribers(subs, pk)
         if not subs.shared_selected:
             subs.select_shared()
         subs.merge_shared_selected()
-    for isub in subs.inline_subscriptions.values():
-        isub.handler(None, isub, pk)
-    return subs.subscriptions.items()
+    return subs.subscriptions.items(), subs.inline_subscriptions.values(), ()
 
 
 def jax_server():
@@ -76,14 +75,18 @@ def jax_server():
 def jax_fanout(srv):
     """``chip_smoke.Fanout`` over the JAX package's modules, delivering
     through ``srv.publish_to_client`` onto its clients' outbound queues."""
-    server = SimpleNamespace(
-        _FrameCache=jserver._FrameCache, fan_out_targets=jax_fan_out_targets,
-        publish_to_client=lambda ops, cl, sub, pk, fast: srv.publish_to_client(cl, sub, pk, fast))
-    mods = SimpleNamespace(clients=jclients, hooks=jhooks, native=jnative, packets=jp, server=server,
+    mods = SimpleNamespace(clients=jclients, hooks=jhooks, native=jnative, packets=jp, server=jserver,
                            system=jsystem, topics=jtopics)
-    # the server's options, info and hooks, without the planes its own
-    # listeners would use (the QoS 0 frame passthrough, overload, telemetry)
-    return cs.Fanout(mods, jserver._Ops(srv.options, srv.info, srv.hooks, srv.log))
+
+    def deliver_inline(inline, pk):  # the JAX Server._fan_out's lines (mqtt_tpu/server.py:3425-3427)
+        for isub in inline:
+            isub.handler(srv.inline_client, isub, pk)
+
+    stand_in = SimpleNamespace(
+        _ops=srv._ops, fan_out_targets=lambda pk, subs: jax_fan_out_targets(srv, pk, subs),
+        deliver_inline=deliver_inline,
+        publish_to_client=srv.publish_to_client)
+    return cs.Fanout(mods, stand_in)
 VOCAB = [f"v{i}" for i in range(5)]
 
 
@@ -256,7 +259,7 @@ def test_fanout_end_to_end_equals_the_jax_package(lazy, corpus):
 
 
 def test_deliver_mirrors_the_jax_servers_publish_to_client():
-    """The port's ``server.publish_to_client`` queues what the JAX
+    """The port's ``Server.publish_to_client`` queues what the JAX
     ``Server.publish_to_client`` queues, each drained as its write loop
     drains it: per subscriber version, alias maximum, identifiers,
     retain-as-published, no-local and QoS."""
@@ -265,7 +268,8 @@ def test_deliver_mirrors_the_jax_servers_publish_to_client():
     from mqtt_tpu_torch import server as tserver
 
     srv = jax_server()
-    tops = cs.Fanout(cs.fanout_modules()).ops  # the port's ops, every client allowed
+    tfan = cs.Fanout(cs.fanout_modules())  # a port Server, every client allowed
+    tsrv, tops = tfan.srv, tfan.ops
     rng = random.Random(51)
     cases = []
     for k in range(60):
@@ -306,7 +310,7 @@ def test_deliver_mirrors_the_jax_servers_publish_to_client():
         fast_t = tserver._FrameCache(pks[1]) if n % 3 == 0 else None
         (cl_j, _), (cl_t, _) = subs_j[cid], subs_t[cid]
         srv.publish_to_client(cl_j, sub_j, pks[0], fast_j)
-        tserver.publish_to_client(tops, cl_t, sub_t, pks[1], fast_t)
+        tsrv.publish_to_client(cl_t, sub_t, pks[1], fast_t)
         assert cl_t.state.outbound.qsize() == cl_j.state.outbound.qsize()
         n_queued += cl_t.state.outbound.qsize()
         drain(cl_j)
@@ -320,7 +324,7 @@ def test_deliver_mirrors_the_jax_servers_publish_to_client():
 
 @pytest.mark.parametrize("qos", [0, 1])
 def test_publish_to_client_full_queue_equals_the_jax_servers(qos):
-    """A full outbound queue: the port's ``server.publish_to_client``
+    """A full outbound queue: the port's ``Server.publish_to_client``
     raises the JAX server's code, counts the drop and rolls the inflight
     entry back as the JAX ``Server.publish_to_client`` does."""
     from mqtt_tpu_torch import clients as tclients
@@ -328,12 +332,13 @@ def test_publish_to_client_full_queue_equals_the_jax_servers(qos):
     from mqtt_tpu_torch import server as tserver
 
     srv = jax_server()
-    tops = cs.Fanout(cs.fanout_modules()).ops
+    tfan = cs.Fanout(cs.fanout_modules())
+    tsrv, tops = tfan.srv, tfan.ops
     got = []
     for p, cmod, ops, publish, cache in (
         (jp, jclients, srv._ops, lambda cl, sub, pk, fast: srv.publish_to_client(cl, sub, pk, fast),
          jserver._FrameCache),
-        (tp, tclients, tops, lambda cl, sub, pk, fast: tserver.publish_to_client(tops, cl, sub, pk, fast),
+        (tp, tclients, tops, lambda cl, sub, pk, fast: tsrv.publish_to_client(cl, sub, pk, fast),
          tserver._FrameCache),
     ):
         ops.options.capabilities.maximum_client_writes_pending = 2

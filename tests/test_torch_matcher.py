@@ -423,6 +423,11 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "import mqtt_tpu_torch.clients, mqtt_tpu_torch.server, mqtt_tpu_torch.hooks\n"
         "import mqtt_tpu_torch.inflight, mqtt_tpu_torch.system, mqtt_tpu_torch.packets.codec\n"
         "import mqtt_tpu_torch.utils.loopwitness, mqtt_tpu_torch.utils.mempool, mqtt_tpu_torch.utils.proc\n"
+        "import mqtt_tpu_torch.hooks.auth, mqtt_tpu_torch.hooks.auth.ledger, mqtt_tpu_torch.hooks.auth.auth\n"
+        "import mqtt_tpu_torch.hooks.auth.allow_all, mqtt_tpu_torch.hooks.storage\n"
+        "import mqtt_tpu_torch.hooks.storage.base, mqtt_tpu_torch.hooks.storage.memory\n"
+        "import mqtt_tpu_torch.listeners, mqtt_tpu_torch.listeners.tcp, mqtt_tpu_torch.listeners.net\n"
+        "import mqtt_tpu_torch.listeners.unixsock, mqtt_tpu_torch.listeners.mock\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mqtt_tpu'))\n"
         "print(','.join(bad))\n"
     )
