@@ -20,9 +20,12 @@ Phases, each printed as it ends:
    path's shapes (batches of 4096 and 65536 topics on both indexes, a
    compact capacity below the batch's hits, a fold-sized row scatter), with
    tolerance 0 (all outputs are integers); each kernel's CUDA-event time,
-   bound and plain time, and ``torch.index_copy``'s time beside the row
-   scatter. After cfg2's main path, K1 again at the smallest batch bucket
-   its default-budget feed launched; after cfg3's, K2 likewise.
+   bound and plain time. The row scatter (K3) writes in place: the kernel,
+   its plain version and ``Tensor.index_copy_`` (its time beside K3's)
+   each write a clone of the table, and K3 is held to its plain version
+   also with indices out of range and duplicates. After cfg2's main path,
+   K1 again at the smallest batch bucket its default-budget feed launched;
+   after cfg3's, K2 likewise.
 5. The main path, once per configuration, with the launch counts set to 0
    just before it: ``MatchStage`` → ``DeltaMatcher`` → ``TorchMatcher`` on
    ``cuda``, >= 64K publishes in three waves through a stage with a fixed
@@ -35,7 +38,14 @@ Phases, each printed as it ends:
    per-publish latency. Every result must equal the port's
    ``TopicsIndex.subscribers`` for its topic; results are lazy
    ``SubscribersView`` objects (the matchers' default), each materialized
-   for the check after its wave. After each configuration's main path,
+   for the check after its wave. Then a batch of 4096 issued on the
+   snapshot is held across two folds (each 40 new clients on its topics'
+   filters, then ``flush()``): it must answer with the snapshot it was
+   issued against while the standby buffer is written (a topic the
+   matcher walked on the host excepted), and the next batch must equal
+   the walk; the folds' wall and ``fold_copies`` are printed, and its
+   launches apart from the main path's. After each
+   configuration's main path,
    and again after its sharded path, phase "materialize": one batch of
    4096 through the kernels, copied to the host once, then resolved in
    turns by the Python plain version, eager C, C views materialized and
@@ -200,7 +210,14 @@ Phases, each printed as it ends:
 Phase 4 also holds K7 (``flat_match_core``, the single-index entry point
 of K8's kernel) and K4-K6 against their plain versions at the shapes these
 paths give them (K5's MEAN within ``1e-5 * max(1, |want|)``, the rest with
-tolerance 0).
+tolerance 0). K5 takes the ragged layout (``ops.predicates.pack_windows``):
+the hot topic's tick of 64 windows with NaN samples, 37 ragged windows
+with an all-NaN one, and one window of one sample (its launch floor);
+then the wall of one ``agg_reduce_batch`` call a tick (``agg_ticks``:
+64 x 64 and the hot topic's two ticks). Phases ``predicates`` and
+``broker`` print the ticks their engines reduced on the card and the
+wall of each call, and every phase with a device matcher its folds'
+wall and ``fold_copies``.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 the main paths, worst error, times and bound). K7 and K8 are one CUDA
@@ -217,6 +234,8 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
+import functools
 import gc
 import json
 import os
@@ -224,6 +243,7 @@ import random
 import subprocess
 import sys
 import time
+import weakref
 import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -525,7 +545,7 @@ def phase_kernels(torch, cfgs: list, device, iters: int = 20) -> dict:
         row["plain_ms"] = measure(plain, plain_iters)
         if library is not None:
             row["library_ms"] = measure(library, iters)
-        lib = "" if library is None else f", index_copy {row['library_ms']:.4f} ms"
+        lib = "" if library is None else f", index_copy_ {row['library_ms']:.4f} ms"
         log(f"  {name} {cfg} {what}: err 0, {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms{lib}, "
             f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} B, {n_ops} int32 ops)")
         # the JSON line reports each kernel at the main path's batch shape on
@@ -589,25 +609,43 @@ def phase_kernels(torch, cfgs: list, device, iters: int = 20) -> dict:
                 in_bytes + B * OUT_SLOTS * 4 + B * 5, probe_ops(B, P, L) + B * OUT_SLOTS,
             )
 
-        # K3: a fold-sized row scatter (a few hundred touched buckets)
+        # K3: a fold-sized row scatter (a few hundred touched buckets), in
+        # place, each version on its own clone of the table (the matcher's
+        # own buffers are left alone); then out-of-range indices and
+        # duplicates carrying identical rows
         S = arrays[0].shape[0]
         k = 512
         g = torch.Generator(device="cpu").manual_seed(5)
         idx = torch.randperm(S, generator=g)[:k].to(torch.int32).to(device)
         rows_t = torch.randint(-(2**31), 2**31, (k, 16), generator=g, dtype=torch.int64).to(torch.int32).to(device)
         idx64 = idx.to(torch.int64)
-        got = flat.scatter_rows(arrays[0], idx, rows_t)
-        want = flat.scatter_rows_plain(arrays[0], idx, rows_t)
+        got, want, lib_t = (arrays[0].clone() for _ in range(3))
+        flat.scatter_rows(got, idx, rows_t)
+        flat.scatter_rows_plain(want, idx, rows_t)
+        lib_t.index_copy_(0, idx64, rows_t)
         compare("scatter_rows", got, want, f"{cfg['name']} k={k}")
-        check(torch.equal(torch.index_copy(arrays[0], 0, idx64, rows_t), got), "K3 disagrees with index_copy")
+        check(torch.equal(lib_t, got), "K3 disagrees with index_copy_")
+        odd = torch.tensor([-1, S, S + 5, -(2**31)], dtype=torch.int32, device=device)
+        idx_x = torch.cat([idx[:64], odd, idx[:32]])
+        rows_x = torch.cat([rows_t[:64], rows_t[:4], rows_t[:32]])
+        got_x, want_x = arrays[0].clone(), arrays[0].clone()
+        flat.scatter_rows(got_x, idx_x, rows_x)
+        flat.scatter_rows_plain(want_x, idx_x, rows_x)
+        compare("scatter_rows", got_x, want_x, f"{cfg['name']} k={idx_x.numel()} (4 out of range, 32 duplicates)")
+        del got_x, want_x
+        # the in-place work's bytes: k indices and k rows read, k rows
+        # written; the functional update it replaced also copied the table
+        functional_ms, _ = bound(2 * S * 64 + k * 4 + k * 64, 0)
         timed(
-            "scatter_rows", cfg["name"], MAIN_BATCH, f"S={S} k={k}",
-            lambda: flat.scatter_rows(arrays[0], idx, rows_t),
-            lambda: flat.scatter_rows_plain(arrays[0], idx, rows_t),
-            2 * S * 64 + k * 4 + k * 64, 0,
-            library=lambda: torch.index_copy(arrays[0], 0, idx64, rows_t),
+            "scatter_rows", cfg["name"], MAIN_BATCH,
+            f"S={S} k={k} in place (the functional copy's bound was {functional_ms:.4f} ms)",
+            lambda: flat.scatter_rows(got, idx, rows_t),
+            lambda: flat.scatter_rows_plain(want, idx, rows_t),
+            k * 4 + 2 * k * 64, 0,
+            library=lambda: lib_t.index_copy_(0, idx64, rows_t),
             plain_iters=5,
         )
+        del got, want, lib_t
     log("phase kernels: ok every kernel equals its plain version (tolerance 0)")
     return rec
 
@@ -777,6 +815,57 @@ def _verify(index, topics, results, what) -> int:
     return n_views
 
 
+def _folds_under_a_batch(cfg: dict, n_topics: int = MAIN_BATCH, n_churn: int = 40) -> str:
+    """The double-buffered fold under a batch in flight. A batch of
+    ``n_topics`` is issued on the snapshot (its first ``2 * n_churn``
+    topics from known filters), then twice over ``n_churn`` new clients
+    subscribe to those filters and ``flush()`` folds them (K3 into the
+    standby buffer; the second fold's standby is the buffer the batch
+    captured), then the batch resolves. Each answer must be the walk's
+    before the churn, except where the matcher walked the topic on the
+    host (then the walk's after it); at least one topic the churn changed
+    must answer from the issued snapshot; and the next batch must equal
+    the trie's walk."""
+    from mqtt_tpu_torch import Subscription, subscribers_equal
+
+    index, dm, rng, gen = cfg["index"], cfg["dm"], cfg["rng"], cfg["topic_gen"]
+    snap = dm.snapshot
+    entries = cfg["entries"]
+    flts = [entries[rng.randrange(len(entries))][1].filter for _ in range(2 * n_churn)]
+    topics = [topic_for(f, rng) for f in flts] + [gen() for _ in range(n_topics - 2 * n_churn)]
+    check(not dm.pending_deltas, "the overlay was not empty before the batch")
+    before = [index.subscribers(t) for t in topics]
+    st = snap.stats
+    folds0, copies0, fb0 = st.folds, st.fold_copies, st.host_fallbacks
+    secs0 = FOLD_WALL.get(snap, (0.0,))[0]
+    resolver = snap.match_topics_async(topics)
+    for r in range(2):
+        for k in range(n_churn):
+            index.subscribe(f"held{r}_{k}", Subscription(filter=flts[r * n_churn + k], qos=1))
+        dm.flush()
+    got = resolver()
+    after = [index.subscribers(t) for t in topics]
+    folds, copies = st.folds - folds0, st.fold_copies - copies0
+    walked = st.host_fallbacks - fb0
+    held = live = 0
+    for t, g, b, a in zip(topics, got, before, after):
+        if subscribers_equal(b, a):
+            check(subscribers_equal(g, b), f"{cfg['name']} held batch: {t!r} differs from the walk")
+        elif subscribers_equal(g, b):
+            held += 1
+        else:
+            check(subscribers_equal(g, a), f"{cfg['name']} held batch: {t!r} is neither snapshot's")
+            live += 1
+    # the background fold may split a round's mutations over two folds
+    check(folds >= 2, f"{cfg['name']} held batch: {folds} folds, not 2 (a full rebuild took one)")
+    check(held > 0 and live <= walked, f"{cfg['name']} held batch: {held} changed topics from the issued "
+          f"snapshot, {live} from the live trie with {walked} walked on the host")
+    _verify(index, topics, dm.match_topics(topics), f"{cfg['name']} the batch after the two folds")
+    return (f"{n_topics} topics issued, {folds} folds ({FOLD_WALL.get(snap, (0.0,))[0] - secs0:.3f} s, fold_copies {copies}) before "
+            f"the resolve; {held} topics the churn changed answered from the issued snapshot, {live} walked on "
+            f"the host; the next batch equal to the walk")
+
+
 def phase_main(cfg: dict, wave: int, n_churn: int = 150, paced_s: float = 2.0) -> dict:
     """The main path on one configuration (launch counts reset just before).
 
@@ -862,6 +951,10 @@ def phase_main(cfg: dict, wave: int, n_churn: int = 150, paced_s: float = 2.0) -
     finally:
         gc.callbacks.remove(pauses)
     launches = dict(kernels.LAUNCHES)
+    # the batch held across two folds is not the main path: counted apart
+    kernels.reset_launches()
+    held = _folds_under_a_batch(cfg)
+    held_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     stats = out["stats"]
     n = 3 * wave
     seconds = out["seconds"]
@@ -900,6 +993,8 @@ def phase_main(cfg: dict, wave: int, n_churn: int = 150, paced_s: float = 2.0) -
         f"final batch cap {paced._batch_cap}, buckets {cfg['paced_buckets']}, "
         f"host-walk fallbacks {paced.fallbacks or 0}, "
         f"{pauses.summary(*out['t_paced'])}")
+    log(f"  {name} folds under a batch in flight: {held}; its launches (not the main path's): {held_launches}")
+    log(f"  {name} the matcher over the phase: {fold_summary(dm)} (counted from the setup's rebuild)")
     log(f"  {name} launches on the main path: {launches}")
     return launches
 
@@ -1600,8 +1695,9 @@ def phase_namespace(torch, device, n_tenants: int = 8, per_tenant: int = 2500, n
     """The namespace corpus on the card (launch counts reset just before):
     ``n_topics`` publishes through ``MatchStage`` over ``DeltaMatcher``, then
     through ``DeltaMatcher(mesh=make_mesh([device] * 8))``, each with lazy
-    views (the default) and with eager results from the C materializer;
-    every result must equal the trie's, no global wildcard client may
+    views (the default) and with eager results from the C materializer,
+    each after one batch resolved outside the counts (the compact
+    capacity learns the corpus's hits); every result must equal the trie's, no global wildcard client may
     reach a scoped topic, and the global ``#`` client must reach every
     global topic that does not start with ``$``."""
     from mqtt_tpu_torch import DeltaMatcher, MatchStage
@@ -1629,6 +1725,11 @@ def phase_namespace(torch, device, n_tenants: int = 8, per_tenant: int = 2500, n
                 await stage.stop()
 
         try:
+            # one batch resolved before the stage's, so the capacity has
+            # learned the corpus's hits: the stage issues its second batch
+            # before the first resolves, and a batch that outgrew its pair
+            # buffer resolves eagerly on the sharded matcher
+            dm.match_topics(topics[:MAIN_BATCH])
             kernels.reset_launches()
             results = asyncio.run(drive())
             for k, v in kernels.LAUNCHES.items():
@@ -1637,7 +1738,9 @@ def phase_namespace(torch, device, n_tenants: int = 8, per_tenant: int = 2500, n
         finally:
             dm.close()
         n_views = _verify(index, topics, results, f"namespace {what}")
-        check((n_views > 0) == lazy, f"namespace {what}: {n_views} lazy views")
+        check((n_views > 0) == lazy,
+              f"namespace {what}: {n_views} lazy views, compact_batches {stats['compact_batches']}, "
+              f"compact_overflows {stats['compact_overflows']}")
         scoped = 0
         for t, r in zip(topics, results):
             wild = {c for c in r.subscriptions if c.startswith("gw")}
@@ -1650,7 +1753,7 @@ def phase_namespace(torch, device, n_tenants: int = 8, per_tenant: int = 2500, n
         log(f"phase namespace {what}: ok {n_topics} publishes ({scoped} scoped) over {n_subs} subscriptions "
             f"of {n_tenants} tenants bit-identical to the trie, no global wildcard on a scoped topic; "
             f"{n_views} lazy views, host_fallbacks {stats['host_fallbacks']}, "
-            f"compact_batches {stats['compact_batches']}")
+            f"compact_batches {stats['compact_batches']}, compact_overflows {stats['compact_overflows']}")
     if device.type == "cuda":
         check(launches["flat_probe_ranges"] + launches["flat_match_compact"] > 0
               and launches["sharded_step"] > 0, f"the namespace phase ran no matcher kernel: {launches}")
@@ -2561,6 +2664,45 @@ class PredicateReference:
         return ref, done
 
 
+@contextlib.contextmanager
+def timed_ticks():
+    """While open, time each ``agg_reduce_batch`` call the predicate
+    engines make (they import it at the call) on the host clock: yields
+    the list it fills with (windows, samples, seconds) a tick."""
+    from mqtt_tpu_torch.ops import predicates as pops
+
+    call = pops.agg_reduce_batch
+    ticks: list = []
+
+    def timed(pending, device):
+        t0 = time.perf_counter()
+        out = call(pending, device)
+        ticks.append((len(pending), sum(len(v) for _op, v in pending), time.perf_counter() - t0))
+        return out
+
+    pops.agg_reduce_batch = timed
+    try:
+        yield ticks
+    finally:
+        pops.agg_reduce_batch = call
+
+
+def agg_tick_summary(ticks) -> str:
+    """One line on the window-reduction ticks an engine sent to the card
+    (``timed_ticks``): count, shapes and the wall of the
+    ``agg_reduce_batch`` call a tick."""
+    if not ticks:
+        return "no window reduction on the card"
+    walls = [w for _n, _s, w in ticks]
+    shapes: dict = {}
+    for n, samples, _w in ticks:
+        shapes[(n, samples)] = shapes.get((n, samples), 0) + 1
+    return (f"{len(ticks)} ticks reduced on the card (windows x samples: "
+            + ", ".join(f"{n} x {smp} {c} times" for (n, smp), c in sorted(shapes.items()))
+            + f"), agg_reduce_batch {sum(walls) / len(walls) * 1e6:.1f} us a tick mean, p50 "
+            f"{_pct(walls, 0.5) * 1e6:.1f} us, max {max(walls) * 1e6:.1f} us (host clock)")
+
+
 def _check_emissions(emits, done, what):
     import numpy as np
     from mqtt_tpu_torch.predicates import OP_MAX, OP_MEAN
@@ -2632,7 +2774,8 @@ def phase_predicates(cfg: dict, wave: int) -> dict:
 
     out: dict = {}
     kernels.reset_launches()
-    asyncio.run(drive())
+    with timed_ticks() as ticks:
+        asyncio.run(drive())
     launches = dict(kernels.LAUNCHES)
     g = eng.gauges()
     n = 3 * wave
@@ -2663,6 +2806,7 @@ def phase_predicates(cfg: dict, wave: int) -> dict:
         ms = [m for _b, m in d2h]
         log(f"  cfgP verdict copies (D2H into pinned memory, CUDA events): {len(d2h)} of {d2h[0][0]} B, "
             f"p50 {_pct(ms, 0.5):.3f} ms max {max(ms):.3f} ms, {d2h[0][0] / _pct(ms, 0.5) / 1e6:.2f} GB/s at p50")
+    log(f"  cfgP windows: {agg_tick_summary(ticks)}")
     log(f"  cfgP launches on the main path: {launches}")
     return launches
 
@@ -2851,6 +2995,36 @@ def _keystream_split(torch, key_table, kidx, counters, lanes: int):
     return out
 
 
+def agg_ticks(g) -> dict:
+    """The window reductions a tick hands ``agg_reduce_batch``, as
+    ``(op, samples)`` lists: 64 windows of 64 samples, and the hot topic's
+    two ticks (its 64 holders keep ``$MEAN``/``$MAX`` windows of 32 and
+    ``$MIN`` windows of 64: 43 windows complete every 32 publishes, and all
+    64 every 64)."""
+    from mqtt_tpu_torch.ops.predicates import OP_MAX, OP_MEAN, OP_MIN
+
+    ops = [(OP_MEAN, OP_MAX, OP_MIN)[k % 3] for k in range(64)]
+
+    def tick(lengths):
+        return [(op, [float(x) for x in g.random(n)]) for op, n in zip(ops, lengths)]
+
+    return {"64 x 64": tick([64] * 64), "43 x 32": tick([32] * 43),
+            "43 x 32 + 21 x 64": tick([64 if k % 3 == 2 else 32 for k in range(64)])}
+
+
+def agg_tick_walls(agg_reduce_batch, pending: list, device, n: int = 200) -> list:
+    """Host seconds of ``n`` calls of ``agg_reduce_batch`` on one tick,
+    after five to warm up."""
+    for _ in range(5):
+        agg_reduce_batch(pending, device)
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        agg_reduce_batch(pending, device)
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
 def phase_kernels_pr(torch, rec: dict, cfgP: dict, cfgR: dict, device, n_recrypt: int, iters: int = 20) -> None:
     """K4-K6 against their plain versions on the same inputs on the card,
     at the shapes cfgP and cfgR give them; fills ``rec``."""
@@ -2873,6 +3047,7 @@ def phase_kernels_pr(torch, rec: dict, cfgP: dict, cfgR: dict, device, n_recrypt
             f"plain {row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} B, {n_ops} ops)")
         if main:
             rec[name].update(row)
+        return row
 
     # K4: the engine's own rule table; feature rows of cfgP payloads (the
     # main shape) and the first 64 of them, both also on the same table
@@ -2916,22 +3091,55 @@ def phase_kernels_pr(torch, rec: dict, cfgP: dict, cfgR: dict, device, n_recrypt
     if on_cuda:
         torch.cuda.empty_cache()
 
-    # K5: the hot topic's tick, 64 windows of up to 64 samples
+    # K5 on the ragged layout: the hot topic's tick, 64 windows of 32 or
+    # 64 samples, a tenth of them NaN (the main shape); 37 windows of 1 to
+    # 90 samples (W not a power of two) whose first is all NaN; and the
+    # launch floor, one window of one sample
+    def agg_case(what, windows, ops, main=False):
+        W = len(windows)
+        buf = torch.from_numpy(pops.pack_windows(windows, ops)).to(device)
+        got = pops.agg_reduce(buf, W).cpu().numpy()
+        want = pops.agg_reduce_plain(buf, W).cpu().numpy()
+        exact = ops != pops.OP_MEAN
+        check(np.array_equal(got[exact].view(np.uint32), want[exact].view(np.uint32)),
+              f"agg_reduce {what}: MAX/MIN differ from the plain version")
+        check((np.abs(got - want) <= MEAN_TOL * np.maximum(1.0, np.abs(want))).all(),
+              f"agg_reduce {what}: MEAN outside its tolerance")
+        finite = np.isfinite(want)
+        err = float(np.abs(got[finite] - want[finite]).max()) if finite.any() else 0.0
+        check(np.array_equal(np.isfinite(got), finite), f"agg_reduce {what}: infinities differ")
+        n = buf.numel() - (3 * W + 1)
+        return timed("agg_reduce", f"{what} W={W} samples={n}", lambda: pops.agg_reduce(buf, W),
+                     lambda: pops.agg_reduce_plain(buf, W), buf.numel() * 4 + W * 4, 4 * n, err, main,
+                     plain_iters=iters)
+
     W, N = 64, 64
-    vals = g.random((W, N), dtype=np.float32)
-    counts = np.where(np.arange(W) % 3 == 2, 64, 32).astype(np.int32)
-    vals[np.arange(N)[None, :] >= counts[:, None]] = np.nan
+    lengths = np.where(np.arange(W) % 3 == 2, 64, 32)
     ops = np.array([(pops.OP_MEAN, pops.OP_MAX, pops.OP_MIN)[k % 3] for k in range(W)], np.int32)
-    args = [torch.from_numpy(a).to(device) for a in (vals, ops, counts)]
-    got = pops.agg_reduce(*args).cpu().numpy()
-    want = pops.agg_reduce_plain(*args).cpu().numpy()
-    exact = ops != pops.OP_MEAN
-    check(np.array_equal(got[exact].view(np.uint32), want[exact].view(np.uint32)),
-          "agg_reduce: MAX/MIN differ from the plain version")
-    check((np.abs(got - want) <= MEAN_TOL * np.maximum(1.0, np.abs(want))).all(),
-          "agg_reduce: MEAN outside its tolerance")
-    timed("agg_reduce", f"W={W} N={N}", lambda: pops.agg_reduce(*args), lambda: pops.agg_reduce_plain(*args),
-          W * N * 4 + W * 12, 4 * W * N, float(np.abs(got - want).max()), True, plain_iters=iters)
+    hot = [g.random(n, dtype=np.float32) for n in lengths]
+    for v in hot:
+        v[g.random(v.shape[0]) < 0.1] = np.nan
+    agg_case("the hot tick", hot, ops, main=True)
+    ragged = [g.normal(scale=40.0, size=int(g.integers(1, 91))).astype(np.float32) for _ in range(37)]
+    ragged[0][:] = np.nan
+    for v in ragged[1:]:
+        v[g.random(v.shape[0]) < 0.2] = np.nan
+    agg_case("ragged", ragged, g.integers(pops.OP_MEAN, pops.OP_MIN + 1, 37).astype(np.int32))
+    floor = agg_case("the launch floor", [np.ones(1, np.float32)], np.array([pops.OP_MAX], np.int32))
+    log(f"    agg_reduce: the launch floor (one window of one sample) is {floor['ms']:.4f} ms, the hot tick's "
+        f"bound {rec['agg_reduce']['bound_ms']:.7f} ms: the kernel sits at the floor")
+    if on_cuda:
+        # the wall of the whole call a tick (pack, one copy in, K5, one copy
+        # out, one event wait) at W = N = 64 and at the two tick shapes of
+        # the hot topic's holders (cfgP, broker-legs)
+        for what, pending in agg_ticks(g).items():
+            walls = agg_tick_walls(pops.agg_reduce_batch, pending, device)
+            # the host's share: packing the tick's Python floats into the layout
+            windows, ops_t = [v for _, v in pending], np.array([op for op, _ in pending], np.int32)
+            packs = agg_tick_walls(lambda *_a: pops.pack_windows(windows, ops_t), pending, device)
+            log(f"    agg_reduce_batch {what} ({len(pending)} windows, {sum(len(v) for v in windows)} samples): "
+                f"{sum(walls) / len(walls) * 1e6:.1f} us a tick mean, p50 {_pct(walls, 0.5) * 1e6:.1f} us, of which "
+                f"pack_windows p50 {_pct(packs, 0.5) * 1e6:.1f} us ({len(walls)} calls each, host clock)")
 
     # K6: cfgR's key table at every shape the path launches, padded as
     # keystream_async pads them (key 0, zero counters): the decrypt leg's
@@ -3469,6 +3677,53 @@ async def _connect_all(clients: list, host: str, port: int, frames: list, limit:
     return out
 
 
+# each device matcher's fold calls so far (time_folds): host seconds of
+# those that folded, and the count and seconds of those that gave up (a
+# full rebuild follows them)
+FOLD_WALL: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def time_folds() -> None:
+    """Time every ``TorchMatcher.fold`` from here on, on the host clock,
+    into ``FOLD_WALL`` by matcher: the trie's walk, the K3 launch and the
+    swap (the harness's timer; the matcher keeps only ``rebuild_seconds``,
+    folds and rebuilds together)."""
+    from mqtt_tpu_torch.ops.matcher import TorchMatcher
+
+    fold = TorchMatcher.fold
+    if getattr(fold, "timed", False):
+        return
+
+    @functools.wraps(fold)
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        ok = False
+        try:
+            ok = fold(self, *args, **kwargs)
+            return ok
+        finally:
+            w = FOLD_WALL.setdefault(self, [0.0, 0, 0.0])
+            if ok:
+                w[0] += time.perf_counter() - t0
+            else:
+                w[1] += 1
+                w[2] += time.perf_counter() - t0
+
+    timed.timed = True
+    TorchMatcher.fold = timed
+
+
+def fold_summary(m) -> str:
+    """A ``DeltaMatcher``'s folds so far: how many, their wall seconds
+    (``time_folds``), the calls that gave up to a rebuild, and how many
+    folds found the standby buffer held by a batch and copied the live
+    table."""
+    st = m.stats
+    ok_s, n_gave_up, gave_up_s = FOLD_WALL.get(m.snapshot, (0.0, 0, 0.0))
+    return (f"{st.folds} folds in {ok_s:.3f} s ({n_gave_up} calls gave up to a rebuild, {gave_up_s:.3f} s), "
+            f"fold_copies {st.fold_copies}")
+
+
 async def _await_fold(dm, what: str, limit: float = 600.0) -> float:
     t0 = time.perf_counter()
     while dm.pending_deltas:
@@ -3722,6 +3977,7 @@ def phase_broker_restart(torch, device, card: str, n_subs: int = N_SUBS, wave: i
                 if c.task is not None:
                     await c.ended(60.0)
             info["stage_fallbacks"] = dict(srv._stage.fallbacks)
+            info["fold_all"] = fold_summary(srv.matcher)
             await srv.close()
 
     asyncio.run(drive())
@@ -3740,7 +3996,7 @@ def phase_broker_restart(torch, device, card: str, n_subs: int = N_SUBS, wave: i
         check(ro["device"] > r["n_pub"] // 2, f"{RESTART_CELL} wave {w + 1}: the device resolved {ro['device']} "
               f"of {r['n_pub']} publishes")
     log(f"  {RESTART_CELL} churn: {n_churn} packets, fold {info['churn_fold']:.3f} s, folds {info['folds']}, "
-        f"scatter_rows {info['k3']}; launches in the cell: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        f"scatter_rows {info['k3']}; the cell's matcher: {info['fold_all']}; launches in the cell: " + ", ".join(f"{k} {v}" for k, v in launches.items())
         + f"; cell {time.perf_counter() - t_phase:.1f} s; {card}")
     return launches
 
@@ -3907,13 +4163,15 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
         info["p_wave"] = (n_pub, n_del, n_emit, wall, _routes(dm, st, stats0, fb0), _stage_split(srvP, batches0),
                           {k: g[k] - g0.get(k, 0) for k in ("device_decisions", "host_evals", "agg_device_reductions")
                            if k in g}, dict(eng.host_reasons))
+        info["p_folds"] = fold_summary(srvP.matcher)
         for c in every + list(back.values()) + [pub]:
             c.send(disconnect_frame(4))
         for c in every + list(back.values()) + [pub]:
             await c.ended(60.0)
         await srvP.close()
 
-    asyncio.run(drive_predicates())
+    with timed_ticks() as p_ticks:
+        asyncio.run(drive_predicates())
     t_serve, dur, rules = info["p_restore"]
     n_packets, t_sub, fold, rules_all = info["p_sub"]
     n_pub, n_del, n_emit, wall, ro, split, dg, reasons = info["p_wave"]
@@ -3925,6 +4183,7 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
         f"resolved by the device {ro['device']}, by the host: " + ", ".join(f"{k} {v}" for k, v in ro.items()
                                                                         if k != "device")
         + f"; engine {dg}, host reasons {reasons}; {card}")
+    log(f"  {LEGS_CELL} windows: {agg_tick_summary(p_ticks)}; matcher {info['p_folds']}; {card}")
     check(ro["device"] > n_pub // 2, f"{LEGS_CELL} predicates: the device resolved {ro['device']} of {n_pub}")
 
     # -- tenancy, retained and the re-key ------------------------------------
@@ -4053,6 +4312,7 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
             opened += renc.open_with_key(new_keys["pub"], bytes(m.payload)) == plain
         check(opened == RET_SEALED, f"{LEGS_CELL} re-key: {opened} of {RET_SEALED} open under the new key")
         info["rekey"] = (out, t_rekey, kernels.LAUNCHES["keystream"] - k6)
+        info["t_folds"] = fold_summary(srvT.matcher)
         for c in rsubs + [pub] + subs:
             c.send(disconnect_frame(4))
         for c in rsubs + [pub] + subs:
@@ -4077,7 +4337,7 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
     out, t_rekey, k6 = info["rekey"]
     log(f"phase broker {LEGS_CELL} re-key: epoch {out['old_epoch']} -> {out['epoch']}, {out['resealed']} retained "
         f"payloads re-sealed in {t_rekey * 1e3:.3f} ms, {k6} keystream launches, every one opens under the new "
-        f"key; {card}")
+        f"key; the tenant server's matcher {info['t_folds']}; {card}")
     log(f"  {LEGS_CELL} launches in the cell: " + ", ".join(f"{k} {v}" for k, v in launches.items())
         + f"; cell {time.perf_counter() - t_phase:.1f} s; {card}")
     return launches
@@ -4230,6 +4490,7 @@ def main() -> int:
     try:
         card = phase_card(torch)["card"]
         phase_build()
+        time_folds()
         kernels_line = run(torch.device("cuda"), args.subs, args.wave, args.recrypt,
                            tuple(int(x) for x in args.retained.split(",")), args.reseal, card, args.groups)
     except PhaseFailed as e:

@@ -5,7 +5,7 @@
 //   K1 flat_probe_ranges   _packed_core + flat_match_ranges_core + _probe_head
 //                          (flat.py:1007-1049, 913-950, 786-855)
 //   K2 flat_match_compact  _compact_core + _segment_of_slot (flat.py:1052-1161)
-//   K3 scatter_rows        _scatter_core (flat.py:1191-1196)
+//   K3 scatter_rows        _scatter_core (flat.py:1191-1196), in place
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // (mqtt_tpu_torch/ops/kernels.py loads it with ctypes). Every entry point
@@ -33,8 +33,14 @@
 // the clip slot; the -1 tail is shared by the blocks that finish after the
 // last tile's prefix is known. A batch that fits one block of 32 warps
 // (128 topics at P = 8) skips the ticket, the look-back and the done
-// counter. Its scratch is four ints per tile. K3 copies the whole table
-// (the update is functional) and writes k rows. The probe (probe_one),
+// counter. Its scratch is four ints per tile. K3 writes k rows into the
+// table it is given and copies nothing: a departure from _scatter_core,
+// whose table.at[idx].set(rows) makes a new table. The matcher keeps two
+// buffers of its table (ops/matcher.py, TorchMatcher.fold) and writes the
+// one no batch reads, so the fold moves k x 64 bytes (32 KB at k = 512)
+// where the functional copy moved the whole table each way (64 MB at
+// S = 2^20); its bytes are k indices, k rows read, k rows written, one
+// 16-byte load and store a thread. The probe (probe_one),
 // the lane mapping (probe_lanes) and the look-back live in
 // flat_probe.cuh, shared with sharded.cu.
 
@@ -367,16 +373,9 @@ __global__ void __launch_bounds__(1024) match_compact_kernel(
   }
 }
 
-__global__ void copy_rows_kernel(const uint4* __restrict__ src,
-                                 uint4* __restrict__ dst, long long n16) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n16; i += stride)
-    dst[i] = src[i];
-}
-
-// One thread per 16-byte quarter of an updated row; indices outside
-// [0, S) are dropped. Duplicate indices carry identical rows.
+// K3, in place: one thread per 16-byte quarter of an updated row;
+// indices outside [0, S) are dropped. Duplicate indices carry identical
+// rows.
 __global__ void scatter_rows_kernel(const int* __restrict__ idx, int k,
                                     const uint4* __restrict__ rows, int S,
                                     uint4* __restrict__ dst) {
@@ -458,20 +457,16 @@ int fm_match_compact(const int* tokens, int B, int W, int max_levels,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3: out = table with out[idx[i]] = rows[i] (functional: out is a new
-// buffer the caller allocated).
-int fm_scatter_rows(const int* table, int S, const int* idx, int k,
-                    const int* rows, int* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n16 = 4LL * S;
-  const unsigned copy_blocks =
-      static_cast<unsigned>(n16 < 132LL * 8 * 256 ? blocks_for(n16, 256) : 132 * 8);
-  copy_rows_kernel<<<copy_blocks, 256, 0, st>>>(
-      reinterpret_cast<const uint4*>(table), reinterpret_cast<uint4*>(out), n16);
+// K3, in place: table[idx[i]] = rows[i] for every i with idx[i] in
+// [0, S); nothing else of the table is read or written. table and rows
+// are 16-byte aligned.
+int fm_scatter_rows(int* table, int S, const int* idx, int k,
+                    const int* rows, void* stream) {
   if (k > 0)
-    scatter_rows_kernel<<<blocks_for(4LL * k, 256), 256, 0, st>>>(
+    scatter_rows_kernel<<<blocks_for(4LL * k, 256), 256, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
         idx, k, reinterpret_cast<const uint4*>(rows), S,
-        reinterpret_cast<uint4*>(out));
+        reinterpret_cast<uint4*>(table));
   return static_cast<int>(cudaGetLastError());
 }
 

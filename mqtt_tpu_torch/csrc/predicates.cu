@@ -48,9 +48,14 @@
 // rules at a time. Each warp stores 32 consecutive words of a publish's
 // row, one 128-byte segment.
 //
-// K5 reduces W NaN-padded windows of N samples: one warp per window, lanes
-// striding over the samples, then a shuffle tree. It reads W*N floats once
-// and is bound by bytes (and at the main path's W=64, N=64 by launch cost).
+// K5 reduces W ragged windows from one int32 buffer, offsets [W+1] | ops
+// [W] | counts [W] | the samples as float32 bits, window after window (no
+// padding: agg_reduce_core's NaN padding to powers of two was for the JAX
+// jit's static shapes). One warp per window, lanes striding over its
+// samples, then a shuffle tree. It reads the buffer once and writes W
+// floats, so it is bound by bytes, and at the main path's W = 64, N = 64
+// (17 KB) by the cost of a launch: the wrapper's caller moves the buffer
+// in one copy each way, from and into pinned host memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -464,19 +469,24 @@ __global__ void __launch_bounds__(kRulesWarps * 32) rules_eval_kernel(
   }
 }
 
-// K5. Whole warps past W leave together.
-__global__ void agg_reduce_kernel(const float* __restrict__ vals, const int* __restrict__ ops,
-                                  const int* __restrict__ counts, int W, int N,
+// K5. Whole warps past W leave together. A NaN sample is skipped but
+// counts in the divisor (counts[w], as agg_reduce_core divides by
+// max(counts, 1)); an empty or all-NaN window gives -inf for MAX and inf
+// for MIN; any op but MEAN and MAX is MIN. Offsets are clamped to the
+// buffer's n samples.
+__global__ void agg_reduce_kernel(const int* __restrict__ buf, int W, int n,
                                   float* __restrict__ out) {
   const int win = (blockIdx.x * kAggThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (win >= W) return;
-  const float* row = vals + static_cast<size_t>(win) * N;
+  const float* samples = reinterpret_cast<const float*>(buf + 3 * static_cast<size_t>(W) + 1);
+  const int lo = min(max(buf[win], 0), n);
+  const int hi = min(max(buf[win + 1], lo), n);
   float s = 0.0f;
   float mx = -INFINITY;
   float mn = INFINITY;
-  for (int i = lane; i < N; i += 32) {
-    const float v = row[i];
+  for (int i = lo + lane; i < hi; i += 32) {
+    const float v = samples[i];
     if (!isnan(v)) {
       s += v;
       mx = v > mx ? v : mx;
@@ -491,8 +501,8 @@ __global__ void agg_reduce_kernel(const float* __restrict__ vals, const int* __r
     mn = omn < mn ? omn : mn;
   }
   if (lane == 0) {
-    const int o = ops[win];
-    const float mean = s / fmaxf(static_cast<float>(counts[win]), 1.0f);
+    const int o = buf[W + 1 + win];
+    const float mean = s / fmaxf(static_cast<float>(buf[2 * W + 1 + win]), 1.0f);
     out[win] = o == kOpMean ? mean : (o == kOpMax ? mx : mn);
   }
 }
@@ -549,14 +559,13 @@ int pk_rules_eval(const int* op, const int* slot, const float* thresh, const int
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5: out[W] aggregates of vals[W, N].
-int pk_agg_reduce(const float* vals, const int* ops, const int* counts, int W, int N, float* out,
-                  void* stream) {
+// K5: out[W] aggregates of the W ragged windows in buf (3W + 1 + n ints:
+// offsets, ops, counts, then n samples).
+int pk_agg_reduce(const int* buf, int W, int n, float* out, void* stream) {
   if (W > 0) {
     const int windows_per_block = kAggThreads / 32;
     const int grid = (W + windows_per_block - 1) / windows_per_block;
-    agg_reduce_kernel<<<grid, kAggThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        vals, ops, counts, W, N, out);
+    agg_reduce_kernel<<<grid, kAggThreads, 0, static_cast<cudaStream_t>(stream)>>>(buf, W, n, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

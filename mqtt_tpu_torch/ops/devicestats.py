@@ -236,21 +236,34 @@ class KernelWatch:
     on the host clock and note it in the ledger. The time is the host's
     enqueue of the launch, not the kernel's run: the watch does not wait
     for the card. A call that raises notes nothing. The steady-state cost
-    is one signature tuple per call plus a set lookup."""
+    is one signature tuple per call plus a set lookup.
 
-    __slots__ = ("kernel", "fn", "ledger", "_seen", "_lock")
+    ``sig``, where given, replaces the exact signature for a kernel whose
+    shapes vary call by call: ``sig(*args, **kwargs)`` returns the key, a
+    tuple whose first item is the shape label noted in the ledger (for
+    example a size by its power-of-two bucket, so the ledger stays
+    bounded)."""
 
-    def __init__(self, kernel: str, fn: Callable, ledger: Optional[CompileLedger] = None) -> None:
+    __slots__ = ("kernel", "fn", "ledger", "sig", "_seen", "_lock")
+
+    def __init__(
+        self,
+        kernel: str,
+        fn: Callable,
+        ledger: Optional[CompileLedger] = None,
+        sig: Optional[Callable] = None,
+    ) -> None:
         self.kernel = kernel
         self.fn = fn
         self.ledger = LEDGER if ledger is None else ledger
+        self.sig = sig
         self._seen: set = set()
         self._lock = threading.Lock()  # anonymous: guards _seen only, never calls out
 
     def __call__(self, *args, **kwargs):
         if not _ENABLED:
             return self.fn(*args, **kwargs)
-        key = _sig_of(args, kwargs)
+        key = _sig_of(args, kwargs) if self.sig is None else self.sig(*args, **kwargs)
         if key in self._seen:
             return self.fn(*args, **kwargs)
         t0 = time.perf_counter()
@@ -260,7 +273,8 @@ class KernelWatch:
             new = key not in self._seen
             self._seen.add(key)
         if new:
-            self.ledger.note_compile(self.kernel, _shape_bucket(args, kwargs), seconds)
+            label = _shape_bucket(args, kwargs) if self.sig is None else key[0]
+            self.ledger.note_compile(self.kernel, label, seconds)
         return out
 
 

@@ -166,8 +166,9 @@ class FlatIndex:
         its generation's overlay does not host-route that filter, so it
         must keep seeing the snapshot from its own issue time. The np
         ``table``/pat arrays ARE shared with the live instance and
-        mutated in place — safe because resolvers never read them (device
-        arrays are swapped functionally) — which is also why an aborted
+        mutated in place — safe because resolvers never read them (the
+        device table changes only in the matcher's standby buffer,
+        ``TorchMatcher.fold``) — which is also why an aborted
         fold poisons folding until a full rebuild rebuilds them fresh
         (TorchMatcher.fold).
 
@@ -1052,12 +1053,11 @@ def flat_match_compact_plain(
 
 
 def scatter_rows_plain(table, idx, rows):
-    """A copy of ``table`` with rows ``idx`` replaced (out-of-range indices
-    dropped)."""
-    out = table.clone()
+    """The plain version of K3, in place: ``table[idx] = rows`` with
+    out-of-range indices dropped; returns ``table``."""
     ok = (idx >= 0) & (idx < table.shape[0])
-    out[idx[ok].to(torch.int64)] = rows[ok]
-    return out
+    table[idx[ok].to(torch.int64)] = rows[ok]
+    return table
 
 
 def flat_match_packed(table, pat_kind, pat_depth, pat_mask, packed_tokens, *, max_levels):
@@ -1150,11 +1150,16 @@ def flat_match_compact(
 
 
 def scatter_rows(table, idx, rows):
-    """The fold's bucket-row update, functional as in the JAX package: a
-    NEW table equal to ``table`` with ``table[idx] = rows``. Batches issued
-    against the old table keep reading it. The caller pads ``idx``/``rows``
-    to a power of two by repeating the last pair; duplicates carry
-    identical rows. Indices outside ``[0, S)`` are dropped."""
+    """The fold's bucket-row update, IN PLACE: ``table[idx] = rows``,
+    returning ``table``. A departure from the JAX package, whose
+    ``_scatter_core`` is functional (``table.at[idx].set(rows)``, a new
+    table, so batches in flight keep the old one): a copy of the whole
+    table per fold moved 64 MB each way at 1M subscriptions for a few KB
+    of rows. The port keeps batches in flight safe another way:
+    ``TorchMatcher`` holds two buffers of its table and writes only the
+    one no batch has captured (``TorchMatcher.fold``). Duplicate indices
+    carry identical rows; indices outside ``[0, S)`` are dropped; no
+    padding is needed (K3 takes any ``k``)."""
     if table.device.type == "cpu":
         return scatter_rows_plain(table, idx, rows)
     return kernels.scatter_rows(table, idx, rows)

@@ -78,12 +78,12 @@ _SIGNATURES = {
         "fm_match_compact": [_c_ptr, _c_int, _c_int, _c_int, _c_ptr, _c_int, _c_ptr,
                              _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr, _c_int,
                              ctypes.c_uint, _c_ptr],
-        "fm_scatter_rows": [_c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr],
+        "fm_scatter_rows": [_c_ptr, _c_int, _c_ptr, _c_int, _c_ptr, _c_ptr],
     },
     "predicates.cu": {
         "pk_rules_eval": [_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int,
                           _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr],
-        "pk_agg_reduce": [_c_ptr, _c_ptr, _c_ptr, _c_int, _c_int, _c_ptr, _c_ptr],
+        "pk_agg_reduce": [_c_ptr, _c_int, _c_int, _c_ptr, _c_ptr],
     },
     "recrypt.cu": {
         "rc_keystream": [_c_ptr, _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr, _c_int, _c_ptr],
@@ -265,14 +265,33 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _watched(source: str):
-    """Run a wrapper inside a ``KernelWatch`` named after it. Where its
-    first argument lies on a card, ``source``'s library is loaded (and
-    built at first use) before the watch times the call, so a first
-    launch's note holds the launch's host time and not the build's."""
+def _pow2(n: int) -> int:
+    """The power-of-two bucket that holds ``n`` (at least 1)."""
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _rows_sig(table, idx, rows) -> tuple:
+    """``scatter_rows``' ledger key: the table's shape and card, and the
+    fold's row count by its power-of-two bucket (the launch itself is not
+    padded; the JAX package's fold padded it to these buckets)."""
+    return ("x".join(map(str, table.shape)) + f",k<={_pow2(idx.shape[0])}", table.device)
+
+
+def _windows_sig(buf, W: int) -> tuple:
+    """``agg_reduce``'s ledger key: the tick's windows and samples, each by
+    its power-of-two bucket (the JAX package padded both to these)."""
+    return (f"W<={_pow2(W)},n<={_pow2(buf.shape[0] - 3 * W - 1)}", buf.device)
+
+
+def _watched(source: str, sig=None):
+    """Run a wrapper inside a ``KernelWatch`` named after it (``sig``: the
+    watch's signature, for a wrapper whose shapes vary call by call).
+    Where its first argument lies on a card, ``source``'s library is
+    loaded (and built at first use) before the watch times the call, so a
+    first launch's note holds the launch's host time and not the build's."""
 
     def wrap(fn):
-        watch = KernelWatch(fn.__name__, fn)
+        watch = KernelWatch(fn.__name__, fn, sig=sig)
 
         @functools.wraps(fn)
         def launch(*args, **kwargs):
@@ -380,9 +399,13 @@ def _tile_scratch_for(lib, device, stream: int, T: int, S: int, bl: int) -> tupl
         return entry[0], entry[1], entry[2]
 
 
-@_watched("flat_match.cu")
+@_watched("flat_match.cu", sig=_rows_sig)
 def scatter_rows(table, idx, rows):
-    """K3: a new table equal to ``table`` with rows ``idx`` replaced."""
+    """K3, in place: ``table[idx[i]] = rows[i]`` for every ``idx[i]`` in
+    ``[0, S)`` (the rest dropped); returns ``table``. Nothing else of the
+    table is read or written, so the caller must own the buffer: no batch
+    may read it until this launch has run (``TorchMatcher`` writes its
+    standby buffer)."""
     device = _cuda_device(table)
     _check(table, "table", device, 2)
     _check(idx, "idx", device, 1)
@@ -393,14 +416,12 @@ def scatter_rows(table, idx, rows):
         raise ValueError("scatter_rows takes table [S, 16], idx [k], rows [k, 16]")
     if table.data_ptr() % 16 or rows.data_ptr() % 16:
         raise ValueError("table and rows must be 16-byte aligned")
-    out = torch.empty_like(table)
+    if k == 0:
+        return table
     lib = library()
-    err = lib.fm_scatter_rows(
-        table.data_ptr(), S, idx.data_ptr(), k, rows.data_ptr(), out.data_ptr(),
-        _stream(device),
-    )
+    err = lib.fm_scatter_rows(table.data_ptr(), S, idx.data_ptr(), k, rows.data_ptr(), _stream(device))
     _launched("flat_match.cu", err, "scatter_rows")
-    return out
+    return table
 
 
 @_watched("predicates.cu")
@@ -437,24 +458,24 @@ def rules_eval(op, slot, thresh, cbit, feats, cmask):
     return out
 
 
-@_watched("predicates.cu")
-def agg_reduce(vals, ops, counts):
-    """K5: ``W`` NaN-padded windows ``vals [W, N]`` float32 with their
-    ``ops``/``counts`` ``[W]`` int32 -> the ``[W]`` float32 aggregates."""
-    device = _cuda_device(vals)
-    _check(vals, "vals", device, 2, torch.float32)
-    _check(ops, "ops", device, 1)
-    _check(counts, "counts", device, 1)
-    W, N = vals.shape
-    if ops.shape[0] != W or counts.shape[0] != W or N < 1:
-        raise ValueError(f"agg_reduce takes vals [W, N>=1], ops [W], counts [W], got {tuple(vals.shape)}")
+@_watched("predicates.cu", sig=_windows_sig)
+def agg_reduce(buf, W: int):
+    """K5: the ``W`` ragged windows of ``buf`` (int32 ``[3W + 1 + n]``:
+    offsets ``[W+1]``, nondecreasing from 0 to ``n``, ops ``[W]``, counts
+    ``[W]``, then the ``n`` samples as float32 bits) -> the ``[W]`` float32
+    aggregates."""
+    device = _cuda_device(buf)
+    _check(buf, "buf", device, 1)
+    if W < 0 or buf.shape[0] < 3 * W + 1:
+        raise ValueError(f"agg_reduce takes a buffer of at least 3W + 1 ints, got {buf.shape[0]} for W={W}")
+    n = buf.shape[0] - (3 * W + 1)
+    if n >= 1 << 31:
+        raise ValueError("agg_reduce: too many samples for int32 offsets")
     out = torch.empty((W,), dtype=torch.float32, device=device)
     if W == 0:
         return out
     lib = library("predicates.cu")
-    err = lib.pk_agg_reduce(
-        vals.data_ptr(), ops.data_ptr(), counts.data_ptr(), W, N, out.data_ptr(), _stream(device),
-    )
+    err = lib.pk_agg_reduce(buf.data_ptr(), W, n, out.data_ptr(), _stream(device))
     _launched("predicates.cu", err, "agg_reduce")
     return out
 

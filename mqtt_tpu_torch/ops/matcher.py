@@ -9,7 +9,10 @@ every case the device cannot prove is re-walked on the host trie.
 The counterpart of the JAX package's ``TpuMatcher``, with the same
 policies: the compact-vs-packed encoding pick, the per-batch re-run of a
 compact batch whose hits outgrew the pair buffer, the exact-map fast path
-for wildcard-free filter sets, and copy-on-write folds. Results are
+for wildcard-free filter sets, and copy-on-write folds of the host index.
+The device table departs from the JAX package's functional update: it is
+held in two buffers and a fold writes its rows in place into the one no
+batch holds (``TorchMatcher.fold``). Results are
 materialized by the port's C materializer (``native/accelmod.c``), with
 the tenant namespace guards: lazy ``SubscribersView`` results by default
 (``lazy=True``, as the JAX package's ``TpuMatcher``), eager ``Subscribers``
@@ -22,6 +25,7 @@ the tests hold the C against; no path of the matchers calls them.
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
@@ -434,6 +438,10 @@ class MatcherStats:
     compact_batches: int = 0
     compact_overflows: int = 0
     d2h_bytes: int = 0
+    # the port's own, outside as_dict (which keeps the JAX package's keys):
+    # the folds that found the standby buffer held by a batch in flight
+    # and wrote a fresh copy of the live table instead (TorchMatcher.fold)
+    fold_copies: int = 0
 
     def as_dict(self) -> dict:
         out = {
@@ -482,6 +490,18 @@ def _to_host_async(out_dev: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.
     event = torch.cuda.Event()
     event.record()
     return host, event
+
+
+class _TableBuffer:
+    """One device buffer of the bucket table, and its pins: the batches
+    that captured it and have not yet made their last launch on it. A fold
+    writes a buffer only while it holds no pin."""
+
+    __slots__ = ("table", "pins")
+
+    def __init__(self, table: torch.Tensor) -> None:
+        self.table = table
+        self.pins = 0
 
 
 class TorchMatcher:
@@ -534,6 +554,15 @@ class TorchMatcher:
         # atomically by rebuild()/fold() so a concurrent match never mixes
         # arrays and salt from different generations
         self._state: Optional[tuple] = None
+        # the bucket table's two buffers, [live, standby]: live is
+        # _state's table, the standby one fold behind it, lacking the rows
+        # of the last fold (_behind: its host idx and rows, None after a
+        # rebuild). _tables_lock guards the pair, _behind, the pins, and
+        # their swap with _state, so a batch pins the buffer of the state
+        # it captures
+        self._tables: Optional[list] = None
+        self._behind: Optional[tuple] = None
+        self._tables_lock = threading.Lock()
         # True while the np table may diverge from the device table (an
         # aborted fold); only a full rebuild clears it
         self._fold_poisoned = False
@@ -553,7 +582,12 @@ class TorchMatcher:
         device_arrays = device_index_from_numpy(
             flat.table, flat.pat_kind, flat.pat_depth, flat.pat_mask, self.device
         )
-        self._state = (flat, device_arrays, version)
+        # the standby starts equal to the live table: one device copy
+        tables = [_TableBuffer(device_arrays[0]), _TableBuffer(device_arrays[0].clone())]
+        with self._tables_lock:
+            self._tables = tables
+            self._behind = None
+            self._state = (flat, device_arrays, version)
         self._fold_poisoned = False
         self.stats.rebuilds += 1
         self.stats.rebuild_seconds += time.perf_counter() - t0
@@ -566,13 +600,27 @@ class TorchMatcher:
         (FlatIndex.fold documents the cases, and a walk torn by a
         concurrent mutation). A failed ``scatter_rows`` raises.
 
-        The device update is functional: ``scatter_rows`` writes a NEW
-        table, so a batch issued against the previous state keeps reading
-        the rows it was issued with, and its resolver decodes against its
-        own sub table snapshot. The np bucket table is shared and edited
-        in place (resolvers never read it); an aborted fold leaves it
-        diverged from the device table, so folding poisons itself until
-        the full rebuild that MUST follow a False return."""
+        The device update departs from the JAX package's, which is
+        functional (a NEW table per fold, so batches in flight keep the
+        old one; at 1M subscriptions that is a 64 MB copy each way for a
+        few KB of rows). Here the table lives in two buffers, live and a
+        standby one fold behind. A fold writes the previous fold's rows
+        and its own into the standby IN PLACE, one ``scatter_rows``
+        launch, and publishes it as live; the old live buffer becomes the
+        standby. A batch pins the live buffer from the moment it captures
+        the state until its last launch on it, so the standby being
+        written holds no pin, unless a batch captured it two folds ago
+        and has not launched yet (or, on the compact path, not resolved:
+        its resolver may re-run the batch). Then this fold copies the live
+        table into a fresh standby (one device copy, counted in
+        ``stats.fold_copies``) and writes that. The port launches on one
+        stream, so every kernel issued before the scatter has run before
+        it. A resolver decodes against its own sub table snapshot, as
+        before. The np bucket table is shared and edited in place
+        (resolvers never read it); an aborted fold leaves it diverged from
+        the device table, so folding poisons itself until the full rebuild
+        that MUST follow a False return (which also uploads both buffers
+        anew)."""
         st = self._state
         if st is None or self._fold_poisoned:
             return False
@@ -590,17 +638,6 @@ class TorchMatcher:
         if res is None:
             return False
         updates, pats_changed = res
-        new_table = arrays[0]
-        if updates:
-            k = _bucket(len(updates), minimum=8)
-            idx = np.full(k, updates[-1][0], dtype=np.int32)
-            rows = np.tile(updates[-1][1], (k, 1))
-            for i, (s, r) in enumerate(updates):
-                idx[i] = s
-                rows[i] = r
-            new_table = scatter_rows(
-                arrays[0], device_i32(idx, self.device), device_i32(rows, self.device)
-            )
         new_pats = (
             tuple(
                 device_i32(a, self.device)
@@ -609,11 +646,51 @@ class TorchMatcher:
             if pats_changed
             else arrays[1:]
         )
-        self._state = (flat, (new_table, *new_pats), version)
+        with self._tables_lock:
+            table = self._write_standby(updates) if updates else self._tables[0].table
+            self._state = (flat, (table, *new_pats), version)
         self._fold_poisoned = False
         self.stats.folds += 1
         self.stats.rebuild_seconds += time.perf_counter() - t0
         return True
+
+    def _write_standby(self, updates) -> torch.Tensor:
+        """Write a fold's ``(slot, row)`` updates, with the rows the
+        standby lacks from the previous fold, into the standby buffer (or,
+        where a batch still pins it, into a fresh copy of the live one),
+        and swap the pair; returns the new live table. Runs under
+        ``_tables_lock``."""
+        idx = np.fromiter((s for s, _ in updates), dtype=np.int32, count=len(updates))
+        rows = np.stack([r for _, r in updates])
+        live, standby = self._tables
+        w_idx, w_rows = idx, rows
+        if standby.pins:
+            standby = _TableBuffer(live.table.clone())
+            self.stats.fold_copies += 1
+        elif self._behind is not None:
+            # this fold's rows win over the previous fold's on a shared slot
+            b_idx, b_rows = self._behind
+            keep = ~np.isin(b_idx, idx)
+            w_idx = np.concatenate([b_idx[keep], idx])
+            w_rows = np.concatenate([b_rows[keep], rows])
+        scatter_rows(standby.table, device_i32(w_idx, self.device), device_i32(w_rows, self.device))
+        self._tables = [standby, live]
+        self._behind = (idx, rows)
+        return standby.table
+
+    def _capture(self) -> tuple:
+        """The state a batch is issued against and its live buffer,
+        pinned: the caller drops the pin (``_unpin``) after its last
+        launch on the table."""
+        with self._tables_lock:
+            st = self._state
+            held = self._tables[0]
+            held.pins += 1
+        return st, held
+
+    def _unpin(self, held: _TableBuffer) -> None:
+        with self._tables_lock:
+            held.pins -= 1
 
     @property
     def index(self) -> Optional[FlatIndex]:
@@ -628,7 +705,9 @@ class TorchMatcher:
 
     @property
     def device_arrays(self) -> tuple:
-        """The flat index as device tensors (built on demand)."""
+        """The flat index as device tensors (built on demand). The table is
+        the live buffer, which the second fold from now writes in place:
+        clone it to keep it."""
         st = self._state
         if st is None or self.stale:
             self.rebuild()
@@ -642,10 +721,13 @@ class TorchMatcher:
         overflow[B])`` — the ranges kernel."""
         if self._state is None or self.stale:
             self.rebuild()
-        flat, arrays, _ = self._state
-        return flat_match_ranges(
-            *arrays, tok1, tok2, lengths, is_dollar, max_levels=flat.max_levels
-        )
+        (flat, arrays, _), held = self._capture()
+        try:
+            return flat_match_ranges(
+                *arrays, tok1, tok2, lengths, is_dollar, max_levels=flat.max_levels
+            )
+        finally:
+            self._unpin(held)
 
     # -- matching ----------------------------------------------------------
 
@@ -670,47 +752,57 @@ class TorchMatcher:
         and the D2H copy are queued) and the resolver its D2H window,
         which closes when the wait on the copy returns. With a profiler
         attached and no record passed, a private one is opened.
+
+        The batch pins the live table buffer it captures until its launch
+        (on the compact path until its resolver has passed the point where
+        it may re-run the batch), so no fold writes that buffer under it.
         """
-        st = self._state
-        if st is None or self.stale:
+        if self._state is None or self.stale:
             self.rebuild()
-            st = self._state
-        assert st is not None  # rebuild() always swaps in a state
+        st, held = self._capture()
         flat, arrays, _ = st
         if flat.exact_map is not None:
             # wildcard-free filter set: one host dict probe per topic beats
             # any device round trip
+            self._unpin(held)
             return self._match_exact_fast(topics, flat, route_to_host)
         prof = self.profiler
         rec = None
-        if prof is not None:
-            rec = profile if profile is not None else prof.open_batch()
-            t_issue0 = time.perf_counter()
-        # pad ragged batches to a power-of-two bucket; padded rows are
-        # ignored at resolve time
-        b = len(topics)
-        padded = topics + [""] * (_bucket(max(1, b), minimum=16) - b)
-        tok1, tok2, lengths, is_dollar, len_overflow = tokenize_topics(
-            padded, flat.max_levels, flat.salt
-        )
-        host_tokens = torch.from_numpy(pack_tokens(tok1, tok2, lengths, is_dollar))
-        if self.device.type == "cuda":
-            pinned = torch.empty(host_tokens.shape, dtype=torch.int32, pin_memory=True)
-            pinned.copy_(host_tokens)
-            dev_tokens = pinned.to(self.device, non_blocking=True)
-        else:
-            dev_tokens = host_tokens
-        P = flat.pat_depth.shape[0]
-        use_compact = self.compact and P > 0 and self._compact_pays(P)
-        capacity = 0
-        if use_compact:
-            capacity = self._compact_capacity_for(len(padded), flat)
-            out_dev = flat_match_compact(
-                *arrays, dev_tokens, max_levels=flat.max_levels, capacity=capacity
+        hold = False
+        try:
+            if prof is not None:
+                rec = profile if profile is not None else prof.open_batch()
+                t_issue0 = time.perf_counter()
+            # pad ragged batches to a power-of-two bucket; padded rows are
+            # ignored at resolve time
+            b = len(topics)
+            padded = topics + [""] * (_bucket(max(1, b), minimum=16) - b)
+            tok1, tok2, lengths, is_dollar, len_overflow = tokenize_topics(
+                padded, flat.max_levels, flat.salt
             )
-        else:
-            out_dev = flat_match_packed(*arrays, dev_tokens, max_levels=flat.max_levels)
-        out_host, event = _to_host_async(out_dev)
+            host_tokens = torch.from_numpy(pack_tokens(tok1, tok2, lengths, is_dollar))
+            if self.device.type == "cuda":
+                pinned = torch.empty(host_tokens.shape, dtype=torch.int32, pin_memory=True)
+                pinned.copy_(host_tokens)
+                dev_tokens = pinned.to(self.device, non_blocking=True)
+            else:
+                dev_tokens = host_tokens
+            P = flat.pat_depth.shape[0]
+            use_compact = self.compact and P > 0 and self._compact_pays(P)
+            capacity = 0
+            if use_compact:
+                capacity = self._compact_capacity_for(len(padded), flat)
+                out_dev = flat_match_compact(
+                    *arrays, dev_tokens, max_levels=flat.max_levels, capacity=capacity
+                )
+            else:
+                out_dev = flat_match_packed(*arrays, dev_tokens, max_levels=flat.max_levels)
+            out_host, event = _to_host_async(out_dev)
+            # the compact resolver may re-run the batch on this table
+            hold = use_compact
+        finally:
+            if not hold:
+                self._unpin(held)
         if prof is not None:
             # the issue leg (tokenize + H2D + launch + D2H queued) ends
             # here and the device window opens; the batch ran on the
@@ -758,29 +850,38 @@ class TorchMatcher:
 
             return resolve
 
+        pinned_until_resolve = [True]
+
         def resolve_compact() -> list[Subscribers]:
-            t_sync0 = time.perf_counter() if prof is not None else 0.0
-            if event is not None:
-                event.synchronize()
-            out = out_host.numpy()
+            try:
+                t_sync0 = time.perf_counter() if prof is not None else 0.0
+                if event is not None:
+                    event.synchronize()
+                out = out_host.numpy()
+                n_hits = int(out[0])
+                batch_ovf = bool(out[1])
+                if batch_ovf:
+                    # hits outgrew the pair buffer: THIS batch re-runs on
+                    # the packed-ranges path against the arrays it was
+                    # issued with (one extra dispatch + sync, still
+                    # bit-identical)
+                    packed = flat_match_packed(
+                        *arrays, dev_tokens, max_levels=flat.max_levels
+                    ).cpu().numpy()
+            finally:
+                if pinned_until_resolve[0]:
+                    pinned_until_resolve[0] = False
+                    self._unpin(held)
             bp = len(padded)
-            n_hits = int(out[0])
-            batch_ovf = bool(out[1])
             stats = self.stats
             stats.batches += 1
             stats.topics += len(topics)
             self._observe_hits(n_hits, b)
             if batch_ovf:
-                # hits outgrew the pair buffer: THIS batch re-runs on the
-                # packed-ranges path against the arrays it was issued with
-                # (one extra dispatch + sync, still bit-identical); the EWMA
-                # above already absorbed the true hit count, so the next
-                # capacity pick fits
+                # the EWMA above already absorbed the true hit count, so
+                # the next capacity pick fits
                 stats.compact_overflows += 1
                 self._hits_ewma = max(self._hits_ewma, n_hits / max(1, b))
-                packed = flat_match_packed(
-                    *arrays, dev_tokens, max_levels=flat.max_levels
-                ).cpu().numpy()
                 d2h_bytes = int(out.nbytes + packed.nbytes)
                 stats.d2h_bytes += d2h_bytes
                 if prof is not None:

@@ -9,13 +9,17 @@ field values, NaN = absent, and a ``[B, W]`` bitmask of the interned
 substrings and string equalities) and ONE kernel evaluates every rule on
 every publish, packing the verdicts 32 to a word (``rules_eval``, K4 in
 ``csrc/predicates.cu``). Large aggregation windows reduce in one launch
-per fan-out tick (``agg_reduce``, K5).
+per fan-out tick (``agg_reduce``, K5), over the tick's windows laid out
+ragged in one int32 buffer (``pack_windows``) that crosses to the card in
+one copy from pinned memory, the aggregates coming back in one copy.
 
 Each entry point takes CPU tensors through its plain PyTorch version and
 CUDA tensors through its kernel; nothing falls back from one to the
 other. Shapes are padded as the JAX package pads them (rules to a power
-of two of at least 32, batches to a power of two of at least 16, windows
-to powers of two), so the packed rows, pad bits included, equal JAX's.
+of two of at least 32, batches to a power of two of at least 16), so the
+packed rows, pad bits included, equal JAX's. Aggregation windows are not
+padded: the JAX package pads them with NaN to powers of two for its jit's
+static shapes, and the ragged layout gives the same aggregates.
 
 Bit patterns of u32 words travel in int32 tensors: PyTorch on the CPU has
 no shifts for ``uint32``, so the plain versions compute in int64 masked
@@ -24,6 +28,8 @@ to 32 bits.
 
 from __future__ import annotations
 
+import itertools
+import threading
 from collections import deque
 from typing import Callable, Optional
 
@@ -97,10 +103,46 @@ def rules_eval(op, slot, thresh, cbit, feats, cmask):
     return kernels.rules_eval(op, slot, thresh, cbit, feats, cmask)
 
 
-def agg_reduce_plain(vals, ops, counts):
-    """The plain version of K5 (``agg_reduce_core``): MEAN/MAX/MIN of
-    ``W`` NaN-padded windows. The mean divides the live sum by
-    ``max(counts, 1)``."""
+def pack_windows(windows, ops, counts=None, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """The ragged layout K5 reads, as one int32 array of ``3W + 1 + n``:
+    offsets ``[W+1]`` (window ``w``'s samples are ``offsets[w]`` up to
+    ``offsets[w+1]``), ``ops [W]``, ``counts [W]`` (each window's sample
+    count unless given: the mean's divisor), then the ``n`` samples of all
+    windows in order as float32 bits. ``windows`` is a sequence of sample
+    sequences (NaN samples are skipped by the reduction but count).
+    Written into ``out[:3W + 1 + n]`` where given (a pinned staging view),
+    else into a new array."""
+    W = len(windows)
+    lengths = np.fromiter((len(v) for v in windows), dtype=np.int64, count=W)
+    n = int(lengths.sum())
+    size = 3 * W + 1 + n
+    buf = np.empty(size, dtype=np.int32) if out is None else out[:size]
+    buf[0] = 0
+    buf[1 : W + 1] = np.cumsum(lengths)
+    buf[W + 1 : 2 * W + 1] = ops
+    buf[2 * W + 1 : 3 * W + 1] = lengths if counts is None else counts
+    buf[3 * W + 1 :].view(np.float32)[:] = np.fromiter(
+        itertools.chain.from_iterable(windows), dtype=np.float32, count=n
+    )
+    return buf
+
+
+def agg_reduce_plain(buf, W: int):
+    """The plain version of K5 (``agg_reduce_core``) on the ragged layout
+    (``pack_windows``; offsets nondecreasing from 0): MEAN/MAX/MIN of the
+    ``W`` windows. It lays the windows out NaN-padded, as the JAX package
+    does, and reduces them as ``agg_reduce_core`` does: the mean divides
+    the live sum by ``max(counts, 1)``."""
+    off = buf[: W + 1].to(torch.int64)
+    ops = buf[W + 1 : 2 * W + 1]
+    counts = buf[2 * W + 1 : 3 * W + 1]
+    samples = buf[3 * W + 1 :].view(torch.float32)
+    lengths = off[1:] - off[:-1]
+    N = max(1, int(lengths.max())) if W else 1
+    seg = torch.repeat_interleave(torch.arange(W, device=buf.device), lengths)
+    pos = torch.arange(seg.shape[0], device=buf.device) + off[0]
+    vals = torch.full((W, N), float("nan"), dtype=torch.float32, device=buf.device)
+    vals[seg, pos - off[seg]] = samples[pos]
     live = ~torch.isnan(vals)
     s = torch.where(live, vals, torch.zeros_like(vals)).sum(dim=1)
     mean = s / torch.clamp(counts.to(torch.float32), min=1.0)
@@ -109,35 +151,73 @@ def agg_reduce_plain(vals, ops, counts):
     return torch.where(ops == OP_MEAN, mean, torch.where(ops == OP_MAX, mx, mn))
 
 
-def agg_reduce(vals, ops, counts):
-    """K5 on CUDA tensors, its plain version on CPU tensors."""
-    if vals.device.type == "cpu":
-        return agg_reduce_plain(vals, ops, counts)
-    return kernels.agg_reduce(vals, ops, counts)
+def agg_reduce(buf, W: int):
+    """K5 on a CUDA buffer, its plain version on a CPU one."""
+    if buf.device.type == "cpu":
+        return agg_reduce_plain(buf, W)
+    return kernels.agg_reduce(buf, W)
+
+
+class _AggStaging:
+    """The pinned host buffers one card's window reductions cross through,
+    each grown by doubling. A tick holds ``lock`` from filling the input
+    until it has read the output back, so ticks from several threads take
+    turns and a buffer is never refilled under a copy in flight."""
+
+    def __init__(self) -> None:
+        self.lock = threading.Lock()
+        self.host_in = torch.empty((0,), dtype=torch.int32)
+        self.host_out = torch.empty((0,), dtype=torch.float32)
+        self.done: Optional[torch.cuda.Event] = None
+
+    @staticmethod
+    def grown(t: torch.Tensor, n: int) -> torch.Tensor:
+        if t.numel() >= n:
+            return t
+        return torch.empty((max(n, 2 * t.numel(), 1024),), dtype=t.dtype, pin_memory=True)
+
+
+_agg_staging: dict = {}
+_agg_staging_lock = threading.Lock()
+
+
+def _staging_for(device: torch.device) -> _AggStaging:
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    with _agg_staging_lock:
+        st = _agg_staging.get(key)
+        if st is None:
+            st = _agg_staging[key] = _AggStaging()
+        return st
 
 
 def agg_reduce_batch(pending: list, device="cuda") -> np.ndarray:
     """One window-reduction launch for ``pending``, a list of
     ``(op_code, values)`` with non-empty ``values``: float32
-    ``[len(pending)]`` aggregates. Windows pad to a power of two of at
-    least 2, samples to one of at least 8, as in the JAX package."""
+    ``[len(pending)]`` aggregates. On a card: the ragged buffer
+    (``pack_windows``) is written into this card's pinned staging buffer,
+    crosses in one ``non_blocking`` copy, K5 reduces it, and the
+    aggregates come back in one ``non_blocking`` copy into a pinned output
+    behind one event wait."""
     device = resolve_device(device)
-    w = len(pending)
-    n = max(len(values) for _op, values in pending)
-    wp = _bucket(max(1, w), minimum=2)
-    np_ = _bucket(max(1, n), minimum=8)
-    vals = np.full((wp, np_), np.nan, dtype=np.float32)
-    ops = np.zeros(wp, dtype=np.int32)
-    counts = np.ones(wp, dtype=np.int32)
-    for i, (op, values) in enumerate(pending):
-        vals[i, : len(values)] = np.asarray(values, dtype=np.float32)
-        ops[i] = op
-        counts[i] = len(values)
-    out = agg_reduce(
-        torch.from_numpy(vals).to(device), torch.from_numpy(ops).to(device),
-        torch.from_numpy(counts).to(device),
-    )
-    return out.cpu().numpy()[:w]
+    W = len(pending)
+    ops = np.fromiter((op for op, _values in pending), dtype=np.int32, count=W)
+    windows = [values for _op, values in pending]
+    if device.type == "cpu":
+        return agg_reduce(torch.from_numpy(pack_windows(windows, ops)), W).numpy()
+    st = _staging_for(device)
+    with st.lock:
+        size = 3 * W + 1 + sum(len(v) for v in windows)
+        st.host_in = st.grown(st.host_in, size)
+        st.host_out = st.grown(st.host_out, W)
+        pack_windows(windows, ops, out=st.host_in.numpy())
+        buf = st.host_in[:size].to(device, non_blocking=True)
+        out = st.host_out[:W]
+        out.copy_(agg_reduce(buf, W), non_blocking=True)
+        if st.done is None:
+            st.done = torch.cuda.Event()
+        st.done.record(torch.cuda.current_stream(device))
+        st.done.synchronize()
+        return out.numpy().copy()
 
 
 class RuleTable:

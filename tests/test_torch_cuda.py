@@ -216,20 +216,47 @@ def test_compact_back_to_back_launches_on_one_stream(dev, index_pair):
         assert torch.equal(got, flat.flat_match_compact_plain(*arrays, tokens, L, capacity)), capacity
 
 
-@pytest.mark.parametrize("k", [1, 8, 300])
+@pytest.mark.parametrize("k", [1, 8, 300, 512])
 def test_scatter_rows_kernel_matches_plain(dev, index_pair, k):
+    # in place, on clones of the shared index's table: the kernel, its
+    # plain version and Tensor.index_copy_ write the same rows
     fl, arrays = index_pair
     g = torch.Generator(device="cpu").manual_seed(k)
     S = arrays[0].shape[0]
-    uniq = torch.randperm(S, generator=g)[:k].to(torch.int32)
-    rows_u = torch.randint(-(2**31), 2**31, (k, 16), generator=g, dtype=torch.int64).to(torch.int32)
-    n = flat._bucket(k, minimum=8)
-    idx = torch.cat([uniq, uniq[-1:].repeat(n - k)]).to(dev)
-    rows = torch.cat([rows_u, rows_u[-1:].repeat(n - k, 1)]).to(dev)
-    old = arrays[0].clone()
-    got = flat.scatter_rows(arrays[0], idx, rows)
-    assert torch.equal(got, flat.scatter_rows_plain(arrays[0], idx, rows))
-    assert torch.equal(arrays[0], old)  # functional: the input is untouched
+    idx = torch.randperm(S, generator=g)[:k].to(torch.int32).to(dev)
+    rows = torch.randint(-(2**31), 2**31, (k, 16), generator=g, dtype=torch.int64).to(torch.int32).to(dev)
+    got, plain, lib = (arrays[0].clone() for _ in range(3))
+    before = kernels.LAUNCHES["scatter_rows"]
+    assert flat.scatter_rows(got, idx, rows) is got
+    assert kernels.LAUNCHES["scatter_rows"] == before + 1
+    flat.scatter_rows_plain(plain, idx, rows)
+    lib.index_copy_(0, idx.to(torch.int64), rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain) and torch.equal(got, lib)
+    untouched = torch.ones(S, dtype=torch.bool, device=dev)
+    untouched[idx.to(torch.int64)] = False
+    assert torch.equal(got[untouched], arrays[0][untouched])
+
+
+def test_scatter_rows_drops_out_of_range_and_takes_duplicates(dev, index_pair):
+    fl, arrays = index_pair
+    S = arrays[0].shape[0]
+    g = torch.Generator(device="cpu").manual_seed(9)
+    base = torch.randperm(S, generator=g)[:40].to(torch.int32)
+    rows_b = torch.randint(-(2**31), 2**31, (40, 16), generator=g, dtype=torch.int64).to(torch.int32)
+    # out-of-range indices, and duplicates carrying identical rows
+    idx = torch.cat([base, torch.tensor([-1, S, S + 7, -(2**31)], dtype=torch.int32), base[:10]]).to(dev)
+    rows = torch.cat([rows_b, rows_b[:4], rows_b[:10]]).to(dev)
+    got, plain = arrays[0].clone(), arrays[0].clone()
+    flat.scatter_rows(got, idx, rows)
+    flat.scatter_rows_plain(plain, idx, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    assert torch.equal(got[base.to(dev).to(torch.int64)], rows_b.to(dev))
+    # k = 0 launches nothing
+    before = kernels.LAUNCHES["scatter_rows"]
+    flat.scatter_rows(got, idx[:0], rows[:0])
+    assert kernels.LAUNCHES["scatter_rows"] == before
 
 
 def test_saturated_index_on_the_card(dev):
@@ -262,6 +289,37 @@ def test_matcher_fold_between_issue_and_resolve(dev):
     assert kernels.LAUNCHES["scatter_rows"] == launches + 1
     for got, want, t in zip(resolver(), before, topics):
         assert subscribers_equal(got, want), t
+    for got, t in zip(m.match_topics(topics), topics):
+        assert subscribers_equal(got, index.subscribers(t)), t
+    assert m.stats.host_fallbacks == 0
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["ranges", "compact"])
+def test_two_folds_between_issue_and_resolve_on_the_card(dev, compact):
+    # the batch holds its buffer while the second fold writes the standby
+    # (ranges: the pin ends at the launch, so the fold writes the batch's
+    # own buffer behind it in stream order; compact: the pin lasts to the
+    # resolve, so the fold writes a fresh copy, counted)
+    ops = [("sub", f"c{i}", f"room/{i % 48}/t/{i % 7}", i % 3, 0, False) for i in range(2000)]
+    ops.append(("sub", "w", "room/+/t/+", 2, 0, False))
+    index = apply_port_ops(ops, TopicsIndex())
+    m = TorchMatcher(index, max_levels=4, device=dev, compact=compact, compact_capacity=4096 if compact else 0)
+    m.rebuild()
+    topics = [f"room/{r}/t/{k}" for r in range(48) for k in range(7)]
+    before = [index.subscribers(t) for t in topics]
+    resolver = m.match_topics_async(topics)
+    launches = kernels.LAUNCHES["scatter_rows"]
+    for r in range(2):
+        churn = [("sub", f"late{r}_{i}", t, 1, 0, False) for i, t in enumerate(topics[r * 40 : r * 40 + 40])]
+        churn += [("unsub", o[1], o[2], 0, 0, False) for o in ops[r * 30 : r * 30 + 30]]
+        apply_port_ops(churn, index)
+        assert m.fold({o[2] for o in churn})
+    assert kernels.LAUNCHES["scatter_rows"] == launches + 2
+    assert m.stats.fold_copies == int(compact)
+    for got, want, t in zip(resolver(), before, topics):
+        assert subscribers_equal(got, want), t
+    torch.cuda.synchronize()
+    assert np.array_equal(m.device_arrays[0].cpu().numpy().view(np.uint32), m.index.table)
     for got, t in zip(m.match_topics(topics), topics):
         assert subscribers_equal(got, index.subscribers(t)), t
     assert m.stats.host_fallbacks == 0
@@ -404,22 +462,49 @@ def test_rules_eval_every_op_on_edge_values(dev, S):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("W,N", [(1, 8), (5, 33), (64, 64), (300, 1000)])
+@pytest.mark.parametrize("W,N", [(1, 1), (1, 8), (5, 33), (37, 70), (64, 64), (300, 1000)])
 def test_agg_reduce_kernel_matches_plain(dev, W, N):
+    # ragged windows of 1..N samples (the first all NaN), counts that
+    # differ from the sample counts (the mean divides by counts)
     rng = np.random.default_rng(W * N)
-    vals = rng.normal(scale=50.0, size=(W, N)).astype(np.float32)
-    vals[rng.random((W, N)) < 0.3] = np.nan
-    vals[0] = np.nan
+    windows = []
+    for w in range(W):
+        v = rng.normal(scale=50.0, size=int(rng.integers(1, N + 1))).astype(np.float32)
+        v[rng.random(v.shape[0]) < 0.3] = np.nan
+        if w == 0:
+            v[:] = np.nan
+        windows.append(v)
     ops = rng.integers(pops.OP_MEAN, pops.OP_MIN + 1, W).astype(np.int32)
     counts = rng.integers(0, N + 4, W).astype(np.int32)
-    args = [torch.from_numpy(a).to(dev) for a in (vals, ops, counts)]
+    buf = torch.from_numpy(pops.pack_windows(windows, ops, counts)).to(dev)
     before = kernels.LAUNCHES["agg_reduce"]
-    got = pops.agg_reduce(*args).cpu().numpy()
-    want = pops.agg_reduce_plain(*args).cpu().numpy()
+    got = pops.agg_reduce(buf, W).cpu().numpy()
+    want = pops.agg_reduce_plain(buf, W).cpu().numpy()
     assert kernels.LAUNCHES["agg_reduce"] == before + 1
     exact = ops != pops.OP_MEAN
     assert np.array_equal(got[exact].view(np.uint32), want[exact].view(np.uint32))
     assert (np.abs(got[~exact] - want[~exact]) <= 1e-5 * np.maximum(1.0, np.abs(want[~exact]))).all()
+
+
+def test_agg_reduce_batch_one_launch_through_pinned_staging(dev):
+    rng = np.random.default_rng(12)
+    ticks = [[(int(rng.integers(pops.OP_MEAN, pops.OP_MIN + 1)), list(rng.normal(size=int(rng.integers(1, n)))))
+              for _ in range(W)] for W, n in ((64, 65), (5, 33), (200, 300), (64, 65))]
+    seen = []
+    for pending in ticks:
+        before = kernels.LAUNCHES["agg_reduce"]
+        got = pops.agg_reduce_batch(pending, dev)
+        assert kernels.LAUNCHES["agg_reduce"] == before + 1
+        want = pops.agg_reduce_batch(pending, "cpu")
+        ops = np.array([op for op, _ in pending])
+        exact = ops != pops.OP_MEAN
+        assert np.array_equal(got[exact].view(np.uint32), want[exact].view(np.uint32))
+        assert (np.abs(got[~exact] - want[~exact]) <= 1e-5 * np.maximum(1.0, np.abs(want[~exact]))).all()
+        st = pops._staging_for(dev)
+        assert st.host_in.is_pinned() and st.host_out.is_pinned()
+        seen.append(st.host_in.data_ptr())
+    # grown (by doubling or to fit) only for the larger tick, then reused
+    assert seen[0] == seen[1] and seen[2] == seen[3]
 
 
 KEYSTREAM_SHAPES = [(3, 255), (512, 1 << 16)] + [(T, N) for T in (1, 512) for N in (1, 16, 2048, 32768, 1 << 20)]

@@ -105,6 +105,29 @@ def test_cuda_wrapper_on_cpu_tensors_raises_and_notes_nothing():
         "sharded_match_slots", "tile_compact"}
 
 
+def test_fold_and_window_wrappers_note_one_event_per_power_of_two_bucket():
+    # K3's row count and K5's tick vary call by call and are not padded:
+    # their watches key the ledger on the power-of-two bucket of each size
+    from mqtt_tpu_torch.ops import predicates as tpreds
+
+    assert kernels.scatter_rows.watch.sig is kernels._rows_sig
+    assert kernels.agg_reduce.watch.sig is kernels._windows_sig
+    ledger = tds.CompileLedger()
+    watch = tds.KernelWatch("scatter_rows", tflat.scatter_rows_plain, ledger=ledger, sig=kernels._rows_sig)
+    table = torch.zeros((64, 16), dtype=torch.int32)
+    for k in (5, 6, 7, 8, 3, 9, 16, 1):
+        watch(table, torch.arange(k, dtype=torch.int32), torch.ones((k, 16), dtype=torch.int32))
+    assert [e["shape_bucket"] for e in ledger.events()] == ["64x16,k<=8", "64x16,k<=4", "64x16,k<=16", "64x16,k<=1"]
+    ledger = tds.CompileLedger()
+    watch = tds.KernelWatch("agg_reduce", tpreds.agg_reduce_plain, ledger=ledger, sig=kernels._windows_sig)
+    rng = np.random.default_rng(3)
+    for lengths in ((3, 5, 7), (4, 4, 4, 4), (9, 1, 2), (40,)):
+        windows = [rng.random(n).astype(np.float32) for n in lengths]
+        ops = np.full(len(lengths), tpreds.OP_MAX, np.int32)
+        watch(torch.from_numpy(tpreds.pack_windows(windows, ops)), len(lengths))
+    assert [e["shape_bucket"] for e in ledger.events()] == ["W<=4,n<=16", "W<=1,n<=64"]
+
+
 def test_watch_switch_skips_signatures_alike():
     for ds in (jds, tds):
         ledger = ds.CompileLedger()

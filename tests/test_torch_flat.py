@@ -244,8 +244,13 @@ def test_scatter_rows_matches_jax(mixed, k):
     table_t = tflat.device_i32(jf.table, "cpu")
     got = tflat.scatter_rows(table_t, torch.from_numpy(idx), tflat.device_i32(rows, "cpu"))
     assert np.array_equal(got.numpy().view(np.uint32), want)
-    # functional: the input table is untouched
-    assert np.array_equal(table_t.numpy().view(np.uint32), jf.table)
+    # in place (the port's departure from the functional update): the
+    # table given is the one written
+    assert got is table_t
+    # K3 takes any k: the unpadded rows give the same table
+    bare = tflat.device_i32(jf.table, "cpu")
+    tflat.scatter_rows(bare, torch.from_numpy(uniq), tflat.device_i32(rows_u, "cpu"))
+    assert np.array_equal(bare.numpy().view(np.uint32), want)
 
 
 def test_device_index_copies_the_numpy_arrays(mixed):

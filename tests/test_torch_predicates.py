@@ -117,7 +117,10 @@ def assert_agg_close(got, want, ops):
 def test_agg_reduce_plain_matches_jax(seed, W, N):
     vals, ops, counts = agg_inputs(seed, W, N)
     want = np.asarray(jax.jit(jops.agg_reduce_core)(vals, ops, counts))
-    got = tops.agg_reduce(torch.from_numpy(vals), torch.from_numpy(ops), torch.from_numpy(counts)).numpy()
+    # the same windows in the port's ragged layout: each row's N samples
+    # (NaN ones included), the counts as given
+    buf = tops.pack_windows(list(vals), ops, counts)
+    got = tops.agg_reduce(torch.from_numpy(buf), W).numpy()
     assert got.dtype == np.float32 and got.shape == (W,)
     assert_agg_close(got, want, ops)
     if ops[1 % W] != tops.OP_MEAN:
@@ -133,6 +136,52 @@ def test_agg_reduce_batch_matches_jax():
     got = tops.agg_reduce_batch(pending, device="cpu")
     assert got.shape == want.shape == (11,)
     assert_agg_close(got, want, [op for op, _ in pending])
+
+
+def _ragged_windows(seed: int, W: int):
+    """Seeded windows of 1-90 samples, about a fifth of them NaN, with one
+    all-NaN window and one of a single sample."""
+    rng = np.random.default_rng(seed)
+    pending = []
+    for w in range(W):
+        n = 1 if w == W - 1 else int(rng.integers(1, 91))
+        vals = rng.normal(scale=40.0, size=n)
+        vals[rng.random(n) < 0.2] = np.nan
+        if w == 0:
+            vals[:] = np.nan
+        pending.append((int(rng.integers(tops.OP_MEAN, tops.OP_MIN + 1)), [float(v) for v in vals]))
+    return pending
+
+
+@pytest.mark.parametrize("seed,W", [(0, 4), (1, 5), (2, 37), (3, 64), (4, 100)])
+def test_ragged_agg_reduce_batch_matches_agg_reduce_core_on_padded_inputs(seed, W):
+    pending = _ragged_windows(seed, W)
+    ops = np.array([op for op, _ in pending], np.int32)
+    # the JAX package's padded form of the same windows: NaN-padded rows,
+    # the windows and samples padded to powers of two, counts = len(values)
+    wp, npad = 1 << max(1, (W - 1).bit_length()), 1 << max(3, (max(len(v) for _, v in pending) - 1).bit_length())
+    vals = np.full((wp, npad), np.nan, np.float32)
+    counts = np.ones(wp, np.int32)
+    ops_p = np.zeros(wp, np.int32)
+    for i, (op, v) in enumerate(pending):
+        vals[i, : len(v)] = np.asarray(v, np.float32)
+        counts[i] = len(v)
+        ops_p[i] = op
+    want = np.asarray(jax.jit(jops.agg_reduce_core)(vals, ops_p, counts))[:W]
+    got = tops.agg_reduce_batch(pending, device="cpu")
+    assert got.dtype == np.float32 and got.shape == (W,)
+    assert_agg_close(got, want, ops)
+    # the all-NaN window: MEAN 0, MAX -inf, MIN inf; a single sample is itself
+    assert got[0] == {tops.OP_MEAN: 0.0, tops.OP_MAX: -np.inf, tops.OP_MIN: np.inf}[int(ops[0])]
+    assert got[-1] == np.float32(pending[-1][1][0]) or np.isnan(pending[-1][1][0])
+    # the layout: offsets, ops, counts, then the samples' float32 bits
+    buf = tops.pack_windows([v for _, v in pending], ops)
+    lengths = [len(v) for _, v in pending]
+    assert buf.dtype == np.int32 and len(buf) == 3 * W + 1 + sum(lengths)
+    assert list(buf[: W + 1]) == list(np.concatenate([[0], np.cumsum(lengths)]))
+    assert list(buf[W + 1 : 2 * W + 1]) == list(ops) and list(buf[2 * W + 1 : 3 * W + 1]) == lengths
+    flat = np.concatenate([np.asarray(v, np.float32) for _, v in pending])
+    assert np.array_equal(buf[3 * W + 1 :].view(np.float32), flat, equal_nan=True)
 
 
 def test_rule_table_rows_match_jax_padding_included():
