@@ -173,18 +173,6 @@ Phases, each printed as it ends:
     ``AllowHook``, a ``MemoryStore`` and a ``TCP`` listener on
     127.0.0.1:0, driven by ``WireClient``s over ``asyncio.open_connection``
     with frames built and parsed by this script's own builders. Cell
-    ``broker-cfg2-restart``: a store of bench.py config 2's 1,000,000
-    subscription records (made in bulk, the bytes ``dumps`` writes) and
-    1,024 persistent sessions (v4 ``clean=0``, v5 with a session expiry),
-    the ids the trie walk hits most on the waves' topics; ``serve()``
-    restores them (``read_store`` -> ``bulk_register``) and the device
-    matcher folds them onto the card; the sessions reconnect with clean
-    start off (session present), 8 publishers (v4/v5, QoS 0/1) send 24,576
-    cfg2 topics, 300 UNSUBSCRIBE/SUBSCRIBE packets go over the same
-    sockets (the fold: K3), 24,576 more. The restore must count every
-    record and each session must hold its stored filter; every socket's
-    frames must be the multiset of (topic, QoS, payload) that the stored
-    filters (as the churn changes them) match, by cfg2's rule. Cell
     ``broker-legs``: cfgP's 100,000 ``$GT`` rules and 64 windows arrive as
     predicated SUBSCRIBE filters, its ``$CONTAINS``/``$EQS``/``$AND`` rules
     are restored from the store for three persistent sessions; 8,192 JSON
@@ -200,12 +188,52 @@ Phases, each printed as it ends:
     re-seals the retained ones (``reseal_batch``, K6). Both legs' matchers
     hold a window of 63 ids a filter path, and split the 64 window holders
     and the 100 tenant subscribers over two filter paths each. Printed per
-    cell: restore seconds and batches, publishes/s and deliveries/s per
-    wave, the stage's batches and resolve p50/max, the publishes the device
-    resolved against each host route, and the launches per kernel; each
-    line ends with the card's name and power limit. The phase fails unless
-    every check holds, deliveries are more than zero, K1-K6 each launch
-    inside it, and the device resolves most of each wave.
+    leg: restore seconds and batches, publishes/s and deliveries/s, the
+    stage's batches and resolve p50/max, the publishes the device resolved
+    against each host route, and the launches per kernel; each line ends
+    with the card's name and power limit. The phase fails unless every
+    check holds, deliveries are more than zero, K1-K6 each launch inside
+    it, and the device resolves most of each wave. Each server runs the
+    matcher's breaker (``matcher_resilience``, the default); at its end
+    the breaker's gauges are printed (failures by kind, trips, fallback
+    and verified batches) and the phase fails on any failure, any trip,
+    any batch the breaker answered from the walk, or a breaker that is
+    not closed.
+
+15. The broker's own entry point (phase "entry", after "broker"), config
+    2's restart at full width: a ``LogKVStore`` of its 1,000,000
+    subscription records (bench.py's generator, made in bulk, the bytes
+    ``dumps`` writes) and 1,024 persistent sessions (v4 ``clean=0``, v5
+    with a session expiry; the ids the trie walk hits most on the waves'
+    topics), written by a process of its own started with the
+    script (``entry_fill``: the store's ``_set`` with fsync off, then
+    ``snapshot()``); then ``python -m mqtt_tpu_torch serve --config`` with
+    a JSON config (the device matcher on the card, its breaker at the
+    default, TCP, WebSocket, healthcheck and stats listeners on free
+    ports, the ``logkv`` store, an ``AuthHook`` with an inline ledger) in a
+    process of its own. ``/healthz`` is polled until 200; the
+    ``$SYS/broker/matcher/`` rows, read over MQTT, show when the restore is
+    folded (the server folds it once, after ``read_store``) and the
+    ``$SYS/broker/durable/`` rows must count every record restored; 512
+    sessions reconnect over TCP and 512 over WebSocket (this
+    script's ``WsClient``: the upgrade and the masking by hand) with clean
+    start off and must find their sessions present; 8
+    publishers (v4/v5, QoS 0/1), four a listener, send two waves of 24,576
+    cfg2 topics with 300 UNSUBSCRIBE/SUBSCRIBE packets between (the fold:
+    K3). Every socket's frames must be the multiset of (topic, QoS,
+    payload) that the session's stored filter, as the churn changed it,
+    matches by cfg2's rule: the topic itself or the topic with one level
+    ``+``, at the lesser QoS; the oracle is built from the records, not
+    from the trie the restore built. The device
+    must resolve most of each wave; the breaker's ``$SYS`` rows must show
+    verified batches, no failure, trip or fallback batch and a closed state;
+    ``/healthz`` 200 without breaker degradation and the stats route must
+    answer; SIGTERM must end the process with 0, and the store, opened
+    again, must hold the 300 churned records as the churn left them.
+    Printed: the fill's walls, restore, fold and reconnect seconds,
+    publishes/s and deliveries/s a wave by listener, the breaker's gauges.
+    The kernels run in the broker's process, so they are not in the
+    kernels line. Every phase group's wall is printed (``wall ...``).
 
 Phase 4 also holds K7 (``flat_match_core``, the single-index entry point
 of K8's kernel) and K4-K6 against their plain versions at the shapes these
@@ -240,6 +268,8 @@ import gc
 import json
 import os
 import random
+import signal
+import socket
 import subprocess
 import sys
 import time
@@ -2402,6 +2432,100 @@ class WireClient:
         self.writer.close()
 
 
+WS_KEY = "dGhlIHNhbXBsZSBub25jZQ=="  # RFC 6455's sample nonce
+WS_ACCEPT = b"s3pPLMBiTxaQ9kYGzzhZRbK+xOo="  # its Sec-WebSocket-Accept
+
+
+class WsClient(WireClient):
+    """One MQTT client over WebSocket (RFC 6455), spoken by hand: the HTTP
+    upgrade asking for the ``mqtt`` subprotocol, every send one masked
+    binary frame, and the reader task unwrapping the broker's frames into
+    the MQTT byte stream that ``frames()`` reads, one buffer per
+    connection."""
+
+    def __init__(self, name: str, version: int = 4, path: str = "/mqtt") -> None:
+        super().__init__(name, version)
+        self.path = path
+        self._mask = zlib.crc32(name.encode()) | 1  # a client's masking keys, seeded by its name
+
+    async def open(self, host: str, port: int) -> None:
+        reader, self.writer = await asyncio.open_connection(host, port)
+        self.writer.write((f"GET {self.path} HTTP/1.1\r\nHost: {host}:{port}\r\nUpgrade: websocket\r\n"
+                           f"Connection: Upgrade\r\nSec-WebSocket-Key: {WS_KEY}\r\n"
+                           "Sec-WebSocket-Protocol: mqtt\r\nSec-WebSocket-Version: 13\r\n\r\n").encode())
+        head = await asyncio.wait_for(reader.readuntil(b"\r\n\r\n"), 30.0)
+        if not head.startswith(b"HTTP/1.1 101") or b"Sec-WebSocket-Accept: " + WS_ACCEPT not in head \
+                or b"Sec-WebSocket-Protocol: mqtt" not in head:
+            raise PhaseFailed(f"{self.name}: websocket upgrade refused: {head[:120]!r}")
+        buf = bytearray()
+        self.conns.append(buf)
+        self.task = asyncio.get_running_loop().create_task(self._read_ws(reader, buf))
+
+    async def _read_ws(self, reader, buf: bytearray) -> None:
+        """Unwrap the broker's frames (unmasked, FIN set) into ``buf``;
+        return at a close frame or EOF."""
+        pending = bytearray()
+        try:
+            while True:
+                chunk = await reader.read(1 << 16)
+                if not chunk:
+                    return
+                pending += chunk
+                pos, grew = 0, False
+                while len(pending) - pos >= 2:
+                    op, n, k = pending[pos] & 0x0F, pending[pos + 1] & 0x7F, pos + 2
+                    if n == 126:
+                        if len(pending) - k < 2:
+                            break
+                        n, k = int.from_bytes(pending[k:k + 2], "big"), k + 2
+                    elif n == 127:
+                        if len(pending) - k < 8:
+                            break
+                        n, k = int.from_bytes(pending[k:k + 8], "big"), k + 8
+                    if len(pending) - k < n:
+                        break
+                    if op == 0x8:
+                        return
+                    if op in (0x0, 0x2):
+                        buf += pending[k:k + n]
+                        grew = True
+                    pos = k + n
+                del pending[:pos]
+                if grew:
+                    self._got.set()
+        except ConnectionError:
+            return
+        finally:
+            self._got.set()
+
+    def send(self, data: bytes) -> None:
+        self._mask = (self._mask * 1103515245 + 12345) & 0xFFFFFFFF
+        mask = self._mask.to_bytes(4, "big")
+        n = len(data)
+        if n < 126:
+            head = bytes([0x82, 0x80 | n])
+        elif n < 1 << 16:
+            head = bytes([0x82, 0x80 | 126]) + n.to_bytes(2, "big")
+        else:
+            head = bytes([0x82, 0x80 | 127]) + n.to_bytes(8, "big")
+        key = (mask * (n // 4 + 1))[:n]
+        body = (int.from_bytes(data, "big") ^ int.from_bytes(key, "big")).to_bytes(n, "big") if n else b""
+        self.writer.write(head + mask + body)
+
+
+async def http_get(host: str, port: int, path: str, limit: float = 30.0) -> tuple:
+    """``GET path`` over one HTTP/1.1 connection: the status code and the
+    body (the broker's HTTP listeners close after each answer)."""
+    reader, writer = await asyncio.open_connection(host, port)
+    try:
+        writer.write(f"GET {path} HTTP/1.1\r\nHost: {host}\r\n\r\n".encode())
+        raw = await asyncio.wait_for(reader.read(-1), limit)
+    finally:
+        writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split(b" ", 2)[1]), body
+
+
 def phase_setup_fanout(n_groups: int, device, card: str) -> dict:
     from mqtt_tpu_torch import DeltaMatcher
 
@@ -3614,18 +3738,80 @@ def phase_reseal(torch, rec: dict, cfg: dict, device, n: int = N_RESEAL, iters: 
 
 # -- the broker itself (phase broker) ----------------------------------------
 
-BROKER_SESSIONS = 1024  # cfg2 restart: persistent sessions restored, then reconnected over TCP
-# the restart cell's eight publishers: (protocol version, QoS)
+BROKER_SESSIONS = 1024  # phase entry: persistent sessions restored, then reconnected
+# phase entry's eight publishers: (protocol version, QoS)
 BROKER_PUBLISHERS = ((4, 0), (4, 1), (5, 0), (5, 1), (4, 0), (4, 1), (5, 0), (5, 1))
-BROKER_CHURN = 300  # SUBSCRIBE and UNSUBSCRIBE packets between the restart cell's waves
+BROKER_CHURN = 300  # SUBSCRIBE and UNSUBSCRIBE packets between phase entry's waves
 PRED_WAVE = 8192  # the legs cell's predicated publishes, beside HOT_PER_WAVE hot-topic ones
 PRED_HOLDERS = 100  # connections that SUBSCRIBE cfgP's $GT rules, about 1,000 filters each
 PRED_PER_PACKET = 250  # filters per SUBSCRIBE packet
 BROKER_RECRYPT = 4096  # bench.py cfg10: encrypted publishes of 256 B
 RET_SEALED = 64  # the tenant's encrypted retained messages, re-sealed at the re-key
-RESTART_CELL, LEGS_CELL = "broker-cfg2-restart", "broker-legs"
+LEGS_CELL = "broker-legs"
 CHURN_PID = 0xFFF0  # the churn's packet ids: above every id the broker gives a session's deliveries here
 LEGS_WINDOW = 63  # the legs' matcher window: ids a filter path holds on the card (default 16, at most 63)
+
+
+class _Cfg2Wave:
+    """One wave of cfg2 topics from the eight ``BROKER_PUBLISHERS``, round
+    robin: each publisher's frames (payloads tagged with ``tag``), how many
+    each sends, and each session's expected multiset of (topic, QoS,
+    payload) by cfg2's rule (a topic's matches are its exact filter and
+    its three one-``+`` ones) over the filters ``held`` (filter ->
+    [(client id, QoS)]), at the lesser QoS."""
+
+    def __init__(self, topics: list, tag: bytes, held: dict, clients: dict, pubs: list) -> None:
+        from collections import Counter
+
+        self.clients, self.pubs = clients, pubs
+        self.exp = {cid: Counter() for cid in clients}
+        self.bufs = [bytearray() for _ in pubs]
+        self.n_pub = [0] * len(pubs)
+        for i, t in enumerate(topics):
+            k = i % len(pubs)
+            v, q = BROKER_PUBLISHERS[k]
+            payload = tag + b"p%dn%d" % (k, i)
+            self.bufs[k] += publish_frame(t, payload, q, self.n_pub[k] % 65535 + 1 if q else 0, version=v)
+            self.n_pub[k] += 1
+            a, b, c = t.split("/")
+            for f in (t, f"+/{b}/{c}", f"{a}/+/{c}", f"{a}/{b}/+"):
+                for cid, sq in held.get(f, ()):
+                    self.exp[cid][(t, min(q, sq), payload)] += 1
+
+    async def send(self) -> float:
+        """Send every publisher's frames; the seconds until every session
+        holds its expected deliveries and every QoS 1 publisher its acks."""
+        self.off = {cid: len(c.frames()) for cid, c in self.clients.items()}
+        self.pub_off = [len(c.frames()) for c in self.pubs]
+        t0 = time.perf_counter()
+        for c, buf in zip(self.pubs, self.bufs):
+            c.send(bytes(buf))
+        for cid, c in self.clients.items():
+            await c.wait_frames(self.off[cid] + sum(self.exp[cid].values()), 300.0)
+        for k, c in enumerate(self.pubs):
+            if BROKER_PUBLISHERS[k][1]:
+                await c.wait_frames(self.pub_off[k] + self.n_pub[k], 300.0)
+        return time.perf_counter() - t0
+
+    def check(self, what: str) -> None:
+        """Every socket's frames are its expected multiset; every QoS 1
+        publish got its PUBACK and nothing else."""
+        from collections import Counter
+
+        bad = 0
+        for cid, c in self.clients.items():
+            got = Counter((p["topic"], p["qos"], p["payload"]) for p in _publishes(c, self.off[cid]))
+            if got != self.exp[cid]:
+                bad += 1
+                if bad <= 3:
+                    log(f"  {cid}: got {sorted(got - self.exp[cid])[:3]} beyond the stored filters', missing "
+                        f"{sorted(self.exp[cid] - got)[:3]}")
+        check(bad == 0, f"{what}: {bad} sockets' frames differ from the stored filters' matches")
+        for k, c in enumerate(self.pubs):
+            acks = c.frames()[self.pub_off[k]:]
+            n = self.n_pub[k] if BROKER_PUBLISHERS[k][1] else 0
+            check(len(acks) == n and all(f[0] == 0x40 for f in acks),
+                  f"{what}: publisher {k} got {len(acks)} frames for {self.n_pub[k]} publishes")
 
 
 def _raise_nofile(want: int) -> int:
@@ -3647,6 +3833,39 @@ def _sub_record(cid: str, flt: str, qos: int) -> bytes:
     return ('{"t": "SUB", "client": %s, "filter": %s, "identifier": 0, "retain_handling": 0, "qos": %d, '
             '"retain_as_published": false, "no_local": false, "predicates": []}'
             % (json.dumps(cid), json.dumps(flt), qos)).encode()
+
+
+def _hot_sessions(entries, waves: list, n_sessions: int) -> tuple:
+    """The ``n_sessions`` cfg2 client ids the trie walk hits most often on
+    the waves' topics (cfg2's filters have 3 levels and at most one '+', so
+    a topic's matches are its exact filter and its three one-'+' ones),
+    and the hit counts."""
+    from collections import Counter
+
+    by_filter: dict = {}
+    for cid, sub in entries:
+        by_filter.setdefault(sub.filter, []).append(cid)
+    hits: Counter = Counter()
+    for topics in waves:
+        for t in topics:
+            a, b, c = t.split("/")
+            for f in (t, f"+/{b}/{c}", f"{a}/+/{c}", f"{a}/{b}/+"):
+                for cid in by_filter.get(f, ()):
+                    hits[cid] += 1
+    sessions = [cid for cid, _n in sorted(hits.items(), key=lambda kv: (-kv[1], int(kv[0][2:])))[:n_sessions]]
+    return sessions, hits
+
+
+def _session_record(cid: str, version: int) -> bytes:
+    """A persistent session's stored client record: v4 ``clean=0``, v5
+    with a session expiry of an hour."""
+    from mqtt_tpu_torch.hooks.storage import Client as SClient, ClientProperties
+    from mqtt_tpu_torch.hooks.storage.base import dumps
+
+    v5 = version == 5
+    return dumps(SClient(id=cid, listener="t", clean=False, protocol_version=version,
+                         properties=ClientProperties(session_expiry_interval=3600 if v5 else 0,
+                                                     session_expiry_interval_flag=v5)))
 
 
 async def _serve(srv) -> tuple:
@@ -3758,247 +3977,57 @@ def _stage_split(srv, batches0: int) -> str:
             f"resolve p50 {_exact_pct(res, 0.5) * 1e3:.3f} ms max {res[-1] * 1e3:.3f} ms")
 
 
+def _route_counts(dm) -> dict:
+    """The matcher's counters and, behind the breaker, the topics its
+    fallback batches answered from the walk."""
+    out = dict(dm.stats.as_dict())
+    out["breaker"] = dm.breaker_gauges()["fallback_topics"] if hasattr(dm, "breaker_gauges") else 0
+    return out
+
+
+def route_split(d: dict) -> dict:
+    """Publishes resolved by the device and by each host route, from the
+    deltas of the matcher's counters and the breaker's fallback topics:
+    the delta overlay, device-side overflow (spilled, saturated,
+    over-deep), the exact map and the breaker. A batch the breaker answers
+    from the walk may already be in the wrapped matcher's ``topics`` (a
+    ``corrupt`` verdict counts it there first), so the device's share
+    leaves the breaker's topics out: it is never overstated."""
+    return {"device": d["topics"] - d["host_fallbacks"] - d["host_fast"] - d["breaker"],
+            "overlay": d["host_fallbacks"] - d["overflows"], "overflow": d["overflows"], "exact_map": d["host_fast"],
+            "breaker": d["breaker"]}
+
+
 def _routes(dm, stage, stats0: dict, fb0: dict) -> dict:
-    """Publishes resolved by the device and by each host route since
-    ``stats0``/``fb0``: the delta overlay, device-side overflow (spilled,
-    saturated, over-deep), the exact map, and the stage's own routes."""
-    st = dm.stats.as_dict()
-    d = {k: st[k] - stats0[k] for k in ("topics", "host_fallbacks", "overflows", "host_fast")}
-    out = {"device": d["topics"] - d["host_fallbacks"] - d["host_fast"],
-           "overlay": d["host_fallbacks"] - d["overflows"], "overflow": d["overflows"], "exact_map": d["host_fast"]}
+    """``route_split`` since ``stats0`` (``_route_counts``), and the
+    stage's own routes since ``fb0``."""
+    st = _route_counts(dm)
+    out = route_split({k: st[k] - stats0[k] for k in ("topics", "host_fallbacks", "overflows", "host_fast",
+                                                      "breaker")})
     for k, v in stage.fallbacks.items():
         out["stage_" + k] = v - fb0.get(k, 0)
     out["stage_admission"] = out.get("stage_admission", 0)
     return out
 
 
-def phase_broker_restart(torch, device, card: str, n_subs: int = N_SUBS, wave: int = WAVE,
-                         n_sessions: int = BROKER_SESSIONS, n_churn: int = BROKER_CHURN) -> dict:
-    """Cell ``broker-cfg2-restart``: the port's ``Server`` restarted from a
-    ``MemoryStore`` holding bench.py config 2's 1,000,000 subscription
-    records and ``n_sessions`` persistent sessions (v4 ``clean=0``, v5 with
-    a session expiry): ``serve()`` restores them through ``read_store`` ->
-    ``bulk_register`` and the device matcher folds them onto the card.
-    The sessions are the ``n_sessions`` client ids the trie walk hits most
-    often on the waves' seeded topics; every other subscription is
-    restored with no session. The sessions reconnect over TCP with clean
-    start off and inherit their sessions; 8 publishers (v4/v5, QoS 0/1)
-    send ``wave`` cfg2 topics; ``n_churn`` SUBSCRIBE/UNSUBSCRIBE packets go
-    over the same sockets (the fold: K3); ``wave`` more publishes. The
-    restore must count all ``n_subs`` records, and each session must hold
-    its stored filter at its QoS. Every socket's frames must be the
-    multiset of (topic, QoS, payload) that the session's filter, as the
-    store held it and the churn changed it, matches: the topic itself or
-    the topic with one level ``+`` (cfg2's filters), at the lesser QoS.
-    The oracle is built from the records, not from the trie the restore
-    built."""
-    from collections import Counter
-
-    from mqtt_tpu_torch.hooks.auth import AllowHook
-    from mqtt_tpu_torch.hooks.storage import CLIENT_KEY, Client as SClient, ClientProperties, Subscription as SSub
-    from mqtt_tpu_torch.hooks.storage.base import dumps
-    from mqtt_tpu_torch.hooks.storage.memory import MemoryStore
-    from mqtt_tpu_torch.listeners import TCP, Config
-    from mqtt_tpu_torch.ops import kernels
-    from mqtt_tpu_torch.server import Options, Server
-
-    t_phase = time.perf_counter()
-    nofile = _raise_nofile(4 * n_sessions + 256)
-    check(nofile >= 2 * n_sessions + 64, f"{RESTART_CELL}: open-file limit {nofile} below two sockets a session")
-    rng = random.Random(2)
-    gc.disable()
-    try:
-        t0 = time.perf_counter()
-        entries, topic_gen = cfg2_entries(n_subs, rng)
-        waves = [[topic_gen() for _ in range(wave)] for _ in range(2)]
-        # the sessions: the ids the walk hits most often on the waves'
-        # topics (cfg2's filters have 3 levels and at most one '+', so a
-        # topic's matches are its exact filter and its three one-'+' ones)
-        by_filter: dict = {}
-        for cid, sub in entries:
-            by_filter.setdefault(sub.filter, []).append(cid)
-        hits: Counter = Counter()
-        for topics in waves:
-            for t in topics:
-                a, b, c = t.split("/")
-                for f in (t, f"+/{b}/{c}", f"{a}/+/{c}", f"{a}/{b}/+"):
-                    for cid in by_filter.get(f, ()):
-                        hits[cid] += 1
-        del by_filter
-        sessions = [cid for cid, _n in sorted(hits.items(), key=lambda kv: (-kv[1], int(kv[0][2:])))[:n_sessions]]
-        session_sub = {cid: None for cid in sessions}  # each cfg2 id holds one subscription
-        store = MemoryStore()
-        data = store.data
-        for k, (cid, sub) in enumerate(entries):
-            rec = _sub_record(cid, sub.filter, sub.qos)
-            if k < 1000:
-                check(rec == dumps(SSub(client=cid, filter=sub.filter, qos=sub.qos)),
-                      f"{RESTART_CELL}: the bulk record of {cid} is not dumps'")
-            data["SUB_" + cid + ":" + sub.filter] = rec
-            if cid in session_sub:
-                session_sub[cid] = (sub.filter, sub.qos)
-        versions = {}
-        for k, cid in enumerate(sessions):
-            v5 = k % 2 == 1
-            versions[cid] = 5 if v5 else 4
-            data[CLIENT_KEY + "_" + cid] = dumps(SClient(
-                id=cid, listener="t", clean=False, protocol_version=versions[cid],
-                properties=ClientProperties(session_expiry_interval=3600 if v5 else 0,
-                                            session_expiry_interval_flag=v5)))
-        del entries
-        t_store = time.perf_counter() - t0
-    finally:
-        _settle_gc()
-    log(f"phase broker {RESTART_CELL} setup: ok a MemoryStore of {len(data)} records ({n_subs} subscriptions, "
-        f"{len(sessions)} sessions hit {sum(hits[c] for c in sessions)} times by the waves' topics) in {t_store:.1f} s; "
-        f"open-file limit {nofile}; {card}")
-    del hits
-    srv = Server(Options(device_matcher=True, matcher_opts={"max_levels": 4}, device=str(device)))
-    srv.add_hook(AllowHook())
-    srv.add_hook(store)
-    srv.add_listener(TCP(Config(type="tcp", id="t", address="127.0.0.1:0")))
-    rows = []
-    info: dict = {}
-    kernels.reset_launches()
-
-    # the oracle: the online sessions' filters as the store holds them
-    # (then as the churn changes them), matched by cfg2's rule, not by the
-    # trie the restore built
-    held: dict = {}
-    for cid, (flt, qos) in session_sub.items():
-        held.setdefault(flt, []).append((cid, qos))
-
-    async def wave_run(w: int, topics: list, clients: dict, pubs: list) -> dict:
-        exp = {cid: Counter() for cid in clients}
-        bufs = [bytearray() for _ in pubs]
-        n_pub = [0] * len(pubs)
-        for i, t in enumerate(topics):
-            k = i % len(pubs)
-            v, q = BROKER_PUBLISHERS[k]
-            payload = b"w%dp%dn%d" % (w, k, i)
-            bufs[k] += publish_frame(t, payload, q, n_pub[k] % 65535 + 1 if q else 0, version=v)
-            n_pub[k] += 1
-            a, b, c = t.split("/")
-            for f in (t, f"+/{b}/{c}", f"{a}/+/{c}", f"{a}/{b}/+"):
-                for cid, sq in held.get(f, ()):
-                    exp[cid][(t, min(q, sq), payload)] += 1
-        n_del = sum(sum(e.values()) for e in exp.values())
-        off = {cid: len(c.frames()) for cid, c in clients.items()}
-        pub_off = [len(c.frames()) for c in pubs]
-        st, dm = srv._stage, srv.matcher
-        batches0, stats0, fb0 = len(st.service_log), dict(dm.stats.as_dict()), dict(st.fallbacks)
-        t0 = time.perf_counter()
-        for c, buf in zip(pubs, bufs):
-            c.send(bytes(buf))
-        for cid, c in clients.items():
-            await c.wait_frames(off[cid] + sum(exp[cid].values()), 300.0)
-        for k, c in enumerate(pubs):
-            if BROKER_PUBLISHERS[k][1]:
-                await c.wait_frames(pub_off[k] + n_pub[k], 300.0)
-        wall = time.perf_counter() - t0
-        await _await_idle(srv)
-        bad = 0
-        for cid, c in clients.items():
-            got = Counter((p["topic"], p["qos"], p["payload"]) for p in _publishes(c, off[cid]))
-            if got != exp[cid]:
-                bad += 1
-                if bad <= 3:
-                    log(f"  {cid}: got {sorted(got - exp[cid])[:3]} beyond the stored filters', missing "
-                        f"{sorted(exp[cid] - got)[:3]}")
-        check(bad == 0, f"{RESTART_CELL} wave {w + 1}: {bad} sockets' frames differ from the stored filters' matches")
-        for k, c in enumerate(pubs):
-            acks = [f for f in c.frames()[pub_off[k]:]]
-            check(len(acks) == (n_pub[k] if BROKER_PUBLISHERS[k][1] else 0) and all(f[0] == 0x40 for f in acks),
-                  f"{RESTART_CELL} wave {w + 1}: publisher {k} got {len(acks)} frames for {n_pub[k]} publishes")
-        routes = _routes(dm, st, stats0, fb0)
-        return {"n_pub": len(topics), "n_del": n_del, "wall": wall, "routes": routes,
-                "split": _stage_split(srv, batches0)}
-
-    async def drive():
-        host, port, t_serve = await _serve(srv)
-        dm = srv.matcher
-        info["serve"] = t_serve
-        info["fold"] = await _await_fold(dm, RESTART_CELL)
-        info["durable"] = d = dict(srv._durable)
-        check(d["restored_subscriptions"] == n_subs,
-              f"{RESTART_CELL}: {d['restored_subscriptions']} of {n_subs} subscriptions restored")
-        clients = {cid: WireClient(cid, versions[cid]) for cid in sessions}
-        acks = await _connect_all(
-            list(clients.values()), host, port,
-            [connect_frame(cid, versions[cid], clean=False,
-                           props=[(P_SESSION_EXPIRY, 3600)] if versions[cid] == 5 else ()) for cid in sessions])
-        present = sum(1 for a in acks if a[2] & 1)
-        check(present == len(sessions), f"{RESTART_CELL}: {present} of {len(sessions)} sessions present at CONNACK")
-        lost = 0
-        for cid, (flt, qos) in session_sub.items():
-            sub = srv.clients.get(cid).state.subscriptions.get(flt)
-            lost += sub is None or sub.qos != qos
-        check(lost == 0, f"{RESTART_CELL}: {lost} inherited sessions lack their stored filter or its QoS")
-        # an inherited session re-subscribes its filters: fold them too
-        info["reconnect_fold"] = await _await_fold(dm, RESTART_CELL + " reconnect")
-        pubs = [WireClient(f"bpub{k}", v) for k, (v, _q) in enumerate(BROKER_PUBLISHERS)]
-        await _connect_all(pubs, host, port, [connect_frame(c.name, c.version) for c in pubs])
-        try:
-            rows.append(await wave_run(0, waves[0], clients, pubs))
-            # the churn: half the churned sessions UNSUBSCRIBE their restored
-            # filter and SUBSCRIBE one of the second wave's topics with its
-            # middle level wildcarded
-            churned = sessions[: n_churn // 2]
-            off = {cid: len(clients[cid].frames()) for cid in churned}
-            folds0, k3 = dm.stats.as_dict()["folds"], kernels.LAUNCHES["scatter_rows"]
-            # the sessions leave their QoS 1 deliveries unacknowledged, so
-            # the broker's inflight holds ids from 1 up, and an UNSUBSCRIBE
-            # with one of them is refused as "packet identifier in use"
-            # (the JAX server's rule too): the churn takes ids far above
-            new_filter = {}
-            for j, cid in enumerate(churned):
-                a, _b, c = waves[1][j * 7 % len(waves[1])].split("/")
-                v = versions[cid]
-                old = session_sub[cid]
-                new_filter[cid] = f"{a}/+/{c}"
-                clients[cid].send(unsubscribe_frame(CHURN_PID, [old[0]], v)
-                                  + subscribe_frame(CHURN_PID + 1, [(new_filter[cid], 1, 0)], v))
-                held[old[0]].remove((cid, old[1]))
-                held.setdefault(new_filter[cid], []).append((cid, 1))
-            for cid in churned:
-                got = await clients[cid].wait_frames(off[cid] + 2, 120.0)
-                check([f[0] >> 4 for f in got[off[cid]:]] == [11, 9], f"{cid}: churn acks {got[off[cid]:]}")
-                now = list(srv.clients.get(cid).state.subscriptions.get_all())
-                check(now == [new_filter[cid]], f"{cid}: after the churn it holds {now}, not {new_filter[cid]}")
-            info["churn_fold"] = await _await_fold(dm, f"{RESTART_CELL} churn")
-            info["folds"] = dm.stats.as_dict()["folds"] - folds0
-            info["k3"] = kernels.LAUNCHES["scatter_rows"] - k3
-            rows.append(await wave_run(1, waves[1], clients, pubs))
-        finally:
-            for c in list(clients.values()) + pubs:
-                if c.task is not None and not c.task.done():
-                    c.send(disconnect_frame(c.version))
-            for c in list(clients.values()) + pubs:
-                if c.task is not None:
-                    await c.ended(60.0)
-            info["stage_fallbacks"] = dict(srv._stage.fallbacks)
-            info["fold_all"] = fold_summary(srv.matcher)
-            await srv.close()
-
-    asyncio.run(drive())
-    launches = dict(kernels.LAUNCHES)
-    d = info["durable"]
-    log(f"phase broker {RESTART_CELL}: restore {d['recovery_seconds']:.3f} s ({d['restore_batches']} batches: "
-        f"{d['restored_subscriptions']} subscriptions, {len(sessions)} sessions), serve {info['serve']:.3f} s, "
-        f"fold onto the card {info['fold']:.3f} s; {card}")
-    for w, r in enumerate(rows):
-        ro = r["routes"]
-        log(f"phase broker {RESTART_CELL} wave {w + 1}: ok {r['n_pub']} publishes, {r['n_del']} deliveries to "
-            f"{len(sessions)} sockets, every frame the stored filters' match; {r['n_pub'] / r['wall']:.1f} publishes/s, "
-            f"{r['n_del'] / r['wall']:.1f} deliveries/s (wall {r['wall']:.3f} s); {r['split']}; resolved by the "
-            f"device {ro['device']}, by the host: " + ", ".join(f"{k} {v}" for k, v in ro.items() if k != "device")
-            + f"; {card}")
-        check(ro["device"] > r["n_pub"] // 2, f"{RESTART_CELL} wave {w + 1}: the device resolved {ro['device']} "
-              f"of {r['n_pub']} publishes")
-    log(f"  {RESTART_CELL} churn: {n_churn} packets, fold {info['churn_fold']:.3f} s, folds {info['folds']}, "
-        f"scatter_rows {info['k3']}; the cell's matcher: {info['fold_all']}; launches in the cell: " + ", ".join(f"{k} {v}" for k, v in launches.items())
-        + f"; cell {time.perf_counter() - t_phase:.1f} s; {card}")
-    return launches
+def breaker_summary(g: dict, what: str, card: str) -> None:
+    """Log a breaker's gauges (``ResilientMatcher.breaker_gauges``, or the
+    same rows read over ``$SYS``) and fail on any failure of any kind, any
+    trip, any batch answered from the walk (``fallback_batches``: a
+    failure, a ``corrupt`` verdict of the verify sample or a saturated
+    guard pool) and a state other than closed. A trip that probes closed
+    again, or a ``corrupt`` batch the walk answered, would hide a kernel's
+    fault behind correct frames; no phase passes with one."""
+    kinds = {k[len("failures_"):]: int(v) for k, v in g.items() if k.startswith("failures_") and int(v)}
+    log(f"  {what} breaker: state {g['state']}, failures {g['failures']}, failure kinds {kinds or 'none'}, "
+        f"fallback_batches {g['fallback_batches']}, fallback_topics {g['fallback_topics']}, verified_batches "
+        f"{g['verified_batches']}, trips {g['trips']}, probes {g['probes']}, wedged_workers "
+        f"{g['wedged_workers']}; {card}")
+    check(not kinds and int(g["failures"]) == 0, f"{what}: the breaker counted failures: {kinds}")
+    check(int(g["trips"]) == 0, f"{what}: the breaker tripped {g['trips']} times")
+    check(int(g["fallback_batches"]) == 0,
+          f"{what}: the breaker answered {g['fallback_batches']} batches ({g['fallback_topics']} topics) from the walk")
+    check(str(g["state"]) == "closed", f"{what}: the breaker is {g['state']}, not closed")
 
 
 def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained: int = RETAINED_SIZES[0],
@@ -4132,7 +4161,7 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
                 emits[cid].append((op, values))
         off = {c.name: len(c.frames()) for c in every + list(back.values())}
         st, dm = srvP._stage, srvP.matcher
-        batches0, stats0, fb0 = len(st.service_log), dict(dm.stats.as_dict()), dict(st.fallbacks)
+        batches0, stats0, fb0 = len(st.service_log), _route_counts(dm), dict(st.fallbacks)
         g0 = dict(eng.gauges())
         t0 = time.perf_counter()
         pub.send(bytes(buf))
@@ -4164,6 +4193,7 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
                           {k: g[k] - g0.get(k, 0) for k in ("device_decisions", "host_evals", "agg_device_reductions")
                            if k in g}, dict(eng.host_reasons))
         info["p_folds"] = fold_summary(srvP.matcher)
+        info["p_breaker"] = srvP.matcher.breaker_gauges()
         for c in every + list(back.values()) + [pub]:
             c.send(disconnect_frame(4))
         for c in every + list(back.values()) + [pub]:
@@ -4261,7 +4291,7 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
         for i in range(n_recrypt):
             bufs += publish_frame("e/bench", renc.seal_with_key(keys["pub"], plaintext), 1, i % 65535 + 1)
         st, dm = srvT._stage, srvT.matcher
-        batches0, stats0, fb0 = len(st.service_log), dict(dm.stats.as_dict()), dict(st.fallbacks)
+        batches0, stats0, fb0 = len(st.service_log), _route_counts(dm), dict(st.fallbacks)
         g0 = dict(renc.gauges())
         t0 = time.perf_counter()
         pub.send(bytes(bufs))
@@ -4313,6 +4343,7 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
         check(opened == RET_SEALED, f"{LEGS_CELL} re-key: {opened} of {RET_SEALED} open under the new key")
         info["rekey"] = (out, t_rekey, kernels.LAUNCHES["keystream"] - k6)
         info["t_folds"] = fold_summary(srvT.matcher)
+        info["t_breaker"] = srvT.matcher.breaker_gauges()
         for c in rsubs + [pub] + subs:
             c.send(disconnect_frame(4))
         for c in rsubs + [pub] + subs:
@@ -4340,21 +4371,422 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
         f"key; the tenant server's matcher {info['t_folds']}; {card}")
     log(f"  {LEGS_CELL} launches in the cell: " + ", ".join(f"{k} {v}" for k, v in launches.items())
         + f"; cell {time.perf_counter() - t_phase:.1f} s; {card}")
+    breaker_summary(info["p_breaker"], LEGS_CELL + " predicates server", card)
+    breaker_summary(info["t_breaker"], LEGS_CELL + " tenant server", card)
     return launches
 
 
-def phase_broker(torch, device, card: str, n_subs: int = N_SUBS, wave: int = WAVE,
-                 n_sessions: int = BROKER_SESSIONS, n_retained: int = RETAINED_SIZES[0],
+def phase_broker(torch, device, card: str, n_subs: int = N_SUBS, n_retained: int = RETAINED_SIZES[0],
                  n_recrypt: int = BROKER_RECRYPT, pred_wave: int = PRED_WAVE) -> dict:
-    """Phase ``broker``: both cells; K1-K6 must each launch inside it."""
-    a = phase_broker_restart(torch, device, card, n_subs, wave, n_sessions)
-    b = phase_broker_legs(torch, device, card, n_subs, n_retained, n_recrypt, pred_wave)
-    launches = {k: a[k] + b[k] for k in a}
+    """Phase ``broker``: cell ``broker-legs``; K1-K6 must each launch inside
+    it. Config 2's restart at full width is phase ``entry``."""
+    launches = phase_broker_legs(torch, device, card, n_subs, n_retained, n_recrypt, pred_wave)
     if device.type == "cuda":
         for name in ("flat_probe_ranges", "flat_match_compact", "scatter_rows", "rules_eval", "agg_reduce",
                      "keystream"):
             check(launches[name] > 0, f"phase broker: {name} was not launched inside the phase: {launches}")
     return launches
+
+
+# -- the broker's own entry point (phase entry) ----------------------------------------
+
+ENTRY_CELL = "entry-cfg2"
+ENTRY_SEED = 12  # cfg2's generator for the entry cell's records and waves
+# of the entry cell's eight publishers (``BROKER_PUBLISHERS``), the first
+# four send over TCP and the last four over WebSocket
+ENTRY_WS_PUBLISHERS = 4
+
+
+def entry_fill(path: str, n_subs: int, n_sessions: int, wave: int) -> None:
+    """Write phase ``entry``'s store: a ``LogKVStore`` in ``path`` holding
+    config 2's ``n_subs`` subscription records (``cfg2_entries``, seed
+    ``ENTRY_SEED``) and ``n_sessions`` persistent sessions
+    (the ids the waves' topics hit most), written through the store's own
+    ``_set`` with fsync off, then ``snapshot()``; and beside it
+    ``<path>.json``: the sessions, the waves' topics and the walls. Runs in
+    a process of its own, started at the beginning of the script."""
+    from mqtt_tpu_torch.hooks.storage import CLIENT_KEY, Subscription as SSub
+    from mqtt_tpu_torch.hooks.storage.base import dumps
+    from mqtt_tpu_torch.hooks.storage.logkv import LogKVOptions, LogKVStore
+
+    gc.disable()
+    t0 = time.perf_counter()
+    entries, topic_gen = cfg2_entries(n_subs, random.Random(ENTRY_SEED))
+    waves = [[topic_gen() for _ in range(wave)] for _ in range(2)]
+    sessions, _hits = _hot_sessions(entries, waves, n_sessions)
+    t_gen = time.perf_counter() - t0
+    store = LogKVStore()
+    store.init(LogKVOptions(path=path, gc_interval=0, durability_fsync="off"))
+    t0 = time.perf_counter()
+    chosen = dict.fromkeys(sessions)
+    for k, (cid, sub) in enumerate(entries):
+        rec = _sub_record(cid, sub.filter, sub.qos)
+        if k < 1000 and rec != dumps(SSub(client=cid, filter=sub.filter, qos=sub.qos)):
+            raise PhaseFailed(f"{ENTRY_CELL}: the bulk record of {cid} is not dumps'")
+        store._set("SUB_" + cid + ":" + sub.filter, rec)
+        if cid in chosen:
+            chosen[cid] = (sub.filter, sub.qos)
+    for k, cid in enumerate(sessions):
+        store._set(CLIENT_KEY + "_" + cid, _session_record(cid, 5 if k % 2 else 4))
+    t_fill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store.snapshot()
+    t_snap = time.perf_counter() - t0
+    n_keys = len(store._map)
+    store.stop()
+    size = sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path))
+    meta = {"sessions": [[cid, *chosen[cid], 5 if k % 2 else 4] for k, cid in enumerate(sessions)],
+            "waves": waves, "subs": n_subs, "keys": n_keys, "bytes": size, "gen_s": t_gen, "fill_s": t_fill, "snapshot_s": t_snap}
+    with open(path + ".json", "w") as f:
+        json.dump(meta, f)
+
+
+def start_entry_fill(n_subs: int, n_sessions: int, wave: int) -> dict:
+    """Start ``entry_fill`` in a process of its own (the store's fill is
+    host work, kept off the earlier phases' clock); phase ``entry`` waits
+    for it."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="mqtt-torch-entry-")
+    path = os.path.join(root, "store")
+    log_path = os.path.join(root, "fill.log")
+    code = (f"import chip_smoke; chip_smoke.entry_fill({path!r}, {n_subs}, {n_sessions}, {wave})")
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=HERE, stdout=out, stderr=subprocess.STDOUT)
+    return {"root": root, "path": path, "proc": proc, "log": log_path, "t0": time.perf_counter()}
+
+
+def stop_entry_fill(fill: dict) -> None:
+    """End the fill process if it still runs and remove its directory."""
+    import shutil
+
+    proc = fill["proc"]
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+    shutil.rmtree(fill["root"], ignore_errors=True)
+
+
+def _tail(path: str, n: int = 3000) -> str:
+    try:
+        with open(path, "rb") as f:
+            return f.read()[-n:].decode("utf-8", "replace")
+    except OSError:
+        return ""
+
+
+def _free_ports(n: int) -> list:
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+class SysRows:
+    """A client subscribed to ``$SYS/broker/matcher/#`` and
+    ``$SYS/broker/durable/#`` from outside the broker's process: the newest
+    value of every row, by the row's name below ``$SYS/broker/``, and how
+    many times each was received."""
+
+    PREFIX = "$SYS/broker/"
+
+    def __init__(self) -> None:
+        self.c = WireClient("entry-sys", 4)
+        self.seen = 0
+
+    async def open(self, host: str, port: int) -> None:
+        await self.c.open(host, port)
+        self.c.send(connect_frame(self.c.name, 4))
+        await self.c.wait_frames(1, 60.0)
+        self.c.send(subscribe_frame(1, [(self.PREFIX + "matcher/#", 0, 0), (self.PREFIX + "durable/#", 0, 0)], 4))
+        await self.c.wait_frames(2, 60.0)
+
+    def rows(self) -> dict:
+        out = {}
+        for p in _publishes(self.c, 0):
+            if p["topic"].startswith(self.PREFIX):
+                out[p["topic"][len(self.PREFIX):]] = p["payload"].decode()
+        return out
+
+    def count(self, row: str) -> int:
+        return sum(1 for p in _publishes(self.c, 0) if p["topic"] == self.PREFIX + row)
+
+    async def fresh(self, limit: float = 30.0) -> dict:
+        """The rows of a ``$SYS`` tick that began after this call."""
+        n0 = self.count("matcher/batches")
+        deadline = time.monotonic() + limit
+        while self.count("matcher/batches") < n0 + 2:
+            check(time.monotonic() < deadline, f"{ENTRY_CELL}: no $SYS tick within {limit} s")
+            await asyncio.sleep(0.1)
+        return self.rows()
+
+    @staticmethod
+    def refolds(rows: dict) -> int:
+        """The device matcher's folds and full rebuilds so far."""
+        return int(rows["matcher/folds"]) + int(rows["matcher/rebuilds"])
+
+    async def folded(self, what: str, base: int, limit: float = 900.0) -> float:
+        """Seconds until the matcher's folds and rebuilds have passed
+        ``base`` (read before the mutations were sent) and then read the
+        same over two more ticks: the background fold of those mutations
+        has run (it wakes on the overlay's size or once a second)."""
+        t0 = time.perf_counter()
+        last, same = -1, 0
+        while same < 2:
+            check(time.perf_counter() - t0 < limit, f"{what}: the overlay was not folded within {limit} s")
+            n = self.refolds(await self.fresh())
+            same = same + 1 if n > base and n == last else 0
+            last = n
+        return time.perf_counter() - t0
+
+
+def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHURN) -> dict:
+    """Phase ``entry`` (cell ``entry-cfg2``): the broker started as its
+    users start it, ``python -m mqtt_tpu_torch serve --config <file>``, in a
+    process of its own on the card. The config (JSON) turns on the device
+    matcher on ``device`` with its breaker at the default, a TCP, a
+    WebSocket, a healthcheck and an ``HTTPStats`` listener on free ports of
+    127.0.0.1, the ``logkv`` store that ``entry_fill`` wrote (config 2's
+    records and the persistent sessions) and an ``AuthHook`` whose ledger
+    is inline. The script polls ``/healthz`` until 200 (the restore done)
+    and reads ``$SYS/broker/matcher/`` over MQTT until the restored
+    subscriptions are folded onto the card; ``$SYS/broker/durable/`` must
+    count every stored subscription restored. Half the sessions reconnect over
+    TCP and half over WebSocket (``WsClient``) with clean start off and
+    must find their sessions present; 8 publishers, four on each listener,
+    send a wave of cfg2 topics, ``n_churn`` UNSUBSCRIBE/SUBSCRIBE packets
+    follow, then a second wave. Every socket's frames must be the multiset
+    the session's stored filter (as the churn changed it) matches, by
+    cfg2's rule; the device must resolve most of each wave (by the
+    ``$SYS`` matcher rows); the breaker's rows must show verified batches,
+    no failure, trip or fallback batch and a closed state; ``/healthz`` 200 with no
+    breaker degradation and the stats route must answer. SIGTERM must end
+    the process with 0, and the store, opened again, must hold every
+    churned record as the churn left it. The kernels run in that process,
+    so their launches are not in the kernels line: the ``$SYS`` rows are
+    this phase's evidence."""
+    from mqtt_tpu_torch.hooks.storage.logkv import LogKVOptions, LogKVStore
+
+    t_phase = time.perf_counter()
+    proc = fill["proc"]
+    try:
+        proc.wait(timeout=1500)
+    except subprocess.TimeoutExpired:
+        raise PhaseFailed(f"{ENTRY_CELL}: the store's fill did not end") from None
+    check(proc.returncode == 0, f"{ENTRY_CELL}: the store's fill failed:\n{_tail(fill['log'])}")
+    with open(fill["path"] + ".json") as f:
+        meta = json.load(f)
+    waited = time.perf_counter() - t_phase
+    log(f"phase {ENTRY_CELL} fill: ok a LogKVStore of {meta['keys']} records ({len(meta['sessions'])} sessions), "
+        f"{meta['bytes']} bytes on disk: cfg2 generator {meta['gen_s']:.3f} s, _set with fsync off "
+        f"{meta['fill_s']:.3f} s, snapshot {meta['snapshot_s']:.3f} s, in its own process beside the earlier "
+        f"phases (waited {waited:.3f} s for it here); {card}")
+    sessions = meta["sessions"]
+    n_sessions = len(sessions)
+    nofile = _raise_nofile(4 * n_sessions + 256)
+    check(nofile >= 2 * n_sessions + 64, f"{ENTRY_CELL}: open-file limit {nofile} below two sockets a session")
+    on_ws = {cid: (k // 2) % 2 == 1 for k, (cid, *_r) in enumerate(sessions)}
+    versions = {cid: v for cid, _f, _q, v in sessions}
+    held: dict = {}
+    for cid, flt, qos, _v in sessions:
+        held.setdefault(flt, []).append((cid, qos))
+    p_tcp, p_ws, p_hc, p_st = _free_ports(4)
+    conf = {
+        "listeners": [{"type": "tcp", "id": "t", "address": f"127.0.0.1:{p_tcp}"},
+                      {"type": "ws", "id": "ws", "address": f"127.0.0.1:{p_ws}"},
+                      {"type": "healthcheck", "id": "hc", "address": f"127.0.0.1:{p_hc}"},
+                      {"type": "sysinfo", "id": "stats", "address": f"127.0.0.1:{p_st}"}],
+        "hooks": {"auth": {"ledger": {"auth": [{"allow": True}]}},
+                  "storage": {"logkv": {"path": fill["path"], "gc_interval": 0}}},
+        "options": {"device": str(device), "device_matcher": True, "matcher_opts": {"max_levels": 4},
+                    "sys_topic_resend_interval": 1},
+        "logging": {"level": "warning"},
+    }
+    conf_path = os.path.join(fill["root"], "broker.json")
+    with open(conf_path, "w") as f:
+        json.dump(conf, f)
+    out_path = os.path.join(fill["root"], "broker.log")
+    with open(out_path, "w") as out:
+        broker = subprocess.Popen([sys.executable, "-m", "mqtt_tpu_torch", "serve", "--config", conf_path,
+                                   "--log-level", "warning"], cwd=HERE, stdout=out, stderr=subprocess.STDOUT)
+    info: dict = {}
+    rows = []
+
+    async def ready(limit: float = 900.0) -> dict:
+        t0 = time.perf_counter()
+        while True:
+            check(broker.poll() is None, f"{ENTRY_CELL}: the broker exited {broker.returncode}:\n{_tail(out_path)}")
+            check(time.perf_counter() - t0 < limit, f"{ENTRY_CELL}: /healthz not 200 within {limit} s")
+            try:
+                status, body = await http_get("127.0.0.1", p_st, "/healthz", 10.0)
+                if status == 200:
+                    return json.loads(body)
+            except (OSError, asyncio.TimeoutError):
+                pass
+            await asyncio.sleep(0.25)
+
+    def device_share(r0: dict, r1: dict) -> dict:
+        rows = {k: "matcher/" + k for k in ("topics", "host_fallbacks", "overflows", "host_fast")}
+        rows["breaker"] = "matcher/breaker/fallback_topics"
+        return route_split({k: int(r1[row]) - int(r0[row]) for k, row in rows.items()})
+
+    async def wave_run(w: int, topics: list, clients: dict, pubs: list, sysr: SysRows) -> dict:
+        wave = _Cfg2Wave(topics, b"e%d" % w, held, clients, pubs)
+        r0 = await sysr.fresh()
+        wall = await wave.send()
+        wave.check(f"{ENTRY_CELL} wave {w + 1}")
+        r1 = await sysr.fresh()
+        n_del = {"tcp": 0, "ws": 0}
+        for cid in clients:
+            n_del["ws" if on_ws[cid] else "tcp"] += sum(wave.exp[cid].values())
+        n_ws = len(pubs) - ENTRY_WS_PUBLISHERS
+        n_in = {"tcp": sum(wave.n_pub[:n_ws]), "ws": sum(wave.n_pub[n_ws:])}
+        return {"n_pub": len(topics), "n_in": n_in, "n_del": n_del, "wall": wall, "routes": device_share(r0, r1)}
+
+    async def drive():
+        t0 = time.perf_counter()
+        health = await ready()
+        info["ready"] = time.perf_counter() - t0
+        info["health0"] = health
+        check(health.get("ok") is True and "durable" in health, f"{ENTRY_CELL}: /healthz {health}")
+        sysr = SysRows()
+        await sysr.open("127.0.0.1", p_tcp)
+        # past the constructor's one build: the restore is folded once
+        # after it (Server.read_store holds the folds meanwhile)
+        info["fold"] = await sysr.folded(ENTRY_CELL, 1)
+        r = sysr.rows()
+        info["fold_rows"] = {k: r["matcher/" + k] for k in ("rebuilds", "rebuild_seconds", "folds")}
+        restored = int(r["durable/restored_subscriptions"])
+        check(restored == meta["subs"], f"{ENTRY_CELL}: {restored} of {meta['subs']} subscriptions restored")
+        base = sysr.refolds(r)
+        clients = {cid: (WsClient if on_ws[cid] else WireClient)(cid, versions[cid]) for cid, *_r in sessions}
+        t0 = time.perf_counter()
+        for c in clients.values():
+            await c.open("127.0.0.1", p_ws if isinstance(c, WsClient) else p_tcp)
+            c.send(connect_frame(c.name, c.version, clean=False,
+                                 props=[(P_SESSION_EXPIRY, 3600)] if c.version == 5 else ()))
+        present = 0
+        for c in clients.values():
+            got = await c.wait_frames(1, 120.0)
+            check(got and got[0][0] == 0x20 and got[0][3] == 0, f"{c.name}: CONNACK {bytes(got[0]) if got else None!r}")
+            present += got[0][2] & 1
+        info["connect"] = time.perf_counter() - t0
+        check(present == n_sessions, f"{ENTRY_CELL}: {present} of {n_sessions} sessions present at CONNACK")
+        # an inherited session subscribes its filters again: fold them too
+        info["reconnect_fold"] = await sysr.folded(ENTRY_CELL + " reconnect", base)
+        pubs = [(WsClient if k >= len(BROKER_PUBLISHERS) - ENTRY_WS_PUBLISHERS else WireClient)(f"epub{k}", v)
+                for k, (v, _q) in enumerate(BROKER_PUBLISHERS)]
+        for c in pubs:
+            await c.open("127.0.0.1", p_ws if isinstance(c, WsClient) else p_tcp)
+            c.send(connect_frame(c.name, c.version))
+            await c.wait_frames(1, 60.0)
+        try:
+            rows.append(await wave_run(0, meta["waves"][0], clients, pubs, sysr))
+            churned = [cid for cid, *_r in sessions[: n_churn // 2]]
+            off = {cid: len(clients[cid].frames()) for cid in churned}
+            base = sysr.refolds(sysr.rows())
+            new_filter = {}
+            for j, cid in enumerate(churned):
+                a, _b, c = meta["waves"][1][j * 7 % len(meta["waves"][1])].split("/")
+                old_f, old_q = next((f, q) for f, lst in held.items() for x, q in lst if x == cid)
+                new_filter[cid] = (old_f, f"{a}/+/{c}")
+                clients[cid].send(unsubscribe_frame(CHURN_PID, [old_f], versions[cid])
+                                  + subscribe_frame(CHURN_PID + 1, [(new_filter[cid][1], 1, 0)], versions[cid]))
+                held[old_f].remove((cid, old_q))
+                held.setdefault(new_filter[cid][1], []).append((cid, 1))
+            for cid in churned:
+                got = await clients[cid].wait_frames(off[cid] + 2, 120.0)
+                check([f[0] >> 4 for f in got[off[cid]:]] == [11, 9], f"{cid}: churn acks {got[off[cid]:]}")
+            info["churn_fold"] = await sysr.folded(ENTRY_CELL + " churn", base)
+            info["new_filter"] = new_filter
+            rows.append(await wave_run(1, meta["waves"][1], clients, pubs, sysr))
+            r = await sysr.fresh()
+            info["breaker"] = {k[len("matcher/breaker/"):]: v for k, v in r.items()
+                               if k.startswith("matcher/breaker/")}
+            info["matcher_rows"] = {k: r["matcher/" + k] for k in ("batches", "topics", "compact_batches",
+                                                                   "compact_overflows", "folds", "rebuilds",
+                                                                   "rebuild_seconds", "d2h_bytes")}
+            status, body = await http_get("127.0.0.1", p_st, "/healthz")
+            info["health"] = (status, json.loads(body))
+            status_st, body_st = await http_get("127.0.0.1", p_st, "/")
+            info["stats"] = (status_st, sorted(json.loads(body_st)))
+            info["healthcheck"] = (await http_get("127.0.0.1", p_hc, "/healthcheck"))[0]
+            info["metrics"] = (await http_get("127.0.0.1", p_st, "/metrics"))[0]
+        finally:
+            for c in list(clients.values()) + pubs + [sysr.c]:
+                if c.task is not None and not c.task.done():
+                    c.send(disconnect_frame(c.version))
+            for c in list(clients.values()) + pubs + [sysr.c]:
+                if c.task is not None:
+                    await c.ended(60.0)
+
+    try:
+        asyncio.run(drive())
+        t0 = time.perf_counter()
+        broker.send_signal(signal.SIGTERM)
+        try:
+            rc = broker.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            raise PhaseFailed(f"{ENTRY_CELL}: the broker did not exit within 300 s of SIGTERM") from None
+        t_exit = time.perf_counter() - t0
+        check(rc == 0, f"{ENTRY_CELL}: the broker exited {rc} on SIGTERM:\n{_tail(out_path)}")
+    finally:
+        if broker.poll() is None:
+            broker.kill()
+            broker.wait()
+    t0 = time.perf_counter()
+    store = LogKVStore()
+    store.init(LogKVOptions(path=fill["path"], gc_interval=0))
+    try:
+        t_reopen = time.perf_counter() - t0
+        wrong = 0
+        for cid, (old_f, new_f) in info["new_filter"].items():
+            rec = store._get("SUB_" + cid + ":" + new_f)
+            wrong += store._get("SUB_" + cid + ":" + old_f) is not None
+            wrong += rec is None or json.loads(rec).get("qos") != 1
+        n_keys = len(store._map)
+    finally:
+        store.stop()
+    check(wrong == 0, f"{ENTRY_CELL}: {wrong} of the {n_churn} churned records do not stand as the churn left them")
+    health = info["health0"]
+    d = health["durable"]
+    log(f"phase {ENTRY_CELL}: python -m mqtt_tpu_torch serve on {device}; /healthz 200 after {info['ready']:.3f} s "
+        f"(restore {d['recovery_seconds']:.3f} s, {d['replayed_keys']} keys replayed from LogKV), fold onto the card "
+        f"{info['fold']:.3f} s after it ($SYS rebuilds {info['fold_rows']['rebuilds']}, folds "
+        f"{info['fold_rows']['folds']}, rebuild_seconds {info['fold_rows']['rebuild_seconds']}); {n_sessions} "
+        f"sessions present ({sum(on_ws.values())} over WebSocket) in {info['connect']:.3f} s, reconnect fold "
+        f"{info['reconnect_fold']:.3f} s; {card}")
+    for w, r in enumerate(rows):
+        ro = r["routes"]
+        log(f"phase {ENTRY_CELL} wave {w + 1}: ok {r['n_pub']} publishes ({r['n_in']['tcp']} over TCP, "
+            f"{r['n_in']['ws']} over WebSocket), {r['n_del']['tcp'] + r['n_del']['ws']} deliveries "
+            f"({r['n_del']['tcp']} to TCP sockets, {r['n_del']['ws']} to WebSocket ones), every frame the stored "
+            f"filters' match; {r['n_pub'] / r['wall']:.1f} publishes/s ({r['n_in']['tcp'] / r['wall']:.1f} TCP, "
+            f"{r['n_in']['ws'] / r['wall']:.1f} WebSocket), deliveries/s {r['n_del']['tcp'] / r['wall']:.1f} TCP, "
+            f"{r['n_del']['ws'] / r['wall']:.1f} WebSocket (wall {r['wall']:.3f} s); resolved by the device "
+            f"{ro['device']}, by the host: " + ", ".join(f"{k} {v}" for k, v in ro.items() if k != "device")
+            + f"; {card}")
+        check(ro["device"] > r["n_pub"] // 2, f"{ENTRY_CELL} wave {w + 1}: the device resolved {ro['device']} "
+              f"of {r['n_pub']} publishes")
+    g = info["breaker"]
+    breaker_summary(g, ENTRY_CELL + " (read over $SYS)", card)
+    check(int(g["verified_batches"]) > 0, f"{ENTRY_CELL}: the breaker verified no batch: {g}")
+    status, body = info["health"]
+    check(status == 200 and not [x for x in body["degraded"] if x.startswith("matcher_breaker")],
+          f"{ENTRY_CELL}: /healthz {status} {body}")
+    check(info["stats"][0] == 200 and "version" in info["stats"][1], f"{ENTRY_CELL}: stats route {info['stats']}")
+    check(info["healthcheck"] == 200 and info["metrics"] == 404,
+          f"{ENTRY_CELL}: /healthcheck {info['healthcheck']}, /metrics {info['metrics']}")
+    log(f"  {ENTRY_CELL}: /healthz 200 {json.dumps(body, sort_keys=True)}; stats route 200 ({len(info['stats'][1])} "
+        f"keys), /healthcheck 200, /metrics 404 (no telemetry plane); $SYS matcher {info['matcher_rows']}; SIGTERM "
+        f"-> exit 0 in {t_exit:.3f} s; the store reopened ({n_keys} keys, {t_reopen:.3f} s) holds the "
+        f"{n_churn} churned records as the churn left them; churn fold {info['churn_fold']:.3f} s; "
+        f"phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return info
 
 
 def _materialize_single(torch, cfg: dict, device) -> None:
@@ -4368,8 +4800,25 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
         n_groups: int = N_GROUPS) -> list:
     import torch
 
+    # phase entry's store is written by a process of its own from the start
+    fill = start_entry_fill(n_subs, min(BROKER_SESSIONS, n_subs // 2), wave)
+    try:
+        return _run(torch, device, n_subs, wave, n_recrypt, retained_sizes, n_reseal, card, n_groups, fill)
+    finally:
+        stop_entry_fill(fill)
+
+
+def _run(torch, device, n_subs, wave, n_recrypt, retained_sizes, n_reseal, card, n_groups, fill) -> list:
     # off the card (a rehearsal) the wrappers are never called: no counts
     counted = device.type == "cuda"
+    mark = [time.perf_counter()]
+
+    def wall(what: str) -> None:
+        """Log the wall of the phases since the last mark."""
+        now = time.perf_counter()
+        log(f"wall {what}: {now - mark[0]:.1f} s; {card}")
+        mark[0] = now
+
     phase_native()
     cfgs = [
         phase_setup("cfg2", build_cfg2, n_subs, 2, device),
@@ -4377,7 +4826,9 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
     ]
     sharded = []
     try:
+        wall("native, setup cfg2 and cfg3")
         rec = phase_kernels(torch, cfgs, device)
+        wall("kernels")
         main2 = phase_main(cfgs[0], wave)
         check(main2["flat_probe_ranges"] > 0 or not counted, "cfg2's main path never launched flat_probe_ranges")
         phase_kernel_small_batch(torch, rec, cfgs[0], device, "flat_probe_ranges")
@@ -4386,6 +4837,7 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
         check(main3["flat_match_compact"] > 0 or not counted, "cfg3's main path never launched flat_match_compact")
         phase_kernel_small_batch(torch, rec, cfgs[1], device, "flat_match_compact")
         _materialize_single(torch, cfgs[1], device)
+        wall("main cfg2 and cfg3")
         # the same tries, now served by the sharded matcher alone
         for cfg in cfgs:
             cfg["dm"].close()
@@ -4400,6 +4852,7 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
             if cfg is cfgs[0]:
                 obs = phase_observe(torch, cfg, sh, wave, device, card)
             sh["dm"].close()
+            wall(f"sharded {cfg['name']}" + (" and observe" if cfg is cfgs[0] else ""))
     finally:
         for cfg in cfgs:
             cfg["dm"].close()
@@ -4407,6 +4860,7 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
             sh["dm"].close()
     del cfgs, sharded
     mainN = phase_namespace(torch, device)
+    wall("namespace")
     cfg4 = phase_setup_fanout(n_groups, device, card)
     try:
         main4 = phase_fanout(cfg4, wave, card)
@@ -4418,6 +4872,7 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
     finally:
         cfg4["dm"].close()
     del cfg4
+    wall("fanout")
     # the observe phase's registry goes on to the later phases' engines
     cfgP = phase_setup_predicates(n_subs, 9, device, obs["registry"])
     cfgR = phase_setup_recrypt(10, device, obs["registry"])
@@ -4425,6 +4880,7 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
         phase_kernels_pr(torch, rec, cfgP, cfgR, device, n_recrypt)
         mainP = phase_predicates(cfgP, wave)
         mainR = phase_recrypt(torch, cfgR, n_recrypt)
+        wall("predicates and recrypt")
         cfgP["dm"].close()
         del cfgP
         main_ret = []
@@ -4433,6 +4889,7 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
             main_ret.append(phase_retained(torch, rec, st, device))
             del st
         main_rs = phase_reseal(torch, rec, cfgR, device, n_reseal)
+        wall("retained and reseal")
     finally:
         if "cfgP" in locals():
             cfgP["dm"].close()
@@ -4440,8 +4897,12 @@ def run(device, n_subs: int = N_SUBS, wave: int = WAVE, n_recrypt: int = N_RECRY
     del cfgR
     gc.collect()
     # the broker itself, on the earlier phases' engines' kernels
-    main_br = phase_broker(torch, device, card, n_subs, wave, min(BROKER_SESSIONS, n_subs // 2),
-                           retained_sizes[0], n_recrypt)
+    main_br = phase_broker(torch, device, card, n_subs, retained_sizes[0], n_recrypt)
+    wall("broker")
+    gc.collect()
+    # the broker's own entry point, in a process of its own on the card
+    phase_entry(torch, device, card, fill)
+    wall("entry")
     phase_observe_render(obs)
     kernels_line = []
     for name in REPLACES:

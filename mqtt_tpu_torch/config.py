@@ -1,0 +1,233 @@
+"""File-based configuration: YAML/JSON bytes -> server Options, including
+built-in hook and listener instantiation.
+
+A copy of the JAX package's (reference ``config/config.go:25-175``): JSON
+iff the first byte is ``{``, otherwise YAML (``yaml`` is imported only
+then); hook configs map to the built-in auth/storage/debug hooks; listener
+configs pass through to ``Server.add_listeners_from_config``; a
+``logging.level`` sets the logger.
+
+The option keys are the JAX package's, plus ``device`` (the card every
+device plane runs on). A key the port's ``Options`` has maps to it;
+``trace_jax_profiler_dir`` maps to ``trace_torch_profiler_dir``. A key of
+a plane the port does not have yet (``overload_*``, ``cluster_*``,
+``loop_shards``, the telemetry, trace, profiling and SLO fields,
+``device_stats``, ...) raises ``TypeError``, as passing it to ``Options``
+does: a configuration is never served with a plane silently missing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import sys
+from typing import Any, Optional
+
+from .hooks.auth import AllowHook, AuthHook, AuthOptions, Ledger
+from .hooks.debug import DebugHook, DebugOptions
+from .hooks.storage.logkv import LogKVOptions, LogKVStore
+from .hooks.storage.memory import MemoryStore
+from .hooks.storage.redis import RedisOptions, RedisStore
+from .hooks.storage.sqlite import SqliteOptions, SqliteStore
+from .listeners import Config as ListenerConfig
+from .server import Capabilities, Options
+
+
+# the option keys a config file may carry: the JAX package's, and the
+# port's ``device`` and ``trace_torch_profiler_dir``
+OPTION_KEYS = (
+    "sys_topic_resend_interval", "device", "inline_client",
+    "client_net_write_buffer_size", "client_net_read_buffer_size", "device_matcher",
+    "matcher_opts", "matcher_stage_window_ms", "matcher_stage_max_batch",
+    "matcher_stage_max_inflight", "matcher_stage_latency_budget_ms",
+    "matcher_stage_pipeline_depth", "matcher_compact", "matcher_compact_capacity",
+    "matcher_lazy_views", "fanout_batch", "scan_coalesce", "loop_shards",
+    "loop_shard_accept", "matcher_resilience", "breaker_failure_threshold",
+    "breaker_watchdog_ms", "breaker_probe_backoff_ms", "breaker_probe_backoff_max_ms",
+    "breaker_probe_jitter", "breaker_probe_successes", "breaker_verify_sample",
+    "gc_tuning", "overload_control", "overload_throttle_enter",
+    "overload_throttle_exit", "overload_shed_enter", "overload_shed_exit",
+    "overload_min_dwell_ms", "overload_eval_interval_ms", "overload_quota_window_ms",
+    "overload_publish_quota", "overload_throttle_delay_ms", "overload_shed_quota",
+    "overload_eviction_grace_ms", "overload_stage_max_pending",
+    "overload_client_buffer_limit_bytes", "overload_max_outbound_backlog",
+    "overload_memory_limit_mb", "overload_federation", "overload_federation_weight",
+    "overload_federation_ttl_ms", "overload_admission", "overload_admission_reserve",
+    "overload_priority_classes", "overload_priority_users",
+    "cluster_peer_health_suspect_pings", "cluster_peer_health_partition_pings",
+    "cluster_suspect_window_s", "cluster_peer_park_max_bytes", "cluster_topology",
+    "cluster_tree_degree", "cluster_summary_bits", "cluster_dup_window", "tenancy",
+    "tenants", "tenant_users", "tenant_default", "recrypt", "recrypt_oracle_sample",
+    "recrypt_device_min_blocks", "predicate_filters", "predicate_max_rules",
+    "predicate_oracle_sample", "telemetry", "telemetry_sample", "telemetry_ring",
+    "telemetry_dump_dir", "telemetry_dump_min_interval_ms", "trace", "trace_sample",
+    "trace_ring", "trace_exemplars", "trace_user_property", "trace_adopt_max_per_s",
+    "trace_jax_profiler_dir", "trace_torch_profiler_dir", "profile", "profile_hz",
+    "profile_ring", "profile_locks", "profile_topics", "slo", "slo_objectives",
+    "slo_burn_threshold", "device_stats", "device_hbm_watermark", "cluster_metrics",
+    "cluster_metrics_max_age_s", "tenant_max_retained", "tenant_max_subscriptions",
+    "retained_matcher", "retained_oracle_sample", "durable_restore_batch",
+    "cluster_transport", "cluster_host", "cluster_base_port", "cluster_peer_addrs",
+    "cluster_tls_cert", "cluster_tls_key", "cluster_tls_ca",
+    "cluster_connect_timeout_s", "cluster_keepalive_s", "cluster_summary_digests",
+)
+# JAX keys whose port field has another name
+RENAMED = {"trace_jax_profiler_dir": "trace_torch_profiler_dir"}
+_OPTION_FIELDS = frozenset(f.name for f in dataclasses.fields(Options))
+
+
+def _to_logger(level: str) -> logging.Logger:
+    """Configure the broker logger from config; with no level set, leave the
+    logger untouched so CLI flags / embedding apps stay in control."""
+    logger = logging.getLogger("mqtt_tpu_torch")
+    if level:
+        try:
+            logger.setLevel(level.upper())
+        except ValueError:
+            logger.setLevel(logging.INFO)
+        # only attach our own handler when nothing else will emit records
+        if not logger.handlers and not logging.getLogger().handlers:
+            handler = logging.StreamHandler(sys.stdout)
+            handler.setFormatter(
+                logging.Formatter("%(asctime)s %(levelname)s %(name)s %(message)s")
+            )
+            logger.addHandler(handler)
+    return logger
+
+
+def _capabilities_from(d: dict[str, Any]) -> Capabilities:
+    caps = Capabilities()
+    compat = d.pop("compatibilities", None)
+    for k, v in d.items():
+        if hasattr(caps, k):
+            setattr(caps, k, v)
+    if compat:
+        for k, v in compat.items():
+            if hasattr(caps.compatibilities, k):
+                setattr(caps.compatibilities, k, v)
+    return caps
+
+
+def _hooks_from(d: dict[str, Any]) -> list[tuple[Any, Any]]:
+    """Instantiate built-in hooks from their config sections
+    (config.go:71-145)."""
+    hooks: list[tuple[Any, Any]] = []
+    auth = d.get("auth")
+    if auth is not None:
+        if auth.get("allow_all"):
+            hooks.append((AllowHook(), None))
+        else:
+            ledger = Ledger()
+            ledger.unmarshal(json.dumps(auth.get("ledger") or {}).encode())
+            hooks.append((AuthHook(), AuthOptions(ledger=ledger)))
+    storage = d.get("storage") or {}
+    if storage.get("sqlite") is not None:
+        cfg = storage["sqlite"] or {}
+        hooks.append(
+            (
+                SqliteStore(),
+                SqliteOptions(
+                    path=cfg.get("path", "mqtt_tpu.db"), sync=cfg.get("sync", False)
+                ),
+            )
+        )
+    if storage.get("memory") is not None:
+        hooks.append((MemoryStore(), None))
+    if storage.get("logkv") is not None:
+        cfg = storage["logkv"] or {}
+        hooks.append(
+            (
+                LogKVStore(),
+                LogKVOptions(
+                    path=cfg.get("path", "mqtt_tpu_logkv"),
+                    sync=cfg.get("sync", False),
+                    gc_interval=cfg.get("gc_interval", 300.0),
+                    gc_discard_ratio=cfg.get("gc_discard_ratio", 0.5),
+                    max_segment_bytes=cfg.get(
+                        "max_segment_bytes", 64 * 1024 * 1024
+                    ),
+                    max_segment_age_s=cfg.get("max_segment_age_s", 0.0),
+                    snapshot_interval_s=cfg.get("snapshot_interval_s", 0.0),
+                    durability_fsync=cfg.get("durability_fsync", ""),
+                    fsync_interval_ms=cfg.get("fsync_interval_ms", 50.0),
+                ),
+            )
+        )
+    if storage.get("redis") is not None:
+        cfg = storage["redis"] or {}
+        hooks.append(
+            (
+                RedisStore(),
+                RedisOptions(
+                    address=cfg.get("address", "localhost:6379"),
+                    username=cfg.get("username", ""),
+                    password=cfg.get("password", ""),
+                    database=cfg.get("database", 0),
+                    h_prefix=cfg.get("h_prefix", "mqtt-tpu-"),
+                ),
+            )
+        )
+    debug = d.get("debug")
+    if debug is not None:
+        hooks.append(
+            (
+                DebugHook(),
+                DebugOptions(
+                    enable=debug.get("enable", True),
+                    show_packet_data=debug.get("show_packet_data", False),
+                    show_pings=debug.get("show_pings", False),
+                    show_passwords=debug.get("show_passwords", False),
+                ),
+            )
+        )
+    return hooks
+
+
+def from_bytes(b: bytes) -> Optional[Options]:
+    """Unmarshal JSON or YAML config bytes into server Options
+    (config.go:149-175)."""
+    if not b:
+        return None
+    if b[:1] == b"{":
+        raw = json.loads(b)
+    else:
+        import yaml
+
+        raw = yaml.safe_load(b)
+    if not raw:
+        return None
+
+    opts = Options()
+    top = raw.get("options") or raw  # accept flat or nested layout
+    for k in OPTION_KEYS:
+        if k not in top:
+            continue
+        name = RENAMED.get(k, k)
+        if name not in _OPTION_FIELDS:
+            raise TypeError(
+                f"config option {k!r} belongs to a plane mqtt_tpu_torch does not have yet"
+            )
+        setattr(opts, name, top[k])
+    if "capabilities" in top and top["capabilities"]:
+        opts.capabilities = _capabilities_from(dict(top["capabilities"]))
+
+    opts.listeners = [
+        ListenerConfig(
+            type=conf.get("type", ""),
+            id=conf.get("id", ""),
+            address=conf.get("address", ""),
+            # per-listener CONNECT admission opt-out (kept for the JAX
+            # package's overload governor; the port admits every CONNECT)
+            admission=bool(conf.get("admission", True)),
+        )
+        for conf in (raw.get("listeners") or [])
+    ]
+    opts.hooks = _hooks_from(raw.get("hooks") or {})
+    opts.logger = _to_logger((raw.get("logging") or {}).get("level", ""))
+    return opts
+
+
+def from_file(path: str) -> Optional[Options]:
+    with open(path, "rb") as f:
+        return from_bytes(f.read())

@@ -1,6 +1,7 @@
 """Hook (plugin) system: the event ids, the no-op :class:`Hook` base, and the
-ordered :class:`Hooks` dispatcher. A copy of the JAX package's; its auth
-and storage hooks are not ported yet.
+ordered :class:`Hooks` dispatcher. A copy of the JAX package's, with its
+auth (``hooks.auth``), storage (``hooks.storage``) and debug
+(``hooks.debug``) hooks.
 
 Behavioral parity with reference ``hooks.go``: event ids :19-58, the Hook
 interface :71-115 (the Python base merges the reference's ``Hook`` +

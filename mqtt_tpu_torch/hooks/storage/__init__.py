@@ -2,9 +2,8 @@
 prefixes.
 
 A copy of the JAX package's (reference ``hooks/storage/storage.go:15-199``).
-Every storage hook mirrors broker state through these shapes (the port has
-the in-memory one; the JAX package's sqlite, redis and log stores are not
-ported yet); ``Serve()`` restores the five datasets from them on boot
+Every storage hook (``memory``, ``sqlite``, ``redis``, ``logkv``) mirrors
+broker state through these shapes; ``Serve()`` restores the five datasets from them on boot
 (server.go:1554-1692).
 """
 

@@ -1,13 +1,13 @@
 """Network listeners: the listener interface, the id-keyed registry, and the
-built-in stream listener types (TCP, unix socket, a pre-bound socket, the
-mock).
+built-in listener types (TCP, websocket, unix socket, a pre-bound socket,
+the mock, and the HTTP healthcheck, stats and dashboard listeners).
 
 A copy of the JAX package's ``listeners`` (reference
 ``listeners/listeners.go``: interface :32-39, registry :42-135). Accept
 loops are asyncio servers; the registry tracks all per-client tasks (the
-reference's ``ClientsWg``) so close can wait for them. The HTTP and
-websocket listeners are not ported yet, and neither is the event-loop
-shard fabric: every stream listener accepts on the loop that serves it.
+reference's ``ClientsWg``) so close can wait for them. The event-loop
+shard fabric is not ported: every stream listener accepts on the loop
+that serves it.
 """
 
 from __future__ import annotations
@@ -208,14 +208,19 @@ class Listeners:
                 await asyncio.gather(*pending, return_exceptions=True)
 
 
+from .http import Dashboard, HTTPHealthCheck, HTTPStats  # noqa: E402
 from .mock import MockListener  # noqa: E402
 from .net import Net  # noqa: E402
 from .tcp import TCP  # noqa: E402
 from .unixsock import UnixSock  # noqa: E402
+from .websocket import Websocket  # noqa: E402
 
 __all__ = [
     "Config",
+    "Dashboard",
     "EstablishFn",
+    "HTTPHealthCheck",
+    "HTTPStats",
     "Listener",
     "Listeners",
     "MockListener",
@@ -229,6 +234,7 @@ __all__ = [
     "TYPE_WS",
     "StreamListener",
     "UnixSock",
+    "Websocket",
     "bind_stream_socket",
     "split_host_port",
 ]

@@ -1,0 +1,386 @@
+"""HTTP utility listeners: healthcheck and $SYS stats.
+
+A copy of the JAX package's (reference ``listeners/http_healthcheck.go:19-99``
+(200-OK on GET /healthcheck) and ``listeners/http_sysinfo.go:23-121``
+(JSON dump of system.Info). Implemented as minimal asyncio HTTP/1.1
+responders — no framework dependency.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import base64
+import collections
+import hmac
+import json
+import logging
+import threading
+import time
+from html import escape
+
+from ..system import Info
+from ..utils.proc import cpu_seconds, rss_bytes
+from . import Config, EstablishFn, StreamListener, split_host_port
+
+
+class _HttpListener(StreamListener):
+    """Shared accept loop for the single-purpose HTTP listeners."""
+
+    def protocol(self) -> str:
+        return "https" if self.config.tls_config else "http"
+
+    async def init(self, log: logging.Logger) -> None:
+        self.log = log
+        host, port = split_host_port(self.config.address)
+        self._server = await asyncio.start_server(
+            self._on_connection, host, port, ssl=self.config.tls_config
+        )
+
+    async def serve(self, establish: EstablishFn) -> None:
+        pass  # HTTP listeners never establish MQTT clients
+
+    async def _on_connection(self, reader, writer):  # overrides StreamListener
+        try:
+            request = await asyncio.wait_for(reader.readuntil(b"\r\n\r\n"), 10)
+            line = request.split(b"\r\n", 1)[0].decode("latin-1")
+            parts = line.split(" ")
+            method, path = (parts + ["", ""])[:2]
+            if not self._authorized(request):
+                writer.write(
+                    b"HTTP/1.1 401 Unauthorized\r\n"
+                    b'WWW-Authenticate: Basic realm="mqtt_tpu_torch"\r\n'
+                    b"Content-Length: 0\r\nConnection: close\r\n\r\n"
+                )
+            else:
+                extra = ""
+                try:
+                    resp = self._respond(method, path)
+                    # handlers may append a dict of extra headers
+                    # (Cache-Control on stats/metrics, Allow on 405s)
+                    if len(resp) == 4:
+                        status, body, ctype, headers = resp
+                        extra = "".join(f"{k}: {v}\r\n" for k, v in headers.items())
+                    else:
+                        status, body, ctype = resp
+                except Exception:
+                    self.log.exception("http handler failed: path=%s", path)
+                    status, body, ctype = "500 Internal Server Error", b"", "text/plain"
+                writer.write(
+                    (
+                        f"HTTP/1.1 {status}\r\n"
+                        f"Content-Type: {ctype}\r\n"
+                        f"Content-Length: {len(body)}\r\n"
+                        f"{extra}"
+                        "Connection: close\r\n\r\n"
+                    ).encode()
+                    + body
+                )
+            await writer.drain()
+        except Exception:  # brokerlint: ok=R4 client hung up mid-response; nothing to serve and nothing to log per-scrape
+            pass
+        finally:
+            try:
+                writer.close()
+            except Exception:  # brokerlint: ok=R4 teardown; the transport is already gone
+                pass
+
+    def _authorized(self, request: bytes) -> bool:
+        return True
+
+    def _respond(self, method: str, path: str):
+        raise NotImplementedError
+
+    @staticmethod
+    def _method_not_allowed():
+        """405 for a KNOWN path hit with a non-GET method; unknown paths
+        stay 404 whatever the method (RFC 9110 §15.5.6 semantics)."""
+        return "405 Method Not Allowed", b"", "text/plain", {"Allow": "GET"}
+
+
+# point-in-time responses must never be served from a cache
+_NO_STORE = {"Cache-Control": "no-store"}
+
+
+class HTTPHealthCheck(_HttpListener):
+    """Responds 200 OK to GET /healthcheck (http_healthcheck.go:59-63)."""
+
+    def _respond(self, method: str, path: str):
+        if path == "/healthcheck":
+            if method != "GET":
+                return self._method_not_allowed()
+            return "200 OK", b"", "text/plain"
+        return "404 Not Found", b"", "text/plain"
+
+
+class HTTPStats(_HttpListener):
+    """Serves the $SYS info values as JSON (http_sysinfo.go:112-121) and
+    ``GET /healthz``, the readiness probe (``health`` is the server's
+    ``health_report``: 200 when ready, 503 with the failing components
+    named when not). The telemetry routes read ``telemetry`` through
+    ``getattr``, as the JAX listener does: ``/metrics`` (the exposition),
+    ``/traces``, ``/profile``, ``/devices``, ``/metrics/cluster`` and
+    ``/cluster/slo``. The port's server has no telemetry plane yet and
+    passes None, so each of them answers 404, as the JAX listener's do
+    with telemetry off."""
+
+    def __init__(
+        self, config: Config, sys_info: Info, telemetry=None, health=None
+    ) -> None:
+        super().__init__(config)
+        self.sys_info = sys_info
+        self.telemetry = telemetry
+        self.health = health
+
+    def _respond(self, method: str, path: str):
+        # known paths match on the bare path; the query string only
+        # selects an export format (/profile?format=trace)
+        path, _, query = path.partition("?")
+        if path == "/healthz":
+            if self.health is None:  # no server wired (bare listener)
+                return "404 Not Found", b"", "text/plain"
+            if method != "GET":
+                return self._method_not_allowed()
+            ok, detail = self.health()
+            body = json.dumps(detail, indent=1).encode()
+            status = "200 OK" if ok else "503 Service Unavailable"
+            return status, body, "application/json", _NO_STORE
+        if path == "/metrics/cluster":
+            cm = getattr(self.telemetry, "cluster_metrics", None)
+            if cm is None:  # telemetry off, or federation disabled
+                return "404 Not Found", b"", "text/plain"
+            if method != "GET":
+                return self._method_not_allowed()
+            body = cm.exposition(
+                self.telemetry.registry,
+                str(getattr(self.telemetry, "local_worker", "0")),
+            ).encode()
+            return (
+                "200 OK",
+                body,
+                "text/plain; version=0.0.4; charset=utf-8",
+                _NO_STORE,
+            )
+        if path == "/cluster/slo":
+            cm = getattr(self.telemetry, "cluster_metrics", None)
+            engine = getattr(self.telemetry, "slo", None)
+            if cm is None and engine is None:
+                return "404 Not Found", b"", "text/plain"
+            if method != "GET":
+                return self._method_not_allowed()
+            out = {
+                "local": engine.state() if engine is not None else {},
+                "workers": (
+                    cm.slo_state(
+                        self.telemetry.registry,
+                        str(getattr(self.telemetry, "local_worker", "0")),
+                    )
+                    if cm is not None
+                    else {}
+                ),
+            }
+            body = json.dumps(out, indent=1).encode()
+            return "200 OK", body, "application/json", _NO_STORE
+        if path == "/devices":
+            plane = getattr(self.telemetry, "device_stats", None)
+            if plane is None:  # telemetry off, or the device plane disabled
+                return "404 Not Found", b"", "text/plain"
+            if method != "GET":
+                return self._method_not_allowed()
+            body = json.dumps(plane.snapshot(), indent=1).encode()
+            return "200 OK", body, "application/json", _NO_STORE
+        if path == "/profile":
+            profiler = getattr(self.telemetry, "host_profiler", None)
+            if profiler is None:  # telemetry off, or the profiler disabled
+                return "404 Not Found", b"", "text/plain"
+            if method != "GET":
+                return self._method_not_allowed()
+            if "format=trace" in query:
+                body = json.dumps(profiler.trace_events()).encode()
+                return "200 OK", body, "application/json", _NO_STORE
+            body = profiler.collapsed().encode()
+            return "200 OK", body, "text/plain; charset=utf-8", _NO_STORE
+        if path == "/metrics":
+            if self.telemetry is None:
+                return "404 Not Found", b"", "text/plain"
+            if method != "GET":
+                return self._method_not_allowed()
+            body = self.telemetry.exposition().encode()
+            return "200 OK", body, "text/plain; version=0.0.4; charset=utf-8", _NO_STORE
+        if path == "/traces":
+            tracer = getattr(self.telemetry, "tracer", None)
+            if tracer is None:  # telemetry off, or tracing disabled
+                return "404 Not Found", b"", "text/plain"
+            if method != "GET":
+                return self._method_not_allowed()
+            body = tracer.export_json().encode()
+            return "200 OK", body, "application/json", _NO_STORE
+        if method != "GET":
+            return self._method_not_allowed()
+        body = json.dumps(self.sys_info.clone().as_dict()).encode()
+        return "200 OK", body, "application/json", _NO_STORE
+
+
+class Dashboard(_HttpListener):
+    """The fork CLI's basic-auth'd status dashboard
+    (cmd/server/listener.go:182-358): ``/information`` (indented $SYS JSON),
+    ``/connections`` (HTML client table), ``/clientsrawdata`` (per-client
+    JSON), ``/processrecords`` (periodic process snapshots).
+
+    ``auth`` maps username -> password for HTTP basic auth; an empty map
+    disables the check. The process recorder samples lazily, at most once
+    per ``record_interval`` seconds (the reference records on a 60s timer).
+    """
+
+    def __init__(
+        self,
+        config: Config,
+        sys_info: Info,
+        clients,
+        auth: dict[str, str] | None = None,
+        listener_summary: str = "",
+        record_interval: float = 60.0,
+        max_records: int = 7 * 24 * 60,  # reference keeps 7 days of minutes
+    ) -> None:
+        super().__init__(config)
+        self.sys_info = sys_info
+        self.clients = clients
+        self.auth = auth or {}
+        self.listener_summary = listener_summary
+        self.record_interval = record_interval
+        self._records: collections.deque = collections.deque(maxlen=max_records)
+        self._last_record = 0.0
+
+    # -- process recorder ---------------------------------------------------
+
+    def _maybe_record(self) -> None:
+        # interval gating is MONOTONIC (brokerlint R3): an NTP step must
+        # not stall or burst the recorder; only the record's own
+        # timestamp is wall-clock (operators correlate it with logs)
+        now = time.monotonic()
+        if now - self._last_record < self.record_interval and self._records:
+            return
+        self._last_record = now
+        self._records.append(
+            {
+                "time": int(time.time()),  # brokerlint: ok=R3 record timestamp is wall-clock by design
+                "rss_bytes": rss_bytes(),
+                "cpu_seconds": round(cpu_seconds(), 3),
+                "threads": threading.active_count(),
+                "clients_connected": self.sys_info.clients_connected,
+                "messages_received": self.sys_info.messages_received,
+                "messages_sent": self.sys_info.messages_sent,
+            }
+        )
+
+    # -- request handling ---------------------------------------------------
+
+    def _authorized(self, request: bytes) -> bool:
+        if not self.auth:
+            return True
+        for line in request.split(b"\r\n"):
+            if line.lower().startswith(b"authorization: basic "):
+                try:
+                    userpass = base64.b64decode(line.split(b" ", 2)[2]).decode()
+                    user, _, pwd = userpass.partition(":")
+                except Exception:
+                    return False
+                # membership must be explicit: a missing user must NOT fall
+                # through to comparing against "" (which would authorize any
+                # username with an empty password); bytes also keep
+                # compare_digest safe for non-ASCII credentials
+                expected = self.auth.get(user)
+                return (
+                    expected is not None
+                    and expected != ""
+                    and hmac.compare_digest(expected.encode(), pwd.encode())
+                )
+        return False
+
+    def _client_rows(self) -> tuple[list[list[str]], dict[str, int]]:
+        rows = []
+        counts: dict[str, int] = {}
+        for cl in self.clients.get_all().values():
+            if cl.net.listener == "local" or cl.id == "inline":
+                continue
+            filters = sorted(cl.state.subscriptions.get_all())
+            username = (
+                cl.properties.username.decode("utf-8", "replace")
+                if isinstance(cl.properties.username, (bytes, bytearray))
+                else str(cl.properties.username)
+            )
+            rows.append(
+                [
+                    username,
+                    cl.id,
+                    str(cl.net.remote),
+                    str(cl.properties.protocol_version),
+                    cl.net.listener,
+                    str(len(filters)),
+                    "\n".join(filters),
+                ]
+            )
+            counts[cl.net.listener] = counts.get(cl.net.listener, 0) + 1
+        rows.sort(key=lambda r: r[0] + r[1])
+        return rows, counts
+
+    KNOWN_PATHS = ("/information", "/clientsrawdata", "/processrecords", "/connections")
+
+    def _respond(self, method: str, path: str):
+        if path not in self.KNOWN_PATHS:
+            return "404 Not Found", b"", "text/plain"
+        if method != "GET":
+            return self._method_not_allowed()
+        self._maybe_record()
+        if path == "/information":
+            body = json.dumps(self.sys_info.clone().as_dict(), indent=2).encode()
+            return "200 OK", body, "application/json", _NO_STORE
+        if path == "/clientsrawdata":
+            out = [
+                {
+                    "id": cl.id,
+                    "remote": cl.net.remote,
+                    "listener": cl.net.listener,
+                    "protocol_version": cl.properties.protocol_version,
+                    "clean_session": cl.properties.clean,
+                    "subscriptions": sorted(cl.state.subscriptions.get_all()),
+                    "inflight": len(cl.state.inflight),
+                    "done": cl.closed,
+                    # per-client write-path accounting
+                    "outbound_queue_depth": cl.state.outbound_qty,
+                    "outbound_bytes": cl.state.out_bytes,
+                    "outbound_writes": cl.state.out_writes,
+                }
+                for cl in self.clients.get_all().values()
+                if cl.net.listener != "local" and cl.id != "inline"
+            ]
+            return "200 OK", json.dumps(out, indent=2).encode(), "application/json", _NO_STORE
+        if path == "/processrecords":
+            return (
+                "200 OK",
+                json.dumps(list(self._records), indent=2).encode(),
+                "application/json",
+                _NO_STORE,
+            )
+        if path == "/connections":
+            rows, counts = self._client_rows()
+            uptime = self.sys_info.uptime
+            cells = "".join(
+                "<tr>" + "".join(f"<td>{escape(c)}</td>" for c in row) + "</tr>"
+                for row in rows
+            )
+            body = (
+                "<html><head><meta charset='utf-8'>"
+                "<meta http-equiv='refresh' content='180'>"
+                "<title>mqtt_tpu_torch connections</title>"
+                "<style>table{border-collapse:collapse}"
+                "td,th{border:1px solid #999;padding:4px 8px;font:14px monospace}"
+                "th{background:#eee}</style></head><body>"
+                f"<h2>connections</h2>"
+                f"<p>uptime: {uptime}s &mdash; {escape(self.listener_summary)}</p>"
+                f"<p>{escape('; '.join(f'{k}: {v}' for k, v in sorted(counts.items())))}</p>"
+                "<table><tr><th>username</th><th>client id</th><th>remote</th>"
+                "<th>ver</th><th>listener</th><th>#subs</th><th>filters</th></tr>"
+                f"{cells}</table></body></html>"
+            ).encode()
+            return "200 OK", body, "text/html; charset=utf-8", _NO_STORE
+        return "404 Not Found", b"", "text/plain"  # pragma: no cover - gated above

@@ -28,6 +28,7 @@ afford on every SUBSCRIBE. So:
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 from typing import Optional
@@ -282,6 +283,18 @@ class DeltaMatcher:
     def flush(self) -> None:
         """Synchronously fold all pending deltas into a fresh snapshot."""
         self._rebuild_once()
+
+    @contextlib.contextmanager
+    def held(self):
+        """Hold every fold until the block ends, then wake the fold: a
+        bulk load (the durable restore) folds once, instead of rebuilding
+        the growing trie each time the overlay passes ``rebuild_after``.
+        Matches stay exact meanwhile (the overlay routes the held
+        mutations' topics to the host walk). Not reentrant, and
+        :meth:`flush` inside the block deadlocks."""
+        with self._rebuild_lock:
+            yield
+        self._wake.set()
 
     def _rebuild_loop(self) -> None:
         while not self._stop.is_set():

@@ -67,6 +67,11 @@ LAUNCHES = {
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+# held from taking a look-back scratch's epoch to the launch that uses it
+# (K2, K9): callers on several threads (the matcher's guard threads) then
+# enqueue their launches on a stream in the order of their epochs, which
+# the kernels' tickets and status words rely on
+_scratch_launch_lock = threading.Lock()
 _libs: dict = {}
 _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
@@ -341,13 +346,14 @@ def flat_match_compact(table, pat_kind, pat_depth, pat_mask, tokens, max_levels:
     per_block = warps * (32 // min(P, 32))
     out = torch.empty((2 + 2 * B + capacity,), dtype=torch.int32, device=device)
     stream = _stream(device)
-    scratch, epoch = _compact_scratch_for(device, stream, 4 + 4 * -(-B // per_block))
     lib = library()
-    err = lib.fm_match_compact(
-        tokens.data_ptr(), B, W, max_levels, table.data_ptr(), S,
-        pat_kind.data_ptr(), pat_depth.data_ptr(), pat_mask.data_ptr(), P,
-        capacity, out.data_ptr(), scratch.data_ptr(), warps, epoch, stream,
-    )
+    with _scratch_launch_lock:
+        scratch, epoch = _compact_scratch_for(device, stream, 4 + 4 * -(-B // per_block))
+        err = lib.fm_match_compact(
+            tokens.data_ptr(), B, W, max_levels, table.data_ptr(), S,
+            pat_kind.data_ptr(), pat_depth.data_ptr(), pat_mask.data_ptr(), P,
+            capacity, out.data_ptr(), scratch.data_ptr(), warps, epoch, stream,
+        )
     _launched("flat_match.cu", err, "flat_match_compact")
     return out
 
@@ -609,10 +615,11 @@ def tile_compact(out, totals, overflow, cap_local: int):
         return rows
     lib = library("sharded.cu")
     stream = _stream(device)
-    scratch, tiles_cap, epoch = _tile_scratch_for(lib, device, stream, T, S, bl)
-    err = lib.sh_tile_compact(
-        out.data_ptr(), totals.data_ptr(), overflow.data_ptr(), T, S, bl, K, cap_local,
-        rows.data_ptr(), scratch.data_ptr(), tiles_cap, epoch, stream,
-    )
+    with _scratch_launch_lock:
+        scratch, tiles_cap, epoch = _tile_scratch_for(lib, device, stream, T, S, bl)
+        err = lib.sh_tile_compact(
+            out.data_ptr(), totals.data_ptr(), overflow.data_ptr(), T, S, bl, K, cap_local,
+            rows.data_ptr(), scratch.data_ptr(), tiles_cap, epoch, stream,
+        )
     _launched("sharded.cu", err, "tile_compact")
     return rows

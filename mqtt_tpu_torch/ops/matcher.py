@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -246,15 +246,18 @@ def _fill_host_rows(stats, host_walk, results, ovf_idx, topics, true_overflow) -
     """Re-walk the host-routed rows of a resolved batch on the live trie
     (counting each as a fallback, and as an overflow when the device
     routed it), and give every empty topic an empty result."""
+    n_host = n_ovf = 0
     for i in ovf_idx:
         topic = topics[i]
         if topic:
-            stats.host_fallbacks += 1
+            n_host += 1
             # routed-only rows are fallbacks but not device overflows
-            stats.overflows += int(bool(true_overflow[i]))
+            n_ovf += int(bool(true_overflow[i]))
             results[i] = host_walk(topic)
         else:
             results[i] = Subscribers()
+    if n_host:
+        stats.add(host_fallbacks=n_host, overflows=n_ovf)
     if "" in topics:  # empty topic never matches (host-walk parity)
         for i, topic in enumerate(topics):
             if not topic:
@@ -365,12 +368,13 @@ def resolve_ranges_py(
     results = []
     results_append = results.append
     table = flat.subs
+    n_host = n_ovf = 0
     for i, topic in enumerate(topics):
         if not topic:
             results_append(Subscribers())  # empty topic never matches
         elif overflow[i] or i in routed:
-            stats.host_fallbacks += 1
-            stats.overflows += int(overflow[i])
+            n_host += 1
+            n_ovf += int(overflow[i])
             results_append(host_walk(topic))  # host fallback
         else:
             row = out_rows[i]
@@ -381,6 +385,7 @@ def resolve_ranges_py(
                     s0 = row[p]
                     sids.extend(range(s0, s0 + c))
             results_append(expand_sids(table, sids, Subscribers(), mode=ns_guard_mode(topic)))
+    stats.add(host_fallbacks=n_host, overflows=n_ovf)
     return results
 
 
@@ -442,6 +447,15 @@ class MatcherStats:
     # the folds that found the standby buffer held by a batch in flight
     # and wrote a fresh copy of the live table instead (TorchMatcher.fold)
     fold_copies: int = 0
+    # serializes add(): batches resolve on several threads at once (the
+    # stage's resolvers, the breaker's guard threads)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
+
+    def add(self, **deltas) -> None:
+        """Add each of ``deltas`` to its counter, as one update."""
+        with self._lock:
+            for name, n in deltas.items():
+                setattr(self, name, getattr(self, name) + n)
 
     def as_dict(self) -> dict:
         out = {
@@ -835,10 +849,7 @@ class TorchMatcher:
                     # (kernel + transfer) on this batch's record
                     _stamp_bytes(rec, packed.nbytes, bytes_ranges, bytes_dense, False)
                     prof.note_resolve(rec, t_sync0, time.perf_counter())
-                stats = self.stats
-                stats.batches += 1
-                stats.topics += len(topics)
-                stats.d2h_bytes += int(packed.nbytes)
+                self.stats.add(batches=1, topics=len(topics), d2h_bytes=int(packed.nbytes))
                 # the ranges row carries per-topic totals: feed the same
                 # hits EWMA the compact path uses, so the encoding pick
                 # keeps adapting from EITHER path
@@ -874,16 +885,13 @@ class TorchMatcher:
                     self._unpin(held)
             bp = len(padded)
             stats = self.stats
-            stats.batches += 1
-            stats.topics += len(topics)
             self._observe_hits(n_hits, b)
             if batch_ovf:
                 # the EWMA above already absorbed the true hit count, so
                 # the next capacity pick fits
-                stats.compact_overflows += 1
                 self._hits_ewma = max(self._hits_ewma, n_hits / max(1, b))
                 d2h_bytes = int(out.nbytes + packed.nbytes)
-                stats.d2h_bytes += d2h_bytes
+                stats.add(batches=1, topics=len(topics), compact_overflows=1, d2h_bytes=d2h_bytes)
                 if prof is not None:
                     _stamp_bytes(rec, d2h_bytes, bytes_ranges, bytes_dense, True, overflow=True)
                     prof.note_resolve(rec, t_sync0, time.perf_counter())
@@ -894,8 +902,7 @@ class TorchMatcher:
             if prof is not None:
                 _stamp_bytes(rec, int(out.nbytes), bytes_ranges, bytes_dense, True)
                 prof.note_resolve(rec, t_sync0, time.perf_counter())
-            stats.compact_batches += 1
-            stats.d2h_bytes += int(out.nbytes)
+            stats.add(batches=1, topics=len(topics), compact_batches=1, d2h_bytes=int(out.nbytes))
             totals = out[2 : 2 + bp]
             true_overflow = out[2 + bp : 2 + 2 * bp].astype(bool) | len_overflow
             pair_sid = out[2 + 2 * bp : 2 + 2 * bp + capacity]
@@ -952,8 +959,6 @@ class TorchMatcher:
 
         def resolve() -> list[Subscribers]:
             stats = self.stats
-            stats.batches += 1
-            stats.topics += len(topics)
             if route_to_host is None:
                 routed = ()
             elif hasattr(route_to_host, "affected_batch"):
@@ -969,11 +974,12 @@ class TorchMatcher:
             results = []
             results_append = results.append
             n_fast = 0
+            n_host = 0
             for i, topic in enumerate(topics):
                 if not topic:
                     results_append(Subscribers())
                 elif i in routed:
-                    stats.host_fallbacks += 1
+                    n_host += 1
                     results_append(subscribers(topic))
                 else:
                     n_fast += 1
@@ -982,7 +988,7 @@ class TorchMatcher:
                         Subscribers() if snap is None
                         else expand_c(snap, Subscribers, 0 if modes is None else int(modes[i]))
                     )
-            stats.host_fast += n_fast
+            stats.add(batches=1, topics=len(topics), host_fallbacks=n_host, host_fast=n_fast)
             return results
 
         return resolve

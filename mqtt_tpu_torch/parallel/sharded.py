@@ -909,7 +909,7 @@ class ShardedTorchMatcher:
                     ovf[:, t * bl : (t + 1) * bl] = g_ovf[j]
             overflow = (ovf.any(axis=0) | len_overflow).tolist()
             stats = self.stats
-            stats.d2h_bytes += int(out.nbytes)
+            stats.add(d2h_bytes=int(out.nbytes))
             if prof is not None:
                 # every copy has landed: close the device window
                 rec.d2h_bytes += int(out.nbytes)
@@ -921,23 +921,24 @@ class ShardedTorchMatcher:
             modes = ns_modes(topics)
             acc = _accel()  # once per batch, not per topic
             results = []
+            n_host = n_ovf = 0
             for i, topic in enumerate(topics):
                 if not topic:
                     results.append(Subscribers())
                 elif overflow[i] or i in routed:
-                    stats.host_fallbacks += 1
-                    stats.overflows += int(overflow[i])
+                    n_host += 1
+                    n_ovf += int(overflow[i])
                     results.append(self.topics.subscribers(topic))
                 else:
                     results.append(self._expand(tables, rows[i], 0 if modes is None else int(modes[i]), acc))
+            stats.add(host_fallbacks=n_host, overflows=n_ovf)
             return results
 
         if not self.compact:
 
             def resolve() -> list[Subscribers]:
                 t_sync0 = time.perf_counter() if prof is not None else 0.0
-                self.stats.batches += 1
-                self.stats.topics += b
+                self.stats.add(batches=1, topics=b)
                 return resolve_full(t_sync0)
 
             return resolve
@@ -952,20 +953,17 @@ class ShardedTorchMatcher:
                     event.synchronize()
                 rows[tiles] = host.numpy()
             stats = self.stats
-            stats.batches += 1
-            stats.topics += b
             n_hits = int(rows[:, 0].sum())
             batch_ovf = bool(rows[:, 1].any())
             self._observe_hits(n_hits, b)
             # every resolved batch, the overflow fallback included (its tile
             # counts are true hit counts), feeds the skew accounting
             self._fold_tile_hits(rows[:, 0], cap_local)
-            stats.d2h_bytes += int(rows.nbytes)
             if batch_ovf:
                 # a tile outgrew its pair buffer: THIS batch copies the
                 # gathered slot buffers (still resident) instead; both
                 # copies count (resolve_full adds the gather's bytes)
-                stats.compact_overflows += 1
+                stats.add(batches=1, topics=b, d2h_bytes=int(rows.nbytes), compact_overflows=1)
                 self._hits_ewma = max(self._hits_ewma, n_hits / max(1, b))
                 if rec is not None:
                     rec.compact = True
@@ -978,7 +976,7 @@ class ShardedTorchMatcher:
                 rec.d2h_bytes_dense = bytes_padded
                 rec.compact = True
                 prof.note_resolve(rec, t_sync0, time.perf_counter())
-            stats.compact_batches += 1
+            stats.add(batches=1, topics=b, d2h_bytes=int(rows.nbytes), compact_batches=1)
             # stitch the per-tile streams back into one topic-major batch
             per_topic = rows[:, 2 : 2 + bl].reshape(bp)
             true_overflow = rows[:, 2 + bl : 2 + 2 * bl].reshape(bp).astype(bool) | len_overflow

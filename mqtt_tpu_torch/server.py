@@ -27,13 +27,20 @@ each encoded variant to many ready sockets in one native call
 (``native.fan_flush``), and the encrypted fan-out assembles its frames in C
 (``native.assemble_frames``).
 
+With ``Options.matcher_resilience`` (the default, as in the JAX server)
+the device matcher is wrapped in ``resilience.ResilientMatcher``: a batch
+whose launch or copy fails, hangs past the watchdog or fails its sampled
+check against the trie is answered from the trie walk, logged and counted
+in the breaker's gauges (``$SYS/broker/matcher/breaker/``, ``/healthz``),
+so an acknowledged QoS 1/2 publish still reaches its subscribers. With
+``matcher_resilience=False`` such a failure raises out of the stage's
+future and the publisher's connection ends. On a card, ``Server(...)``
+builds and loads every kernel library when it is constructed, so a failed
+build, a failed load or an absent card raises there and never reaches the
+breaker.
+
 Departures from the JAX server, on purpose:
 
-- No ``ResilientMatcher``: a kernel or copy failure raises out of the
-  stage's future through ``_process_publish_deferred``; the broker logs it
-  and closes the publishing client's connection. No subscriber receives a
-  host answer in its place. The stage's own host routes (stopping,
-  admission, the deadline) stay, counted in ``MatchStage.fallbacks``.
 - ``Options.trace_torch_profiler_dir`` takes the place of the JAX
   package's profiler switch: ``serve()`` starts a ``torch.profiler``
   capture over the host and the card, ``close()`` exports its Chrome
@@ -41,13 +48,16 @@ Departures from the JAX server, on purpose:
 - The planes the port does not have yet are absent, not switched off:
   the overload governor (CONNECT admission, publish shedding, the
   slow-consumer sweep), telemetry and tracing, the host profiler, SLOs,
-  the device-stats plane, the worker cluster, the event-loop shard fabric,
-  the HTTP listeners (``health_report``) and the websocket listener.
+  the device-stats plane, the worker cluster and the event-loop shard
+  fabric. ``health_report`` reports the planes the port has (draining,
+  the durable restore, the stage, the matcher's breaker); the retained
+  engine has no breaker, so the body has no ``retained_breaker``.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import logging
 import os
@@ -75,15 +85,21 @@ from .hooks import (
     Hooks,
 )
 from .listeners import (
+    TYPE_HEALTHCHECK,
     TYPE_MOCK,
+    TYPE_SYSINFO,
     TYPE_TCP,
     TYPE_UNIX,
+    TYPE_WS,
     TCP,
     Config as ListenerConfig,
+    HTTPHealthCheck,
+    HTTPStats,
     Listener,
     Listeners,
     MockListener,
     UnixSock,
+    Websocket,
 )
 from .native import accel
 from .packets import (
@@ -195,7 +211,7 @@ class Options:
     fields for the planes the port has, with its defaults, and ``device``.
     The JAX fields of the planes not ported (overload control, telemetry,
     tracing, profiling, SLOs, device stats, the cluster, the loop-shard
-    fabric, matcher resilience) are absent: passing one is a TypeError."""
+    fabric) are absent: passing one is a TypeError."""
 
     listeners: list[ListenerConfig] = field(default_factory=list)
     hooks: list[tuple[Hook, Any]] = field(default_factory=list)
@@ -216,6 +232,28 @@ class Options:
     # kwargs forwarded to DeltaMatcher (max_levels, window, rebuild_after,
     # rebuild_interval, background, mesh, ...)
     matcher_opts: Optional[dict] = None
+    # the matcher's breaker (resilience.ResilientMatcher): every device
+    # dispatch runs under a circuit breaker and a hang watchdog; a batch
+    # that fails, hangs or fails its sampled check against the trie is
+    # answered from the trie walk (logged and counted), and background
+    # probes re-admit the device once verified healthy
+    matcher_resilience: bool = True
+    # consecutive failures before the breaker trips OPEN
+    breaker_failure_threshold: int = 3
+    # per-batch hang budget: a dispatch not resolved within this is
+    # abandoned and served from the host walk (a last-resort hang bound,
+    # not a latency control)
+    breaker_watchdog_ms: float = 5000.0
+    # half-open probe schedule: exponential backoff from the base delay up
+    # to the max, +/- the jitter fraction; this many verified-healthy
+    # probes close the breaker
+    breaker_probe_backoff_ms: float = 500.0
+    breaker_probe_backoff_max_ms: float = 30000.0
+    breaker_probe_jitter: float = 0.1
+    breaker_probe_successes: int = 2
+    # topics re-walked on the host per healthy batch and compared (the
+    # corrupt-result check); 0 disables sampling outside probes
+    breaker_verify_sample: int = 1
     # publish staging loop (staging.MatchStage): accumulation window and
     # batch cap for device match batches; pipeline depth for in-flight
     # batches
@@ -329,6 +367,16 @@ class Options:
             self.matcher_stage_max_inflight = 4
         if self.matcher_stage_window_ms < 0:
             self.matcher_stage_window_ms = 0.0
+        # zero/negative breaker knobs would trip instantly or busy-probe:
+        # normalize to the defaults
+        if self.breaker_failure_threshold <= 0:
+            self.breaker_failure_threshold = 3
+        if self.breaker_watchdog_ms <= 0:
+            self.breaker_watchdog_ms = 5000.0
+        if self.breaker_probe_backoff_ms <= 0:
+            self.breaker_probe_backoff_ms = 500.0
+        if self.breaker_probe_backoff_max_ms < self.breaker_probe_backoff_ms:
+            self.breaker_probe_backoff_max_ms = max(self.breaker_probe_backoff_ms, 30000.0)
         if self.overload_stage_max_pending <= 0:
             self.overload_stage_max_pending = 8192
         # a zero/negative rule cap would refuse every predicate, a negative
@@ -480,6 +528,8 @@ class Server:
         # clients_connected gates maximum_clients
         self._conn_lock = threading.Lock()
         self.matcher: Optional[Any] = None  # device matcher; None = host walk
+        # the telemetry plane, which HTTPStats reads: not ported yet
+        self.telemetry: Optional[Any] = None
         self._stage: Optional[Any] = None  # publish staging loop (serve())
         self._torch_profiler: Optional[Any] = None  # trace_torch_profiler_dir capture
         # the MQTT+ payload-predicate plane: suffix registry + host
@@ -535,8 +585,16 @@ class Server:
             "restore_batches": 0,
         }
         if opts.device_matcher:
+            from .ops import kernels
             from .ops.delta import DeltaMatcher
+            from .ops.flat import resolve_device
 
+            if resolve_device(opts.device).type == "cuda":
+                # build and load every kernel library now: a failed nvcc
+                # build, a failed load or an absent card raises here, and
+                # never becomes a guarded batch timing out on the watchdog
+                for source in kernels.SOURCES:
+                    kernels.library(source)
             # compaction knobs ride beside matcher_opts (which wins on
             # conflict)
             mopts: dict = {
@@ -547,6 +605,24 @@ class Server:
             }
             mopts.update(opts.matcher_opts or {})
             self.matcher = DeltaMatcher(self.topics, **mopts)
+            if opts.matcher_resilience:
+                # the breaker, the hang watchdog and half-open probes
+                # around every dispatch (resilience)
+                from .resilience import BreakerConfig, ResilientMatcher
+
+                self.matcher = ResilientMatcher(
+                    self.matcher,
+                    self.topics,
+                    BreakerConfig(
+                        failure_threshold=opts.breaker_failure_threshold,
+                        watchdog_s=opts.breaker_watchdog_ms / 1e3,
+                        probe_backoff_s=opts.breaker_probe_backoff_ms / 1e3,
+                        probe_backoff_max_s=opts.breaker_probe_backoff_max_ms / 1e3,
+                        probe_jitter=opts.breaker_probe_jitter,
+                        probe_successes=opts.breaker_probe_successes,
+                        verify_sample=opts.breaker_verify_sample,
+                    ),
+                )
         if opts.inline_client:
             self.inline_client = self.new_client(None, None, LOCAL_LISTENER, INLINE_CLIENT_ID, True)
             self.clients.add_client(self.inline_client)
@@ -584,9 +660,16 @@ class Server:
             return MockListener(conf.id, conf.address)
         if t == TYPE_UNIX:
             return UnixSock(conf)
-        # the websocket and HTTP (healthcheck, sysinfo) listeners are not
-        # ported yet: their types, like an unknown one, are logged and
-        # skipped, as the JAX server skips a type whose builder is missing
+        if t == TYPE_WS:
+            return Websocket(conf)
+        if t == TYPE_HEALTHCHECK:
+            return HTTPHealthCheck(conf)
+        if t == TYPE_SYSINFO:
+            # the stats listener also answers GET /healthz (health_report);
+            # the port has no telemetry plane, so /metrics and the other
+            # telemetry routes answer 404 as the JAX listener's do with
+            # telemetry off
+            return HTTPStats(conf, self.info, self.telemetry, health=self.health_report)
         self.log.error("listener type unavailable by config: %s", conf.type)
         return None
 
@@ -2992,6 +3075,12 @@ class Server:
             # topics, host_fallbacks, overflows, rebuilds, fallback_ratio
             for key, val in self.matcher.stats.as_dict().items():
                 topics[SYS_PREFIX + "/broker/matcher/" + key] = str(val)
+            gauges = getattr(self.matcher, "breaker_gauges", None)
+            if callable(gauges):
+                # the breaker (resilience): state, trips, failure kinds,
+                # fallback and verified batches, probe counters
+                for key, val in gauges().items():
+                    topics[SYS_PREFIX + "/broker/matcher/breaker/" + key] = str(val)
         if self._predicates is not None:
             # MQTT+ predicate plane: rule counts, device vs host eval
             # split, filter selectivity, aggregation emissions, oracle
@@ -3033,6 +3122,53 @@ class Server:
             # durable restore has actually happened)
             self.publish_durable_sys()
         self.hooks.on_sys_info_tick(info)
+
+    def health_report(self) -> tuple[bool, dict]:
+        """The ``GET /healthz`` readiness snapshot: ``(ready, body)``.
+
+        Not ready (503) while shutting down, while restored state is still
+        re-registering, or with a dead staging pipeline. A breaker that is
+        not closed DEGRADES (named in ``degraded``, readiness holds): the
+        broker still serves through the trie walk. The JAX server's
+        governor, cluster, SLO and device-plane branches wait for those
+        planes; the port's retained engine has no breaker, so there is no
+        ``retained_breaker`` entry."""
+        not_ready: list[str] = []
+        degraded: list[str] = []
+        detail: dict = {}
+        if self.done.is_set():
+            not_ready.append("draining")
+        if self._durable["recovering"]:
+            # a load balancer must not route sessions at a half-restored map
+            not_ready.append("recovering")
+        if self._durable["replayed_keys"] or self._durable["restore_batches"]:
+            detail["durable"] = {
+                "recovering": self._durable["recovering"],
+                "recovery_seconds": round(self._durable["recovery_seconds"], 3),
+                "replayed_keys": self._durable["replayed_keys"],
+            }
+        stage = self._stage
+        if stage is not None:
+            alive = stage.alive()
+            detail["staging"] = {
+                "alive": alive,
+                "pending": stage.pending_depth,
+                "inflight": stage.inflight_batches,
+            }
+            if not alive:
+                not_ready.append("staging_dead")
+        if self.matcher is not None:
+            breaker = getattr(self.matcher, "breaker", None)
+            if breaker is not None:
+                state = str(breaker.state)
+                detail["matcher_breaker"] = {"state": state}
+                if state != "closed":
+                    degraded.append("matcher_breaker_" + state)
+        ok = not not_ready
+        detail["ok"] = ok
+        detail["not_ready"] = not_ready
+        detail["degraded"] = degraded
+        return ok, detail
 
     async def close(self) -> None:
         """Gracefully stop the server, listeners, clients, and hooks
@@ -3121,28 +3257,33 @@ class Server:
         # start.
         self._durable["recovering"] = True
         t0 = time.perf_counter()
+        # the device matcher folds the restored state once, after it (the
+        # port's own: the JAX server rebuilds the growing trie each time
+        # the overlay passes rebuild_after)
+        held = getattr(getattr(self.matcher, "inner", self.matcher), "held", None)
         try:
-            if self.hooks.provides(STORED_CLIENTS):
-                clients = self.hooks.stored_clients()
-                self.load_clients(clients)
-                self.log.debug("loaded clients from store: len=%d", len(clients))
-            if self.hooks.provides(STORED_SUBSCRIPTIONS):
-                subs = self.hooks.stored_subscriptions()
-                self.load_subscriptions(subs)
-                self.log.debug("loaded subscriptions from store: len=%d", len(subs))
-            if self.hooks.provides(STORED_INFLIGHT_MESSAGES):
-                inflight = self.hooks.stored_inflight_messages()
-                self.load_inflight(inflight)
-                self.log.debug("loaded inflights from store: len=%d", len(inflight))
-            if self.hooks.provides(STORED_RETAINED_MESSAGES):
-                retained = self.hooks.stored_retained_messages()
-                self.load_retained(retained)
-                self.log.debug("loaded retained messages from store: len=%d", len(retained))
-            if self.hooks.provides(STORED_SYS_INFO):
-                sys_info = self.hooks.stored_sys_info()
-                if sys_info is not None:
-                    self.load_server_info(sys_info.info)
-                    self.log.debug("loaded $SYS info from store")
+            with held() if held is not None else contextlib.nullcontext():
+                if self.hooks.provides(STORED_CLIENTS):
+                    clients = self.hooks.stored_clients()
+                    self.load_clients(clients)
+                    self.log.debug("loaded clients from store: len=%d", len(clients))
+                if self.hooks.provides(STORED_SUBSCRIPTIONS):
+                    subs = self.hooks.stored_subscriptions()
+                    self.load_subscriptions(subs)
+                    self.log.debug("loaded subscriptions from store: len=%d", len(subs))
+                if self.hooks.provides(STORED_INFLIGHT_MESSAGES):
+                    inflight = self.hooks.stored_inflight_messages()
+                    self.load_inflight(inflight)
+                    self.log.debug("loaded inflights from store: len=%d", len(inflight))
+                if self.hooks.provides(STORED_RETAINED_MESSAGES):
+                    retained = self.hooks.stored_retained_messages()
+                    self.load_retained(retained)
+                    self.log.debug("loaded retained messages from store: len=%d", len(retained))
+                if self.hooks.provides(STORED_SYS_INFO):
+                    sys_info = self.hooks.stored_sys_info()
+                    if sys_info is not None:
+                        self.load_server_info(sys_info.info)
+                        self.log.debug("loaded $SYS info from store")
         finally:
             self._durable["recovery_seconds"] = time.perf_counter() - t0
             self._durable["replayed_keys"] = int(

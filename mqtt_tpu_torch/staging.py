@@ -167,6 +167,18 @@ class MatchStage:
             # only grow when the cap actually bound the batch
             self._batch_cap = min(self.max_batch, self._batch_cap * 2)
 
+    @property
+    def pending_depth(self) -> int:
+        return len(self._pending)
+
+    def alive(self) -> bool:
+        """Pipeline liveness for ``GET /healthz``: started, not stopping,
+        and both loop tasks still running (a crashed collector or drainer
+        would strand every parked publish)."""
+        if self._stopping or self._wake is None:
+            return False
+        return bool(self._tasks) and all(not t.done() for t in self._tasks)
+
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> None:

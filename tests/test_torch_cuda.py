@@ -325,6 +325,60 @@ def test_two_folds_between_issue_and_resolve_on_the_card(dev, compact):
     assert m.stats.host_fallbacks == 0
 
 
+@pytest.mark.parametrize("compact", [False, True], ids=["ranges", "compact"])
+def test_four_threads_issuing_at_once_on_the_card(dev, compact):
+    """The breaker's guard threads issue into one ``TorchMatcher``
+    concurrently: four threads at a time give every batch its serial
+    result on the card (K2's look-back scratch takes its epochs in launch
+    order)."""
+    import sys
+    import threading
+
+    index = apply_port_ops(corpus_ops(5, n_subs=2000), TopicsIndex())
+    batches = [corpus_topics(100 + k, n=300) for k in range(16)]
+    m = TorchMatcher(index, max_levels=MAX_LEVELS, device=dev, compact=compact, lazy=False)
+    serial = [m.match_topics(b) for b in batches]
+    got: dict = {}
+    errors = []
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for r in range(0, 16, 4):
+            barrier = threading.Barrier(4)
+
+            def work(k):
+                try:
+                    barrier.wait(30)
+                    got[k] = m.match_topics_async(batches[k])()
+                except Exception as e:  # reported below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=work, args=(k,)) for k in range(r, r + 4)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(60)
+                assert not th.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors
+    for k, b in enumerate(batches):
+        for g, w, t in zip(got[k], serial[k], b):
+            assert subscribers_equal(g, w), t
+    assert (m.stats.compact_batches + m.stats.compact_overflows > 0) == compact
+
+
+def test_the_server_loads_every_kernel_library_when_constructed(dev):
+    from mqtt_tpu_torch.server import Options, Server
+
+    srv = Server(Options(device_matcher=True, predicate_filters=False, device="cuda"))
+    try:
+        assert set(kernels._libs) == set(kernels.SOURCES)
+        assert srv.matcher.breaker.state == "closed"
+    finally:
+        srv.matcher.close()
+
+
 def test_match_stage_on_the_card(dev):
     ops = corpus_ops(12, n_subs=2000)
     index = apply_port_ops(ops, TopicsIndex())

@@ -72,23 +72,26 @@ def test_registry_and_mock_lifecycle_equal_the_jax_package():
 
 @pytest.mark.parametrize("kind", ["tcp", "mock", "unix", "ws", "healthcheck", "sysinfo", "bogus"])
 def test_listener_from_config(kind, tmp_path):
-    """The port builds the stream and mock listeners as the JAX server
-    does; the websocket and HTTP types, not ported yet, are treated as the
-    JAX server treats a type whose builder is missing (logged, None)."""
+    """The port builds every listener type as the JAX server does (the
+    stats listener wired to the server's ``health_report``), and treats an
+    unknown type as the JAX server does (logged, None)."""
     pkg = package("torch")
+    L = pkg.listeners
     srv = pkg.server.Server(options(pkg, device_matcher=False, predicate_filters=False))
     address = str(tmp_path / "s.sock") if kind == "unix" else "127.0.0.1:0"
-    got = srv._listener_from_config(pkg.listeners.Config(type=kind.upper(), id=kind, address=address))
-    want = {"tcp": pkg.listeners.TCP, "mock": pkg.listeners.MockListener, "unix": pkg.listeners.UnixSock}.get(kind)
+    got = srv._listener_from_config(L.Config(type=kind.upper(), id=kind, address=address))
+    want = {"tcp": L.TCP, "mock": L.MockListener, "unix": L.UnixSock, "ws": L.Websocket,
+            "healthcheck": L.HTTPHealthCheck, "sysinfo": L.HTTPStats}.get(kind)
     if want is None:
         assert got is None
     else:
         assert type(got) is want and got.id() == kind
+    if kind == "sysinfo":
+        assert got.health == srv.health_report and got.telemetry is None
     jpkg = package("jax")
     jsrv = jpkg.server.Server(options(jpkg, device_matcher=False, predicate_filters=False))
     jgot = jsrv._listener_from_config(jpkg.listeners.Config(type=kind, id=kind, address=address))
-    if kind in ("tcp", "mock", "unix", "bogus"):
-        assert type(jgot).__name__ == type(got).__name__
+    assert type(jgot).__name__ == type(got).__name__
     srv.add_listeners_from_config([pkg.listeners.Config(type="mock", id="m", address="")])
     with pytest.raises(pkg.server.ListenerIDExistsError):
         srv.add_listener(pkg.listeners.MockListener("m", ""))

@@ -70,13 +70,15 @@ def package(name: str):
 
 
 def options(pkg, **kw):
-    """The issue's configuration in each package: the device matcher
-    (``max_levels`` 4, no background fold), predicates on; the JAX planes
-    the port does not have switched off, the port's planes on the CPU."""
-    base = dict(device_matcher=True, matcher_opts={"max_levels": 4, "background": False}, gc_tuning=False)
+    """The sessions' configuration in each package: the device matcher
+    (``max_levels`` 4, no background fold) without the breaker (the
+    sessions run with it in ``test_sessions_with_the_breaker_equal_the_jax_server``),
+    predicates on; the JAX planes the port does not have switched off, the
+    port's planes on the CPU."""
+    base = dict(device_matcher=True, matcher_opts={"max_levels": 4, "background": False}, gc_tuning=False,
+                matcher_resilience=False)
     if pkg.name == "jax":
-        base.update(telemetry=False, profile=False, slo=False, overload_control=False,
-                    matcher_resilience=False, device_stats=False)
+        base.update(telemetry=False, profile=False, slo=False, overload_control=False, device_stats=False)
     else:
         base.update(device="cpu")
     base.update(kw)
@@ -284,6 +286,42 @@ def test_scripted_sessions_equal_the_jax_server(pinned_clock):
     assert tb.srv.info.messages_received == jb.srv.info.messages_received > 30
     assert tb.srv.matcher.stats.as_dict()["batches"] > 0
     assert tb.srv._predicates.rule_count == 1
+
+
+BREAKER_GAUGES = ("state", "trips", "failures", "successes", "probes", "fallback_batches", "fallback_topics",
+                  "verified_batches", "wedged_workers")
+
+
+@pytest.mark.parametrize("script", ["core", "auth"])
+def test_sessions_with_the_breaker_equal_the_jax_server(pinned_clock, script):
+    """The scripted sessions with the matcher's breaker on in both
+    packages (``matcher_resilience=True``, the JAX default): every batch
+    issued and resolved on a guard thread, one topic a batch re-walked by
+    the verify sample. The breaker's gauges (its failure kinds, fallback
+    and verified batches, state) equal the JAX server's, and so does every
+    client's bytes, connection by connection. The auth script's ``c-alice``
+    sends three publishes in one write; the two it may send can land in
+    two batches, resolved on two guard threads, and reach ``c-alice`` in
+    either order (the JAX server's order varies from run to run), so
+    there each connection's frames are compared as a multiset."""
+    from collections import Counter
+
+    scripts = {"core": (script_core, allow, True), "auth": (script_auth, ledger_hooks, False)}
+    run, hooks_of, ordered = scripts[script]
+    got = run_both(run, hooks_of, matcher_resilience=True)
+    (jout, jb), (tout, tb) = got["jax"], got["torch"]
+    if ordered:
+        assert tout == jout
+    else:
+        assert list(tout) == list(jout)
+        for name in jout:
+            assert [Counter(cs.split_frames(c)) for c in tout[name]] == [
+                Counter(cs.split_frames(c)) for c in jout[name]], name
+    jg, tg = jb.srv.matcher.breaker_gauges(), tb.srv.matcher.breaker_gauges()
+    assert {k: tg[k] for k in BREAKER_GAUGES} == {k: jg[k] for k in BREAKER_GAUGES}
+    kinds = {k: v for k, v in tg.items() if k.startswith("failures_")}
+    assert kinds == {k: v for k, v in jg.items() if k.startswith("failures_")}
+    assert tg["verified_batches"] > 0 and tb.srv.matcher.stats.as_dict()["batches"] > 0
 
 
 def ledger_hooks(pkg):
@@ -530,43 +568,107 @@ def test_bulk_restore_equals_the_jax_functions(batch):
     assert got[0] == got[1]
 
 
+def test_a_restore_folds_the_device_matcher_once():
+    """``read_store`` holds the device matcher's background folds while
+    it restores, so the restored state is folded once after it, however
+    often the overlay passed ``rebuild_after`` meanwhile; the folded
+    matcher answers as the trie."""
+    pkg = package("torch")
+    store = seeded_store(pkg)
+    srv = pkg.server.Server(options(pkg, durable_restore_batch=1000, matcher_resilience=True,
+                                    matcher_opts={"max_levels": 4, "rebuild_after": 256, "rebuild_interval": 0.01}))
+    srv.add_hook(store)
+    dm = srv.matcher.inner
+    st = dm.stats
+    before = st.rebuilds + st.folds
+    try:
+        srv.read_store()
+        assert srv._durable["restored_subscriptions"] > 15_000
+        deadline = time.monotonic() + LIMIT
+        while dm.pending_deltas:
+            assert time.monotonic() < deadline, f"{dm.pending_deltas} mutations not folded"
+            time.sleep(0.01)
+        time.sleep(0.1)  # ten more ticks of the fold thread: nothing left to fold
+        assert st.rebuilds + st.folds == before + 1
+        rng = random.Random(3)
+        topics = ["/".join(rng.choice(WORDS) for _ in range(rng.randint(1, 4))) for _ in range(500)]
+        got = srv.matcher.match_topics(topics)
+        assert [cs_canon(r.materialize() if hasattr(r, "materialize") else r) for r in got] == [
+            cs_canon(srv.topics.subscribers(t)) for t in topics]
+    finally:
+        srv.matcher.close()
+
+
 # -- the departures -----------------------------------------------------------
 
 
-def test_a_failing_matcher_closes_the_publisher_and_delivers_nothing(pinned_clock):
-    """No ``ResilientMatcher``: the stage's future raises, the publisher's
-    connection ends, and no subscriber receives the publish (nor a host
-    walk's answer in its place)."""
+@pytest.mark.parametrize("resilience", [True, False], ids=["breaker", "no-breaker"])
+def test_a_failing_matcher_closes_the_publisher_and_delivers_nothing(pinned_clock, resilience):
+    """A batch whose launch raises. With the breaker (``matcher_resilience``,
+    the default), the failed batch is answered from the trie walk: the
+    acknowledged QoS 1 publish is delivered, the publisher stays connected,
+    and the breaker counts one ``error``, in both packages alike, byte for
+    byte. Without it the stage's future raises, the publisher's connection
+    ends, and no subscriber receives the publish (nor a host walk's answer
+    in its place)."""
+
     from mqtt_tpu_torch import KernelError
 
-    async def main():
-        b = Broker(package("torch"), hooks=allow(package("torch")))
-        await b.start()
-        await b.connect("sub", 4)
-        await b.connect("pub", 4)
-        await b.send("sub", subscribe_frame(1, [("a/+", 1, 0)], 4))
-        b.fold()
-        await b.send("pub", publish_frame("a/b", b"before", 1, 1))
+    def run(name):
+        pkg = package(name)
+        error = KernelError if name == "torch" else RuntimeError  # the JAX package has no KernelError
 
-        def broken(topics, profile=None):
-            raise KernelError("flat_probe_ranges: launch failed")
+        async def main():
+            b = Broker(pkg, hooks=allow(pkg), matcher_resilience=resilience)
+            await b.start()
+            await b.connect("sub", 4)
+            await b.connect("pub", 4)
+            await b.send("sub", subscribe_frame(1, [("a/+", 1, 0)], 4))
+            b.fold()
+            await b.send("pub", publish_frame("a/b", b"before", 1, 1))
 
-        b.srv.matcher.match_topics_async = broken
-        b.clients["pub"].send(publish_frame("a/b", b"lost", 1, 2))
-        await b.clients["pub"].ended(LIMIT)
-        await b.settle()
-        delivered = [cs.parse_publish(f, 4)["payload"] for f in b.clients["sub"].frames()[2:]]
-        stage = b.srv._stage
-        out = await b.close()
-        return delivered, out, stage
+            def broken(topics, profile=None):
+                raise error("flat_probe_ranges: launch failed")
 
-    delivered, out, stage = asyncio.run(main())
-    assert delivered == [b"before"]
+            target = b.srv.matcher.inner if resilience else b.srv.matcher
+            working = target.match_topics_async
+            target.match_topics_async = broken
+            if resilience:
+                await b.send("pub", publish_frame("a/b", b"recovered", 1, 2))
+                target.match_topics_async = working
+                await b.send("pub", publish_frame("a/b", b"after", 1, 3))
+            else:
+                b.clients["pub"].send(publish_frame("a/b", b"lost", 1, 2))
+                await b.clients["pub"].ended(LIMIT)
+                await b.settle()
+            delivered = [cs.parse_publish(f, 4)["payload"] for f in b.clients["sub"].frames()[2:]]
+            stage = b.srv._stage
+            gauges = b.srv.matcher.breaker_gauges() if resilience else None
+            health = b.srv.health_report()
+            out = await b.close()
+            return delivered, out, stage, gauges, health
+
+        return asyncio.run(main())
+
+    delivered, out, stage, gauges, health = run("torch")
     assert not stage.fallbacks and stage.admission_fallbacks == 0
-    # the publisher got its CONNACK and both PUBACKs (a QoS 1 publish is
-    # acknowledged before its fan-out, as in the JAX server), then the
-    # broker ended its connection
-    assert out["pub"] == [b"\x20\x02\x00\x00\x40\x02\x00\x01\x40\x02\x00\x02"]
+    if not resilience:
+        assert delivered == [b"before"]
+        # the publisher got its CONNACK and both PUBACKs (a QoS 1 publish is
+        # acknowledged before its fan-out, as in the JAX server), then the
+        # broker ended its connection
+        assert out["pub"] == [b"\x20\x02\x00\x00\x40\x02\x00\x01\x40\x02\x00\x02"]
+        return
+    assert delivered == [b"before", b"recovered", b"after"]
+    assert len(out["pub"]) == 1  # one connection: the publisher was never dropped
+    assert gauges["failures_error"] == 1 and gauges["state"] == "closed"
+    assert gauges["fallback_batches"] == 1 and gauges["fallback_topics"] == 1
+    assert health[0] and health[1]["matcher_breaker"] == {"state": "closed"}
+    jdelivered, jout, _jstage, jgauges, jhealth = run("jax")
+    assert (delivered, out) == (jdelivered, jout)
+    keys = ("state", "failures", "failures_error", "fallback_batches", "fallback_topics", "trips")
+    assert {k: gauges[k] for k in keys} == {k: jgauges[k] for k in keys}
+    assert health[1]["matcher_breaker"] == jhealth[1]["matcher_breaker"]
 
 
 def test_default_options_raise_without_cuda():
@@ -584,7 +686,7 @@ def test_default_options_raise_without_cuda():
 def test_options_omit_the_planes_not_ported():
     from mqtt_tpu_torch.server import Options
 
-    for field in ("telemetry", "overload_control", "matcher_resilience", "loop_shards", "slo",
+    for field in ("telemetry", "overload_control", "loop_shards", "slo",
                   "device_stats", "profile", "cluster_topology", "trace_jax_profiler_dir"):
         with pytest.raises(TypeError):
             Options(**{field: False})
@@ -728,3 +830,25 @@ def test_a_filter_path_past_the_window_takes_the_host_route(pinned_clock, window
     assert all(len(tout[f"h{k}"][0]) > 4 * 9 for k in range(40))  # every holder got the 4 publishes
     overflows = [b.srv.matcher.stats.as_dict()["overflows"] for b in (jb, tb)]
     assert overflows[0] == overflows[1] == (4 if window == 16 else 0)
+
+
+def test_a_failed_kernel_build_raises_from_the_constructor(monkeypatch):
+    """On a card, ``Server(...)`` builds and loads every kernel library
+    before it makes the device matcher, so a build that fails raises
+    ``KernelError`` from the constructor and never becomes a guarded batch
+    timing out on the breaker's watchdog. Here the card is pretended
+    (``resolve_device``) and the build fails for real: this machine has
+    no ``nvcc``."""
+    import shutil
+
+    from mqtt_tpu_torch import KernelError
+    from mqtt_tpu_torch.ops import flat, kernels
+    from mqtt_tpu_torch.server import Options, Server
+
+    if shutil.which("nvcc") or kernels._libs:
+        pytest.skip("nvcc is present here: the build would not fail")
+    built = []
+    monkeypatch.setattr(flat, "resolve_device", lambda device: built.append(device) or torch.device("cuda"))
+    with pytest.raises(KernelError, match="nvcc"):
+        Server(Options(device_matcher=True, predicate_filters=False, device="cuda"))
+    assert built == ["cuda"]
