@@ -266,6 +266,7 @@ import contextlib
 import functools
 import gc
 import json
+import math
 import os
 import random
 import signal
@@ -275,6 +276,7 @@ import sys
 import time
 import weakref
 import zlib
+from typing import Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -331,6 +333,13 @@ RET_TENANTS = 4  # tenant namespaces of scoped retained topics beside the global
 RET_PER_TENANT = 2_000
 RET_CHURN = 300  # retains, and as many clears, between the first two rounds
 N_RESEAL = 4096  # cfgR: retained encrypted payloads per size re-sealed at a re-key
+# the Server's default planes (telemetry, tracer, host profiler, lock plane,
+# SLOs, device stats, governor): every Server phase runs with them on;
+# ``--planes-cost`` also runs each Server path with them off, in turns
+PLANES_OFF = dict.fromkeys(("telemetry", "trace", "profile", "profile_locks", "slo", "device_stats",
+                            "overload_control"), False)
+# the rates of the last run of each Server path, for ``planes_cost``
+READINGS: dict = {}
 
 
 def log(msg: str) -> None:
@@ -1890,17 +1899,19 @@ class Fanout:
     steps run over the port and, in the tests, over the JAX package.
     ``srv`` is the server whose ``fan_out_targets``, ``deliver_inline``,
     ``publish_to_client`` and ``_ops`` the steps use: by default a port
-    ``Server`` without its device planes (``predicate_filters=False``); in
+    ``Server`` without its device planes (``predicate_filters=False``,
+    ``device_stats=False``; its telemetry counts the fan-out); in
     the tests a stand-in over a JAX ``Server``. Its QoS 0 frame passthrough
     is switched off (it would answer these publishers from the server's
     empty trie). A subscriber's ``Client`` is made, and its write loop
     started, when it first receives."""
 
-    def __init__(self, mods, srv=None) -> None:
+    def __init__(self, mods, srv=None, planes: bool = True) -> None:
         self.m = mods
         hk = mods.hooks
         if srv is None:
-            srv = mods.server.Server(mods.server.Options(predicate_filters=False, gc_tuning=False))
+            opts = dict({} if planes else PLANES_OFF, predicate_filters=False, device_stats=False, gc_tuning=False)
+            srv = mods.server.Server(mods.server.Options(**opts))
         self.srv = srv
         self.ops = srv._ops
         self.ops.fast_publish = self.ops.fast_publish_eligible = None
@@ -2405,18 +2416,26 @@ class WireClient:
             pos = k + n
         return out
 
-    async def wait_frames(self, n: int, limit: float = 30.0) -> list:
+    async def wait_frames(self, n: int, limit: float = 30.0, stall: Optional[float] = None) -> list:
         """The current connection's frames once it holds ``n`` (or once the
-        broker ended it)."""
+        broker ended it). With ``stall``, also once no byte arrived for
+        ``stall`` seconds: the caller then accounts for what is missing."""
         deadline = time.monotonic() + limit
+        size, t_grew = -1, time.monotonic()
         while True:
             frames = self.frames()
             if len(frames) >= n or self.task.done():
+                return frames
+            if len(self.conns[-1]) != size:
+                size, t_grew = len(self.conns[-1]), time.monotonic()
+            elif stall is not None and time.monotonic() - t_grew >= stall:
                 return frames
             self._got.clear()
             left = deadline - time.monotonic()
             if left <= 0:
                 raise PhaseFailed(f"{self.name}: {len(frames)} of {n} frames within {limit} s")
+            if stall is not None:
+                left = min(left, max(0.01, t_grew + stall - time.monotonic()))
             try:
                 await asyncio.wait_for(self._got.wait(), left)
             except asyncio.TimeoutError:
@@ -2547,7 +2566,7 @@ def phase_setup_fanout(n_groups: int, device, card: str) -> dict:
     return {"name": "cfg4", "index": index, "entries": entries, "topic_gen": topic_gen, "rng": rng, "dm": dm}
 
 
-def phase_fanout(cfg: dict, wave: int, card: str, n_churn: int = FANOUT_CHURN) -> dict:
+def phase_fanout(cfg: dict, wave: int, card: str, n_churn: int = FANOUT_CHURN, planes: bool = True) -> dict:
     """Config 4 delivered to clients (launch counts reset just before):
     two waves of ``wave`` publishes from eight publishers (v4 and v5, QoS
     0 and 1, three through one ``ScanGate``, one with inbound topic
@@ -2561,14 +2580,15 @@ def phase_fanout(cfg: dict, wave: int, card: str, n_churn: int = FANOUT_CHURN) -
     ``<region>/+/+`` (not in bench.py: cell ``AUDIT_CELL``): its wildcard
     ends the exact-only regime at the fold (K3), so the second wave, with
     a hook on the selection seam, runs on the kernels. Every frame must be the plain reference's
-    (``FanoutCheck``)."""
+    (``FanoutCheck``). ``planes=False`` builds the stand-in server without
+    its default planes (``PLANES_OFF``)."""
     from mqtt_tpu_torch import SHARE_PREFIX, MatchStage, Subscription
     from mqtt_tpu_torch.ops import kernels
     from mqtt_tpu_torch.topics import shared_inner
 
     index, dm, rng, gen, entries = cfg["index"], cfg["dm"], cfg["rng"], cfg["topic_gen"], cfg["entries"]
     on_cuda = dm.snapshot.device.type == "cuda"
-    fan = Fanout(fanout_modules())
+    fan = Fanout(fanout_modules(), planes=planes)
     verify = FanoutCheck()
     hot = [shared_inner(entries[g * GROUP_MEMBERS][1].filter) for g in range(min(FANOUT_HOT, len(entries) // GROUP_MEMBERS))]
     # the first member of every hot group, then members at random: a
@@ -2628,6 +2648,7 @@ def phase_fanout(cfg: dict, wave: int, card: str, n_churn: int = FANOUT_CHURN) -
         n_del = sum(len(t) for t in r["targets"])
         st = r["stats"]
         cell = "cfg4" if w == 0 else f"{AUDIT_CELL} (the audit wildcard is not from bench.py)"
+        READINGS[f"fanout wave {w + 1} publishes/s"] = n_pub / r["wall_s"]
         log(f"phase fanout {cell} wave {w + 1}: ok {n_pub} publishes, {n_del} deliveries "
             f"({n_del / n_pub:.4f} a publish), every frame the trie's selection; "
             f"{n_pub / r['wall_s']:.1f} publishes/s, {n_del / r['wall_s']:.1f} deliveries/s through the whole path "
@@ -3758,7 +3779,12 @@ class _Cfg2Wave:
     each sends, and each session's expected multiset of (topic, QoS,
     payload) by cfg2's rule (a topic's matches are its exact filter and
     its three one-``+`` ones) over the filters ``held`` (filter ->
-    [(client id, QoS)]), at the lesser QoS."""
+    [(client id, QoS)]), at the lesser QoS; and each publish's recipients,
+    so a publish the overload governor shed is accounted for."""
+
+    # seconds without a byte to a session after which its deliveries are
+    # taken as they stand (a shed publish delivers nothing)
+    STALL_S = 15.0
 
     def __init__(self, topics: list, tag: bytes, held: dict, clients: dict, pubs: list) -> None:
         from collections import Counter
@@ -3767,51 +3793,84 @@ class _Cfg2Wave:
         self.exp = {cid: Counter() for cid in clients}
         self.bufs = [bytearray() for _ in pubs]
         self.n_pub = [0] * len(pubs)
+        self.recipients: dict = {}  # payload -> the sessions it reaches
+        self.v5_qos1: dict = {}  # (publisher, packet id) -> payload of a v5 QoS 1 publish
         for i, t in enumerate(topics):
             k = i % len(pubs)
             v, q = BROKER_PUBLISHERS[k]
             payload = tag + b"p%dn%d" % (k, i)
-            self.bufs[k] += publish_frame(t, payload, q, self.n_pub[k] % 65535 + 1 if q else 0, version=v)
+            pid = self.n_pub[k] % 65535 + 1 if q else 0
+            self.bufs[k] += publish_frame(t, payload, q, pid, version=v)
             self.n_pub[k] += 1
+            if v == 5 and q:
+                self.v5_qos1[(k, pid)] = payload
             a, b, c = t.split("/")
+            to = self.recipients[payload] = set()
             for f in (t, f"+/{b}/{c}", f"{a}/+/{c}", f"{a}/{b}/+"):
                 for cid, sq in held.get(f, ()):
                     self.exp[cid][(t, min(q, sq), payload)] += 1
+                    to.add(cid)
 
     async def send(self) -> float:
-        """Send every publisher's frames; the seconds until every session
-        holds its expected deliveries and every QoS 1 publisher its acks."""
+        """Send every publisher's frames; the seconds until every QoS 1
+        publisher holds its acks (every publish is acked, shed or not) and
+        every session its expected deliveries, or has had none for
+        ``STALL_S``."""
         self.off = {cid: len(c.frames()) for cid, c in self.clients.items()}
         self.pub_off = [len(c.frames()) for c in self.pubs]
         t0 = time.perf_counter()
         for c, buf in zip(self.pubs, self.bufs):
             c.send(bytes(buf))
-        for cid, c in self.clients.items():
-            await c.wait_frames(self.off[cid] + sum(self.exp[cid].values()), 300.0)
         for k, c in enumerate(self.pubs):
             if BROKER_PUBLISHERS[k][1]:
                 await c.wait_frames(self.pub_off[k] + self.n_pub[k], 300.0)
+        for cid, c in self.clients.items():
+            await c.wait_frames(self.off[cid] + sum(self.exp[cid].values()), 300.0, stall=self.STALL_S)
         return time.perf_counter() - t0
 
-    def check(self, what: str) -> None:
-        """Every socket's frames are its expected multiset; every QoS 1
-        publish got its PUBACK and nothing else."""
+    def check(self, what: str, sheds: int) -> dict:
+        """Every socket's frames are its expected multiset, apart from the
+        publishes the governor shed (``sheds``, its counter's rise over the
+        wave): such a publish reached none of its sessions, a v5 QoS 1 one
+        was acked 0x97, and every publish missing everywhere is counted in
+        ``sheds`` (a shed publish no session holds is seen in the counter
+        alone). Every QoS 1 publish got its PUBACK and nothing else. The
+        accounting: the counts of shed publishes by what shows them."""
         from collections import Counter
 
         bad = 0
+        missing: dict = {}
         for cid, c in self.clients.items():
             got = Counter((p["topic"], p["qos"], p["payload"]) for p in _publishes(c, self.off[cid]))
-            if got != self.exp[cid]:
+            extra, short = got - self.exp[cid], self.exp[cid] - got
+            for (_t, _q, payload) in short:
+                missing.setdefault(payload, set()).add(cid)
+            if extra:
                 bad += 1
                 if bad <= 3:
-                    log(f"  {cid}: got {sorted(got - self.exp[cid])[:3]} beyond the stored filters', missing "
-                        f"{sorted(self.exp[cid] - got)[:3]}")
-        check(bad == 0, f"{what}: {bad} sockets' frames differ from the stored filters' matches")
+                    log(f"  {cid}: got {sorted(extra)[:3]} beyond the stored filters' matches")
+        partial = [p for p, cids in missing.items() if cids != self.recipients[p]]
+        for p in partial[:3]:
+            log(f"  {p!r} missing at {len(missing[p])} of its {len(self.recipients[p])} sessions")
+        check(bad == 0 and not partial,
+              f"{what}: {bad} sockets hold frames beyond their filters' matches, {len(partial)} publishes reached "
+              f"part of their sessions")
+        refused = set()
         for k, c in enumerate(self.pubs):
             acks = c.frames()[self.pub_off[k]:]
             n = self.n_pub[k] if BROKER_PUBLISHERS[k][1] else 0
             check(len(acks) == n and all(f[0] == 0x40 for f in acks),
                   f"{what}: publisher {k} got {len(acks)} frames for {self.n_pub[k]} publishes")
+            for f in acks:
+                if len(f) > 4 and f[4] == 0x97:  # a v5 PUBACK's reason code
+                    refused.add(self.v5_qos1[(k, int.from_bytes(f[2:4], "big"))])
+        shed = set(missing)
+        unseen = sum(1 for to in self.recipients.values() if not to)
+        check(refused <= shed and shed & set(self.v5_qos1.values()) <= refused,
+              f"{what}: the 0x97 PUBACKs ({len(refused)}) are not the undelivered v5 QoS 1 publishes")
+        check(len(shed) <= sheds <= len(shed) + unseen,
+              f"{what}: {len(shed)} publishes undelivered, the governor counted {sheds} sheds")
+        return {"sheds": sheds, "undelivered": len(shed), "refused_0x97": len(refused)}
 
 
 def _raise_nofile(want: int) -> int:
@@ -4031,7 +4090,7 @@ def breaker_summary(g: dict, what: str, card: str) -> None:
 
 
 def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained: int = RETAINED_SIZES[0],
-                      n_recrypt: int = BROKER_RECRYPT, pred_wave: int = PRED_WAVE) -> dict:
+                      n_recrypt: int = BROKER_RECRYPT, pred_wave: int = PRED_WAVE, planes: bool = True) -> dict:
     """Cell ``broker-legs``: the engines at their call sites in the port's
     ``Server``, over TCP.
 
@@ -4054,7 +4113,9 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
     messages, delivered re-keyed at SUBSCRIBE, then ``n_recrypt`` encrypted
     publishes of 256 B; every payload must open under its subscriber's key
     to the plaintext (K6). Then ``rekey_tenant`` re-seals the retained
-    payloads through ``reseal_batch`` (K6), each opening under the new key."""
+    payloads through ``reseal_batch`` (K6), each opening under the new key.
+    ``planes=False`` runs both servers without their default planes
+    (``PLANES_OFF``)."""
     from collections import Counter
 
     import numpy as np
@@ -4105,7 +4166,8 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
     # a window of 63 ids a filter path (the default 16 leaves a path with
     # more holders to the host): the hot topic's 64 window holders split
     # over two filter paths, HOT_TOPIC and its middle level wildcarded
-    srvP = Server(Options(device_matcher=True, matcher_opts={"window": LEGS_WINDOW}, device=str(device)))
+    off = {} if planes else PLANES_OFF
+    srvP = Server(Options(device_matcher=True, matcher_opts={"window": LEGS_WINDOW}, device=str(device), **off))
     srvP.add_hook(AllowHook())
     srvP.add_hook(store)
     srvP.add_listener(TCP(Config(type="tcp", id="t", address="127.0.0.1:0")))
@@ -4194,6 +4256,7 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
                            if k in g}, dict(eng.host_reasons))
         info["p_folds"] = fold_summary(srvP.matcher)
         info["p_breaker"] = srvP.matcher.breaker_gauges()
+        info["p_planes"] = planes_summary(srvP) if planes else None
         for c in every + list(back.values()) + [pub]:
             c.send(disconnect_frame(4))
         for c in every + list(back.values()) + [pub]:
@@ -4205,6 +4268,7 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
     t_serve, dur, rules = info["p_restore"]
     n_packets, t_sub, fold, rules_all = info["p_sub"]
     n_pub, n_del, n_emit, wall, ro, split, dg, reasons = info["p_wave"]
+    READINGS["broker-legs predicates publishes/s"] = n_pub / wall
     log(f"phase broker {LEGS_CELL} predicates: restore {dur['recovery_seconds']:.3f} s ({dur['restore_batches']} "
         f"batches, {n_rest} predicated subscriptions, {rules} rules re-registered); {n_gt} $GT and {len(agg)} window "
         f"filters in {n_packets} SUBSCRIBE packets in {t_sub:.3f} s, fold {fold:.3f} s, {rules_all} rules; "
@@ -4233,7 +4297,7 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
     # filter paths, e/# and e/+
     srvT = Server(Options(device_matcher=True, matcher_opts={"window": LEGS_WINDOW}, tenancy=True,
                           tenants=tenants, tenant_users=users,
-                          recrypt_device_min_blocks=4, retained_matcher=True, device=str(device)))
+                          recrypt_device_min_blocks=4, retained_matcher=True, device=str(device), **off))
     srvT.add_hook(AllowHook())
     srvT.add_hook(store)
     srvT.add_listener(TCP(Config(type="tcp", id="t", address="127.0.0.1:0")))
@@ -4344,6 +4408,7 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
         info["rekey"] = (out, t_rekey, kernels.LAUNCHES["keystream"] - k6)
         info["t_folds"] = fold_summary(srvT.matcher)
         info["t_breaker"] = srvT.matcher.breaker_gauges()
+        info["t_planes"] = planes_summary(srvT) if planes else None
         for c in rsubs + [pub] + subs:
             c.send(disconnect_frame(4))
         for c in rsubs + [pub] + subs:
@@ -4359,6 +4424,7 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
         f"retained deliveries, every one the walk's, in {t_ret:.3f} s; device matches {dmatch}, K1 launches {k1}, "
         f"fallbacks {fb}; {card}")
     n_rc, n_open, wall, fold, ro, split, dg, reasons = info["recrypt"]
+    READINGS["broker-legs recrypt publishes/s"] = n_rc / wall
     log(f"phase broker {LEGS_CELL} recrypt: {n_rc} encrypted publishes of 256 B to {RECRYPT_FANOUT} keyed "
         f"subscribers and {RET_SEALED} retained re-keyed at SUBSCRIBE: {n_open} payloads, every one opens to its "
         f"plaintext under its subscriber's key; {n_rc / wall:.1f} publishes/s, {n_rc * RECRYPT_FANOUT / wall:.1f} "
@@ -4373,14 +4439,40 @@ def phase_broker_legs(torch, device, card: str, n_subs: int = N_SUBS, n_retained
         + f"; cell {time.perf_counter() - t_phase:.1f} s; {card}")
     breaker_summary(info["p_breaker"], LEGS_CELL + " predicates server", card)
     breaker_summary(info["t_breaker"], LEGS_CELL + " tenant server", card)
+    for what, key in (("predicates server", "p_planes"), ("tenant server", "t_planes")):
+        pl = info[key]
+        if pl is None:
+            continue
+        log(f"  {LEGS_CELL} {what} planes: {pl['line']}; {card}")
+        # every frame above was checked against its selection, so every
+        # publish was delivered: the governor shed none
+        check(pl["sheds"] == 0, f"{LEGS_CELL} {what}: the governor shed {pl['sheds']} publishes")
     return launches
 
 
+def planes_summary(srv) -> dict:
+    """A ``Server``'s default planes after its waves, read in its process:
+    the governor (state, transitions, sheds, throttled reads, CONNECT
+    refusals, peak pressures), the sampled publishes by stage, the
+    profiler's sweeps and the card's memory and busy share."""
+    g = srv.overload.gauges()
+    tele = srv.telemetry
+    legs = {s: h.count for s, h in tele.stage_hist.items() if h.count}
+    card0 = srv.device_stats.snapshot()["devices"][0]
+    peaks = {k[len("peak/"):]: v for k, v in g.items() if k.startswith("peak/")}
+    line = (f"governor {g['state']}, transitions {g['transitions']}, sheds {g['sheds']}, throttled reads "
+            f"{g['throttled']}, CONNECT refusals {g['connects_refused']}, peak pressures {peaks}; sampled publishes by "
+            f"stage {legs}; profiler {srv.host_profiler.samples} sweeps; card live {card0['hbm']['live_bytes']} B, "
+            f"busy share {card0['duty_cycle']}, idle gap p99 {card0['idle_gap_p99_ms']} ms over {card0['batches']} "
+            f"batches")
+    return {"sheds": g["sheds"], "line": line}
+
+
 def phase_broker(torch, device, card: str, n_subs: int = N_SUBS, n_retained: int = RETAINED_SIZES[0],
-                 n_recrypt: int = BROKER_RECRYPT, pred_wave: int = PRED_WAVE) -> dict:
+                 n_recrypt: int = BROKER_RECRYPT, pred_wave: int = PRED_WAVE, planes: bool = True) -> dict:
     """Phase ``broker``: cell ``broker-legs``; K1-K6 must each launch inside
     it. Config 2's restart at full width is phase ``entry``."""
-    launches = phase_broker_legs(torch, device, card, n_subs, n_retained, n_recrypt, pred_wave)
+    launches = phase_broker_legs(torch, device, card, n_subs, n_retained, n_recrypt, pred_wave, planes)
     if device.type == "cuda":
         for name in ("flat_probe_ranges", "flat_match_compact", "scatter_rows", "rules_eval", "agg_reduce",
                      "keystream"):
@@ -4487,10 +4579,12 @@ def _free_ports(n: int) -> list:
 
 
 class SysRows:
-    """A client subscribed to ``$SYS/broker/matcher/#`` and
-    ``$SYS/broker/durable/#`` from outside the broker's process: the newest
-    value of every row, by the row's name below ``$SYS/broker/``, and how
-    many times each was received."""
+    """A client subscribed to ``$SYS/broker/matcher/#``,
+    ``$SYS/broker/durable/#``, ``$SYS/broker/overload/#``,
+    ``$SYS/broker/devices/#`` and the stage's batch service rows under
+    ``$SYS/broker/telemetry/`` from outside the broker's process: the
+    newest value of every row, by the row's name below ``$SYS/broker/``,
+    and how many times each was received."""
 
     PREFIX = "$SYS/broker/"
 
@@ -4502,7 +4596,8 @@ class SysRows:
         await self.c.open(host, port)
         self.c.send(connect_frame(self.c.name, 4))
         await self.c.wait_frames(1, 60.0)
-        self.c.send(subscribe_frame(1, [(self.PREFIX + "matcher/#", 0, 0), (self.PREFIX + "durable/#", 0, 0)], 4))
+        self.c.send(subscribe_frame(1, [(self.PREFIX + t + "/#", 0, 0) for t in (
+            "matcher", "durable", "overload", "devices", "telemetry/stage_batch_service_seconds")], 4))
         await self.c.wait_frames(2, 60.0)
 
     def rows(self) -> dict:
@@ -4544,7 +4639,7 @@ class SysRows:
         return time.perf_counter() - t0
 
 
-def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHURN) -> dict:
+def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHURN, planes: bool = True) -> dict:
     """Phase ``entry`` (cell ``entry-cfg2``): the broker started as its
     users start it, ``python -m mqtt_tpu_torch serve --config <file>``, in a
     process of its own on the card. The config (JSON) turns on the device
@@ -4568,7 +4663,8 @@ def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHUR
     the process with 0, and the store, opened again, must hold every
     churned record as the churn left it. The kernels run in that process,
     so their launches are not in the kernels line: the ``$SYS`` rows are
-    this phase's evidence."""
+    this phase's evidence. ``planes=False`` turns the default planes off in
+    the config (``PLANES_OFF``) and skips their checks (``entry_planes``)."""
     from mqtt_tpu_torch.hooks.storage.logkv import LogKVOptions, LogKVStore
 
     t_phase = time.perf_counter()
@@ -4603,7 +4699,11 @@ def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHUR
         "hooks": {"auth": {"ledger": {"auth": [{"allow": True}]}},
                   "storage": {"logkv": {"path": fill["path"], "gc_interval": 0}}},
         "options": {"device": str(device), "device_matcher": True, "matcher_opts": {"max_levels": 4},
-                    "sys_topic_resend_interval": 1},
+                    "sys_topic_resend_interval": 1, "slo_objectives": list(ENTRY_SLO),
+                    # a breach's flight, trace, profile and device dumps
+                    # go with the phase's directory
+                    "telemetry_dump_dir": os.path.join(fill["root"], "dumps"),
+                    **({} if planes else PLANES_OFF)},
         "logging": {"level": "warning"},
     }
     conf_path = os.path.join(fill["root"], "broker.json")
@@ -4638,14 +4738,26 @@ def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHUR
         wave = _Cfg2Wave(topics, b"e%d" % w, held, clients, pubs)
         r0 = await sysr.fresh()
         wall = await wave.send()
-        wave.check(f"{ENTRY_CELL} wave {w + 1}")
         r1 = await sysr.fresh()
+        # no governor (planes off): no overload rows, and nothing shed
+        gov = {k: int(r1.get("overload/" + k, 0)) - int(r0.get("overload/" + k, 0))
+               for k in ("transitions", "sheds", "throttled", "connects_refused", "evictions")}
+        shed = wave.check(f"{ENTRY_CELL} wave {w + 1}", gov["sheds"])
         n_del = {"tcp": 0, "ws": 0}
         for cid in clients:
             n_del["ws" if on_ws[cid] else "tcp"] += sum(wave.exp[cid].values())
         n_ws = len(pubs) - ENTRY_WS_PUBLISHERS
         n_in = {"tcp": sum(wave.n_pub[:n_ws]), "ws": sum(wave.n_pub[n_ws:])}
-        return {"n_pub": len(topics), "n_in": n_in, "n_del": n_del, "wall": wall, "routes": device_share(r0, r1)}
+        routes = device_share(r0, r1)
+        # publishes the stage answered from the walk at its admission
+        # bound or deadline (they never reach the matcher's counters)
+        key = "overload/stage_admission_fallbacks"
+        routes["stage_admission"] = int(r1[key]) - int(r0[key]) if key in r1 else "not shown (planes off)"
+        svc = "telemetry/stage_batch_service_seconds/"
+        service = {k: r1.get(svc + k) for k in ("count", "p50_ms", "p99_ms")}
+        return {"n_pub": len(topics), "n_in": n_in, "n_del": n_del, "wall": wall, "routes": routes,
+                "service": service, "governor": gov, "shed": shed, "state": r1.get("overload/state"),
+                "peaks": {k: r1[k] for k in r1 if k.startswith("overload/peak/")}}
 
     async def drive():
         t0 = time.perf_counter()
@@ -4715,7 +4827,9 @@ def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHUR
             status_st, body_st = await http_get("127.0.0.1", p_st, "/")
             info["stats"] = (status_st, sorted(json.loads(body_st)))
             info["healthcheck"] = (await http_get("127.0.0.1", p_hc, "/healthcheck"))[0]
-            info["metrics"] = (await http_get("127.0.0.1", p_st, "/metrics"))[0]
+            info["sys"] = r
+            for route in ("/metrics", "/devices", "/profile", "/traces", "/cluster/slo"):
+                info[route] = await http_get("127.0.0.1", p_st, route)
         finally:
             for c in list(clients.values()) + pubs + [sysr.c]:
                 if c.task is not None and not c.task.done():
@@ -4760,8 +4874,13 @@ def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHUR
         f"{info['fold_rows']['folds']}, rebuild_seconds {info['fold_rows']['rebuild_seconds']}); {n_sessions} "
         f"sessions present ({sum(on_ws.values())} over WebSocket) in {info['connect']:.3f} s, reconnect fold "
         f"{info['reconnect_fold']:.3f} s; {card}")
+    READINGS["entry restore s"] = d["recovery_seconds"]
+    READINGS["entry fold s"] = info["fold"]
+    READINGS["entry SIGTERM to exit s"] = t_exit
     for w, r in enumerate(rows):
         ro = r["routes"]
+        READINGS[f"entry wave {w + 1} publishes/s"] = r["n_pub"] / r["wall"]
+        READINGS[f"entry wave {w + 1} stage admission fallbacks"] = ro["stage_admission"]
         log(f"phase {ENTRY_CELL} wave {w + 1}: ok {r['n_pub']} publishes ({r['n_in']['tcp']} over TCP, "
             f"{r['n_in']['ws']} over WebSocket), {r['n_del']['tcp'] + r['n_del']['ws']} deliveries "
             f"({r['n_del']['tcp']} to TCP sockets, {r['n_del']['ws']} to WebSocket ones), every frame the stored "
@@ -4769,9 +4888,7 @@ def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHUR
             f"{r['n_in']['ws'] / r['wall']:.1f} WebSocket), deliveries/s {r['n_del']['tcp'] / r['wall']:.1f} TCP, "
             f"{r['n_del']['ws'] / r['wall']:.1f} WebSocket (wall {r['wall']:.3f} s); resolved by the device "
             f"{ro['device']}, by the host: " + ", ".join(f"{k} {v}" for k, v in ro.items() if k != "device")
-            + f"; {card}")
-        check(ro["device"] > r["n_pub"] // 2, f"{ENTRY_CELL} wave {w + 1}: the device resolved {ro['device']} "
-              f"of {r['n_pub']} publishes")
+            + f"; the stage's batch service since the start {r['service']}; {card}")
     g = info["breaker"]
     breaker_summary(g, ENTRY_CELL + " (read over $SYS)", card)
     check(int(g["verified_batches"]) > 0, f"{ENTRY_CELL}: the breaker verified no batch: {g}")
@@ -4779,14 +4896,112 @@ def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHUR
     check(status == 200 and not [x for x in body["degraded"] if x.startswith("matcher_breaker")],
           f"{ENTRY_CELL}: /healthz {status} {body}")
     check(info["stats"][0] == 200 and "version" in info["stats"][1], f"{ENTRY_CELL}: stats route {info['stats']}")
-    check(info["healthcheck"] == 200 and info["metrics"] == 404,
-          f"{ENTRY_CELL}: /healthcheck {info['healthcheck']}, /metrics {info['metrics']}")
+    check(info["healthcheck"] == 200, f"{ENTRY_CELL}: /healthcheck {info['healthcheck']}")
     log(f"  {ENTRY_CELL}: /healthz 200 {json.dumps(body, sort_keys=True)}; stats route 200 ({len(info['stats'][1])} "
-        f"keys), /healthcheck 200, /metrics 404 (no telemetry plane); $SYS matcher {info['matcher_rows']}; SIGTERM "
-        f"-> exit 0 in {t_exit:.3f} s; the store reopened ({n_keys} keys, {t_reopen:.3f} s) holds the "
-        f"{n_churn} churned records as the churn left them; churn fold {info['churn_fold']:.3f} s; "
-        f"phase {time.perf_counter() - t_phase:.1f} s; {card}")
+        f"keys), /healthcheck 200; $SYS matcher {info['matcher_rows']}; SIGTERM -> exit 0 in {t_exit:.3f} s; the "
+        f"store reopened ({n_keys} keys, {t_reopen:.3f} s) holds the {n_churn} churned records as the churn left "
+        f"them; churn fold {info['churn_fold']:.3f} s; phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    if planes:
+        entry_planes(torch, device, card, info, body, rows)
+    for w, r in enumerate(rows):
+        ro = r["routes"]
+        check(ro["device"] > r["n_pub"] // 2, f"{ENTRY_CELL} wave {w + 1}: the device resolved {ro['device']} "
+              f"of {r['n_pub']} publishes")
     return info
+
+
+# the entry cell's declared objectives (its config file's slo_objectives)
+ENTRY_SLO = ("p99 delivery < 50ms over 5m", "hbm ratio < 0.9 over 5m")
+
+
+def entry_planes(torch, device, card: str, info: dict, health: dict, rows: list) -> None:
+    """Phase ``entry``'s default planes, read from outside the broker's
+    process after the waves: ``/metrics`` passes ``check_exposition`` and
+    counts samples of the device legs (``h2d``, ``device_dispatch``,
+    ``d2h``) in the stage-clock family; ``/devices`` and
+    ``$SYS/broker/devices/#`` name the card (its kind, live memory above 0,
+    the limit ``torch.cuda.mem_get_info`` reports); ``/profile`` passes
+    ``check_collapsed`` and ``/traces`` ``check_trace_events``; ``/healthz``
+    reports the governor's state and each declared objective. Logs the
+    governor over the waves, each objective's state, the card's busy share
+    and idle gap, the stage's legs and the sampled traces."""
+    import re
+
+    from mqtt_tpu_torch.profiling import check_collapsed
+    from mqtt_tpu_torch.telemetry import check_exposition
+    from mqtt_tpu_torch.tracing import check_trace_events
+
+    for route in ("/metrics", "/devices", "/profile", "/traces", "/cluster/slo"):
+        check(info[route][0] == 200, f"{ENTRY_CELL}: {route} answered {info[route][0]}")
+    text = info["/metrics"][1].decode()
+    n_samples = check_exposition(text)
+    legs, quantiles = {}, {}
+    for stage in ("staging_wait", "h2d", "device_dispatch", "d2h", "device_batch", "encode", "flush"):
+        m = re.search(r'^mqtt_tpu_publish_stage_seconds_count\{stage="%s"\} (\d+)$' % stage, text, re.M)
+        legs[stage] = int(m.group(1)) if m else 0
+        quantiles[stage] = _bucket_quantiles(text, 'mqtt_tpu_publish_stage_seconds_bucket{stage="%s",' % stage)
+    delivery = {q: _bucket_quantiles(text, 'mqtt_tpu_delivery_latency_seconds_bucket{path="local",qos="%d",tenant="",'
+                                      % q) for q in (0, 1)}
+    dev = json.loads(info["/devices"][1])
+    card0 = dev["devices"][0]
+    rows_sys = info["sys"]
+    if device.type == "cuda":
+        for stage in ("h2d", "device_dispatch", "d2h"):
+            check(legs[stage] > 0, f"{ENTRY_CELL}: no sampled publish stamped {stage}: {legs}")
+        kind, limit = torch.cuda.get_device_name(0), torch.cuda.mem_get_info(0)[1]
+        check(card0.get("kind") == kind and card0["hbm"]["live_bytes"] and card0["hbm"]["live_bytes"] > 0
+              and card0["hbm"]["limit_bytes"] == limit,
+              f"{ENTRY_CELL}: /devices names {card0.get('kind')!r} with {card0['hbm']}, the card is {kind!r} of {limit}")
+        check(rows_sys.get("devices/0/kind") == kind and int(rows_sys.get("devices/0/hbm_live_bytes", 0)) > 0,
+              f"{ENTRY_CELL}: $SYS/broker/devices/0 rows {({k: v for k, v in rows_sys.items() if k.startswith('devices/0/')})}")
+    n_stacks = check_collapsed(info["/profile"][1].decode())
+    n_events = check_trace_events(info["/traces"][1])
+    slo = json.loads(info["/cluster/slo"][1])["local"]
+    check(sorted(st["spec"] for st in slo.values()) == sorted(ENTRY_SLO), f"{ENTRY_CELL}: objectives {sorted(slo)}")
+    check("governor" in health and health.get("slo", {}).get("objectives") == len(ENTRY_SLO),
+          f"{ENTRY_CELL}: /healthz without the governor's or the objectives' state: {health}")
+    for w, r in enumerate(rows):
+        g = r["governor"]
+        log(f"  {ENTRY_CELL} wave {w + 1} governor: state {r['state']} after it, transitions {g['transitions']}, "
+            f"sheds {g['sheds']} ({r['shed']['undelivered']} publishes undelivered, {r['shed']['refused_0x97']} "
+            f"acked 0x97), throttled reads {g['throttled']}, CONNECT refusals {g['connects_refused']}, evictions "
+            f"{g['evictions']}; peak pressures {r['peaks']}; {card}")
+    for name, st in sorted(slo.items()):
+        extra = f", value {st['value']}" if "value" in st else ""
+        log(f"  {ENTRY_CELL} objective {st['spec']!r}: breached {st['breached']}, burn fast {st['burn_rate_fast']} "
+            f"slow {st['burn_rate_slow']}, budget remaining {st['budget_remaining']}, breaches {st['breaches']}"
+            f"{extra}; {card}")
+    log(f"  {ENTRY_CELL} device plane: {card0.get('kind', card0['platform'])} live {card0['hbm']['live_bytes']} B, "
+        f"peak {card0['hbm']['peak_bytes']} B, limit {card0['hbm']['limit_bytes']} B (ratio {card0['hbm']['ratio']}); "
+        f"busy share (duty cycle) {card0['duty_cycle']}, overlap {card0['overlap_ratio']}, idle gap p99 "
+        f"{card0['idle_gap_p99_ms']} ms, issue p99 {card0['issue_p99_ms']} ms, d2h p99 {card0['d2h_p99_ms']} ms over "
+        f"{card0['batches']} batches; first launches noted {dev['compiles']['total']}; {card}")
+    log(f"  {ENTRY_CELL} telemetry: /metrics {n_samples} samples (check_exposition), sampled publishes by stage "
+        f"{legs}; /profile {n_stacks} stacks (check_collapsed); /traces {n_events} spans (check_trace_events); "
+        f"governor {health['governor']}; {card}")
+    log(f"  {ENTRY_CELL} stage clocks (p50, p99 ms, bucket bounds): "
+        + ", ".join(f"{k} {v}" for k, v in quantiles.items())
+        + f"; delivery (decode to flush) QoS 0 {delivery[0]}, QoS 1 {delivery[1]}; {card}")
+
+
+def _bucket_quantiles(text: str, prefix: str) -> tuple:
+    """The p50 and p99 (ms, the bucket's upper bound, as
+    ``Histogram.percentile`` answers) of one histogram child in a
+    Prometheus text, its ``_bucket`` lines named up to the ``le`` label by
+    ``prefix``; ``()`` when it has no sample."""
+    rows = []
+    for line in text.splitlines():
+        if line.startswith(prefix):
+            le, count = line[len(prefix):].split("} ", 1)
+            rows.append((le.split('"')[1], int(float(count.split(" ", 1)[0]))))
+    total = rows[-1][1] if rows else 0
+    out = []
+    for q in (0.5, 0.99):
+        rank = max(1, math.ceil(q * total))
+        le = next((le for le, acc in rows if acc >= rank), None) if total else None
+        if le is not None:
+            out.append(round(float(le) * 1e3, 3) if le != "+Inf" else float("inf"))
+    return tuple(out)
 
 
 def _materialize_single(torch, cfg: dict, device) -> None:
@@ -4923,6 +5138,57 @@ def _run(torch, device, n_subs, wave, n_recrypt, retained_sizes, n_reseal, card,
     return kernels_line
 
 
+def planes_cost(torch, device, card: str, n_subs: int = N_SUBS, wave: int = WAVE, n_groups: int = N_GROUPS,
+                n_recrypt: int = BROKER_RECRYPT) -> dict:
+    """The default planes' cost on each ``Server`` path, on one card: cfg4's
+    fan-out (``phase_fanout``, its own cfg4 each run), cell ``broker-legs``
+    and cell ``entry-cfg2`` (each run from a copy of the same store), each
+    run four times with the planes on, off, off, on (``PLANES_OFF``). Every
+    run makes its phase's checks. Logs each path's ``READINGS`` with the
+    planes on and off, run by run."""
+    import shutil
+
+    order = (True, False, False, True)
+    runs: dict = {}
+
+    def note(path: str, planes: bool) -> None:
+        runs.setdefault(path, []).append((planes, dict(READINGS)))
+        log(f"planes cost {path} planes {'on' if planes else 'off'}: {READINGS}; {card}")
+
+    fill = start_entry_fill(n_subs, min(BROKER_SESSIONS, n_subs // 2), wave)
+    try:
+        for planes in order:
+            READINGS.clear()
+            cfg4 = phase_setup_fanout(n_groups, device, card)
+            try:
+                phase_fanout(cfg4, wave, card, planes=planes)
+            finally:
+                cfg4["dm"].close()
+            note("fanout", planes)
+        for planes in order:
+            READINGS.clear()
+            phase_broker(torch, device, card, n_subs, RETAINED_SIZES[0], n_recrypt, planes=planes)
+            note(LEGS_CELL, planes)
+        fill["proc"].wait()
+        check(fill["proc"].returncode == 0, f"{ENTRY_CELL}: the store's fill failed:\n{_tail(fill['log'])}")
+        pristine = fill["path"] + ".pristine"
+        shutil.copytree(fill["path"], pristine)
+        for planes in order:
+            shutil.rmtree(fill["path"])
+            shutil.copytree(pristine, fill["path"])
+            READINGS.clear()
+            phase_entry(torch, device, card, fill, planes=planes)
+            note(ENTRY_CELL, planes)
+    finally:
+        stop_entry_fill(fill)
+    for path, rs in runs.items():
+        for key in rs[0][1]:
+            on = [r[key] for p, r in rs if p]
+            off = [r[key] for p, r in rs if not p]
+            log(f"planes cost {path} {key}: on {on}, off {off}; {card}")
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -4946,12 +5212,19 @@ def main() -> int:
                     help="retained corpus sizes, comma-separated")
     ap.add_argument("--reseal", type=int, default=N_RESEAL, help="retained payloads per size re-sealed at the re-key")
     ap.add_argument("--groups", type=int, default=N_GROUPS, help="cfg4's $SHARE groups (16 members each)")
+    ap.add_argument("--planes-cost", action="store_true",
+                    help="only the default planes' cost: each Server path with them on and off in turns")
     args = ap.parse_args()
     t0 = time.perf_counter()
     try:
         card = phase_card(torch)["card"]
         phase_build()
         time_folds()
+        if args.planes_cost:
+            phase_native()
+            planes_cost(torch, torch.device("cuda"), card, args.subs, args.wave, args.groups)
+            log(f"total {time.perf_counter() - t0:.1f} s")
+            return 0
         kernels_line = run(torch.device("cuda"), args.subs, args.wave, args.recrypt,
                            tuple(int(x) for x in args.retained.split(",")), args.reseal, card, args.groups)
     except PhaseFailed as e:

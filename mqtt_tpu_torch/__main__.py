@@ -226,8 +226,8 @@ def build_server(args) -> Server:
                 HTTPStats(
                     ListenerConfig(type="sysinfo", id="stats", address=f":{args.stats_port}"),
                     server.info,
-                    # None: the port has no telemetry plane yet, so the
-                    # telemetry routes answer 404
+                    # GET /metrics, /traces, /profile and /devices (404
+                    # when Options.telemetry is off)
                     telemetry=server.telemetry,
                     health=server.health_report,
                 )

@@ -8,9 +8,11 @@ task per client; the bounded ``outbound`` channel becomes an
 ``asyncio.Queue`` whose ``put_nowait``-full path reproduces the reference's
 drop-on-slow-consumer semantics (server.go:1099-1110).
 
-A copy of the JAX package's module. The planes the JAX server attaches to
-``Client.ops`` that the port does not have yet (the overload governor,
-telemetry) read as ``None`` here: ``server._Ops`` sets them so.
+A copy of the JAX package's module. ``Client.ops`` carries the server's
+overload governor and telemetry plane (``server._Ops``; None when
+switched off): the read loop counts each window's publishes for the
+governor, takes its read delay and stamps the sampled publishes' decode
+stage, and the write paths feed the amplification counters.
 """
 
 from __future__ import annotations
@@ -288,9 +290,8 @@ class ClientState:
         # whose buffer SHRANK since then is draining (slow, not stalled)
         # and must not accumulate eviction grace
         self.sweep_buffered = 0
-        # outbound queue-wait sampling (the JAX server's telemetry, not
-        # ported: the port's server takes no stamps): every successful
-        # enqueue bumps out_seq, sampled enqueues park (seq, t) here and
+        # outbound queue-wait sampling (server._stamp_outbound): every
+        # successful enqueue bumps out_seq, sampled enqueues park (seq, t) here and
         # the write loop matches out_deq against the head to observe the
         # wait. Bounded: evicted stamps are just lost samples.
         self.out_seq = 0

@@ -101,7 +101,9 @@ def compare(torch, cs, against: list, iters: int = 20) -> None:
             libs[label, name] = getattr(lib, name)
     turns = labels + labels[::-1]
     stream = torch.cuda.current_stream().cuda_stream
-    compact_state = {label: [None, 0] for label in labels}  # K2's zeroed scratch and last epoch, per build
+    # K2's zeroed scratch per build and layout (kernels._compact_scratch_for), and last epoch per build
+    compact_scratch: dict = {}
+    compact_epoch = dict.fromkeys(labels, 0)
 
     def rules(label, op, slot, thresh, cbit, f, m):
         out = torch.empty((f.shape[0], op.shape[0] // 32), dtype=torch.int32, device=dev)
@@ -124,14 +126,14 @@ def compare(torch, cs, against: list, iters: int = 20) -> None:
         B, P = tokens.shape[0], depth.shape[0]
         warps = kernels._compact_warps(P, B)
         need = 4 + 4 * -(-B // (warps * (32 // min(P, 32))))
-        state = compact_state[label]
-        if state[0] is None or state[0].numel() < need:
-            state[0] = torch.zeros((max(need, 1024),), dtype=torch.int32, device=dev)
-        state[1] = state[1] % kernels._EPOCH_MASK + 1
+        scratch = compact_scratch.get((label, need))
+        if scratch is None:
+            scratch = compact_scratch[label, need] = torch.zeros((need,), dtype=torch.int32, device=dev)
+        compact_epoch[label] = epoch = compact_epoch[label] % kernels._EPOCH_MASK + 1
         out = torch.empty((2 + 2 * B + capacity,), dtype=torch.int32, device=dev)
         err = libs[label, "fm_match_compact"](tokens.data_ptr(), B, tokens.shape[1], L, table.data_ptr(),
                                               table.shape[0], kind.data_ptr(), depth.data_ptr(), mask.data_ptr(),
-                                              P, capacity, out.data_ptr(), state[0].data_ptr(), warps, state[1],
+                                              P, capacity, out.data_ptr(), scratch.data_ptr(), warps, epoch,
                                               stream)
         cs.check(err == 0, f"{label} flat_match_compact failed to launch ({err})")
         return out

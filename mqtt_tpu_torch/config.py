@@ -10,10 +10,12 @@ configs pass through to ``Server.add_listeners_from_config``; a
 The option keys are the JAX package's, plus ``device`` (the card every
 device plane runs on). A key the port's ``Options`` has maps to it;
 ``trace_jax_profiler_dir`` maps to ``trace_torch_profiler_dir``. A key of
-a plane the port does not have yet (``overload_*``, ``cluster_*``,
-``loop_shards``, the telemetry, trace, profiling and SLO fields,
-``device_stats``, ...) raises ``TypeError``, as passing it to ``Options``
-does: a configuration is never served with a plane silently missing.
+a plane the port does not have yet (the worker cluster's ``cluster_*``
+and ``overload_federation*``, the shard fabric's ``loop_shards`` and
+``loop_shard_accept``) raises ``TypeError``, as passing it to ``Options``
+does: a configuration is never served with a plane silently missing. The
+keys of the governor, telemetry, trace, profiling, SLO and device-stats
+planes map to their fields.
 """
 
 from __future__ import annotations
@@ -217,8 +219,7 @@ def from_bytes(b: bytes) -> Optional[Options]:
             type=conf.get("type", ""),
             id=conf.get("id", ""),
             address=conf.get("address", ""),
-            # per-listener CONNECT admission opt-out (kept for the JAX
-            # package's overload governor; the port admits every CONNECT)
+            # per-listener opt-out of the governor's CONNECT admission
             admission=bool(conf.get("admission", True)),
         )
         for conf in (raw.get("listeners") or [])

@@ -38,9 +38,8 @@ class Config:
     ``reuse_port`` enables SO_REUSEPORT binding so several broker
     processes share one address with kernel load-balancing.
 
-    ``admission`` is kept for configuration parity with the JAX package,
-    whose overload governor reads it; the port has no governor yet, so it
-    admits every CONNECT."""
+    ``admission=False`` exempts the listener from the overload
+    governor's CONNECT admission (``Server._connect_admission``)."""
 
     type: str = ""
     id: str = ""

@@ -119,9 +119,11 @@ class HTTPStats(_HttpListener):
     named when not). The telemetry routes read ``telemetry`` through
     ``getattr``, as the JAX listener does: ``/metrics`` (the exposition),
     ``/traces``, ``/profile``, ``/devices``, ``/metrics/cluster`` and
-    ``/cluster/slo``. The port's server has no telemetry plane yet and
-    passes None, so each of them answers 404, as the JAX listener's do
-    with telemetry off."""
+    ``/cluster/slo``. The server passes its telemetry plane (None with
+    ``Options.telemetry`` off: every such route answers 404, as the JAX
+    listener's do). The port has no worker cluster, so
+    ``/metrics/cluster`` answers 404, and ``/cluster/slo`` serves the
+    local SLO engine's state alone."""
 
     def __init__(
         self, config: Config, sys_info: Info, telemetry=None, health=None

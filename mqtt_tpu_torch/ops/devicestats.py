@@ -293,15 +293,17 @@ def skew_of(tile_hits) -> float:
 
 class _Card:
     """One device the plane reports: its id (the CUDA index; 0 for the
-    host), its platform, and the ``torch.device`` it reads memory from
-    (None for the host, which cannot answer)."""
+    host), its platform, the ``torch.device`` it reads memory from (None
+    for the host, which cannot answer) and, for a card, its kind
+    (``torch.cuda.get_device_name``; None for the host)."""
 
-    __slots__ = ("id", "platform", "device")
+    __slots__ = ("id", "platform", "device", "kind")
 
-    def __init__(self, did: int, platform: str, device) -> None:
+    def __init__(self, did: int, platform: str, device, kind: Optional[str] = None) -> None:
         self.id = did
         self.platform = platform
         self.device = device
+        self.kind = kind
 
 
 class DeviceStatsPlane:
@@ -332,7 +334,8 @@ class DeviceStatsPlane:
             if not torch.cuda.is_available():
                 raise RuntimeError("DeviceStatsPlane(device='cuda'): CUDA is not available")
             self._devices = [
-                _Card(i, "gpu", torch.device("cuda", i)) for i in range(torch.cuda.device_count())
+                _Card(i, "gpu", torch.device("cuda", i), torch.cuda.get_device_name(i))
+                for i in range(torch.cuda.device_count())
             ]
         elif kind == "cpu":
             self._devices = [_Card(0, "cpu", None)]
@@ -450,12 +453,16 @@ class DeviceStatsPlane:
             entry: dict = {
                 "id": d.id,
                 "platform": d.platform,
-                "hbm": {
-                    "live_bytes": None if live < 0 else int(live),
-                    "peak_bytes": None if peak < 0 else int(peak),
-                    "limit_bytes": None if limit < 0 else int(limit),
-                    "ratio": round(self._mem_ratio(d), 6),
-                },
+            }
+            if d.kind is not None:
+                # a card names its kind; the host's entry is the JAX
+                # plane's CPU entry, which has none
+                entry["kind"] = d.kind
+            entry["hbm"] = {
+                "live_bytes": None if live < 0 else int(live),
+                "peak_bytes": None if peak < 0 else int(peak),
+                "limit_bytes": None if limit < 0 else int(limit),
+                "ratio": round(self._mem_ratio(d), 6),
             }
             entry.update(
                 windows.get(
@@ -501,6 +508,8 @@ class DeviceStatsPlane:
         for dev in snap["devices"]:
             base = str(dev["id"])
             hbm = dev["hbm"]
+            if "kind" in dev:
+                out[f"{base}/kind"] = dev["kind"]
             out[f"{base}/hbm_live_bytes"] = (
                 -1 if hbm["live_bytes"] is None else hbm["live_bytes"]
             )

@@ -110,12 +110,14 @@ _ERROR_FNS = {
     "recrypt.cu": "rc_error_string",
     "sharded.cu": "sh_error_string",
 }
-# the look-back scratch of K2 and of K9, one each per (device, stream):
-# zeroed once when allocated and kept zeroed by the kernel's own protocol,
-# with the epoch of its last launch (see fm_match_compact in flat_match.cu
-# and sh_tile_compact in sharded.cu); K9's also holds the count of tiles
-# its counters are laid out for
+# the look-back scratch of K2, one per (device, stream, layout size), and
+# the last epoch of each (device, stream); K9's, one per (device, stream),
+# with its last epoch and the count of tiles its counters are laid out
+# for. Each is zeroed once when allocated and kept zeroed by the kernel's
+# own protocol (see fm_match_compact in flat_match.cu and sh_tile_compact
+# in sharded.cu)
 _compact_scratch: dict = {}
+_compact_epochs: dict = {}
 _tile_scratch: dict = {}
 _EPOCH_MASK = (1 << 31) - 1
 
@@ -374,16 +376,23 @@ def _compact_warps(P: int, B: int) -> int:
 
 
 def _compact_scratch_for(device, stream: int, n: int) -> tuple:
-    """K2's scratch for launches on ``stream`` (at least ``n`` ints) and the
-    next epoch. Launches on one stream run in order, so they can share it;
-    a larger batch replaces it with a larger zeroed one."""
+    """K2's scratch for a launch on ``stream`` whose layout takes ``n``
+    ints (4 + 4 per CUDA block), and the stream's next epoch. The kernel
+    keeps each block's clip record right after the launch's status words,
+    at an offset its block count sets, and a record holds no epoch: in a
+    scratch shared with launches of more blocks, a later launch's
+    look-back could read a record as a block's published status whose
+    epoch bits happen to equal its own, and write its pairs at a wrong
+    offset. So each layout has a scratch of its own (batches come in
+    power-of-two buckets: a few); launches on one stream run in order, so
+    those of one layout share it."""
     key = (device.index, stream)
     with _lock:
-        entry = _compact_scratch.get(key)
-        if entry is None or entry[0].numel() < n:
-            entry = _compact_scratch[key] = [torch.zeros((max(n, 1024),), dtype=torch.int32, device=device), 0]
-        entry[1] = entry[1] % _EPOCH_MASK + 1  # 1 .. 2^31 - 1, never 0
-        return entry[0], entry[1]
+        epoch = _compact_epochs[key] = _compact_epochs.get(key, 0) % _EPOCH_MASK + 1  # never 0
+        scratch = _compact_scratch.get(key + (n,))
+        if scratch is None:
+            scratch = _compact_scratch[key + (n,)] = torch.zeros((n,), dtype=torch.int32, device=device)
+        return scratch, epoch
 
 
 def _tile_scratch_for(lib, device, stream: int, T: int, S: int, bl: int) -> tuple:

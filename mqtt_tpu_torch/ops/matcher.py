@@ -450,6 +450,20 @@ class MatcherStats:
     # serializes add(): batches resolve on several threads at once (the
     # stage's resolvers, the breaker's guard threads)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
+    # optional per-rebuild duration observer (the telemetry plane's
+    # rebuild histogram); set by the server
+    rebuild_observer: Optional[Callable[[float], None]] = field(default=None, repr=False, compare=False)
+
+    def note_rebuild(self, dt: float) -> None:
+        """Account one rebuild/fold wall time (and feed the observer)."""
+        with self._lock:
+            self.rebuild_seconds += dt
+        cb = self.rebuild_observer
+        if cb is not None:
+            try:
+                cb(dt)
+            except Exception:  # pragma: no cover  # brokerlint: ok=R4 a telemetry observer must not wedge the rebuild path
+                pass
 
     def add(self, **deltas) -> None:
         """Add each of ``deltas`` to its counter, as one update."""
@@ -604,7 +618,7 @@ class TorchMatcher:
             self._state = (flat, device_arrays, version)
         self._fold_poisoned = False
         self.stats.rebuilds += 1
-        self.stats.rebuild_seconds += time.perf_counter() - t0
+        self.stats.note_rebuild(time.perf_counter() - t0)
 
     def fold(self, filters) -> bool:
         """Incrementally fold mutations for ``filters`` into the compiled
@@ -665,7 +679,7 @@ class TorchMatcher:
             self._state = (flat, (table, *new_pats), version)
         self._fold_poisoned = False
         self.stats.folds += 1
-        self.stats.rebuild_seconds += time.perf_counter() - t0
+        self.stats.note_rebuild(time.perf_counter() - t0)
         return True
 
     def _write_standby(self, updates) -> torch.Tensor:

@@ -504,7 +504,7 @@ class ShardedTorchMatcher:
                     self._dirty = [True] * self.n_shards
                 raise
         self.stats.rebuilds += 1
-        self.stats.rebuild_seconds += time.perf_counter() - t0
+        self.stats.note_rebuild(time.perf_counter() - t0)
 
     def _partition_live(self) -> list[TopicsIndex]:
         """Walk the live trie and split its subscriptions into fresh

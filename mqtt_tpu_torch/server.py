@@ -45,13 +45,19 @@ Departures from the JAX server, on purpose:
   package's profiler switch: ``serve()`` starts a ``torch.profiler``
   capture over the host and the card, ``close()`` exports its Chrome
   trace there; a failure to start raises.
-- The planes the port does not have yet are absent, not switched off:
-  the overload governor (CONNECT admission, publish shedding, the
-  slow-consumer sweep), telemetry and tracing, the host profiler, SLOs,
-  the device-stats plane, the worker cluster and the event-loop shard
-  fabric. ``health_report`` reports the planes the port has (draining,
-  the durable restore, the stage, the matcher's breaker); the retained
-  engine has no breaker, so the body has no ``retained_breaker``.
+- The JAX server's default planes run here at its defaults: the overload
+  governor (CONNECT admission, publish shedding, the slow-consumer
+  sweep), the telemetry plane with its stage clocks and flight recorder,
+  the tracer, the host profiler and the lock plane, the SLO engine and
+  the per-card plane (``ops.devicestats.DeviceStatsPlane`` on
+  ``Options.device``). A sampled publish's device trip is split into
+  ``h2d``, ``device_dispatch`` and ``d2h`` from its batch's
+  ``tracing.BatchProfile`` (see ``staging.MatchStage``).
+- The worker cluster and the event-loop shard fabric are absent, not
+  switched off, and so are their halves of the planes: the governor's
+  federation, the metric federation, the remote-path delivery SLI.
+  ``health_report`` has no ``cluster`` entry; the retained engine has no
+  breaker, so the body has no ``retained_breaker``.
 """
 
 from __future__ import annotations
@@ -137,6 +143,7 @@ from .packets import (
     PacketStore,
     Properties,
     Subscription,
+    UserProperty,
 )
 from .system import Info
 from .topics import (
@@ -150,6 +157,7 @@ from .topics import (
     ns_local,
     ns_scope_filter,
     ns_scope_topic,
+    ns_tenant,
     split_predicate_suffix,
 )
 from .utils.loopwitness import DEFAULT_LOOP_PLANE as _LOOP_PLANE
@@ -209,8 +217,8 @@ class Capabilities:
 class Options:
     """Configurable server options (server.go:96-131): the JAX package's
     fields for the planes the port has, with its defaults, and ``device``.
-    The JAX fields of the planes not ported (overload control, telemetry,
-    tracing, profiling, SLOs, device stats, the cluster, the loop-shard
+    The JAX fields of the planes not ported (the worker cluster with the
+    governor's federation and the metric federation, the loop-shard
     fabric) are absent: passing one is a TypeError."""
 
     listeners: list[ListenerConfig] = field(default_factory=list)
@@ -266,10 +274,57 @@ class Options:
     # overlapped-staging depth: batches in flight across the issue /
     # device / drain legs; <= 0 falls back to matcher_stage_max_inflight
     matcher_stage_pipeline_depth: int = 3
+    # broker-wide overload control plane (overload): a NORMAL ->
+    # THROTTLE -> SHED governor over staging depth, the aggregate outbound
+    # backlog and an optional RSS watermark. Default on: a publish storm
+    # degrades predictably (throttled reads, 0x97 sheds, slow-consumer
+    # eviction), never by OOM
+    overload_control: bool = True
+    # hysteresis bands over the max normalized pressure (enter > exit)
+    overload_throttle_enter: float = 0.70
+    overload_throttle_exit: float = 0.50
+    overload_shed_enter: float = 0.90
+    overload_shed_exit: float = 0.65
+    # minimum ms in a state before de-escalating (escalation is instant)
+    overload_min_dwell_ms: float = 500.0
+    # governor evaluation cadence (lazy re-sample on the data plane)
+    overload_eval_interval_ms: float = 250.0
+    # per-client quota window (publish/shed budgets); 0 = eval interval
+    overload_quota_window_ms: float = 0.0
+    # THROTTLE: per-client publishes per window before reads pause, and
+    # the pause applied to each subsequent read
+    overload_publish_quota: int = 2048
+    overload_throttle_delay_ms: float = 50.0
+    # SHED: per-client publishes admitted per window (excess sheds: QoS0
+    # dropped, QoS1/2 acked 0x97 Quota Exceeded)
+    overload_shed_quota: int = 256
+    # SHED: outbound-queue-full grace before slow-consumer eviction
+    # (DISCONNECT 0x97)
+    overload_eviction_grace_ms: float = 2000.0
     # the stage's admission bound: its parked publishes never exceed this
-    # (overflow resolves through the host walk, counted as "admission");
-    # the JAX package's name, which its overload plane shares
+    # (overflow resolves through the host walk, counted as "admission")
     overload_stage_max_pending: int = 8192
+    # per-client transport write-buffer watermark (bytes): a client whose
+    # buffered-but-unsent outbound bytes stay above this past the grace
+    # window is a slow consumer
+    overload_client_buffer_limit_bytes: int = 1024 * 1024
+    # aggregate outbound backlog (queued publishes across all clients)
+    # that normalizes to pressure 1.0
+    overload_max_outbound_backlog: int = 65536
+    # RSS watermark in MB that normalizes to pressure 1.0; 0 disables the
+    # memory signal
+    overload_memory_limit_mb: float = 0.0
+    # per-listener CONNECT admission: while THROTTLE/SHED, new CONNECTs on
+    # admission-gated listeners are refused with CONNACK 0x97 (0x89 while
+    # the server drains); False disables the gate entirely
+    overload_admission: bool = True
+    # always-admit reserve per quota window for $SYS/admin-ACL clients
+    overload_admission_reserve: int = 2
+    # priority-weighted shedding: class name -> quota multiplier applied
+    # to both the shed and publish quotas (None = every client weighs 1)
+    overload_priority_classes: Optional[dict] = None
+    # username-or-client-id -> class name (assigned at CONNECT)
+    overload_priority_users: Optional[dict] = None
     # device-resident hit compaction (K2): match results transfer as packed
     # (topic, sid) pairs sized for the hits that exist
     matcher_compact: bool = True
@@ -342,10 +397,77 @@ class Options:
     # launches below this many 16-byte blocks run on the host (counted as
     # small_batch in the engine's host_reasons)
     recrypt_device_min_blocks: int = 4
+    # the telemetry plane (telemetry): a per-publish stage clock sampled
+    # 1-in-N, histogram metrics, the Prometheus exposition at GET /metrics
+    # (sysinfo listener), the retained $SYS/broker/telemetry/# tree and a
+    # flight recorder that dumps a JSON trace when the governor enters
+    # SHED, a breaker trips or an SLO breaches. Default on
+    telemetry: bool = True
+    # 1-in-N publishes carry a stage clock (0 disables stage sampling;
+    # batch/queue histograms still populate)
+    telemetry_sample: int = 64
+    # flight-recorder ring size (recent sampled stage records)
+    telemetry_ring: int = 256
+    # flight-recorder dump directory; "" = a private temporary directory
+    telemetry_dump_dir: str = ""
+    # minimum ms between flight-recorder dumps
+    telemetry_dump_min_interval_ms: float = 30000.0
+    # the trace plane (tracing.Tracer): 1-in-N publishes carry a span tree
+    # through decode -> admission -> staging_wait -> h2d ->
+    # device_dispatch -> d2h -> encode/flush, exported as Chrome
+    # trace-event JSON at GET /traces and in trigger dumps. Default on
+    # (requires telemetry)
+    trace: bool = True
+    # 1-in-N publishes carry a trace (0 disables tracing outright)
+    trace_sample: int = 64
+    # span-ring size (finished spans retained for /traces and dumps)
+    trace_ring: int = 4096
+    # per-bucket (value, trace_id) exemplars on the stage histograms,
+    # rendered OpenMetrics-style on /metrics
+    trace_exemplars: bool = True
+    # stamp traced publishes with a v5 `trace-id` user property (off: it
+    # changes the wire bytes of sampled publishes); inbound v5 publishes
+    # carrying the property adopt the client's id regardless
+    trace_user_property: bool = False
+    # client-driven adoptions admitted per second; 0 disables adoption
+    trace_adopt_max_per_s: int = 64
     # when set, serve() starts a torch.profiler capture over the host and
     # the card (requires a device matcher) and close() exports its Chrome
     # trace into this directory ("" disables)
     trace_torch_profiler_dir: str = ""
+    # the host observatory (profiling): a sampling wall profiler over
+    # every broker thread (sys._current_frames at profile_hz), collapsed
+    # stacks and a Perfetto flame chart at GET /profile and beside trigger
+    # dumps. Default on (requires telemetry)
+    profile: bool = True
+    # profiler sweep rate; each sweep walks every live thread's stack
+    profile_hz: float = 29.0
+    # raw samples retained for the /profile?format=trace flame chart
+    profile_ring: int = 2048
+    # the lock-contention plane (utils.locked): arm the named-lock
+    # wait/hold instrumentation and export it on /metrics
+    profile_locks: bool = True
+    # topic-cardinality sketch capacity (top-K hot topics and the average
+    # hits per topic, from the stage-clock-sampled publishes); 0 disables
+    profile_topics: int = 512
+    # the SLO observatory (slo): the per-tenant delivery-latency SLI on
+    # the sampled stage clocks and the multi-window burn-rate engine over
+    # declared objectives. Default on
+    slo: bool = True
+    # declarative objectives, e.g. ["p99 delivery < 50ms over 5m",
+    # "hbm ratio < 0.9 over 5m"] (grammar in slo); unparseable lines are
+    # logged and skipped. None/empty = SLIs recorded, no engine
+    slo_objectives: Optional[list] = None
+    # burn-rate level both windows must exceed to breach
+    slo_burn_threshold: float = 1.0
+    # the per-card plane (ops.devicestats.DeviceStatsPlane on
+    # Options.device): memory gauges, the first-launch ledger, the skew
+    # gauge, GET /devices, $SYS/broker/devices/# and the devices_*.json
+    # trigger-dump sibling. Default on (requires telemetry)
+    device_stats: bool = True
+    # live/limit memory occupancy at or above which /healthz reports the
+    # device plane degraded (never flips readiness)
+    device_hbm_watermark: float = 0.9
 
     def ensure_defaults(self) -> None:
         """Sane defaults when unset (server.go:208-235)."""
@@ -377,8 +499,53 @@ class Options:
             self.breaker_probe_backoff_ms = 500.0
         if self.breaker_probe_backoff_max_ms < self.breaker_probe_backoff_ms:
             self.breaker_probe_backoff_max_ms = max(self.breaker_probe_backoff_ms, 30000.0)
+        # inverted hysteresis bands would flap on every evaluation and
+        # zero caps would divide the pressure signals
+        if self.overload_throttle_exit > self.overload_throttle_enter:
+            self.overload_throttle_exit = self.overload_throttle_enter
+        if self.overload_shed_exit > self.overload_shed_enter:
+            self.overload_shed_exit = self.overload_shed_enter
+        if self.overload_shed_enter < self.overload_throttle_enter:
+            self.overload_shed_enter = self.overload_throttle_enter
         if self.overload_stage_max_pending <= 0:
             self.overload_stage_max_pending = 8192
+        if self.overload_client_buffer_limit_bytes <= 0:
+            self.overload_client_buffer_limit_bytes = 1024 * 1024
+        if self.overload_max_outbound_backlog <= 0:
+            self.overload_max_outbound_backlog = 65536
+        if self.overload_eval_interval_ms <= 0:
+            self.overload_eval_interval_ms = 250.0
+        if self.overload_quota_window_ms < 0:
+            self.overload_quota_window_ms = 0.0
+        if self.overload_min_dwell_ms < 0:
+            self.overload_min_dwell_ms = 500.0
+        if self.overload_throttle_delay_ms < 0:
+            self.overload_throttle_delay_ms = 50.0
+        if self.overload_eviction_grace_ms < 0:
+            # a negative grace would evict on the first sweep after any
+            # transient backlog
+            self.overload_eviction_grace_ms = 2000.0
+        if self.overload_publish_quota <= 0:
+            self.overload_publish_quota = 2048
+        if self.overload_shed_quota <= 0:
+            self.overload_shed_quota = 256
+        if self.overload_priority_classes:
+            # sanitized once here: the CONNECT path must not raise on a
+            # non-numeric weight from a config typo
+            clean = {}
+            for klass, weight in self.overload_priority_classes.items():
+                try:
+                    clean[klass] = float(weight)
+                except (TypeError, ValueError):
+                    logging.getLogger("mqtt_tpu_torch").warning(
+                        "overload_priority_classes[%r]=%r is not a number; "
+                        "class falls back to weight 1.0",
+                        klass,
+                        weight,
+                    )
+            self.overload_priority_classes = clean
+        if self.overload_admission_reserve < 0:
+            self.overload_admission_reserve = 0
         # a zero/negative rule cap would refuse every predicate, a negative
         # sample means "default"
         if self.predicate_max_rules <= 0:
@@ -400,6 +567,26 @@ class Options:
             self.retained_oracle_sample = 16
         if self.durable_restore_batch < 1:
             self.durable_restore_batch = 4096
+        # a negative sample rate means "default", zero disables sampling;
+        # the rings must hold something
+        if self.telemetry_sample < 0:
+            self.telemetry_sample = 64
+        if self.telemetry_ring <= 0:
+            self.telemetry_ring = 256
+        if self.telemetry_dump_min_interval_ms < 0:
+            self.telemetry_dump_min_interval_ms = 30000.0
+        if self.trace_sample < 0:
+            self.trace_sample = 64
+        if self.trace_ring <= 0:
+            self.trace_ring = 4096
+        if self.trace_adopt_max_per_s < 0:
+            self.trace_adopt_max_per_s = 64
+        if self.profile_hz <= 0:
+            self.profile_hz = 29.0
+        if self.profile_ring <= 0:
+            self.profile_ring = 2048
+        if self.profile_topics < 0:
+            self.profile_topics = 512
         if self.logger is None:
             self.logger = logging.getLogger("mqtt_tpu_torch")
 
@@ -439,16 +626,21 @@ class _FrameCache:
     drops inbound topic aliases exactly like the per-subscriber slow path
     ([MQTT-3.3.2-7] via ``Packet.copy``)."""
 
-    __slots__ = ("pk", "frames")
+    __slots__ = ("pk", "frames", "telemetry")
 
-    def __init__(self, pk: "Packet") -> None:
+    def __init__(self, pk: "Packet", telemetry: Optional[Any] = None) -> None:
         self.pk = pk
         self.frames: dict[tuple[int, bool], bytes] = {}
+        self.telemetry = telemetry
 
     def get(self, version: int, retain: bool) -> bytes:
         key = (version, bool(retain))
         data = self.frames.get(key)
         if data is None:
+            # a real encode (cache hits share the bytes): fan-out
+            # amplification accounting counts exactly these
+            if self.telemetry is not None:
+                self.telemetry.publish_encodes.inc()
             out = self.pk.copy(False)
             out.fixed_header.retain = bool(retain)
             out.protocol_version = version
@@ -481,7 +673,7 @@ class _Ops:
         self.fast_publish: Optional[Callable[..., bool]] = None
         self.fast_publish_eligible: Optional[Callable[..., bool]] = None
         # the overload governor and the telemetry plane, which clients
-        # consult; the port has neither yet, so they stay None
+        # consult (None when switched off)
         self.overload: Optional[Any] = None
         self.telemetry: Optional[Any] = None
         # read-side scan coalescer (clients.ScanGate); None = per-socket
@@ -527,11 +719,135 @@ class Server:
         self._fastpub_plans: dict = {}  # topic -> (trie version, fan-out plan)
         # clients_connected gates maximum_clients
         self._conn_lock = threading.Lock()
+        # set at the top of close(): CONNECTs arriving mid-drain are
+        # refused with CONNACK 0x89 Server Busy instead of 0x97
+        self._draining = False
         self.matcher: Optional[Any] = None  # device matcher; None = host walk
-        # the telemetry plane, which HTTPStats reads: not ported yet
-        self.telemetry: Optional[Any] = None
         self._stage: Optional[Any] = None  # publish staging loop (serve())
         self._torch_profiler: Optional[Any] = None  # trace_torch_profiler_dir capture
+        # the broker-wide overload governor (overload): admission,
+        # backpressure and graceful shedding under publish storms. The
+        # staging signal attaches in serve()
+        self.overload: Optional[Any] = None
+        self._outbound_backlog = 0  # last sweep's aggregate (gauge)
+        # the telemetry plane (telemetry): stage clocks, histograms, the
+        # /metrics exposition, the $SYS tree and the flight recorder
+        self.telemetry: Optional[Any] = None
+        # the trace plane (tracing): span ring + device profiler
+        self.tracer: Optional[Any] = None
+        self.profiler: Optional[Any] = None
+        # the host observatory (profiling): sampling wall profiler +
+        # topic-cardinality sketch; the lock plane is armed in serve()
+        self.host_profiler: Optional[Any] = None
+        self.topic_sketch: Optional[Any] = None
+        self._lock_plane_armed = False
+        if opts.telemetry:
+            from .telemetry import Telemetry
+
+            self.telemetry = Telemetry(
+                sample=opts.telemetry_sample,
+                ring=opts.telemetry_ring,
+                dump_dir=opts.telemetry_dump_dir,
+                dump_min_interval_s=opts.telemetry_dump_min_interval_ms / 1e3,
+            )
+            self._ops.telemetry = self.telemetry
+            self._register_core_gauges()
+            if opts.trace and opts.trace_sample > 0:
+                from .tracing import Tracer
+
+                self.tracer = Tracer(
+                    sample=opts.trace_sample,
+                    ring=opts.trace_ring,
+                    registry=self.telemetry.registry,
+                )
+                self.tracer.adopt_max_per_s = opts.trace_adopt_max_per_s
+                self.telemetry.attach_tracer(self.tracer, exemplars=opts.trace_exemplars)
+            if opts.profile:
+                # the sampling thread starts in serve(), so a Server that
+                # is built but never served spawns no thread
+                from .profiling import SamplingProfiler, TopicSketch
+
+                self.host_profiler = SamplingProfiler(
+                    hz=opts.profile_hz,
+                    ring=opts.profile_ring,
+                    registry=self.telemetry.registry,
+                )
+                self.telemetry.attach_profiler(self.host_profiler)
+                if opts.profile_topics > 0:
+                    self.topic_sketch = TopicSketch(k=opts.profile_topics)
+                    sk = self.topic_sketch
+                    r = self.telemetry.registry
+                    r.gauge(
+                        "mqtt_tpu_topic_sketch_tracked",
+                        "Topics currently tracked by the space-saving sketch",
+                        fn=lambda: sk.tracked,
+                    )
+                    r.gauge(
+                        "mqtt_tpu_topic_sketch_avg_hits",
+                        "Observed average hits per admitted topic (device "
+                        "compaction-buffer sizing; sampled publishes)",
+                        fn=sk.avg_hits_per_topic,
+                    )
+                    r.counter(
+                        "mqtt_tpu_topic_sketch_evictions_total",
+                        "Space-saving evictions (sketch churn under high "
+                        "topic cardinality)",
+                        fn=lambda: sk.evictions,
+                    )
+            if opts.profile_locks:
+                # export the per-lock wait/hold families now; arming waits
+                # for serve(), so a Server that is never served costs
+                # nothing
+                from .utils.locked import DEFAULT_PLANE
+
+                self.telemetry.attach_lock_plane(DEFAULT_PLANE)
+        # the SLO observatory (slo): the delivery-latency SLI gate plus the
+        # burn-rate engine when objectives are declared; evaluate() rides
+        # the housekeeping tick
+        self.slo: Optional[Any] = None
+        # the per-card plane, built further down once the matcher and the
+        # device profiler exist to attach
+        self.device_stats: Optional[Any] = None
+        if self.telemetry is not None:
+            self.telemetry.delivery_sli = bool(opts.slo)
+            if opts.slo and opts.slo_objectives:
+                from .slo import SLOEngine, parse_objectives
+
+                objectives = parse_objectives(opts.slo_objectives)
+                if objectives:
+                    self.slo = SLOEngine(
+                        self.telemetry,
+                        objectives,
+                        burn_threshold=opts.slo_burn_threshold,
+                        publish=self._publish_slo_transition,
+                    )
+                    self.telemetry.attach_slo(self.slo)
+        if opts.overload_control:
+            from .overload import OverloadConfig, OverloadGovernor
+
+            self.overload = OverloadGovernor(
+                OverloadConfig(
+                    throttle_enter=opts.overload_throttle_enter,
+                    throttle_exit=opts.overload_throttle_exit,
+                    shed_enter=opts.overload_shed_enter,
+                    shed_exit=opts.overload_shed_exit,
+                    min_dwell_s=opts.overload_min_dwell_ms / 1e3,
+                    eval_interval_s=opts.overload_eval_interval_ms / 1e3,
+                    quota_window_s=opts.overload_quota_window_ms / 1e3,
+                    publish_quota=opts.overload_publish_quota,
+                    throttle_delay_s=opts.overload_throttle_delay_ms / 1e3,
+                    shed_quota=opts.overload_shed_quota,
+                    eviction_grace_s=opts.overload_eviction_grace_ms / 1e3,
+                    admission_reserve=opts.overload_admission_reserve,
+                    priority_weights=dict(opts.overload_priority_classes or {}),
+                )
+            )
+            self._ops.overload = self.overload
+            self.overload.add_source("outbound", self._outbound_pressure)
+            if opts.overload_memory_limit_mb > 0:
+                limit = opts.overload_memory_limit_mb * 1024 * 1024
+                self.overload.add_source("memory", lambda: rss_bytes() / limit)
+        registry = self.telemetry.registry if self.telemetry is not None else None
         # the MQTT+ payload-predicate plane: suffix registry + host
         # interpreter + the rule table on the card. Built before the
         # matcher so the staging loop can carry its feature batches.
@@ -542,6 +858,7 @@ class Server:
             self._predicates = PredicateEngine(
                 max_rules=opts.predicate_max_rules,
                 oracle_sample=opts.predicate_oracle_sample,
+                registry=registry,
                 device=opts.device,
             )
         # the multi-tenant plane: tenant registry + CONNECT resolution + the
@@ -552,13 +869,14 @@ class Server:
         if opts.tenancy:
             from .tenancy import RecryptEngine, TenantPlane
 
-            self._tenancy = TenantPlane()
+            self._tenancy = TenantPlane(registry=registry)
             self._tenancy.configure(opts.tenants, opts.tenant_users, opts.tenant_default)
             if opts.recrypt:
                 self._recrypt = RecryptEngine(
                     self._tenancy.keys,
                     oracle_sample=opts.recrypt_oracle_sample,
                     device_min_blocks=opts.recrypt_device_min_blocks,
+                    registry=registry,
                     device=opts.device,
                 )
         # device-resident retained matching: wildcard-SUBSCRIBE retained
@@ -596,13 +914,16 @@ class Server:
                 for source in kernels.SOURCES:
                     kernels.library(source)
             # compaction knobs ride beside matcher_opts (which wins on
-            # conflict)
+            # conflict); the hits-per-topic capacity seed comes from the
+            # topic sketch when the host observatory is on
             mopts: dict = {
                 "compact": opts.matcher_compact,
                 "compact_capacity": opts.matcher_compact_capacity,
                 "lazy": opts.matcher_lazy_views,
                 "device": opts.device,
             }
+            if self.topic_sketch is not None:
+                mopts["hits_estimate"] = max(2.0, self.topic_sketch.avg_hits_per_topic())
             mopts.update(opts.matcher_opts or {})
             self.matcher = DeltaMatcher(self.topics, **mopts)
             if opts.matcher_resilience:
@@ -623,9 +944,73 @@ class Server:
                         verify_sample=opts.breaker_verify_sample,
                     ),
                 )
+        if self.telemetry is not None:
+            self._wire_telemetry()
         if opts.inline_client:
             self.inline_client = self.new_client(None, None, LOCAL_LISTENER, INLINE_CLIENT_ID, True)
             self.clients.add_client(self.inline_client)
+
+    def _wire_telemetry(self) -> None:
+        """Hook the telemetry plane to the planes built before it: the
+        governor's SHED and the matcher breaker's trip dump the flight
+        recorder, the matcher's rebuilds feed the rebuild histogram, the
+        device profiler is attached to the snapshot matcher (the stage
+        reads the same object), the per-card plane is built on
+        ``Options.device``, and the durable and retained families are
+        registered."""
+        opts = self.options
+        tele = self.telemetry
+        if self.overload is not None:
+            self.overload.on_transition = self._overload_transition
+        if self.matcher is not None:
+            stats = getattr(self.matcher, "stats", None)
+            if stats is not None:
+                # compile/rebuild/fold wall times -> rebuild histogram
+                stats.rebuild_observer = tele.rebuild_hist.observe
+            snap = getattr(self.matcher, "_snap", None)
+            if self.tracer is not None:
+                # the device pipeline profiler: the snapshot matcher stamps
+                # each batch's dispatch and D2H windows on the record the
+                # stage opens, and folds them into duty cycle, overlap and
+                # idle gaps per card
+                from .tracing import DeviceProfiler
+
+                self.profiler = DeviceProfiler(registry=tele.registry)
+                if snap is not None and hasattr(snap, "profiler"):
+                    snap.profiler = self.profiler
+            breaker = getattr(self.matcher, "breaker", None)
+            if breaker is not None:
+                prev_trip = breaker.on_trip
+
+                def _trip_dump(_prev=prev_trip):
+                    # fires after the breaker lock is released
+                    # (_fire_on_trip)
+                    if _prev is not None:
+                        _prev()
+                    tele.trigger_dump("breaker_trip", {"trigger": "matcher_breaker"})
+
+                breaker.on_trip = _trip_dump
+        if opts.device_stats:
+            # the per-card plane on Options.device: memory gauges, the
+            # first-launch ledger and the skew gauge; it adopts the device
+            # profiler's per-card windows and a sharded snapshot's tile
+            # state when they exist
+            from .ops.devicestats import DeviceStatsPlane
+
+            plane = DeviceStatsPlane(
+                registry=tele.registry,
+                hbm_watermark=opts.device_hbm_watermark,
+                device=opts.device,
+            )
+            if self.profiler is not None:
+                plane.attach_profiler(self.profiler)
+            for cand in (getattr(self.matcher, "_snap", None), self.matcher):
+                if cand is not None and hasattr(cand, "device_skew_ratio"):
+                    plane.attach_matcher(cand)
+                    break
+            tele.attach_device_stats(plane)
+            self.device_stats = plane
+        self._register_durable_metrics()
 
     # -- construction ------------------------------------------------------
 
@@ -665,10 +1050,9 @@ class Server:
         if t == TYPE_HEALTHCHECK:
             return HTTPHealthCheck(conf)
         if t == TYPE_SYSINFO:
-            # the stats listener also answers GET /healthz (health_report);
-            # the port has no telemetry plane, so /metrics and the other
-            # telemetry routes answer 404 as the JAX listener's do with
-            # telemetry off
+            # the stats listener also serves GET /metrics, /traces,
+            # /profile and /devices from the telemetry plane, and GET
+            # /healthz (health_report)
             return HTTPStats(conf, self.info, self.telemetry, health=self.health_report)
         self.log.error("listener type unavailable by config: %s", conf.type)
         return None
@@ -732,8 +1116,12 @@ class Server:
                 predicates=self._predicates,
                 pipeline_depth=self.options.matcher_stage_pipeline_depth,
                 recrypt=self._recrypt,
+                profiler=self.profiler,
+                telemetry=self.telemetry,
             )
             self._stage.start()
+            if self.overload is not None:
+                self.overload.add_source("staging", self._stage.pressure)
             if self.options.trace_torch_profiler_dir:
                 # the deep-dive capture: the stage's counters say WHETHER
                 # the card idles, a profiler trace says WHY. A capture
@@ -751,6 +1139,17 @@ class Server:
                     self.options.trace_torch_profiler_dir,
                 )
 
+        if self.host_profiler is not None:
+            # the sampling thread is a daemon and only reads
+            # sys._current_frames, so it starts before traffic and runs
+            # until close()
+            self.host_profiler.start()
+        if self.telemetry is not None and self.telemetry.lock_plane is not None and not self._lock_plane_armed:
+            # arm the lock-contention plane for this broker's lifetime
+            # (refcounted: brokers in one process cannot disarm each
+            # other; close() releases this server's hold)
+            self.telemetry.lock_plane.arm()
+            self._lock_plane_armed = True
         for listener in list(self.listeners.internal.values()):
             await listener.init(self.log)
         self._event_loop_task = asyncio.get_running_loop().create_task(self._event_loop())
@@ -791,9 +1190,298 @@ class Server:
             self.clear_expired_retained_messages(now)
             self.send_delayed_lwt(now)
             self.clear_expired_inflights(now)
+            self.sweep_overload()
+            if self.slo is not None:
+                # SLO burn-rate evaluation rides the housekeeping tick:
+                # transitions publish $SYS and dump from here (the
+                # event-loop context the $SYS publisher requires)
+                try:
+                    self.slo.evaluate()
+                except Exception:
+                    self.log.exception("SLO evaluation failed")
             if time.monotonic() >= next_sys:
                 self.publish_sys_topics()
                 next_sys = time.monotonic() + sys_interval
+
+    # -- telemetry plane (telemetry) -----------------------------------------
+
+    @staticmethod
+    def _view_materializations() -> int:
+        """The C view module's materialization count."""
+        from .ops.matcher import _accel
+
+        acc = _accel()
+        if acc is None or not hasattr(acc, "view_stats"):
+            return 0
+        return acc.view_stats()["materializations"]
+
+    def _register_core_gauges(self) -> None:
+        """Scrape-time gauges over state other layers already maintain:
+        the $SYS Info counters, matcher stats and the governor's posture
+        all surface on /metrics without a second bookkeeping path."""
+        r = self.telemetry.registry
+        info = self.info
+        # monotonic Info fields export as callback-backed COUNTERS: the
+        # _total suffix promises counter semantics
+        for name, attr in (
+            ("mqtt_tpu_messages_received_total", "messages_received"),
+            ("mqtt_tpu_messages_sent_total", "messages_sent"),
+            ("mqtt_tpu_messages_dropped_total", "messages_dropped"),
+            ("mqtt_tpu_packets_received_total", "packets_received"),
+            ("mqtt_tpu_packets_sent_total", "packets_sent"),
+            ("mqtt_tpu_bytes_received_total", "bytes_received"),
+            ("mqtt_tpu_bytes_sent_total", "bytes_sent"),
+        ):
+            r.counter(name, f"$SYS mirror of Info.{attr}", fn=lambda a=attr: getattr(info, a))
+        for name, attr in (
+            ("mqtt_tpu_clients_connected", "clients_connected"),
+            ("mqtt_tpu_subscriptions", "subscriptions"),
+            ("mqtt_tpu_retained_messages", "retained"),
+            ("mqtt_tpu_inflight_messages", "inflight"),
+        ):
+            r.gauge(name, f"$SYS mirror of Info.{attr}", fn=lambda a=attr: getattr(info, a))
+        r.gauge(
+            "mqtt_tpu_uptime_seconds",
+            "Monotonic seconds since broker start (clock-step immune)",
+            fn=info.uptime_now,
+        )
+        r.gauge(
+            "mqtt_tpu_overload_state_code",
+            "Overload governor posture (0=normal 1=throttle 2=shed)",
+            fn=lambda: (0 if self.overload is None else self.overload.gauges()["state_code"]),
+        )
+        r.gauge(
+            "mqtt_tpu_overload_pressure",
+            "Max normalized pressure across governor signals",
+            fn=lambda: 0.0 if self.overload is None else self.overload.pressure,
+        )
+        r.gauge(
+            "mqtt_tpu_stage_pending_depth",
+            "Publishes parked in the staging loop",
+            fn=lambda: 0 if self._stage is None else self._stage.pending_depth,
+        )
+        r.gauge(
+            "mqtt_tpu_staging_pipeline_depth",
+            "Device batches in flight across the staging pipeline legs",
+            fn=lambda: (0 if self._stage is None else self._stage.inflight_batches),
+        )
+        # how often a lazy SubscribersView was forced into the eager dicts
+        # (shared groups, predicates, differential verification)
+        r.counter(
+            "mqtt_tpu_fanout_view_materializations_total",
+            "Lazy fan-out views forced into materialized Subscribers "
+            "dicts (the C view module's own count)",
+            fn=self._view_materializations,
+        )
+        r.counter(
+            "mqtt_tpu_staging_compact_overflow_total",
+            "Batches whose compacted hits outgrew the pair buffer and "
+            "fell back to the padded path (MatcherStats.compact_overflows)",
+            fn=lambda: (0 if self.matcher is None else getattr(self.matcher.stats, "compact_overflows", 0)),
+        )
+        r.gauge(
+            "mqtt_tpu_outbound_backlog",
+            "Aggregate publishes parked in client outbound queues "
+            "(last overload-sweep sample)",
+            fn=lambda: self._outbound_backlog,
+        )
+        r.gauge(
+            "mqtt_tpu_fanout_amplification_ratio",
+            "Outbound PUBLISH encodes per inbound PUBLISH — the "
+            "per-subscriber re-encode waste",
+            fn=lambda: (self.telemetry.publish_encodes.value / max(1, info.messages_received)),
+        )
+        for name, field_ in (
+            ("mqtt_tpu_matcher_batches_total", "batches"),
+            ("mqtt_tpu_matcher_topics_total", "topics"),
+            ("mqtt_tpu_matcher_host_fallbacks_total", "host_fallbacks"),
+            ("mqtt_tpu_matcher_overflows_total", "overflows"),
+            ("mqtt_tpu_matcher_rebuilds_total", "rebuilds"),
+            ("mqtt_tpu_matcher_folds_total", "folds"),
+            ("mqtt_tpu_matcher_host_fast_total", "host_fast"),
+            ("mqtt_tpu_matcher_compact_batches_total", "compact_batches"),
+            ("mqtt_tpu_matcher_d2h_bytes_total", "d2h_bytes"),
+        ):
+            r.counter(
+                name,
+                f"MatcherStats.{field_} (0 when no device matcher)",
+                fn=lambda f=field_: (0 if self.matcher is None else getattr(self.matcher.stats, f, 0)),
+            )
+
+    def _register_durable_metrics(self) -> None:
+        """Recovery, durable-store and retained-engine families. All
+        callback-backed: a scrape reads the live counters; zeros when no
+        durable hook or engine is configured."""
+        r = self.telemetry.registry
+        r.gauge(
+            "mqtt_tpu_durable_recovery_seconds",
+            "Wall seconds the last restart spent restoring persisted "
+            "state (store replay + bulk re-registration)",
+            fn=lambda: self._durable["recovery_seconds"],
+        )
+        r.counter(
+            "mqtt_tpu_durable_replayed_keys_total",
+            "Keys replayed from durable-store segments/snapshots at the "
+            "last restart (sum across storage hooks)",
+            fn=lambda: self._durable["replayed_keys"],
+        )
+        r.gauge(
+            "mqtt_tpu_durable_recovering",
+            "1 while restored state is still being re-registered "
+            "(healthz holds 503), else 0",
+            fn=lambda: 1 if self._durable["recovering"] else 0,
+        )
+        r.counter(
+            "mqtt_tpu_durable_restore_batches_total",
+            "Bulk re-registration batches used by the last restore "
+            "(subscriptions + retained, staging.bulk_*)",
+            fn=lambda: self._durable["restore_batches"],
+        )
+        r.gauge(
+            "mqtt_tpu_durable_segments",
+            "Live log segments across durable storage hooks",
+            fn=lambda: self._durable_store_stats().get("segments", 0),
+        )
+        r.gauge(
+            "mqtt_tpu_durable_snapshot_age_seconds",
+            "Seconds since the newest durable snapshot (-1 when none)",
+            fn=lambda: self._durable_store_stats().get("snapshot_age_seconds", -1.0),
+        )
+        r.counter(
+            "mqtt_tpu_durable_replay_corruptions_total",
+            "Corrupt records hit during segment replay (CRC/frame "
+            "failures — each truncates one segment's tail)",
+            fn=lambda: self._durable_store_stats().get("replay_corruptions", 0),
+        )
+        eng = self._retained_engine
+        r.counter(
+            "mqtt_tpu_retained_device_matches_total",
+            "Retained-topic SUBSCRIBE matches answered by the device "
+            "kernel (ops.retained)",
+            fn=lambda: 0 if eng is None else eng.device_matches,
+        )
+        r.counter(
+            "mqtt_tpu_retained_oracle_checks_total",
+            "Differential host-walk oracle comparisons run by the "
+            "retained-match engine",
+            fn=lambda: 0 if eng is None else eng.oracle_checks,
+        )
+        r.counter(
+            "mqtt_tpu_retained_oracle_mismatches_total",
+            "Oracle comparisons where device and host disagreed (host "
+            "won; breaker counted a failure)",
+            fn=lambda: 0 if eng is None else eng.oracle_mismatches,
+        )
+        r.counter(
+            "mqtt_tpu_retained_host_fallbacks_total",
+            "Retained matches served by the host walk while the engine "
+            "was active (depth/filter/overflow/error/breaker classes)",
+            fn=lambda: 0 if eng is None else sum(eng.fallbacks.values()),
+        )
+
+    def _publish_slo_transition(self, name: str, payload: dict) -> None:
+        """Publish one objective's breach/recovery as a retained
+        ``$SYS/broker/slo/<name>`` message (slo calls this on transitions
+        only, from the housekeeping tick's event-loop context)."""
+        pk = Packet(
+            fixed_header=FixedHeader(type=pkts.PUBLISH, retain=True),
+            created=int(time.time()),  # brokerlint: ok=R3 $SYS transition stamps are wall-clock (operator-correlatable)
+        )
+        pk.topic_name = SYS_PREFIX + "/broker/slo/" + name
+        pk.payload = json.dumps(payload).encode()
+        self.topics.retain_message(pk.copy(False))
+        if self._retained_engine is not None:
+            self._retained_engine.note_retained(pk.topic_name, True)
+        self.publish_to_subscribers(pk)
+
+    def _overload_transition(self, old: str, new: str) -> None:
+        """Governor transition observer: entering SHED dumps the flight
+        recorder, so the storm arrives with a stage-level trace."""
+        from .overload import SHED
+
+        if new == SHED:
+            extra = {"from": old, "to": new}
+            try:
+                extra["gauges"] = self.overload.gauges()
+            except Exception:  # pragma: no cover  # brokerlint: ok=R4 best-effort dump context; the flight dump itself still fires
+                pass
+            self.telemetry.trigger_dump("overload_shed", extra)
+
+    # -- overload control plane (overload) -----------------------------------
+
+    def _outbound_pressure(self) -> float:
+        """Aggregate outbound backlog — publishes parked in every client's
+        bounded outbound queue — normalized against the configured cap
+        (the governor's 'subscribers are not draining' signal)."""
+        clients = self.clients
+        try:
+            # lock-free iteration: the signal is a statistical sample
+            total = sum(cl.state.outbound_qty for cl in clients.internal.values())
+        except RuntimeError:  # a connect/disconnect resized mid-walk
+            total = sum(cl.state.outbound_qty for cl in clients.get_all().values())
+        self._outbound_backlog = total
+        return total / self.options.overload_max_outbound_backlog
+
+    def sweep_overload(self) -> int:
+        """One governor housekeeping pass (event-loop tick, 1 Hz): force a
+        pressure evaluation, then evict slow consumers while shedding —
+        DISCONNECT 0x97 Quota Exceeded, so their backlog frees.
+
+        A slow consumer shows up two ways: its bounded outbound queue
+        stays full (drops accumulate — ``outbound_full_since`` from the
+        drop paths), or its transport write buffer stays past the
+        configured watermark (asyncio buffers unsent bytes unboundedly).
+        Either condition persisting past the grace window while SHED
+        evicts the client. Returns the evictions performed."""
+        ov = self.overload
+        if ov is None:
+            return 0
+        ov.evaluate(force=True)
+        buf_limit = self.options.overload_client_buffer_limit_bytes
+        now = time.monotonic()
+        evicted = 0
+        for cl in self.clients.get_all().values():
+            if cl.net.inline or cl.closed:
+                continue
+            buffered = 0
+            if cl.net.writer is not None:
+                try:
+                    buffered = cl.net.writer.transport.get_write_buffer_size()
+                except Exception:
+                    buffered = 0
+            qfull = cl.state.outbound.full()
+            # a consumer whose buffer SHRANK since the last sweep is
+            # draining — behind, but alive; only a backlog that never
+            # recedes marks a stalled consumer
+            draining = buffered < cl.state.sweep_buffered
+            cl.state.sweep_buffered = buffered
+            if draining or not (buffered > buf_limit or qfull):
+                cl.state.backlog_over_since = None
+            elif cl.state.backlog_over_since is None:
+                cl.state.backlog_over_since = now
+            over_since = cl.state.backlog_over_since
+            # the drop clock may predate this sweep's first observation
+            full_since = cl.state.outbound_full_since
+            if qfull and not draining and full_since is not None:
+                over_since = full_since if over_since is None else min(over_since, full_since)
+            if over_since is not None and ov.evict_due(over_since):
+                ov.note_eviction()
+                evicted += 1
+                self.log.warning(
+                    "evicting slow consumer under overload: client=%s "
+                    "backlogged_for=%.1fs buffered=%dB queue_full=%s",
+                    cl.id,
+                    now - over_since,
+                    buffered,
+                    qfull,
+                )
+                try:
+                    self.disconnect_client(cl, ERR_QUOTA_EXCEEDED)
+                except Code:
+                    pass
+                # a GRACEFUL close: a victim that resumes reading still
+                # sees its queued publishes and the 0x97 DISCONNECT
+        return evicted
 
     # -- durable session plane ---------------------------------------------
 
@@ -856,8 +1544,9 @@ class Server:
         registry identity into the tenant namespace, so two tenants' equal
         client ids can never collide or take each other's sessions over.
         Runs AFTER authentication (an unauthenticated client must not
-        resolve into a tenant). The tenant's quota class is recorded on
-        the client; the port has no governor that weighs it yet."""
+        resolve into a tenant) and BEFORE _assign_priority_class (a
+        per-user class mapping overrides the tenant-wide one); the
+        tenant's quota class weighs the governor's quotas."""
         plane = self._tenancy
         if plane is None or cl.net.inline:
             return
@@ -875,7 +1564,60 @@ class Server:
         cl.tenant = tenant
         cl.id = scope_client_id(tenant.name, cl.id)
         if tenant.quota_class:
+            weights = self.options.overload_priority_classes or {}
             cl.priority_class = tenant.quota_class
+            cl.priority_weight = float(weights.get(tenant.quota_class, 1.0))
+
+    def _assign_priority_class(self, cl: Client) -> None:
+        """Resolve the client's shed-priority class at CONNECT: the config
+        map keys on username first, then client id; the class's quota
+        multiplier is cached on the client so the admit/read-delay hot
+        paths pay one attribute read."""
+        users = self.options.overload_priority_users
+        if not users:
+            return
+        username = cl.properties.username
+        uname = (
+            username.decode("utf-8", "replace")
+            if isinstance(username, (bytes, bytearray))
+            else username
+        )
+        cid = cl.id
+        if cid[:1] == NS_CHAR:
+            # tenant clients are registered under their scoped id; the
+            # operator's map keys on the id the client actually sent
+            from .tenancy import local_client_id
+
+            cid = local_client_id(cid)
+        klass = users.get(uname) or users.get(cid)
+        if klass is None:
+            return
+        cl.priority_class = klass
+        weights = self.options.overload_priority_classes or {}
+        cl.priority_weight = float(weights.get(klass, 1.0))
+
+    def _connect_admission(self, cl: Client, listener: str) -> Optional[Code]:
+        """The per-listener CONNECT admission verdict: None admits; a Code
+        refuses (the caller CONNACKs it and drops the connection).
+        Local/inline attachments and listeners configured with
+        ``admission=False`` are exempt; admin-ACL clients (read access to
+        the $SYS tree) draw from the governor's always-admit reserve."""
+        ov = self.overload
+        if ov is None or not self.options.overload_admission or cl.net.inline or listener == LOCAL_LISTENER:
+            return None
+        lst = self.listeners.get(listener)
+        if lst is not None and not getattr(lst.config, "admission", True):
+            return None
+        if self._draining:
+            ov.note_connect_refused()  # the gauge counts 0x89s too
+            return ERR_SERVER_BUSY  # 0x89: drain, not quota
+        # the ACL walk runs lazily inside admit_connect: only when the
+        # governor would otherwise refuse and reserve budget remains
+        if ov.admit_connect(
+            admin=lambda: self.hooks.on_acl_check(cl, SYS_PREFIX + "/broker/overload/state", False)
+        ):
+            return None
+        return ERR_QUOTA_EXCEEDED  # 0x97
 
     async def establish_connection(self, listener: str, reader, writer) -> None:
         """Attach a newly accepted connection (server.go:398-401)."""
@@ -918,6 +1660,23 @@ class Server:
                 raise ERR_BAD_USERNAME_OR_PASSWORD()
 
             self._resolve_tenant(cl)
+            self._assign_priority_class(cl)
+            # per-listener admission: a broker in THROTTLE/SHED refuses NEW
+            # connections up front — CONNACK 0x97 Quota Exceeded (0x89
+            # while draining) — except the small always-admit reserve for
+            # admin-ACL clients. After authentication, deliberately: an
+            # unauthenticated client claiming the admin identity must not
+            # burn the operator's reserve
+            refusal = self._connect_admission(cl, listener)
+            if refusal is not None:
+                if cl.properties.protocol_version < 5:
+                    # v3 CONNACK codes stop at 5: 0x97/0x89 have no
+                    # translation, so the v3 wire answer is the one the
+                    # maximum_clients refusal uses
+                    self.send_connack(cl, ERR_SERVER_UNAVAILABLE, False, None)
+                else:
+                    self.send_connack(cl, refusal, False, None)
+                raise refusal()
 
             with self._conn_lock:
                 self.info.clients_connected += 1
@@ -1418,6 +2177,58 @@ class Server:
         if pk.fixed_header.qos > self.options.capabilities.maximum_qos:
             pk.fixed_header.qos = self.options.capabilities.maximum_qos  # [MQTT-3.2.2-9]
 
+        # overload admission (overload): while SHEDDING, traffic past the
+        # per-client window budget is refused GRACEFULLY — QoS0 drops
+        # (counted), QoS1/2 acks 0x97 Quota Exceeded (v5; v3/v4 acks carry
+        # no reason code, so the excess is simply not fanned out). Runs
+        # after alias resolution so alias state stays coherent across
+        # sheds, and never touches $SYS/LWT/retained housekeeping (those
+        # flow through publish_to_subscribers, not here).
+        if (
+            not cl.net.inline
+            and self.overload is not None
+            and not self.overload.admit(cl)
+        ):
+            self.info.messages_dropped += 1
+            if cl.tenant is not None:
+                # per-tenant shed accounting: quota classes must be
+                # visibly shaping who sheds
+                cl.tenant.messages_dropped += 1
+            if pk.fixed_header.qos == 0:
+                return
+            ack_type = pkts.PUBREC if pk.fixed_header.qos == 2 else pkts.PUBACK
+            cl.write_packet(
+                self.build_ack(
+                    pk.packet_id, ack_type, 0, pk.properties, ERR_QUOTA_EXCEEDED
+                )
+            )
+            return
+
+        # telemetry stage clock (attached by the read loop on sampled
+        # publishes): everything from decode's end to here — validation,
+        # quota, alias resolution, the overload admission verdict
+        clock = getattr(pk, "_tclock", None)
+        tele = self.telemetry
+        if tele is not None and tele.tracer is not None and pk.properties.user:
+            # an inbound v5 `trace-id` user property adopts the client's
+            # trace id (tracing); off the adopted path this is one
+            # empty-list check
+            clock = tele.adopt_trace(pk)
+        if clock is not None:
+            clock.stamp("admission")
+            if self.topic_sketch is not None:
+                # the same 1-in-N publishes that carry a clock feed the
+                # topic sketch (profiling)
+                self.topic_sketch.observe(pk.topic_name)
+            trace_id = getattr(clock, "trace_id", None)
+            if trace_id is not None and self.options.trace_user_property:
+                # client-visible traces: subscribers see the trace id as a
+                # v5 user property
+                from .telemetry import TRACE_USER_PROPERTY
+
+                if not any(u.key == TRACE_USER_PROPERTY for u in pk.properties.user):
+                    pk.properties.user.append(UserProperty(TRACE_USER_PROPERTY, trace_id))
+
         try:
             pk = self.hooks.on_publish(cl, pk)
         except Code as e:
@@ -1464,6 +2275,7 @@ class Server:
             if self._stage is not None and not cl.net.inline:
                 return self._staged_fan_out(cl, pk)
             self.publish_to_subscribers(pk)
+            self._finish_publish_clock(pk)
             self.hooks.on_published(cl, pk)
             return None
 
@@ -1491,8 +2303,44 @@ class Server:
         if self._stage is not None and not cl.net.inline:
             return self._staged_fan_out(cl, pk)
         self.publish_to_subscribers(pk)
+        self._finish_publish_clock(pk)
         self.hooks.on_published(cl, pk)
         return None
+
+    def _finish_publish_clock(self, pk: Packet) -> None:
+        """Close out a sampled publish's stage clock after fan-out: the
+        final stamp is the fanout write leg, then the record lands in the
+        per-stage histograms and the flight-recorder ring, and the
+        arrival->flush total in the per-tenant delivery-latency SLI
+        (path=local), the number the SLO engine burns against. The
+        cluster's remote path has no counterpart in the port."""
+        clock = getattr(pk, "_tclock", None)
+        if clock is not None:
+            setattr(pk, "_tclock", None)  # a clock observes exactly once
+            if not any(s in ("encode", "flush") for s, _ in clock.stages):
+                # the batched path already split the fan-out leg into
+                # encode/flush sub-stamps; telemetry synthesizes the coarse
+                # ``fanout`` stage from their sum
+                clock.stamp("fanout")
+            self.telemetry.observe_publish(clock, pk.topic_name, pk.fixed_header.qos)
+            self._observe_delivery_sli(clock, pk)
+
+    def _observe_delivery_sli(self, clock, pk: Packet) -> None:
+        """Fold one finished clock into the delivery-latency SLI: the
+        tenant label comes off the scoped topic, the value is the clock's
+        decode->flush total."""
+        tele = self.telemetry
+        if tele is None or not tele.delivery_sli:
+            return
+        topic = pk.topic_name
+        tenant = ns_tenant(topic) if topic[:1] == NS_CHAR else ""
+        tele.observe_delivery(
+            clock.total(),
+            tenant,
+            pk.fixed_header.qos,
+            "local",
+            trace_id=getattr(clock, "trace_id", None),
+        )
 
     async def _staged_fan_out(self, cl: Client, pk: Packet) -> None:
         """Fan out one publish through the staging loop: the device match
@@ -1513,8 +2361,9 @@ class Server:
             # encrypted-namespace publishes carry a decrypt job whose
             # keystream launch rides the same staged batch
             rjob = self._recrypt_job_for(cl, pk)
-            subscribers = await self._stage.submit(pk.topic_name, feats, rjob)
+            subscribers = await self._stage.submit(pk.topic_name, getattr(pk, "_tclock", None), feats, rjob)
             self._fan_out(pk, subscribers, feats, rjob)
+            self._finish_publish_clock(pk)
         self.hooks.on_published(cl, pk)
 
     def _retained_quota_refused(self, cl: Client, pk: Packet) -> bool:
@@ -1649,13 +2498,30 @@ class Server:
             and not (ids and any(v > 0 for v in ids.values()))
         )
 
-    def _enqueue_frame(self, tcl: Client, data: bytes, pk_source) -> bool:
+    def _stamp_outbound(self, tcl: Client) -> None:
+        """Sampled outbound queue-wait accounting: every successful
+        enqueue bumps the client's sequence; 1-in-N also records the
+        enqueue time, and the write loop (clients._write_loop) matches
+        the sequence on dequeue to observe the wait."""
+        st = tcl.state
+        st.out_seq += 1
+        tele = self.telemetry
+        if tele is not None and tele.sample_outbound():
+            st.out_stamps.append((st.out_seq, time.perf_counter()))
+
+    def _enqueue_frame(self, tcl: Client, data: bytes, pk_source, count_delivery: bool = True) -> bool:
         """Queue a pre-encoded frame on a target's bounded outbound queue;
         False = dropped (queue full) with the shared drop accounting.
-        ``pk_source()`` materializes the Packet for on_publish_dropped."""
+        ``pk_source()`` materializes the Packet for on_publish_dropped.
+        ``count_delivery`` keeps $SYS housekeeping fan-out out of the
+        amplification accounting."""
         try:
             tcl.state.outbound.put_nowait(data)
             tcl.state.outbound_full_since = None
+            self._stamp_outbound(tcl)
+            if count_delivery and self.telemetry is not None:
+                # a shared-frame delivery without an encode
+                self.telemetry.fanout_deliveries.inc()
             return True
         except asyncio.QueueFull:
             if tcl.state.outbound_full_since is None:
@@ -1706,11 +2572,38 @@ class Server:
         if plan is None:
             return False
 
+        # telemetry stage clock for the passthrough leg: its "decode"
+        # stage is near-zero by design (the fast path skips packet
+        # materialization)
+        clock = None
+        if self.telemetry is not None:
+            clock = self.telemetry.publish_clock()
+            if clock is not None:
+                clock.stamp("decode")
+
         self.info.packets_received += 1
         self.info.messages_received += 1
+        if self.overload is not None and not self.overload.admit(cl):
+            # overload shed: the passthrough frame is QoS0 by construction,
+            # so the shed is a counted silent drop
+            self.info.messages_dropped += 1
+            return True
         if not self.hooks.on_acl_check(cl, topic, True):
             return True  # QoS0 deny is a silent drop (server.go:879-881)
+        if clock is not None:
+            clock.stamp("admission")
+            if self.topic_sketch is not None:
+                self.topic_sketch.observe(topic)
         self._fast_fan_frame(plan, topic, frame, body_offset, cl.id)
+        if clock is not None:
+            clock.stamp("fanout")
+            self.telemetry.observe_publish(clock, topic, 0)
+            if self.telemetry.delivery_sli:
+                # tenants never ride this path (fast_publish_eligible), so
+                # the label is the global namespace
+                self.telemetry.observe_delivery(
+                    clock.total(), "", 0, "local", trace_id=getattr(clock, "trace_id", None)
+                )
         return True
 
     def _plan_for_topic(self, topic: str):
@@ -1888,7 +2781,7 @@ class Server:
         elif self._fanout_batch and not self.hooks.provides(ON_PACKET_ENCODE, ON_PACKET_SENT):
             # encode-once variant-grouped delivery with the batched
             # GIL-released flush
-            self._fan_out_batched(dpk, items)
+            self._fan_out_batched(dpk, items, getattr(pk, "_tclock", None))
         else:
             # the per-subscriber path (hooks that observe encodes/sends, or
             # the batching knob off): QoS0 still shares frames through the
@@ -1897,7 +2790,10 @@ class Server:
             if dpk.fixed_header.qos == 0 and not self.hooks.provides(
                 ON_PACKET_ENCODE, ON_PACKET_SENT
             ):
-                fast = _FrameCache(dpk)
+                # $SYS housekeeping republishes every interval with no
+                # inbound publish behind it: keep it out of the encode and
+                # delivery amplification accounting
+                fast = _FrameCache(dpk, None if dpk.topic_name.startswith("$SYS") else self.telemetry)
             for id_, subs in items:
                 cl = self.clients.get(id_)
                 if cl is not None:
@@ -1931,7 +2827,7 @@ class Server:
                         "failed publishing aggregate: error=%s client=%s", e, target
                     )
 
-    def _fan_out_batched(self, dpk: Packet, items) -> None:
+    def _fan_out_batched(self, dpk: Packet, items, clock=None) -> None:
         """Encode-once variant-grouped fan-out. Targets are grouped by
         (protocol version, effective QoS, retain), the complete set of
         per-target wire differences once aliasing/size-caps/positive-
@@ -1941,9 +2837,12 @@ class Server:
         delivery batch); targets whose session forces a per-subscriber
         rewrite take publish_to_client. Per-socket backpressure (bounded
         outbound queues) and every drop counter behave exactly as the
-        per-subscriber path."""
+        per-subscriber path. A sampled publish's ``clock`` is stamped
+        ``encode`` after the variants' encodes and ``flush`` after their
+        delivery."""
         topic = dpk.topic_name
         sys_topic = topic.startswith("$SYS")
+        amp_tele = None if sys_topic else self.telemetry
         caps = self.options.capabilities
         origin = dpk.origin
         clients_get = self.clients.get
@@ -1991,6 +2890,9 @@ class Server:
                 data = bytes(buf)
             finally:
                 put_buffer(buf)
+            if amp_tele is not None:
+                amp_tele.publish_encodes.inc()
+                amp_tele.fanout_variants.inc()
             id_off = -1
             if eff > 0:
                 # packet id sits right after the topic in the variable
@@ -1998,6 +2900,8 @@ class Server:
                 # present)
                 id_off = publish_frame_body_offset(data) + 2 + len(topic.encode("utf-8"))
             variants.append((eff, retain, data, id_off, group))
+        if clock is not None:
+            clock.stamp("encode")
 
         for eff, retain, data, id_off, group in variants:
             self._flush_variant(dpk, eff, retain, data, id_off, group, sys_topic)
@@ -2008,6 +2912,8 @@ class Server:
                 self.log.debug("failed publishing packet: error=%s client=%s", e, cl.id)
             else:
                 self._note_tenant_out(cl, dpk)
+        if clock is not None:
+            clock.stamp("flush")
 
     def _flush_variant(
         self,
@@ -2060,7 +2966,7 @@ class Server:
                     flush.append((cl, fd, pid))
                     continue
                 frame = data if id_off < 0 else self._patch_id(data, id_off, pid)
-                if not self._enqueue_frame(cl, frame, lambda: dpk):
+                if not self._enqueue_frame(cl, frame, lambda: dpk, count_delivery=not sys_topic):
                     if eff > 0:
                         self._rollback_qos_delivery(cl, pid)
                     continue
@@ -2076,10 +2982,13 @@ class Server:
             id_off,
             [pid for _, _, pid in flush] if id_off >= 0 else None,
         )
+        if self.telemetry is not None:
+            self.telemetry.fanout_writev_batches.inc()
+        count_delivery = not sys_topic
         n = len(data)
         for (cl, _fd, pid), wrote in zip(flush, sent.tolist()):
             if wrote == n:
-                self._note_direct_write(cl, n)
+                self._note_direct_write(cl, n, count_delivery)
             elif wrote >= 0:
                 # short write (kernel buffer filled mid-frame): finish
                 # through the transport; ordering-safe, the transport
@@ -2090,12 +2999,12 @@ class Server:
                 except Exception as e:
                     self.log.debug("fan-out flush tail failed: error=%s client=%s", e, cl.id)
                     continue
-                self._note_direct_write(cl, n)
+                self._note_direct_write(cl, n, count_delivery)
             else:
                 # -errno (EAGAIN-before-anything, or the connection is
                 # going away): the transport path owns delivery + errors
                 frame = data if id_off < 0 else self._patch_id(data, id_off, pid)
-                if not self._transport_write_frame(cl, frame):
+                if not self._transport_write_frame(cl, frame, count_delivery):
                     continue
             # accounting only on a delivery that actually went out
             self._note_tenant_out(cl, dpk)
@@ -2160,15 +3069,22 @@ class Server:
         cl.state.inflight.delete(pid)
         cl.state.inflight.increase_send_quota()
 
-    def _note_direct_write(self, cl: Client, nbytes: int) -> None:
-        """Accounting for one completed direct-socket delivery: the
-        io counters ``clients.write_frame`` keeps."""
+    def _note_direct_write(self, cl: Client, nbytes: int, count_delivery: bool) -> None:
+        """Accounting for one completed direct-socket delivery: the union
+        of ``clients.write_frame``'s io counters and ``_enqueue_frame``'s
+        delivery count."""
         self.info.bytes_sent += nbytes
         self.info.packets_sent += 1
         self.info.messages_sent += 1
         st = cl.state
         st.out_bytes += nbytes
         st.out_writes += 1
+        tele = self.telemetry
+        if tele is not None:
+            tele.outbound_bytes.inc(nbytes)
+            tele.outbound_writes.inc()
+            if count_delivery:
+                tele.fanout_deliveries.inc()
 
     @staticmethod
     def _note_tenant_out(cl: Client, dpk: Packet) -> None:
@@ -2177,7 +3093,7 @@ class Server:
             cl.tenant.messages_out += 1
             cl.tenant.bytes_out += len(dpk.payload)
 
-    def _transport_write_frame(self, cl: Client, frame: bytes) -> bool:
+    def _transport_write_frame(self, cl: Client, frame: bytes, count_delivery: bool) -> bool:
         """Delivery of a pre-encoded frame through the asyncio transport
         (the native flush refused the socket); False = the write was not
         accepted."""
@@ -2186,6 +3102,8 @@ class Server:
         except Exception as e:
             self.log.debug("failed publishing packet: error=%s client=%s", e, cl.id)
             return False
+        if count_delivery and self.telemetry is not None:
+            self.telemetry.fanout_deliveries.inc()
         return True
 
     def _key_idents(self, cid: str, cl: Optional[Client] = None) -> tuple:
@@ -2378,6 +3296,9 @@ class Server:
             finally:
                 put_buffer(buf)
             head = frame[: len(frame) - payload_len]
+            if self.telemetry is not None:
+                self.telemetry.publish_encodes.inc()
+                self.telemetry.fanout_variants.inc()
             idxs = [ki for _cl, ki in group]
             if ks2d is not None:
                 rows_bytes = [
@@ -2446,7 +3367,7 @@ class Server:
             data = fast.get(cl.properties.protocol_version, retain)
             if cl.net.writer is None or cl.closed:
                 raise CODE_DISCONNECT()
-            if not self._enqueue_frame(cl, data, lambda: pk):
+            if not self._enqueue_frame(cl, data, lambda: pk, count_delivery=not topic.startswith("$SYS")):
                 raise ERR_PENDING_CLIENT_WRITES_EXCEEDED()
             return pk
 
@@ -2509,8 +3430,10 @@ class Server:
         try:
             cl.state.outbound.put_nowait(out)
             cl.state.outbound_full_since = None
+            self._stamp_outbound(cl)
         except asyncio.QueueFull:
             if cl.state.outbound_full_since is None:
+                # slow-consumer eviction clock (the governor's SHED posture)
                 cl.state.outbound_full_since = time.monotonic()
             self.info.messages_dropped += 1
             self.hooks.on_publish_dropped(cl, pk)
@@ -3102,6 +4025,27 @@ class Server:
                         ns_scope_topic(t.name, SYS_PREFIX + "/broker/tenant/" + key)
                     ] = str(val)
                     topics[SYS_PREFIX + f"/broker/tenants/{t.name}/" + key] = str(val)
+        if self.overload is not None:
+            # the governor: state, transition/shed/eviction/throttle
+            # counters, per-signal pressures (signal/*) and their
+            # high-water marks (peak/*)
+            for key, val in self.overload.gauges().items():
+                topics[SYS_PREFIX + "/broker/overload/" + key] = str(val)
+            topics[SYS_PREFIX + "/broker/overload/outbound_backlog"] = str(self._outbound_backlog)
+            if self._stage is not None:
+                st = self._stage
+                topics[SYS_PREFIX + "/broker/overload/stage_pending"] = str(st.pending_depth)
+                topics[SYS_PREFIX + "/broker/overload/stage_peak_pending"] = str(st.peak_pending)
+                topics[SYS_PREFIX + "/broker/overload/stage_admission_fallbacks"] = str(st.admission_fallbacks)
+        if self.telemetry is not None:
+            # the telemetry plane: stage histogram percentiles, batch
+            # occupancy, fallback classes, queue wait, flight recorder
+            for key, val in self.telemetry.sys_tree().items():
+                topics[SYS_PREFIX + "/broker/telemetry/" + key] = str(val)
+        if self.device_stats is not None:
+            # the per-card plane: memory, duty cycles, skew and the ledger
+            for key, val in self.device_stats.sys_tree().items():
+                topics[SYS_PREFIX + "/broker/devices/" + key] = str(val)
         pk = Packet(
             fixed_header=FixedHeader(type=pkts.PUBLISH, retain=True),
             created=now,
@@ -3126,17 +4070,18 @@ class Server:
     def health_report(self) -> tuple[bool, dict]:
         """The ``GET /healthz`` readiness snapshot: ``(ready, body)``.
 
-        Not ready (503) while shutting down, while restored state is still
-        re-registering, or with a dead staging pipeline. A breaker that is
-        not closed DEGRADES (named in ``degraded``, readiness holds): the
-        broker still serves through the trie walk. The JAX server's
-        governor, cluster, SLO and device-plane branches wait for those
-        planes; the port's retained engine has no breaker, so there is no
-        ``retained_breaker`` entry."""
+        Not ready (503) only for conditions under which the broker should
+        be pulled from rotation: draining/shutdown, restored state still
+        re-registering, a governor in SHED, or a dead staging pipeline. A
+        breaker that is not closed, a breached SLO or a card past its
+        memory watermark DEGRADE (named in ``degraded``, readiness holds):
+        the broker still serves. The port has no worker cluster, so there
+        is no ``cluster`` entry, and its retained engine has no breaker, so
+        there is no ``retained_breaker`` entry."""
         not_ready: list[str] = []
         degraded: list[str] = []
         detail: dict = {}
-        if self.done.is_set():
+        if self._draining or self.done.is_set():
             not_ready.append("draining")
         if self._durable["recovering"]:
             # a load balancer must not route sessions at a half-restored map
@@ -3147,6 +4092,13 @@ class Server:
                 "recovery_seconds": round(self._durable["recovery_seconds"], 3),
                 "replayed_keys": self._durable["replayed_keys"],
             }
+        gov = self.overload
+        if gov is not None:
+            from .overload import SHED
+
+            detail["governor"] = {"state": str(gov.state), "pressure": round(gov.pressure, 4)}
+            if gov.state == SHED:
+                not_ready.append("governor_shed")
         stage = self._stage
         if stage is not None:
             alive = stage.alive()
@@ -3164,6 +4116,29 @@ class Server:
                 detail["matcher_breaker"] = {"state": state}
                 if state != "closed":
                     degraded.append("matcher_breaker_" + state)
+        if self.slo is not None:
+            breached = sorted(name for name, st in self.slo.state().items() if st.get("breached"))
+            detail["slo"] = {"objectives": len(self.slo.objectives)}
+            if breached:
+                detail["slo"]["breached"] = breached
+                degraded.append("slo_breached")
+        plane = self.device_stats
+        if plane is not None:
+            # memory past the watermark or a breached skew objective
+            # DEGRADE; readiness never flips on device telemetry
+            ratio = plane.hbm_ratio()
+            detail["devices"] = {
+                "hbm_ratio": round(ratio, 4),
+                "hbm_watermark": plane.hbm_watermark,
+                "skew_ratio": round(plane.skew_ratio(), 4),
+            }
+            if ratio >= plane.hbm_watermark and ratio > 0.0:
+                degraded.append("hbm_watermark")
+            if self.slo is not None and any(
+                st.get("breached") and st.get("family") == "mqtt_tpu_device_skew_ratio"
+                for st in self.slo.state().values()
+            ):
+                degraded.append("device_skew")
         ok = not not_ready
         detail["ok"] = ok
         detail["not_ready"] = not_ready
@@ -3173,6 +4148,7 @@ class Server:
     async def close(self) -> None:
         """Gracefully stop the server, listeners, clients, and hooks
         (server.go:1495-1504)."""
+        self._draining = True  # late CONNECTs now refuse with 0x89
         self.done.set()
         self.log.info("gracefully stopping server")
         await self.listeners.close_all(self._close_listener_clients)
@@ -3192,6 +4168,15 @@ class Server:
             self.log.info("torch.profiler trace written: %s", path)
         if self.matcher is not None:
             self.matcher.close()
+        if self.host_profiler is not None:
+            self.host_profiler.stop()
+        if self._lock_plane_armed:
+            self._lock_plane_armed = False
+            self.telemetry.lock_plane.disarm()
+        if self.telemetry is not None:
+            # a trigger dump still being written finishes before the
+            # process may exit
+            await asyncio.get_running_loop().run_in_executor(None, self.telemetry.recorder.join_writer)
         self.hooks.on_stopped()
         self.hooks.stop()
         if self._event_loop_task is not None:
@@ -3214,6 +4199,15 @@ class Server:
             # session takeover is not an ungraceful disconnect: the
             # inheriting connection IS the client, so the old connection's
             # will must not fire
+            cl.properties.will = Will()
+            return
+        if self.overload is not None and not self.overload.admit(cl):
+            # wills ride the same shed accounting as live publishes: a
+            # will storm against a broker already in SHED is dropped and
+            # counted, never a governor bypass
+            self.info.messages_dropped += 1
+            if cl.tenant is not None:
+                cl.tenant.messages_dropped += 1
             cl.properties.will = Will()
             return
         modified = self.hooks.on_will(cl, cl.properties.will)
@@ -3490,6 +4484,14 @@ class Server:
         for id_, pk in self.will_delayed.get_all().items():
             if dt > pk.expiry:
                 cl = self.clients.get(id_)
+                if cl is not None and self.overload is not None and not self.overload.admit(cl):
+                    # delayed wills obey the shed accounting too
+                    self.info.messages_dropped += 1
+                    if cl.tenant is not None:
+                        cl.tenant.messages_dropped += 1
+                    cl.properties.will = Will()
+                    self.will_delayed.delete(id_)
+                    continue
                 self.publish_to_subscribers(pk)  # [MQTT-3.1.2-8]
                 if pk.fixed_header.retain:
                     if cl is not None:

@@ -37,6 +37,24 @@ pipelined batch engine:
   thread and hands it to the matcher, which stamps the batch's issue and
   D2H windows on it (attach the same profiler to the matcher's snapshot,
   ``DeltaMatcher.snapshot.profiler``).
+- With a telemetry plane (``telemetry.Telemetry``, ``telemetry=``) every
+  batch's resolve time and fill go to its histograms, the h2d and d2h
+  legs' handoff waits to ``mqtt_tpu_staging_leg_wait_seconds``, and host
+  resolutions to the fallback counters. A sampled publish's stage clock
+  (``submit(topic, clock)``) is stamped ``staging_wait`` when its batch
+  forms; when the batch resolves, its ``BatchProfile`` splits the device
+  trip into three stamps. ``h2d`` ends when the issue leg returns: the
+  tokenizing, the index copies and the launch and the asynchronous D2H
+  copy queued on the card's stream. ``device_dispatch`` ends when the
+  resolver starts its wait on the copy's event, so it holds the time the
+  batch sat queued behind the pipeline and whatever of the kernel the
+  host did not wait for. ``d2h`` ends when ``torch.cuda.Event.synchronize``
+  returns and the pinned buffer is read: the rest of the kernel and the
+  transfer. A batch with no device window (the exact map, a host route,
+  no profiler attached) is stamped ``device_batch`` whole.
+- ``pressure()`` is the overload governor's ``staging`` signal: parked
+  publishes over ``max_pending``, and the batch queue's fill at half
+  weight.
 - A failure on any leg (a kernel that fails to build or launch, a failed
   copy) is set on the affected batch's futures, so it reaches each
   publisher: a host path would move the work off the card without a
@@ -44,7 +62,15 @@ pipelined batch engine:
 - Admission is BOUNDED (``max_pending``): under a publish storm the parked
   list never grows past its cap — overflow (and submissions whose
   projected pipeline wait already exceeds the deadline) resolves via the
-  host walk immediately.
+  host walk at once.
+- The window and the cap read each batch's service on the event loop's
+  clock, as in the JAX stage: a batch's completion and its publishers'
+  wake-ups run on the loop, so the loop's delay is part of what a bigger
+  batch costs. The admission deadline reads the same leg timed on the
+  resolve thread itself (the D2H wait and the materialization): the JAX
+  stage reads the loop's clock there too, so a loop busy with the
+  publishers' I/O trips its deadline although the device keeps up, and
+  the host walk it diverts to runs on that same busy loop.
 
 The restart leg (``bulk_register``, ``bulk_inflight``, ``bulk_retain``)
 re-seats persisted subscriptions, inflight and retained messages in
@@ -55,6 +81,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
@@ -84,8 +111,13 @@ class MatchStage:
         max_pending: int = 8192,
         pipeline_depth: int = 3,
         profiler=None,
+        telemetry=None,
     ) -> None:
         self.matcher = matcher
+        # the telemetry plane (telemetry.Telemetry) or None: batch service
+        # and fill histograms, the legs' handoff waits, the fallback
+        # counters and the sampled stage clocks' stamps flow through it
+        self.telemetry = telemetry
         self.host_fallback = host_fallback
         # device pipeline profiler (tracing.DeviceProfiler) or None: the
         # issue leg opens each batch's record for the matcher to stamp
@@ -110,7 +142,7 @@ class MatchStage:
         self.peak_pending = 0
         # host-walk resolutions by class (admission, stop)
         self.fallbacks: dict[str, int] = {}
-        # parked publishes: (topic, future, feats, rjob). submit(), the collector and the
+        # parked publishes: (topic, future, clock, feats, rjob). submit(), the collector and the
         # drainer all run on the stage's loop (start()'s), so no lock
         self._pending: list[tuple] = []
         self._wake: Optional[asyncio.Event] = None
@@ -124,6 +156,8 @@ class MatchStage:
         self.inflight_batches = 0
         self._stopping = False
         self._ewma_s = 0.0  # per-batch service-time EWMA (drainer-updated)
+        # the same leg timed on the resolve thread: the deadline's input
+        self._resolve_ewma_s = 0.0
         # the most recent batches' (size, resolve seconds): the D2H wait
         # plus host materialization of each batch, in drain order
         self.service_log: deque = deque(maxlen=4096)
@@ -146,14 +180,18 @@ class MatchStage:
             return 0.0  # over budget already: dispatch immediately
         return min(self.window_s, 0.5 * self._ewma_s, headroom)
 
-    def _observe_service(self, dt: float, n: int, depth: int) -> None:
+    def _observe_service(self, dt: float, n: int, depth: int, resolve_s: float) -> None:
         """Feed one batch's resolve wall time into the controller: grow
         the cap while service time is comfortably under budget, shrink it
         proportionally when a batch overruns. ``depth`` is the number of
         batches that were queued behind this one: the budget bounds
-        depth x service, not one batch's service."""
+        depth x service, not one batch's service. ``resolve_s`` is the
+        same leg on the resolve thread's clock, for the deadline."""
         self._ewma_s = dt if self._ewma_s == 0.0 else (
             0.7 * self._ewma_s + 0.3 * dt
+        )
+        self._resolve_ewma_s = resolve_s if self._resolve_ewma_s == 0.0 else (
+            0.7 * self._resolve_ewma_s + 0.3 * resolve_s
         )
         budget = self.latency_budget_s
         if budget is None or n <= 0:
@@ -178,6 +216,17 @@ class MatchStage:
         if self._stopping or self._wake is None:
             return False
         return bool(self._tasks) and all(not t.done() for t in self._tasks)
+
+    def pressure(self) -> float:
+        """Normalized staging pressure for the overload governor: parked
+        admission depth against its cap, plus the batch queue's fill at
+        half weight (a full queue is normal pipelining; sustained
+        _pending growth is the real overload signal)."""
+        p = len(self._pending) / self.max_pending
+        q = 0.0
+        if self._queue is not None and self.pipeline_depth > 0:
+            q = self._queue.qsize() / self.pipeline_depth
+        return max(p, 0.5 * q)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -229,9 +278,11 @@ class MatchStage:
 
     # -- submission --------------------------------------------------------
 
-    def submit(self, topic: str, feats=None, rjob=None) -> "asyncio.Future[Subscribers]":
+    def submit(self, topic: str, clock=None, feats=None, rjob=None) -> "asyncio.Future[Subscribers]":
         """Park one publish; the future resolves with its Subscribers.
-        Call it on the stage's loop. ``feats`` is the publish's optional
+        Call it on the stage's loop. ``clock`` is an optional sampled stage
+        clock (telemetry.StageClock), stamped when the batch forms
+        (``staging_wait``) and when it resolves. ``feats`` is the publish's optional
         payload-feature carrier and ``rjob`` its optional decrypt job:
         their device results come back ON the carriers; a publish the host
         walk resolves leaves them unstamped (the fan-out's host paths
@@ -248,7 +299,7 @@ class MatchStage:
             return fut
         admitted = not (len(self._pending) >= self.max_pending or self._past_deadline())
         if admitted:
-            self._pending.append((topic, fut, feats, rjob))
+            self._pending.append((topic, fut, clock, feats, rjob))
             self.peak_pending = max(self.peak_pending, len(self._pending))
         if not admitted:
             self.admission_fallbacks += 1
@@ -262,16 +313,18 @@ class MatchStage:
         """Deadline-aware admission: a new submission waits behind every
         queued batch plus every parked batch-worth of _pending; when that
         projected wait exceeds twice the latency budget, the host walk
-        serves it now. An IDLE pipeline always admits, whatever the EWMA
-        says (the estimate only heals through real dispatches)."""
+        serves it now. The wait is projected from the resolve thread's
+        EWMA: the device side's time, which the walk can save. An IDLE
+        pipeline always admits, whatever the EWMA says (the estimate only
+        heals through real dispatches)."""
         budget = self.latency_budget_s
-        if budget is None or self._ewma_s <= 0.0:
+        if budget is None or self._resolve_ewma_s <= 0.0:
             return False
         qdepth = self._queue.qsize() if self._queue is not None else 0
         if qdepth == 0 and not self._pending:
             return False  # idle: admit, and let the EWMA re-learn
         depth = 1 + qdepth + len(self._pending) // max(1, self._batch_cap)
-        return depth * self._ewma_s > 2.0 * budget
+        return depth * self._resolve_ewma_s > 2.0 * budget
 
     # -- pipeline ----------------------------------------------------------
 
@@ -300,25 +353,35 @@ class MatchStage:
                 continue
             topics = [item[0] for item in batch]
             futs = [item[1] for item in batch]
-            feats = [item[2] for item in batch]
-            rjobs = [item[3] for item in batch]
+            clocks = [item[2] for item in batch]
+            feats = [item[3] for item in batch]
+            rjobs = [item[4] for item in batch]
+            for c in clocks:
+                if c is not None:  # end of the accumulation/park wait
+                    c.stamp("staging_wait")
+            t_formed = time.perf_counter()
             matcher, predicates, recrypt = self.matcher, self.predicates, self.recrypt
-            profiler = self.profiler
+            profiler, telemetry = self.profiler, self.telemetry
 
             def issue():
-                if profiler is not None:
-                    # the batch's OWN record: resolves on the executor can
-                    # never cross-attribute another batch's windows
-                    resolver = matcher.match_topics_async(topics, profile=profiler.open_batch())
+                if telemetry is not None:
+                    # h2d-leg handoff wait: batch formed -> issue start
+                    telemetry.observe_leg_wait("h2d", time.perf_counter() - t_formed)
+                # the batch's OWN record: resolves on the executor (or the
+                # breaker's guard threads) can never cross-attribute
+                # another batch's windows
+                rec = profiler.open_batch() if profiler is not None else None
+                if rec is not None:
+                    resolver = matcher.match_topics_async(topics, profile=rec)
                 else:
                     resolver = matcher.match_topics_async(topics)
                 pred_resolver = predicates.eval_batch_async(feats) if predicates is not None else None
                 rec_resolver = recrypt.issue_batch(rjobs) if recrypt is not None else None
-                return resolver, pred_resolver, rec_resolver
+                return (resolver, pred_resolver, rec_resolver), rec
 
             loop = asyncio.get_running_loop()
             try:
-                resolvers = await loop.run_in_executor(self._h2d_executor, issue)
+                resolvers, rec = await loop.run_in_executor(self._h2d_executor, issue)
             except asyncio.CancelledError:
                 # stop() cancelled us with this batch in hand: resolve it
                 self._fallback_all(batch, klass="stop")
@@ -327,9 +390,10 @@ class MatchStage:
                 _log.exception("stage issue failed")
                 self._fail_all(futs, e)
                 continue
+            t_ready = time.perf_counter()
             self.inflight_batches += 1
             try:
-                await queue.put((resolvers, futs, topics, feats))
+                await queue.put((resolvers, futs, topics, feats, clocks, rec, t_ready))
             except asyncio.CancelledError:
                 self.inflight_batches -= 1
                 self._fallback_all(batch, klass="stop")
@@ -339,8 +403,9 @@ class MatchStage:
         loop = asyncio.get_running_loop()
         queue = self._queue
         assert queue is not None  # start() created us
+        telemetry = self.telemetry
         while True:
-            resolvers, futs, topics, feats = await queue.get()
+            resolvers, futs, topics, feats, clocks, rec, t_ready = await queue.get()
             try:
                 # the D2H waits block — run them off the loop, all three
                 # legs in one executor call. Queue depth is sampled at
@@ -348,16 +413,26 @@ class MatchStage:
                 # so the controller budgets depth x service.
                 depth = queue.qsize() + 1
                 t0 = loop.time()
-                results, pred_rows, rec_rows = await loop.run_in_executor(
-                    self._executor, lambda: tuple(r() if r is not None else None for r in resolvers)
-                )
+
+                def sync(resolvers=resolvers, t_ready=t_ready):
+                    t_sync = time.perf_counter()
+                    if telemetry is not None:
+                        # d2h-leg handoff wait: issued (queued behind the
+                        # pipeline) -> the resolve leg starts
+                        telemetry.observe_leg_wait("d2h", t_sync - t_ready)
+                    out = tuple(r() if r is not None else None for r in resolvers)
+                    return out, time.perf_counter() - t_sync
+
+                (results, pred_rows, rec_rows), resolve_s = await loop.run_in_executor(self._executor, sync)
                 if pred_rows is not None:
                     self.predicates.attach_rows(feats, pred_rows)
                 if rec_rows is not None:
                     self.recrypt.attach(rec_rows)
                 dt = loop.time() - t0
                 self.service_log.append((len(topics), dt))
-                self._observe_service(dt, len(topics), depth)
+                self._observe_service(dt, len(topics), depth, resolve_s)
+                if telemetry is not None:
+                    telemetry.observe_batch(dt, len(topics), self._batch_cap)
             except asyncio.CancelledError:
                 # stop() cancelled us with this batch already popped
                 self.inflight_batches -= 1
@@ -369,7 +444,20 @@ class MatchStage:
                 self._fail_all(futs, e)
                 continue
             self.inflight_batches -= 1
-            for fut, subs in zip(futs, results):
+            # this batch's own device-timing record: both windows are set
+            # only when the batch dispatched to the card and synced; the
+            # exact map and the host routes leave them None, and the
+            # coarse device_batch stamp applies
+            dispatch = rec.dispatch if rec is not None else None
+            d2h = rec.d2h if rec is not None else None
+            for fut, subs, ck in zip(futs, results, clocks):
+                if ck is not None:
+                    if dispatch is not None and d2h is not None:
+                        ck.stamp_until("h2d", dispatch[1])
+                        ck.stamp_until("device_dispatch", d2h[0])
+                        ck.stamp_until("d2h", d2h[1])
+                    else:
+                        ck.stamp("device_batch")
                 if not fut.done():
                     fut.set_result(subs)
 
@@ -381,6 +469,8 @@ class MatchStage:
 
     def _note_fallback(self, klass: str, n: int) -> None:
         self.fallbacks[klass] = self.fallbacks.get(klass, 0) + n
+        if self.telemetry is not None:
+            self.telemetry.note_fallback(klass, n)
 
     def _fallback_all(self, items, klass: str = "stop") -> None:
         """Resolve parked items via the host walk. ``items`` yield

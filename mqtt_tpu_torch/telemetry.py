@@ -1,32 +1,92 @@
-"""The metrics core: counters, gauges and log-scale histograms in a
-registry that renders the Prometheus text exposition format.
+"""The telemetry plane: the metrics registry, the per-publish stage
+clock, Prometheus text exposition and a trigger-dumped flight recorder.
 
-A copy of the JAX package's ``mqtt_tpu/telemetry.py`` metrics core, cut
-to what the port's device plane uses: ``Histogram`` (with ``live``,
-``merge`` and the percentile extraction), ``Counter``, ``Gauge`` and
-``MetricsRegistry`` (children stored or backed by a scrape-time callback,
-``exposition()`` and the flat ``sys_tree()``), with ``check_exposition``,
-the text-format checker the tests use. Family names are the JAX
-package's (``mqtt_tpu_*``), so one dashboard reads both packages; the
-same observations render byte-identical text.
+A copy of the JAX package's ``mqtt_tpu/telemetry.py``; family names,
+``$SYS`` keys and the rendering are the JAX package's (``mqtt_tpu_*``), so
+one dashboard reads both packages and the same observations render
+byte-identical text.
 
-Not ported here: the stage clock, the flight recorder, the telemetry
-facade, federation summaries and histogram exemplars (the JAX package's
-``StageClock``, ``FlightRecorder``, ``Telemetry``, ``ClusterMetrics``).
+- ``MetricsRegistry``: monotonic counters, gauges (stored or
+  callback-sampled at scrape time) and fixed-bucket log-scale
+  ``Histogram``s with p50/p95/p99 extraction and optional per-bucket
+  trace exemplars. ``exposition()`` renders the text format served at
+  ``GET /metrics`` (listeners/http.py) and ``sys_tree()`` the retained
+  ``$SYS/broker/telemetry/#`` map (server.publish_sys_topics).
+- ``StageClock``: one sampled publish's trip through the pipeline —
+  decode -> admission -> staging wait -> h2d -> device dispatch -> d2h ->
+  encode/flush — stamped at each boundary and folded per stage into
+  histograms. Sampling is 1-in-N (``Options.telemetry_sample``); the
+  unsampled hot path pays one integer increment and one modulo. On the
+  card the three device legs come from each batch's
+  ``tracing.BatchProfile`` (see ``staging.MatchStage``).
+- ``FlightRecorder``: a bounded ring of recent stage-clock records that
+  dumps a JSON snapshot to disk when the overload governor enters SHED,
+  a breaker trips or an SLO breaches. Dumps are rate-limited.
+- ``Telemetry``: the facade every instrumented layer talks to, with the
+  delivery-latency SLI family the SLO engine burns against.
+
+Not ported here: the worker cluster's halves (``RemoteStageClock``,
+``ClusterMetrics`` and the registry's federation ``summary()``); the
+facade's ``cluster_metrics`` stays None, so ``GET /metrics/cluster``
+answers 404.
 """
-
 from __future__ import annotations
 
+import json
 import logging
 import math
+import os
 import re
+import tempfile
+import threading
+import time
 from bisect import bisect_left
+from collections import deque
 from typing import Any, Callable, Optional
 
 _log = logging.getLogger("mqtt_tpu_torch.telemetry")
 
-# per-batch fill ratios (the sharded matcher's per-tile compact capacity)
-FILL_BOUNDS = tuple(round(0.1 * i, 1) for i in range(1, 11))
+# the publish pipeline's stage names, in pipeline order (the flight
+# recorder and the bench telemetry block both key on these). The trace
+# plane (tracing) resolves ``device_batch`` into the three
+# device sub-stages when the device profiler is wired; ``device_batch``
+# stays populated as their sum so rounds diff across the split
+# (exp/stage_gate.py).
+PUBLISH_STAGES = (
+    "decode",
+    "admission",
+    "staging_wait",
+    "h2d",
+    "device_dispatch",
+    "d2h",
+    "device_batch",
+    "encode",
+    "flush",
+    "fanout",
+)
+
+# the device sub-stages the staging drain loop stamps when a device
+# profiler is attached (canonical here — tracing re-exports)
+DEVICE_SUBSTAGES = ("h2d", "device_dispatch", "d2h")
+
+# the fan-out sub-stages the batched write path stamps:
+# ``encode`` covers variant grouping + the per-variant frame encodes,
+# ``flush`` the delivery flush (batched writev + queue fallbacks).
+# ``fanout`` stays populated as their sum — same continuity contract as
+# the device_batch split (exp/stage_gate.py diffs old rounds unchanged).
+FANOUT_SUBSTAGES = ("encode", "flush")
+
+# the MQTT v5 user-property key a trace id rides on (client-visible
+# traces, and adoption of client-supplied ids — tracing)
+TRACE_USER_PROPERTY = "trace-id"
+
+# delivery-path labels on the per-tenant delivery-latency SLI
+#: "local" is arrival-at-decode -> frame-flush on one
+# worker; "remote" is the origin worker's elapsed stamp plus the
+# receiving worker's delivery segment (network transit between the two
+# is not measurable without synced clocks — the trace plane joins the
+# two segments by id instead)
+DELIVERY_PATHS = ("local", "remote")
 
 
 def _fmt(v) -> str:
@@ -41,6 +101,15 @@ def _fmt(v) -> str:
             return str(int(v))
         return repr(v)
     return str(v)
+
+
+def _exemplar_str(exemplars: Optional[list], i: int) -> str:
+    """The OpenMetrics-style exemplar suffix for one bucket line —
+    ``# {trace_id="..."} <value>`` — or "" when the bucket has none."""
+    if exemplars is None or exemplars[i] is None:
+        return ""
+    v, trace_id = exemplars[i]
+    return f' # {{trace_id="{escape_label_value(trace_id)}"}} {_fmt(float(v))}'
 
 
 def escape_label_value(v: str) -> str:
@@ -63,14 +132,16 @@ class Histogram:
     counts in that bucket). Log-scale keeps relative error bounded at
     every magnitude, which is what latency percentiles need.
 
-    Single-writer per instance; cross-thread aggregation goes through
-    ``merge`` — each thread owns a shard and the scrape merges them. A
-    registry child may instead be backed by a scrape-time callback
-    returning a merged snapshot (``fn``, see :meth:`live`): the sharded
-    matcher's per-shard compile histograms render this way.
+    Single-writer per instance (asyncio data plane or one worker
+    thread); cross-thread aggregation goes through ``merge`` — each
+    thread owns a shard and the scrape merges them. A registry child
+    may instead be backed by a scrape-time callback returning a merged
+    snapshot (``fn``, see :meth:`live`): the sharded matcher's
+    per-shard compile histograms render this way without the workers
+    ever sharing a hot write path.
     """
 
-    __slots__ = ("bounds", "counts", "count", "sum", "fn")
+    __slots__ = ("bounds", "counts", "count", "sum", "fn", "exemplars")
 
     def __init__(
         self,
@@ -87,6 +158,18 @@ class Histogram:
         self.count = 0
         self.sum = 0.0
         self.fn: Optional[Callable[[], "Histogram"]] = None
+        # per-bucket (value, trace_id) exemplars, last-write-wins; None
+        # until enable_exemplars() — the off-trace observe() path pays
+        # one is-None check (tracing / OpenMetrics exemplars)
+        self.exemplars: Optional[list] = None
+
+    def enable_exemplars(self) -> None:
+        """Retain the last sampled (value, trace_id) per bucket; the
+        exposition cross-links a p99 bucket to a concrete recorded
+        trace. Merge() deliberately ignores exemplars (shard merges are
+        scrape-time aggregates; the shards keep their own)."""
+        if self.exemplars is None:
+            self.exemplars = [None] * (len(self.bounds) + 1)
 
     def live(self) -> "Histogram":
         """The histogram to render at scrape time: the callback's merged
@@ -102,12 +185,14 @@ class Histogram:
             return self
         return merged if isinstance(merged, Histogram) else self
 
-    def observe(self, v: float) -> None:
+    def observe(self, v: float, trace_id: Optional[str] = None) -> None:
         # bisect_left(bounds, v): first bound >= v — exactly `le`
         i = bisect_left(self.bounds, v)
         self.counts[i] += 1
         self.count += 1
         self.sum += v
+        if trace_id is not None and self.exemplars is not None:
+            self.exemplars[i] = (v, trace_id)
 
     def percentile(self, q: float) -> float:
         """The q-quantile's bucket upper bound (0.0 when empty; the
@@ -133,6 +218,19 @@ class Histogram:
         self.count += other.count
         self.sum += other.sum
 
+    def count_le(self, v: float) -> int:
+        """Observations in buckets whose upper bound is <= ``v`` — the
+        'good event' count for a latency SLO threshold. The threshold is
+        snapped DOWN to the largest bucket bound at or below it, so an
+        off-bucket threshold errs toward counting borderline
+        observations as bad (an SLO gate should alarm early, not late —
+        slo)."""
+        # bisect_right-style: first bound strictly greater than v
+        i = bisect_left(self.bounds, v)
+        if i < len(self.bounds) and self.bounds[i] == v:
+            i += 1
+        return sum(self.counts[:i])
+
     def summary(self) -> dict:
         return {
             "count": self.count,
@@ -147,8 +245,10 @@ class Counter:
     """A monotonic counter (single-writer; the GIL makes ``+=`` on the
     slot safe enough for telemetry from helper threads). Like Gauge it
     may instead be backed by a scrape-time callback — for mirroring
-    counters another layer already maintains (an engine's own counts)
-    without a second bookkeeping path."""
+    counters another layer already maintains (system.Info,
+    MatcherStats) without a second bookkeeping path, while still
+    exposing honest ``# TYPE counter`` metadata for the ``_total``
+    series."""
 
     __slots__ = ("_value", "fn")
 
@@ -211,16 +311,20 @@ class _Family:
 
 class MetricsRegistry:
     """Named metric families with labeled children and two renderers:
-    Prometheus text exposition and the flat ``$SYS`` topic map."""
+    Prometheus text exposition and the flat $SYS topic map."""
 
     def __init__(self) -> None:
-        # every scrape walks this lock against concurrent child
-        # registration, so it is itself a measured contention point.
-        # Imported here: utils/locked imports this module's Histogram
+        # lock-plane adoption (utils.locked): every scrape
+        # walks this lock against concurrent child registration, so it
+        # is itself a measured contention point. Lazy import — locked.py
+        # imports this module's Histogram.
         from .utils.locked import InstrumentedLock
 
         self._lock = InstrumentedLock("metrics_registry")
         self._families: dict[str, _Family] = {}
+        # render per-bucket trace exemplars in exposition() (OpenMetrics
+        # style; set via Telemetry.attach_tracer — Options.trace_exemplars)
+        self.emit_exemplars = False
 
     def _child(self, name: str, mtype: str, help_: str, labels: dict, maker):
         if not _NAME_RE.match(name):
@@ -282,7 +386,8 @@ class MetricsRegistry:
         return "{" + ",".join(parts) + "}" if parts else ""
 
     def exposition(self) -> str:
-        """The Prometheus text exposition format (version 0.0.4)."""
+        """The Prometheus text exposition format (version 0.0.4) served
+        at ``GET /metrics``."""
         with self._lock:
             families = sorted(self._families.items())
         out: list[str] = []
@@ -299,13 +404,19 @@ class MetricsRegistry:
                     )
                 else:  # Histogram (callback-backed ones snapshot here)
                     child = child.live()
+                    ex = child.exemplars if self.emit_exemplars else None
                     acc = 0
                     for i, bound in enumerate(child.bounds):
                         acc += child.counts[i]
                         le = self._labels_str(key, f'le="{_fmt(float(bound))}"')
-                        out.append(f"{name}_bucket{le} {acc}")
+                        out.append(
+                            f"{name}_bucket{le} {acc}" + _exemplar_str(ex, i)
+                        )
                     le = self._labels_str(key, 'le="+Inf"')
-                    out.append(f"{name}_bucket{le} {_fmt(child.count)}")
+                    out.append(
+                        f"{name}_bucket{le} {_fmt(child.count)}"
+                        + _exemplar_str(ex, -1)
+                    )
                     out.append(
                         f"{name}_sum{self._labels_str(key)} {_fmt(child.sum)}"
                     )
@@ -315,10 +426,11 @@ class MetricsRegistry:
         return "\n".join(out) + "\n"
 
     def sys_tree(self) -> dict:
-        """A flat ``topic-suffix -> value`` map for a retained
+        """A flat ``topic-suffix -> value`` map for the retained
         ``$SYS/broker/telemetry/#`` tree. ``*_seconds`` histograms
-        surface their percentile summary in milliseconds; dimensionless
-        histograms (fill ratios) surface the raw quantile values."""
+        surface their percentile summary in milliseconds (readability —
+        the raw seconds live on /metrics); dimensionless histograms
+        (fill ratios) surface the raw quantile values."""
         with self._lock:
             families = sorted(self._families.items())
         out: dict[str, object] = {}
@@ -343,13 +455,774 @@ class MetricsRegistry:
                             out[f"{base}/{q}"] = round(s[q], 6)
         return out
 
+    def family_children(self, name: str) -> list:
+        """Snapshot of one family's ``(label-key, child)`` pairs (the
+        SLO engine walks the delivery-latency family through this — the
+        children themselves are read lock-free, like exposition())."""
+        with self._lock:
+            fam = self._families.get(name)
+            return [] if fam is None else list(fam.children.items())
+
+
+
+class StageClock:
+    """One sampled publish's trip through the pipeline: ``stamp(stage)``
+    records the time since the previous stamp as that stage's duration.
+    Cheap by construction — two perf_counter calls and a list append per
+    stage, and only 1-in-N publishes carry one at all."""
+
+    __slots__ = ("t0", "last", "stages")
+
+    def __init__(self) -> None:
+        self.t0 = self.last = time.perf_counter()
+        self.stages: list[tuple[str, float]] = []
+
+    def stamp(self, stage: str) -> None:
+        now = time.perf_counter()
+        self.stages.append((stage, now - self.last))
+        self.last = now
+
+    def stamp_until(self, stage: str, t: float) -> None:
+        """Stamp a stage ending at an EXPLICIT perf_counter time (the
+        staging drain loop splits device_batch into h2d/dispatch/d2h
+        using boundaries measured on the resolver's thread). Clamped so
+        a boundary that raced behind the previous stamp records a
+        zero-length stage instead of corrupting the running total."""
+        if t < self.last:
+            t = self.last
+        self.stages.append((stage, t - self.last))
+        self.last = t
+
+    def total(self) -> float:
+        return self.last - self.t0
+
+
+
+class FlightRecorder:
+    """A bounded ring of recent stage-clock records, JSON-dumped to disk
+    when a degradation trigger fires (overload SHED, breaker trip).
+    Dumps are rate-limited so a flapping posture cannot fill the disk."""
+
+    def __init__(
+        self,
+        size: int = 256,
+        dump_dir: str = "",
+        min_interval_s: float = 30.0,
+        clock: Callable[[], float] = time.monotonic,
+    ) -> None:
+        self.ring: deque = deque(maxlen=max(1, size))
+        # "" = a private mkdtemp created lazily at the first dump: a FIXED
+        # path in the shared tempdir would let any local user pre-create
+        # the directory (symlink-clobber the predictable filenames) and
+        # read the dumped topic names; mkdtemp is 0700 and unpredictable,
+        # and the dump log line carries the chosen path
+        self.dump_dir = dump_dir
+        self.min_interval_s = min_interval_s
+        self.clock = clock
+        self.dumps = 0
+        self.dumps_suppressed = 0
+        self._last_dump = float("-inf")
+        # lock-plane adoption: the event loop appends to the ring under
+        # this lock on every sampled publish while dump threads snapshot
+        from .utils.locked import InstrumentedLock
+
+        self._lock = InstrumentedLock("flight_ring")
+        self._writers: list[threading.Thread] = []
+
+    def add(self, record: dict) -> None:
+        # under the lock: a cross-thread dump() iterating the ring while
+        # the event loop appends would raise "deque mutated during
+        # iteration" and silently lose the trigger's trace. The critical
+        # section is one append — dump()'s file IO runs OUTSIDE the lock
+        with self._lock:
+            self.ring.append(record)
+
+    def dump_async(
+        self,
+        reason: str,
+        extra: Optional[dict] = None,
+        after: Optional[Callable[[str, str], None]] = None,
+    ) -> None:
+        """Fire-and-forget dump on a daemon thread: degradation triggers
+        run under the breaker lock / on the event loop's hot path, where
+        synchronous disk IO would stall the data plane at exactly peak
+        load. Rate-limiting still applies inside dump(); ``after`` runs
+        on the writer thread with (path, reason) only when a dump was
+        actually written (the trace-plane sibling dump rides it)."""
+
+        def _write() -> None:
+            path = self.dump(reason, extra)
+            if path is not None and after is not None:
+                try:
+                    after(path, reason)
+                except Exception:
+                    _log.exception("post-dump hook failed (reason=%s)", reason)
+
+        t = threading.Thread(
+            target=_write,
+            daemon=True,
+            name="mqtt-torch-flight-dump",
+        )
+        with self._lock:
+            # track EVERY live writer, not just the newest: a rate-limited
+            # no-op thread must not mask an earlier write still on disk
+            self._writers = [w for w in self._writers if w.is_alive()]
+            self._writers.append(t)
+        t.start()
+
+    def join_writer(self, timeout: float = 5.0) -> None:
+        """Wait for all in-flight async dumps (tests, orderly shutdown)."""
+        with self._lock:
+            writers = list(self._writers)
+        for t in writers:
+            t.join(timeout)
+
+    def dump(self, reason: str, extra: Optional[dict] = None) -> Optional[str]:
+        """Write the ring (plus trigger context) to one JSON file;
+        returns the path, or None when rate-limited or the write failed.
+        Thread-safe: triggers fire from the event loop, the breaker's
+        probe thread, and sweep paths."""
+        with self._lock:
+            now = self.clock()
+            if now - self._last_dump < self.min_interval_s:
+                self.dumps_suppressed += 1
+                return None
+            self._last_dump = now
+            records = list(self.ring)
+        if not self.dump_dir:
+            # first dump: a private 0700 dir (see __init__'s note). The
+            # mkdtemp disk I/O runs OUTSIDE the lock (brokerlint R1 — the
+            # event loop appends to the ring under it); two racing first
+            # dumps each get a dir and the double-checked store below picks
+            # one winner (the loser's empty tmpdir is harmless)
+            ddir = tempfile.mkdtemp(prefix="mqtt_torch_flight_")
+            with self._lock:
+                if not self.dump_dir:
+                    self.dump_dir = ddir
+        snapshot = {
+            "reason": reason,
+            "time_unix": int(time.time()),  # brokerlint: ok=R3 dump timestamps are wall-clock by design (operator-correlatable)
+            "records": records,
+            "context": extra or {},
+            # the trace cross-link: every trace id active in the ring at
+            # trigger time, deduped (records keep their own trace_id too)
+            "trace_ids": sorted(
+                {
+                    r["trace_id"]
+                    for r in records
+                    if isinstance(r, dict) and "trace_id" in r
+                }
+            ),
+        }
+        try:
+            os.makedirs(self.dump_dir, exist_ok=True)
+            safe = re.sub(r"[^a-zA-Z0-9_.-]", "_", reason)
+            path = os.path.join(
+                self.dump_dir,
+                # brokerlint: ok=R3 dump filenames carry the wall-clock stamp
+                f"flight_{int(time.time())}_{safe}.json",
+            )
+            with open(path, "w") as f:
+                json.dump(snapshot, f, indent=1)
+        except OSError:
+            _log.exception("flight-recorder dump failed (dir=%s)", self.dump_dir)
+            return None
+        self.dumps += 1
+        _log.warning(
+            "flight recorder dumped %d records to %s (reason=%s)",
+            len(records),
+            path,
+            reason,
+        )
+        return path
+
+
+# batch fill ratio buckets: linear deciles (a ratio is not log-shaped)
+FILL_BOUNDS = tuple(round(0.1 * i, 1) for i in range(1, 11))
+
+
+class Telemetry:
+    """The broker's telemetry facade: owns the registry, the per-stage
+    publish histograms, the flight recorder, and the sampling counters.
+    Every instrumented layer (server, staging, clients, matcher,
+    cluster) talks to this object; every exposition surface (/metrics,
+    $SYS, BENCH json) renders from it."""
+
+    def __init__(
+        self,
+        sample: int = 64,
+        ring: int = 256,
+        dump_dir: str = "",
+        dump_min_interval_s: float = 30.0,
+    ) -> None:
+        self.registry = MetricsRegistry()
+        self.sample = max(0, int(sample))  # 0 disables stage sampling
+        self._n = 0  # publish counter for 1-in-N sampling
+        self._out_n = 0  # outbound-enqueue counter (same 1-in-N rate)
+        # the trace plane (tracing.Tracer) or None; attached by
+        # the server via attach_tracer() — publish_clock consults it so
+        # 1-in-trace_sample publishes carry a full trace context
+        self.tracer: Any = None
+        # the host profiler (profiling.SamplingProfiler) or
+        # None; attached by the server via attach_profiler() — serves
+        # GET /profile and rides trigger dumps
+        self.host_profiler: Any = None
+        # the lock-contention plane (utils.locked.LockPlane)
+        # or None; attached via attach_lock_plane()
+        self.lock_plane: Any = None
+        # the per-device observability plane (ops/devicestats.
+        # DeviceStatsPlane) or None; attached via attach_device_stats()
+        # — serves GET /devices, $SYS/broker/devices/#, and grows
+        # trigger dumps a ``devices_*.json`` sibling
+        self.device_stats: Any = None
+        # cluster-wide SLO observatory: the delivery-latency
+        # SLI gate (one bool test on the sampled path; Options.slo), the
+        # SLO burn-rate engine (slo.SLOEngine) and the mesh
+        # metric-federation store (ClusterMetrics, attached by the
+        # cluster so /metrics/cluster and /cluster/slo can render)
+        self.delivery_sli = True
+        self._delivery_cache: dict[tuple, Histogram] = {}
+        self.slo: Any = None
+        self.cluster_metrics: Any = None
+        # this worker's id as a federation label (the cluster stamps it
+        # when it attaches; single-worker brokers render as "0")
+        self.local_worker = "0"
+        self.recorder = FlightRecorder(
+            size=ring, dump_dir=dump_dir, min_interval_s=dump_min_interval_s
+        )
+        r = self.registry
+        self.stage_hist = {
+            s: r.histogram(
+                "mqtt_tpu_publish_stage_seconds",
+                "Sampled per-publish latency by pipeline stage",
+                stage=s,
+            )
+            for s in PUBLISH_STAGES
+        }
+        self.sampled_publishes = r.counter(
+            "mqtt_tpu_publish_sampled_total",
+            "Publishes that carried a stage clock (1-in-N sampling)",
+        )
+        self.batch_service = r.histogram(
+            "mqtt_tpu_stage_batch_service_seconds",
+            "Device match-batch resolve wall time (every batch)",
+        )
+        self.batch_fill = r.histogram(
+            "mqtt_tpu_stage_batch_fill_ratio",
+            "Match-batch occupancy against the adaptive batch cap",
+            bounds=FILL_BOUNDS,
+        )
+        self.outbound_wait = r.histogram(
+            "mqtt_tpu_outbound_queue_wait_seconds",
+            "Sampled wait of an outbound publish in a client queue",
+        )
+        # per-leg pipeline handoff waits (the 3-deep overlapped
+        # staging): how long a formed batch waited before the
+        # h2d issue thread picked it up, and how long an issued batch
+        # waited before the d2h drain thread started its sync — both sit
+        # near zero when the pipeline is actually full
+        self.leg_wait = {
+            leg: r.histogram(
+                "mqtt_tpu_staging_leg_wait_seconds",
+                "Per-batch handoff wait before a staging pipeline leg "
+                "started",
+                leg=leg,
+            )
+            for leg in ("h2d", "d2h")
+        }
+        self.fallback = {
+            k: r.counter(
+                "mqtt_tpu_stage_fallback_total",
+                "Publishes resolved by the host walk instead of the "
+                "device batch, by cause",
+                **{"class": k},
+            )
+            for k in ("admission", "issue_error", "resolve_error", "stop")
+        }
+        self.rebuild_hist = r.histogram(
+            "mqtt_tpu_matcher_rebuild_seconds",
+            "Device index compile/rebuild/fold wall time",
+        )
+        r.counter(
+            "mqtt_tpu_flight_dumps_total",
+            "Flight-recorder dumps written",
+            fn=lambda: self.recorder.dumps,
+        )
+        # write-path / fan-out amplification accounting: the
+        # per-subscriber re-encode waste the encode-once rewrite
+        # eliminates — encodes / inbound publishes is its success metric
+        self.publish_encodes = r.counter(
+            "mqtt_tpu_publish_encodes_total",
+            "Outbound PUBLISH packet encodes (clients.write_packet + "
+            "the fan-out frame cache's per-variant encodes)",
+        )
+        self.fanout_deliveries = r.counter(
+            "mqtt_tpu_fanout_deliveries_total",
+            "Outbound PUBLISH deliveries written (shared-frame and "
+            "per-subscriber legs)",
+        )
+        self.outbound_bytes = r.counter(
+            "mqtt_tpu_outbound_bytes_total",
+            "Bytes written to client transports by the outbound write "
+            "paths",
+        )
+        self.outbound_writes = r.counter(
+            "mqtt_tpu_outbound_writes_total",
+            "Socket write calls issued by the outbound write paths",
+        )
+        # zero-materialization fan-out accounting: variants
+        # are the encode-once unit (amplification ~1 per variant is the
+        # success metric), writev batches count the GIL-released flush
+        # calls. View materializations are exported separately as a
+        # callback counter over the C module's own stats (server wiring).
+        self.fanout_variants = r.counter(
+            "mqtt_tpu_fanout_variants_total",
+            "Distinct (version, QoS, retain) encode variants the batched "
+            "fan-out produced — one wire encode each",
+        )
+        self.fanout_writev_batches = r.counter(
+            "mqtt_tpu_fanout_writev_batches_total",
+            "GIL-released batched socket flush calls issued by the "
+            "fan-out write path",
+        )
+
+    # -- delivery-latency SLIs ----------------------------------
+
+    def delivery_hist(self, tenant: str, qos: int, path: str) -> Histogram:
+        """The labeled delivery-latency child for one (tenant, qos,
+        path) cell, cached so the sampled path pays one dict probe
+        instead of the registry lock."""
+        key = (tenant, qos, path)
+        h = self._delivery_cache.get(key)
+        if h is None:
+            h = self.registry.histogram(
+                "mqtt_tpu_delivery_latency_seconds",
+                "Publish arrival (decode) to frame flushed toward the "
+                "subscriber socket, by tenant, publish QoS and delivery "
+                "path (sampled 1-in-N; path=remote adds the origin "
+                "worker's elapsed stamp to the receiving segment)",
+                tenant=tenant,
+                qos=str(qos),
+                path=path,
+            )
+            if self.registry.emit_exemplars:
+                h.enable_exemplars()
+            self._delivery_cache[key] = h
+        return h
+
+    def observe_delivery(
+        self,
+        seconds: float,
+        tenant: str,
+        qos: int,
+        path: str,
+        trace_id: Optional[str] = None,
+    ) -> None:
+        """Record one sampled publish's arrival->flush delivery latency
+        — the headline SLI the SLO engine burns against (slo).
+        Disabled (one bool test) when Options.slo is off."""
+        if not self.delivery_sli:
+            return
+        self.delivery_hist(tenant, qos, path).observe(seconds, trace_id)
+
+    def delivery_summary(self) -> dict:
+        """Per-path delivery-latency fold across every (tenant, qos)
+        cell — the bench/stage-gate face of the SLI family (rows
+        ``delivery_local`` / ``delivery_remote`` in bench_block)."""
+        out: dict = {}
+        for path in DELIVERY_PATHS:
+            merged: Optional[Histogram] = None
+            for (_t, _q, p), h in list(self._delivery_cache.items()):
+                if p != path or not h.count:
+                    continue
+                if merged is None:
+                    merged = Histogram(bounds=h.bounds)
+                merged.merge(h)
+            if merged is not None and merged.count:
+                out[f"delivery_{path}"] = {
+                    "count": merged.count,
+                    "p50_ms": round(merged.percentile(0.5) * 1e3, 3),
+                    "p99_ms": round(merged.percentile(0.99) * 1e3, 3),
+                }
+        return out
+
+    def attach_slo(self, engine: Any) -> None:
+        """Attach the SLO burn-rate engine (slo.SLOEngine):
+        GET /cluster/slo serves its state beside the federated view."""
+        self.slo = engine
+
+    # -- publish stage sampling --------------------------------------------
+
+    def attach_tracer(self, tracer: Any, exemplars: bool = True) -> None:
+        """Attach the trace plane (tracing.Tracer): sampled
+        publish clocks become trace contexts, finished clocks emit span
+        trees, and (when ``exemplars``) the stage histograms retain
+        per-bucket trace exemplars rendered on /metrics."""
+        self.tracer = tracer
+        if exemplars:
+            for h in self.stage_hist.values():
+                h.enable_exemplars()
+            self.registry.emit_exemplars = True
+
+    def attach_profiler(self, profiler: Any) -> None:
+        """Attach the host sampling profiler
+        (profiling.SamplingProfiler): GET /profile serves its
+        exports and trigger dumps grow a ``profile_*.txt`` sibling."""
+        self.host_profiler = profiler
+
+    def attach_device_stats(self, plane: Any) -> None:
+        """Attach the per-device observability plane
+        (ops.devicestats.DeviceStatsPlane): GET /devices and
+        the $SYS devices tree serve its snapshot, and trigger dumps
+        write a ``devices_*.json`` sibling beside flight/traces/
+        profile."""
+        self.device_stats = plane
+
+    def attach_lock_plane(self, plane: Any) -> None:
+        """Attach the lock-contention plane
+        (utils.locked.LockPlane): every canonical lock name
+        exports wait/hold histograms, acquisition/contention counters,
+        and the wait-share gauge set (the top-K contended-locks view is
+        this family sorted by share)."""
+        self.lock_plane = plane
+        # local import: utils.locked imports telemetry.Histogram, so the
+        # reverse edge must resolve lazily
+        from .utils.locked import LOCK_NAMES
+
+        r = self.registry
+        for name in LOCK_NAMES:
+            st = plane.stats(name)
+            r.histogram(
+                "mqtt_tpu_lock_wait_seconds",
+                "Time acquirers spent blocked on a named broker lock",
+                lock=name,
+                fn=lambda s=st: s.wait_hist,
+            )
+            r.histogram(
+                "mqtt_tpu_lock_hold_seconds",
+                "Time holders kept a named broker lock",
+                lock=name,
+                fn=lambda s=st: s.hold_hist,
+            )
+            r.counter(
+                "mqtt_tpu_lock_acquisitions_total",
+                "Acquisitions of a named broker lock",
+                lock=name,
+                fn=lambda s=st: s.acquisitions,
+            )
+            r.counter(
+                "mqtt_tpu_lock_contended_total",
+                "Acquisitions that actually blocked on a named broker lock",
+                lock=name,
+                fn=lambda s=st: s.contended,
+            )
+            r.gauge(
+                "mqtt_tpu_lock_wait_share_ratio",
+                "This lock's share of all measured lock wait time "
+                "(sort descending for the top-K contended locks)",
+                lock=name,
+                fn=lambda n=name: plane.wait_share(n),
+            )
+
+    def fanout_block(self, inbound_publishes: int) -> dict:
+        """The BENCH-json fan-out amplification block: encodes and
+        deliveries per inbound PUBLISH — the number the encode-once
+        fan-out must drive toward ~1 encode/publish."""
+        inbound = max(1, int(inbound_publishes))
+        return {
+            "inbound_publishes": int(inbound_publishes),
+            "publish_encodes": self.publish_encodes.value,
+            "fanout_deliveries": self.fanout_deliveries.value,
+            "outbound_bytes": self.outbound_bytes.value,
+            "outbound_writes": self.outbound_writes.value,
+            "fanout_variants": self.fanout_variants.value,
+            "fanout_writev_batches": self.fanout_writev_batches.value,
+            "encode_amplification": round(
+                self.publish_encodes.value / inbound, 4
+            ),
+            "delivery_amplification": round(
+                self.fanout_deliveries.value / inbound, 4
+            ),
+            # encodes per VARIANT-GROUPED fan-out tick: ~1 when the
+            # batched path is doing its job (the encode-once
+            # fan-out's number). Ticks that never grouped (legacy path) keep the
+            # plain encode_amplification as their signal.
+            "encode_per_variant": round(
+                self.publish_encodes.value
+                / max(1, self.fanout_variants.value),
+                4,
+            )
+            if self.fanout_variants.value
+            else None,
+        }
+
+    def publish_clock(self) -> Optional[StageClock]:
+        """A StageClock for 1-in-N publishes, None for the rest; when
+        the trace plane is attached, 1-in-trace_sample publishes get a
+        PublishTrace (a StageClock that also carries a trace id). The
+        unsampled path is one increment and two modulos."""
+        self._n += 1
+        tracer = self.tracer
+        if (
+            tracer is not None
+            and tracer.sample
+            and self._n % tracer.sample == 0
+        ):
+            return tracer.publish_trace()
+        if self.sample == 0 or self._n % self.sample:
+            return None
+        return StageClock()
+
+    def adopt_trace(self, pk: Any) -> Optional[StageClock]:
+        """Adopt a client-supplied trace id: an inbound v5 PUBLISH whose
+        user properties carry ``trace-id`` gets a trace context with
+        THAT id (TD-MQTT-style transparent tracing — the client picks
+        the id, the broker's spans join it), keeping any stamps the read
+        loop already recorded. Returns the packet's (possibly new)
+        clock; cost off the adopted path is the caller's empty-list
+        check."""
+        tracer = self.tracer
+        clock = getattr(pk, "_tclock", None)
+        if tracer is None or getattr(clock, "trace_id", None) is not None:
+            return clock
+        tid = ""
+        for u in pk.properties.user:
+            if u.key == TRACE_USER_PROPERTY and u.val:
+                tid = u.val
+                break
+        if not tid or not tracer.allow_adopt():
+            # adoption is rate-bounded (Tracer.allow_adopt): a client
+            # stamping every publish cannot bypass trace_sample or
+            # flood the ring; over-budget publishes flow untraced
+            return clock
+        trace = tracer.publish_trace(tid)
+        if clock is not None:  # graft the read loop's decode stamp over
+            trace.t0 = clock.t0
+            trace.last = clock.last
+            trace.stages = clock.stages
+        pk._tclock = trace
+        return trace
+
+    def observe_publish(self, clock: StageClock, topic: str = "", qos: int = 0) -> None:
+        """Fold one finished stage clock into the per-stage histograms
+        and the flight-recorder ring; a traced clock additionally emits
+        its span tree into the trace ring and stamps bucket exemplars."""
+        trace_id = getattr(clock, "trace_id", None)
+        hist = self.stage_hist
+        sub_total = 0.0
+        have_sub = False
+        explicit_batch = False
+        fan_total = 0.0
+        have_fan = False
+        explicit_fanout = False
+        for stage, dt in clock.stages:
+            h = hist.get(stage)
+            if h is not None:
+                h.observe(dt, trace_id)
+            if stage in DEVICE_SUBSTAGES:
+                sub_total += dt
+                have_sub = True
+            elif stage == "device_batch":
+                explicit_batch = True
+            elif stage in FANOUT_SUBSTAGES:
+                fan_total += dt
+                have_fan = True
+            elif stage == "fanout":
+                explicit_fanout = True
+        if have_sub and not explicit_batch:
+            # continuity across the sub-stage split: device_batch stays
+            # populated as the sum, so stage_gate diffs old rounds (an
+            # explicitly-stamped device_batch — the exact-map / host
+            # fallback path — must not be observed twice)
+            hist["device_batch"].observe(sub_total, trace_id)
+        if have_fan and not explicit_fanout:
+            # same continuity contract for the fan-out split: the batched
+            # write path stamps encode/flush, legacy paths stamp fanout —
+            # either way the coarse stage keeps diffing across rounds
+            hist["fanout"].observe(fan_total, trace_id)
+        self.sampled_publishes.inc()
+        record = {
+            # brokerlint: ok=R3 flight records carry wall-clock stamps
+            "t": round(time.time(), 3),
+            "topic": topic,
+            "qos": qos,
+            "total_ms": round(clock.total() * 1e3, 3),
+            "stages_ms": {
+                s: round(dt * 1e3, 4) for s, dt in clock.stages
+            },
+        }
+        if trace_id is not None:
+            # the flight-dump <-> trace cross-link: a SHED dump's records
+            # name the concrete traces active at trigger time
+            record["trace_id"] = trace_id
+        self.recorder.add(record)
+        tracer = self.tracer
+        if trace_id is not None and tracer is not None:
+            tracer.finish_publish(clock, topic, qos)
+
+    def sample_outbound(self) -> bool:
+        """1-in-N gate for outbound queue-wait stamps (same rate as the
+        stage clock)."""
+        if self.sample == 0:
+            return False
+        self._out_n += 1
+        return self._out_n % self.sample == 0
+
+    # -- batch-level observations (staging loop) ---------------------------
+
+    def observe_batch(self, service_s: float, n: int, cap: int) -> None:
+        self.batch_service.observe(service_s)
+        if cap > 0:
+            self.batch_fill.observe(min(1.0, n / cap))
+
+    def observe_leg_wait(self, leg: str, dt: float) -> None:
+        """One pipeline-leg handoff wait (called from the staging loop's
+        h2d/resolve dispatch threads)."""
+        h = self.leg_wait.get(leg)
+        if h is not None:
+            h.observe(dt)
+
+    def note_fallback(self, klass: str, n: int = 1) -> None:
+        c = self.fallback.get(klass)
+        if c is not None:
+            c.inc(n)
+
+    # -- degradation triggers ----------------------------------------------
+
+    def trigger_dump(self, reason: str, extra: Optional[dict] = None) -> None:
+        """Dump the flight recorder WITHOUT blocking the caller: triggers
+        fire under the breaker lock and on the governor's evaluate path
+        (both on the data plane), so the file IO moves to a daemon
+        thread. When the trace plane is attached, the same thread also
+        writes a sibling ``traces_*.json`` (Perfetto-loadable) next to
+        the flight dump — the dump's trace_ids point into it — and when
+        the host profiler is attached, a ``profile_*.txt`` collapsed
+        snapshot of where every broker thread was spending wall time
+        as the trigger fired. Use ``recorder.dump`` directly for a
+        synchronous dump."""
+        after = (
+            self._dump_siblings
+            if self.tracer is not None
+            or self.host_profiler is not None
+            or self.device_stats is not None
+            else None
+        )
+        self.recorder.dump_async(reason, extra, after=after)
+
+    def _dump_siblings(self, dump_path: str, reason: str) -> None:
+        """Write the trace ring, the profiler's collapsed stacks, and
+        the device-plane snapshot beside a just-written flight dump
+        (recorder writer thread)."""
+        if self.tracer is not None:
+            self._dump_traces(dump_path, reason)
+        if self.host_profiler is not None:
+            self._dump_profile(dump_path, reason)
+        if self.device_stats is not None:
+            self._dump_devices(dump_path, reason)
+
+    def _dump_devices(self, dump_path: str, reason: str) -> None:
+        base = os.path.basename(dump_path)
+        stem = base[len("flight_"):] if base.startswith("flight_") else base
+        name = "devices_" + os.path.splitext(stem)[0] + ".json"
+        path = os.path.join(os.path.dirname(dump_path), name)
+        try:
+            with open(path, "w") as f:
+                json.dump(self.device_stats.snapshot(), f, indent=1)
+        except OSError:
+            _log.exception("device-plane dump failed (path=%s)", path)
+            return
+        _log.warning("device snapshot dumped to %s (reason=%s)", path, reason)
+
+    def _dump_profile(self, dump_path: str, reason: str) -> None:
+        base = os.path.basename(dump_path)
+        stem = base[len("flight_"):] if base.startswith("flight_") else base
+        name = "profile_" + os.path.splitext(stem)[0] + ".txt"
+        path = os.path.join(os.path.dirname(dump_path), name)
+        try:
+            with open(path, "w") as f:
+                f.write(self.host_profiler.collapsed())
+        except OSError:
+            _log.exception("profile dump failed (path=%s)", path)
+            return
+        _log.warning("profiler stacks dumped to %s (reason=%s)", path, reason)
+
+    def _dump_traces(self, dump_path: str, reason: str) -> None:
+        """Write the trace ring beside a just-written flight dump (runs
+        on the recorder's daemon writer thread, never on a data-plane
+        path)."""
+        base = os.path.basename(dump_path)
+        name = "traces_" + (
+            base[len("flight_"):] if base.startswith("flight_") else base
+        )
+        path = os.path.join(os.path.dirname(dump_path), name)
+        try:
+            with open(path, "w") as f:
+                f.write(self.tracer.export_json())
+        except OSError:
+            _log.exception("trace dump failed (path=%s)", path)
+            return
+        _log.warning("trace ring dumped to %s (reason=%s)", path, reason)
+
+    # -- rendering ---------------------------------------------------------
+
+    def exposition(self) -> str:
+        return self.registry.exposition()
+
+    def sys_tree(self) -> dict:
+        out = self.registry.sys_tree()
+        out["flight/ring_depth"] = len(self.recorder.ring)
+        out["flight/dumps"] = self.recorder.dumps
+        out["flight/dumps_suppressed"] = self.recorder.dumps_suppressed
+        return out
+
+    def bench_block(self) -> dict:
+        """The BENCH-json telemetry block: per-stage p50/p99, batch
+        occupancy, and the host-fallback breakdown — so future PRs can
+        diff stage-level regressions, not just end-to-end rate."""
+        stages = {}
+        for s, h in self.stage_hist.items():
+            if h.count:
+                stages[s] = {
+                    "count": h.count,
+                    "p50_ms": round(h.percentile(0.5) * 1e3, 3),
+                    "p99_ms": round(h.percentile(0.99) * 1e3, 3),
+                }
+        for leg, h in self.leg_wait.items():
+            # per-leg pipeline handoff waits render as stage rows so
+            # exp/stage_gate.py diffs them round over round (new names
+            # pass through its new_stage_names notice on round one)
+            if h.count:
+                stages[f"leg_wait_{leg}"] = {
+                    "count": h.count,
+                    "p50_ms": round(h.percentile(0.5) * 1e3, 3),
+                    "p99_ms": round(h.percentile(0.99) * 1e3, 3),
+                }
+        # delivery-latency SLI rows: per-path folds render as
+        # stage rows so exp/stage_gate.py diffs them round over round
+        # (their first round passes through its new_stage_names notice)
+        stages.update(self.delivery_summary())
+        fill = self.batch_fill.summary()
+        return {
+            "stages": stages,
+            "batch_service": {
+                "count": self.batch_service.count,
+                "p50_ms": round(self.batch_service.percentile(0.5) * 1e3, 3),
+                "p99_ms": round(self.batch_service.percentile(0.99) * 1e3, 3),
+            },
+            "batch_fill": {"count": fill["count"], "p50": fill["p50"], "p99": fill["p99"]},
+            "fallbacks": {k: c.value for k, c in self.fallback.items()},
+            "flight_dumps": self.recorder.dumps,
+        }
+
+
 
 def check_exposition(text: str) -> int:
-    """A minimal pure-Python Prometheus text-format checker: every
-    non-comment line must be a well-formed sample, every # TYPE must name
-    a known type, and at least one sample must exist. OpenMetrics-style
-    bucket exemplars (``... 5 # {trace_id="..."} 0.003``) are accepted.
-    Returns the sample count."""
+    """A minimal pure-Python Prometheus text-format checker (CI's scrape
+    gate and the test suite's oracle): every non-comment line must be a
+    well-formed sample, every # TYPE must name a known type, and at
+    least one sample must exist. OpenMetrics-style bucket exemplars
+    (``... 5 # {trace_id="..."} 0.003``) are accepted. Returns the
+    sample count."""
     sample_re = re.compile(
         r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="
         r'"(\\.|[^"\\])*"(,[a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*")*)?\})?'

@@ -1,26 +1,258 @@
-"""The device pipeline profiler: per-batch dispatch and D2H windows
-folded into duty cycle, overlap and idle-gap aggregates, per card.
+"""The trace plane: sampled per-publish span trees with their Chrome
+trace-event export, and the device pipeline profiler's per-batch dispatch
+and D2H windows folded into duty cycle, overlap and idle-gap aggregates,
+per card.
 
-A copy of the JAX package's ``mqtt_tpu/tracing.py`` device profiler
-(``BatchProfile``, ``BYTE_BOUNDS``, ``_DevWindow``, ``DeviceProfiler``),
-with the same arithmetic operation for operation, so the same stamps
-give the same floats. The matchers stamp each batch: the issue leg runs
-from before tokenizing to after the launch and the asynchronous D2H copy
-are queued; the device window closes when the resolver's wait on that
-copy returns (``torch.cuda.Event.synchronize`` and the read of the
-pinned buffer), so the window holds the kernel and the transfer. A
-device id is the card's CUDA index (0 for the host).
+A copy of the JAX package's ``mqtt_tpu/tracing.py``:
 
-Not ported here: the sampled span trees and their export (the JAX
-package's ``Tracer``, ``PublishTrace``, ``check_trace_events``).
+- ``Tracer``: a bounded ring of finished spans and trace/span ids drawn
+  from its own ``random.Random(seed)``, so a seeded tracer gives the JAX
+  tracer's ids. 1-in-N publishes (``Options.trace_sample``) carry a
+  ``PublishTrace`` (a ``telemetry.StageClock`` that owns a trace id); at
+  fan-out its stamps become one span tree, a root ``publish`` span with a
+  child per stage. The ring exports as Chrome trace-event JSON
+  (Perfetto-loadable) at ``GET /traces`` and beside trigger dumps;
+  ``check_trace_events`` validates the export.
+- ``DeviceProfiler``: the same arithmetic as the JAX profiler, operation
+  for operation, so the same stamps give the same floats. The matchers
+  stamp each batch: the issue leg runs from before tokenizing to after
+  the launch and the asynchronous D2H copy are queued; the device window
+  closes when the resolver's wait on that copy returns
+  (``torch.cuda.Event.synchronize`` and the read of the pinned buffer),
+  so the window holds the kernel and the transfer. A device id is the
+  card's CUDA index (0 for the host).
 """
 
 from __future__ import annotations
 
+import collections
+import json
+import random
 import threading
+import time
+import zlib
 from typing import Any, Optional
 
-from .telemetry import Histogram
+from .telemetry import (  # noqa: F401  (re-exports)
+    DEVICE_SUBSTAGES,
+    TRACE_USER_PROPERTY,
+    Histogram,
+    StageClock,
+)
+
+
+class PublishTrace(StageClock):
+    """A stage clock that is also a trace context: carries the trace id
+    and the pre-allocated root span id, so spans recorded BEFORE the
+    clock finishes (per-peer forwards) can already parent on the root.
+    Rides the pipeline exactly like a plain StageClock — every layer
+    that stamps a StageClock stamps this unchanged."""
+
+    __slots__ = ("tracer", "trace_id", "span_id")
+
+    def __init__(self, tracer: "Tracer", trace_id: Optional[str] = None) -> None:
+        super().__init__()
+        self.tracer = tracer
+        self.trace_id = trace_id if trace_id else tracer.new_trace_id()
+        self.span_id = tracer.new_span_id()
+
+
+class Tracer:
+    """Bounded span ring + id generation + Chrome trace-event export.
+
+    Spans are stored as plain tuples ``(name, cat, trace_id, span_id,
+    parent_id, t0_perf, dur_s, args)``; the ring append is the only
+    hot-path cost and runs under a lock held for one append (the same
+    posture as the flight recorder's ring). Export converts perf_counter
+    times to wall-anchored microseconds, so two workers' exports merge
+    into one coherent timeline (same machine, same anchor source).
+    ``seed`` makes trace/span ids deterministic for tests."""
+
+    def __init__(
+        self,
+        sample: int = 64,
+        ring: int = 4096,
+        seed: Optional[int] = None,
+        registry: Any = None,
+    ) -> None:
+        self.sample = max(0, int(sample))
+        # lock-plane adoption (utils.locked): span appends from
+        # data-plane threads race /traces exports under this lock
+        from .utils.locked import InstrumentedLock
+
+        self._lock = InstrumentedLock("trace_ring")
+        self.ring: collections.deque = collections.deque(maxlen=max(16, int(ring)))
+        self._rng = random.Random(seed)
+        # worker id in a mesh (cluster sets it); the export's
+        # Chrome-trace pid, so merged multi-worker files keep one track
+        # group per worker
+        self.pid = 0
+        self.spans_total = 0
+        self.publishes_total = 0
+        # client-driven adoption (v5 trace-id user property) is rate-
+        # bounded: a client stamping EVERY publish must not buy itself
+        # 100% tracing (bypassing trace_sample) and flood the ring,
+        # evicting the organic samples. 0 disables adoption entirely.
+        self.adopt_max_per_s = 64
+        self._adopt_window = 0.0  # monotonic second the count belongs to
+        self._adopt_count = 0
+        # wall anchor for export: perf_counter + anchor = unix seconds.
+        # brokerlint: ok=R3 a one-shot wall anchor so exported trace timestamps are operator-correlatable; all durations stay monotonic
+        self._anchor = time.time() - time.perf_counter()
+        if registry is not None:
+            registry.counter(
+                "mqtt_tpu_trace_spans_total",
+                "Spans recorded into the trace ring",
+                fn=lambda: self.spans_total,
+            )
+            registry.counter(
+                "mqtt_tpu_trace_publishes_total",
+                "Publishes that carried a sampled trace context",
+                fn=lambda: self.publishes_total,
+            )
+
+    # -- ids ----------------------------------------------------------------
+
+    def new_trace_id(self) -> str:
+        with self._lock:
+            return f"{self._rng.getrandbits(64):016x}"
+
+    def new_span_id(self) -> str:
+        with self._lock:
+            return f"{self._rng.getrandbits(48):012x}"
+
+    # -- recording ----------------------------------------------------------
+
+    def publish_trace(self, trace_id: Optional[str] = None) -> PublishTrace:
+        """A trace context for one publish (the caller owns the 1-in-N
+        sampling verdict — telemetry.Telemetry.publish_clock)."""
+        return PublishTrace(self, trace_id)
+
+    def allow_adopt(self) -> bool:
+        """The rate verdict for one client-supplied trace-id adoption:
+        at most ``adopt_max_per_s`` per wall second, excess publishes
+        stay untraced (they still flow normally)."""
+        if self.adopt_max_per_s <= 0:
+            return False
+        now = time.monotonic()
+        with self._lock:
+            if now - self._adopt_window >= 1.0:
+                self._adopt_window = now
+                self._adopt_count = 0
+            if self._adopt_count >= self.adopt_max_per_s:
+                return False
+            self._adopt_count += 1
+            return True
+
+    def add_span(
+        self,
+        name: str,
+        cat: str,
+        trace_id: str,
+        span_id: str,
+        parent_id: Optional[str],
+        t0: float,
+        dur: float,
+        args: Optional[dict] = None,
+    ) -> None:
+        """Record one finished span (``t0`` in perf_counter seconds)."""
+        with self._lock:
+            self.ring.append(
+                (name, cat, trace_id, span_id, parent_id, t0, dur, args)
+            )
+            self.spans_total += 1
+
+    def finish_publish(self, trace: PublishTrace, topic: str = "", qos: int = 0) -> None:
+        """Fold one finished publish trace into the ring: the root
+        ``publish`` span plus one child span per stamped stage, laid out
+        back-to-back from the clock's start (a StageClock records each
+        stage's duration since the previous stamp, so the absolute
+        boundaries reconstruct exactly)."""
+        spans = []
+        t = trace.t0
+        for stage, dt in trace.stages:
+            spans.append(
+                (stage, "stage", trace.trace_id, self.new_span_id(),
+                 trace.span_id, t, dt, None)
+            )
+            t += dt
+        spans.append(
+            ("publish", "publish", trace.trace_id, trace.span_id, None,
+             trace.t0, trace.total(),
+             # the root span carries the delivery SLI headline: a
+             # Perfetto view of a breach exemplar shows the same
+             # arrival->flush number the delivery-latency histogram
+             # recorded, with the stage breakdown nested under it
+             {"topic": topic, "qos": qos,
+              "delivery_ms": round(trace.total() * 1e3, 3)})
+        )
+        with self._lock:
+            self.ring.extend(spans)
+            self.spans_total += len(spans)
+            self.publishes_total += 1
+
+    # -- export -------------------------------------------------------------
+
+    def export(self) -> dict:
+        """The ring as a Chrome trace-event document (Perfetto loads it
+        directly: open ui.perfetto.dev and drop the JSON in). Spans of
+        one trace share a ``tid`` derived from the trace id, so
+        concurrent traces render as separate nested tracks."""
+        with self._lock:
+            spans = list(self.ring)
+        events = []
+        for name, cat, trace_id, span_id, parent_id, t0, dur, args in spans:
+            a = {"trace_id": trace_id, "span_id": span_id}
+            if parent_id is not None:
+                a["parent_id"] = parent_id
+            if args:
+                a.update(args)
+            events.append(
+                {
+                    "name": name,
+                    "cat": cat,
+                    "ph": "X",
+                    "ts": round((t0 + self._anchor) * 1e6, 3),
+                    "dur": round(dur * 1e6, 3),
+                    "pid": self.pid,
+                    # stable per-trace track id; crc so ADOPTED ids (any
+                    # client-chosen string) never break the export
+                    "tid": zlib.crc32(trace_id.encode()) % 1_000_000,
+                    "args": a,
+                }
+            )
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def export_json(self) -> str:
+        return json.dumps(self.export())
+
+
+def check_trace_events(doc) -> int:
+    """A minimal pure-Python Chrome trace-event checker (the /traces
+    analog of ``telemetry.check_exposition``): the document must carry a
+    non-empty ``traceEvents`` list of well-formed complete events.
+    Unresolved parent ids are allowed — one worker's export of a
+    cross-worker trace legitimately references the peer's spans.
+    Accepts a JSON string or a parsed dict; returns the event count."""
+    if isinstance(doc, (str, bytes)):
+        doc = json.loads(doc)
+    events = doc.get("traceEvents") if isinstance(doc, dict) else None
+    if not isinstance(events, list) or not events:
+        raise ValueError("no traceEvents")
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict) or not isinstance(ev.get("name"), str) or not ev["name"]:
+            raise ValueError(f"event {i}: missing name")
+        if ev.get("ph") != "X":
+            raise ValueError(f"event {i}: ph must be 'X' (complete)")
+        for k in ("ts", "dur"):
+            if not isinstance(ev.get(k), (int, float)) or ev[k] < 0:
+                raise ValueError(f"event {i}: bad {k}: {ev.get(k)!r}")
+        if not isinstance(ev.get("pid"), int) or not isinstance(ev.get("tid"), int):
+            raise ValueError(f"event {i}: pid/tid must be ints")
+        args = ev.get("args")
+        if args is not None and not isinstance(args, dict):
+            raise ValueError(f"event {i}: args must be a dict")
+    return len(events)
 
 
 class BatchProfile:

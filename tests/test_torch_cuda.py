@@ -17,6 +17,7 @@ tests/test_torch_topics.py tests/test_torch_cuda.py``.
 
 import asyncio
 import contextlib
+import gc
 
 import numpy as np
 
@@ -214,6 +215,41 @@ def test_compact_back_to_back_launches_on_one_stream(dev, index_pair):
     torch.cuda.synchronize()
     for tokens, capacity, got in runs:
         assert torch.equal(got, flat.flat_match_compact_plain(*arrays, tokens, L, capacity)), capacity
+
+
+def test_compact_never_reads_the_records_of_a_launch_of_fewer_blocks(dev, index_pair):
+    """K2 keeps each CUDA block's clip record right after its launch's
+    status words, at an offset set by the launch's block count, and a
+    record holds no epoch. A launch of 8 blocks leaves its records where a
+    launch of 128 blocks keeps the status words of blocks 8-15; the
+    128-block launch is then given a record's epoch bits (its offset / 2)
+    as its epoch, so a look-back that read the record would take it for a
+    published status. On one stream, each such launch must equal the
+    plain version: every layout has a scratch of its own."""
+    fl, arrays = index_pair
+    L, P = fl.max_levels, arrays[2].shape[0]
+    per_block = 8 * (32 // min(P, 32))  # 8 warps a block once a batch needs more than 32
+    small, big = 8 * per_block, 128 * per_block
+    n_small = 4 + 4 * 8
+    assert kernels._compact_warps(P, small) == kernels._compact_warps(P, big) == 8
+    stream = torch.cuda.Stream()
+    key = (torch.cuda.current_device(), stream.cuda_stream)  # the wrapper's: the tokens' card, the stream
+    planted = 0
+    with torch.cuda.stream(stream):
+        for trial in range(64):
+            t_small = packed(corpus_topics(300 + trial, n=small)[:small], fl, dev, 1)[:small].contiguous()
+            t_big = packed(corpus_topics(400 + trial, n=big)[:big], fl, dev, 1)[:big].contiguous()
+            flat.flat_match_compact(*arrays, t_small, max_levels=L, capacity=64 * small)
+            stream.synchronize()
+            records = kernels._compact_scratch[key + (n_small,)][4 + 2 * 8 : 4 + 4 * 8].view(8, 2).cpu()
+            epochs = [int(y) >> 1 for y in records[:, 1] if int(y) >> 1 > kernels._compact_epochs[key]]
+            if epochs:
+                planted += 1
+                kernels._compact_epochs[key] = min(epochs) - 1  # the big launch takes the record's bits
+            got, want = _compact_pair(arrays, t_big, L, 64 * big)
+            stream.synchronize()
+            assert torch.equal(got, want), trial
+    assert planted > 8
 
 
 @pytest.mark.parametrize("k", [1, 8, 300, 512])
@@ -1084,6 +1120,9 @@ def test_memory_gauges_and_first_launch_notes_on_the_card(dev):
     m = TorchMatcher(index, max_levels=MAX_LEVELS + 3, device=dev, compact=False)
     m.rebuild()
     m.profiler = prof
+    # earlier tests' unreachable tensors are freed now, not inside the
+    # window the live gauge is read across
+    gc.collect()
     torch.cuda.synchronize()
     live0 = plane.snapshot()["devices"][dev.index or 0]["hbm"]["live_bytes"]
     hold = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -1267,3 +1306,110 @@ def test_broker_on_the_card_over_loopback(dev):
     assert k1 > 0, "no retained delivery at SUBSCRIBE launched K1"
     assert launched["flat_match_compact"] > 0 and launched["rules_eval"] > 0, launched
     assert stats["topics"] - stats["host_fallbacks"] - stats["host_fast"] > len(topics) // 2
+
+
+def test_a_server_on_the_card_reports_its_memory_and_the_device_legs(dev):
+    """The port's ``Server`` on the card with its default planes: after
+    its build the per-card plane names the card (its kind, live memory
+    above 0, the limit ``torch.cuda.mem_get_info`` reports), and one
+    staged batch of clocked publishes is stamped ``staging_wait``, ``h2d``,
+    ``device_dispatch`` and ``d2h``, each leg folded into the stage-clock
+    histograms."""
+    import random
+
+    import chip_smoke as cs
+    from mqtt_tpu_torch.server import Options, Server
+    from mqtt_tpu_torch.telemetry import StageClock
+
+    entries, topic_gen = cs.cfg2_entries(4000, random.Random(5))
+    topics = [topic_gen() for _ in range(256)]
+
+    async def main():
+        srv = Server(Options(device_matcher=True, matcher_opts={"max_levels": 4, "background": False},
+                             device="cuda", gc_tuning=False))
+        for cid, sub in entries:
+            srv.topics.subscribe(cid, sub)
+        srv.matcher.flush()
+        snap = srv.device_stats.snapshot()
+        card = snap["devices"][0]
+        assert card["platform"] == "gpu" and card["kind"] == torch.cuda.get_device_name(0)
+        assert card["hbm"]["live_bytes"] > 0 and card["hbm"]["limit_bytes"] == torch.cuda.mem_get_info(0)[1]
+        rows = srv.device_stats.sys_tree()
+        assert rows["0/kind"] == card["kind"] and rows["0/hbm_live_bytes"] > 0
+        await srv.serve()
+        try:
+            clocks = [StageClock() for _ in topics]
+            await asyncio.gather(*(srv._stage.submit(t, c) for t, c in zip(topics, clocks)))
+            for t, c in zip(topics, clocks):
+                srv.telemetry.observe_publish(c, t, 0)
+        finally:
+            await srv.close()
+        return clocks, srv
+
+    clocks, srv = asyncio.run(main())
+    legs = ["staging_wait", "h2d", "device_dispatch", "d2h"]
+    assert all([s for s, _dt in c.stages] == legs for c in clocks)
+    hist = srv.telemetry.stage_hist
+    assert all(hist[s].count == len(topics) for s in ("h2d", "device_dispatch", "d2h", "device_batch"))
+    assert srv.profiler.batches > 0 and srv.device_stats.snapshot()["devices"][0]["batches"] == srv.profiler.batches
+
+
+CFG3_TOP = [f"t{i}" for i in range(1000)]  # config 3's vocabulary (chip_smoke.build_cfg3)
+CFG3_LEVEL = [f"s{i}" for i in range(30)]
+LARGE_CAP = {"latency_budget_s": None, "max_batch": 4096, "pipeline_depth": 3}
+
+
+@pytest.fixture(scope="module")
+def cfg3_card(dev):
+    """Config 3 (8-level topics, 5% ``#`` filters) at 250,000
+    subscriptions in a ``DeltaMatcher`` on the card: the compact path's
+    workload (K2)."""
+    import gc
+    import random
+
+    import chip_smoke as cs
+
+    gc.disable()  # the trie build is quadratic under the cyclic collector
+    try:
+        index, _entries, _gen = cs.build_cfg3(250_000, random.Random(3))
+        dm = DeltaMatcher(index, max_levels=8, rebuild_interval=0.5, device=dev)
+    finally:
+        gc.enable()
+    yield index, dm
+    dm.close()
+
+
+@pytest.mark.parametrize("seed,stage_kw", [(1, LARGE_CAP), (2, LARGE_CAP), (3, LARGE_CAP), (4, {})],
+                         ids=["large-cap-1", "large-cap-2", "large-cap-3", "defaults"])
+def test_config3_paced_through_the_stage_equals_the_walk(dev, cfg3_card, seed, stage_kw):
+    """Config 3's topics fed to ``MatchStage`` on a fixed schedule (50,000
+    a second for 2 s, open loop) so batches of every size up to the cap
+    overlap in the pipeline on the compact path: with the cap forced to
+    4096 and no budget, and at the stage's defaults. Every answer must be
+    the trie's walk."""
+    import random
+
+    import chip_smoke as cs
+    from mqtt_tpu_torch import native
+
+    index, dm = cfg3_card
+    rng = random.Random(seed)
+    topics = ["/".join([rng.choice(CFG3_TOP)] + [rng.choice(CFG3_LEVEL) for _ in range(7)])
+              for _ in range(100_000)]
+    compact0 = dm.stats.compact_batches
+
+    async def drive():
+        stage = MatchStage(dm, index.subscribers, **stage_kw)
+        stage.start()
+        try:
+            results, _lat = await cs._paced(stage, topics, 50_000.0)
+        finally:
+            await stage.stop()
+        return results, stage
+
+    results, stage = asyncio.run(drive())
+    view_t = native.accel().SubscribersView
+    wrong = [t for t, got in zip(topics, results)
+             if not subscribers_equal(got.materialize() if isinstance(got, view_t) else got, index.subscribers(t))]
+    assert not wrong, f"{len(wrong)} of {len(topics)} differ from the walk, first {wrong[0]!r}"
+    assert dm.stats.compact_batches > compact0

@@ -30,6 +30,7 @@ import chip_smoke as cs
 
 from mqtt_tpu import __main__ as jmain
 from mqtt_tpu import config as jconfig
+from mqtt_tpu.server import Options as JOptions
 
 from mqtt_tpu_torch import __main__ as tmain
 from mqtt_tpu_torch import config as tconfig
@@ -106,10 +107,25 @@ logging:
 """
 
 # the planes the port does not have: a config naming one of their fields raises
-PLANE_FIELDS = ["overload_control", "overload_throttle_enter", "overload_admission", "cluster_topology",
-                "cluster_transport", "loop_shards", "loop_shard_accept", "telemetry", "telemetry_ring", "trace",
-                "trace_sample", "profile", "profile_hz", "slo", "slo_objectives", "device_stats",
-                "device_hbm_watermark", "cluster_metrics"]
+# the keys of the planes the port does not have yet: the worker cluster
+# (with the governor's federation and the metric federation) and the
+# event-loop shard fabric
+PLANE_FIELDS = ["overload_federation", "overload_federation_weight", "overload_federation_ttl_ms",
+                "cluster_topology", "cluster_transport", "cluster_tree_degree", "cluster_summary_bits",
+                "cluster_dup_window", "cluster_peer_health_suspect_pings", "cluster_suspect_window_s",
+                "cluster_peer_park_max_bytes", "cluster_base_port", "cluster_tls_cert",
+                "cluster_connect_timeout_s", "cluster_summary_digests", "loop_shards", "loop_shard_accept",
+                "cluster_metrics", "cluster_metrics_max_age_s"]
+# the keys of the default planes: the governor, telemetry, tracing, the
+# host profiler, the SLO engine and the per-card plane
+DEFAULT_PLANE_FIELDS = {
+    "overload_control": False, "overload_throttle_enter": 0.6, "overload_admission": False,
+    "overload_shed_quota": 100, "overload_priority_classes": {"gold": 4}, "telemetry": False,
+    "telemetry_ring": 32, "telemetry_sample": 8, "trace": False, "trace_sample": 16, "trace_exemplars": False,
+    "profile": False, "profile_hz": 11.0, "profile_locks": False, "slo": False,
+    "slo_objectives": ["p99 delivery < 50ms over 5m", "hbm ratio < 0.9 over 5m"], "slo_burn_threshold": 2.0,
+    "device_stats": False, "device_hbm_watermark": 0.8,
+}
 
 
 def _json_of(yaml_bytes: bytes) -> bytes:
@@ -186,6 +202,16 @@ def test_a_plane_field_the_port_lacks_raises(field):
         tconfig.from_bytes(raw)
     with pytest.raises(TypeError):
         TOptions(**{field: False})
+
+
+@pytest.mark.parametrize("field", sorted(DEFAULT_PLANE_FIELDS))
+def test_a_default_plane_field_loads_as_the_jax_package_loads_it(field):
+    """A key of a default plane maps to the port's field with the JAX
+    loader's value, and both packages default it alike."""
+    raw = json.dumps({"options": {field: DEFAULT_PLANE_FIELDS[field]}}).encode()
+    j, t = jconfig.from_bytes(raw), tconfig.from_bytes(raw)
+    assert getattr(t, field) == getattr(j, field) == DEFAULT_PLANE_FIELDS[field]
+    assert getattr(TOptions(), field) == getattr(JOptions(), field)
 
 
 def test_a_config_driven_server_boots_and_serves(tmp_path):

@@ -7,10 +7,14 @@ every frame masked by hand) through each package's ``Server`` gives every
 client the same bytes; the upgrade's answers, pings, close and an
 oversized frame give the same bytes raw. The healthcheck, stats and
 dashboard listeners answer every route with the JAX listeners' status and
-body (the stats route's JSON keys; the volatile values aside), the port's
-telemetry routes 404 as the JAX listener's do with telemetry off, and
-``health_report`` equals the JAX server's on the planes both have: serving,
-a restore in progress, a tripped breaker, shutting down.
+body (the stats route's JSON keys; the volatile values aside), the
+telemetry routes 404 in both with telemetry off, and ``health_report``
+equals the JAX server's: serving, a restore in progress, a tripped
+breaker, shutting down, and with the default planes on, a governor in
+SHED and a breached SLO. With the planes on, ``/metrics``, ``/devices``,
+``/profile``, ``/traces`` and ``/cluster/slo`` answer as the JAX
+listener's: the same status, the same metric families and label sets, the
+same JSON keys, and each body passes its package's checker.
 """
 
 import asyncio
@@ -23,7 +27,12 @@ import pytest
 import chip_smoke as cs
 from chip_smoke import WsClient, connect_frame, disconnect_frame, publish_frame, subscribe_frame
 
-from test_torch_server import LIMIT, Broker, allow, package, pinned_clock  # noqa: F401 (fixture)
+from mqtt_tpu_torch import profiling as tprf
+from mqtt_tpu_torch import telemetry as ttel
+from mqtt_tpu_torch import tracing as ttrc
+
+from test_torch_server import (  # noqa: F401 (fixture)
+    LIMIT, _DEPARTED_FAMILIES, Broker, _families, allow, package, pinned_clock)
 
 
 def with_ws(b: Broker):
@@ -180,7 +189,7 @@ def test_http_listeners_answer_as_the_jax_listeners():
     """Every route of the healthcheck and stats listeners (built from the
     server's listener configs, as a config file builds them): the same
     status lines; the stats JSON's keys and its version; ``/healthz``'s
-    body; the telemetry routes 404 in both (no telemetry plane)."""
+    body; the telemetry routes 404 in both (the planes off in both)."""
     got = []
     for name in ("jax", "torch"):
         pkg = package(name)
@@ -304,3 +313,100 @@ def test_dashboard_answers_as_the_jax_dashboard(auth):
         assert got[1][7][3] == [("dash-cl", "t", [])] and statuses[-1] == "HTTP/1.1 404 Not Found"
     else:
         assert set(statuses) == {"HTTP/1.1 401 Unauthorized"}
+
+
+TELEMETRY_ROUTES = ["/metrics", "/devices", "/profile", "/profile?format=trace", "/traces", "/cluster/slo",
+                    "/metrics/cluster", "/healthz"]
+
+
+def test_telemetry_routes_answer_as_the_jax_listener(tmp_path):
+    """The stats listener of a server with the default planes on, after a
+    few publishes (every one traced): each telemetry route's status equals
+    the JAX listener's; ``/metrics`` has the same families and label sets
+    (``check_exposition``), ``/devices`` the same keys for device 0,
+    ``/profile`` passes ``check_collapsed`` and its trace form and
+    ``/traces`` ``check_trace_events``, ``/cluster/slo`` the same
+    objectives; ``/metrics/cluster`` 404 (no cluster in either)."""
+    got = {}
+    for name in ("jax", "torch"):
+        pkg = package(name)
+        L = pkg.listeners
+
+        async def main():
+            b = Broker(pkg, hooks=allow(pkg), planes=True, trace_sample=1, telemetry_sample=1, profile_hz=200.0,
+                       slo_objectives=["p99 delivery < 30s over 5m", "hbm ratio < 0.9 over 5m"],
+                       telemetry_dump_dir=str(tmp_path / name))
+            b.srv.add_listeners_from_config([L.Config(type="sysinfo", id="st", address="127.0.0.1:0")])
+            await b.start()
+            await b.connect("s", 4)
+            await b.send("s", subscribe_frame(1, [("a/#", 1, 0)], 4))
+            await b.connect("p", 5)
+            b.fold()
+            for i in range(6):
+                await b.send("p", publish_frame(f"a/{i}", b"x%d" % i, i % 2, i + 1 if i % 2 else 0, version=5))
+            for _ in range(300):
+                if b.srv.host_profiler.samples >= 3:
+                    break
+                await asyncio.sleep(0.01)
+            host, port = b.srv.listeners.get("st").address().rsplit(":", 1)
+            out = {}
+            for path in TELEMETRY_ROUTES:
+                status, body = await _get(host, port, path)
+                out[path] = (status, body)
+            await b.close()
+            return out
+
+        got[name] = asyncio.run(main())
+    j, t = got["jax"], got["torch"]
+    assert {p: s for p, (s, _b) in t.items()} == {p: s for p, (s, _b) in j.items()}
+    assert t["/metrics/cluster"][0] == "HTTP/1.1 404 Not Found"
+    jf, tf = _families(j["/metrics"][1].decode()), _families(t["/metrics"][1].decode())
+    for fam in _DEPARTED_FAMILIES:
+        jf.pop(fam, None), tf.pop(fam, None)
+    assert tf == jf and ttel.check_exposition(t["/metrics"][1].decode()) > 0
+    jd, td = json.loads(j["/devices"][1]), json.loads(t["/devices"][1])
+    assert sorted(td) == sorted(jd) and sorted(td["devices"][0]) == sorted(jd["devices"][0])
+    assert td["devices"][0]["platform"] == "cpu" and td["n_devices"] == 1
+    assert tprf.check_collapsed(t["/profile"][1].decode()) > 0
+    assert ttrc.check_trace_events(t["/profile?format=trace"][1]) > 0
+    assert ttrc.check_trace_events(t["/traces"][1]) >= 6 * 5
+    assert json.loads(t["/cluster/slo"][1]).keys() == json.loads(j["/cluster/slo"][1]).keys()
+    assert sorted(json.loads(t["/cluster/slo"][1])["local"]) == sorted(json.loads(j["/cluster/slo"][1])["local"])
+    assert json.loads(t["/healthz"][1]) == json.loads(j["/healthz"][1])
+
+
+@pytest.mark.parametrize("state", ["serving", "governor-shed", "slo-breached"])
+def test_health_report_with_the_planes_equals_the_jax_server(state, tmp_path):
+    """``health_report`` with the default planes on in both packages: the
+    governor's and the SLO engine's entries and the per-card plane's, a
+    governor forced into SHED (not ready), an SLO breached (degraded)."""
+    got = []
+    for name in ("jax", "torch"):
+        pkg = package(name)
+
+        async def main():
+            b = Broker(pkg, hooks=allow(pkg), planes=True, telemetry_dump_dir=str(tmp_path / name),
+                       slo_objectives=["p99 delivery < 1ms over 10s", "hbm ratio < 0.9 over 5m"])
+            await b.start()
+            srv = b.srv
+            if state == "governor-shed":
+                srv.overload.add_source("forced", lambda: 1.0)
+                srv.overload.evaluate(force=True)
+            if state == "slo-breached":
+                for k in range(50):
+                    srv.telemetry.observe_delivery(0.5, "", 0, "local")
+                    srv.slo.evaluate(now=1000.0 + k)
+            report = srv.health_report()
+            await b.close()
+            return report
+
+        got.append(asyncio.run(main()))
+    assert got[1] == got[0]
+    ok, body = got[1]
+    assert body["governor"]["state"] == ("shed" if state == "governor-shed" else "normal")
+    assert body["slo"]["objectives"] == 2 and "devices" in body
+    assert ok == (state != "governor-shed")
+    if state == "governor-shed":
+        assert body["not_ready"] == ["governor_shed"]
+    if state == "slo-breached":
+        assert body["degraded"] == ["slo_breached"] and body["slo"]["breached"] == ["p99_delivery_1ms_over_10s"]

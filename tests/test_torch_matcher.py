@@ -391,19 +391,26 @@ def test_cuda_kernel_wrappers_refuse_cpu_tensors():
 
 def test_compact_scratch_per_stream_with_epochs_that_skip_zero(monkeypatch):
     # K2's status words are valid only under their launch's epoch; 0 is
-    # what a freshly zeroed scratch holds, so no launch may use it
+    # what a freshly zeroed scratch holds, so no launch may use it. A
+    # launch of another layout (block count) takes a zeroed scratch of its
+    # own, and the stream's epochs go on across layouts
     import torch
 
     monkeypatch.setattr(kernels, "_compact_scratch", {})
+    monkeypatch.setattr(kernels, "_compact_epochs", {})
     dev = torch.device("cpu")
     a, e1 = kernels._compact_scratch_for(dev, 7, 10)
     b, e2 = kernels._compact_scratch_for(dev, 7, 10)
     assert a is b and (e1, e2) == (1, 2) and not a.any()
     other, e = kernels._compact_scratch_for(dev, 8, 10)
     assert other is not a and e == 1
-    kernels._compact_scratch[(None, 7)][1] = kernels._EPOCH_MASK
     grown, e = kernels._compact_scratch_for(dev, 7, 5000)
-    assert e == 1 and grown.numel() == 5000 and not grown.any()
+    assert grown is not a and e == 3 and grown.numel() == 5000 and not grown.any()
+    again, e = kernels._compact_scratch_for(dev, 7, 10)
+    assert again is a and e == 4
+    kernels._compact_epochs[(None, 7)] = kernels._EPOCH_MASK
+    again, e = kernels._compact_scratch_for(dev, 7, 5000)
+    assert again is grown and e == 1
     # a warp probes 32 // P topics (one where P > 32); a batch that fits in
     # one block of 32 warps takes one block
     assert [kernels._compact_warps(P, 4096) for P in (2, 8, 2048, 4096, 16384)] == [8, 8, 8, 4, 1]

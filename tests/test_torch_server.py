@@ -25,6 +25,7 @@ wait carries its own limit; nothing asserts a time.
 
 import asyncio
 import random
+import re
 import time
 from types import SimpleNamespace
 
@@ -32,6 +33,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
+from mqtt_tpu.server import Options as JOptions
 from chip_smoke import (
     P_ALIAS,
     P_ALIAS_MAX,
@@ -69,17 +71,24 @@ def package(name: str):
     return SimpleNamespace(name=name, hooks=hooks, listeners=listeners, server=server, auth=auth, memory=memory)
 
 
-def options(pkg, **kw):
+# the default planes, switched off alike in both packages unless a case
+# turns them on (``planes=True``)
+PLANES_OFF = dict(telemetry=False, profile=False, slo=False, overload_control=False, device_stats=False)
+
+
+def options(pkg, planes=False, **kw):
     """The sessions' configuration in each package: the device matcher
     (``max_levels`` 4, no background fold) without the breaker (the
     sessions run with it in ``test_sessions_with_the_breaker_equal_the_jax_server``),
-    predicates on; the JAX planes the port does not have switched off, the
-    port's planes on the CPU."""
+    predicates on; the default planes (the governor, telemetry, tracing,
+    the host profiler, SLOs, the per-card plane) off in both unless
+    ``planes`` (``test_sessions_with_the_planes_on_equal_the_jax_server``);
+    the port's planes on the CPU."""
     base = dict(device_matcher=True, matcher_opts={"max_levels": 4, "background": False}, gc_tuning=False,
                 matcher_resilience=False)
-    if pkg.name == "jax":
-        base.update(telemetry=False, profile=False, slo=False, overload_control=False, device_stats=False)
-    else:
+    if not planes:
+        base.update(PLANES_OFF)
+    if pkg.name == "torch":
         base.update(device="cpu")
     base.update(kw)
     return pkg.server.Options(**base)
@@ -322,6 +331,125 @@ def test_sessions_with_the_breaker_equal_the_jax_server(pinned_clock, script):
     kinds = {k: v for k, v in tg.items() if k.startswith("failures_")}
     assert kinds == {k: v for k, v in jg.items() if k.startswith("failures_")}
     assert tg["verified_batches"] > 0 and tb.srv.matcher.stats.as_dict()["batches"] > 0
+
+
+def _families(text: str) -> dict:
+    """A Prometheus exposition's families (``# TYPE`` lines), each with
+    the set of its samples' label sets (``le`` left out). The JAX test
+    platform has eight host devices and the port's host is one, so a
+    ``device`` label other than "0" is left out."""
+    types = [ln.split()[2] for ln in text.splitlines() if ln.startswith("# TYPE ")]
+    out: dict = {name: set() for name in types}
+    for line in text.splitlines():
+        if not line.strip() or line.startswith("#"):
+            continue
+        head = line.split(" ", 1)[0]
+        name, _, labels = head.partition("{")
+        if name not in out:
+            name = next(name.removesuffix(sfx) for sfx in ("_bucket", "_sum", "_count") if name.endswith(sfx))
+        pairs = tuple(sorted(p for p in labels.rstrip("}").split(",") if p and not p.startswith("le=")))
+        if any(p.startswith("device=") and p != 'device="0"' for p in pairs):
+            continue
+        out[name].add(pairs)
+    return out
+
+
+# known departures of the port's own planes, outside this comparison: the
+# first-launch ledger notes only the card's launches and builds (the CPU's
+# plain versions note nothing), and the predicate engine raises a device
+# failure instead of a breaker (its own gauges)
+_DEPARTED_FAMILIES = ("mqtt_tpu_matcher_recompiles_total", "mqtt_tpu_predicate_device_errors_total")
+_SYS_DEPARTURES = ("devices/compiles/", "telemetry/matcher_recompiles_total/", "telemetry/predicate_device_errors",
+                   "predicates/breaker_state", "predicates/device_errors", "predicates/host_reasons",
+                   "predicates/stale_rows")
+
+
+def _sys_keys(srv) -> set:
+    """The retained ``$SYS`` topics after one more tick (the rows of a
+    device other than 0 left out, as in ``_families``)."""
+    srv.publish_sys_topics()
+    keys = {m.topic_name[len("$SYS/broker/"):] for m in srv.topics.messages("$SYS/#")}
+    other_device = re.compile(r"^(devices|telemetry/device_[a-z0-9_]+)/[1-9][0-9]*(/|$)")
+    return {k for k in keys if not k.startswith(_SYS_DEPARTURES) and not other_device.match(k)}
+
+
+def test_sessions_with_the_planes_on_equal_the_jax_server(pinned_clock, tmp_path):
+    """The scripted sessions with the default planes on in both packages:
+    the governor, telemetry with stage clocks and the flight recorder,
+    the tracer, the host profiler and the lock plane, the SLO engine with
+    two objectives, the per-card plane. Every client's bytes equal the JAX
+    server's; ``/metrics`` has the same families with the same label sets
+    and the ``$SYS`` tree the same keys (the known departures apart)."""
+    # objectives no CPU run breaches (a breach is a timing, and its
+    # retained $SYS/broker/slo/<name> row would be too)
+    objectives = ["p99 delivery < 30s over 5m", "hbm ratio < 0.9 over 5m"]
+
+    async def script(b):
+        await script_core(b)
+        b.exposition = b.srv.telemetry.exposition()
+        b.sys_keys = _sys_keys(b.srv)
+
+    got = run_both(script, allow, planes=True, slo_objectives=objectives, telemetry_sample=4, trace_sample=8,
+                   telemetry_dump_dir=str(tmp_path))
+    (jout, jb), (tout, tb) = got["jax"], got["torch"]
+    assert tout == jout
+    jf, tf = _families(jb.exposition), _families(tb.exposition)
+    for name in _DEPARTED_FAMILIES:
+        jf.pop(name, None), tf.pop(name, None)
+    assert tf == jf
+    assert tb.sys_keys == jb.sys_keys
+    assert {"overload/state", "telemetry/publish_sampled_total", "devices/0/hbm_ratio"} <= tb.sys_keys
+    tele = tb.srv.telemetry
+    assert tele.sampled_publishes.value == jb.srv.telemetry.sampled_publishes.value > 0
+    assert tb.srv.tracer.publishes_total == jb.srv.tracer.publishes_total > 0
+    assert set(tb.srv.slo.state()) == set(jb.srv.slo.state())
+    assert tb.srv.host_profiler._thread is None and tb.srv.overload.state == "normal"
+
+
+async def script_shed(b: Broker) -> None:
+    """SHED forced through ``overload.add_source``: new CONNECTs refused
+    (v5 0x97, v4 0x03), the publishers of a zero-weight class shed (QoS 1
+    acked 0x97 on v5, QoS 0 dropped), the housekeeping sweep's verdicts."""
+    await b.connect("s4", 4)
+    await b.send("s4", subscribe_frame(1, [("a/#", 1, 0)], 4))
+    await b.connect("p5", 5)
+    await b.connect("p4", 4)
+    b.fold()
+    await b.send("p5", publish_frame("a/x", b"before", 1, 1, version=5))
+    b.srv.overload.add_source("forced", lambda: 1.0)
+    assert b.srv.overload.evaluate(force=True) == "shed"
+    await b.connect("n5", 5)
+    await b.connect("n4", 4)
+    await b.send("p5", publish_frame("a/x", b"shed-1", 1, 2, version=5),
+                 publish_frame("a/y", b"shed-0", 0, version=5))
+    await b.send("p4", publish_frame("a/x", b"shed-4", 1, 3), publish_frame("a/y", b"shed-40"))
+    b.health = b.srv.health_report()
+    b.gauges = b.srv.overload.gauges()
+    b.dropped = b.srv.info.messages_dropped
+
+
+def test_forced_shed_refuses_and_sheds_as_the_jax_server(pinned_clock, tmp_path):
+    """The governor forced into SHED in both packages: byte-equal CONNACKs
+    (0x97 on v5, 0x03 on v4), byte-equal 0x97 PUBACKs, nothing delivered
+    of the shed publishes, and an equal ``health_report`` and gauges. The
+    allow-all hook makes every client an admin of ``$SYS``, so the
+    always-admit reserve is 0 here."""
+    got = run_both(script_shed, allow, planes=True, overload_priority_classes={"low": 0},
+                   overload_priority_users={"p5": "low", "p4": "low"}, telemetry_dump_dir=str(tmp_path),
+                   overload_admission_reserve=0)
+    (jout, jb), (tout, tb) = got["jax"], got["torch"]
+    assert tout == jout
+    assert tout["n5"][0][0] == 0x20 and tout["n5"][0][3] == 0x97
+    assert tout["n4"][0] == bytes([0x20, 0x02, 0x00, 0x03])
+    acks = [f for f in cs.split_frames(tout["p5"][0]) if f[0] == 0x40]
+    # a v5 PUBACK without a reason code is a success
+    assert [(f[2:4], f[4] if len(f) > 4 else 0) for f in acks] == [(b"\x00\x01", 0x00), (b"\x00\x02", 0x97)]
+    assert b"shed-" not in tout["s4"][0] and b"before" in tout["s4"][0]
+    assert tb.health == jb.health and tb.health[0] is False and "governor_shed" in tb.health[1]["not_ready"]
+    for k in ("state", "sheds", "connects_refused", "transitions"):
+        assert tb.gauges[k] == jb.gauges[k], k
+    assert tb.gauges["sheds"] == 4 and tb.gauges["connects_refused"] == 2
+    assert tb.dropped == jb.dropped == 4
 
 
 def ledger_hooks(pkg):
@@ -680,18 +808,26 @@ def test_default_options_raise_without_cuda():
         Server(Options())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Server(Options(predicate_filters=False, device_matcher=True))
+    # the per-card plane is on by default: a Server without a device
+    # matcher or predicates is on the card too
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Server(Options(predicate_filters=False))
     Server(Options(device="cpu", device_matcher=True, tenancy=True, retained_matcher=True)).matcher.close()
 
 
 def test_options_omit_the_planes_not_ported():
     from mqtt_tpu_torch.server import Options
 
-    for field in ("telemetry", "overload_control", "loop_shards", "slo",
-                  "device_stats", "profile", "cluster_topology", "trace_jax_profiler_dir"):
+    for field in ("overload_federation", "loop_shards", "cluster_metrics", "cluster_topology",
+                  "trace_jax_profiler_dir"):
         with pytest.raises(TypeError):
             Options(**{field: False})
     o = Options()
     assert (o.device, o.predicate_filters, o.fanout_batch, o.durable_restore_batch) == ("cuda", True, True, 4096)
+    # the JAX server's default planes are on, with its defaults
+    j = JOptions()
+    for field in ("telemetry", "trace", "profile", "profile_locks", "slo", "device_stats", "overload_control"):
+        assert getattr(o, field) is True and getattr(j, field) is True
 
 
 def _seeded_ledger(auth, rng):

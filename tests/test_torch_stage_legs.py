@@ -10,6 +10,8 @@ publishers' futures: no host path answers for it.
 
 import asyncio
 import random
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -30,6 +32,7 @@ from mqtt_tpu_torch import (
     MatchStage,
     PredicateEngine,
     RecryptEngine,
+    Subscribers,
     Subscription,
     Tenant,
     TopicsIndex,
@@ -218,3 +221,122 @@ def test_fanout_kernel_failures_raise(monkeypatch):
         pred.apply(subs.subscribers("h"), b'{"v": %d}' % i)
     with pytest.raises(KernelError):
         pred.apply(subs.subscribers("h"), b'{"v": 31}')
+
+
+class _SlowMatcher:
+    """A matcher whose every batch takes ``service_s`` to resolve: a slow
+    device side."""
+
+    def __init__(self, service_s: float) -> None:
+        self.service_s = service_s
+
+    def match_topics_async(self, topics, profile=None):
+        def resolve():
+            time.sleep(self.service_s)
+            return [Subscribers() for _ in topics]
+
+        return resolve
+
+
+async def _burst_waits(stage, n: int) -> list:
+    """One small batch (the stage's first service reading), then a burst
+    of ``n`` publishes submitted at once: each publish's wait from the
+    burst's start to its result."""
+    stage.start()
+    try:
+        await asyncio.gather(*(stage.submit(f"w/{i}") for i in range(8)))
+        t0 = time.perf_counter()
+        waits = []
+
+        async def one(i):
+            await stage.submit(f"b/{i}")
+            waits.append(time.perf_counter() - t0)
+
+        await asyncio.gather(*(one(i) for i in range(n)))
+    finally:
+        await stage.stop()
+    return waits
+
+
+@pytest.mark.parametrize("package", ["jax", "torch"])
+def test_the_deadline_bounds_a_publish_stage_wait_when_the_device_is_slow(package):
+    """Batches of 64 that take 50 ms each: unbounded, a burst of 1024
+    waits 16 services for its last publish. With a 50 ms budget the
+    admission deadline (projected depth x service over twice the budget)
+    sends the rest of the burst to the host walk, in both packages, and
+    the burst's slowest publish waits a few services. Both stages walk
+    on the event loop's thread, inside ``submit``."""
+    cls = JMatchStage if package == "jax" else MatchStage
+    threads = []
+
+    def walk(topic):
+        threads.append(threading.current_thread().name)
+        return Subscribers()
+
+    free = cls(_SlowMatcher(0.05), walk, max_batch=64, latency_budget_s=None)
+    unbounded = max(asyncio.run(_burst_waits(free, 1024)))
+    stage = cls(_SlowMatcher(0.05), walk, max_batch=64, latency_budget_s=0.05)
+    waits = asyncio.run(_burst_waits(stage, 1024))
+    assert len(waits) == 1024 and unbounded > 0.75
+    assert stage.admission_fallbacks > 512 and len(threads) == stage.admission_fallbacks
+    assert max(waits) < 0.5 * unbounded
+    assert set(threads) == {threading.main_thread().name}
+
+
+def test_a_refused_publish_resolves_when_the_stage_stops_before_its_walk():
+    """A publish the admission refused is walked inside ``submit``, so a
+    ``stop()`` in the same loop iteration finds it resolved already."""
+    seen = []
+
+    async def drive():
+        stage = MatchStage(_SlowMatcher(0.05), lambda t: seen.append(t) or Subscribers(), max_pending=1)
+        stage.start()
+        first = stage.submit("a")
+        refused = stage.submit("b")  # max_pending reached: the host walk
+        await stage.stop()
+        return await asyncio.gather(first, refused), stage
+
+    results, stage = asyncio.run(drive())
+    assert [len(r.subscriptions) for r in results] == [0, 0]
+    assert stage.admission_fallbacks == 1 and "b" in seen
+
+
+async def _hogged_burst(stage, n: int, hog_s: float) -> None:
+    """Four publishes one after another, then a burst of ``n`` at once,
+    while a task blocks the event loop for ``hog_s`` on each of its
+    turns: a loop busy with other work."""
+    stop = False
+
+    async def hog():
+        while not stop:
+            time.sleep(hog_s)
+            await asyncio.sleep(0)
+
+    stage.start()
+    task = asyncio.get_running_loop().create_task(hog())
+    try:
+        for i in range(4):
+            await stage.submit(f"w/{i}")
+        await asyncio.gather(*(stage.submit(f"b/{i}") for i in range(n)))
+    finally:
+        stop = True
+        await task
+        await stage.stop()
+
+
+@pytest.mark.parametrize("package", ["jax", "torch"])
+def test_a_busy_event_loop_trips_the_deadline_only_in_the_jax_stage(package):
+    """Batches that resolve in 1 ms on a loop that another task blocks for
+    100 ms at a time. The JAX stage times each batch on the loop's clock,
+    which counts the loop's delay in resuming the drainer, so its deadline
+    (twice a 20 ms budget) sends the burst to the host walk. The port's
+    deadline reads the resolve leg timed on its own thread and admits
+    every publish: the device keeps up, and a walk would run on the same
+    busy loop."""
+    cls = JMatchStage if package == "jax" else MatchStage
+    stage = cls(_SlowMatcher(0.001), lambda topic: Subscribers(), max_batch=64, latency_budget_s=0.02)
+    asyncio.run(_hogged_burst(stage, 256, 0.1))
+    if package == "jax":
+        assert stage.admission_fallbacks > 128
+    else:
+        assert stage.admission_fallbacks == 0 and not stage.fallbacks

@@ -12,6 +12,8 @@ packages' ``check_exposition`` must accept both texts with the same sample
 count. Tolerance 0: the arithmetic is the same, operation for operation.
 """
 
+import json
+
 import numpy as np
 import pytest
 
@@ -136,3 +138,90 @@ def test_registry_refuses_what_the_jax_registry_refuses():
             reg.counter("9bad", "x")
         # the same (name, labels) returns the same child
         assert reg.counter("mqtt_tpu_test_x_total") is reg.counter("mqtt_tpu_test_x_total")
+
+
+# -- the telemetry facade: stage clocks, batch and delivery observations -----
+
+
+def _stage_lists(seed: int, n: int = 120) -> list:
+    """Seeded per-publish stage lists as the pipeline stamps them: the
+    decode path with the device legs split, the coarse device batch (the
+    exact map, a host route), the batched fan-out's encode/flush or the
+    coarse fanout, and the fast path's decode/admission/fanout."""
+    rng = np.random.default_rng(seed)
+    shapes = (
+        ("decode", "admission", "staging_wait", "h2d", "device_dispatch", "d2h", "encode", "flush"),
+        ("decode", "admission", "staging_wait", "device_batch", "fanout"),
+        ("decode", "admission", "staging_wait", "h2d", "device_dispatch", "d2h", "fanout"),
+        ("decode", "admission", "fanout"),
+        ("decode", "admission", "not_a_stage", "encode", "flush"),
+    )
+    out = []
+    for _ in range(n):
+        shape = shapes[int(rng.integers(0, len(shapes)))]
+        out.append([(s, float(rng.exponential(3e-4))) for s in shape])
+    return out
+
+
+def _facade(tel, seed: int, tmp_path) -> object:
+    """One seeded run of observations through a ``Telemetry`` of ``tel``'s
+    package: finished stage clocks, batch service and fill, leg waits,
+    fallback classes, deliveries by tenant and QoS, amplification counts."""
+    rng = np.random.default_rng(seed + 100)
+    tele = tel.Telemetry(sample=4, ring=32, dump_dir=str(tmp_path))
+    for k, stages in enumerate(_stage_lists(seed)):
+        clock = tel.StageClock()
+        clock.t0 = clock.last = 5.0
+        for stage, dt in stages:
+            clock.stamp_until(stage, clock.last + dt)
+        tele.observe_publish(clock, f"t/{k % 7}", k % 3)
+        tele.observe_batch(float(rng.exponential(2e-3)), int(rng.integers(1, 4096)), int(rng.integers(0, 4097)))
+        tele.observe_leg_wait(("h2d", "d2h", "other")[k % 3], float(rng.exponential(1e-4)))
+        tele.note_fallback(("admission", "issue_error", "resolve_error", "stop", "other")[k % 5], k % 4)
+        tele.observe_delivery(clock.total(), ("", "acme", "\x00")[k % 3], k % 3, ("local", "remote")[k % 2])
+        tele.publish_encodes.inc(k % 2)
+        tele.fanout_deliveries.inc(k % 5)
+        tele.rebuild_hist.observe(float(rng.exponential(0.05)))
+    return tele
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_stage_clocks_render_identical_text_and_sys_rows(seed, tmp_path):
+    """The same stage lists through the facade of each package: byte-equal
+    ``exposition()`` and equal ``sys_tree()``, ``bench_block()``,
+    ``fanout_block()`` and flight-recorder rows (their wall stamp apart)."""
+    j, t = _facade(jtel, seed, tmp_path / "j"), _facade(ttel, seed, tmp_path / "t")
+    assert t.exposition() == j.exposition()
+    assert ttel.check_exposition(t.exposition()) == jtel.check_exposition(j.exposition()) > 0
+    assert t.sys_tree() == j.sys_tree()
+    assert t.bench_block() == j.bench_block()
+    assert t.fanout_block(500) == j.fanout_block(500)
+    assert t.sampled_publishes.value == j.sampled_publishes.value == 120
+    strip = lambda recs: [{k: v for k, v in r.items() if k != "t"} for r in recs]  # noqa: E731
+    assert strip(t.recorder.ring) == strip(j.recorder.ring)
+    # the coarse device_batch and fanout stages hold the split legs' sums
+    assert t.stage_hist["device_batch"].count == t.stage_hist["staging_wait"].count
+
+
+def test_publish_clock_sampling_and_the_flight_dump_match(tmp_path):
+    """1-in-N sampling decisions and the outbound gate agree call for call;
+    a synchronous dump writes the ring, rate-limited alike."""
+    j = jtel.Telemetry(sample=5, dump_dir=str(tmp_path / "j"))
+    t = ttel.Telemetry(sample=5, dump_dir=str(tmp_path / "t"))
+    for _ in range(50):
+        assert (j.publish_clock() is None) == (t.publish_clock() is None)
+        assert j.sample_outbound() == t.sample_outbound()
+    for tel, tele in ((jtel, j), (ttel, t)):
+        clock = tel.StageClock()
+        clock.stamp("decode")
+        tele.observe_publish(clock, "x", 1)
+    paths = [tele.recorder.dump("manual") for tele in (j, t)]
+    assert all(paths) and [tele.recorder.dump("again") for tele in (j, t)] == [None, None]
+    docs = [json.load(open(p)) for p in paths]
+    for d in docs:
+        d.pop("time_unix")
+        for r in d["records"]:
+            r.pop("t")
+            r.pop("total_ms"), r.pop("stages_ms")
+    assert docs[0] == docs[1]
+    assert (t.recorder.dumps, t.recorder.dumps_suppressed) == (j.recorder.dumps, j.recorder.dumps_suppressed) == (1, 1)

@@ -190,3 +190,126 @@ def test_stage_fills_one_record_per_device_batch(route):
         assert prof.batches == n
     finally:
         dm.close()
+
+
+# -- the span tracer and the stage's device legs ------------------------------
+
+
+def _traced_run(tel, tr, seed: int):
+    """200 publishes through a ``Telemetry`` of ``tel``'s package with a
+    seeded ``Tracer`` of ``tr``'s attached: each sampled clock gets seeded
+    stamps at explicit times and is observed; returns the facade and the
+    sampling pattern (None, plain clock, trace id)."""
+    tele = tel.Telemetry(sample=3)
+    tracer = tr.Tracer(sample=7, ring=256, seed=seed, registry=tele.registry)
+    tracer._anchor = 0.0
+    tele.attach_tracer(tracer)
+    rng = np.random.default_rng(seed)
+    pattern = []
+    for k in range(200):
+        clock = tele.publish_clock()
+        pattern.append(None if clock is None else getattr(clock, "trace_id", "clock"))
+        if clock is None:
+            continue
+        clock.t0 = clock.last = 20.0 + k
+        for stage in ("decode", "admission", "staging_wait", "h2d", "device_dispatch", "d2h", "encode", "flush"):
+            clock.stamp_until(stage, clock.last + float(rng.exponential(2e-4)))
+        tele.observe_publish(clock, f"site/{k % 5}", k % 3)
+    return tele, tracer, pattern
+
+
+@pytest.mark.parametrize("seed", [0, 6])
+def test_seeded_tracers_sample_the_same_spans(seed):
+    """The same seed gives the same sampling decisions, trace and span ids,
+    span trees and exemplars in both packages: equal exports (the wall
+    anchor pinned), byte-identical exposition with its exemplars, and
+    ``check_trace_events`` agreeing."""
+    jt, jtr_, jpat = _traced_run(jtel, jtr, seed)
+    tt, ttr_, tpat = _traced_run(ttel, ttr, seed)
+    assert tpat == jpat and sum(p not in (None, "clock") for p in tpat) == 200 // 7
+    assert list(ttr_.ring) == list(jtr_.ring)
+    assert ttr_.export() == jtr_.export()
+    assert ttr.check_trace_events(ttr_.export_json()) == jtr.check_trace_events(jtr_.export_json()) > 0
+    text = tt.exposition()
+    assert text == jt.exposition() and '# {trace_id="' in text
+    assert (ttr_.spans_total, ttr_.publishes_total) == (jtr_.spans_total, jtr_.publishes_total)
+    for bad in ({}, {"traceEvents": []}, {"traceEvents": [{"name": "x", "ph": "B"}]}):
+        for mod in (jtr, ttr):
+            with pytest.raises(ValueError):
+                mod.check_trace_events(bad)
+
+
+def test_a_client_trace_id_is_adopted_alike():
+    """A v5 ``trace-id`` user property adopts the client's id, bounded by
+    the per-second budget, in both packages."""
+    from mqtt_tpu import packets as jpk
+
+    from mqtt_tpu_torch import packets as tpk
+
+    out = []
+    for tel, tr, pk_mod in ((jtel, jtr, jpk), (ttel, ttr, tpk)):
+        tele = tel.Telemetry(sample=0)
+        tracer = tr.Tracer(sample=1000, seed=3)
+        tracer.adopt_max_per_s = 2
+        tele.attach_tracer(tracer)
+        ids = []
+        for k in range(4):
+            pk = pk_mod.Packet()
+            pk.properties.user = [pk_mod.UserProperty("trace-id", f"client-{k}")]
+            clock = tele.adopt_trace(pk)
+            ids.append(getattr(clock, "trace_id", None))
+        out.append(ids)
+    assert out[0] == out[1] == ["client-0", "client-1", None, None]
+
+
+def _stage_clocks(stage_mod, tel, dm, index, topics, prof):
+    """Every topic through a ``MatchStage`` with a telemetry plane and the
+    profiler, each publish carrying a stage clock; each clock's stage names
+    and the facade's counters."""
+    tele = tel.Telemetry(sample=1)
+
+    async def drive():
+        stage = stage_mod.MatchStage(dm, index.subscribers, max_batch=64, latency_budget_s=None, max_pending=4096,
+                                     profiler=prof, telemetry=tele)
+        stage.start()
+        clocks = [tel.StageClock() for _ in topics]
+        try:
+            await asyncio.gather(*(stage.submit(t, c) for t, c in zip(topics, clocks)))
+        finally:
+            await stage.stop()
+        return clocks
+
+    clocks = asyncio.run(drive())
+    return [[s for s, _dt in c.stages] for c in clocks], tele
+
+
+def test_the_stage_stamps_the_device_legs_as_the_jax_stage():
+    """``MatchStage(telemetry=, profiler=)`` in both packages: every
+    publish's clock is stamped ``staging_wait`` and then ``h2d``,
+    ``device_dispatch`` and ``d2h`` from its batch's own record, each leg
+    a duration of its window; the h2d and d2h handoff waits and the batch
+    service are observed once per batch."""
+    from mqtt_tpu import staging as jst
+    from mqtt_tpu.ops.delta import DeltaMatcher as JDeltaMatcher
+
+    from mqtt_tpu_torch import staging as tst
+
+    ops = corpus_ops(61, n_subs=600)
+    jidx, tidx = twin_tries(ops)
+    topics = corpus_topics(62, n=300)
+    jdm = JDeltaMatcher(jidx, max_levels=MAX_LEVELS, background=False, lazy=False)
+    tdm = DeltaMatcher(tidx, max_levels=MAX_LEVELS, background=False, device="cpu")
+    jprof, tprof = jtr.DeviceProfiler(), _Recording()
+    jdm._snap.profiler, tdm.snapshot.profiler = jprof, tprof
+    try:
+        jnames, jtele = _stage_clocks(jst, jtel, jdm, jidx, topics, jprof)
+        tnames, ttele = _stage_clocks(tst, ttel, tdm, tidx, topics, tprof)
+    finally:
+        jdm.close(), tdm.close()
+    legs = ["staging_wait", "h2d", "device_dispatch", "d2h"]
+    assert tnames == jnames and all(n == legs for n in tnames)
+    n = tprof.batches
+    assert n >= len(topics) // 64 and ttele.batch_service.count == n
+    assert ttele.leg_wait["h2d"].count == ttele.leg_wait["d2h"].count == n
+    assert sum(ttele.batch_fill.counts) == n and ttele.fallback["admission"].value == 0
+    assert jtele.batch_service.count == jprof.batches
