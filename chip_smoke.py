@@ -56,9 +56,10 @@ Phases, each printed as it ends:
    ``DeltaMatcher(mesh=make_mesh(["cuda:0"] * 8))`` (4 subscription shards
    x 2 batch tiles, every position on the one card) →
    ``ShardedTorchMatcher``: the replica tries and the four shard indexes
-   built, then three waves of publishes with the launch counts set to 0
-   just before (150 unsubscribes and subscribes and a flush between the
-   first two), and a fourth wave under ``torch.profiler``; each step must
+   built, then one wave of publishes with the launch counts set to 0
+   just before (``SHARDED_WAVES``, cut from three for the call's time
+   limit), 150 unsubscribes and subscribes and a flush after it, and a
+   wave under ``torch.profiler``; each step must
    be one launch of K8 and one of K9 (launches equal to batches); then K8
    (the step over both tiles, one launch) and K9 (the tile compaction, at
    the capacity the path settled at and below the tiles' hits) held
@@ -98,7 +99,9 @@ Phases, each printed as it ends:
     300 retains and 300 clears (a namespace compacting) between the first
     two, every answer equal to the walk (``TopicsIndex.messages``); a
     fourth round under the profiler; the per-scan split; K1 held against
-    its plain version at the corpus's capacity.
+    its plain version at the corpus's capacity. The default run takes the
+    50,000 corpus only (``RETAINED_SIZES``; the 1,000,000 one, cut for the
+    call's time limit, with ``--retained 50000,1000000``).
 11. The re-key re-seal (cfgR's setup): a tenant's 4,096 encrypted retained
     payloads of 256 B and 4,096 of 4096 B re-sealed across a new epoch
     through ``RecryptEngine.reseal_batch``, one K6 launch per call; every
@@ -235,6 +238,34 @@ Phases, each printed as it ends:
     The kernels run in the broker's process, so they are not in the
     kernels line. Every phase group's wall is printed (``wall ...``).
 
+16. The event-loop shard fabric (phase "fabric", cell ``fabric-cfg2``,
+    after "entry"): entry's store as the fill wrote it (copied before
+    entry ran) served again by ``serve`` with ``loop_shards: 4``
+    (handoff) and the port's loop witness armed in the broker's process;
+    its broker restores its copy while entry's broker restores the store,
+    on the same card and host, and entry's waves wait until it settled;
+    entry's sessions and publishers, entry's first wave held to the same
+    oracle and to entry's device share, then 64 sessions moved onto
+    another shard by a takeover (each move seen in ``/metrics``' per-shard
+    connections) and one publish to each; every shard served, the stage
+    resolved other loops' futures (``match_stage/resolve_marshal``), no
+    witness violation, no shed, no breaker failure, SIGTERM exit 0.
+
+17. The worker cluster (phase "cluster", cell ``cluster-cfg2``): ``serve
+    --workers 4`` on the one card (the device matcher and the default
+    planes in every worker); 262,144 of config 2's filters SUBSCRIBEd in
+    one burst over 512 connections the kernel spreads over the workers (no
+    connection holds two filters that one topic matches), a wait until
+    every governor reads NORMAL and every peer link has drained, a marker from
+    each worker's probe client in turn (every worker's interest known at
+    the others), every worker's fold; a v4 and a v5 publisher on each
+    worker send two waves of 24,576 QoS 0/1 publishes, each subscriber's
+    frames the host walk's over all the filters; every worker counts
+    ``peers`` 3, no dropped forward, device batches, a closed breaker
+    with no fallback batch; SIGTERM to the launcher leaves no worker.
+    Printed: the SUBSCRIBE leg's wall (the drain wait printed apart), each wave's publishes/s and
+    deliveries/s and the share of deliveries that crossed workers.
+
 Phase 4 also holds K7 (``flat_match_core``, the single-index entry point
 of K8's kernel) and K4-K6 against their plain versions at the shapes these
 paths give them (K5's MEAN within ``1e-5 * max(1, |want|)``, the rest with
@@ -290,6 +321,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
 N_SUBS = 1_000_000
 WAVE = 24_576  # publishes per wave; three waves per configuration
+SHARDED_WAVES = 1  # the sharded path's waves before its traced one: cut from three for the call's time limit
 BATCHES = (4096, 65536)
 MAIN_BATCH = 4096  # MatchStage's max_batch: the kernel shape the main path runs
 MESH_POSITIONS = 8  # the sharded path's mesh: 2 batch tiles x 4 subscription shards
@@ -328,7 +360,7 @@ N_TENANTS = 4
 KEYS_PER_TENANT = 128
 # retained delivery: bench.py config 11's retained-scan corpus (leg 2, 50,000
 # topics) and a fleet keeping one retained status topic per device of 1M
-RETAINED_SIZES = (50_000, 1_000_000)
+RETAINED_SIZES = (50_000,)  # 1,000,000 cut for the call's time limit (--retained 50000,1000000)
 RET_TENANTS = 4  # tenant namespaces of scoped retained topics beside the global corpus
 RET_PER_TENANT = 2_000
 RET_CHURN = 300  # retains, and as many clears, between the first two rounds
@@ -1319,7 +1351,7 @@ def phase_kernels_sharded(torch, rec: dict, sh: dict, device, main: bool, iters:
     log(f"phase kernels sharded {sh['name']}: ok K8 and K9 equal their plain versions (tolerance 0)")
 
 
-def phase_sharded(sh: dict, wave: int, n_waves: int = 3, n_churn: int = 150) -> dict:
+def phase_sharded(sh: dict, wave: int, n_waves: int = SHARDED_WAVES, n_churn: int = 150) -> dict:
     """The sharded path on one configuration (launch counts reset just
     before): ``n_waves`` waves through a stage with no latency budget and
     a fixed batch of 4096, ``n_churn`` unsubscribes and subscribes and a
@@ -4548,6 +4580,20 @@ def start_entry_fill(n_subs: int, n_sessions: int, wave: int) -> dict:
     return {"root": root, "path": path, "proc": proc, "log": log_path, "t0": time.perf_counter()}
 
 
+def fill_copy(fill: dict, suffix: str) -> str:
+    """Wait for the fill and copy its store beside it (``<path><suffix>``)."""
+    import shutil
+
+    try:
+        fill["proc"].wait(timeout=1500)
+    except subprocess.TimeoutExpired:
+        raise PhaseFailed(f"{ENTRY_CELL}: the store's fill did not end") from None
+    check(fill["proc"].returncode == 0, f"{ENTRY_CELL}: the store's fill failed:\n{_tail(fill['log'])}")
+    dst = fill["path"] + suffix
+    shutil.copytree(fill["path"], dst)
+    return dst
+
+
 def stop_entry_fill(fill: dict) -> None:
     """End the fill process if it still runs and remove its directory."""
     import shutil
@@ -4588,9 +4634,9 @@ class SysRows:
 
     PREFIX = "$SYS/broker/"
 
-    def __init__(self) -> None:
+    def __init__(self, what: str = ENTRY_CELL) -> None:
         self.c = WireClient("entry-sys", 4)
-        self.seen = 0
+        self.what = what  # the phase and broker named in a failure
 
     async def open(self, host: str, port: int) -> None:
         await self.c.open(host, port)
@@ -4611,11 +4657,14 @@ class SysRows:
         return sum(1 for p in _publishes(self.c, 0) if p["topic"] == self.PREFIX + row)
 
     async def fresh(self, limit: float = 30.0) -> dict:
-        """The rows of a ``$SYS`` tick that began after this call."""
+        """The rows of a ``$SYS`` tick that began after this call. Sends a
+        PINGREQ first: this client only reads, and a broker ends a client
+        that sends nothing for 1.5 keepalives."""
+        self.c.send(PINGREQ_FRAME)
         n0 = self.count("matcher/batches")
         deadline = time.monotonic() + limit
         while self.count("matcher/batches") < n0 + 2:
-            check(time.monotonic() < deadline, f"{ENTRY_CELL}: no $SYS tick within {limit} s")
+            check(time.monotonic() < deadline, f"{self.what}: no $SYS tick within {limit} s")
             await asyncio.sleep(0.1)
         return self.rows()
 
@@ -4639,7 +4688,8 @@ class SysRows:
         return time.perf_counter() - t0
 
 
-def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHURN, planes: bool = True) -> dict:
+def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHURN, planes: bool = True,
+                before_waves=None) -> dict:
     """Phase ``entry`` (cell ``entry-cfg2``): the broker started as its
     users start it, ``python -m mqtt_tpu_torch serve --config <file>``, in a
     process of its own on the card. The config (JSON) turns on the device
@@ -4664,7 +4714,10 @@ def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHUR
     churned record as the churn left it. The kernels run in that process,
     so their launches are not in the kernels line: the ``$SYS`` rows are
     this phase's evidence. ``planes=False`` turns the default planes off in
-    the config (``PLANES_OFF``) and skips their checks (``entry_planes``)."""
+    the config (``PLANES_OFF``) and skips their checks (``entry_planes``).
+    ``before_waves`` (a coroutine function) is awaited after the sessions'
+    fold and before the first wave: phase ``fabric``'s broker restores
+    beside this one, and the waves wait until it is restored and folded."""
     from mqtt_tpu_torch.hooks.storage.logkv import LogKVOptions, LogKVStore
 
     t_phase = time.perf_counter()
@@ -4716,24 +4769,6 @@ def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHUR
     info: dict = {}
     rows = []
 
-    async def ready(limit: float = 900.0) -> dict:
-        t0 = time.perf_counter()
-        while True:
-            check(broker.poll() is None, f"{ENTRY_CELL}: the broker exited {broker.returncode}:\n{_tail(out_path)}")
-            check(time.perf_counter() - t0 < limit, f"{ENTRY_CELL}: /healthz not 200 within {limit} s")
-            try:
-                status, body = await http_get("127.0.0.1", p_st, "/healthz", 10.0)
-                if status == 200:
-                    return json.loads(body)
-            except (OSError, asyncio.TimeoutError):
-                pass
-            await asyncio.sleep(0.25)
-
-    def device_share(r0: dict, r1: dict) -> dict:
-        rows = {k: "matcher/" + k for k in ("topics", "host_fallbacks", "overflows", "host_fast")}
-        rows["breaker"] = "matcher/breaker/fallback_topics"
-        return route_split({k: int(r1[row]) - int(r0[row]) for k, row in rows.items()})
-
     async def wave_run(w: int, topics: list, clients: dict, pubs: list, sysr: SysRows) -> dict:
         wave = _Cfg2Wave(topics, b"e%d" % w, held, clients, pubs)
         r0 = await sysr.fresh()
@@ -4761,7 +4796,7 @@ def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHUR
 
     async def drive():
         t0 = time.perf_counter()
-        health = await ready()
+        health = await _healthy(broker, p_st, out_path, ENTRY_CELL)
         info["ready"] = time.perf_counter() - t0
         info["health0"] = health
         check(health.get("ok") is True and "durable" in health, f"{ENTRY_CELL}: /healthz {health}")
@@ -4779,7 +4814,9 @@ def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHUR
         t0 = time.perf_counter()
         for c in clients.values():
             await c.open("127.0.0.1", p_ws if isinstance(c, WsClient) else p_tcp)
-            c.send(connect_frame(c.name, c.version, clean=False,
+            # keepalive 0: a session sends nothing between its CONNECT and
+            # the churn, longer than 1.5 keepalives of 60 s on a slow host
+            c.send(connect_frame(c.name, c.version, clean=False, keepalive=0,
                                  props=[(P_SESSION_EXPIRY, 3600)] if c.version == 5 else ()))
         present = 0
         for c in clients.values():
@@ -4790,11 +4827,15 @@ def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHUR
         check(present == n_sessions, f"{ENTRY_CELL}: {present} of {n_sessions} sessions present at CONNACK")
         # an inherited session subscribes its filters again: fold them too
         info["reconnect_fold"] = await sysr.folded(ENTRY_CELL + " reconnect", base)
+        if before_waves is not None:
+            t0 = time.perf_counter()
+            await before_waves()
+            info["waited"] = time.perf_counter() - t0
         pubs = [(WsClient if k >= len(BROKER_PUBLISHERS) - ENTRY_WS_PUBLISHERS else WireClient)(f"epub{k}", v)
                 for k, (v, _q) in enumerate(BROKER_PUBLISHERS)]
         for c in pubs:
             await c.open("127.0.0.1", p_ws if isinstance(c, WsClient) else p_tcp)
-            c.send(connect_frame(c.name, c.version))
+            c.send(connect_frame(c.name, c.version, keepalive=0))
             await c.wait_frames(1, 60.0)
         try:
             rows.append(await wave_run(0, meta["waves"][0], clients, pubs, sysr))
@@ -4866,9 +4907,12 @@ def phase_entry(torch, device, card: str, fill: dict, n_churn: int = BROKER_CHUR
     finally:
         store.stop()
     check(wrong == 0, f"{ENTRY_CELL}: {wrong} of the {n_churn} churned records do not stand as the churn left them")
+    info["rows"] = rows
     health = info["health0"]
     d = health["durable"]
-    log(f"phase {ENTRY_CELL}: python -m mqtt_tpu_torch serve on {device}; /healthz 200 after {info['ready']:.3f} s "
+    log(f"phase {ENTRY_CELL}: python -m mqtt_tpu_torch serve on {device}"
+        + (f" (fabric's broker restoring beside it; the waves waited {info['waited']:.3f} s for it to settle)"
+           if "waited" in info else "") + f"; /healthz 200 after {info['ready']:.3f} s "
         f"(restore {d['recovery_seconds']:.3f} s, {d['replayed_keys']} keys replayed from LogKV), fold onto the card "
         f"{info['fold']:.3f} s after it ($SYS rebuilds {info['fold_rows']['rebuilds']}, folds "
         f"{info['fold_rows']['folds']}, rebuild_seconds {info['fold_rows']['rebuild_seconds']}); {n_sessions} "
@@ -4982,6 +5026,763 @@ def entry_planes(torch, device, card: str, info: dict, health: dict, rows: list)
     log(f"  {ENTRY_CELL} stage clocks (p50, p99 ms, bucket bounds): "
         + ", ".join(f"{k} {v}" for k, v in quantiles.items())
         + f"; delivery (decode to flush) QoS 0 {delivery[0]}, QoS 1 {delivery[1]}; {card}")
+
+
+# -- the event-loop shard fabric and the worker cluster ----------------------
+
+FABRIC_CELL = "fabric-cfg2"
+FABRIC_SHARDS = 4
+FABRIC_MOVES = 64  # session ids reconnected, each onto another shard
+CLUSTER_CELL = "cluster-cfg2"
+CLUSTER_WORKERS = 4
+CLUSTER_FILTERS = 262_144  # config 2's filters, cut from 1,000,000 for the call's time limit
+CLUSTER_CONNS = 512
+CLUSTER_SEED = 15
+CLUSTER_PER_PACKET = 128  # filters per SUBSCRIBE packet
+CLUSTER_MARK = "zz/mark/"  # the probes' marker topics
+
+
+def device_share(r0: dict, r1: dict) -> dict:
+    """``route_split`` over the ``$SYS/broker/matcher/`` rows' deltas
+    between two ticks read from outside the broker."""
+    rows = {k: "matcher/" + k for k in ("topics", "host_fallbacks", "overflows", "host_fast")}
+    rows["breaker"] = "matcher/breaker/fallback_topics"
+    return route_split({k: int(r1[row]) - int(r0[row]) for k, row in rows.items()})
+
+
+def shard_rows(text: str) -> dict:
+    """``{shard: live connections}`` from a ``/metrics`` exposition's
+    ``mqtt_tpu_shard_connections`` family."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("mqtt_tpu_shard_connections{"):
+            head, _, value = line.rpartition(" ")
+            out[int(head.split('shard="', 1)[1].split('"', 1)[0])] = int(float(value))
+    return out
+
+
+async def ack_qos1(c, limit: float = 60.0) -> int:
+    """PUBACK every QoS 1 publish of ``c``'s current connection, then a
+    PINGREQ; returns (the count acked) once the PINGRESP is in, so the
+    broker has processed every ack."""
+    pids = [parse_publish(f, c.version)["pid"] for f in c.frames() if f[0] >> 4 == 3 and (f[0] >> 1) & 3 == 1]
+    n0 = len(c.frames())
+    c.send(b"".join(ack_frame(PUBACK, pid) for pid in pids) + PINGREQ_FRAME)
+    deadline = time.monotonic() + limit
+    while not any(f[0] == 0xD0 for f in c.frames()[n0:]):
+        check(time.monotonic() < deadline and not c.task.done(), f"{c.name}: no PINGRESP after its acks")
+        await c.wait_frames(len(c.frames()) + 1, limit)
+    return len(pids)
+
+
+def _serve_with_witness(conf_path: str, witness_path: str, out_path: str, extra=()) -> subprocess.Popen:
+    """``python -m mqtt_tpu_torch serve --config`` in a process of its own,
+    with the port's loop witness armed first (``utils.loopwitness``): at
+    the broker's exit it writes the (kind, seam) crossings it saw and any
+    violation to ``witness_path``."""
+    code = ("import json, sys\n"
+            "from mqtt_tpu_torch.utils.loopwitness import DEFAULT_LOOP_PLANE as P\n"
+            "w = P.arm_witness()\n"
+            "from mqtt_tpu_torch.__main__ import main\n"
+            f"rc = main(['serve', '--config', {conf_path!r}, '--log-level', 'warning', *{list(extra)!r}])\n"
+            f"json.dump({{'edges': sorted('/'.join(k) for k in w.edges), 'violations': w.violations[:20]}}, "
+            f"open({witness_path!r}, 'w'))\n"
+            "sys.exit(rc)\n")
+    with open(out_path, "w") as out:
+        return subprocess.Popen([sys.executable, "-c", code], cwd=HERE, stdout=out, stderr=subprocess.STDOUT)
+
+
+async def _healthy(proc, port: int, out_path: str, what: str, limit: float = 900.0) -> dict:
+    """``/healthz``'s body once it answers 200 (the restore done)."""
+    t0 = time.perf_counter()
+    while True:
+        check(proc.poll() is None, f"{what}: the broker exited {proc.returncode}:\n{_tail(out_path)}")
+        check(time.perf_counter() - t0 < limit, f"{what}: /healthz not 200 within {limit} s")
+        try:
+            status, body = await http_get("127.0.0.1", port, "/healthz", 10.0)
+            if status == 200:
+                return json.loads(body)
+        except (OSError, asyncio.TimeoutError):
+            pass
+        await asyncio.sleep(0.25)
+
+
+def start_fabric(device, fill: dict) -> dict:
+    """Phase ``fabric``'s broker, started on entry's store as the fill
+    wrote it (``fill_copy(fill, ".fabric")``) before phase ``entry`` runs,
+    so its restore and fold overlap entry's (two processes, one card):
+    ``python -m mqtt_tpu_torch serve`` with ``loop_shards: 4`` (handoff),
+    the default planes and the port's loop witness armed. Returns what
+    ``phase_fabric`` drives; ``stop_fabric`` ends it."""
+    store = fill["path"] + ".fabric"
+    check(os.path.isdir(store), f"{FABRIC_CELL}: the store's copy is missing")
+    p_tcp, p_ws, p_st = _free_ports(3)
+    conf = {
+        "listeners": [{"type": "tcp", "id": "t", "address": f"127.0.0.1:{p_tcp}"},
+                      {"type": "ws", "id": "ws", "address": f"127.0.0.1:{p_ws}"},
+                      {"type": "sysinfo", "id": "stats", "address": f"127.0.0.1:{p_st}"}],
+        "hooks": {"auth": {"ledger": {"auth": [{"allow": True}]}},
+                  "storage": {"logkv": {"path": store, "gc_interval": 0}}},
+        "options": {"device": str(device), "device_matcher": True, "matcher_opts": {"max_levels": 4},
+                    "sys_topic_resend_interval": 1, "loop_shards": FABRIC_SHARDS,
+                    "loop_shard_accept": "handoff", "slo_objectives": list(ENTRY_SLO),
+                    "telemetry_dump_dir": os.path.join(fill["root"], "fabric-dumps")},
+        "logging": {"level": "warning"},
+    }
+    conf_path = os.path.join(fill["root"], "fabric.json")
+    with open(conf_path, "w") as f:
+        json.dump(conf, f)
+    out_path = os.path.join(fill["root"], "fabric.log")
+    witness_path = os.path.join(fill["root"], "fabric-witness.json")
+    return {"store": store, "ports": (p_tcp, p_ws, p_st), "out": out_path, "witness": witness_path,
+            "proc": _serve_with_witness(conf_path, witness_path, out_path)}
+
+
+async def fabric_settled(fab: dict) -> None:
+    """Until ``start_fabric``'s broker answers ``/healthz`` 200 (its
+    restore done) and its ``$SYS/broker/matcher/`` rows show the restore
+    folded onto the card, steady over two ticks: ``phase_entry`` waits for
+    it before its waves, so the two brokers share the card only while
+    they restore."""
+    p_tcp, _p_ws, p_st = fab["ports"]
+    await _healthy(fab["proc"], p_st, fab["out"], FABRIC_CELL)
+    sysr = SysRows(FABRIC_CELL)
+    sysr.c.name = "fabric-settle"
+    await sysr.open("127.0.0.1", p_tcp)
+    try:
+        await sysr.folded(FABRIC_CELL, 1)
+    finally:
+        sysr.c.send(disconnect_frame(4))
+        await sysr.c.ended(60.0)
+
+
+def stop_fabric(fab: dict) -> None:
+    """End phase ``fabric``'s broker if it still runs and remove its store."""
+    import shutil
+
+    proc = fab["proc"]
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    shutil.rmtree(fab["store"], ignore_errors=True)
+
+
+def phase_fabric(torch, device, card: str, fill: dict, fab: dict, entry: dict, n_moves: int = FABRIC_MOVES) -> dict:
+    """Phase ``fabric`` (cell ``fabric-cfg2``): phase ``entry``'s store as
+    the fill wrote it (a copy taken before ``entry`` ran: config 2's
+    1,000,000 records and the persistent sessions) served again through
+    ``python -m mqtt_tpu_torch serve`` with ``loop_shards: 4`` and
+    ``loop_shard_accept: handoff``, the default planes on and the port's
+    loop witness armed in that process (started by ``start_fabric``
+    beside phase ``entry``). Entry's sessions (half over TCP,
+    half over WebSocket) and 8 publishers connect; the last ``n_moves``
+    sessions connect one at a time between two ``/metrics`` reads, so the
+    shard each stands on is seen (``mqtt_tpu_shard_connections``). One wave
+    of entry's first wave's topics (QoS 0/1): every socket's frames must be
+    the stored filters' matches; the device must resolve what entry
+    resolved of the same wave but for the publishes the stage's admission
+    walked (the rest ``overflow``), most of the wave; no shed, no breaker
+    failure, trip or fallback batch. Then the ``n_moves`` sessions ack their QoS 1 deliveries and reconnect (clean
+    start off) while their old connection is open, each when the router's
+    least-loaded shard is not its own: ``/metrics`` must show it leave its
+    shard for that one, and the old connection end (the cross-shard
+    takeover). One more publish reaches each of those ids once (every
+    socket's frames checked again). Every shard served connections; the
+    witness saw the stage resolve futures of other loops
+    (``match_stage/resolve_marshal``) and no violation; SIGTERM ends the
+    broker with 0."""
+    t_phase = time.perf_counter()
+    with open(fill["path"] + ".json") as f:
+        meta = json.load(f)
+    sessions = meta["sessions"]
+    n_sessions = len(sessions)
+    _raise_nofile(4 * n_sessions + 256)
+    on_ws = {cid: (k // 2) % 2 == 1 for k, (cid, *_r) in enumerate(sessions)}
+    versions = {cid: v for cid, _f, _q, v in sessions}
+    filters = {cid: f for cid, f, _q, _v in sessions}
+    held: dict = {}
+    for cid, flt, qos, _v in sessions:
+        held.setdefault(flt, []).append((cid, qos))
+    p_tcp, p_ws, p_st = fab["ports"]
+    broker, out_path, witness_path = fab["proc"], fab["out"], fab["witness"]
+    info: dict = {}
+
+    async def shards() -> dict:
+        status, body = await http_get("127.0.0.1", p_st, "/metrics")
+        check(status == 200, f"{FABRIC_CELL}: /metrics {status}")
+        got = shard_rows(body.decode())
+        check(sorted(got) == list(range(FABRIC_SHARDS)), f"{FABRIC_CELL}: shard rows {got}")
+        return got
+
+    async def moved_to(c0: dict, pred, what: str, limit: float = 60.0) -> dict:
+        deadline = time.monotonic() + limit
+        while True:
+            c1 = await shards()
+            if pred(c1):
+                return c1
+            check(time.monotonic() < deadline, f"{what}: shard connections {c0} -> {c1}")
+            await asyncio.sleep(0.02)
+
+    async def wave_run(tag: bytes, topics: list, clients: dict, pubs: list, sysr) -> dict:
+        wave = _Cfg2Wave(topics, tag, held, clients, pubs)
+        r0 = await sysr.fresh()
+        wall = await wave.send()
+        r1 = await sysr.fresh()
+        sheds = int(r1.get("overload/sheds", 0)) - int(r0.get("overload/sheds", 0))
+        shed = wave.check(f"{FABRIC_CELL} {tag.decode()}", sheds)
+        key = "overload/stage_admission_fallbacks"
+        return {"n_pub": len(topics), "wall": wall, "routes": device_share(r0, r1), "shed": shed,
+                "admission": int(r1[key]) - int(r0[key]), "wave": wave,
+                "n_del": sum(sum(wave.exp[cid].values()) for cid in clients)}
+
+    async def drive():
+        t0 = time.perf_counter()
+        info["health0"] = await _healthy(broker, p_st, out_path, FABRIC_CELL)
+        info["ready"] = time.perf_counter() - t0
+        sysr = SysRows()
+        await sysr.open("127.0.0.1", p_tcp)
+        info["fold"] = await sysr.folded(FABRIC_CELL, 1)
+        base = sysr.refolds(sysr.rows())
+        clients = {cid: (WsClient if on_ws[cid] else WireClient)(cid, versions[cid]) for cid, *_r in sessions}
+        movers = [cid for cid, *_r in sessions[-n_moves:]]
+        where: dict = {}
+
+        def connect_frame_of(c):
+            # keepalive 0: a session sends nothing from its CONNECT to its
+            # move, longer than 1.5 keepalives of 60 s on a slow host
+            return connect_frame(c.name, c.version, clean=False, keepalive=0,
+                                 props=[(P_SESSION_EXPIRY, 3600)] if c.version == 5 else ())
+
+        t0 = time.perf_counter()
+        for cid, c in clients.items():
+            if cid in movers:
+                continue
+            await c.open("127.0.0.1", p_ws if isinstance(c, WsClient) else p_tcp)
+            c.send(connect_frame_of(c))
+        for cid, c in clients.items():
+            if cid not in movers:
+                await c.wait_frames(1, 120.0)
+        c0 = await shards()
+        for cid in movers:
+            c = clients[cid]
+            await c.open("127.0.0.1", p_ws if isinstance(c, WsClient) else p_tcp)
+            c.send(connect_frame_of(c))
+            await c.wait_frames(1, 120.0)
+            c1 = await moved_to(c0, lambda c1, c0=c0: sum(c1.values()) == sum(c0.values()) + 1, f"{cid}'s connect")
+            where[cid] = next(k for k in c1 if c1[k] == c0[k] + 1)
+            c0 = c1
+        present = 0
+        for c in clients.values():
+            got = await c.wait_frames(1, 120.0)
+            check(got and got[0][0] == 0x20 and got[0][3] == 0, f"{c.name}: CONNACK {bytes(got[0]) if got else None!r}")
+            present += got[0][2] & 1
+        info["connect"] = time.perf_counter() - t0
+        check(present == n_sessions, f"{FABRIC_CELL}: {present} of {n_sessions} sessions present at CONNACK")
+        info["reconnect_fold"] = await sysr.folded(FABRIC_CELL + " reconnect", base)
+        pubs = [(WsClient if k >= len(BROKER_PUBLISHERS) - ENTRY_WS_PUBLISHERS else WireClient)(f"fpub{k}", v)
+                for k, (v, _q) in enumerate(BROKER_PUBLISHERS)]
+        for c in pubs:
+            await c.open("127.0.0.1", p_ws if isinstance(c, WsClient) else p_tcp)
+            c.send(connect_frame(c.name, c.version, keepalive=0))
+            await c.wait_frames(1, 60.0)
+        info["spread"] = await shards()
+        try:
+            info["wave"] = await wave_run(b"f0", meta["waves"][0], clients, pubs, sysr)
+            # the movers: each acks its deliveries, then reconnects while
+            # its old connection is open, when the router's least-loaded
+            # shard is not its own
+            t0 = time.perf_counter()
+            left = list(movers)
+            info["moves"] = []
+            while left:
+                c0 = await shards()
+                target = min(c0, key=lambda k: (c0[k], k))
+                cid = next((x for x in left if where[x] != target), None)
+                check(cid is not None, f"{FABRIC_CELL}: every session left stands on shard {target}")
+                left.remove(cid)
+                c = clients[cid]
+                await ack_qos1(c)
+                # the old connection stays open until the broker ends it:
+                # its writer is held (a dropped StreamWriter closes its
+                # socket, and the shard would be free before the new one
+                # is dispatched)
+                old, old_writer = c.task, c.writer
+                await c.open("127.0.0.1", p_ws if isinstance(c, WsClient) else p_tcp)
+                c.send(connect_frame_of(c))
+                got = await c.wait_frames(1, 120.0)
+                check(got and got[0][0] == 0x20 and got[0][2] & 1 == 1, f"{cid}: takeover CONNACK {got[:1]}")
+                await asyncio.wait_for(asyncio.shield(old), 60.0)
+                old_writer.close()
+                src = where[cid]
+                await moved_to(c0, lambda c1: c1[target] == c0[target] + 1 and c1[src] == c0[src] - 1,
+                               f"{cid}'s move from shard {src} to {target} (moves so far {info['moves']}, "
+                               f"where {where})")
+                info["moves"].append((src, target))
+                where[cid] = target
+            info["move_s"] = time.perf_counter() - t0
+            rng = random.Random(ENTRY_SEED)
+            topics = [topic_for(filters[cid], rng) for cid in movers]
+            info["last"] = await wave_run(b"f1", topics, clients, pubs, sysr)
+            last = info["last"]["wave"]
+            for cid, t in zip(movers, topics):
+                mine = [p for p in _publishes(clients[cid], last.off[cid]) if p["topic"] == t]
+                check(len(mine) >= 1, f"{FABRIC_CELL}: {cid} did not receive its publish after its move")
+            info["spread_end"] = await shards()
+            r = await sysr.fresh()
+            info["breaker"] = {k[len("matcher/breaker/"):]: v for k, v in r.items() if k.startswith("matcher/breaker/")}
+            info["matcher"] = {k: r["matcher/" + k] for k in ("batches", "topics", "folds")}
+            status, body = await http_get("127.0.0.1", p_st, "/healthz")
+            info["health"] = (status, json.loads(body))
+        finally:
+            for c in list(clients.values()) + pubs + [sysr.c]:
+                if c.task is not None and not c.task.done():
+                    c.send(disconnect_frame(c.version))
+            for c in list(clients.values()) + pubs + [sysr.c]:
+                if c.task is not None:
+                    await c.ended(60.0)
+
+    try:
+        asyncio.run(drive())
+        t0 = time.perf_counter()
+        broker.send_signal(signal.SIGTERM)
+        try:
+            rc = broker.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            raise PhaseFailed(f"{FABRIC_CELL}: the broker did not exit within 300 s of SIGTERM") from None
+        t_exit = time.perf_counter() - t0
+        check(rc == 0, f"{FABRIC_CELL}: the broker exited {rc} on SIGTERM:\n{_tail(out_path)}")
+    finally:
+        stop_fabric(fab)
+    with open(witness_path) as f:
+        wit = json.load(f)
+    w, last = info["wave"], info["last"]
+    d = info["health0"]["durable"]
+    log(f"phase {FABRIC_CELL}: python -m mqtt_tpu_torch serve, loop_shards {FABRIC_SHARDS} (handoff), on {device}, "
+        f"started beside entry; /healthz 200 {info['ready']:.3f} s into the phase (restore {d['recovery_seconds']:.3f} s), fold "
+        f"{info['fold']:.3f} s; {n_sessions} sessions present ({sum(on_ws.values())} over WebSocket) in "
+        f"{info['connect']:.3f} s; shard connections {info['spread']} after the connects, "
+        f"{info['spread_end']} at the end; {card}")
+    READINGS["fabric wave publishes/s"] = w["n_pub"] / w["wall"]
+    log(f"phase {FABRIC_CELL} wave: ok {w['n_pub']} publishes, {w['n_del']} deliveries, every frame the stored "
+        f"filters' match; {w['n_pub'] / w['wall']:.1f} publishes/s, {w['n_del'] / w['wall']:.1f} deliveries/s "
+        f"(wall {w['wall']:.3f} s); resolved by the device {w['routes']['device']} (entry's wave 1: "
+        f"{entry['device']}), by the host: " + ", ".join(f"{k} {v}" for k, v in w["routes"].items() if k != "device")
+        + f"; stage admission fallbacks {w['admission']}; {card}")
+    log(f"phase {FABRIC_CELL} moves: ok {len(info['moves'])} sessions reconnected onto another shard in "
+        f"{info['move_s']:.3f} s (from -> to: {sorted(set(info['moves']))}); then {last['n_pub']} publishes, "
+        f"{last['n_del']} deliveries, every frame checked, each moved id its own; witness edges "
+        f"{wit['edges']}; SIGTERM -> exit 0 in {t_exit:.3f} s; phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    breaker_summary(info["breaker"], FABRIC_CELL + " (read over $SYS)", card)
+    check(len(info["moves"]) == n_moves and all(a != b for a, b in info["moves"]),
+          f"{FABRIC_CELL}: moves {info['moves']}")
+    check(all(n > 0 for n in info["spread"].values()), f"{FABRIC_CELL}: a shard served no connection: {info['spread']}")
+    check("match_stage/resolve_marshal" in wit["edges"],
+          f"{FABRIC_CELL}: the stage resolved no future of another loop: {wit['edges']}")
+    check(not wit["violations"], f"{FABRIC_CELL}: loop witness violations {wit['violations']}")
+    for r in (w, last):
+        check(r["shed"]["sheds"] == 0, f"{FABRIC_CELL}: the governor shed {r['shed']}")
+        check(r["routes"]["breaker"] == 0, f"{FABRIC_CELL}: the breaker answered {r['routes']['breaker']} topics")
+    # every publish that reached the matcher took entry's route for its
+    # topic: the device's counts differ by no more than the publishes the
+    # stage's admission walked before the matcher (in either run; with none
+    # they are equal), and most of the wave reaches the card, as in entry
+    check(abs(w["routes"]["device"] - entry["device"]) <= max(w["admission"], entry["admission"])
+          and w["routes"]["device"] > w["n_pub"] // 2,
+          f"{FABRIC_CELL}: the device resolved {w['routes']['device']} of the wave ({w['admission']} walked at "
+          f"the stage's admission), entry {entry['device']} ({entry['admission']})")
+    g = info["breaker"]
+    check(int(g["failures"]) == 0 and int(g["trips"]) == 0 and int(g["fallback_batches"]) == 0
+          and g["state"] == "closed", f"{FABRIC_CELL}: breaker {g}")
+    status, body = info["health"]
+    check(status == 200, f"{FABRIC_CELL}: /healthz {status} {body}")
+    return info
+
+
+class WorkerRows(SysRows):
+    """``SysRows`` on one worker of the cluster: which worker the
+    kernel's SO_REUSEPORT balance gave the connection, and that worker's
+    ``$SYS/broker/cluster/`` and ``matcher/`` rows."""
+
+    async def open(self, host: str, port: int) -> None:
+        await self.c.open(host, port)
+        self.c.send(connect_frame(self.c.name, 4))
+        await self.c.wait_frames(1, 60.0)
+        self.c.send(subscribe_frame(1, [(self.PREFIX + t + "/#", 0, 0) for t in ("cluster", "matcher", "overload")]
+                                    + [(CLUSTER_MARK + "+", 0, 0)], 4))
+        await self.c.wait_frames(2, 60.0)
+
+    def marks(self, tag: str) -> int:
+        return sum(1 for p in _publishes(self.c, 0) if p["topic"] == CLUSTER_MARK + tag)
+
+    async def worker(self, limit: float = 60.0) -> int:
+        deadline = time.monotonic() + limit
+        while "cluster/worker" not in self.rows():
+            check(time.monotonic() < deadline, f"{self.c.name}: no $SYS/broker/cluster/worker")
+            await asyncio.sleep(0.05)
+        return int(self.rows()["cluster/worker"])
+
+
+async def _which_worker(c, limit: float = 60.0) -> int:
+    """The worker a connected client stands on: it subscribes to its
+    worker's retained ``$SYS/broker/cluster/worker``, reads it and
+    unsubscribes (the UNSUBACK read), so nothing more arrives from it."""
+    n0 = len(c.frames())
+    c.send(subscribe_frame(0xFFE0, [("$SYS/broker/cluster/worker", 0, 0)], c.version))
+    deadline = time.monotonic() + limit
+    while True:
+        got = [p for p in _publishes(c, n0) if p["topic"] == "$SYS/broker/cluster/worker"]
+        if got:
+            break
+        check(time.monotonic() < deadline, f"{c.name}: no $SYS/broker/cluster/worker")
+        await c.wait_frames(len(c.frames()) + 1, limit)
+    c.send(unsubscribe_frame(0xFFE1, ["$SYS/broker/cluster/worker"], c.version))
+    while not any(f[0] >> 4 == 11 for f in c.frames()[n0:]):
+        check(time.monotonic() < deadline, f"{c.name}: no UNSUBACK")
+        await c.wait_frames(len(c.frames()) + 1, limit)
+    return int(got[-1]["payload"])
+
+
+def _children(pid: int) -> list:
+    """The pids whose parent is ``pid`` (read from ``/proc/<n>/stat``)."""
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            out.append(int(name))
+    return out
+
+
+def cluster_filters(n: int, n_conns: int, rng: random.Random) -> list:
+    """Config 2's ``n`` filters (``cfg2_entries``) dealt over ``n_conns``
+    connections at random, no connection holding two filters that one
+    topic matches (a clash draws the connection again). Returns
+    ``[(connection, filter, qos)]``."""
+    entries, _gen = cfg2_entries(n, rng)
+    # per connection: exact filters, their projections without level i, the
+    # one-'+' filters by their '+' level (the other two levels), and for a
+    # '+' at j the values of each other level
+    E = [set() for _ in range(n_conns)]
+    P = [[set(), set(), set()] for _ in range(n_conns)]
+    W = [[set(), set(), set()] for _ in range(n_conns)]
+    V = [[[set(), set(), set()] for _ in range(3)] for _ in range(n_conns)]
+    out = []
+    for _cid, sub in entries:
+        s = sub.filter.split("/")
+        i = s.index("+") if "+" in s else -1
+        while True:
+            k = rng.randrange(n_conns)
+            if i < 0:
+                t = tuple(s)
+                clash = t in E[k] or any(t[:j] + t[j + 1:] in W[k][j] for j in range(3))
+            else:
+                rest = tuple(s[:i] + s[i + 1:])
+                clash = rest in W[k][i] or rest in P[k][i] or any(
+                    s[3 - i - j] in V[k][j][3 - i - j] for j in range(3) if j != i)
+            if not clash:
+                break
+        if i < 0:
+            E[k].add(tuple(s))
+            for j in range(3):
+                P[k][j].add(tuple(s[:j] + s[j + 1:]))
+        else:
+            W[k][i].add(tuple(s[:i] + s[i + 1:]))
+            for j in range(3):
+                if j != i:
+                    V[k][i][j].add(s[j])
+        out.append((k, sub.filter, sub.qos))
+    return out
+
+
+def phase_cluster(torch, device, card: str, n_filters: int = CLUSTER_FILTERS, n_conns: int = CLUSTER_CONNS,
+                  wave: int = WAVE) -> dict:
+    """Phase ``cluster`` (cell ``cluster-cfg2``): ``python -m mqtt_tpu_torch
+    serve --workers 4`` on the one card, each worker with the device
+    matcher on ``device`` and the default planes, on one SO_REUSEPORT MQTT
+    port (stats on worker 0). ``n_filters`` of config 2's filters
+    (``cluster_filters``: no connection holds two that one topic matches)
+    are SUBSCRIBEd over ``n_conns`` connections that the kernel spreads over
+    the workers; then 8 publishers, two on each worker (connections the
+    kernel put elsewhere are closed), send two waves of ``wave`` config 2
+    topics at QoS 0/1. Each subscriber's frames must be the host walk's
+    selection over all the filters (one ``TopicsIndex`` here, by cfg2's
+    rule in ``_Cfg2Wave``); every worker counts ``peers`` 3, no dropped
+    forward, device batches with a closed breaker and no fallback batch.
+    SIGTERM to the launcher must leave no worker process. Logs the
+    SUBSCRIBE leg's wall, each wave's publishes/s and deliveries/s and the
+    share of deliveries that crossed workers."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mqtt-torch-cluster-")
+    rng = random.Random(CLUSTER_SEED)
+    t0 = time.perf_counter()
+    dealt = cluster_filters(n_filters, n_conns, rng)
+    t_deal = time.perf_counter() - t0
+    _entries, topic_gen = cfg2_entries(0, rng)
+    waves = [[topic_gen() for _ in range(wave)] for _ in range(2)]
+    names = [f"csub{k}" for k in range(n_conns)]
+    held: dict = {}
+    per_conn: dict = {name: [] for name in names}
+    for k, flt, qos in dealt:
+        held.setdefault(flt, []).append((names[k], qos))
+        per_conn[names[k]].append((flt, qos))
+    _raise_nofile(4 * n_conns + 256)
+    p_mqtt, p_st = _free_ports(2)
+    conf = {"options": {"device": str(device), "device_matcher": True, "matcher_opts": {"max_levels": 4},
+                        "sys_topic_resend_interval": 1,
+                        "telemetry_dump_dir": os.path.join(root, "dumps")},
+            "logging": {"level": "warning"}}
+    conf_path = os.path.join(root, "cluster.json")
+    with open(conf_path, "w") as f:
+        json.dump(conf, f)
+    out_path = os.path.join(root, "cluster.log")
+    with open(out_path, "w") as out:
+        launcher = subprocess.Popen(
+            [sys.executable, "-m", "mqtt_tpu_torch", "serve", "--workers", str(CLUSTER_WORKERS), "--config",
+             conf_path, "--port", str(p_mqtt), "--stats-port", str(p_st), "--log-level", "warning"],
+            cwd=HERE, stdout=out, stderr=subprocess.STDOUT)
+    info: dict = {"deal_s": t_deal}
+
+    def alive() -> None:
+        check(launcher.poll() is None, f"{CLUSTER_CELL}: the launcher exited {launcher.returncode}:\n{_tail(out_path)}")
+
+    async def wave_run(tag: bytes, topics: list, clients: dict, pubs: list, rows: dict) -> dict:
+        w = _Cfg2Wave(topics, tag, held, clients, pubs)
+        r0 = await fresh_all(rows)
+        wall = await w.send()
+        r1 = await fresh_all(rows)
+        sheds = sum(int(r1[k].get("overload/sheds", 0)) - int(r0[k].get("overload/sheds", 0)) for k in rows)
+        shed = w.check(f"{CLUSTER_CELL} wave {tag.decode()}", sheds)
+        crossed = total = 0
+        for cid, exp in w.exp.items():
+            for (_t, _q, payload), n in exp.items():
+                k = int(payload[2:].split(b"n", 1)[0][1:])  # the publisher's index, from "<tag>p<k>n<i>"
+                total += n
+                crossed += n if info["pub_worker"][k] != info["sub_worker"][cid] else 0
+        return {"n_pub": len(topics), "n_del": total, "crossed": crossed, "wall": wall, "shed": shed,
+                "routes": {k: device_share(r0[k], r1[k]) for k in rows}}
+
+    async def fresh_all(rows: dict) -> dict:
+        ticks = await asyncio.gather(*(r.fresh(120.0) for r in rows.values()))
+        return dict(zip(rows, ticks))
+
+    async def drained(rows: dict, limit: float = 600.0) -> None:
+        """Until a fresh ``$SYS`` tick of every worker shows its governor
+        NORMAL and its peer-link buffers (``overload/signal/cluster``)
+        under 5% of their cap."""
+        deadline = time.monotonic() + limit
+        while True:
+            ticks = await asyncio.gather(*(r.fresh(120.0) for r in rows.values()))
+            if all(t.get("overload/state") == "normal" and float(t.get("overload/signal/cluster", 0)) < 0.05
+                   for t in ticks):
+                return
+            alive()
+            check(time.monotonic() < deadline, f"{CLUSTER_CELL}: the peer links did not drain: "
+                  f"{[(t.get('overload/state'), t.get('overload/signal/cluster')) for t in ticks]}")
+
+    async def drive():
+        # every worker up: a probe client on each, its peers counted
+        t0 = time.perf_counter()
+        rows: dict = {}
+        k = 0
+        while len(rows) < CLUSTER_WORKERS:
+            alive()
+            check(time.perf_counter() - t0 < 600 and k < 4000, f"{CLUSTER_CELL}: workers seen {sorted(rows)}")
+            r = WorkerRows(CLUSTER_CELL)
+            r.c.name = f"cprobe{k}"
+            k += 1
+            try:
+                await r.open("127.0.0.1", p_mqtt)
+            except (OSError, PhaseFailed):
+                await asyncio.sleep(0.25)
+                continue
+            w = await r.worker()
+            r.what = f"{CLUSTER_CELL} worker {w}"
+            if w in rows:
+                r.c.send(disconnect_frame(4))
+                await r.c.ended(60.0)
+            else:
+                rows[w] = r
+        for w, r in rows.items():
+            deadline = time.monotonic() + 300
+            while r.rows().get("cluster/peers") != str(CLUSTER_WORKERS - 1):
+                alive()
+                check(time.monotonic() < deadline, f"{CLUSTER_CELL}: worker {w} peers {r.rows().get('cluster/peers')}")
+                await asyncio.sleep(0.1)
+        info["up"] = time.perf_counter() - t0
+        log(f"  {CLUSTER_CELL}: {CLUSTER_WORKERS} workers with peers {CLUSTER_WORKERS - 1} after {info['up']:.3f} s")
+        clients = {name: WireClient(name, 4 + k % 2) for k, name in enumerate(names)}
+        for c in clients.values():
+            await c.open("127.0.0.1", p_mqtt)
+            # keepalive 0: a subscriber sends nothing between its last
+            # SUBSCRIBE and the end of the second wave
+            c.send(connect_frame(c.name, c.version, keepalive=0))
+        for c in clients.values():
+            got = await c.wait_frames(1, 120.0)
+            check(got and got[0][0] == 0x20, f"{c.name}: CONNACK {got[:1]}")
+        info["sub_worker"] = {name: await _which_worker(c) for name, c in clients.items()}
+        # the SUBSCRIBE leg, one burst: every connection sends all its
+        # packets of CLUSTER_PER_PACKET filters back to back, all at once
+        t0 = time.perf_counter()
+        sent = {}
+        for name, c in clients.items():
+            sent[name] = len(c.frames())
+            for j in range(0, len(per_conn[name]), CLUSTER_PER_PACKET):
+                c.send(subscribe_frame(1 + j // CLUSTER_PER_PACKET,
+                                       [(f, q, 0) for f, q in per_conn[name][j:j + CLUSTER_PER_PACKET]], c.version))
+        for name, n0 in sent.items():
+            n = -(-len(per_conn[name]) // CLUSTER_PER_PACKET)
+            got = await clients[name].wait_frames(n0 + n, 600.0)
+            check(all(f[0] >> 4 == 9 for f in got[n0:n0 + n]),
+                  f"{name}: SUBSCRIBE answered {[bytes(f[:1]) for f in got[n0:n0 + n]]}")
+        info["subscribe_acked_s"] = time.perf_counter() - t0
+        log(f"  {CLUSTER_CELL}: every SUBACK after {info['subscribe_acked_s']:.3f} s")
+        # the burst's presence frames fill the peer links and the
+        # governors leave NORMAL; the markers below are QoS 0 forwards,
+        # so they wait until every link has drained (timed on its own)
+        t1 = time.perf_counter()
+        await drained(rows)
+        info["drain_s"] = time.perf_counter() - t1
+        log(f"  {CLUSTER_CELL}: every governor NORMAL and every link drained {info['drain_s']:.3f} s later")
+        # every worker's presence frames are on its links before its
+        # probe's marker (the presence loop runs before the marker's
+        # packet is read), and the links are FIFO: once every probe holds
+        # every marker, every worker knows the others' interest
+        t1 = time.perf_counter()
+        for idx, w in enumerate(sorted(rows)):
+            rows[w].c.send(publish_frame(CLUSTER_MARK + "s", b"w%d" % w))
+            deadline = time.monotonic() + 600
+            for w2, r2 in rows.items():
+                while r2.marks("s") < idx + 1:
+                    alive()
+                    check(time.monotonic() < deadline, f"{CLUSTER_CELL}: worker {w}'s marker at worker {w2}")
+                    await asyncio.sleep(0.02)
+        info["presence_s"] = time.perf_counter() - t1
+        log(f"  {CLUSTER_CELL}: every marker at every worker {info['presence_s']:.3f} s later")
+        t1 = time.perf_counter()
+        await asyncio.gather(*(r.folded(f"{CLUSTER_CELL} worker {w}", 1) for w, r in rows.items()))
+        info["fold_s"] = time.perf_counter() - t1
+        # the leg's wall, the drain wait left out
+        info["subscribe_s"] = time.perf_counter() - t0 - info["drain_s"]
+        # the publishers: a v4 and a v5 one on each worker (connections
+        # the kernel put on a worker that has its two are closed)
+        slots: dict = {(w, v): None for w in rows for v in (4, 5)}
+        k = 0
+        while any(c is None for c in slots.values()):
+            check(k < 400, f"{CLUSTER_CELL}: publisher slots {sorted(x for x, c in slots.items() if c)}")
+            v = 4 + k % 2
+            c = WireClient(f"cpub{k}", v)
+            k += 1
+            await c.open("127.0.0.1", p_mqtt)
+            c.send(connect_frame(c.name, v))
+            await c.wait_frames(1, 60.0)
+            w = await _which_worker(c)
+            if slots[(w, v)] is None:
+                slots[(w, v)] = c
+            else:
+                c.send(disconnect_frame(v))
+                await c.ended(60.0)
+        # _Cfg2Wave sends round robin with BROKER_PUBLISHERS' (version,
+        # QoS) by position
+        byv = {v: [slots[(w, v)] for w in sorted(rows)] for v in (4, 5)}
+        pubs, info["pub_worker"] = [], {}
+        for k, (v, _q) in enumerate(BROKER_PUBLISHERS):
+            c = byv[v].pop(0)
+            pubs.append(c)
+            info["pub_worker"][k] = next(w for (w, _v), x in slots.items() if x is c)
+        info["waves"] = []
+        try:
+            for w_i, topics in enumerate(waves):
+                info["waves"].append(await wave_run(b"c%d" % w_i, topics, clients, pubs, rows))
+                log(f"  {CLUSTER_CELL}: wave {w_i + 1} wall {info['waves'][-1]['wall']:.3f} s")
+            info["rows"] = await fresh_all(rows)
+            status, body = await http_get("127.0.0.1", p_st, "/healthz")
+            info["health"] = (status, json.loads(body))
+        finally:
+            for c in list(clients.values()) + pubs + [r.c for r in rows.values()]:
+                if c.task is not None and not c.task.done():
+                    c.send(disconnect_frame(c.version))
+            for c in list(clients.values()) + pubs + [r.c for r in rows.values()]:
+                if c.task is not None:
+                    await c.ended(60.0)
+
+    workers: list = []
+    try:
+        asyncio.run(drive())
+        # the launcher's children, then SIGTERM to the launcher alone
+        workers = _children(launcher.pid)
+        check(len(workers) == CLUSTER_WORKERS, f"{CLUSTER_CELL}: the launcher's children {workers}")
+        t0 = time.perf_counter()
+        launcher.send_signal(signal.SIGTERM)
+        try:
+            rc = launcher.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            raise PhaseFailed(f"{CLUSTER_CELL}: the launcher did not exit within 120 s of SIGTERM") from None
+        t_exit = time.perf_counter() - t0
+        left = [pid for pid in workers if os.path.exists(f"/proc/{pid}")]
+        check(not left, f"{CLUSTER_CELL}: worker processes {left} outlived the launcher")
+        check(rc == 0, f"{CLUSTER_CELL}: the launcher exited {rc}:\n{_tail(out_path)}")
+    finally:
+        # a failed phase still ends every process it started: the
+        # launcher's SIGTERM ends its workers, SIGKILL whatever is left
+        if launcher.poll() is None:
+            workers = workers or _children(launcher.pid)
+            launcher.send_signal(signal.SIGTERM)
+            try:
+                launcher.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                launcher.kill()
+                launcher.wait()
+        for pid in workers:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+    spread = {w: sum(1 for x in info["sub_worker"].values() if x == w) for w in range(CLUSTER_WORKERS)}
+    log(f"phase {CLUSTER_CELL}: python -m mqtt_tpu_torch serve --workers {CLUSTER_WORKERS} on {device}, every "
+        f"worker counting peers {CLUSTER_WORKERS - 1} after {info['up']:.3f} s; {n_filters} config 2 filters over "
+        f"{n_conns} connections (subscribers by worker {spread}; dealt in {info['deal_s']:.3f} s, no connection "
+        f"with two filters one topic matches): SUBSCRIBE leg {info['subscribe_s']:.3f} s in one burst (all "
+        f"SUBACKs {info['subscribe_acked_s']:.3f} s, every worker's interest at the others {info['presence_s']:.3f} s "
+        f"more, every worker's fold {info['fold_s']:.3f} s more; not counted: the drain wait after the SUBACKs "
+        f"{info['drain_s']:.3f} s); publishers by worker "
+        f"{sorted(info['pub_worker'].values())}; {card}")
+    READINGS["cluster subscribe s"] = info["subscribe_s"]
+    for i, r in enumerate(info["waves"]):
+        READINGS[f"cluster wave {i + 1} publishes/s"] = r["n_pub"] / r["wall"]
+        dev = {w: x["device"] for w, x in r["routes"].items()}
+        log(f"phase {CLUSTER_CELL} wave {i + 1}: ok {r['n_pub']} publishes, {r['n_del']} deliveries, every frame the "
+            f"host walk's; {r['n_pub'] / r['wall']:.1f} publishes/s, {r['n_del'] / r['wall']:.1f} deliveries/s "
+            f"(wall {r['wall']:.3f} s); {r['crossed']} deliveries ({r['crossed'] / max(1, r['n_del']):.4f}) crossed "
+            f"workers; resolved on each worker's card {dev}; sheds {r['shed']['sheds']}; {card}")
+    for w, r in sorted(info["rows"].items()):
+        g = {k[len("matcher/breaker/"):]: v for k, v in r.items() if k.startswith("matcher/breaker/")}
+        c = {k[len("cluster/"):]: v for k, v in r.items() if k.startswith("cluster/") and "/" not in k[8:]}
+        log(f"  {CLUSTER_CELL} worker {w}: $SYS cluster {c}; matcher batches {r['matcher/batches']}; breaker "
+            f"state {g.get('state')}, failures {g.get('failures')}, fallback_batches {g.get('fallback_batches')}; {card}")
+        check(c.get("peers") == str(CLUSTER_WORKERS - 1), f"{CLUSTER_CELL} worker {w}: peers {c.get('peers')}")
+        check(c.get("dropped_forwards") == "0" and c.get("dropped_qos_forwards") == "0",
+              f"{CLUSTER_CELL} worker {w}: dropped forwards {c}")
+        check(int(r["matcher/batches"]) > 0, f"{CLUSTER_CELL} worker {w}: no device batch")
+        check(g.get("state") == "closed" and g.get("fallback_batches") == "0" and g.get("failures") == "0",
+              f"{CLUSTER_CELL} worker {w}: breaker {g}")
+    for i, r in enumerate(info["waves"]):
+        check(r["shed"]["sheds"] == 0, f"{CLUSTER_CELL} wave {i + 1}: sheds {r['shed']}")
+        for w, x in r["routes"].items():
+            check(x["device"] > 0 and x["breaker"] == 0, f"{CLUSTER_CELL} wave {i + 1} worker {w}: routes {x}")
+    status, body = info["health"]
+    check(status == 200 and body.get("cluster", {}).get("peers") == CLUSTER_WORKERS - 1,
+          f"{CLUSTER_CELL}: worker 0's /healthz {status} {body.get('cluster')}")
+    log(f"  {CLUSTER_CELL}: SIGTERM to the launcher -> exit 0 in {t_exit:.3f} s, none of its {len(workers)} workers "
+        f"left; phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    return info
 
 
 def _bucket_quantiles(text: str, prefix: str) -> tuple:
@@ -5115,9 +5916,11 @@ def _run(torch, device, n_subs, wave, n_recrypt, retained_sizes, n_reseal, card,
     main_br = phase_broker(torch, device, card, n_subs, retained_sizes[0], n_recrypt)
     wall("broker")
     gc.collect()
-    # the broker's own entry point, in a process of its own on the card
-    phase_entry(torch, device, card, fill)
-    wall("entry")
+    # the broker's own entry point, in a process of its own on the card,
+    # then the same store served by the shard fabric
+    phase_entry_fabric(torch, device, card, fill, wall)
+    phase_cluster(torch, device, card, n_filters=min(CLUSTER_FILTERS, n_subs), wave=wave)
+    wall("cluster")
     phase_observe_render(obs)
     kernels_line = []
     for name in REPLACES:
@@ -5136,6 +5939,25 @@ def _run(torch, device, n_subs, wave, n_recrypt, retained_sizes, n_reseal, card,
             entry["inside"] = INSIDE[name]
         kernels_line.append(entry)
     return kernels_line
+
+
+def phase_entry_fabric(torch, device, card: str, fill: dict, wall=lambda what: None) -> None:
+    """Phases ``entry`` and ``fabric`` on ``fill``'s store. The store is
+    copied for ``fabric`` before ``entry`` churns it; the fabric's broker
+    restores its copy while ``entry``'s broker restores the store, and
+    ``entry``'s waves wait until the fabric's broker has settled.
+    ``wall(what)`` is called after each phase."""
+    fill_copy(fill, ".fabric")
+    fab = start_fabric(device, fill)
+    try:
+        routes = phase_entry(torch, device, card, fill,
+                             before_waves=lambda: fabric_settled(fab))["rows"][0]["routes"]
+        wall("entry")
+        phase_fabric(torch, device, card, fill, fab, {"device": routes["device"],
+                                                      "admission": routes["stage_admission"]})
+    finally:
+        stop_fabric(fab)
+    wall("fabric")
 
 
 def planes_cost(torch, device, card: str, n_subs: int = N_SUBS, wave: int = WAVE, n_groups: int = N_GROUPS,
@@ -5169,10 +5991,7 @@ def planes_cost(torch, device, card: str, n_subs: int = N_SUBS, wave: int = WAVE
             READINGS.clear()
             phase_broker(torch, device, card, n_subs, RETAINED_SIZES[0], n_recrypt, planes=planes)
             note(LEGS_CELL, planes)
-        fill["proc"].wait()
-        check(fill["proc"].returncode == 0, f"{ENTRY_CELL}: the store's fill failed:\n{_tail(fill['log'])}")
-        pristine = fill["path"] + ".pristine"
-        shutil.copytree(fill["path"], pristine)
+        pristine = fill_copy(fill, ".pristine")
         for planes in order:
             shutil.rmtree(fill["path"])
             shutil.copytree(pristine, fill["path"])
@@ -5214,6 +6033,8 @@ def main() -> int:
     ap.add_argument("--groups", type=int, default=N_GROUPS, help="cfg4's $SHARE groups (16 members each)")
     ap.add_argument("--planes-cost", action="store_true",
                     help="only the default planes' cost: each Server path with them on and off in turns")
+    ap.add_argument("--only", choices=("fabric", "cluster", "fabric,cluster"),
+                    help="only these phases (fabric: with entry and its store's fill before it)")
     args = ap.parse_args()
     t0 = time.perf_counter()
     try:
@@ -5223,6 +6044,19 @@ def main() -> int:
         if args.planes_cost:
             phase_native()
             planes_cost(torch, torch.device("cuda"), card, args.subs, args.wave, args.groups)
+            log(f"total {time.perf_counter() - t0:.1f} s")
+            return 0
+        if args.only:
+            phase_native()
+            device = torch.device("cuda")
+            if "fabric" in args.only:
+                fill = start_entry_fill(args.subs, min(BROKER_SESSIONS, args.subs // 2), args.wave)
+                try:
+                    phase_entry_fabric(torch, device, card, fill)
+                finally:
+                    stop_entry_fill(fill)
+            if "cluster" in args.only:
+                phase_cluster(torch, device, card, wave=args.wave)
             log(f"total {time.perf_counter() - t0:.1f} s")
             return 0
         kernels_line = run(torch.device("cuda"), args.subs, args.wave, args.recrypt,

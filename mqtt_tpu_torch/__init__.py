@@ -41,6 +41,12 @@ lock plane and its order witness), ``ops.devicestats`` (the first-launch
 ledger, per-card memory gauges) and ``tracing`` (the device pipeline
 profiler the matchers and the stage stamp).
 
+The broker scales out as the JAX package's does: ``shards`` serves
+connections on several event-loop threads (``Options.loop_shards``), and
+``cluster`` joins worker processes (``python -m mqtt_tpu_torch serve
+--workers N``) into a forwarding mesh, all-pairs or a spanning tree
+(``mesh_topology``).
+
 Entry points run on ``"cuda"`` unless given ``device="cpu"``, which runs
 the plain PyTorch version of every kernel.
 """

@@ -16,10 +16,14 @@ user when an authfile is used (cmd/main.go:209-214). A baked-in credential
 is a backdoor, so the same capability is exposed as the explicit
 ``--admin-user USER:PASS`` flag instead.
 
-Departures from the JAX package's CLI: ``--workers`` above 1, and a worker
-started with the cluster environment (``MQTT_TPU_WORKER``), exit with a
-message, because the port has no cluster plane yet. ``--device`` names
-the card the device planes run on (a config file's ``device`` otherwise;
+``--workers N`` (0 = one per CPU core) runs N worker processes, each a
+full broker, that bind the MQTT ports with SO_REUSEPORT and join the
+forwarding mesh (``cluster``) over a private socket directory; the
+launcher re-executes ``python -m mqtt_tpu_torch`` with the worker
+environment (``cluster.worker_env``) and touches no card itself. Only
+worker 0 binds the HTTP listeners.
+
+Departures from the JAX package's CLI: ``--device`` names the card the device planes run on (a config file's ``device`` otherwise;
 ``"cuda"`` by default). ``serve`` with a device plane on ``"cuda"`` and no
 card exits at start naming the device: it never serves on the host.
 ``genecc`` imports ``cryptography`` only when it runs, and returns 1
@@ -49,12 +53,8 @@ from .server import Options, Server
 from .utils.obfuscate import obfuscate
 
 VERSION_INFO = {"core": "mqtt_tpu_torch", "python": sys.version.split()[0]}
-# the JAX package's cluster worker environment: a worker of its launcher
+# the cluster worker environment the launcher sets (cluster.worker_env)
 CLUSTER_ENV = "MQTT_TPU_WORKER"
-NO_CLUSTER = (
-    "mqtt_tpu_torch has no cluster plane yet: run one broker process "
-    "(--workers 1, without the {env} environment)"
-)
 
 
 def cmd_initauth(args) -> int:
@@ -179,8 +179,15 @@ def build_server(args) -> Server:
                 )
             server.add_hook(AuthHook(), AuthOptions(ledger=ledger))
 
+    # cluster workers share every MQTT-bearing port via SO_REUSEPORT; the
+    # HTTP side-channels (dashboard, stats, healthcheck) show per-worker
+    # state, so only worker 0 binds them
+    clustered = os.environ.get(CLUSTER_ENV) is not None
+    primary = not clustered or os.environ.get(CLUSTER_ENV) == "0"
     if not opts.listeners and len(server.listeners) == 0:
-        server.add_listener(TCP(ListenerConfig(type="tcp", id="tcp", address=f":{args.port}")))
+        server.add_listener(
+            TCP(ListenerConfig(type="tcp", id="tcp", address=f":{args.port}", reuse_port=clustered))
+        )
         if args.tls_port:
             if not (args.cert and args.key):
                 raise SystemExit("--tls-port requires --cert and --key")
@@ -191,15 +198,23 @@ def build_server(args) -> Server:
             server.add_listener(
                 TCP(
                     ListenerConfig(
-                        type="tcp", id="tls", address=f":{args.tls_port}", tls_config=tls
+                        type="tcp",
+                        id="tls",
+                        address=f":{args.tls_port}",
+                        tls_config=tls,
+                        reuse_port=clustered,
                     )
                 )
             )
         if args.ws_port:
             server.add_listener(
-                Websocket(ListenerConfig(type="ws", id="ws", address=f":{args.ws_port}"))
+                Websocket(
+                    ListenerConfig(
+                        type="ws", id="ws", address=f":{args.ws_port}", reuse_port=clustered
+                    )
+                )
             )
-        if args.dashboard_port:
+        if args.dashboard_port and primary:
             auth_map = {}
             if args.admin_user:
                 user, _, pwd = args.admin_user.partition(":")
@@ -221,7 +236,7 @@ def build_server(args) -> Server:
                     listener_summary=f"mqtt: {args.port}; ws: {args.ws_port or '-'}",
                 )
             )
-        if args.stats_port:
+        if args.stats_port and primary:
             server.add_listener(
                 HTTPStats(
                     ListenerConfig(type="sysinfo", id="stats", address=f":{args.stats_port}"),
@@ -235,12 +250,86 @@ def build_server(args) -> Server:
     return server
 
 
+def _spawn_workers(argv: list, n: int) -> int:
+    """Launcher for --workers N: re-exec this CLI once per worker with the
+    cluster environment set; each worker binds the same ports with
+    SO_REUSEPORT and joins the unix-socket mesh (cluster). ``argv`` is the
+    effective argument list main() parsed. The launcher builds no server
+    and touches no card."""
+    import shutil
+    import subprocess
+    import tempfile
+    import time
+
+    from .cluster import worker_env
+
+    # private (0700) socket directory: the mesh trusts every connection on it
+    sock_dir = tempfile.mkdtemp(prefix="mqtt-torch-cluster-")
+
+    # SIGTERM kills a Python process without unwinding finally blocks:
+    # translate it to SystemExit so the cleanup below terminates the workers
+    def _term(_sig, _frm):
+        raise SystemExit(0)
+
+    signal.signal(signal.SIGTERM, _term)
+    # strip --workers ("--workers N" and "--workers=N"): the children must
+    # not recurse into the launcher
+    cleaned = []
+    skip = False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        if a == "--workers":
+            skip = True
+            continue
+        if a.startswith("--workers="):
+            continue
+        cleaned.append(a)
+    procs = []
+    try:
+        for i in range(n):
+            env = dict(os.environ)
+            env.update(worker_env(i, n, sock_dir))
+            procs.append(
+                subprocess.Popen([sys.executable, "-m", "mqtt_tpu_torch"] + cleaned, env=env)
+            )
+        # readiness: a worker that dies in its first seconds (port clash,
+        # bad config, no card) fails the whole launch loudly
+        deadline = time.monotonic() + 3.0
+        while time.monotonic() < deadline:
+            dead = [i for i, p in enumerate(procs) if p.poll() is not None]
+            if dead:
+                print(f"worker(s) {dead} exited during startup; aborting launch", file=sys.stderr)
+                return 1
+            time.sleep(0.1)
+        rc = 0
+        for p in procs:
+            rc = p.wait() or rc
+        return rc
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        # a second SIGTERM must not abort this cleanup and orphan workers
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+
+
 def cmd_serve(args, argv: list) -> int:
     workers = getattr(args, "workers", 1)
     if workers == 0:
         workers = os.cpu_count() or 1
-    if workers > 1 or os.environ.get(CLUSTER_ENV) is not None:
-        raise SystemExit(NO_CLUSTER.format(env=CLUSTER_ENV))
+    if workers > 1 and os.environ.get(CLUSTER_ENV) is None:
+        return _spawn_workers(argv, workers)
     if args.admin_user is not None:
         user, sep, pwd = args.admin_user.partition(":")
         if not user or not sep or not pwd:
@@ -256,8 +345,13 @@ def cmd_serve(args, argv: list) -> int:
     )
 
     async def run() -> None:
+        from .cluster import maybe_attach_from_env
+
         server = build_server(args)
+        cluster = maybe_attach_from_env(server)
         await server.serve()
+        if cluster is not None:
+            await cluster.start()
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGINT, signal.SIGTERM):
@@ -266,6 +360,8 @@ def cmd_serve(args, argv: list) -> int:
             except NotImplementedError:
                 pass
         await stop.wait()
+        if cluster is not None:
+            await cluster.stop()
         # close() stops the hooks: a storage hook closes its store here
         await server.close()
 
@@ -332,8 +428,9 @@ def main(argv=None) -> int:
             "--workers",
             type=int,
             default=1,
-            help="broker worker processes; only 1 until the cluster plane "
-            "is ported (0 = one per CPU core)",
+            help="broker worker processes sharing the MQTT ports via "
+            "SO_REUSEPORT, joined by the forwarding mesh (cluster); 0 = one "
+            "per CPU core",
         )
         arg("--log-level", default="info")
         arg("--log2file", help="also log to this file")

@@ -8,19 +8,12 @@ configs pass through to ``Server.add_listeners_from_config``; a
 ``logging.level`` sets the logger.
 
 The option keys are the JAX package's, plus ``device`` (the card every
-device plane runs on). A key the port's ``Options`` has maps to it;
-``trace_jax_profiler_dir`` maps to ``trace_torch_profiler_dir``. A key of
-a plane the port does not have yet (the worker cluster's ``cluster_*``
-and ``overload_federation*``, the shard fabric's ``loop_shards`` and
-``loop_shard_accept``) raises ``TypeError``, as passing it to ``Options``
-does: a configuration is never served with a plane silently missing. The
-keys of the governor, telemetry, trace, profiling, SLO and device-stats
-planes map to their fields.
+device plane runs on). Each maps to the ``Options`` field of its name;
+``trace_jax_profiler_dir`` maps to ``trace_torch_profiler_dir``.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import logging
 import sys
@@ -76,7 +69,6 @@ OPTION_KEYS = (
 )
 # JAX keys whose port field has another name
 RENAMED = {"trace_jax_profiler_dir": "trace_torch_profiler_dir"}
-_OPTION_FIELDS = frozenset(f.name for f in dataclasses.fields(Options))
 
 
 def _to_logger(level: str) -> logging.Logger:
@@ -203,14 +195,8 @@ def from_bytes(b: bytes) -> Optional[Options]:
     opts = Options()
     top = raw.get("options") or raw  # accept flat or nested layout
     for k in OPTION_KEYS:
-        if k not in top:
-            continue
-        name = RENAMED.get(k, k)
-        if name not in _OPTION_FIELDS:
-            raise TypeError(
-                f"config option {k!r} belongs to a plane mqtt_tpu_torch does not have yet"
-            )
-        setattr(opts, name, top[k])
+        if k in top:
+            setattr(opts, RENAMED.get(k, k), top[k])
     if "capabilities" in top and top["capabilities"]:
         opts.capabilities = _capabilities_from(dict(top["capabilities"]))
 

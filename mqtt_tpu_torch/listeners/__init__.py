@@ -5,9 +5,9 @@ the mock, and the HTTP healthcheck, stats and dashboard listeners).
 A copy of the JAX package's ``listeners`` (reference
 ``listeners/listeners.go``: interface :32-39, registry :42-135). Accept
 loops are asyncio servers; the registry tracks all per-client tasks (the
-reference's ``ClientsWg``) so close can wait for them. The event-loop
-shard fabric is not ported: every stream listener accepts on the loop
-that serves it.
+reference's ``ClientsWg``) so close can wait for them. Under the
+event-loop shard fabric (``shards``) a stream listener binds raw sockets
+and hands each accepted one to a shard's loop.
 """
 
 from __future__ import annotations
@@ -89,8 +89,10 @@ def split_host_port(address: str) -> tuple[str, int]:
 def bind_stream_socket(
     host: str, port: int, reuse_port: bool = False
 ) -> socket.socket:
-    """A bound, listening, non-blocking TCP socket (the raw-accept path:
-    a caller that accepts bare sockets itself, and ``Net``'s callers)."""
+    """A bound, listening, non-blocking TCP socket — the raw-accept
+    path the event-loop shard fabric uses (shards): accepted
+    connections must reach the shard's loop as bare sockets, never as
+    main-loop transports that may already hold read bytes."""
     family = socket.AF_INET6 if ":" in host else socket.AF_INET
     sock = socket.socket(family, socket.SOCK_STREAM)
     try:
@@ -108,16 +110,51 @@ def bind_stream_socket(
 
 class StreamListener(Listener):
     """Shared scaffolding for stream-socket listeners: establish dispatch,
-    serve arming, and the disconnect-clients-then-wait close ordering."""
+    serve arming, and the disconnect-clients-then-wait close ordering.
+
+    With an event-loop shard fabric attached (``attach_fabric``, set by
+    the server before ``init`` when ``Options.loop_shards > 1``), the
+    listener binds raw sockets instead of an asyncio server: accepted
+    sockets are dispatched to the least-loaded shard and wrapped into
+    streams ON that shard's loop (shards). ``reuseport`` accept
+    mode gives every shard its own SO_REUSEPORT-bound socket + accept
+    loop instead (kernel load balancing, no hand-off hop)."""
 
     def __init__(self, config: Config) -> None:
         super().__init__(config)
         self._server: Optional[asyncio.base_events.Server] = None
         self._establish: Optional[EstablishFn] = None
+        # event-loop shard fabric (shards.ShardFabric) or None
+        self._fabric = None
+        self._fabric_reuseport = False
+        self._lsocks: list[socket.socket] = []
+        self._accept_task: Optional[asyncio.Task] = None
+
+    def attach_fabric(self, fabric, reuseport: bool = False) -> None:
+        """Route this listener's accepts through the shard fabric; must
+        be called before ``init``."""
+        self._fabric = fabric
+        self._fabric_reuseport = reuseport
+
+    def _fabric_bind(self) -> list:
+        """Bind the fabric-mode listening socket(s); subclasses that
+        support the fabric override this. One socket = hand-off accept
+        on the main loop; one socket per shard = per-shard accept."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support the shard fabric"
+        )
 
     def address(self) -> str:
         if self._server is not None and self._server.sockets:
             name = self._server.sockets[0].getsockname()
+            if isinstance(name, tuple):
+                return f"{name[0]}:{name[1]}"
+            return str(name)
+        if self._lsocks:
+            try:
+                name = self._lsocks[0].getsockname()
+            except OSError:
+                return self.config.address
             if isinstance(name, tuple):
                 return f"{name[0]}:{name[1]}"
             return str(name)
@@ -144,12 +181,50 @@ class StreamListener(Listener):
 
     async def serve(self, establish: EstablishFn) -> None:
         self._establish = establish
+        if self._fabric is None or not self._lsocks:
+            return
+
+        async def handler(reader, writer) -> None:
+            # through _handle so stream-wrapping listeners (websocket)
+            # ride the fabric unchanged
+            await self._handle(reader, writer, establish)
+
+        tls = self.config.tls_config
+        if self._fabric_reuseport and len(self._lsocks) > 1:
+            self._fabric.serve_reuseport(self._lsocks, tls, handler)
+            return
+        self._accept_task = asyncio.get_running_loop().create_task(
+            self._fabric_accept_loop(self._lsocks[0], tls, handler),
+            name=f"mqtt-torch-accept-{self.id()}",
+        )
+
+    async def _fabric_accept_loop(self, lsock, tls, handler) -> None:
+        """Hand-off accept: the main loop accepts, the fabric routes the
+        bare socket to the least-loaded shard."""
+        loop = asyncio.get_running_loop()
+        while True:
+            try:
+                sock, _addr = await loop.sock_accept(lsock)
+            except (asyncio.CancelledError, GeneratorExit):
+                raise
+            except OSError:
+                return  # listener closed under us
+            self._fabric.dispatch(sock, tls, handler)
 
     async def close(self, close_clients: Callable[[str], None]) -> None:
         # Stop accepting, then disconnect attached clients FIRST — their
         # handler tasks must end before wait_closed() can complete.
         if self._server is not None:
             self._server.close()
+        if self._accept_task is not None:
+            self._accept_task.cancel()
+            self._accept_task = None
+        for sock in self._lsocks:
+            try:
+                sock.close()
+            except OSError:
+                pass
+        self._lsocks = []
         close_clients(self.id())
         if self._server is not None:
             try:

@@ -121,9 +121,11 @@ class HTTPStats(_HttpListener):
     ``/traces``, ``/profile``, ``/devices``, ``/metrics/cluster`` and
     ``/cluster/slo``. The server passes its telemetry plane (None with
     ``Options.telemetry`` off: every such route answers 404, as the JAX
-    listener's do). The port has no worker cluster, so
-    ``/metrics/cluster`` answers 404, and ``/cluster/slo`` serves the
-    local SLO engine's state alone."""
+    listener's do). ``/metrics/cluster`` renders the mesh-federated
+    per-worker and folded exposition (``telemetry.ClusterMetrics``, which a
+    worker of the cluster attaches; the tree root serves the whole mesh)
+    and answers 404 without a cluster; ``/cluster/slo`` serves the local
+    SLO engine's state with the federated SLO gauges."""
 
     def __init__(
         self, config: Config, sys_info: Info, telemetry=None, health=None

@@ -9,8 +9,9 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import socket
 
-from . import StreamListener, split_host_port
+from . import StreamListener, bind_stream_socket, split_host_port
 
 
 class TCP(StreamListener):
@@ -19,8 +20,37 @@ class TCP(StreamListener):
     def protocol(self) -> str:
         return "tcp"
 
+    def _fabric_bind(self) -> list:
+        host, port = split_host_port(self.config.address)
+        if self._fabric_reuseport and hasattr(socket, "SO_REUSEPORT"):
+            # one SO_REUSEPORT socket per shard: the kernel load-balances
+            # accepts, each shard accepts on its own loop. The first bind
+            # resolves an ephemeral port for the rest to join.
+            first = bind_stream_socket(host, port, reuse_port=True)
+            bound = first.getsockname()[1]
+            socks = [first]
+            try:
+                for _ in range(1, self._fabric.n_shards):
+                    socks.append(
+                        bind_stream_socket(host, bound, reuse_port=True)
+                    )
+            except OSError:
+                for s in socks:
+                    s.close()
+                raise
+            return socks
+        self._fabric_reuseport = False  # hand-off accept
+        return [
+            bind_stream_socket(
+                host, port, reuse_port=bool(self.config.reuse_port)
+            )
+        ]
+
     async def init(self, log: logging.Logger) -> None:
         self.log = log
+        if self._fabric is not None:
+            self._lsocks = self._fabric_bind()
+            return
         host, port = split_host_port(self.config.address)
         self._server = await asyncio.start_server(
             self._on_connection,

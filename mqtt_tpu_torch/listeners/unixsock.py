@@ -9,6 +9,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import os
+import socket
 from typing import Callable
 
 from . import StreamListener
@@ -21,6 +22,19 @@ class UnixSock(StreamListener):
     def address(self) -> str:
         return self.config.address
 
+    def _fabric_bind(self) -> list:
+        # hand-off only: SO_REUSEPORT has no unix-socket meaning
+        self._fabric_reuseport = False
+        sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        try:
+            sock.bind(self.config.address)
+            sock.listen(1024)
+            sock.setblocking(False)
+        except OSError:
+            sock.close()
+            raise
+        return [sock]
+
     async def init(self, log: logging.Logger) -> None:
         self.log = log
         try:
@@ -28,6 +42,9 @@ class UnixSock(StreamListener):
             os.unlink(self.config.address)
         except FileNotFoundError:
             pass
+        if self._fabric is not None:
+            self._lsocks = self._fabric_bind()
+            return
         self._server = await asyncio.start_unix_server(
             self._on_connection, path=self.config.address
         )

@@ -168,8 +168,24 @@ class Websocket(StreamListener):
     def protocol(self) -> str:
         return "wss" if self.config.tls_config else "ws"
 
+    def _fabric_bind(self) -> list:
+        from . import bind_stream_socket
+
+        # hand-off accept only: the upgrade + frame pump run on the
+        # shard's loop either way (the fabric routes through _handle)
+        self._fabric_reuseport = False
+        host, port = split_host_port(self.config.address)
+        return [
+            bind_stream_socket(
+                host, port, reuse_port=bool(self.config.reuse_port)
+            )
+        ]
+
     async def init(self, log: logging.Logger) -> None:
         self.log = log
+        if self._fabric is not None:
+            self._lsocks = self._fabric_bind()
+            return
         host, port = split_host_port(self.config.address)
         self._server = await asyncio.start_server(
             self._on_connection,

@@ -14,7 +14,8 @@ imported: this module is imported on machines without a card or a
 compiler.
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
-``torch.cuda.current_stream()``, raises if the launch reports an error,
+``torch.cuda.current_stream(device)`` of its tensors' card (named, so a
+shard loop's thread launches where the tensors are), raises if the launch reports an error,
 and adds one to its entry in ``LAUNCHES``. Each runs inside a
 ``devicestats.KernelWatch`` under its own name, which notes the first
 launch of every new signature (shapes, dtypes, devices, integer

@@ -516,7 +516,10 @@ def _to_host_async(out_dev: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.
     host = torch.empty(out_dev.shape, dtype=out_dev.dtype, pin_memory=True)
     host.copy_(out_dev, non_blocking=True)
     event = torch.cuda.Event()
-    event.record()
+    # the copy ran on the result's card's stream: the event names both, so
+    # a thread whose current card is another one (a shard loop's) records
+    # it in the right place
+    event.record(torch.cuda.current_stream(out_dev.device))
     return host, event
 
 

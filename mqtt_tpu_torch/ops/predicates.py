@@ -309,9 +309,10 @@ class DeviceRuleEvaluator:
         host = torch.empty(rows_dev.shape, dtype=torch.int32, pin_memory=True)
         start = torch.cuda.Event(enable_timing=True)
         done = torch.cuda.Event(enable_timing=True)
-        start.record()
+        stream = torch.cuda.current_stream(self.device)
+        start.record(stream)
         host.copy_(rows_dev, non_blocking=True)
-        done.record()
+        done.record(stream)
         # the table, the inputs and the device rows stay referenced until
         # the batch resolves
         in_flight = (table, f_dev, m_dev, rows_dev)

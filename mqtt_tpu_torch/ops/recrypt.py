@@ -249,7 +249,7 @@ def keystream_async(
     host = torch.empty(rows_dev.shape, dtype=torch.uint8, pin_memory=True)
     host.copy_(rows_dev, non_blocking=True)
     done = torch.cuda.Event()
-    done.record()
+    done.record(torch.cuda.current_stream(device))
     in_flight = (ins, rows_dev)  # referenced until the batch resolves
 
     def resolve() -> np.ndarray:

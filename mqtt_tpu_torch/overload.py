@@ -45,9 +45,9 @@ All knobs are ``Options.overload_*`` fields and config-file keys; the
 governor is ON by default — an unprotected broker wedges by OOM, a
 governed one degrades predictably.
 
-The port has no worker cluster yet: ``PeerPressureSignal``,
-``enable_federation`` and the peer-reserve methods stay inert until one
-calls them, and the ``Options.overload_federation*`` fields are absent.
+A worker of the cluster (``cluster.Cluster``) turns federation on when it
+attaches (``Options.overload_federation``): its pressure gossip feeds
+``PeerPressureSignal`` and the peers' reserve spend the mesh reserve.
 """
 
 from __future__ import annotations

@@ -53,11 +53,13 @@ Departures from the JAX server, on purpose:
   ``Options.device``). A sampled publish's device trip is split into
   ``h2d``, ``device_dispatch`` and ``d2h`` from its batch's
   ``tracing.BatchProfile`` (see ``staging.MatchStage``).
-- The worker cluster and the event-loop shard fabric are absent, not
-  switched off, and so are their halves of the planes: the governor's
-  federation, the metric federation, the remote-path delivery SLI.
-  ``health_report`` has no ``cluster`` entry; the retained engine has no
-  breaker, so the body has no ``retained_breaker``.
+- The event-loop shard fabric (``Options.loop_shards``, ``shards``) and
+  the worker cluster (``cluster``, attached by ``python -m mqtt_tpu_torch
+  serve --workers N``) run as in the JAX server. A publish is matched on
+  the card at its origin worker only; a peer delivers a forwarded one from
+  its host trie walk or ``fast_deliver_frame``'s cached plans, the JAX
+  design. The retained engine has no breaker, so ``health_report`` has no
+  ``retained_breaker``.
 """
 
 from __future__ import annotations
@@ -216,10 +218,8 @@ class Capabilities:
 @dataclass
 class Options:
     """Configurable server options (server.go:96-131): the JAX package's
-    fields for the planes the port has, with its defaults, and ``device``.
-    The JAX fields of the planes not ported (the worker cluster with the
-    governor's federation and the metric federation, the loop-shard
-    fabric) are absent: passing one is a TypeError."""
+    fields, with its defaults, and ``device``. ``trace_jax_profiler_dir``
+    is ``trace_torch_profiler_dir`` here."""
 
     listeners: list[ListenerConfig] = field(default_factory=list)
     hooks: list[tuple[Hook, Any]] = field(default_factory=list)
@@ -314,6 +314,16 @@ class Options:
     # RSS watermark in MB that normalizes to pressure 1.0; 0 disables the
     # memory signal
     overload_memory_limit_mb: float = 0.0
+    # mesh federation (cluster gossip -> overload): fold peer workers'
+    # advertised governor postures into this worker's pressure as a
+    # decayed-max "peers" signal, so one shedding worker raises the whole
+    # mesh to THROTTLE instead of the rest pumping publishes into it
+    overload_federation: bool = True
+    # scale applied to the peers signal (< 1 so a SHED advert lands the
+    # mesh in THROTTLE, not a sympathetic full-mesh SHED cascade)
+    overload_federation_weight: float = 0.9
+    # gossip adverts decay linearly to zero over this TTL and then age out
+    overload_federation_ttl_ms: float = 15000.0
     # per-listener CONNECT admission: while THROTTLE/SHED, new CONNECTs on
     # admission-gated listeners are refused with CONNACK 0x97 (0x89 while
     # the server drains); False disables the gate entirely
@@ -325,6 +335,45 @@ class Options:
     overload_priority_classes: Optional[dict] = None
     # username-or-client-id -> class name (assigned at CONNECT)
     overload_priority_users: Optional[dict] = None
+    # mesh peer health (cluster): consecutive unanswered pings before a
+    # peer goes SUSPECT (QoS>0 forwards park in a bounded buffer) and
+    # before it is declared PARTITIONED (park flushed into the partition
+    # drop counters, link aborted for a clean re-dial)
+    cluster_peer_health_suspect_pings: int = 2
+    cluster_peer_health_partition_pings: int = 5
+    # when > 0 this replaces the missed-pong count with a wall-clock grace
+    # (rounded up to whole ping intervals); 0 keeps the pings knob
+    cluster_suspect_window_s: float = 0.0
+    # byte budget of each SUSPECT peer's park buffer (oldest spill first)
+    cluster_peer_park_max_bytes: int = 1 << 20
+    # mesh topology: "mesh" is the all-pairs fabric (every worker dials
+    # every peer); "tree" routes over the epoch-stamped spanning tree
+    # mesh_topology elects, keeping per-worker links O(degree). Every
+    # worker must run the same mode
+    cluster_topology: str = "mesh"
+    # spanning-tree branching factor (per-worker links <= degree + 1)
+    cluster_tree_degree: int = 4
+    # interest-summary bloom size in bits per edge (a multiple of 8)
+    cluster_summary_bits: int = 4096
+    # (origin, boot) duplicate-suppression window in sequence numbers
+    cluster_dup_window: int = 8192
+    # mesh transport: "unix" is the on-box socket-dir fabric; "tcp"
+    # listens on cluster_base_port + worker_id (per-worker pins via
+    # cluster_peer_addrs: {worker: "host:port"}). Every worker must agree
+    cluster_transport: str = "unix"
+    cluster_host: str = "127.0.0.1"
+    cluster_base_port: int = 0
+    cluster_peer_addrs: Optional[dict] = None
+    # mutual TLS on TCP peer links (empty cert = plaintext TCP)
+    cluster_tls_cert: str = ""
+    cluster_tls_key: str = ""
+    cluster_tls_ca: str = ""
+    # dial timeout, and the kernel TCP keepalive interval (0 = off)
+    cluster_connect_timeout_s: float = 5.0
+    cluster_keepalive_s: float = 0.0
+    # predicate push-down: max interned predicate digests per edge
+    # summary (0 disables push-down)
+    cluster_summary_digests: int = 64
     # device-resident hit compaction (K2): match results transfer as packed
     # (topic, sid) pairs sized for the hits that exist
     matcher_compact: bool = True
@@ -342,8 +391,19 @@ class Options:
     fanout_batch: bool = True
     # read-side decode batching: coalesce frame scans from read loops that
     # wake in the same event-loop tick into one native multi-buffer scan
-    # (clients.ScanGate). Opt-in
+    # (clients.ScanGate). Opt-in. Inside the shard fabric (loop_shards >
+    # 1) the gate is per shard and on regardless of this knob
     scan_coalesce: bool = False
+    # the event-loop shard fabric (shards): the connection front-end as N
+    # threads, each running its own event loop that owns its connections,
+    # with accepted sockets dispatched to the least-loaded shard. 1 (the
+    # default) is the single loop: no fabric code runs at all
+    loop_shards: int = 1
+    # fabric accept mode: "handoff" (the main loop accepts and routes each
+    # bare socket to the least-loaded shard) or "reuseport" (every shard
+    # binds its own SO_REUSEPORT socket and accepts on its own loop; falls
+    # back to handoff where SO_REUSEPORT is unavailable)
+    loop_shard_accept: str = "handoff"
     # raise the process-global CPython GC thresholds for broker throughput
     # (utils/gctune.py); an embedding application that wants its own GC
     # cadence sets this False
@@ -468,6 +528,13 @@ class Options:
     # live/limit memory occupancy at or above which /healthz reports the
     # device plane degraded (never flips readiness)
     device_hbm_watermark: float = 0.9
+    # mesh metric federation (cluster _T_METRICS): per-worker registry
+    # summaries ride the mesh at gossip cadence; the tree root serves GET
+    # /metrics/cluster and /cluster/slo for the whole mesh. False disables
+    # send and store
+    cluster_metrics: bool = True
+    # federated summaries older than this age out of scrapes
+    cluster_metrics_max_age_s: float = 120.0
 
     def ensure_defaults(self) -> None:
         """Sane defaults when unset (server.go:208-235)."""
@@ -544,8 +611,48 @@ class Options:
                         weight,
                     )
             self.overload_priority_classes = clean
+        if self.overload_federation_weight <= 0:
+            self.overload_federation_weight = 0.9
+        if self.overload_federation_ttl_ms <= 0:
+            self.overload_federation_ttl_ms = 15000.0
         if self.overload_admission_reserve < 0:
             self.overload_admission_reserve = 0
+        if self.cluster_peer_health_suspect_pings <= 0:
+            self.cluster_peer_health_suspect_pings = 2
+        if self.cluster_peer_health_partition_pings <= self.cluster_peer_health_suspect_pings:
+            # PARTITIONED must come strictly after SUSPECT, or the park
+            # buffer never gets a heal window
+            self.cluster_peer_health_partition_pings = (
+                self.cluster_peer_health_suspect_pings + 3
+            )
+        if self.cluster_peer_park_max_bytes <= 0:
+            self.cluster_peer_park_max_bytes = 1 << 20
+        if self.cluster_suspect_window_s < 0:
+            self.cluster_suspect_window_s = 0.0
+        # an unknown topology or transport falls back to the on-box
+        # all-pairs mesh (never a refused boot)
+        if str(self.cluster_topology).lower() not in ("mesh", "tree"):
+            self.cluster_topology = "mesh"
+        else:
+            self.cluster_topology = str(self.cluster_topology).lower()
+        if self.cluster_tree_degree < 1:
+            self.cluster_tree_degree = 4
+        if self.cluster_summary_bits < 64 or self.cluster_summary_bits % 8:
+            self.cluster_summary_bits = 4096
+        if self.cluster_dup_window < 1:
+            self.cluster_dup_window = 8192
+        if str(self.cluster_transport).lower() not in ("unix", "tcp"):
+            self.cluster_transport = "unix"
+        else:
+            self.cluster_transport = str(self.cluster_transport).lower()
+        if not 0 <= self.cluster_base_port <= 65535:
+            self.cluster_base_port = 0
+        if self.cluster_connect_timeout_s <= 0:
+            self.cluster_connect_timeout_s = 5.0
+        if self.cluster_keepalive_s < 0:
+            self.cluster_keepalive_s = 0.0
+        if self.cluster_summary_digests < 0:
+            self.cluster_summary_digests = 64
         # a zero/negative rule cap would refuse every predicate, a negative
         # sample means "default"
         if self.predicate_max_rules <= 0:
@@ -581,6 +688,14 @@ class Options:
             self.trace_ring = 4096
         if self.trace_adopt_max_per_s < 0:
             self.trace_adopt_max_per_s = 64
+        # a shard count below 1 means the single loop, an unknown accept
+        # mode falls back to the hand-off router (never a refused boot)
+        if self.loop_shards < 1:
+            self.loop_shards = 1
+        if str(self.loop_shard_accept).lower() not in ("handoff", "reuseport"):
+            self.loop_shard_accept = "handoff"
+        else:
+            self.loop_shard_accept = str(self.loop_shard_accept).lower()
         if self.profile_hz <= 0:
             self.profile_hz = 29.0
         if self.profile_ring <= 0:
@@ -717,8 +832,20 @@ class Server:
 
             self._ops.scan_gate = ScanGate()
         self._fastpub_plans: dict = {}  # topic -> (trie version, fan-out plan)
-        # clients_connected gates maximum_clients
+        # the event-loop shard fabric (shards); None = single loop. Built
+        # in serve() when Options.loop_shards > 1
+        self._fabric: Optional[Any] = None
+        # the loop serve() ran on — the housekeeping tick's loop; under the
+        # fabric, clients owned by it (or by no loop) are swept there
+        self._main_loop: Optional[asyncio.AbstractEventLoop] = None
+        # clients_connected gates maximum_clients: under the fabric the
+        # attach/detach paths run on many shard loops
         self._conn_lock = threading.Lock()
+        # (timestamp, {loop: queued}) memo so one scrape's N per-shard
+        # backlog gauges share a single client-registry walk
+        self._shard_backlog_memo: Optional[tuple] = None
+        # the worker cluster (cluster.Cluster); None = single process
+        self._cluster: Optional[Any] = None
         # set at the top of close(): CONNECTs arriving mid-drain are
         # refused with CONNACK 0x89 Server Busy instead of 0x97
         self._draining = False
@@ -1150,6 +1277,27 @@ class Server:
             # other; close() releases this server's hold)
             self.telemetry.lock_plane.arm()
             self._lock_plane_armed = True
+        self._main_loop = asyncio.get_running_loop()
+        if self.options.loop_shards > 1:
+            # the event-loop shard fabric (shards): built before the
+            # listeners' init so stream listeners bind raw fabric sockets
+            # instead of main-loop asyncio servers
+            from .listeners import StreamListener
+            from .shards import ShardFabric
+
+            self._fabric = ShardFabric(self.options.loop_shards, server=self)
+            reuseport = self.options.loop_shard_accept == "reuseport"
+            for lst in self.listeners.internal.values():
+                if isinstance(lst, StreamListener):
+                    lst.attach_fabric(self._fabric, reuseport=reuseport)
+            self._fabric.start()
+            if self.telemetry is not None:
+                self._fabric.register_metrics(self.telemetry.registry)
+            self.log.info(
+                "event-loop shard fabric started: shards=%d accept=%s",
+                self.options.loop_shards,
+                self.options.loop_shard_accept,
+            )
         for listener in list(self.listeners.internal.values()):
             await listener.init(self.log)
         self._event_loop_task = asyncio.get_running_loop().create_task(self._event_loop())
@@ -1437,12 +1585,38 @@ class Server:
         if ov is None:
             return 0
         ov.evaluate(force=True)
+        # under the shard fabric each shard sweeps ITS clients on its own
+        # loop (shards.LoopShard._tick), so transport-buffer reads and
+        # eviction disconnects stay loop-local; the main tick covers the
+        # clients the main loop owns (and loop-less ones: tests, mocks)
+        try:
+            here: Optional[asyncio.AbstractEventLoop] = asyncio.get_running_loop()
+        except RuntimeError:
+            here = self._main_loop
+        return self.sweep_clients_for_loop(here, include_unowned=True)
+
+    def sweep_clients_for_loop(
+        self,
+        loop: Optional[asyncio.AbstractEventLoop],
+        include_unowned: bool = False,
+    ) -> int:
+        """One slow-consumer eviction pass over the clients ``loop`` owns
+        (every client when no fabric is attached). Returns the evictions
+        performed; a shard's housekeeping tick feeds it into the per-shard
+        counter."""
+        ov = self.overload
+        if ov is None:
+            return 0
         buf_limit = self.options.overload_client_buffer_limit_bytes
         now = time.monotonic()
         evicted = 0
         for cl in self.clients.get_all().values():
             if cl.net.inline or cl.closed:
                 continue
+            if self._fabric is not None:
+                owner = cl.net.loop
+                if owner is not loop and not (owner is None and include_unowned):
+                    continue
             buffered = 0
             if cl.net.writer is not None:
                 try:
@@ -1482,6 +1656,23 @@ class Server:
                 # a GRACEFUL close: a victim that resumes reading still
                 # sees its queued publishes and the 0x97 DISCONNECT
         return evicted
+
+    def shard_backlog(self, loop: Any) -> int:
+        """Queued outbound publishes across the clients one shard loop
+        owns (the per-shard face of the aggregate backlog gauge). One
+        scrape calls this once per shard, so the registry walk is memoized
+        briefly: N shard gauges cost one pass."""
+        now = time.monotonic()
+        cached = self._shard_backlog_memo
+        if cached is None or now - cached[0] > 0.5:
+            totals: dict = {}
+            for cl in self.clients.get_all().values():
+                if not cl.closed:
+                    owner = cl.net.loop
+                    totals[owner] = totals.get(owner, 0) + cl.state.outbound.qsize()
+            cached = (now, totals)
+            self._shard_backlog_memo = cached
+        return cached[1].get(loop, 0)
 
     # -- durable session plane ---------------------------------------------
 
@@ -1621,9 +1812,13 @@ class Server:
 
     async def establish_connection(self, listener: str, reader, writer) -> None:
         """Attach a newly accepted connection (server.go:398-401)."""
+        from .shards import SHARD_TASK_ATTR
+
         task = asyncio.current_task()
-        if task is not None:
-            # ClientsWg analog (listeners.go:43)
+        if task is not None and getattr(task, SHARD_TASK_ATTR, None) is None:
+            # ClientsWg analog (listeners.go:43). A shard fabric's tasks
+            # are tracked by their own shard: the main loop must never
+            # gather a foreign loop's tasks
             self.listeners.client_tasks.add(task)
             task.add_done_callback(self.listeners.client_tasks.discard)
         cl = self.new_client(reader, writer, listener, "", False)
@@ -1632,8 +1827,14 @@ class Server:
     async def attach_client(self, cl: Client, listener: str) -> None:
         """Validate an incoming connection, run the CONNECT handshake, and
         read packets until disconnect (server.go:405-494)."""
+        # the loop OWNING this transport: every cross-shard write or close
+        # marshals onto it (shards); a single-loop broker records the main
+        # loop and every check is loop-local
         cl.net.loop = asyncio.get_running_loop()
         cl._handler_task = asyncio.current_task()
+        if self._fabric is not None:
+            # per-shard read-side decode batching, on inside the fabric
+            cl.scan_gate = self._fabric.gate_for(cl.net.loop)
         cl.start_write_loop()
         err: Optional[Exception] = None
         connected = False
@@ -1685,6 +1886,16 @@ class Server:
                 self._tenancy.note_connect(cl.tenant)
 
             self.hooks.on_session_establish(cl, pk)
+
+            # cross-shard takeover quiesce (shards): the session migration
+            # below clones and clears the EXISTING client's inflight and
+            # subscriptions, which is only safe once its owner loop has
+            # stopped serving it — disconnect it ON that loop and await
+            # completion first (a single loop needs none of this)
+            if self._fabric is not None:
+                existing = self.clients.get(cl.id)
+                if existing is not None and not self._client_loop_local(existing):
+                    await self._quiesce_takeover(existing)
 
             session_present = self.inherit_client_session(pk, cl)
             self.clients.add_client(cl)  # [MQTT-4.1.0-1]
@@ -1796,6 +2007,43 @@ class Server:
         if cl.properties.will.retain and caps.retain_available == 0:
             return ERR_RETAIN_NOT_SUPPORTED  # [MQTT-3.2.2-13]
         return code
+
+    async def _quiesce_takeover(self, existing: Client) -> None:
+        """Disconnect a to-be-taken-over client ON its owning shard's loop
+        and wait for it: after this, the old owner's loop can no longer be
+        mutating the session state the takeover migrates. The drain also
+        awaits the old attach handler itself, so its disconnect epilogue
+        (the expire branch, the registry delete) has run before the
+        migration reads the registry. A dead or stopped owner loop
+        degrades to a direct stop — the client was not being served."""
+        loop = existing.net.loop
+        if loop is None or not loop.is_running():
+            existing.stop(ERR_SESSION_TAKEN_OVER())
+            return
+
+        async def _disconnect_and_drain() -> None:
+            try:
+                self.disconnect_client(existing, ERR_SESSION_TAKEN_OVER)
+            except Code:
+                pass
+            task = existing._handler_task
+            if task is not None and task is not asyncio.current_task():
+                try:
+                    await asyncio.wait_for(asyncio.shield(task), timeout=4.0)
+                except Exception:  # brokerlint: ok=R4 bounded drain; a wedged old handler must not hold the CONNECT hostage
+                    pass
+
+        try:
+            cfut = asyncio.run_coroutine_threadsafe(_disconnect_and_drain(), loop)
+        except RuntimeError:
+            existing.stop(ERR_SESSION_TAKEN_OVER())
+            return
+        try:
+            await asyncio.wait_for(asyncio.wrap_future(cfut), timeout=5.0)
+        except asyncio.TimeoutError:
+            # a wedged owner loop must not hold the CONNECT hostage; the
+            # closed flag still fences its data plane
+            existing.stop(ERR_SESSION_TAKEN_OVER())
 
     def inherit_client_session(self, pk: Packet, cl: Client) -> bool:
         """Session takeover: disconnect the existing client with the same id
@@ -2312,8 +2560,7 @@ class Server:
         final stamp is the fanout write leg, then the record lands in the
         per-stage histograms and the flight-recorder ring, and the
         arrival->flush total in the per-tenant delivery-latency SLI
-        (path=local), the number the SLO engine burns against. The
-        cluster's remote path has no counterpart in the port."""
+        (path=local), the number the SLO engine burns against."""
         clock = getattr(pk, "_tclock", None)
         if clock is not None:
             setattr(pk, "_tclock", None)  # a clock observes exactly once
@@ -2323,24 +2570,40 @@ class Server:
                 # ``fanout`` stage from their sum
                 clock.stamp("fanout")
             self.telemetry.observe_publish(clock, pk.topic_name, pk.fixed_header.qos)
-            self._observe_delivery_sli(clock, pk)
+            self._observe_delivery_sli(clock, pk, "local")
 
-    def _observe_delivery_sli(self, clock, pk: Packet) -> None:
+    def _observe_delivery_sli(self, clock, pk: Packet, path: str) -> None:
         """Fold one finished clock into the delivery-latency SLI: the
         tenant label comes off the scoped topic, the value is the clock's
-        decode->flush total."""
+        decode->flush total plus (remote path) the origin worker's elapsed
+        stamp."""
         tele = self.telemetry
         if tele is None or not tele.delivery_sli:
             return
         topic = pk.topic_name
         tenant = ns_tenant(topic) if topic[:1] == NS_CHAR else ""
         tele.observe_delivery(
-            clock.total(),
+            clock.total() + getattr(clock, "remote_base", 0.0),
             tenant,
             pk.fixed_header.qos,
-            "local",
+            path,
             trace_id=getattr(clock, "trace_id", None),
         )
+
+    def _finish_remote_clock(self, pk: Packet) -> None:
+        """Close a mesh-forwarded publish's receiving-side clock
+        (telemetry.RemoteStageClock, attached by the cluster's delivery):
+        the remote-path delivery SLI reads origin-elapsed plus the local
+        segment. Never routed through observe_publish — remote deliveries
+        must not skew this worker's pipeline-stage histograms or flight
+        ring."""
+        clock = getattr(pk, "_tclock", None)
+        if clock is None:
+            return
+        setattr(pk, "_tclock", None)
+        if not any(s in ("encode", "flush") for s, _ in clock.stages):
+            clock.stamp("fanout")
+        self._observe_delivery_sli(clock, pk, "remote")
 
     async def _staged_fan_out(self, cl: Client, pk: Packet) -> None:
         """Fan out one publish through the staging loop: the device match
@@ -2363,6 +2626,8 @@ class Server:
             rjob = self._recrypt_job_for(cl, pk)
             subscribers = await self._stage.submit(pk.topic_name, getattr(pk, "_tclock", None), feats, rjob)
             self._fan_out(pk, subscribers, feats, rjob)
+            if self._cluster is not None:
+                self._cluster.forward_packet(pk)
             self._finish_publish_clock(pk)
         self.hooks.on_published(cl, pk)
 
@@ -2434,6 +2699,11 @@ class Server:
             return
         self._stamp_publish_expiry(pk)
         self._fan_out(pk, self.topics.subscribers(pk.topic_name))
+        if self._cluster is not None:
+            # peer workers with matching subscribers receive the packet
+            # once each and fan out locally ($SYS never forwards; retained
+            # packets go to all peers) — cluster
+            self._cluster.forward_packet(pk)
 
     def _stamp_publish_expiry(self, pk: Packet) -> None:
         if pk.created == 0:
@@ -2595,6 +2865,12 @@ class Server:
             if self.topic_sketch is not None:
                 self.topic_sketch.observe(topic)
         self._fast_fan_frame(plan, topic, frame, body_offset, cl.id)
+        if self._cluster is not None:
+            # cluster leg: relay the frame verbatim to peer workers with
+            # matching subscribers (cluster); write ACL was enforced
+            # above, peers apply per-target read ACL. A traced clock rides
+            # along so the forward carries the trace id
+            self._cluster.forward_frame(topic, frame, cl.id, clock)
         if clock is not None:
             clock.stamp("fanout")
             self.telemetry.observe_publish(clock, topic, 0)
@@ -2681,9 +2957,25 @@ class Server:
                 continue
             # v5 target / identifiers / alias / size cap: full per-sub path
             try:
-                self.publish_to_client(tcl, sub, pk_source())
+                self._deliver_to_client(tcl, sub, pk_source())
             except Exception as e:
                 self.log.debug("failed publishing packet: error=%s client=%s", e, cid)
+
+    def fast_deliver_frame(self, frame: bytes, origin: str) -> bool:
+        """Deliver a peer-forwarded v4 QoS0 PUBLISH frame to local
+        subscribers through the cached fan-out plans (cluster). Returns
+        False when this worker needs the decode path for the topic
+        (shared/inline subscribers, or a plan miss class). Write ACL was
+        enforced at the origin worker."""
+        parsed = publish_frame_topic(frame)
+        if parsed is None:
+            return True  # origin validated it; nothing deliverable here
+        topic, body_offset = parsed
+        plan = self._plan_for_topic(topic)
+        if plan is None:
+            return False
+        self._fast_fan_frame(plan, topic, frame, body_offset, origin)
+        return True
 
     def _decode_fast_frame(self, origin: str, body: bytes) -> Packet:
         """Materialize the Packet for a fast-path frame that met a
@@ -2798,13 +3090,14 @@ class Server:
                 cl = self.clients.get(id_)
                 if cl is not None:
                     try:
-                        self.publish_to_client(cl, subs, dpk, fast)
+                        delivered = self._deliver_to_client(cl, subs, dpk, fast, account=True)
                     except Exception as e:
                         self.log.debug(
                             "failed publishing packet: error=%s client=%s", e, id_
                         )
                     else:
-                        self._note_tenant_out(cl, dpk)
+                        if delivered:
+                            self._note_tenant_out(cl, dpk)
 
         # MQTT+ aggregation windows that completed on this publish emit ONE
         # synthesized publish each (payload = the aggregate), riding the
@@ -2821,7 +3114,7 @@ class Server:
             cl = self.clients.get(target)
             if cl is not None:
                 try:
-                    self.publish_to_client(cl, sub, out)
+                    self._deliver_to_client(cl, sub, out)
                 except Exception as e:
                     self.log.debug(
                         "failed publishing aggregate: error=%s client=%s", e, target
@@ -2907,11 +3200,12 @@ class Server:
             self._flush_variant(dpk, eff, retain, data, id_off, group, sys_topic)
         for cl, sub in slow:
             try:
-                self.publish_to_client(cl, sub, dpk)
+                delivered = self._deliver_to_client(cl, sub, dpk, account=True)
             except Exception as e:
                 self.log.debug("failed publishing packet: error=%s client=%s", e, cl.id)
             else:
-                self._note_tenant_out(cl, dpk)
+                if delivered:
+                    self._note_tenant_out(cl, dpk)
         if clock is not None:
             clock.stamp("flush")
 
@@ -2929,8 +3223,41 @@ class Server:
         (idle transport + empty outbound queue, no TLS) flush through ONE
         GIL-released native call (``native.fan_flush``); everything else
         rides the bounded outbound queue with its backpressure and drop
-        accounting."""
+        accounting.
+
+        Under the shard fabric the group is split BY OWNING SHARD first:
+        each remote shard receives its whole sub-group as one marshaled
+        call of this same method — the encode already happened once on the
+        publishing shard, and the remote shard runs eligibility, QoS
+        bookkeeping and its own one native flush loop-locally.
+        ``call_soon_threadsafe`` keeps per-publisher FIFO into each shard,
+        so one publisher's deliveries to one subscriber stay in order."""
         from .native import fan_flush
+
+        if self._fabric is not None:
+            try:
+                here: Optional[asyncio.AbstractEventLoop] = asyncio.get_running_loop()
+            except RuntimeError:
+                here = None
+            local: list = []
+            remote: dict = {}
+            for cl, sub in group:
+                loop = cl.net.loop
+                if loop is None or loop is here:
+                    local.append((cl, sub))
+                else:
+                    remote.setdefault(loop, []).append((cl, sub))
+            for loop, rgroup in remote.items():
+                try:
+                    loop.call_soon_threadsafe(
+                        self._flush_variant,
+                        dpk, eff, retain, data, id_off, rgroup, sys_topic,
+                    )
+                except RuntimeError:
+                    continue  # shard gone; its clients are going away
+            if not local:
+                return
+            group = local
 
         topic = dpk.topic_name
         if topic[:1] == NS_CHAR:
@@ -3126,9 +3453,14 @@ class Server:
 
     def _origin_idents(self, pk: Packet) -> tuple:
         """Key-identity candidates for a publish's ORIGIN: the live
-        session's identities (the JAX package adds the username a cluster
-        forward carries; the port has no cluster)."""
-        return self._key_idents(pk.origin)
+        session's identities plus the username rider cluster forwards
+        carry (cluster head["u"]) — a username-keyed publisher must
+        resolve on workers where its session does not exist."""
+        idents = self._key_idents(pk.origin)
+        rider = getattr(pk, "_origin_user", "")
+        if rider and rider not in idents:
+            idents = idents + (rider,)
+        return idents
 
     def _recrypt_job_for(self, cl: Client, pk: Packet):
         """The staged decrypt carrier for an encrypted-namespace publish
@@ -3184,14 +3516,15 @@ class Server:
             out = dpk.copy(False)
             out.payload = data
             try:
-                self.publish_to_client(cl, subs, out)
+                delivered = self._deliver_to_client(cl, subs, out, account=True)
             except Exception as e:
                 self.log.debug(
                     "failed publishing recrypted packet: error=%s client=%s", e, id_
                 )
             else:
-                tenant.messages_out += 1
-                tenant.bytes_out += len(data)
+                if delivered:
+                    tenant.messages_out += 1
+                    tenant.bytes_out += len(data)
 
     def _fan_out_encrypted_batched(
         self, tenant, dpk: Packet, plaintext: bytes, items: list
@@ -3265,14 +3598,15 @@ class Server:
             out = dpk.copy(False)
             out.payload = data
             try:
-                self.publish_to_client(cl, sub, out)
+                delivered = self._deliver_to_client(cl, sub, out, account=True)
             except Exception as e:
                 self.log.debug(
                     "failed publishing recrypted packet: error=%s client=%s", e, cid
                 )
             else:
-                tenant.messages_out += 1
-                tenant.bytes_out += len(data)
+                if delivered:
+                    tenant.messages_out += 1
+                    tenant.bytes_out += len(data)
 
         # the tenant-LOCAL topic (what the subscriber subscribed to): the
         # ACL below must judge what the client sees on the wire
@@ -3324,6 +3658,78 @@ class Server:
                         "failed publishing recrypted packet: error=%s client=%s", e, cl.id
                     )
         return True
+
+    def _client_loop_local(self, cl: Client) -> bool:
+        """True when the calling thread may touch this client's loop-affine
+        state directly (its owning loop, or no loop)."""
+        loop = cl.net.loop
+        if loop is None:
+            return True
+        try:
+            return loop is asyncio.get_running_loop()
+        except RuntimeError:
+            return False
+
+    def _deliver_to_client(
+        self,
+        cl: Client,
+        sub: Subscription,
+        pk: Packet,
+        fast: Optional["_FrameCache"] = None,
+        account: bool = False,
+    ) -> bool:
+        """``publish_to_client`` with shard-loop affinity (shards): a
+        delivery that mutates per-client loop-affine state (QoS>0 packet
+        ids and inflight, outbound topic aliasing) for a client ANOTHER
+        shard owns is marshaled onto that shard's loop; everything else —
+        the shared-frame and plain QoS 0 paths, whose only cross-thread
+        touch is the thread-safe outbound queue — runs inline. Without a
+        fabric every delivery runs inline.
+
+        Returns True when the delivery ran inline (exceptions propagate and
+        the caller does its own accounting); False when marshaled (the
+        owner loop's callback logs failures and, with ``account``, does
+        the tenant accounting itself)."""
+        if self._fabric is None or self._client_loop_local(cl):
+            self.publish_to_client(cl, sub, pk, fast)
+            return True
+        eff = pk.fixed_header.qos
+        if eff > sub.qos:
+            eff = sub.qos
+        if eff == 0 and cl.properties.props.topic_alias_maximum == 0:
+            self.publish_to_client(cl, sub, pk, fast)
+            return True
+        loop = cl.net.loop
+        try:
+            loop.call_soon_threadsafe(  # type: ignore[union-attr]
+                self._deliver_remote, cl, sub, pk, fast, account
+            )
+        except RuntimeError:
+            pass  # owner shard gone; the client is going away with it
+        return False
+
+    def _deliver_remote(
+        self,
+        cl: Client,
+        sub: Subscription,
+        pk: Packet,
+        fast: Optional["_FrameCache"],
+        account: bool,
+    ) -> None:
+        """The owner shard's half of a marshaled delivery."""
+        if _LOOP_PLANE.active:
+            w = _LOOP_PLANE.witness
+            if w is not None:
+                # call_soon_threadsafe landed us on the owner's loop;
+                # anything else is a marshal-routing bug
+                w.check_owner("client_state", "deliver_marshal", cl.net.loop, detail=cl.id)
+        try:
+            self.publish_to_client(cl, sub, pk, fast)
+        except Exception as e:
+            self.log.debug("failed publishing packet: error=%s client=%s", e, cl.id)
+        else:
+            if account:
+                self._note_tenant_out(cl, pk)
 
     def publish_to_client(
         self,
@@ -3939,7 +4345,21 @@ class Server:
     def disconnect_client(self, cl: Client, code: Code) -> None:
         """Send DISCONNECT and close (server.go:1413-1437). Raises the code
         for error-class disconnects (mirrors the reference's error
-        return)."""
+        return).
+
+        Under the shard fabric a disconnect targeting a client ANOTHER
+        shard owns (cross-shard takeover, the main loop's eviction and
+        drain paths) is marshaled onto the owning loop — the DISCONNECT
+        write and the transport close are loop-affine. The marshaled form
+        cannot raise; every call site treats the raise as advisory."""
+        if self._fabric is not None and not self._client_loop_local(cl):
+            loop = cl.net.loop
+            if loop is not None and loop.is_running():
+                try:
+                    loop.call_soon_threadsafe(self._disconnect_client_remote, cl, code)
+                    return
+                except RuntimeError:
+                    pass  # owner loop gone; close directly below
         out = Packet(
             fixed_header=FixedHeader(type=pkts.DISCONNECT),
             reason_code=code.code,
@@ -3955,6 +4375,13 @@ class Server:
             cl.stop(code)
             if code.code >= ERR_UNSPECIFIED_ERROR.code:
                 raise code()
+
+    def _disconnect_client_remote(self, cl: Client, code: Code) -> None:
+        """The owner shard's half of a marshaled disconnect."""
+        try:
+            self.disconnect_client(cl, code)
+        except Code:
+            pass
 
     # -- $SYS / housekeeping -----------------------------------------------
 
@@ -4046,6 +4473,101 @@ class Server:
             # the per-card plane: memory, duty cycles, skew and the ledger
             for key, val in self.device_stats.sys_tree().items():
                 topics[SYS_PREFIX + "/broker/devices/" + key] = str(val)
+        if self._cluster is not None:
+            # worker-mesh observability (cluster)
+            c = self._cluster
+            topics[SYS_PREFIX + "/broker/cluster/worker"] = str(c.worker_id)
+            topics[SYS_PREFIX + "/broker/cluster/peers"] = str(c.peer_count)
+            topics[SYS_PREFIX + "/broker/cluster/dropped_forwards"] = str(
+                c.dropped_forwards
+            )
+            # backpressure + link-health gauges (cluster known
+            # limits: QoS>0 forwards DROP at the peer-buffer cap — the
+            # drop is counted here, never silent)
+            topics[SYS_PREFIX + "/broker/cluster/dropped_qos_forwards"] = str(
+                c.dropped_qos_forwards
+            )
+            topics[SYS_PREFIX + "/broker/cluster/reconnects"] = str(
+                c.reconnects_total
+            )
+            # overload tier: QoS0 forwards shed at the governor's reduced
+            # peer-buffer cap (subset of dropped_forwards, never silent)
+            topics[SYS_PREFIX + "/broker/cluster/shed_qos0_forwards"] = str(
+                c.shed_qos0_forwards
+            )
+            # partition-tolerance gauges: the drop-class split
+            # (partition-time vs backlog), the park buffer, and replays
+            topics[SYS_PREFIX + "/broker/cluster/peer_drops_partition"] = str(
+                c.dropped_partition
+            )
+            topics[SYS_PREFIX + "/broker/cluster/peer_drops_backlog"] = str(
+                c.dropped_backlog
+            )
+            topics[SYS_PREFIX + "/broker/cluster/parked_forwards"] = str(
+                c.parked_forwards
+            )
+            topics[SYS_PREFIX + "/broker/cluster/replayed_forwards"] = str(
+                c.replayed_forwards
+            )
+            # control-plane byte volume (the drill's O(degree) gossip
+            # assertion reads it per worker)
+            topics[SYS_PREFIX + "/broker/cluster/control_bytes"] = str(
+                c.control_bytes
+            )
+            for peer, n in sorted(c.dropped_by_peer.items()):
+                topics[
+                    SYS_PREFIX + f"/broker/cluster/peer/{peer}/dropped_forwards"
+                ] = str(n)
+            for peer, ph in sorted(c._health.items()):
+                topics[
+                    SYS_PREFIX + f"/broker/cluster/peer/{peer}/health"
+                ] = ph.state
+            if c.topo is not None:
+                # spanning-tree gauges: epoch, live edge
+                # count, the loop/duplicate guards, and the summary
+                # routing split — everything the partition-storm drill
+                # asserts from the outside
+                t = c.topo
+                topics[SYS_PREFIX + "/broker/cluster/tree/epoch"] = str(
+                    t.epoch_num()
+                )
+                topics[SYS_PREFIX + "/broker/cluster/tree/neighbors"] = str(
+                    len(t.neighbors())
+                )
+                topics[SYS_PREFIX + "/broker/cluster/tree/links"] = str(
+                    sum(1 for p in t.neighbors() if p in c._writers)
+                )
+                topics[SYS_PREFIX + "/broker/cluster/tree/re_elections"] = str(
+                    t.re_elections
+                )
+                topics[
+                    SYS_PREFIX + "/broker/cluster/tree/duplicates_suppressed"
+                ] = str(c.duplicates_suppressed)
+                topics[
+                    SYS_PREFIX + "/broker/cluster/tree/stale_epoch_frames"
+                ] = str(c.stale_epoch_frames)
+                topics[
+                    SYS_PREFIX + "/broker/cluster/tree/summary_filtered"
+                ] = str(c.summary_filtered_forwards)
+                topics[
+                    SYS_PREFIX + "/broker/cluster/tree/summary_passthrough"
+                ] = str(c.summary_passthrough_forwards)
+                # predicate push-down + root-failover gauges
+                topics[
+                    SYS_PREFIX + "/broker/cluster/tree/predicate_filtered"
+                ] = str(c.summary_predicate_filtered_forwards)
+                topics[
+                    SYS_PREFIX + "/broker/cluster/tree/root_failovers"
+                ] = str(c.root_failovers)
+                topics[
+                    SYS_PREFIX + "/broker/cluster/tree/root_failover_last_s"
+                ] = "%.6f" % c.root_failover_last_s
+                topics[SYS_PREFIX + "/broker/cluster/tree/root"] = str(
+                    t.root()
+                )
+                topics[SYS_PREFIX + "/broker/cluster/tree/successor"] = str(
+                    t.successor()
+                )
         pk = Packet(
             fixed_header=FixedHeader(type=pkts.PUBLISH, retain=True),
             created=now,
@@ -4075,8 +4597,8 @@ class Server:
         re-registering, a governor in SHED, or a dead staging pipeline. A
         breaker that is not closed, a breached SLO or a card past its
         memory watermark DEGRADE (named in ``degraded``, readiness holds):
-        the broker still serves. The port has no worker cluster, so there
-        is no ``cluster`` entry, and its retained engine has no breaker, so
+        the broker still serves, as do partitioned cluster peers or a tree
+        edge that is down. The port's retained engine has no breaker, so
         there is no ``retained_breaker`` entry."""
         not_ready: list[str] = []
         degraded: list[str] = []
@@ -4116,6 +4638,25 @@ class Server:
                 detail["matcher_breaker"] = {"state": state}
                 if state != "closed":
                     degraded.append("matcher_breaker_" + state)
+        c = self._cluster
+        if c is not None:
+            from .cluster import PEER_PARTITIONED
+
+            ch: dict = {"worker": c.worker_id, "peers": c.peer_count}
+            partitioned = sorted(p for p, ph in c._health.items() if ph.state == PEER_PARTITIONED)
+            if partitioned:
+                ch["partitioned_peers"] = partitioned
+                degraded.append("cluster_partitioned_peers")
+            if c.topo is not None:
+                neighbors = c.topo.neighbors()
+                links = sum(1 for p in neighbors if p in c._writers)
+                ch["epoch"] = c.topo.epoch_num()
+                ch["tree_links"] = links
+                ch["tree_neighbors"] = len(neighbors)
+                ch["is_root"] = c.topo.is_root()
+                if links < len(neighbors):
+                    degraded.append("cluster_tree_edges_down")
+            detail["cluster"] = ch
         if self.slo is not None:
             breached = sorted(name for name, st in self.slo.state().items() if st.get("breached"))
             detail["slo"] = {"objectives": len(self.slo.objectives)}
@@ -4152,6 +4693,12 @@ class Server:
         self.done.set()
         self.log.info("gracefully stopping server")
         await self.listeners.close_all(self._close_listener_clients)
+        if self._fabric is not None:
+            # after the listeners: the drain disconnects were marshaled
+            # onto the shard loops, which must still be alive to run them;
+            # stop() then drains the establish tasks and joins the threads
+            await self._fabric.stop()
+            self._fabric = None
         # stage first (parked publishes resolve via the host walk), then the
         # matcher; shutdown LWT publishes and clean-session unsubscribes
         # must still flow through the live delta overlay

@@ -81,12 +81,14 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
 from .topics import Subscribers
+from .utils.loopwitness import DEFAULT_LOOP_PLANE as _LOOP_PLANE
 
 _log = logging.getLogger("mqtt_tpu_torch.staging")
 
@@ -142,9 +144,16 @@ class MatchStage:
         self.peak_pending = 0
         # host-walk resolutions by class (admission, stop)
         self.fallbacks: dict[str, int] = {}
-        # parked publishes: (topic, future, clock, feats, rjob). submit(), the collector and the
-        # drainer all run on the stage's loop (start()'s), so no lock
+        # parked publishes: (topic, future, clock, feats, rjob). Guarded
+        # by _plock: under the event-loop shard fabric (shards) submit()
+        # runs on every shard's loop while the collector drains on the
+        # stage's own loop. Futures are created on the SUBMITTING loop and
+        # resolved back onto it (_resolve/_reject), so each publisher
+        # awaits a loop-local future.
         self._pending: list[tuple] = []
+        self._plock = threading.Lock()
+        # the loop the collector and drainer run on (start()'s loop)
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._wake: Optional[asyncio.Event] = None
         self._queue: Optional[asyncio.Queue] = None
         self._tasks: list[asyncio.Task] = []
@@ -233,6 +242,7 @@ class MatchStage:
     def start(self) -> None:
         """Create the collector/drainer tasks on the running loop."""
         loop = asyncio.get_running_loop()
+        self._loop = loop
         self._wake = asyncio.Event()
         self._executor = ThreadPoolExecutor(
             max_workers=max(2, self.max_inflight),
@@ -259,7 +269,8 @@ class MatchStage:
         for t in self._tasks:
             t.cancel()
         await asyncio.gather(*self._tasks, return_exceptions=True)
-        parked, self._pending = self._pending, []
+        with self._plock:
+            parked, self._pending = self._pending, []
         self._fallback_all(parked, klass="stop")
         queue = self._queue
         if queue is not None:
@@ -280,10 +291,12 @@ class MatchStage:
 
     def submit(self, topic: str, clock=None, feats=None, rjob=None) -> "asyncio.Future[Subscribers]":
         """Park one publish; the future resolves with its Subscribers.
-        Call it on the stage's loop. ``clock`` is an optional sampled stage
-        clock (telemetry.StageClock), stamped when the batch forms
-        (``staging_wait``) and when it resolves. ``feats`` is the publish's optional
-        payload-feature carrier and ``rjob`` its optional decrypt job:
+        Any loop may call it: under the shard fabric every shard's loop
+        does, and the future resolves on the caller's loop. ``clock`` is an
+        optional sampled stage clock (telemetry.StageClock), stamped when
+        the batch forms (``staging_wait``) and when it resolves. ``feats``
+        is the publish's optional payload-feature carrier and ``rjob`` its
+        optional decrypt job:
         their device results come back ON the carriers; a publish the host
         walk resolves leaves them unstamped (the fan-out's host paths
         decide).
@@ -292,21 +305,40 @@ class MatchStage:
         or the pipeline's projected wait already exceeds the deadline
         (2x the latency budget), the publish resolves immediately via
         the host walk instead of growing the backlog."""
-        fut = asyncio.get_running_loop().create_future()
+        loop = asyncio.get_running_loop()
+        fut = loop.create_future()
+        if _LOOP_PLANE.active:
+            w = _LOOP_PLANE.witness
+            if w is not None:
+                w.note_crossing(
+                    "match_stage", "submit_local", "submit_cross", self._loop
+                )
         wake = self._wake
         if self._stopping or wake is None:
             fut.set_result(self.host_fallback(topic))
             return fut
-        admitted = not (len(self._pending) >= self.max_pending or self._past_deadline())
-        if admitted:
-            self._pending.append((topic, fut, clock, feats, rjob))
-            self.peak_pending = max(self.peak_pending, len(self._pending))
+        with self._plock:
+            admitted = not (len(self._pending) >= self.max_pending or self._past_deadline())
+            if admitted:
+                self._pending.append((topic, fut, clock, feats, rjob))
+                self.peak_pending = max(self.peak_pending, len(self._pending))
         if not admitted:
             self.admission_fallbacks += 1
             self._note_fallback("admission", 1)
             fut.set_result(self.host_fallback(topic))
             return fut
-        wake.set()
+        # the wake Event is loop-affine: a shard loop's submission marshals
+        # the set() onto the stage's loop. A never-started stage (_loop
+        # None: a harness that drives the collector by hand) sets it here.
+        if self._loop is None or loop is self._loop:
+            wake.set()
+        else:
+            try:
+                self._loop.call_soon_threadsafe(wake.set)
+            except RuntimeError:
+                # the stage's loop is gone mid-shutdown: walk it now
+                if not fut.done():
+                    fut.set_result(self.host_fallback(topic))
         return fut
 
     def _past_deadline(self) -> bool:
@@ -344,8 +376,10 @@ class MatchStage:
                 if w > 0:
                     await asyncio.sleep(w)
                 cap = self._batch_cap  # the drainer may have adapted it
-            batch, self._pending = self._pending[:cap], self._pending[cap:]
-            if self._pending:
+            with self._plock:
+                batch, self._pending = self._pending[:cap], self._pending[cap:]
+                leftovers = bool(self._pending)
+            if leftovers:
                 wake.set()  # leftovers start the next window now
             # a caller future cancelled mid-window is dead weight
             batch = [item for item in batch if not item[1].cancelled()]
@@ -458,14 +492,44 @@ class MatchStage:
                         ck.stamp_until("d2h", d2h[1])
                     else:
                         ck.stamp("device_batch")
-                if not fut.done():
-                    fut.set_result(subs)
+                self._resolve(fut, subs)
 
-    @staticmethod
-    def _fail_all(futs, exc: BaseException) -> None:
-        for fut in futs:
+    def _settle(self, fut: "asyncio.Future", setter) -> None:
+        """Complete one caller future ON ITS OWN LOOP: a future parked by
+        a shard loop's submitter must not be completed from the stage's
+        loop (its done-callbacks would run on the wrong thread). A future
+        of the stage's loop completes inline."""
+        loop = fut.get_loop()
+        local = self._loop is None or loop is self._loop
+        if _LOOP_PLANE.active:
+            w = _LOOP_PLANE.witness
+            if w is not None:
+                w.note(
+                    "match_stage",
+                    "resolve_local" if local else "resolve_marshal",
+                )
+
+        def _set() -> None:
             if not fut.done():
-                fut.set_exception(exc)
+                setter()
+
+        if local:
+            _set()
+            return
+        try:
+            loop.call_soon_threadsafe(_set)
+        except RuntimeError:
+            pass  # the submitter's loop closed; nobody is awaiting
+
+    def _resolve(self, fut: "asyncio.Future", value) -> None:
+        self._settle(fut, lambda: fut.set_result(value))
+
+    def _reject(self, fut: "asyncio.Future", exc: BaseException) -> None:
+        self._settle(fut, lambda: fut.set_exception(exc))
+
+    def _fail_all(self, futs, exc: BaseException) -> None:
+        for fut in futs:
+            self._reject(fut, exc)
 
     def _note_fallback(self, klass: str, n: int) -> None:
         self.fallbacks[klass] = self.fallbacks.get(klass, 0) + n
@@ -482,9 +546,9 @@ class MatchStage:
                 continue
             n += 1
             try:
-                fut.set_result(self.host_fallback(topic))
+                self._resolve(fut, self.host_fallback(topic))
             except Exception as e:  # pragma: no cover - host walk is total
-                fut.set_exception(e)
+                self._reject(fut, e)
         if n:
             self._note_fallback(klass, n)
 

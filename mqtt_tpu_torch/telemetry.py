@@ -25,10 +25,10 @@ byte-identical text.
 - ``Telemetry``: the facade every instrumented layer talks to, with the
   delivery-latency SLI family the SLO engine burns against.
 
-Not ported here: the worker cluster's halves (``RemoteStageClock``,
-``ClusterMetrics`` and the registry's federation ``summary()``); the
-facade's ``cluster_metrics`` stays None, so ``GET /metrics/cluster``
-answers 404.
+- The worker cluster's halves: ``RemoteStageClock`` (the receiving
+  side of a forwarded publish, for the remote-path delivery SLI),
+  ``ClusterMetrics`` (the per-worker summaries the mesh federates, served
+  at ``GET /metrics/cluster``) and the registry's ``summary()``.
 """
 from __future__ import annotations
 
@@ -463,6 +463,45 @@ class MetricsRegistry:
             fam = self._families.get(name)
             return [] if fam is None else list(fam.children.items())
 
+    def summary(self) -> dict:
+        """The wire summary one worker contributes to mesh metric
+        federation (cluster ``_T_METRICS`` frames): every
+        family's type plus per-child values — counters/gauges as
+        numbers, histograms as ``{n, s, c}`` (count, sum, bucket-count
+        vector with trailing zeros trimmed) beside the family's shared
+        ``le`` bounds. Values are ABSOLUTE cumulative snapshots, not
+        deltas: the receiver keys them by (worker, boot, seq), so a
+        re-delivered or reordered frame can never double-count and a
+        restarted worker's reset counters simply replace its entry."""
+        with self._lock:
+            families = sorted(self._families.items())
+        fams: dict[str, dict] = {}
+        for name, fam in families:
+            children: list = []
+            bounds: Optional[list] = None
+            for key, child in sorted(fam.children.items()):
+                labels = [[k, v] for k, v in key]
+                if isinstance(child, Counter):
+                    children.append([labels, child.value])
+                elif isinstance(child, Gauge):
+                    children.append([labels, child.value()])
+                else:
+                    h = child.live()
+                    if bounds is None:
+                        bounds = list(h.bounds)
+                    elif list(h.bounds) != bounds:
+                        continue  # a mixed-layout child cannot fold
+                    counts = list(h.counts)
+                    while counts and counts[-1] == 0:
+                        counts.pop()
+                    children.append(
+                        [labels, {"n": h.count, "s": round(h.sum, 9), "c": counts}]
+                    )
+            entry: dict = {"t": fam.mtype, "c": children}
+            if fam.mtype == "histogram" and bounds is not None:
+                entry["le"] = bounds
+            fams[name] = entry
+        return fams
 
 
 class StageClock:
@@ -496,6 +535,25 @@ class StageClock:
     def total(self) -> float:
         return self.last - self.t0
 
+
+class RemoteStageClock(StageClock):
+    """The receiving-side stage clock of a mesh-forwarded publish:
+    carries the origin worker's elapsed-at-forward stamp
+    (``el`` on the frame head) so the remote-path delivery SLI reads
+    origin-segment + local-segment, and the origin's trace id (when the
+    forward was traced) so the sample's histogram exemplar joins the
+    cross-worker trace. Never routed through observe_publish — remote
+    deliveries must not skew the local pipeline-stage histograms or the
+    flight ring; only the delivery-latency family sees them."""
+
+    __slots__ = ("remote_base", "trace_id")
+
+    def __init__(
+        self, remote_base: float = 0.0, trace_id: Optional[str] = None
+    ) -> None:
+        super().__init__()
+        self.remote_base = remote_base
+        self.trace_id = trace_id
 
 
 class FlightRecorder:
@@ -852,6 +910,12 @@ class Telemetry:
         self.slo = engine
 
     # -- publish stage sampling --------------------------------------------
+
+    def attach_cluster_metrics(self, cm: Any) -> None:
+        """Attach the mesh metric-federation store (ClusterMetrics,
+        fed by cluster ``_T_METRICS`` frames): GET /metrics/cluster
+        renders the per-worker + cluster-folded exposition from it."""
+        self.cluster_metrics = cm
 
     def attach_tracer(self, tracer: Any, exemplars: bool = True) -> None:
         """Attach the trace plane (tracing.Tracer): sampled
@@ -1214,6 +1278,247 @@ class Telemetry:
             "flight_dumps": self.recorder.dumps,
         }
 
+
+class ClusterMetrics:
+    """Mesh-federated metric summaries: the per-worker
+    registry snapshots that ride cluster ``_T_METRICS`` frames, stored
+    latest-wins per (worker, boot incarnation, sequence) and rendered
+    as ONE Prometheus exposition at ``GET /metrics/cluster`` — every
+    sample with a ``worker`` label, plus pre-folded cluster totals
+    (counters summed, histogram bucket vectors added) with no worker
+    label, so the 32-worker drill is scrapable from the root alone.
+
+    Idempotence: entries carry absolute cumulative values keyed by
+    (boot, seq) — a re-delivered or reordered frame is a no-op, and a
+    restarted worker's fresh boot nonce replaces its dead incarnation.
+    Entries older than ``max_age_s`` age out of scrapes (a dead worker
+    must not pin stale totals forever).
+
+    Loop-affine by design: ingest runs on the cluster's event loop and
+    the HTTP scrape handlers run on the same loop, so no lock is needed
+    (the multi-process drill gives each worker its own store)."""
+
+    def __init__(
+        self,
+        max_age_s: float = 120.0,
+        clock: Callable[[], float] = time.monotonic,
+    ) -> None:
+        self.max_age_s = max_age_s
+        self.clock = clock
+        # worker id -> {"b": boot, "q": seq, "f": fams, "at": monotonic}
+        self._workers: dict[str, dict] = {}
+        self.frames_ingested = 0  # accepted summary entries
+        self.frames_stale = 0  # re-delivered/reordered entries dropped
+
+    def ingest(
+        self,
+        worker: str,
+        boot: int,
+        seq: int,
+        fams: dict,
+        now: Optional[float] = None,
+    ) -> bool:
+        """Store one worker's summary; False = already have this (or a
+        newer) snapshot from the same incarnation — the re-delivery
+        no-op that keeps counter folding idempotent."""
+        now = self.clock() if now is None else now
+        cur = self._workers.get(worker)
+        if cur is not None and cur["b"] == boot and seq <= cur["q"]:
+            self.frames_stale += 1
+            return False
+        self._workers[worker] = {"b": boot, "q": seq, "f": fams, "at": now}
+        self.frames_ingested += 1
+        return True
+
+    def entries(self, now: Optional[float] = None) -> dict[str, dict]:
+        """Fresh per-worker entries (aged ones pruned in place) — also
+        what an intermediate tree hop forwards up toward the root (the
+        per-subtree fold: its own summary plus everything learned on
+        child edges)."""
+        now = self.clock() if now is None else now
+        for wid in [
+            w
+            for w, e in self._workers.items()
+            if now - e["at"] > self.max_age_s
+        ]:
+            del self._workers[wid]
+        return dict(self._workers)
+
+    @property
+    def worker_count(self) -> int:
+        # through entries() so aged-out workers prune here too: the
+        # mqtt_tpu_cluster_metrics_workers gauge is often the ONLY
+        # reader on a worker nobody scrapes (the root never sends
+        # uphill), and a dead worker must drop out of it on time
+        return len(self.entries())
+
+    # -- rendering ---------------------------------------------------------
+
+    @staticmethod
+    def _label_str(pairs: list, extra: str = "") -> str:
+        # one label-rendering rule for both expositions: wire labels
+        # (json round-tripped) coerce to str, then the registry's own
+        # formatter applies the escaping
+        return MetricsRegistry._labels_str(
+            tuple((str(k), str(v)) for k, v in pairs), extra
+        )
+
+    def _sources(
+        self, local_registry: Optional["MetricsRegistry"], local_worker: str
+    ) -> dict[str, dict]:
+        """worker id -> family summary, the local registry's LIVE
+        summary shadowing any stale federated copy of this worker."""
+        sources: dict[str, dict] = {}
+        for wid, ent in sorted(self.entries().items()):
+            sources[str(wid)] = ent["f"]
+        if local_registry is not None:
+            sources[str(local_worker)] = local_registry.summary()
+        return sources
+
+    def exposition(
+        self,
+        local_registry: Optional["MetricsRegistry"] = None,
+        local_worker: str = "0",
+    ) -> str:
+        """The federated Prometheus text exposition: per-worker samples
+        labeled ``worker="<id>"`` plus cluster-folded totals (counters
+        and histograms only — point-in-time gauges do not fold
+        meaningfully) carrying no worker label in the same family."""
+        sources = self._sources(local_registry, local_worker)
+        # family name -> {"t": type, "le": bounds, "rows": [...]}
+        fams: dict[str, dict] = {}
+        for wid, summary in sources.items():
+            if not isinstance(summary, dict):
+                continue
+            for name, ent in summary.items():
+                if not isinstance(ent, dict) or not _NAME_RE.match(name):
+                    continue
+                fam = fams.setdefault(
+                    name, {"t": ent.get("t"), "le": ent.get("le"), "rows": []}
+                )
+                if fam["t"] != ent.get("t"):
+                    continue  # cross-worker type conflict: first type wins
+                if (
+                    ent.get("t") == "histogram"
+                    and ent.get("le") != fam["le"]
+                ):
+                    # cross-worker bucket-layout skew (a mid-upgrade
+                    # mesh): index-wise adding counts against mismatched
+                    # bounds would render silently-wrong folds — skip
+                    # this worker's children for the family instead
+                    # (the same posture summary() takes within a worker)
+                    continue
+                for child in ent.get("c") or []:
+                    if not isinstance(child, (list, tuple)) or len(child) != 2:
+                        continue
+                    labels, value = child
+                    fam["rows"].append((wid, list(labels), value))
+        out: list[str] = []
+        for name in sorted(fams):
+            fam = fams[name]
+            mtype = fam["t"]
+            if mtype not in ("counter", "gauge", "histogram"):
+                continue
+            out.append(f"# TYPE {name} {mtype}")
+            folds: dict[tuple, Any] = {}
+            for wid, labels, value in sorted(
+                fam["rows"], key=lambda r: (r[1], r[0])
+            ):
+                wl = labels + [["worker", wid]]
+                if mtype == "histogram":
+                    if not isinstance(value, dict):
+                        continue
+                    self._render_hist(out, name, wl, fam["le"], value)
+                    key = tuple((str(k), str(v)) for k, v in labels)
+                    agg = folds.get(key)
+                    if agg is None:
+                        folds[key] = {
+                            "n": int(value.get("n", 0)),
+                            "s": float(value.get("s", 0.0)),
+                            "c": list(value.get("c") or []),
+                        }
+                    else:
+                        agg["n"] += int(value.get("n", 0))
+                        agg["s"] += float(value.get("s", 0.0))
+                        counts = list(value.get("c") or [])
+                        if len(counts) > len(agg["c"]):
+                            agg["c"].extend(
+                                [0] * (len(counts) - len(agg["c"]))
+                            )
+                        for i, c in enumerate(counts):
+                            agg["c"][i] += c
+                elif isinstance(value, (int, float)):
+                    out.append(
+                        f"{name}{self._label_str(wl)} {_fmt(value)}"
+                    )
+                    if mtype == "counter":
+                        key = tuple((str(k), str(v)) for k, v in labels)
+                        folds[key] = folds.get(key, 0) + value
+            # pre-folded cluster totals (no worker label, same family)
+            for key in sorted(folds):
+                pairs = [list(kv) for kv in key]
+                agg = folds[key]
+                if mtype == "histogram":
+                    self._render_hist(out, name, pairs, fam["le"], agg)
+                else:
+                    out.append(
+                        f"{name}{self._label_str(pairs)} {_fmt(folds[key])}"
+                    )
+        return "\n".join(out) + "\n"
+
+    def _render_hist(
+        self, out: list, name: str, pairs: list, bounds: Any, value: dict
+    ) -> None:
+        if not isinstance(bounds, list):
+            return
+        counts = list(value.get("c") or [])
+        counts.extend([0] * (len(bounds) + 1 - len(counts)))
+        acc = 0
+        for i, bound in enumerate(bounds):
+            acc += counts[i]
+            le = self._label_str(pairs, f'le="{_fmt(float(bound))}"')
+            out.append(f"{name}_bucket{le} {acc}")
+        le = self._label_str(pairs, 'le="+Inf"')
+        out.append(f"{name}_bucket{le} {_fmt(int(value.get('n', 0)))}")
+        out.append(
+            f"{name}_sum{self._label_str(pairs)} "
+            f"{_fmt(float(value.get('s', 0.0)))}"
+        )
+        out.append(
+            f"{name}_count{self._label_str(pairs)} "
+            f"{_fmt(int(value.get('n', 0)))}"
+        )
+
+    def slo_state(
+        self,
+        local_registry: Optional["MetricsRegistry"] = None,
+        local_worker: str = "0",
+    ) -> dict:
+        """Mesh-wide SLO objective state for ``GET /cluster/slo``: every
+        worker's ``mqtt_tpu_slo_*`` gauge values keyed by worker id —
+        the federated face of each worker's own SLOEngine gauges."""
+        out: dict = {}
+        for wid, summary in self._sources(local_registry, local_worker).items():
+            rows: dict = {}
+            if isinstance(summary, dict):
+                for name, ent in summary.items():
+                    if not name.startswith("mqtt_tpu_slo_"):
+                        continue
+                    for child in (ent or {}).get("c") or []:
+                        if (
+                            not isinstance(child, (list, tuple))
+                            or len(child) != 2
+                            or not isinstance(child[1], (int, float))
+                        ):
+                            continue
+                        labels, value = child
+                        suffix = ",".join(
+                            f"{k}={v}" for k, v in sorted(map(tuple, labels))
+                        )
+                        rows[f"{name}{{{suffix}}}" if suffix else name] = value
+            if rows:
+                out[wid] = rows
+        return out
 
 
 def check_exposition(text: str) -> int:

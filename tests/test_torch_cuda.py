@@ -1413,3 +1413,129 @@ def test_config3_paced_through_the_stage_equals_the_walk(dev, cfg3_card, seed, s
              if not subscribers_equal(got.materialize() if isinstance(got, view_t) else got, index.subscribers(t))]
     assert not wrong, f"{len(wrong)} of {len(topics)} differ from the walk, first {wrong[0]!r}"
     assert dm.stats.compact_batches > compact0
+
+
+# the encrypted namespace and the users of the fabric's card test
+FABRIC_TENANTS = {
+    "acme": {
+        "encrypted": ["secure/"],
+        "keys": {"alice": "00112233445566778899aabbccddeeff", "bob": "ffeeddccbbaa99887766554433221100",
+                 "carol": "0f0e0d0c0b0a09080706050403020100"},
+    },
+}
+FABRIC_USERS = {"alice": "acme", "bob": "acme", "carol": "acme", "dave": "acme"}
+
+
+def test_the_fabric_with_both_engines_on_the_card_equals_the_single_loop_run(dev, monkeypatch):
+    """The same sessions through a port ``Server`` on the card with one
+    event loop and with ``loop_shards=4`` (the handoff router): the device
+    matcher over the stage, predicated subscriptions (K4 on the stage's
+    batches, ``PredicateEngine.apply`` on the publisher's shard thread) and
+    an encrypted tenant namespace with ``recrypt_device_min_blocks`` 1 (K6
+    from ``seal_fanout`` on the publisher's shard thread). Every client's
+    bytes, connection by connection, equal the single-loop run's; K4 and K6
+    launched in the fabric's run; the clients stood on every shard. A
+    step's barrier: every packet processed (a hook counts
+    ``on_packet_processed``), every outbound queue empty, and every shard
+    loop has run what was marshaled onto it."""
+    import time as _time
+
+    import chip_smoke as cs
+    from mqtt_tpu_torch import hooks as hk
+    from mqtt_tpu_torch.hooks.auth import AllowHook
+    from mqtt_tpu_torch.listeners import TCP, Config
+    from mqtt_tpu_torch.server import Options, Server
+
+    monkeypatch.setattr(_time, "time", lambda: 1_760_000_000.0)
+
+    class Processed(hk.Hook):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def id(self):
+            return "processed"
+
+        def provides(self, b):
+            return b == hk.ON_PACKET_PROCESSED
+
+        def on_packet_processed(self, cl, pk, err):
+            self.n += 1
+
+    async def session(shards: int):
+        srv = Server(Options(device="cuda", device_matcher=True, matcher_opts={"max_levels": 4, "background": False},
+                             matcher_resilience=False, gc_tuning=False, tenancy=True, tenants=FABRIC_TENANTS,
+                             tenant_users=FABRIC_USERS, recrypt_device_min_blocks=1, loop_shards=shards))
+        count = Processed()
+        srv.add_hook(count)
+        srv.add_hook(AllowHook())
+        srv.add_listener(TCP(Config(type="tcp", id="t", address="127.0.0.1:0")))
+        await srv.serve()
+        srv._recrypt.reseed_nonce(b"\x01\x02\x03\x04\x05\x06")
+        host, port = srv.listeners.get("t").address().rsplit(":", 1)
+        clients: dict = {}
+        sent = [0]
+        peak: dict = {}
+
+        async def settle():
+            deadline = _time.monotonic() + 60
+            while count.n < sent[0]:
+                assert _time.monotonic() < deadline, f"{count.n} of {sent[0]} packets processed"
+                await asyncio.sleep(0.002)
+            sent[0] = count.n
+            for _ in range(3):
+                for _k in range(200):
+                    if all(cl.state.outbound.empty() for cl in srv.clients.get_all().values()):
+                        break
+                    await asyncio.sleep(0.002)
+                if srv._fabric is not None:
+                    for shard in srv._fabric.shards:
+                        fut = asyncio.run_coroutine_threadsafe(asyncio.sleep(0), shard.loop)
+                        await asyncio.wait_for(asyncio.wrap_future(fut), 60)
+                    for k, n in srv._fabric.spread().items():
+                        peak[k] = max(peak.get(k, 0), n)
+
+        async def connect(name, version=4, **kw):
+            c = clients[name] = cs.WireClient(name, version)
+            await c.open(host, int(port))
+            c.send(cs.connect_frame(name, version, **kw))
+            await c.wait_frames(1, 60)
+            await settle()
+
+        async def send(name, *frames):
+            for f in frames:
+                clients[name].send(f)
+            sent[0] += len(frames)
+            await settle()
+
+        for who, v in (("alice", 4), ("bob", 4), ("carol", 5), ("dave", 4)):
+            await connect(who, v, username=who)
+        for i in range(6):
+            await connect(f"t{i}", 4 + i % 2)
+            await send(f"t{i}", cs.subscribe_frame(1, [(f"m/{i}/temp$GT{{v:{10 * i}}}", 1, 0), ("m/+/all", 0, 0)],
+                                                   4 + i % 2))
+        for who, v in (("bob", 4), ("carol", 5), ("dave", 4)):
+            await send(who, cs.subscribe_frame(1, [("secure/#", 1 if who == "carol" else 0, 0), ("plain/+", 0, 0)], v))
+        await connect("pub", 5)
+        srv.matcher.flush()
+        k4, k6 = kernels.LAUNCHES["rules_eval"], kernels.LAUNCHES["keystream"]
+        key = bytes.fromhex(FABRIC_TENANTS["acme"]["keys"]["alice"])
+        for i in range(8):
+            sealed = srv._recrypt.seal_with_key(key, b"reading-%d" % i, nonce=bytes(11) + bytes([i + 1]))
+            await send("alice", cs.publish_frame("secure/a", sealed, 0, retain=i == 7))
+            await send("alice", cs.publish_frame("plain/a", b"clear-%d" % i))
+            await send("pub", cs.publish_frame(f"m/{i % 6}/temp", b'{"v": %d}' % (7 * i), 1, 10 + i, version=5),
+                       cs.publish_frame(f"m/{i % 6}/all", b"all-%d" % i, version=5))
+        launched = (kernels.LAUNCHES["rules_eval"] - k4, kernels.LAUNCHES["keystream"] - k6)
+        for c in clients.values():
+            c.send(cs.disconnect_frame(c.version))
+            await c.ended(60)
+        await srv.close()
+        return {n: [bytes(b) for b in c.conns] for n, c in clients.items()}, launched, peak
+
+    single, _l1, _p1 = asyncio.run(session(1))
+    fabric, launched, peak = asyncio.run(session(4))
+    assert fabric == single
+    assert launched[0] > 0 and launched[1] > 0, launched
+    assert all(peak.get(k, 0) > 0 for k in range(4)), peak
+    assert len(fabric["bob"][0]) > 100 and len(fabric["t3"][0]) > 20

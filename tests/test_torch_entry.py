@@ -5,12 +5,13 @@ listeners), ``utils.obfuscate``, ``hooks.auth.authfile`` and
 ``serve``).
 
 The same configuration bytes give each package's ``Options`` the same
-value in every field the port has, and the same hooks with the same
-options; a field of a plane the port does not have raises. The CLI's
-cases of ``tests/test_aux.py`` behave alike in both packages, and a
-``serve`` subprocess on the CPU restores a LogKV store, answers MQTT over
-TCP and WebSocket and ``/healthz``, and on SIGTERM closes the store and
-exits 0.
+value in every field, and the same hooks with the same options, the
+worker cluster's and the shard fabric's keys included. The CLI's cases of
+``tests/test_aux.py`` behave alike in both packages; a ``serve``
+subprocess on the CPU restores a LogKV store, answers MQTT over TCP and
+WebSocket and ``/healthz``, and on SIGTERM closes the store and exits 0;
+and ``serve --workers 2`` starts two workers of the port that form the
+mesh and deliver each other's publishes.
 """
 
 import asyncio
@@ -106,16 +107,18 @@ logging:
   level: warning
 """
 
-# the planes the port does not have: a config naming one of their fields raises
-# the keys of the planes the port does not have yet: the worker cluster
-# (with the governor's federation and the metric federation) and the
-# event-loop shard fabric
-PLANE_FIELDS = ["overload_federation", "overload_federation_weight", "overload_federation_ttl_ms",
-                "cluster_topology", "cluster_transport", "cluster_tree_degree", "cluster_summary_bits",
-                "cluster_dup_window", "cluster_peer_health_suspect_pings", "cluster_suspect_window_s",
-                "cluster_peer_park_max_bytes", "cluster_base_port", "cluster_tls_cert",
-                "cluster_connect_timeout_s", "cluster_summary_digests", "loop_shards", "loop_shard_accept",
-                "cluster_metrics", "cluster_metrics_max_age_s"]
+# the keys of the worker cluster (with the governor's federation and the
+# metric federation) and of the event-loop shard fabric, each with a value
+# other than its default
+PLANE_VALUES = {
+    "overload_federation": False, "overload_federation_weight": 0.5, "overload_federation_ttl_ms": 4000.0,
+    "cluster_topology": "tree", "cluster_transport": "tcp", "cluster_tree_degree": 3, "cluster_summary_bits": 1024,
+    "cluster_dup_window": 100, "cluster_peer_health_suspect_pings": 3, "cluster_suspect_window_s": 2.5,
+    "cluster_peer_park_max_bytes": 4096, "cluster_base_port": 19000, "cluster_tls_cert": "worker.pem",
+    "cluster_connect_timeout_s": 2.0, "cluster_summary_digests": 8, "loop_shards": 4,
+    "loop_shard_accept": "reuseport", "cluster_metrics": False, "cluster_metrics_max_age_s": 60.0,
+}
+PLANE_FIELDS = list(PLANE_VALUES)
 # the keys of the default planes: the governor, telemetry, tracing, the
 # host profiler, the SLO engine and the per-card plane
 DEFAULT_PLANE_FIELDS = {
@@ -196,12 +199,19 @@ def test_device_and_plain_configs():
 
 @pytest.mark.parametrize("field", PLANE_FIELDS)
 def test_a_plane_field_the_port_lacks_raises(field):
-    raw = json.dumps({"options": {field: False}}).encode()
-    assert jconfig.from_bytes(raw) is not None
-    with pytest.raises(TypeError, match=field):
-        tconfig.from_bytes(raw)
-    with pytest.raises(TypeError):
-        TOptions(**{field: False})
+    """A key of the cluster or the shard fabric (the planes the port
+    lacked before they were ported) loads into the port's field with the
+    JAX loader's value, before and after ``ensure_defaults``, and both
+    packages default it alike."""
+    value = PLANE_VALUES[field]
+    raw = json.dumps({"options": {field: value}}).encode()
+    j, t = jconfig.from_bytes(raw), tconfig.from_bytes(raw)
+    assert getattr(t, field) == getattr(j, field) == value
+    j.ensure_defaults()
+    t.ensure_defaults()
+    assert getattr(t, field) == getattr(j, field)
+    assert getattr(TOptions(), field) == getattr(JOptions(), field)
+    assert getattr(TOptions(**{field: value}), field) == value
 
 
 @pytest.mark.parametrize("field", sorted(DEFAULT_PLANE_FIELDS))
@@ -340,12 +350,113 @@ def test_build_server_adds_the_listeners_the_flags_ask_for():
     assert got[1] == got[0] == [("stats", "HTTPStats"), ("tcp", "TCP"), ("web", "Dashboard"), ("ws", "Websocket")]
 
 
-def test_no_cluster_yet(monkeypatch):
-    with pytest.raises(SystemExit, match="no cluster plane"):
-        tmain.main(["serve", "--workers", "2", "--device", "cpu"])
-    monkeypatch.setenv("MQTT_TPU_WORKER", "0")
-    with pytest.raises(SystemExit, match="no cluster plane"):
-        tmain.main(["serve", "--device", "cpu"])
+SITE_PROBE = """
+import atexit, json, os, sys
+
+def _report():
+    mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mqtt_tpu"))
+    path = os.path.join(os.environ["PROBE_DIR"], "%d.json" % os.getpid())
+    with open(path, "w") as f:
+        json.dump({"worker": os.environ.get("MQTT_TPU_WORKER"), "argv": sys.argv,
+                   "torch": "mqtt_tpu_torch.cluster" in sys.modules, "foreign": mods}, f)
+
+atexit.register(_report)
+"""
+
+
+async def _landed(port: int, name: str):
+    """A v4 client on the shared port and the worker the kernel gave it
+    (read from its own ``$SYS/broker/cluster/worker`` and ``peers``)."""
+    c = cs.WireClient(name, 4)
+    await c.open("127.0.0.1", port)
+    c.send(cs.connect_frame(name, 4))
+    await c.wait_frames(1, 30)
+    c.send(cs.subscribe_frame(1, [("$SYS/broker/cluster/worker", 0, 0), ("$SYS/broker/cluster/peers", 0, 0)], 4))
+    got = {}
+    deadline = time.monotonic() + 30
+    while len(got) < 2 or got.get("peers") != "1":
+        assert time.monotonic() < deadline, f"{name}: no cluster rows ({got})"
+        for p in cs._publishes(c, 0):
+            got[p["topic"].rsplit("/", 1)[1]] = p["payload"].decode()
+        await asyncio.sleep(0.05)
+    return c, int(got["worker"])
+
+
+def test_no_cluster_yet(tmp_path):
+    """``serve --workers 2 --device cpu``: the launcher starts two
+    ``python -m mqtt_tpu_torch`` workers on one SO_REUSEPORT port; each
+    reports ``peers`` 1 over ``$SYS``, a publish on one worker reaches a
+    subscriber on the other (QoS 0 and 1), and on SIGTERM the launcher ends
+    both workers. A ``sitecustomize`` on the workers' path records, at each
+    interpreter's exit, that it ran the port and that no ``jax``, ``jaxlib``
+    or ``mqtt_tpu`` module was ever imported."""
+    probe = tmp_path / "probe"
+    probe.mkdir()
+    (tmp_path / "sitecustomize.py").write_text(SITE_PROBE)
+    port = _free_port()
+    env = dict(os.environ, PROBE_DIR=str(probe),
+               PYTHONPATH=os.pathsep.join([str(tmp_path), ROOT, os.environ.get("PYTHONPATH", "")]))
+    env.pop("MQTT_TPU_WORKER", None)
+    proc = subprocess.Popen([sys.executable, "-m", "mqtt_tpu_torch", "serve", "--workers", "2", "--device", "cpu",
+                             "--port", str(port), "--log-level", "warning"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        async def drive():
+            deadline = time.monotonic() + 120
+            on: dict = {}
+            k = 0
+            # the kernel spreads connections over the workers: connect
+            # until one client stands on each
+            while len(on) < 2:
+                assert time.monotonic() < deadline and k < 200, f"clients landed on workers {sorted(on)} only"
+                try:
+                    c, w = await _landed(port, f"c{k}")
+                except OSError:
+                    await asyncio.sleep(0.2)
+                    continue
+                k += 1
+                if w in on:
+                    c.send(cs.disconnect_frame(4))
+                    await c.ended(30)
+                else:
+                    on[w] = c
+            sub, pub = on[0], on[1]
+            n0 = len(sub.frames())
+            sub.send(cs.subscribe_frame(2, [("xw/+/t", 1, 0)], 4))
+            await sub.wait_frames(n0 + 1, 30)
+            # the presence of the new filter reaches worker 1 asynchronously
+            for i in range(600):
+                pub.send(cs.publish_frame("xw/a/t", b"probe-%d" % i))
+                await asyncio.sleep(0.05)
+                if any(p["payload"].startswith(b"probe-") for p in cs._publishes(sub, n0)):
+                    break
+            else:
+                raise AssertionError("no cross-worker delivery")
+            pub.send(cs.publish_frame("xw/b/t", b"qos1-leg", 1, 7))
+            for _ in range(600):
+                if any(p["payload"] == b"qos1-leg" for p in cs._publishes(sub, n0)):
+                    break
+                await asyncio.sleep(0.05)
+            else:
+                raise AssertionError("the QoS 1 publish did not cross")
+            for c in on.values():
+                c.send(cs.disconnect_frame(4))
+                await c.ended(30)
+
+        asyncio.run(drive())
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    reports = [json.loads(p.read_text()) for p in sorted(probe.iterdir())]
+    workers = sorted(r["worker"] for r in reports if r["worker"] is not None)
+    assert workers == ["0", "1"], (reports, out[-2000:])
+    for r in reports:
+        assert r["foreign"] == [], r
+        if r["worker"] is not None:
+            assert r["torch"] and r["argv"][0].endswith(os.path.join("mqtt_tpu_torch", "__main__.py")), r
 
 
 def test_serve_without_a_card_exits_naming_the_device():

@@ -12,6 +12,7 @@ an admin and a plain client, ``evict_due`` for a backlog clock, and
 must be equal, transition callbacks included. Tolerance 0.
 """
 
+import json
 from types import SimpleNamespace
 
 import numpy as np
@@ -95,9 +96,20 @@ def test_same_pressure_series_gives_the_same_governor(seed):
 
 
 def test_the_peer_signal_stays_inert_until_a_cluster_enables_it():
-    """The port has no worker cluster: the peers signal exists as in the
-    JAX package, but nothing registers it, so ``gauges()`` carries no
-    ``peers`` rows and the mesh reserve equals the local one."""
+    """The peers signal exists unregistered in a lone broker's governor
+    (no ``peers`` rows, the mesh reserve the local one) in both packages.
+    A worker of the cluster turns it on: ``Cluster(...)`` over each
+    package's ``Server`` (not started) enables federation with the
+    options' weight and TTL and registers the ``cluster`` and ``peers``
+    sources; the same peer adverts, gossip payloads and reserve spends
+    then give equal signals, gauges and verdicts."""
+    import tempfile
+
+    from mqtt_tpu.cluster import Cluster as JCluster
+    from mqtt_tpu.server import Options as JOpts, Server as JServer
+    from mqtt_tpu_torch.cluster import Cluster as TCluster
+    from mqtt_tpu_torch.server import Options as TOpts, Server as TServer
+
     for mod in (jov, tov):
         gov = mod.OverloadGovernor(clock=lambda: 0.0)
         assert gov.peer_signal is None
@@ -109,3 +121,25 @@ def test_the_peer_signal_stays_inert_until_a_cluster_enables_it():
     for sig in (tsig, jsig):
         sig.observe(3, 2, 0.4, {"staging": 0.4})
     assert tsig.value() == jsig.value() and tsig.signal_values() == jsig.signal_values()
+
+    kw = dict(overload_federation_weight=0.5, overload_federation_ttl_ms=4000.0, telemetry=False, profile=False,
+              slo=False, device_stats=False, gc_tuning=False, predicate_filters=False)
+    out = []
+    with tempfile.TemporaryDirectory() as d:
+        for Srv, Opts, Cl, extra in ((JServer, JOpts, JCluster, {}), (TServer, TOpts, TCluster, {"device": "cpu"})):
+            srv = Srv(Opts(**kw, **extra))
+            gov = srv.overload
+            assert gov.peer_signal is None
+            Cl(srv, 0, 3, d)
+            sig = gov.peer_signal
+            assert sig is not None and sig.weight == 0.5 and sig.ttl_s == 4.0
+            sig.clock = lambda: 10.0
+            c = srv._cluster
+            c._on_gossip(1, json.dumps({"s": 2, "p": 0.8, "sig": {"staging": 0.8}, "r": 1}).encode())
+            c._on_gossip(2, json.dumps({"s": 1, "p": 0.3, "sig": {"outbound": 0.3}}).encode())
+            gov.evaluate(force=True)
+            g = gov.gauges()
+            out.append((round(sig.value(), 9), sig.signal_values(), sorted(gov._sources),
+                        {k: v for k, v in g.items() if k.startswith(("peers", "reserve"))}, gov.state))
+    assert out[1] == out[0]
+    assert out[1][0] > 0 and "peers" in out[1][2] and "cluster" in out[1][2]

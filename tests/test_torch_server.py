@@ -312,12 +312,23 @@ def test_sessions_with_the_breaker_equal_the_jax_server(pinned_clock, script):
     sends three publishes in one write; the two it may send can land in
     two batches, resolved on two guard threads, and reach ``c-alice`` in
     either order (the JAX server's order varies from run to run), so
-    there each connection's frames are compared as a multiset."""
+    there each connection's frames are compared as a multiset.
+
+    The core script trips the breaker in both packages (the verify sample
+    reads a topic that one client's two filters match as corrupt, ROADMAP
+    Queue C). An open breaker re-admits the device through half-open probes
+    on a wall-clock schedule (``breaker_probe_backoff_ms``, 500 ms by
+    default, jittered): on a loaded host the script outlasts that delay in
+    one package and not in the other, and ``probes``, ``trips``,
+    ``successes`` and ``failures`` then differ while every byte is equal.
+    Both packages therefore take a probe delay past any run's length, so
+    no time-driven probe enters the comparison."""
     from collections import Counter
 
     scripts = {"core": (script_core, allow, True), "auth": (script_auth, ledger_hooks, False)}
     run, hooks_of, ordered = scripts[script]
-    got = run_both(run, hooks_of, matcher_resilience=True)
+    got = run_both(run, hooks_of, matcher_resilience=True, breaker_probe_backoff_ms=3_600_000.0,
+                   breaker_probe_backoff_max_ms=3_600_000.0)
     (jout, jb), (tout, tb) = got["jax"], got["torch"]
     if ordered:
         assert tout == jout
@@ -816,12 +827,13 @@ def test_default_options_raise_without_cuda():
 
 
 def test_options_omit_the_planes_not_ported():
+    """Every JAX ``Options`` field is the port's, the cluster's and the
+    shard fabric's with the JAX defaults; only the JAX profiler switch is
+    not (``trace_torch_profiler_dir`` takes its place)."""
     from mqtt_tpu_torch.server import Options
 
-    for field in ("overload_federation", "loop_shards", "cluster_metrics", "cluster_topology",
-                  "trace_jax_profiler_dir"):
-        with pytest.raises(TypeError):
-            Options(**{field: False})
+    with pytest.raises(TypeError):
+        Options(trace_jax_profiler_dir="x")
     o = Options()
     assert (o.device, o.predicate_filters, o.fanout_batch, o.durable_restore_batch) == ("cuda", True, True, 4096)
     # the JAX server's default planes are on, with its defaults
