@@ -52,7 +52,9 @@ Phases, each printed as it ends:
    C views' ``targets()`` (all four checked against each other and the
    trie; ns a hit and a topic each), and the batch tokenized by C and by
    Python (equal arrays; µs a topic).
-6. The sharded path, on the same cfg2 and cfg3 tries: ``MatchStage`` →
+6. The sharded path, on the same cfg2 trie and a cfg3 trie of 262,144
+   subscriptions (``SHARDED_CFG3_SUBS``, cut from 1,000,000 for the call's
+   time limit; cfg3 at 1,000,000 runs in phase 5): ``MatchStage`` →
    ``DeltaMatcher(mesh=make_mesh(["cuda:0"] * 8))`` (4 subscription shards
    x 2 batch tiles, every position on the one card) →
    ``ShardedTorchMatcher``: the replica tries and the four shard indexes
@@ -80,7 +82,8 @@ Phases, each printed as it ends:
    subscribers hold ``$MEAN``/``$MAX``/``$MIN`` windows of 32 and 64
    samples: ``PredicateEngine`` (K4 ``rules_eval`` on every staged batch,
    K5 ``agg_reduce`` when a fan-out completes >= 4 large windows) through
-   ``MatchStage`` and ``apply``, three waves of JSON publishes. Every
+   ``MatchStage`` and ``apply``, one wave of JSON publishes
+   (``PREDICATE_WAVES``, cut from three for the call's time limit). Every
    filtered subscriber set and emission must equal the trie walk filtered
    by the host interpreter.
 9. The re-encryption path (cfgR, cfg10's shape): 4 tenants x 128 keys, an
@@ -266,6 +269,32 @@ Phases, each printed as it ends:
     Printed: the SUBSCRIBE leg's wall (the drain wait printed apart), each wave's publishes/s and
     deliveries/s and the share of deliveries that crossed workers.
 
+18. The scenario lab (phase "scenarios"): ``run_matrix`` over the
+    catalog's six rows on the card (the JAX package's seeds, objectives
+    and params), one row a call; every row must pass its oracle and its
+    SLO gate (a crashed driver is a failed row), and ``tenant_rekey``
+    must launch K6. Printed: each row's oracle tallies, metrics, wall and
+    launches.
+
+19. The chaos hook (phase "chaos"): a port ``Server`` with the device
+    matcher under its breaker and ``ChaosHook`` armed from a fixed seed,
+    each fault kind pinned to a dispatch and three errors in a row at the
+    end; 32 subscribers on 17,600 filters (the compact route), QoS 1
+    publishers in rounds with a churn and a fold (K2, K3) between them.
+    Every delivery must be the walk's; the breaker's failures by kind the
+    injector's counts; after ``uninstall`` two forced probes close the
+    breaker and the last rounds resolve on the card with no fallback; no
+    table buffer stays pinned. Printed: ``fold_copies`` before and after.
+
+20. The stress driver (phase "stress"): ``python -m mqtt_tpu_torch.stress
+    --serve --device-matcher`` in processes of its own: mqtt-stresser's
+    rows of 2 and 10 clients x 10,000 QoS 0 messages and 100 clients x
+    1,000 (``STRESS_ROWS``, cut from 10,000 for the call's time limit),
+    every message received (wildcard-free: the exact map, no kernel);
+    then ``run_storm`` at its defaults on ``storm/#`` (the card), every
+    admitted publish delivered, the broker's device batches above 0, its
+    breaker closed; SIGTERM exit 0.
+
 Phase 4 also holds K7 (``flat_match_core``, the single-index entry point
 of K8's kernel) and K4-K6 against their plain versions at the shapes these
 paths give them (K5's MEAN within ``1e-5 * max(1, |want|)``, the rest with
@@ -322,6 +351,8 @@ SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
 N_SUBS = 1_000_000
 WAVE = 24_576  # publishes per wave; three waves per configuration
 SHARDED_WAVES = 1  # the sharded path's waves before its traced one: cut from three for the call's time limit
+SHARDED_CFG3_SUBS = 262_144  # the sharded path's cfg3 leg: cut from 1,000,000 for the call's time limit
+PREDICATE_WAVES = 1  # cfgP's waves: cut from three for the call's time limit
 BATCHES = (4096, 65536)
 MAIN_BATCH = 4096  # MatchStage's max_batch: the kernel shape the main path runs
 MESH_POSITIONS = 8  # the sharded path's mesh: 2 batch tiles x 4 subscription shards
@@ -574,6 +605,22 @@ def phase_setup(name: str, make_config, n_subs: int, seed: int, device):
         f"gc thresholds {gc.get_threshold()}, {gc.get_freeze_count()} objects frozen")
     return {"name": name, "index": index, "entries": entries, "topic_gen": topic_gen,
             "rng": rng, "dm": dm, "table_bytes": table_bytes}
+
+
+def phase_setup_trie(name: str, make_config, n_subs: int, seed: int) -> dict:
+    """A configuration's trie alone (no device matcher), built as
+    ``phase_setup`` builds it: the sharded path's cut cfg3 leg."""
+    rng = random.Random(seed)
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        index, entries, topic_gen = make_config(n_subs, rng)
+        dt = time.perf_counter() - t0
+    finally:
+        _settle_gc()
+    log(f"phase setup {name} for the sharded path: ok {n_subs} subscriptions (cut from the main path's), "
+        f"trie {dt:.1f} s")
+    return {"name": name, "index": index, "entries": entries, "topic_gen": topic_gen, "rng": rng}
 
 
 def _tokens(torch, flat, topics, fl, device):
@@ -2897,9 +2944,9 @@ def _check_emissions(emits, done, what):
             check(got[cid] == want, f"{what}: emission {got[cid]!r} for {cid}, expected {want!r}")
 
 
-def phase_predicates(cfg: dict, wave: int) -> dict:
-    """cfgP's main path (launch counts reset just before): three waves of
-    ``wave`` JSON publishes through ``MatchStage`` with the predicate
+def phase_predicates(cfg: dict, wave: int, n_waves: int = PREDICATE_WAVES) -> dict:
+    """cfgP's main path (launch counts reset just before): ``n_waves``
+    waves of ``wave`` JSON publishes through ``MatchStage`` with the predicate
     engine attached (fixed batch of 4096, no budget), then ``apply`` in
     submission order; each result and emission held against the
     reference."""
@@ -2910,7 +2957,7 @@ def phase_predicates(cfg: dict, wave: int) -> dict:
     on_cuda = dm.snapshot.device.type == "cuda"
     ref = PredicateReference(index)
     waves = []
-    for _ in range(3):
+    for _ in range(n_waves):
         topics = [gen() for _ in range(wave - HOT_PER_WAVE)] + [HOT_TOPIC] * HOT_PER_WAVE
         rng.shuffle(topics)
         waves.append((topics, [cfgP_payload(rng) for _ in topics]))
@@ -2955,7 +3002,7 @@ def phase_predicates(cfg: dict, wave: int) -> dict:
         asyncio.run(drive())
     launches = dict(kernels.LAUNCHES)
     g = eng.gauges()
-    n = 3 * wave
+    n = n_waves * wave
     d2h = list(eng._evaluator.d2h_log) if eng._evaluator is not None else []
     delta = {k: g[k] - g0[k] for k in ("device_decisions", "host_evals", "filtered", "deliveries",
                                         "agg_emits", "agg_device_reductions", "oracle_checks",
@@ -5785,6 +5832,393 @@ def phase_cluster(torch, device, card: str, n_filters: int = CLUSTER_FILTERS, n_
     return info
 
 
+SCENARIO_CELL = "scenarios"
+CHAOS_CELL = "chaos"
+CHAOS_SEED = 19
+CHAOS_CLIENTS = 32  # subscriber connections, each on its own filters
+CHAOS_OWN = 500  # ch/<client>/<j>/+ filters a client: one client's, one topic each
+CHAOS_FAN = 50  # fan/+/<client % 8>/<j> filters a client: eight clients' a topic
+CHAOS_PUBLISHERS = 4  # QoS 1, v4 and v5
+CHAOS_ROUNDS = 24  # rounds under the hook: each publisher's share of a round, its PUBACKs, a churn and a fold
+CHAOS_AFTER = 6  # rounds after the hook is gone
+CHAOS_PER_ROUND = 32  # publishes a publisher sends a round
+# the fault at each injector dispatch (a stage batch): every kind once, a
+# success between any two, then three errors in a row that trip the breaker
+CHAOS_AT = {2: "error", 4: "issue_error", 6: "corrupt", 8: "slow", 10: "hang", 13: "error", 14: "error", 15: "error"}
+STRESS_CELL = "stress"
+# mqtt-stresser's rows (bench.py:1633-1640): clients x QoS 0 messages of 64 B, a topic a client
+STRESS_ROWS = ((2, 10_000), (10, 10_000), (100, 1_000))  # the 100-client row cut from 10,000 for the time limit
+
+
+def phase_scenarios(torch, device, card: str) -> dict:
+    """Phase ``scenarios``: the scenario lab's whole catalog
+    (``mqtt_tpu_torch.scenarios``, the JAX package's six rows with their
+    seeds, objectives and params) through ``run_matrix`` on ``device``, one
+    row a call so each row's launches are its own; every broker a driver
+    builds runs its device planes there. Every row must pass (its oracle's
+    ``require``s and its SLO gate; a crashed driver is a failed row), and
+    ``tenant_rekey`` must launch K6 (its publishes' decrypt leg, its
+    re-encryptions and the re-key's re-seal). Logs each row's oracle
+    tallies, metrics and wall. Returns the phase's launches by kernel."""
+    from mqtt_tpu_torch.ops import kernels
+    from mqtt_tpu_torch.scenarios import run_matrix, scenario_names
+
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    by_row: dict = {}
+    for name in scenario_names():
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        (row,) = run_matrix([name], device=str(device))
+        wall = time.perf_counter() - t0
+        by_row[name] = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v - before[k]}
+        READINGS[f"scenario {name} wall s"] = wall
+        log(f"phase {SCENARIO_CELL} {name}: passed {row['passed']}, SLO gate {row['slo']['passed']}, oracle "
+            f"{row['oracle']}, metrics {row['metrics']}, failures {row['failures'] or 'none'}; driver wall "
+            f"{row['wall_s']} s, row {wall:.1f} s; launches {by_row[name] or 'none'}; {card}")
+        check(not any(f.startswith("driver crashed") for f in row["failures"]),
+              f"{SCENARIO_CELL} {name}: {row['failures']}")
+        check(row["passed"] and row["slo"]["passed"], f"{SCENARIO_CELL} {name} failed: {row['failures']}, "
+              f"SLO {[o for o in row['slo']['objectives'] if o.get('breached')]}")
+    counted = device.type == "cuda"
+    check(by_row["tenant_rekey"].get("keystream", 0) > 0 or not counted,
+          f"{SCENARIO_CELL}: tenant_rekey never launched keystream")
+    launches = dict(kernels.LAUNCHES)
+    log(f"phase {SCENARIO_CELL}: {len(by_row)} rows passed on {device}; launches {by_row['tenant_rekey']} in "
+        f"tenant_rekey, {({k: v for k, v in launches.items() if v})} in all; phase {time.perf_counter() - t_phase:.1f} s; "
+        f"{card}")
+    return launches
+
+
+def chaos_filters(c: int) -> list:
+    """Client ``c``'s filters: ``CHAOS_OWN`` of its own and ``CHAOS_FAN``
+    it shares with the clients of its residue mod 8; no topic matches two
+    filters of one client (the device and the walk merge a client's
+    filters in different orders, ROADMAP Queue C item 4)."""
+    return ([f"ch/{c}/{j}/+" for j in range(CHAOS_OWN)]
+            + [f"fan/+/{c % 8}/{j}" for j in range(CHAOS_FAN)])
+
+
+def phase_chaos(torch, device, card: str, n_rounds: int = CHAOS_ROUNDS, n_after: int = CHAOS_AFTER) -> dict:
+    """Phase ``chaos``: a port ``Server`` on ``device`` with the device
+    matcher under its breaker (``ResilientMatcher``; the verify sample
+    reads every topic of a batch, the watchdog at 1 s, the half-open
+    probe on the wall clock past the run) and ``ChaosHook`` armed from a
+    fixed seed with each fault kind pinned to a dispatch (``CHAOS_AT``),
+    over TCP. ``CHAOS_CLIENTS`` subscribers SUBSCRIBE ``chaos_filters``
+    (two filter shapes: the compact route, K2, with a pinned capacity);
+    ``CHAOS_PUBLISHERS`` QoS 1 publishers send a wave of ``n_rounds``
+    rounds, each round's PUBACKs awaited, then one client's
+    UNSUBSCRIBE/SUBSCRIBE and a fold (K3). The hook is uninstalled, two
+    forced probes must close the breaker the last three faults tripped,
+    and ``n_after`` more rounds run on the device with no fallback.
+    Checks: every subscriber's (topic, payload) deliveries are the walk's
+    for the round they were sent in; the breaker's failures by kind are
+    the injector's counts (an issue failure reads as an error); the last
+    rounds resolve on the device with 0 fallback batches; no table
+    buffer is still pinned. Logs ``fold_copies`` before and after the
+    chaos. Returns the phase's launches by kernel."""
+    from collections import Counter
+
+    from mqtt_tpu_torch.hooks.auth import AllowHook
+    from mqtt_tpu_torch.hooks.chaos import ChaosHook, ChaosOptions
+    from mqtt_tpu_torch.listeners import TCP, Config
+    from mqtt_tpu_torch.ops import kernels
+    from mqtt_tpu_torch.server import Options, Server
+
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    rng = random.Random(CHAOS_SEED)
+    srv = Server(Options(device=str(device), device_matcher=True, gc_tuning=False,
+                         matcher_opts={"max_levels": 4, "background": False, "compact_capacity": 4096},
+                         breaker_watchdog_ms=1000.0, breaker_verify_sample=1 << 16,
+                         breaker_probe_backoff_ms=3_600_000.0, breaker_probe_backoff_max_ms=3_600_000.0))
+    srv.add_hook(AllowHook())
+    hook = ChaosHook()
+    srv.add_hook(hook, ChaosOptions(server=srv, seed=CHAOS_SEED, at=dict(CHAOS_AT), hang_s=60.0, slow_s=0.05))
+    srv.add_listener(TCP(Config(type="tcp", id="chaos", address="127.0.0.1:0")))
+    info: dict = {}
+
+    def topic() -> str:
+        c = rng.randrange(CHAOS_CLIENTS)
+        if rng.random() < 0.5:
+            return f"ch/{c}/{rng.randrange(CHAOS_OWN)}/x{rng.randrange(4)}"
+        return f"fan/y{rng.randrange(4)}/{c % 8}/{rng.randrange(CHAOS_FAN)}"
+
+    async def main() -> None:
+        await srv.serve()
+        host, port = srv.listeners.get("chaos").address().rsplit(":", 1)
+        rm = srv.matcher
+        dm = rm.inner.inner
+        check(rm.inner is hook.faulty, f"{CHAOS_CELL}: the hook did not install beneath the breaker")
+        subs = {f"k{c}": WireClient(f"k{c}", 4 + c % 2) for c in range(CHAOS_CLIENTS)}
+        pubs = [WireClient(f"kp{i}", 4 + i % 2) for i in range(CHAOS_PUBLISHERS)]
+        for cl in list(subs.values()) + pubs:
+            await cl.open(host, int(port))
+            cl.send(connect_frame(cl.name, cl.version, keepalive=0))
+            await cl.wait_frames(1, 60.0)
+        t0 = time.perf_counter()
+        for c, (name, cl) in enumerate(subs.items()):
+            flts = chaos_filters(c)
+            for k in range(0, len(flts), 100):
+                cl.send(subscribe_frame(1 + k // 100, [(f, 0, 0) for f in flts[k:k + 100]], cl.version))
+            await cl.wait_frames(1 + (len(flts) + 99) // 100, 120.0)
+        dm.flush()
+        info["subscribe_s"] = time.perf_counter() - t0
+        expected = {name: Counter() for name in subs}
+        acked = [0] * len(pubs)
+        info["fold_copies_before"] = dm.snapshot.stats.fold_copies
+
+        async def round_(r: int) -> None:
+            for i, p in enumerate(pubs):
+                frames = []
+                for _ in range(CHAOS_PER_ROUND):
+                    t = topic()
+                    body = f"r{r}p{i}n{acked[i] + len(frames)}".encode()
+                    for cid in srv.topics.subscribers(t).subscriptions:
+                        expected[cid][(t, body)] += 1
+                    frames.append(publish_frame(t, body, 1, 1 + (acked[i] + len(frames)) % 0xFFFF, version=p.version))
+                p.send(b"".join(frames))
+            for i, p in enumerate(pubs):
+                acked[i] += CHAOS_PER_ROUND
+                await p.wait_frames(1 + acked[i], 120.0)
+            # every delivery of the round first: a batch resolves (and its
+            # sample is verified) before the churn mutates the trie, where
+            # a mismatch would read as indeterminate and go uncounted
+            for name, cl in subs.items():
+                n = sum(expected[name].values())
+                await _until(lambda cl=cl, n=n: sum(1 for f in cl.frames() if f[0] >> 4 == 3) >= n, 120.0,
+                             f"{CHAOS_CELL}: {name}'s deliveries of round {r}")
+            # a churn between batches, folded onto the device table (K3)
+            c = r % CHAOS_CLIENTS
+            cl = subs[f"k{c}"]
+            j = r % CHAOS_OWN
+            n0 = len(cl.frames())
+            cl.send(unsubscribe_frame(0xF000 + r, [f"ch/{c}/{j}/+"], cl.version)
+                    + subscribe_frame(0xF100 + r, [(f"ch/{c}/{j}/+", 0, 0)], cl.version))
+            await _until(lambda: sum(1 for f in cl.frames()[n0:] if f[0] >> 4 in (9, 11)) >= 2, 60.0,
+                         f"{CHAOS_CELL}: k{c}'s churn acks")
+            dm.flush()
+
+        def routes() -> dict:
+            g = rm.breaker_gauges()
+            return {"batches": dm.stats.as_dict()["batches"], "fallback_batches": g["fallback_batches"],
+                    "compact_batches": dm.snapshot.stats.compact_batches}
+
+        t0 = time.perf_counter()
+        for r in range(n_rounds):
+            await round_(r)
+        info["chaos_s"] = time.perf_counter() - t0
+        info["tripped"] = rm.breaker.state
+        info["injected"] = hook.injected
+        t0 = time.perf_counter()
+        hook.uninstall()
+        info["uninstall_s"] = time.perf_counter() - t0
+        await _until(lambda: rm.pool.wedged == 0, 60.0, f"{CHAOS_CELL}: the released hang's guard thread")
+        info["pins_after_uninstall"] = [b.pins for b in dm.snapshot._tables]
+        info["probes"] = [rm.probe_now(), rm.probe_now()]
+        info["state_after_probes"] = rm.breaker.state
+        r0 = routes()
+        t0 = time.perf_counter()
+        for r in range(n_rounds, n_rounds + n_after):
+            await round_(r)
+        info["after_s"] = time.perf_counter() - t0
+        r1 = routes()
+        info["after"] = {k: r1[k] - r0[k] for k in r0}
+        info["gauges"] = rm.breaker_gauges()
+        info["fold_copies_after"] = dm.snapshot.stats.fold_copies
+        info["folds"] = dm.snapshot.stats.folds
+        n_want = {name: sum(e.values()) for name, e in expected.items()}
+        await asyncio.sleep(0.2)  # a delivery past the walk's would arrive now
+        bad = []
+        for name, cl in subs.items():
+            got = Counter((p["topic"], p["payload"]) for p in _publishes(cl, 0))
+            if got != expected[name]:
+                bad.append((name, sum((got - expected[name]).values()), sum((expected[name] - got).values())))
+        check(not bad, f"{CHAOS_CELL}: deliveries differ from the walk's (client, extra, missing): {bad[:8]}")
+        info["deliveries"] = sum(n_want.values())
+        info["publishes"] = sum(acked)
+        for cl in list(subs.values()) + pubs:
+            cl.writer.close()
+        await srv.close()
+        info["pins_end"] = [b.pins for b in dm.snapshot._tables]
+
+    asyncio.run(main())
+    g, inj = info["gauges"], info["injected"]
+    kinds = {k[len("failures_"):]: int(v) for k, v in g.items() if k.startswith("failures_") and int(v)}
+    want = {"error": inj.get("error", 0) + inj.get("issue_error", 0), "corrupt": inj.get("corrupt", 0),
+            "hang": inj.get("hang", 0)}
+    launches = dict(kernels.LAUNCHES)
+    log(f"phase {CHAOS_CELL}: ok {info['publishes']} QoS 1 publishes from {CHAOS_PUBLISHERS} publishers, "
+        f"{info['deliveries']} deliveries to {CHAOS_CLIENTS} subscribers ({CHAOS_CLIENTS * (CHAOS_OWN + CHAOS_FAN)} "
+        f"filters, SUBSCRIBE leg {info['subscribe_s']:.3f} s), every one the walk's; injected {inj} (seed "
+        f"{CHAOS_SEED}, at {CHAOS_AT}); breaker after the chaos {info['tripped']}, failures by kind {kinds}, "
+        f"trips {g['trips']}, probes {g['probes']} (forced {info['probes']}), fallback_batches "
+        f"{g['fallback_batches']}, verified_batches {g['verified_batches']}; chaos rounds {info['chaos_s']:.3f} s, "
+        f"uninstall {info['uninstall_s']:.3f} s; {card}")
+    log(f"  {CHAOS_CELL} after the hook: {n_after} rounds {info['after']} in {info['after_s']:.3f} s, breaker "
+        f"{g['state']}; fold_copies before the chaos {info['fold_copies_before']}, after {info['fold_copies_after']} "
+        f"({info['folds']} folds); pins after uninstall {info['pins_after_uninstall']}, at the end "
+        f"{info['pins_end']}; launches {({k: v for k, v in launches.items() if v})}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    check(info["tripped"] == "open", f"{CHAOS_CELL}: the last three faults did not trip the breaker")
+    check(all(inj.get(k, 0) >= 1 for k in ("error", "issue_error", "corrupt", "slow", "hang")),
+          f"{CHAOS_CELL}: a fault kind was never injected: {inj}")
+    check(kinds == want, f"{CHAOS_CELL}: the breaker's failures by kind {kinds} are not the injector's {want}")
+    check(info["probes"] == [True, True] and g["state"] == "closed", f"{CHAOS_CELL}: the breaker did not close: "
+          f"probes {info['probes']}, state {g['state']}")
+    check(info["after"]["fallback_batches"] == 0 and info["after"]["batches"] > 0,
+          f"{CHAOS_CELL}: after the hook the device did not resolve the rounds alone: {info['after']}")
+    check(not any(info["pins_after_uninstall"]) and not any(info["pins_end"]),
+          f"{CHAOS_CELL}: a table buffer is still pinned: {info['pins_after_uninstall']} {info['pins_end']}")
+    counted = device.type == "cuda"
+    check(info["after"]["compact_batches"] > 0 or not counted, f"{CHAOS_CELL}: no batch took the compact route")
+    check((launches["flat_match_compact"] > 0 and launches["scatter_rows"] > 0) or not counted,
+          f"{CHAOS_CELL}: launches {launches}")
+    return launches
+
+
+async def _until(cond, limit: float, what: str) -> None:
+    deadline = time.monotonic() + limit
+    while not cond():
+        check(time.monotonic() < deadline, f"{what}: not within {limit} s")
+        await asyncio.sleep(0.005)
+
+
+class StressRows(SysRows):
+    """``SysRows`` plus the broker's ``messages`` rows."""
+
+    async def open(self, host: str, port: int) -> None:
+        await super().open(host, port)
+        self.c.send(subscribe_frame(2, [(self.PREFIX + "messages/#", 0, 0)], 4))
+        await self.c.wait_frames(3, 60.0)
+
+
+@contextlib.contextmanager
+def stress_broker(device, root: str, tag: str, **env_extra):
+    """``python -m mqtt_tpu_torch.stress --serve --device-matcher --device
+    <device>`` in a process of its own (its ``$SYS`` ticks each second,
+    ``env_extra`` in its environment): yields ``(port, info)`` once it
+    printed READY; on leaving, SIGTERM must end it with exit 0
+    (``info["exit_s"]``)."""
+    (port,) = _free_ports(1)
+    out_path = os.path.join(root, f"{tag}.log")
+    env = dict(os.environ, MQTT_TPU_SYS_RESEND_S="1", **env_extra)
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "mqtt_tpu_torch.stress", "--serve", "--device-matcher",
+                                 "--device", str(device), "--broker", f"127.0.0.1:{port}"],
+                                cwd=HERE, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=out, env=env)
+    info: dict = {"log": out_path}
+    try:
+        t0 = time.perf_counter()
+        line = proc.stdout.readline().strip()
+        check(line == b"READY", f"{STRESS_CELL} {tag}: the broker did not start ({line!r}):\n{_tail(out_path)}")
+        info["ready_s"] = time.perf_counter() - t0
+        yield port, info
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            rc = None
+        info["exit_s"] = time.perf_counter() - t0
+        check(rc == 0, f"{STRESS_CELL} {tag}: SIGTERM ended the broker with {rc}:\n{_tail(out_path)}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_stress(torch, device, card: str, rows: tuple = STRESS_ROWS) -> dict:
+    """Phase ``stress``: the stress driver's broker, ``python -m
+    mqtt_tpu_torch.stress --serve --device-matcher --device <device>``,
+    in processes of its own (``stress_broker``). First the mqtt-stresser
+    rows ``rows`` (clients x QoS 0 messages of 64 B, each client on its
+    own topic, ``run_stress``): every message must be received. That
+    broker runs with ``MQTT_TPU_OVERLOAD_CONTROL=0`` (the driver's own
+    switch): at the default governor the stresser's unpaced blast fills
+    the stage, and the governor sheds QoS 0 publishes and evicts the
+    slowest readers, by design. Those topics hold no wildcard, so the
+    matcher answers them from its exact map on the host, as the JAX
+    package does: no kernel. Then, on a broker at the default governor,
+    one ``run_storm`` at its defaults (16 publishers x 2,000, half QoS 1,
+    seed 7) against a subscriber on ``storm/#``, a wildcard the broker
+    matches on the card. Checks: the publishers' acks account for every
+    offered QoS 1 publish (admitted + shed), no publisher was
+    disconnected, every publish the broker admitted (offered less the
+    governor's ``overload/sheds``) was delivered; the broker's ``$SYS``
+    matcher batches are above 0 and its breaker is closed with no failure
+    and no fallback batch; SIGTERM ends each broker with exit 0. The
+    kernels run in the brokers' processes: they are not in the kernels
+    line."""
+    import shutil
+    import tempfile
+
+    from mqtt_tpu_torch import stress
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mqtt-torch-stress-")
+    _raise_nofile(4 * max(c for c, _ in rows) + 256)
+    info: dict = {"rows": []}
+    with stress_broker(device, root, "stresser", MQTT_TPU_OVERLOAD_CONTROL="0") as (port, b1):
+
+        async def stresser() -> None:
+            for n_clients, n_msgs in rows:
+                try:
+                    r = await stress.run_stress("127.0.0.1", port, n_clients, n_msgs, payload_size=64,
+                                                timeout=600.0)
+                except (OSError, asyncio.IncompleteReadError, asyncio.TimeoutError) as e:
+                    raise PhaseFailed(f"{STRESS_CELL}: the mqtt-stresser row of {n_clients} clients x {n_msgs} "
+                                      f"did not receive every message ({e!r}); the broker's log:\n"
+                                      f"{_tail(b1['log'])}") from e
+                log(f"  {STRESS_CELL} row {n_clients} x {n_msgs}: wall {r['wall_s']} s; {card}")
+                info["rows"].append(r)
+
+        asyncio.run(stresser())
+    with stress_broker(device, root, "storm") as (port, b2):
+
+        async def storm() -> None:
+            sysr = StressRows(STRESS_CELL)
+            await sysr.open("127.0.0.1", port)
+            r0 = await sysr.fresh()
+            info["storm"] = await stress.run_storm("127.0.0.1", port)
+            info["r0"], info["r1"] = r0, await sysr.fresh()
+            sysr.c.writer.close()
+
+        asyncio.run(storm())
+    for r in info["rows"]:
+        READINGS[f"stress {r['clients']} clients aggregate msgs/s"] = r["aggregate_msgs_per_sec"]
+        log(f"phase {STRESS_CELL} mqtt-stresser {r['clients']} clients x {r['msgs_per_client']} QoS 0 messages of "
+            f"64 B: every message received; publish median {r['publish_median_per_sec']}/s (min "
+            f"{r['publish_min_per_sec']}, max {r['publish_max_per_sec']}), receive median "
+            f"{r['receive_median_per_sec']}/s (min {r['receive_min_per_sec']}, max {r['receive_max_per_sec']}), "
+            f"aggregate {r['aggregate_msgs_per_sec']} msgs/s, wall {r['wall_s']} s (wildcard-free topics: the "
+            f"matcher's exact map on the host, no kernel, in either package); {card}")
+    s, r0, r1 = info["storm"], info["r0"], info["r1"]
+    sheds = int(r1["overload/sheds"]) - int(r0["overload/sheds"])
+    dropped = int(r1["messages/dropped"]) - int(r0["messages/dropped"])
+    batches = int(r1["matcher/batches"])
+    g = {k[len("matcher/breaker/"):]: v for k, v in r1.items() if k.startswith("matcher/breaker/")}
+    admitted = s["offered"]["total"] - sheds
+    READINGS["stress storm offered/s"] = s["offered_rate_per_sec"]
+    log(f"phase {STRESS_CELL} storm: offered {s['offered']} at {s['offered_rate_per_sec']}/s over "
+        f"{s['storm_wall_s']} s; QoS 1 acked admitted {s['acked_admitted_qos1']}, shed 0x97 {s['shed_qos1_0x97']}; "
+        f"the governor's sheds {sheds}, messages dropped {dropped}; admitted {admitted}, delivered "
+        f"{s['delivered']} (delivery p99 {s['delivery_p99_ms']} ms); publishers disconnected "
+        f"{s['publishers_disconnected']}; $SYS matcher batches {batches}, topics {r1.get('matcher/topics')}, "
+        f"host_fast {r1.get('matcher/host_fast')}; brokers READY in {b1['ready_s']:.1f} and {b2['ready_s']:.1f} s, "
+        f"SIGTERM -> exit 0 in {b1['exit_s']:.3f} and {b2['exit_s']:.3f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    breaker_summary(g, STRESS_CELL + " storm broker (read over $SYS)", card)
+    check(s["acked_admitted_qos1"] + s["shed_qos1_0x97"] == s["offered"]["qos1"],
+          f"{STRESS_CELL}: QoS 1 acks {s['acked_admitted_qos1']} + {s['shed_qos1_0x97']} != {s['offered']['qos1']}")
+    check(s["publishers_disconnected"] == 0, f"{STRESS_CELL}: {s['publishers_disconnected']} publishers disconnected")
+    check(s["delivered"] == admitted, f"{STRESS_CELL}: delivered {s['delivered']} of {admitted} admitted publishes")
+    check(batches > 0, f"{STRESS_CELL}: the broker's matcher counted no device batch")
+    shutil.rmtree(root, ignore_errors=True)
+    return info
+
+
 def _bucket_quantiles(text: str, prefix: str) -> tuple:
     """The p50 and p99 (ms, the bucket's upper bound, as
     ``Histogram.percentile`` answers) of one histogram child in a
@@ -5859,6 +6293,8 @@ def _run(torch, device, n_subs, wave, n_recrypt, retained_sizes, n_reseal, card,
             cfg["dm"].close()
         main_sh = []
         for cfg in cfgs:
+            if cfg is cfgs[1] and n_subs > SHARDED_CFG3_SUBS:
+                cfg = phase_setup_trie("cfg3", build_cfg3, SHARDED_CFG3_SUBS, 3)
             sh = phase_setup_sharded(cfg, device)
             sharded.append(sh)
             main_sh.append(phase_sharded(sh, wave))
@@ -5921,12 +6357,19 @@ def _run(torch, device, n_subs, wave, n_recrypt, retained_sizes, n_reseal, card,
     phase_entry_fabric(torch, device, card, fill, wall)
     phase_cluster(torch, device, card, n_filters=min(CLUSTER_FILTERS, n_subs), wave=wave)
     wall("cluster")
+    # the last modules: the scenario lab, the chaos hook, the stress driver
+    main_scn = phase_scenarios(torch, device, card)
+    wall("scenarios")
+    main_chaos = phase_chaos(torch, device, card)
+    wall("chaos")
+    phase_stress(torch, device, card)
+    wall("stress")
     phase_observe_render(obs)
     kernels_line = []
     for name in REPLACES:
         launches = (main2[name] + main3[name] + mainN[name] + main4[name] + mainP[name] + mainR[name]
                     + sum(m[name] for m in main_sh) + sum(m[name] for m in main_ret) + main_rs[name]
-                    + obs["launches"][name] + main_br[name])
+                    + obs["launches"][name] + main_br[name] + main_scn[name] + main_chaos[name])
         check(launches > 0 or name in INSIDE or not counted, f"{name} was never launched on the main paths")
         r = rec[name]
         entry = {
@@ -6008,6 +6451,9 @@ def planes_cost(torch, device, card: str, n_subs: int = N_SUBS, wave: int = WAVE
     return runs
 
 
+ONLY_PHASES = ("fabric", "cluster", "scenarios", "chaos", "stress")
+
+
 def main() -> int:
     try:
         import torch
@@ -6033,9 +6479,12 @@ def main() -> int:
     ap.add_argument("--groups", type=int, default=N_GROUPS, help="cfg4's $SHARE groups (16 members each)")
     ap.add_argument("--planes-cost", action="store_true",
                     help="only the default planes' cost: each Server path with them on and off in turns")
-    ap.add_argument("--only", choices=("fabric", "cluster", "fabric,cluster"),
-                    help="only these phases (fabric: with entry and its store's fill before it)")
+    ap.add_argument("--only", type=lambda v: v.split(","), default=None,
+                    help="only these phases, comma-separated, of " + ", ".join(ONLY_PHASES)
+                    + " (fabric: with entry and its store's fill before it)")
     args = ap.parse_args()
+    if args.only and not set(args.only) <= set(ONLY_PHASES):
+        ap.error(f"--only takes {', '.join(ONLY_PHASES)}, not {args.only}")
     t0 = time.perf_counter()
     try:
         card = phase_card(torch)["card"]
@@ -6057,6 +6506,12 @@ def main() -> int:
                     stop_entry_fill(fill)
             if "cluster" in args.only:
                 phase_cluster(torch, device, card, wave=args.wave)
+            if "scenarios" in args.only:
+                phase_scenarios(torch, device, card)
+            if "chaos" in args.only:
+                phase_chaos(torch, device, card)
+            if "stress" in args.only:
+                phase_stress(torch, device, card)
             log(f"total {time.perf_counter() - t0:.1f} s")
             return 0
         kernels_line = run(torch.device("cuda"), args.subs, args.wave, args.recrypt,

@@ -1539,3 +1539,93 @@ def test_the_fabric_with_both_engines_on_the_card_equals_the_single_loop_run(dev
     assert launched[0] > 0 and launched[1] > 0, launched
     assert all(peak.get(k, 0) > 0 for k in range(4)), peak
     assert len(fabric["bob"][0]) > 100 and len(fabric["t3"][0]) > 20
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["ranges", "compact"])
+def test_an_injected_error_leaves_no_table_pin_on_the_card(dev, compact):
+    """The port's injector over ``TorchMatcher`` on the card: an ``error``
+    at dispatch 0 runs the batch's resolver before it raises, so two folds
+    after it find the standby free (no ``fold_copies``) and no buffer
+    stays pinned."""
+    from mqtt_tpu_torch.faults import DeviceFault, FaultPlan, FaultyMatcher
+
+    ops = [("sub", f"c{i}", f"room/{i % 4}/t", 1, 0, False) for i in range(40)]
+    ops.append(("sub", "w", "room/+/t", 2, 0, False))
+    index = apply_port_ops(ops, TopicsIndex())
+    m = TorchMatcher(index, max_levels=4, compact=compact, compact_capacity=64 if compact else 0, device=dev)
+    m.rebuild()
+    fm = FaultyMatcher(m, FaultPlan(at={0: "error"}))
+    launches = kernels.LAUNCHES["flat_match_compact" if compact else "flat_probe_ranges"]
+    resolver = fm.match_topics_async(["room/0/t", "room/3/t"])
+    with pytest.raises(DeviceFault):
+        resolver()
+    assert kernels.LAUNCHES["flat_match_compact" if compact else "flat_probe_ranges"] == launches + 1
+    for k in range(2):
+        index.subscribe(f"x{k}", Subscription(filter=f"room/{k}/t"))
+        assert m.fold({f"room/{k}/t"})
+    assert m.stats.fold_copies == 0 and all(b.pins == 0 for b in m._tables)
+    topics = [f"room/{k}/t" for k in range(4)]
+    for got, t in zip(fm.match_topics(topics), topics):
+        assert subscribers_equal(got, index.subscribers(t)), t
+
+
+def test_the_chaos_hook_on_the_compact_route_leaves_no_pin(dev):
+    """A port ``Server`` on the card with its breaker and the chaos hook
+    (installed at ``on_started`` beneath ``ResilientMatcher``): batches on
+    the compact route (K2), folds between them (K3), each fault kind once.
+    The verify sample reads every topic of a batch, so the ``corrupt``
+    entry is always caught. Every batch equals the walk; the breaker counts what the injector
+    injected; after ``close`` (the hook's uninstall releases the hang) no
+    table buffer is pinned and the breaker's inner matcher is the device
+    matcher again."""
+    from mqtt_tpu_torch.hooks.chaos import ChaosHook, ChaosOptions
+    from mqtt_tpu_torch.server import Options, Server
+
+    at = {1: "error", 3: "issue_error", 5: "corrupt", 7: "slow", 9: "hang"}
+
+    async def main():
+        srv = Server(Options(device="cuda", device_matcher=True, gc_tuning=False,
+                             matcher_opts={"max_levels": 4, "background": False, "compact_capacity": 256},
+                             breaker_watchdog_ms=500.0, breaker_probe_backoff_ms=3_600_000.0,
+                             breaker_probe_backoff_max_ms=3_600_000.0, breaker_verify_sample=16))
+        hook = ChaosHook()
+        srv.add_hook(hook, ChaosOptions(server=srv, seed=3, at=dict(at), hang_s=30.0, slow_s=0.05))
+        for i in range(64):
+            srv.topics.subscribe(f"s{i}", Subscription(filter=f"chaos/+/{i % 16}"))
+        await srv.serve()
+        rm = srv.matcher
+        dm = rm.inner.inner
+        assert rm.inner is hook.faulty
+        dm.flush()
+        launches = dict(kernels.LAUNCHES)
+        for r in range(12):
+            topics = [f"chaos/r{r}/{k}" for k in range(16)]
+            for got, t in zip(rm.match_topics(topics), topics):
+                assert subscribers_equal(got, srv.topics.subscribers(t)), (r, t)
+            srv.topics.subscribe(f"late{r}", Subscription(filter=f"chaos/+/{r % 16}"))
+            dm.flush()
+        injected = hook.injected
+        gauges = rm.breaker_gauges()
+        await srv.close()
+        return rm, dm, injected, gauges, launches
+
+    rm, dm, injected, gauges, launches = asyncio.run(main())
+    assert injected == {"error": 1, "issue_error": 1, "corrupt": 1, "slow": 1, "hang": 1}
+    kinds = {k: v for k, v in gauges.items() if k.startswith("failures_")}
+    assert kinds == {"failures_error": 2, "failures_corrupt": 1, "failures_hang": 1}
+    assert kernels.LAUNCHES["flat_match_compact"] > launches["flat_match_compact"]
+    assert kernels.LAUNCHES["scatter_rows"] > launches["scatter_rows"]
+    snap = dm.snapshot
+    assert all(b.pins == 0 for b in snap._tables) and snap.stats.compact_batches > 0
+
+
+def test_tenant_rekey_launches_the_keystream_kernel(dev):
+    """The scenario lab's ``tenant_rekey`` on the card passes its oracle
+    and its SLO gate, and its re-encryption and re-seal run as K6."""
+    from mqtt_tpu_torch.scenarios import run_scenario
+
+    launches = kernels.LAUNCHES["keystream"]
+    r = run_scenario("tenant_rekey", device="cuda")
+    assert r["passed"], r["failures"]
+    assert r["oracle"]["gaps"] == 0 and r["metrics"]["resealed"] >= 1
+    assert kernels.LAUNCHES["keystream"] > launches

@@ -435,6 +435,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "import mqtt_tpu_torch.hooks.storage.base, mqtt_tpu_torch.hooks.storage.memory\n"
         "import mqtt_tpu_torch.listeners, mqtt_tpu_torch.listeners.tcp, mqtt_tpu_torch.listeners.net\n"
         "import mqtt_tpu_torch.listeners.unixsock, mqtt_tpu_torch.listeners.mock\n"
+        "import mqtt_tpu_torch.faults, mqtt_tpu_torch.hooks.chaos, mqtt_tpu_torch.scenarios\n"
+        "import mqtt_tpu_torch.stress\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mqtt_tpu'))\n"
         "print(','.join(bad))\n"
     )

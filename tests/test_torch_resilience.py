@@ -5,9 +5,9 @@ The unit cases of ``tests/test_resilience.py`` (the backoff schedule, the
 breaker's state machine, the guard pool's wedge accounting, and the
 matcher wrapper under injected faults) run in both packages on the same
 inputs and must agree: the same delays, the same breaker dictionaries, the
-same results and counters. The fault schedules are the JAX package's
-``FaultPlan`` (a seeded schedule, nothing of the device), each package's
-wrapper around its own host-walking double.
+same results and counters. Each package's wrapper runs over its own
+package's injector (``faults.FaultyMatcher`` with the same seeded
+``FaultPlan``) around its own host-walking double.
 
 Then the port's own concerns: four threads issuing into one
 ``TorchMatcher`` at once give the serial results (the breaker's guard
@@ -25,11 +25,12 @@ import time
 import pytest
 
 from mqtt_tpu import resilience as jres
-from mqtt_tpu.faults import FaultPlan, FaultyMatcher
+from mqtt_tpu import faults as jfaults
 from mqtt_tpu.ops.matcher import TpuMatcher, subscribers_equal as jequal
 from mqtt_tpu.topics import Subscribers as JSubscribers
 
 from mqtt_tpu_torch import DeltaMatcher, Subscription, TorchMatcher
+from mqtt_tpu_torch import faults as tfaults
 from mqtt_tpu_torch import resilience as tres
 from mqtt_tpu_torch.ops.matcher import subscribers_equal as tequal
 from mqtt_tpu_torch.topics import Subscribers as TSubscribers
@@ -39,6 +40,8 @@ from test_torch_matcher import canon
 from test_torch_topics import MAX_LEVELS, corpus_ops, corpus_topics
 
 PACKAGES = {"jax": (jres, JSubscribers, jequal), "torch": (tres, TSubscribers, tequal)}
+FAULTS = {"jax": jfaults, "torch": tfaults}
+FaultPlan, FaultyMatcher = tfaults.FaultPlan, tfaults.FaultyMatcher  # the port's side
 
 
 class HostBatchMatcher:
@@ -251,7 +254,8 @@ def _faults_run(name, case):
     jidx, tidx = twin_tries(SMALL)
     index = jidx if name == "jax" else tidx
     inner = HostBatchMatcher(index, Empty)
-    faulty = FaultyMatcher(inner, FaultPlan(**plan_kw))
+    faults = FAULTS[name]
+    faulty = faults.FaultyMatcher(inner, faults.FaultPlan(**plan_kw))
     rm = mod.ResilientMatcher(faulty, index, fast_config(mod, **cfg_kw))
     try:
         out = []

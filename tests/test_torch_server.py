@@ -390,18 +390,29 @@ def test_sessions_with_the_planes_on_equal_the_jax_server(pinned_clock, tmp_path
     the tracer, the host profiler and the lock plane, the SLO engine with
     two objectives, the per-card plane. Every client's bytes equal the JAX
     server's; ``/metrics`` has the same families with the same label sets
-    and the ``$SYS`` tree the same keys (the known departures apart)."""
+    and the ``$SYS`` tree the same keys (the known departures apart).
+
+    The governors evaluate at the same points in both packages: their lazy
+    re-evaluation interval is set past the run (the first admission
+    evaluates once, before any publish), and the housekeeping tick's
+    forced evaluation (``sweep_overload``, once a second on the loop's
+    clock) is driven by the script after every session settled, not by
+    the wall clock. So no evaluation meets a publish in the stage in one
+    package and not in the other (its ``overload/peak/*`` rows)."""
     # objectives no CPU run breaches (a breach is a timing, and its
     # retained $SYS/broker/slo/<name> row would be too)
     objectives = ["p99 delivery < 30s over 5m", "hbm ratio < 0.9 over 5m"]
 
     async def script(b):
+        sweep, sweeps = b.srv.sweep_overload, []
+        b.srv.sweep_overload = lambda: sweeps.append(1)  # the tick's sweep, held for the fixed point below
         await script_core(b)
+        sweep()
         b.exposition = b.srv.telemetry.exposition()
         b.sys_keys = _sys_keys(b.srv)
 
     got = run_both(script, allow, planes=True, slo_objectives=objectives, telemetry_sample=4, trace_sample=8,
-                   telemetry_dump_dir=str(tmp_path))
+                   telemetry_dump_dir=str(tmp_path), overload_eval_interval_ms=3_600_000.0)
     (jout, jb), (tout, tb) = got["jax"], got["torch"]
     assert tout == jout
     jf, tf = _families(jb.exposition), _families(tb.exposition)

@@ -307,6 +307,13 @@ def logkv(name: str):
     return import_module(("mqtt_tpu" if name == "jax" else "mqtt_tpu_torch") + ".hooks.storage.logkv")
 
 
+def faults(name: str):
+    """Each package's fault injector (its storage crash plans)."""
+    from importlib import import_module
+
+    return import_module(("mqtt_tpu" if name == "jax" else "mqtt_tpu_torch") + ".faults")
+
+
 def _disk(path) -> list:
     import os
 
@@ -407,33 +414,13 @@ def test_logkv_equals_the_jax_store(case, tmp_path, caplog):
         assert t[-1] is True and t[-2]["replay_corruptions"] == 0
 
 
-class _Crash:
-    """A crash plan (the shape the JAX package's ``faults.StorageCrashPlan``
-    takes): a simulated kill at one named point, or a torn append that
-    writes a prefix of the record first."""
-
-    def __init__(self, mod, point: str, torn: int = 0, after: int = 0):
-        self.mod, self.point, self.torn, self.after = mod, point, torn, after
-        self.appends = 0
-
-    def reach(self, point, store):
-        if point == self.point:
-            raise self.mod.SimulatedCrash(point)
-
-    def append_record(self, store, rec):
-        self.appends += 1
-        if self.point == "append" and self.appends > self.after:
-            store._file.write(rec[: self.torn])
-            store._file.flush()
-            raise self.mod.SimulatedCrash("append")
-
-
 @pytest.mark.parametrize("point", ["append", "rotate", "snapshot.begin", "snapshot.rename", "snapshot.prune",
                                    "compact.rewrite", "compact.prune"])
 def test_logkv_crash_points_replay_as_the_jax_store(point, tmp_path):
     """A simulated kill at each named crash point (the append torn after
-    a prefix of 7 bytes), then a reopen: both packages recover the same
-    map, and it holds every record written before the kill."""
+    a seeded prefix), each package's ``faults.StorageCrashPlan`` on its
+    own store, then a reopen: both packages recover the same map, and it
+    holds every record written before the kill."""
     got = []
     for name in ("jax", "torch"):
         mod = logkv(name)
@@ -446,7 +433,11 @@ def test_logkv_crash_points_replay_as_the_jax_store(point, tmp_path):
             durable[f"CL_{i % 8}"] = b"d%d" % i
         s._del("CL_1")
         durable.pop("CL_1")
-        s.crash_plan = _Crash(mod, point, torn=7, after=0)
+        plans = faults(name)
+        if point == "append":
+            s.crash_plan = plans.StorageCrashPlan(seed=7, crash_at_op=0, torn=True)
+        else:
+            s.crash_plan = plans.StorageCrashPlan(crash_point=point)
         with pytest.raises(mod.SimulatedCrash):
             if point.startswith("snapshot"):
                 s.snapshot()

@@ -8,6 +8,8 @@ answered by its mirror. The imports inside test bodies go through the same
 redirect, so a case's local ``from mqtt_tpu.cluster import Cluster`` gets
 the port's ``Cluster``. The port's ``Options`` default to ``device="cpu"``
 here (``CpuOptions``): the JAX cases build brokers without naming a device.
+Likewise the scenario lab's entry points (``run_scenario``, ``run_matrix``,
+``ScenarioBroker``) default to ``device="cpu"`` through the mirror.
 
 ``export(mirrored, namespace, prefix)`` binds the mirrored module's test
 classes and functions into a test file's namespace under new names
@@ -75,9 +77,36 @@ class _Missing(types.ModuleType):
         return missing
 
 
+class _ScenarioShim(types.ModuleType):
+    """The port's scenario lab seen through the mirror: its entry points
+    run on the CPU unless a case names a device."""
+
+    def __init__(self, real: types.ModuleType) -> None:
+        import functools
+
+        super().__init__(real.__name__)
+        self.__dict__["_real"] = real
+        for name in ("run_scenario", "run_matrix"):
+            self.__dict__[name] = functools.partial(getattr(real, name), device="cpu")
+
+        class CpuScenarioBroker(real.ScenarioBroker):
+            def __init__(self, options=None, listener_id: str = "scn", device: str = "cpu") -> None:
+                super().__init__(options, listener_id, device)
+
+        self.__dict__["ScenarioBroker"] = CpuScenarioBroker
+
+    def __getattr__(self, name: str):
+        return getattr(self.__dict__["_real"], name)
+
+
 def _shim(mod: types.ModuleType) -> types.ModuleType:
-    """Modules exporting ``Options`` (the package and ``server``) come
-    back as shims; the rest as they are."""
+    """Modules exporting ``Options`` (the package and ``server``) and the
+    scenario lab come back as shims; the rest as they are."""
+    if mod.__name__ == "mqtt_tpu_torch.scenarios":
+        s = _SHIMS.get(mod.__name__)
+        if s is None:
+            s = _SHIMS[mod.__name__] = _ScenarioShim(mod)
+        return s
     if getattr(mod, "Options", None) is None or mod.__name__ not in ("mqtt_tpu_torch", "mqtt_tpu_torch.server"):
         return mod
     s = _SHIMS.get(mod.__name__)
