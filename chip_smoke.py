@@ -295,6 +295,31 @@ Phases, each printed as it ends:
     admitted publish delivered, the broker's device batches above 0, its
     breaker closed; SIGTERM exit 0.
 
+21. Config 5 under live churn (phase "cfg5-churn", ``bench.py:743-848``
+    at its full size): 200,000 subscriptions over
+    ``region/device/metric`` with 10% ``+``, QoS ``i % 3`` and
+    identifiers ``i % 200 + 1``, 5,000 retained messages, built from
+    bench.py's seed and generators;
+    ``DeltaMatcher(background=True, rebuild_after=256,
+    rebuild_interval=0.2)`` on the card while a thread subscribes and
+    unsubscribes at about 2,000 mutations/s; ``CFG5_BATCHES`` batches of
+    4096 issued one ahead, a retained wildcard scan riding each. After
+    the churn stops a whole batch of 4096 must equal the trie's walk
+    (``canon``, as bench.py compares), before and after a ``flush()``,
+    and no table buffer may stay pinned once the matcher is closed; every
+    kernel it runs is held against its plain version at its table.
+    Printed: matches/s, batch p50 and p99, mutations, folds, rebuilds,
+    ``fold_copies``, the host-fallback ratio, the pending deltas at the
+    end and the launches by kernel.
+
+22. Config 1 (phase "cfg1-exact", ``bench.py:152-169, 591-604``): 10,000
+    exact filters through ``TorchMatcher`` on the card, ``parity_check``
+    on 32 topics, then matches/s of batches of 4096 issued one ahead
+    against the host walk's rate. The filter set is wildcard-free, so the
+    matcher serves it from the exact map, as the JAX matcher does, and
+    launches no kernel; the kernels are held against their plain versions
+    at its table all the same.
+
 Phase 4 also holds K7 (``flat_match_core``, the single-index entry point
 of K8's kernel) and K4-K6 against their plain versions at the shapes these
 paths give them (K5's MEAN within ``1e-5 * max(1, |want|)``, the rest with
@@ -6219,6 +6244,250 @@ def phase_stress(torch, device, card: str, rows: tuple = STRESS_ROWS) -> dict:
     return info
 
 
+CFG5_CELL = "cfg5-churn"
+CFG5_SUBS = 200_000  # bench.py's config 5 at full size (bench.py:2452)
+CFG5_RETAINED = 5_000
+CFG5_BATCHES = 256  # batches of MAIN_BATCH issued one ahead under the churn
+CFG5_CHURN_RATE = 2_000  # bench.py's churn: ~2k mutations/s
+CFG1_CELL = "cfg1-exact"
+CFG1_BATCHES = 30  # bench.py's iterations for config 1 (time_matcher)
+BENCH_SEED = 7  # bench.py's generator seed (bench.py:2329)
+
+
+def canon(s):
+    """Order-free digest of a Subscribers set (bench.py:57)."""
+    return (
+        {c: (sub.qos, tuple(sorted(sub.identifiers.items()))) for c, sub in s.subscriptions.items()},
+        {f: set(m) for f, m in s.shared.items()},
+        set(s.inline_subscriptions),
+    )
+
+
+def _canon_equal(index, topics: list, results: list, what: str) -> None:
+    """Every result (a view materialized) must digest to the walk's."""
+    from mqtt_tpu_torch import native
+
+    view_t = native.accel().SubscribersView
+    check(len(results) == len(topics), f"{what}: {len(results)} results for {len(topics)} topics")
+    for topic, got in zip(topics, results):
+        if isinstance(got, view_t):
+            got = got.materialize()
+        check(canon(got) == canon(index.subscribers(topic)), f"{what}: mismatch on {topic!r}")
+
+
+def build_cfg5(n_subs: int, n_retained: int, rng: random.Random):
+    """bench.py's config 5 (bench.py:752-781): the trie, its retained
+    corpus, the topic generator and the three vocabularies."""
+    from mqtt_tpu_torch.packets import PUBLISH, FixedHeader, Packet, Subscription
+    from mqtt_tpu_torch.topics import TopicsIndex
+
+    v0 = [f"region{i}" for i in range(60)]
+    v1 = [f"device{i}" for i in range(60)]
+    v2 = [f"metric{i}" for i in range(60)]
+    index = TopicsIndex()
+    for i in range(n_subs):
+        parts = [rng.choice(v0), rng.choice(v1), rng.choice(v2)]
+        if rng.random() < 0.10:
+            parts[rng.randrange(3)] = "+"
+        index.subscribe(f"cl{i}", Subscription(filter="/".join(parts), qos=i % 3, identifier=i % 200 + 1))
+    for _ in range(n_retained):
+        topic = f"{rng.choice(v0)}/{rng.choice(v1)}/{rng.choice(v2)}"
+        index.retain_message(Packet(fixed_header=FixedHeader(type=PUBLISH, retain=True), topic_name=topic,
+                                    payload=b"r"))
+
+    def topic_gen():
+        return f"{rng.choice(v0)}/{rng.choice(v1)}/{rng.choice(v2)}"
+
+    return index, topic_gen, (v0, v1, v2)
+
+
+def phase_cfg5(torch, device, rec: Optional[dict] = None, n_subs: int = CFG5_SUBS,
+               n_retained: int = CFG5_RETAINED, n_batches: int = CFG5_BATCHES) -> dict:
+    """bench.py's config 5 on the card under live churn (module docstring,
+    phase 21): the launch counts are set to 0 just before the churned run
+    and read just after it. ``rec`` (phase 4's record) takes the worst
+    error of the kernels held at this table. Returns the launches."""
+    import threading
+
+    from mqtt_tpu_torch import DeltaMatcher, Subscription
+    from mqtt_tpu_torch.ops import kernels
+
+    rng = random.Random(BENCH_SEED)
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        index, gen, (v0, v1, v2) = build_cfg5(n_subs, n_retained, rng)
+        t1 = time.perf_counter()
+        dm = DeltaMatcher(index, max_levels=4, out_slots=64, rebuild_after=256, rebuild_interval=0.2,
+                          background=True, device=device)
+        t2 = time.perf_counter()
+    finally:
+        _settle_gc()
+    fl = dm.snapshot.index
+    log(f"phase setup {CFG5_CELL}: ok {n_subs} subscriptions and {n_retained} retained, trie {t1 - t0:.1f} s, "
+        f"index {t2 - t1:.1f} s, entries {fl.n_entries}, P {fl.num_patterns}, S {fl.table.shape[0]}")
+    stop = threading.Event()
+    mutations = [0]
+    churn_s = [0.0]
+
+    def churn() -> None:
+        """bench.py's mutations (bench.py:791-803) on a schedule of
+        ``CFG5_CHURN_RATE`` a second: bench.py sleeps 0.5 ms after each, but
+        a thread that sleeps waits up to the interpreter's switch interval
+        (5 ms) for the GIL while the matching thread runs, so it catches
+        up on the mutations due instead."""
+        r = random.Random(9)
+        i = n_subs
+        t0 = time.perf_counter()
+        while not stop.is_set():
+            due = int((time.perf_counter() - t0) * CFG5_CHURN_RATE)
+            while mutations[0] < due and not stop.is_set():
+                parts = [r.choice(v0), r.choice(v1), r.choice(v2)]
+                if r.random() < 0.5:
+                    index.subscribe(f"m{i}", Subscription(filter="/".join(parts), qos=1))
+                    i += 1
+                else:
+                    index.unsubscribe("/".join(parts), f"m{r.randint(n_subs, max(n_subs + 1, i))}")
+                mutations[0] += 1
+            time.sleep(0.0005)
+        churn_s[0] = time.perf_counter() - t0
+
+    batches = [[gen() for _ in range(MAIN_BATCH)] for _ in range(4)]
+    st = dm.stats
+    closed = False
+    try:
+        th = threading.Thread(target=churn, name="cfg5-churn", daemon=True)
+        kernels.reset_launches()
+        th.start()
+        try:
+            dm.match_topics(batches[0])  # warm-up
+            fb0, topics0 = st.host_fallbacks, st.topics
+            folds0, rebuilds0, copies0 = st.folds, st.rebuilds, st.fold_copies
+            lat: list = []
+            scans = scanned = 0
+            t0 = time.perf_counter()
+            pending = dm.match_topics_async(batches[0])
+            for i in range(1, n_batches + 1):
+                t1 = time.perf_counter()
+                nxt = dm.match_topics_async(batches[i % len(batches)]) if i < n_batches else None
+                pending()
+                # the retained wildcard scan rides along (processSubscribe's path)
+                scanned += len(index.messages(f"{rng.choice(v0)}/+/{rng.choice(v2)}"))
+                scans += 1
+                lat.append(time.perf_counter() - t1)
+                pending = nxt
+            dt = time.perf_counter() - t0
+        finally:
+            stop.set()
+            th.join(timeout=5)
+        launches = dict(kernels.LAUNCHES)
+        n_topics = st.topics - topics0
+        fallbacks = st.host_fallbacks - fb0
+        pending_end = dm.pending_deltas
+        check(not th.is_alive(), f"{CFG5_CELL}: the churn thread did not stop")
+        topics = [gen() for _ in range(MAIN_BATCH)]
+        _canon_equal(index, topics, dm.match_topics(topics), f"{CFG5_CELL} after the churn")
+        dm.flush()
+        _canon_equal(index, topics, dm.match_topics(topics), f"{CFG5_CELL} after the churn, folded")
+        on_cuda = device.type == "cuda"
+        check(launches["flat_probe_ranges"] + launches["flat_match_compact"] > 0 or not on_cuda,
+              f"{CFG5_CELL}: the churned run launched neither K1 nor K2")
+        check(st.folds - folds0 > 0, f"{CFG5_CELL}: the churn was never folded")
+        check(launches["scatter_rows"] > 0 or not on_cuda, f"{CFG5_CELL}: the folds launched no scatter_rows")
+        log(f"phase {CFG5_CELL}: ok {n_batches} batches of {MAIN_BATCH} under {mutations[0]} mutations "
+            f"({mutations[0] / churn_s[0]:.1f}/s over the churn's {churn_s[0]:.3f} s), "
+            f"{n_batches * MAIN_BATCH / dt:.1f} matches/s, batch p50 "
+            f"{_pct(lat, 0.5) * 1e3:.3f} ms p99 {_pct(lat, 0.99) * 1e3:.3f} ms max {max(lat) * 1e3:.3f} ms, "
+            f"folds {st.folds - folds0}, rebuilds {st.rebuilds - rebuilds0}, fold_copies {st.fold_copies - copies0}, "
+            f"host_fallback_ratio {fallbacks / max(1, n_topics):.5f} ({fallbacks} of {n_topics}), pending deltas "
+            f"at the end {pending_end}, {scans} retained scans ({scanned} messages); a batch of {MAIN_BATCH} "
+            f"after the churn equal to the walk (canon) before and after a flush")
+        log(f"  {CFG5_CELL} the matcher over the phase: {fold_summary(dm)}")
+        log(f"  {CFG5_CELL} launches on its path: {launches}")
+        if rec is not None:
+            for name, r in phase_kernels(torch, [{"dm": dm, "topic_gen": gen, "name": CFG5_CELL}], device).items():
+                rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], r["max_abs_err"])
+        dm.close()
+        closed = True
+        pins = [b.pins for b in dm.snapshot._tables or ()]
+        check(not any(pins), f"{CFG5_CELL}: a table buffer is still pinned after close: {pins}")
+        log(f"  {CFG5_CELL} pins after close {pins}")
+    finally:
+        if not closed:
+            dm.close()
+    return launches
+
+
+def build_cfg1(rng: random.Random):
+    """bench.py's config 1 (bench.py:152-169): 10,000 exact filters over
+    3-level topics of 40 segments, and a generator over them."""
+    from mqtt_tpu_torch.packets import Subscription
+    from mqtt_tpu_torch.topics import TopicsIndex
+
+    v = [f"seg{i}" for i in range(40)]
+    index = TopicsIndex()
+    filters: set = set()
+    while len(filters) < 10_000:
+        filters.add("/".join(rng.choice(v) for _ in range(3)))
+    for i, f in enumerate(sorted(filters)):
+        index.subscribe(f"cl{i}", Subscription(filter=f, qos=0))
+    pool = sorted(filters)
+
+    def topic_gen():
+        return rng.choice(pool)
+
+    return index, topic_gen
+
+
+def phase_cfg1(torch, device, rec: Optional[dict] = None, n_batches: int = CFG1_BATCHES) -> dict:
+    """bench.py's config 1 through ``TorchMatcher`` (module docstring,
+    phase 22): the launch counts are set to 0 just before the parity
+    check and the timed batches, and read just after. Returns them."""
+    import types
+
+    from mqtt_tpu_torch.ops import TorchMatcher, kernels
+
+    rng = random.Random(BENCH_SEED)
+    index, gen = build_cfg1(rng)
+    host_topics = [gen() for _ in range(20_000)]
+    t0 = time.perf_counter()
+    for t in host_topics:
+        index.subscribers(t)
+    host_rate = len(host_topics) / (time.perf_counter() - t0)
+    m = TorchMatcher(index, max_levels=4, device=device)
+    m.rebuild()
+    kernels.reset_launches()
+    parity = [gen() for _ in range(32)]  # bench.py's parity_check
+    _canon_equal(index, parity, m.match_topics(parity), f"{CFG1_CELL} parity_check")
+    batches = [[gen() for _ in range(MAIN_BATCH)] for _ in range(4)]
+    m.match_topics(batches[0])  # warm-up
+    fast0, fb0 = m.stats.host_fast, m.stats.host_fallbacks
+    t0 = time.perf_counter()
+    pending = m.match_topics_async(batches[0])
+    results = []
+    for i in range(1, n_batches + 1):
+        nxt = m.match_topics_async(batches[i % len(batches)]) if i < n_batches else None
+        results.append(pending())
+        pending = nxt
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for i, res in enumerate(results[:4]):
+        _canon_equal(index, batches[i % len(batches)], res, f"{CFG1_CELL} timed batch {i}")
+    rate = n_batches * MAIN_BATCH / dt
+    fast, fallbacks = m.stats.host_fast - fast0, m.stats.host_fallbacks - fb0
+    check(m.index.wildcard_free and fast == n_batches * MAIN_BATCH and not fallbacks,
+          f"{CFG1_CELL}: {fast} topics from the exact map, {fallbacks} walked, of {n_batches * MAIN_BATCH}")
+    log(f"phase {CFG1_CELL}: ok parity_check on 32 topics, {n_batches} batches of {MAIN_BATCH} issued one ahead, "
+        f"{rate:.1f} matches/s against the host walk's {host_rate:.1f}/s ({rate / host_rate:.2f}x), "
+        f"{fast} from the exact map (wildcard-free: no kernel on this path, as in the JAX matcher), "
+        f"launches {launches}")
+    if rec is not None:
+        cfg = {"dm": types.SimpleNamespace(snapshot=m), "topic_gen": gen, "name": CFG1_CELL}
+        for name, r in phase_kernels(torch, [cfg], device).items():
+            rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], r["max_abs_err"])
+    return launches
+
+
 def _bucket_quantiles(text: str, prefix: str) -> tuple:
     """The p50 and p99 (ms, the bucket's upper bound, as
     ``Histogram.percentile`` answers) of one histogram child in a
@@ -6364,12 +6633,17 @@ def _run(torch, device, n_subs, wave, n_recrypt, retained_sizes, n_reseal, card,
     wall("chaos")
     phase_stress(torch, device, card)
     wall("stress")
+    main_c5 = phase_cfg5(torch, device, rec)
+    wall(CFG5_CELL)
+    main_c1 = phase_cfg1(torch, device, rec)
+    wall(CFG1_CELL)
     phase_observe_render(obs)
     kernels_line = []
     for name in REPLACES:
         launches = (main2[name] + main3[name] + mainN[name] + main4[name] + mainP[name] + mainR[name]
                     + sum(m[name] for m in main_sh) + sum(m[name] for m in main_ret) + main_rs[name]
-                    + obs["launches"][name] + main_br[name] + main_scn[name] + main_chaos[name])
+                    + obs["launches"][name] + main_br[name] + main_scn[name] + main_chaos[name]
+                    + main_c5[name] + main_c1[name])
         check(launches > 0 or name in INSIDE or not counted, f"{name} was never launched on the main paths")
         r = rec[name]
         entry = {
@@ -6451,7 +6725,7 @@ def planes_cost(torch, device, card: str, n_subs: int = N_SUBS, wave: int = WAVE
     return runs
 
 
-ONLY_PHASES = ("fabric", "cluster", "scenarios", "chaos", "stress")
+ONLY_PHASES = ("fabric", "cluster", "scenarios", "chaos", "stress", CFG5_CELL, CFG1_CELL)
 
 
 def main() -> int:
@@ -6512,6 +6786,11 @@ def main() -> int:
                 phase_chaos(torch, device, card)
             if "stress" in args.only:
                 phase_stress(torch, device, card)
+            rec = {k: {"max_abs_err": 0} for k in REPLACES}
+            if CFG5_CELL in args.only:
+                phase_cfg5(torch, device, rec)
+            if CFG1_CELL in args.only:
+                phase_cfg1(torch, device, rec)
             log(f"total {time.perf_counter() - t0:.1f} s")
             return 0
         kernels_line = run(torch.device("cuda"), args.subs, args.wave, args.recrypt,

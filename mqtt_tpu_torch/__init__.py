@@ -51,37 +51,61 @@ Entry points run on ``"cuda"`` unless given ``device="cpu"``, which runs
 the plain PyTorch version of every kernel.
 """
 
-from .clients import Client, Clients
+__version__ = "0.1.0"
+
+from .clients import Client, Clients, Will
 from .hooks import Hook, Hooks
 from .inflight import Inflight
 from .native import NativeError
 from .ops import DeltaMatcher, KernelError, MatcherStats, RetainedMatchEngine, TorchMatcher, subscribers_equal
 from .packets import PUBLISH, FixedHeader, Packet, PacketStore, Subscription
 from .predicates import PredicateEngine, PublishFeatures
-from .server import Capabilities, Options, Server
+from .overload import OverloadConfig, OverloadGovernor
+from .server import (
+    Capabilities,
+    Compatibilities,
+    InlineClientNotEnabledError,
+    ListenerIDExistsError,
+    Options,
+    Server,
+)
 from .staging import MatchStage
 from .tenancy import KeyRegistry, RecryptEngine, RecryptJob, Tenant, TenantPlane
 from .system import Info
-from .topics import SHARE_PREFIX, InlineSubscription, Subscribers, TopicAliases, TopicsIndex
+from .topics import (
+    SHARE_PREFIX,
+    SYS_PREFIX,
+    InlineSubscription,
+    Subscribers,
+    TopicAliases,
+    TopicsIndex,
+    is_shared_filter,
+    is_valid_filter,
+)
 from .utils import freeze_index, tune_for_throughput
 
 __all__ = [
     "Capabilities",
     "Client",
     "Clients",
+    "Compatibilities",
     "DeltaMatcher",
     "FixedHeader",
     "Hook",
     "Hooks",
     "Inflight",
     "Info",
+    "InlineClientNotEnabledError",
     "InlineSubscription",
     "KernelError",
     "KeyRegistry",
+    "ListenerIDExistsError",
     "MatchStage",
     "MatcherStats",
     "NativeError",
     "Options",
+    "OverloadConfig",
+    "OverloadGovernor",
     "PUBLISH",
     "Packet",
     "PacketStore",
@@ -91,6 +115,7 @@ __all__ = [
     "RecryptJob",
     "RetainedMatchEngine",
     "SHARE_PREFIX",
+    "SYS_PREFIX",
     "Server",
     "Subscribers",
     "Subscription",
@@ -99,7 +124,10 @@ __all__ = [
     "TopicAliases",
     "TopicsIndex",
     "TorchMatcher",
+    "Will",
     "freeze_index",
+    "is_shared_filter",
+    "is_valid_filter",
     "subscribers_equal",
     "tune_for_throughput",
 ]

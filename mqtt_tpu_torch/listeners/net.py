@@ -28,6 +28,15 @@ class Net(StreamListener):
         except OSError:
             return ""
 
+    def _fabric_bind(self) -> list:
+        # the caller's pre-bound socket feeds the hand-off accept loop
+        self._fabric_reuseport = False
+        self._sock.setblocking(False)
+        return [self._sock]
+
     async def init(self, log: logging.Logger) -> None:
         self.log = log
+        if self._fabric is not None:
+            self._lsocks = self._fabric_bind()
+            return
         self._server = await asyncio.start_server(self._on_connection, sock=self._sock)

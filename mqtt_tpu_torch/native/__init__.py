@@ -150,6 +150,16 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+def available() -> bool:
+    """Whether the tokenizer library builds and loads; its bindings raise
+    ``NativeError`` where it does not."""
+    try:
+        lib()
+    except NativeError:
+        return False
+    return True
+
+
 def _declare(l: ctypes.CDLL) -> None:
     """Every entry point's ctypes signature; the frame functions' as the
     JAX package declares them."""

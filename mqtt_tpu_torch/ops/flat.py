@@ -143,6 +143,20 @@ class FlatIndex:
     exact_map: Any = None
 
     @property
+    def wildcard_free(self) -> bool:
+        """True when the exact-map fast path can serve every topic."""
+        return self.exact_map is not None
+
+    @property
+    def num_nodes(self) -> int:
+        """Entry count (the JAX package's name, kept from its CSR index)."""
+        return self.n_entries
+
+    @property
+    def num_subs(self) -> int:
+        return self.n_subs
+
+    @property
     def num_patterns(self) -> int:
         return int(self.pat_depth.shape[0])
 

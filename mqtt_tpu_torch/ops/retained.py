@@ -334,7 +334,11 @@ class RetainedMatchEngine:
             return None  # exact filters take the walk's one-lookup path
         if local.startswith("$SHARE/"):
             return None  # shared filters get no retained delivery
-        names = self._device_names(filter)
+        try:
+            names = self._device_names(filter)
+        except Exception:
+            self.log_error()
+            raise
         if names is None:
             return None
         self._calls += 1
@@ -345,6 +349,14 @@ class RetainedMatchEngine:
                 self.oracle_mismatches += 1
                 return host  # the walk wins
         return names
+
+    def log_error(self) -> None:
+        """Log the device failure ``match`` is raising (a method of its own,
+        as in the JAX engine, so an embedder can silence it). The port has
+        no breaker: the failure still reaches the caller."""
+        import logging
+
+        logging.getLogger("mqtt_tpu_torch.ops").exception("retained device match failed; raised to the caller")
 
     # -- introspection -----------------------------------------------------
 

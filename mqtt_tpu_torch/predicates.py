@@ -402,6 +402,9 @@ class PredicateEngine:
         self._gen = 0  # bumped on every registry mutation
         self._table_gen = -1  # generation the device table was built at
         self._evaluator = None  # ops/predicates.DeviceRuleEvaluator, built lazily
+        # False: rules and windows are evaluated by the host, a route the
+        # caller chose (set_device_enabled); a kernel fault still raises
+        self._device_enabled = True
         # features_for's layout snapshot: (gen, fields, contains,
         # {field: {literal: bit}}, n_bits)
         self._layout: Optional[tuple] = None
@@ -609,6 +612,12 @@ class PredicateEngine:
         for rule in rules:
             rule.idx_gen = gen
 
+    def set_device_enabled(self, enabled: bool) -> None:
+        """Route rule evaluation and window reductions to the card (True,
+        the default) or to the host interpreter (False), at the points
+        where the JAX engine reads the same switch."""
+        self._device_enabled = enabled
+
     def eval_batch_async(self, feats_list: list) -> Optional[Callable]:
         """Issue ONE device evaluation for a staged batch's features.
         Returns a zero-arg resolver yielding ``(rows, eligible, gen)``
@@ -616,7 +625,7 @@ class PredicateEngine:
         device work: no feature rows, no device rules, or only rows of an
         older generation. A failed launch or copy raises."""
         live = [f for f in feats_list if f is not None]
-        if not live or not any(r.device for r in list(self._rules.values())):
+        if not self._device_enabled or not live or not any(r.device for r in list(self._rules.values())):
             return None
         gen_now = self._gen
         if not any(f.version == gen_now for f in live):
@@ -749,7 +758,7 @@ class PredicateEngine:
                 if not math.isnan(v):
                     win = self._agg.get((suffix, agg_key))
                     if win is None:
-                        buffered = spec.window >= DEVICE_AGG_MIN_WINDOW
+                        buffered = spec.window >= DEVICE_AGG_MIN_WINDOW and self._device_enabled
                         win = self._agg[(suffix, agg_key)] = _AggWindow(buffered)
                     win.add(spec.op, v)
                     if win.count >= spec.window:
@@ -823,7 +832,7 @@ class PredicateEngine:
         launch (when there are at least ``DEVICE_AGG_MIN_BATCH`` of them;
         fewer reduce on the host, counted) and append the emissions."""
         values_out = None
-        if len(agg_pending) >= DEVICE_AGG_MIN_BATCH:
+        if len(agg_pending) >= DEVICE_AGG_MIN_BATCH and self._device_enabled:
             from .ops.predicates import agg_reduce_batch
 
             values_out = agg_reduce_batch(

@@ -1555,6 +1555,22 @@ class Server:
                 pass
             self.telemetry.trigger_dump("overload_shed", extra)
 
+    def host_profile_block(self) -> dict:
+        """The host-profile block of a bench record (config 8's fields):
+        the profiler's aggregates, the topic sketch, the fan-out
+        amplification numbers and the three most contended locks."""
+        out: dict = {}
+        if self.host_profiler is not None:
+            out["profiler"] = self.host_profiler.bench_block()
+        if self.topic_sketch is not None:
+            out["topics"] = self.topic_sketch.bench_block()
+        if self.telemetry is not None:
+            out["fanout"] = self.telemetry.fanout_block(self.info.messages_received)
+            plane = self.telemetry.lock_plane
+            if plane is not None:
+                out["top_contended_locks"] = plane.top_contended(3)
+        return out
+
     # -- overload control plane (overload) -----------------------------------
 
     def _outbound_pressure(self) -> float:

@@ -215,6 +215,11 @@ class MatchStage:
             self._batch_cap = min(self.max_batch, self._batch_cap * 2)
 
     @property
+    def batch_cap(self) -> int:
+        """The current adaptive batch-size cap (<= max_batch)."""
+        return self._batch_cap
+
+    @property
     def pending_depth(self) -> int:
         return len(self._pending)
 

@@ -511,6 +511,9 @@ class RecryptEngine:
         # a launch below this many blocks runs on the host: the data is on
         # the host, and a tiny batch's round trip costs more than it saves
         self.device_min_blocks = max(1, device_min_blocks)
+        # False: every keystream is generated on the host, a route the
+        # caller chose (set_device_enabled); a kernel fault still raises
+        self._device_enabled = True
         # nonce source: a 6-byte random base per engine lifetime and a
         # 6-byte big-endian counter; the base keeps restarts from reusing
         # a nonce under one persistent key
@@ -529,8 +532,9 @@ class RecryptEngine:
         self.rekeys = 0  # epoch rotations completed
         self.resealed = 0  # stored payloads re-sealed across epochs
         # host keystream blocks by reason: small_batch (a fan-out under
-        # device_min_blocks), no_keystream (a decrypt job that reached
-        # open_publish without a staged keystream)
+        # device_min_blocks), device_disabled (a fan-out or re-seal while
+        # set_device_enabled(False)), no_keystream (a decrypt job that
+        # reached open_publish without a staged keystream)
         self.host_reasons: dict[str, int] = {}
         self._dispatch_seq = 0  # oracle sampling clock
         # the engine's mqtt_tpu_recrypt_* families, and where note_rekey
@@ -542,6 +546,12 @@ class RecryptEngine:
 
     def _host(self, reason: str, n: int) -> None:
         self.host_reasons[reason] = self.host_reasons.get(reason, 0) + n
+
+    def set_device_enabled(self, enabled: bool) -> None:
+        """Route every keystream to the card (True, the default) or to the
+        host (False), at the points where the JAX engine reads the same
+        switch: the staged decrypt launch, the fan-out seal, the re-seal."""
+        self._device_enabled = enabled
 
     def reseed_nonce(self, base: bytes, ctr: int = 0) -> None:
         """Pin the nonce stream (tests, differential replays)."""
@@ -607,7 +617,7 @@ class RecryptEngine:
         than ``device_min_blocks``, no keys). A failed launch or copy
         raises."""
         viable = [j for j in jobs if j is not None and not j.error and j.n_blocks > 0]
-        if not viable:
+        if not viable or not self._device_enabled:
             return None
         total = sum(j.n_blocks for j in viable)
         if total < self.device_min_blocks:
@@ -686,13 +696,13 @@ class RecryptEngine:
         """One keystream generation: one launch from ``device_min_blocks``
         blocks up, the host keystream below (counted)."""
         total = len(kidx)
-        if total >= self.device_min_blocks:
+        if total >= self.device_min_blocks and self._device_enabled:
             rows = keystream_async(table, kidx, counters, self.device)()
             self.device_batches += 1
             self.device_blocks += total
             self._maybe_oracle(table, kidx, counters, rows)
             return rows
-        self._host("small_batch", total)
+        self._host("small_batch" if self._device_enabled else "device_disabled", total)
         self.host_blocks += total
         return host_keystream(table, kidx, counters)
 

@@ -5,7 +5,9 @@ K1-K3 (the publish matcher), K4-K6 (predicates, re-encryption) and K7-K9
 the one card: ``make_mesh(["cuda:0"] * 8)``, and ``dryrun_multichip(8)``).
 Then the retained-delivery slice's shapes: K1 with one filter over a
 retained corpus of up to 2^20 topics, ``RetainedMatchEngine`` on the card
-against the walk, and K6's re-seal launch against the CPU engine.
+against the walk, and K6's re-seal launch against the CPU engine. And the
+lazy views' lifetime: rows resolved on the card and materialized after
+later K3 folds under churn.
 
 Every test here needs an NVIDIA card with ``sm_90a`` and ``nvcc``; where
 there is none it skips with that reason. The tolerance is 0 everywhere but
@@ -18,6 +20,7 @@ tests/test_torch_topics.py tests/test_torch_cuda.py``.
 import asyncio
 import contextlib
 import gc
+import time
 
 import numpy as np
 
@@ -359,6 +362,87 @@ def test_two_folds_between_issue_and_resolve_on_the_card(dev, compact):
     for got, t in zip(m.match_topics(topics), topics):
         assert subscribers_equal(got, index.subscribers(t)), t
     assert m.stats.host_fallbacks == 0
+
+
+def _views_across_folds(device, compact: bool, rounds: int = 12) -> dict:
+    """Lazy ``SubscribersView`` rows kept across folds under churn: a
+    writer thread churns filters of another namespace (the background
+    fold runs ``scatter_rows`` all along), and each round this thread
+    moves subscriptions of the matched topics, folds them, resolves one
+    batch and keeps every fourth view with the walk of that moment. The
+    kept rows are materialized only after the last round, against the
+    walks they were resolved beside."""
+    import threading
+
+    from mqtt_tpu_torch.native import accel
+
+    ops = [("sub", f"c{i}", f"room/{i % 48}/t/{i % 7}", i % 3, 0, False) for i in range(2000)]
+    ops.append(("sub", "w", "room/+/t/+", 2, 0, False))
+    index = apply_port_ops(ops, TopicsIndex())
+    m = DeltaMatcher(index, max_levels=4, device=device, background=True, lazy=True, compact=compact,
+                     compact_capacity=4096 if compact else 0, rebuild_after=64, rebuild_interval=0.02)
+    topics = [f"room/{r}/t/{k}" for r in range(48) for k in range(7)]
+    stop = threading.Event()
+    errors: list = []
+
+    def writer() -> None:
+        i = 0
+        try:
+            while not stop.is_set():
+                flt = f"other/{i % 97}/+" if i % 5 == 0 else f"other/{i % 97}/x{i % 13}"
+                if i % 3 == 2:
+                    index.unsubscribe(flt, f"o{(i - 2) % 211}")
+                else:
+                    index.subscribe(f"o{i % 211}", Subscription(filter=flt, qos=1))
+                i += 1
+                time.sleep(0.0002)
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    launches = kernels.LAUNCHES["scatter_rows"]
+    kept: list = []
+    th = threading.Thread(target=writer, daemon=True)
+    th.start()
+    try:
+        for r in range(rounds):
+            moved = topics[(r * 29) % len(topics) :][:40]
+            for i, t in enumerate(moved):
+                index.subscribe(f"late{r}_{i}", Subscription(filter=t, qos=1))
+                index.unsubscribe(ops[(r * 40 + i) % 2000][2], ops[(r * 40 + i) % 2000][1])
+            m.flush()
+            rows = m.match_topics(topics)
+            want = [index.subscribers(t) for t in topics]
+            # rows of a saturated bucket are walked on the host: a few
+            views = [(t, v, w) for t, v, w in zip(topics, rows, want) if type(v) is accel().SubscribersView]
+            assert len(views) >= 0.9 * len(topics), (r, len(views))
+            kept += views[r % 4 :: 4]
+            del rows
+            gc.collect()
+    finally:
+        stop.set()
+        th.join(10)
+    assert not errors, errors
+    changed = 0
+    for t, view, want in kept:
+        assert subscribers_equal(view.materialize(), want), t
+        changed += not subscribers_equal(want, index.subscribers(t))
+    folds = kernels.LAUNCHES["scatter_rows"] - launches
+    m.close()
+    return {"kept": len(kept), "changed": changed, "folds": folds,
+            "pins": [b.pins for b in m.snapshot._tables or ()]}
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["ranges", "compact"])
+def test_lazy_views_outlive_folds_under_churn_on_the_card(dev, compact):
+    """The card half of the lazy-view lifetime drill: rows resolved on the
+    card, kept across later folds (``scatter_rows`` into the standby
+    buffer while a writer churns), materialize to the walk of their own
+    resolve time."""
+    got = _views_across_folds(dev, compact)
+    assert got["kept"] >= 12 * 75
+    assert got["changed"] > 0  # a kept row's topic moved after its resolve
+    assert got["folds"] >= 12
+    assert not any(got["pins"])
 
 
 @pytest.mark.parametrize("compact", [False, True], ids=["ranges", "compact"])

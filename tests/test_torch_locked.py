@@ -260,3 +260,22 @@ def test_port_plane_witnesses_the_retain_path():
         plane.disarm()
         plane.disarm_witness()
     assert not plane.active
+
+
+def test_the_loop_plane_is_the_ports_own():
+    """The port keeps its own loop-affinity plane (ROADMAP, Departures): the test
+    session arms the JAX package's ``DEFAULT_LOOP_PLANE`` (tests/conftest.py)
+    and leaves the port's unarmed, and arming the port's leaves the JAX
+    plane's witness as it was."""
+    from mqtt_tpu.utils import loopwitness as jlw
+    from mqtt_tpu_torch.utils import loopwitness as tlw
+
+    assert tlw.DEFAULT_LOOP_PLANE is not jlw.DEFAULT_LOOP_PLANE
+    assert jlw.DEFAULT_LOOP_PLANE.active and jlw.DEFAULT_LOOP_PLANE.witness is not None
+    assert not tlw.DEFAULT_LOOP_PLANE.active
+    witness = jlw.DEFAULT_LOOP_PLANE.witness
+    plane = tlw.LoopPlane()
+    plane.arm_witness()
+    assert plane.active and jlw.DEFAULT_LOOP_PLANE.witness is witness
+    plane.disarm_witness()
+    assert not plane.active

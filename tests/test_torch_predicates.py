@@ -502,3 +502,26 @@ def test_engine_metric_families_match_jax(engines_corpus, device_rows):
     reg = MetricsRegistry()
     tpred.PredicateEngine(device="cpu", registry=reg)
     assert "# TYPE mqtt_tpu_predicate_filtered_ratio gauge" in reg.exposition()
+
+
+def test_a_disabled_device_takes_the_host_route_as_jax(engines_corpus):
+    """``set_device_enabled(False)`` in both engines: no batch is issued to
+    a device, every window reduces on the host, and the deliveries,
+    emissions and counters equal the JAX engine's; switched on again, the
+    batches ride the device in both."""
+    jidx, tidx, suffixes = engines_corpus
+    jeng, teng = _engines(suffixes)
+    for eng in (jeng, teng):
+        eng.set_device_enabled(False)
+    f = [teng.features_for(b'{"v": 3}')]
+    assert teng.eval_batch_async(f) is None and jeng.eval_batch_async([jeng.features_for(b'{"v": 3}')]) is None
+    _run_apply(jidx, tidx, jeng, teng, device_rows=False, seed=23)
+    g_t, g_j = teng.gauges(), jeng.gauges()
+    for k in ("device_decisions", "host_evals", "filtered", "deliveries", "agg_emits", "agg_device_reductions",
+              "device_batches", "device_evals"):
+        assert g_t[k] == g_j[k], k
+    assert g_t["agg_emits"] > 0 and g_t["agg_device_reductions"] == 0 and g_t["device_batches"] == 0
+    for eng in (jeng, teng):
+        eng.set_device_enabled(True)
+    _run_apply(jidx, tidx, jeng, teng, device_rows=True, seed=24)
+    assert teng.device_batches == jeng.device_batches > 0

@@ -215,3 +215,29 @@ def test_keyless_and_malformed_jobs():
     job = teng.decrypt_job(tt, ("c1",), b"short")
     assert job.error == "malformed" and teng.malformed == 1
     assert teng.open_publish(tt, ("c1",), b"short") is None
+
+
+def test_a_disabled_device_takes_the_host_keystream_as_jax():
+    """``set_device_enabled(False)`` in both engines: the staged decrypt
+    issues nothing, the fan-out seal and the re-seal take the host
+    keystream, and every byte equals the JAX engine's; switched on again,
+    the seal rides the device in both."""
+    jeng, teng, jt, tt = _engines(device_min_blocks=1)
+    for eng in (jeng, teng):
+        eng.set_device_enabled(False)
+    wire = teng.seal_with_key(KEY_S, b"p" * 70)
+    assert wire == jeng.seal_with_key(KEY_S, b"p" * 70)
+    jjob, tjob = jeng.decrypt_job(jt, ("c1",), wire), teng.decrypt_job(tt, ("c1",), wire)
+    assert jeng.issue_batch([jjob]) is None and teng.issue_batch([tjob]) is None
+    assert teng.open_publish(tt, ("c1",), wire, tjob) == jeng.open_publish(jt, ("c1",), wire, jjob) == b"p" * 70
+    targets = [(f"s{i}", (f"c{i % 5}",)) for i in range(6)]
+    sealed = teng.seal_fanout(tt, b"q" * 100, targets)
+    assert sealed == jeng.seal_fanout(jt, b"q" * 100, targets)
+    kid = teng.keys.key_ids("t0", [("c1",)])[0]
+    items = [(sealed["s1"], kid, kid), (sealed["s2"][:12], kid, kid)]
+    assert teng.reseal_batch(tt, items, 1) == jeng.reseal_batch(jt, items, 1)
+    assert teng.device_blocks == jeng.device_blocks == 0 and teng.host_blocks == jeng.host_blocks > 0
+    for eng in (jeng, teng):
+        eng.set_device_enabled(True)
+    assert teng.seal_fanout(tt, b"r" * 48, targets) == jeng.seal_fanout(jt, b"r" * 48, targets)
+    assert teng.device_blocks == jeng.device_blocks > 0

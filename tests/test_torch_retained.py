@@ -309,3 +309,27 @@ def test_engine_defaults_to_cuda():
         pytest.skip("a card is present: the default device resolves")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         RetainedMatchEngine(TopicsIndex())
+
+
+def test_a_device_failure_raises_where_the_jax_engine_walks(monkeypatch):
+    """The retained engine's departure (ROADMAP, Departures): a device match
+    that fails. The JAX engine logs it (``log_error``), counts an ``error``
+    fallback and returns None, so its caller walks the trie; the port's
+    engine logs it through the same ``log_error`` and raises to its
+    caller, with no fallback class for it."""
+    ops = [("a/b", b"x"), ("a/c", b"y")]
+    je, te = _engines(_pair(ops)[:2])
+    je.reseed()
+    te.reseed()
+    logged = []
+
+    def fail(*_a, **_k):
+        raise RuntimeError("launch failed")
+
+    for eng in (je, te):
+        monkeypatch.setattr(eng, "_device_names", fail)
+        monkeypatch.setattr(eng, "log_error", lambda eng=eng: logged.append(eng))
+    assert je.match("a/+") is None and je.fallbacks["error"] == 1
+    with pytest.raises(RuntimeError, match="launch failed"):
+        te.match("a/+")
+    assert logged == [je, te] and "error" not in te.fallbacks

@@ -20,6 +20,7 @@ timing.
 """
 
 import asyncio
+import socket
 
 import pytest
 
@@ -55,13 +56,24 @@ class FabricBroker(ts.Broker):
                 self.peak[k] = max(self.peak.get(k, 0), n)
 
 
-def run_fabric(script, hooks_of, accept: str, **opts) -> dict:
+class NetFabricBroker(FabricBroker):
+    """``FabricBroker`` whose listener ``t`` is a ``listeners.Net`` over a
+    socket bound and listening before the server starts."""
+
+    def __init__(self, pkg, hooks=(), **opts) -> None:
+        super().__init__(pkg, hooks=hooks, **opts)
+        self.srv.listeners.delete("t")
+        sock = socket.create_server(("127.0.0.1", 0))
+        self.srv.add_listener(pkg.listeners.Net("t", sock))
+
+
+def run_fabric(script, hooks_of, accept: str, broker=FabricBroker, **opts) -> dict:
     out = {}
     for name in ("jax", "torch"):
         pkg = ts.package(name)
 
         async def main():
-            b = FabricBroker(pkg, hooks=hooks_of(pkg), loop_shards=SHARDS, loop_shard_accept=accept, **opts)
+            b = broker(pkg, hooks=hooks_of(pkg), loop_shards=SHARDS, loop_shard_accept=accept, **opts)
             await b.start()
             assert b.srv._fabric is not None and b.srv._fabric.n_shards == SHARDS
             await script(b)
@@ -127,3 +139,15 @@ def test_sessions_across_shards_equal_the_jax_server(pinned_clock):
     assert all(len(tout[f"s{i}"]) == 2 for i in range(16))
     assert all(tb.peak.get(k, 0) >= 3 for k in range(SHARDS)), tb.peak
     assert tb.srv._fabric is None  # stopped by close()
+
+
+def test_net_clients_spread_over_the_shards_as_the_jax_servers(pinned_clock):
+    """A ``Net`` listener (a caller's pre-bound socket) hands its clients to
+    the fabric's accept loop in both packages: the same bytes per client,
+    and every shard serves several of them."""
+    got = run_fabric(script_spread, ts.allow, "handoff", broker=NetFabricBroker)
+    (jout, jb), (tout, tb) = got["jax"], got["torch"]
+    assert tout == jout
+    assert all(len(tout[f"s{i}"]) == 2 for i in range(16))
+    for b in (jb, tb):
+        assert all(b.peak.get(k, 0) >= 3 for k in range(SHARDS)), b.peak

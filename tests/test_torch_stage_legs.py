@@ -340,3 +340,46 @@ def test_a_busy_event_loop_trips_the_deadline_only_in_the_jax_stage(package):
         assert stage.admission_fallbacks > 128
     else:
         assert stage.admission_fallbacks == 0 and not stage.fallbacks
+
+
+class _BoomMatcher:
+    """A matcher whose issue (``at="issue"``) or resolve (``at="resolve"``)
+    raises."""
+
+    def __init__(self, at: str) -> None:
+        self.at = at
+
+    def match_topics_async(self, topics, profile=None):
+        if self.at == "issue":
+            raise RuntimeError("issue failed")
+
+        def resolve():
+            raise RuntimeError("resolve failed")
+
+        return resolve
+
+
+@pytest.mark.parametrize("at", ["issue", "resolve"])
+@pytest.mark.parametrize("package", ["jax", "torch"])
+def test_a_matcher_failure_reaches_the_futures_where_the_jax_stage_walks(package, at):
+    """The stage's own departure (ROADMAP, Departures): a matcher that raises at
+    issue or at resolve. The JAX stage answers each publish from the host
+    walk; the port's stage gives the publishers' futures the error and
+    walks nothing (the server's breaker, ``ResilientMatcher``, is the one
+    host route for a device fault)."""
+    cls = JMatchStage if package == "jax" else MatchStage
+    walked = []
+
+    async def drive():
+        stage = cls(_BoomMatcher(at), lambda t: walked.append(t) or Subscribers(), window_s=0.001)
+        stage.start()
+        try:
+            return await asyncio.gather(stage.submit("a/b"), stage.submit("a/c"), return_exceptions=True)
+        finally:
+            await stage.stop()
+
+    results = asyncio.run(drive())
+    if package == "jax":
+        assert all(len(r.subscriptions) == 0 for r in results) and sorted(walked) == ["a/b", "a/c"]
+    else:
+        assert all(isinstance(r, RuntimeError) for r in results) and walked == []
